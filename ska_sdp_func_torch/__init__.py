@@ -1,0 +1,42 @@
+"""ska_sdp_func_torch — the PyTorch / CUDA port of ska_sdp_func_tpu.
+
+A second package beside the JAX one, written for one NVIDIA H100
+(Hopper, sm_90a). Module paths mirror :mod:`ska_sdp_func_tpu` so each
+counterpart is easy to find; the JAX package stays the reference the
+port is tested against. Plain tensor code is PyTorch, host planning is
+NumPy (plus the shared C++ host runtime, :mod:`.native`), and every
+Pallas kernel on the ported path is a hand-written CUDA kernel
+(:mod:`.kernels`).
+
+Ported so far (the packed whole-image imaging path):
+
+- :mod:`.parallel` — ``plan_wstack``, ``plan_packed``, ``packed_gridder``
+  and :class:`~.parallel.packed.PackedGridder`
+- :mod:`.pipeline` — ``major_cycle_imager(..., bucketed=True)``
+- :mod:`.clean` — Hogbom CLEAN
+- :mod:`.fourier_transforms`, :mod:`.grid_data`,
+  :mod:`.numeric_functions`, :mod:`.utility` — the helpers that path uses
+
+The package imports ``torch`` and never ``jax``.
+"""
+
+__all__ = [
+    "clean",
+    "fourier_transforms",
+    "grid_data",
+    "kernels",
+    "native",
+    "numeric_functions",
+    "parallel",
+    "pipeline",
+    "utility",
+]
+
+
+def __getattr__(name):
+    # Lazy subpackage import keeps `import ska_sdp_func_torch` light.
+    if name in __all__:
+        import importlib
+
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

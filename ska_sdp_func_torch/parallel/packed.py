@@ -1,0 +1,543 @@
+"""Packed w-stacking whole-image drivers (single device).
+
+Counterpart of ska_sdp_func_tpu.parallel.packed (packed.py:76-1001):
+
+1. **Plan** (host, once per uvw distribution): every (row, channel)
+   visibility is assigned to its (w-plane, sub-grid) task, w-slab ``k0``
+   and u-octet ``g``; the stream is bucket-sorted by (task, slab, octet)
+   and each bucket padded to a block multiple (:func:`plan_packed`, the
+   same C++ planner as the JAX package, so plans are byte-identical).
+2. **Bands** (device, once per plan): taps evaluated from the plan's
+   integer rows, placed into the u/v bands (:class:`PackedGridder`).
+3. **Grid** (device, per call): the CUDA stack kernel accumulates
+   per-task tower stacks -> batched iFFT -> shared w-pattern ladder
+   contraction -> FFT -> wrap-around sub-grid adds per w-plane -> plane
+   iFFTs, w-screens and the PSWF correction. Degrid mirrors it.
+
+Only the band engine is ported; the fused/compact engines, the
+mesh-sharded drivers and the stage-timing reports are not yet
+(ROADMAP Queue 1 items 11 and 15, Queue 2 K3/K4/K12/K13).
+"""
+
+import math
+from dataclasses import dataclass, field
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from .. import native
+from ..fourier_transforms.fft import fft_shifted, ifft_shifted, \
+    ifft_shifted_norm
+from ..grid_data.grid_correct import grid_correct_pswf, w_screen_stack
+from ..grid_data.gridder_utils import (
+    subgrid_add_static,
+    subgrid_cut_out_static,
+)
+from ..grid_data.kernels import eval_kernel_taps
+from ..grid_data.wtower import _tap_coeffs_cached
+from ..kernels.packed_tap import (
+    WIN_ROWS,
+    build_bands,
+    degrid_stack,
+    grid_packed_stack,
+    split_bf16,
+)
+from ..utility.errors import (
+    SdpInvalidArgumentError,
+    SdpMemLocationError,
+)
+from ..utility.tensors import to_device
+from .wstack import WStackPlan
+
+
+@dataclass(frozen=True)
+class PackedTask:
+    iu: int
+    iv: int
+    iw: int
+    first_w_plane: int
+
+
+@dataclass(frozen=True)
+class PackedPlan:
+    """Static packed-ingest geometry + host index/tap arrays.
+
+    Equality and hash cover the geometry and a content digest of the
+    index arrays, so value-equal plans share gridders while plans with
+    different permutations never collide.
+    """
+
+    wplan: WStackPlan
+    tasks: Tuple[PackedTask, ...]
+    num_rows: int
+    num_layers: int          # Kmax: uniform padded tower depth
+    num_slabs: int           # Kmax - w_support + 1
+    num_octets: int
+    block_v: int
+    total: int               # padded sorted-stream length
+    num_blocks: int
+    num_buckets: int
+    digest: str
+    arrays: Dict[str, np.ndarray] = field(compare=False, hash=False,
+                                          repr=False, default=None)
+
+    @property
+    def w_plane_ids(self):
+        return tuple(sorted({t.iw for t in self.tasks}))
+
+
+# Block-size auto-selection: minimise padded slots plus a per-block cost
+# in visibility-equivalents. The constants are the JAX package's, so both
+# packages choose the same block size and build identical plans; they
+# were tuned on the TPU and are not an H100 measurement.
+_BLOCK_OVERHEAD_VIS = 150
+_BLOCK_CANDIDATES = (128, 256, 512, 1024)
+
+
+def _auto_block_v(counts: np.ndarray) -> int:
+    best, best_cost = _BLOCK_CANDIDATES[0], None
+    for bv in _BLOCK_CANDIDATES:
+        padded = int((-(-counts // bv) * bv).sum())
+        cost = padded + _BLOCK_OVERHEAD_VIS * (padded // bv)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = bv, cost
+    return best
+
+
+def packed_geometry_ok(subgrid_size: int, support: int, w_support: int,
+                       subgrid_frac: float) -> bool:
+    """True when the packed formulation can express the geometry: octet
+    window (support <= 8), window rows (2 * w_support * 16 <= 128),
+    128-lane sub-grids and the in-window tap invariant."""
+    eff = int(math.floor(subgrid_size * (subgrid_frac or 2.0 / 3.0)))
+    return (support <= 8 and 2 * w_support * WIN_ROWS <= 128
+            and subgrid_size % 128 == 0
+            and eff + support <= subgrid_size)
+
+
+def _host_uvw(uvw) -> np.ndarray:
+    if isinstance(uvw, torch.Tensor):
+        if uvw.device.type != "cpu":
+            raise SdpMemLocationError(
+                "uvw must be a NumPy array or a CPU tensor "
+                f"(got {uvw.device})")
+        uvw = uvw.numpy()
+    return np.ascontiguousarray(uvw, np.float64)
+
+
+def inverse_index_of(sort_index: np.ndarray, valid: np.ndarray,
+                     num_vis: int) -> np.ndarray:
+    """Host inverse permutation: flattened (row, channel) -> sorted
+    position; entries the plan never assigned point one past the end."""
+    inv = np.full(num_vis, sort_index.shape[0], np.int64)
+    pos = np.arange(sort_index.shape[0])
+    inv[sort_index[valid]] = pos[valid]
+    return inv
+
+
+def plan_packed(wplan: WStackPlan, uvw, block_v=None,
+                pad_blocks_to: int = 1) -> PackedPlan:
+    """Build the packed ingest plan on the host (f64).
+
+    Same arithmetic and C++ planner as the JAX package's ``plan_packed``:
+    task enumeration, bucket sort by (task, w-slab, u-octet), padding
+    to ``block_v`` (auto-selected when None) and tap-table lookups.
+    ``uvw`` is a NumPy array or a CPU tensor.
+    """
+    support, w_support = wplan.support, wplan.w_support
+    sgs = wplan.subgrid_size
+    if not packed_geometry_ok(sgs, support, w_support, wplan.subgrid_frac):
+        raise SdpInvalidArgumentError(
+            "packed path requires support <= 8 (octet window), "
+            "w_support <= 4 (window rows), subgrid_size % 128 == 0 "
+            "and eff_sg_size + support <= subgrid_size (got "
+            f"support={support}, w_support={w_support}, "
+            f"subgrid_size={sgs}, eff_sg_size={wplan.eff_sg_size})")
+
+    uvw = _host_uvw(uvw)
+    num_rows = uvw.shape[0]
+    num_chan = wplan.num_chan
+    freq0 = wplan.freq0_hz
+    dfreq = wplan.dfreq_hz or 10.0
+    theta, w_step = wplan.theta, wplan.w_step
+    ov, w_ov = wplan.oversampling, wplan.w_oversampling
+    d = wplan.eff_sg_dist
+    height = wplan.w_tower_height
+    if num_rows * num_chan == 0:
+        raise SdpInvalidArgumentError(
+            "packed plan needs at least one (row, channel) visibility "
+            f"(got {num_rows} rows x {num_chan} channels)")
+
+    task_id, boxes, wmin_t, wmax_t = native.packed_tasks(
+        uvw, freq0, dfreq, num_chan, d, wplan.w_stack_dist)
+    num_tasks = boxes.shape[0]
+
+    # Per-task w bounds -> tower plane range (plan_wstack geometry,
+    # sdp_grid_wstack_wtower.cpp:310-330).
+    eta = 1e-5
+    off_w_t = np.trunc(boxes[:, 0] * height).astype(np.int64)
+    first_t = (np.floor(wmin_t / w_step - eta).astype(np.int64)
+               - off_w_t)
+    last_t = (np.ceil(wmax_t / w_step + eta).astype(np.int64)
+              - off_w_t + 1)
+    num_planes_t = 1 + last_t - first_t
+    num_layers = int((num_planes_t + w_support - 1).max())
+    num_slabs = num_layers - w_support + 1
+    num_octets = sgs // 8
+    num_buckets = num_tasks * num_slabs * num_octets
+    kernel = wplan.kernel()
+
+    bucket, counts = native.packed_buckets(
+        uvw, freq0, dfreq, num_chan, d, theta, w_step, height, ov, w_ov,
+        sgs, support, w_support, task_id, first_t, off_w_t, num_planes_t,
+        num_slabs, num_octets)
+    if block_v is None:
+        block_v = _auto_block_v(counts)
+    padded = -(-counts // block_v) * block_v            # 0 stays 0
+    pad_off = np.zeros(num_buckets + 1, np.int64)
+    np.cumsum(padded, out=pad_off[1:])
+    total = int(pad_off[-1])
+    arrays = native.packed_fill(
+        uvw, freq0, dfreq, num_chan, d, theta, w_step, height, ov, w_ov,
+        sgs, support, w_support, task_id, first_t, off_w_t, bucket,
+        pad_off, kernel.uv_kernel, kernel.w_kernel)
+    num_blocks = total // block_v
+
+    nonzero = np.nonzero(padded)[0]
+    block_bucket = np.repeat(nonzero,
+                             (padded[nonzero] // block_v)).astype(np.int32)
+    visited = counts > 0
+
+    # Optional trailing pad blocks re-visiting the last bucket with
+    # all-zero taps (a device-count multiple for sharded drivers).
+    extra = (-num_blocks) % pad_blocks_to
+    if extra:
+        block_bucket = np.concatenate(
+            [block_bucket, np.full(extra, block_bucket[-1], np.int32)])
+        pad_n = extra * block_v
+        for name, a in arrays.items():
+            arrays[name] = np.concatenate(
+                [a, np.zeros((pad_n,) + a.shape[1:], a.dtype)])
+        total += pad_n
+        num_blocks += extra
+
+    tasks = tuple(
+        PackedTask(int(boxes[t, 1]), int(boxes[t, 2]), int(boxes[t, 0]),
+                   int(first_t[t]))
+        for t in range(num_tasks))
+    arrays.update(block_bucket=block_bucket, visited=visited)
+    # Every array the gridder consumes is covered, so plans differing
+    # only in sub-cell fractions never alias in the gridder cache.
+    digest_names = ("sort_index", "valid", "u_off", "iv0",
+                    "u_frac", "v_frac", "w_row",
+                    "block_bucket", "visited")
+    task_bytes = "".join(repr(t) for t in tasks).encode()
+    digest = native.hash_arrays(
+        [arrays[n] for n in digest_names]
+        + [np.frombuffer(task_bytes, np.uint8)])
+
+    return PackedPlan(
+        wplan=wplan, tasks=tasks, num_rows=num_rows,
+        num_layers=num_layers, num_slabs=num_slabs, num_octets=num_octets,
+        block_v=block_v, total=total, num_blocks=num_blocks,
+        num_buckets=num_buckets, digest=digest, arrays=arrays)
+
+
+# ---------------------------------------------------------------------------
+# Device driver
+# ---------------------------------------------------------------------------
+
+# Bounded LRU: each gridder pins GB-scale band tensors on its device.
+_GRIDDER_CACHE: dict = {}
+_GRIDDER_CACHE_MAX = 4
+
+# Defaults as in the JAX package: bf16 hi/lo "high" precision, band
+# engine.
+_DEFAULT_PRECISION = "high"
+_DEFAULT_ENGINE = "auto"
+
+
+def _resolve_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def packed_gridder(pplan: PackedPlan, fast: bool = False,
+                   precision: str = None, engine: str = None,
+                   device="cpu") -> "PackedGridder":
+    """Per-plan device driver, LRU-cached by (plan, resolved options,
+    device)."""
+    # Resolve defaults BEFORE keying: packed_gridder(p) and
+    # packed_gridder(p, precision="high") share one entry.
+    if engine is None:
+        engine = _DEFAULT_ENGINE
+    if precision is None:
+        precision = "bf16" if fast else _DEFAULT_PRECISION
+    device = _resolve_device(device)
+    key = (pplan, bool(fast), precision, engine, str(device))
+    g = _GRIDDER_CACHE.pop(key, None)
+    if g is None:
+        g = PackedGridder(pplan, fast=fast, precision=precision,
+                          engine=engine, device=device)
+    _GRIDDER_CACHE[key] = g          # re-insert: most-recently-used
+    while len(_GRIDDER_CACHE) > _GRIDDER_CACHE_MAX:
+        _GRIDDER_CACHE.pop(next(iter(_GRIDDER_CACHE)))
+    return g
+
+
+class PackedGridder:
+    """Per-plan device tensors and the whole-image grid/degrid drivers.
+
+    ``grid``/``degrid`` take/return visibilities in the natural
+    ``[rows, chan]`` layout; ``grid_sorted``/``degrid_sorted`` work on
+    the plan's sorted stream (the major-cycle solver keeps residuals in
+    sorted form).
+    """
+
+    def __init__(self, pplan: PackedPlan, fast: bool = False,
+                 precision: str = None, engine: str = None,
+                 device="cpu"):
+        if engine is None:
+            engine = _DEFAULT_ENGINE
+        if engine in ("fused", "compact"):
+            raise NotImplementedError(
+                f"engine={engine!r} is not ported yet (ROADMAP Queue 2 "
+                "K3/K4 fused, K12/K13 compact); use the band engine")
+        if engine not in ("auto", "bands"):
+            raise SdpInvalidArgumentError(f"unknown engine {engine!r}")
+        if precision is None:
+            precision = "bf16" if fast else _DEFAULT_PRECISION
+        self.pplan = pplan
+        self.fast = bool(fast)
+        self.precision = precision
+        self.device = _resolve_device(device)
+        plan = pplan.wplan
+        kernel = plan.kernel()
+        arrays = pplan.arrays
+        if arrays is None:
+            raise SdpInvalidArgumentError("plan has no host arrays")
+        if pplan.total >= 2 ** 31 or arrays["sort_index"].max(
+                initial=0) >= 2 ** 31:
+            raise SdpInvalidArgumentError(
+                "packed stream too large for int32 indexing")
+        dev = self.device
+
+        def put(a, dtype=None):
+            return torch.as_tensor(np.ascontiguousarray(a),
+                                   dtype=dtype).to(dev)
+
+        self.sort_index = put(arrays["sort_index"], torch.int64)
+        self.valid = put(arrays["valid"])
+        self.inv_index = put(inverse_index_of(
+            arrays["sort_index"], arrays["valid"],
+            pplan.num_rows * plan.num_chan))
+        # Per-block (task, w-slab, u-octet) for the stack kernels.
+        bb = arrays["block_bucket"].astype(np.int64)
+        self.g_idx = put(bb % pplan.num_octets, torch.int32)
+        self.k_idx = put((bb // pplan.num_octets) % pplan.num_slabs,
+                         torch.int32)
+        self.t_idx = put(bb // (pplan.num_octets * pplan.num_slabs),
+                         torch.int32)
+
+        # Taps evaluated on the device from the plan's integer kernel
+        # rows (Chebyshev fits, ~1e-13 of the f64 tables), then placed
+        # into the bands once per plan.
+        uv_c = _tap_coeffs_cached(plan.support, plan.oversampling)
+        w_c = _tap_coeffs_cached(plan.w_support, plan.w_oversampling)
+        uk = eval_kernel_taps(put(arrays["u_frac"]), uv_c,
+                              plan.oversampling)
+        vk = eval_kernel_taps(put(arrays["v_frac"]), uv_c,
+                              plan.oversampling)
+        wk = torch.where(
+            self.valid[:, None],
+            eval_kernel_taps(put(arrays["w_row"]), w_c,
+                             plan.w_oversampling), 0.0)
+        self.ubase, vband, vband_t = build_bands(
+            put(arrays["u_off"]), put(arrays["iv0"]), uk, vk,
+            plan.subgrid_size)
+        del uk, vk
+        if self.precision == "high":
+            # bf16 hi/lo halves (same bytes as f32): three bf16
+            # products with f32 sums in the kernels.
+            vband = split_bf16(vband)
+            vband_t = split_bf16(vband_t)
+        elif self.fast:
+            vband = vband.to(torch.bfloat16)
+            vband_t = vband_t.to(torch.bfloat16)
+        self.vband, self.vband_t = vband, vband_t
+        self.wk_t = wk.T.contiguous()                       # [Sw, V]
+
+        # Shared w-pattern ladders + per-task prefactors (host c128).
+        w_pattern = kernel.w_pattern
+        sw = plan.w_support
+        karange = np.arange(pplan.num_layers)
+        ladder_g = w_pattern[None] ** karange[:, None, None]
+        ladder_d = w_pattern[None] ** (-karange[:, None, None])
+        e0_g = np.asarray([t.first_w_plane + sw // 2 - sw
+                           for t in pplan.tasks])
+        e0_d = np.asarray([sw // 2 - t.first_w_plane
+                           for t in pplan.tasks])
+        pref_g = w_pattern[None] ** e0_g[:, None, None]
+        pref_d = w_pattern[None] ** e0_d[:, None, None]
+        self.ladder_grid = put(ladder_g.astype(np.complex64))
+        self.ladder_degrid = put(ladder_d.astype(np.complex64))
+        self.pref_grid = put(pref_g.astype(np.complex64))
+        self.pref_degrid = put(pref_d.astype(np.complex64))
+
+        # The PSWF correction as an f32 scale on the device, once per
+        # plan: applying it through a per-call host->device copy would
+        # stall the stream on every call.
+        n = kernel.image_size
+        self.correction = grid_correct_pswf(
+            n, kernel.theta, kernel.w_step, kernel.shear_u, kernel.shear_v,
+            kernel.support, kernel.w_support,
+            torch.ones((n, n), dtype=torch.float32, device=dev))
+        # Per-plane w-screens, static per plan: exp(+i ...) for the grid
+        # correction, the conjugate for degridding.
+        offs = np.asarray(self._plane_offsets(), np.float64)
+        self.screens_grid = w_screen_stack(
+            kernel.image_size, kernel.theta, kernel.w_step, kernel.shear_u,
+            kernel.shear_v, offs, dtype=torch.complex64, device=dev)
+        self.screens_degrid = w_screen_stack(
+            kernel.image_size, kernel.theta, kernel.w_step, kernel.shear_u,
+            kernel.shear_v, -offs, dtype=torch.complex64, device=dev)
+
+    def _plane_offsets(self):
+        plan = self.pplan.wplan
+        return [int(np.trunc(iw * plan.w_tower_height))
+                for iw in self.pplan.w_plane_ids]
+
+    # -- sorted-stream transforms ------------------------------------
+
+    def sort(self, vis):
+        """[rows, chan] visibilities -> sorted-stream (re, im) f32."""
+        vis_s = to_device(vis, self.device).reshape(-1)[self.sort_index]
+        if not vis_s.is_complex():
+            vis_s = vis_s.to(torch.complex64)
+        vre = torch.where(self.valid, vis_s.real, 0.0).to(torch.float32)
+        vim = torch.where(self.valid, vis_s.imag, 0.0).to(torch.float32)
+        return vre, vim
+
+    def unsort(self, vis_sorted: torch.Tensor) -> torch.Tensor:
+        """Sorted-stream complex vis -> [rows, chan]; unassigned entries
+        read the appended zero slot."""
+        out_padded = torch.cat([vis_sorted, vis_sorted.new_zeros(1)])
+        return out_padded[self.inv_index].reshape(
+            self.pplan.num_rows, self.pplan.wplan.num_chan)
+
+    # -- grid ----------------------------------------------------------
+
+    def _stage_kernel(self, vre, vim):
+        pplan = self.pplan
+        plan = pplan.wplan
+        return grid_packed_stack(
+            self.t_idx, self.k_idx, self.g_idx, self.ubase, self.vband,
+            (self.wk_t, vre, vim), len(pplan.tasks), pplan.num_layers,
+            plan.subgrid_size, plan.w_support, block_v=pplan.block_v)
+
+    def _stage_drain(self, layers, ladder, pref):
+        layers = ifft_shifted(layers)
+        subgrids = torch.einsum("tkuv,kuv->tuv", layers, ladder) * pref
+        return fft_shifted(subgrids)
+
+    def _stage_planes(self, subgrids):
+        pplan = self.pplan
+        plan = pplan.wplan
+        n = plan.image_size
+        sg_factor = (n / plan.subgrid_size) ** 2
+        planes = torch.zeros((len(pplan.w_plane_ids), n, n),
+                             dtype=torch.complex64, device=self.device)
+        pos = {iw: i for i, iw in enumerate(pplan.w_plane_ids)}
+        for t, task in enumerate(pplan.tasks):
+            subgrid_add_static(
+                planes[pos[task.iw]], -task.iu * plan.eff_sg_size,
+                -task.iv * plan.eff_sg_size, subgrids[t], sg_factor)
+        return self._planes_to_image(planes)
+
+    def _planes_to_image(self, planes):
+        """Per-w-plane uv grids [P, N, N] -> corrected real image: one
+        batched iFFT, the stacked screens and the shared PSWF
+        correction."""
+        stack = ifft_shifted_norm(planes)
+        image = torch.einsum("puv,puv->uv", self.screens_grid, stack)
+        return (image * self.correction).real.to(torch.float32)
+
+    def _stack_to_layers(self, stack):
+        """[T, 2, K*(G+8), G] stack -> [T, K, G, G] complex layers (the
+        8-row octet overhang cropped)."""
+        pplan = self.pplan
+        g = pplan.wplan.subgrid_size
+        st = stack.reshape(stack.shape[0], 2, pplan.num_layers,
+                           g + 8, g)[:, :, :, :g, :]
+        return torch.complex(st[:, 0], st[:, 1])
+
+    def _layers_to_stack(self, layers):
+        """[T, K, G, G] complex layers -> [T, 2, K*(G+8), G] f32 stack
+        (zero 8-row u-pad per layer)."""
+        pplan = self.pplan
+        g = pplan.wplan.subgrid_size
+        st = torch.stack([layers.real.to(torch.float32),
+                          layers.imag.to(torch.float32)], dim=1)
+        st = torch.nn.functional.pad(st, (0, 0, 0, 8))
+        return st.reshape(layers.shape[0], 2, pplan.num_layers * (g + 8), g)
+
+    def grid_sorted(self, vre: torch.Tensor,
+                    vim: torch.Tensor) -> torch.Tensor:
+        """Sorted-stream (re, im) f32 -> real dirty image (f32). Every
+        packed task has at least one visibility, so every task's stack
+        is accumulated by the kernel."""
+        return self._image_from_stack(self._stage_kernel(vre, vim))
+
+    def _image_from_stack(self, stack):
+        """The grid stages after the kernel: stack -> layers -> drain ->
+        per-plane adds -> corrected image."""
+        layers = self._stack_to_layers(stack)
+        subgrids = self._stage_drain(layers, self.ladder_grid,
+                                     self.pref_grid)
+        return self._stage_planes(subgrids)
+
+    def grid(self, vis) -> torch.Tensor:
+        """[rows, chan] visibilities -> real dirty image."""
+        vre, vim = self.sort(vis)
+        return self.grid_sorted(vre, vim)
+
+    # -- degrid ---------------------------------------------------------
+
+    def _dstage_planes(self, image):
+        """Real image -> per-w-plane degrid-corrected uv grids [P, N, N]."""
+        base = image.to(torch.complex64) * self.correction
+        return fft_shifted(base[None] * self.screens_degrid)
+
+    def _dstage_layers(self, plane_stack, ladder, pref):
+        pplan = self.pplan
+        plan = pplan.wplan
+        pos = {iw: i for i, iw in enumerate(pplan.w_plane_ids)}
+        subgrids = torch.stack([
+            subgrid_cut_out_static(
+                plane_stack[pos[task.iw]], task.iu * plan.eff_sg_size,
+                task.iv * plan.eff_sg_size, plan.subgrid_size)
+            for task in pplan.tasks]).to(torch.complex64)
+        subgrids = ifft_shifted_norm(subgrids)
+        layers = fft_shifted((subgrids * pref)[:, None, :, :] * ladder[None])
+        return self._layers_to_stack(layers)
+
+    def _dstage_kernel(self, st):
+        pplan = self.pplan
+        return degrid_stack(
+            st, self.t_idx, self.k_idx, self.g_idx, self.ubase,
+            self.vband_t, self.wk_t, pplan.wplan.w_support,
+            block_v=pplan.block_v)
+
+    def degrid_sorted(self, image) -> torch.Tensor:
+        """Real/complex image -> sorted-stream complex64 visibilities."""
+        planes = self._dstage_planes(to_device(image, self.device))
+        st = self._dstage_layers(planes, self.ladder_degrid,
+                                 self.pref_degrid)
+        return self._dstage_kernel(st)
+
+    def degrid(self, image) -> torch.Tensor:
+        """Image -> [rows, chan] complex64 visibilities."""
+        return self.unsort(self.degrid_sorted(image))

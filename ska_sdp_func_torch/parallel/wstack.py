@@ -1,0 +1,148 @@
+"""W-stacking task plan (host only).
+
+Counterpart of the plan half of ska_sdp_func_tpu.parallel.wstack
+(wstack.py:55-190; reference sdp_grid_wstack_wtower.cpp:24-136,
+310-330): enumerate the non-empty (w-plane, sub-grid) boxes and their
+static w-tower plane ranges. The task drivers and the sharded operators
+are not ported yet (ROADMAP Queue 1 items 10 and 15).
+"""
+
+import math
+from dataclasses import dataclass, field
+from typing import Tuple
+
+import numpy as np
+
+from .. import native
+from ..grid_data.wtower import GridderWtowerUVW
+
+_KERNEL_CACHE: dict = {}
+
+
+@dataclass(frozen=True)
+class WStackTask:
+    """One static (w-plane, sub-grid) box (the reference's
+    sdp_SubgridTask, sdp_grid_wstack_wtower.cpp:24-38) with its w-tower
+    plane range resolved at plan time."""
+
+    iu: int
+    iv: int
+    iw: int
+    first_w_plane: int  # relative to the tower's w offset
+    num_planes: int
+
+
+@dataclass(frozen=True)
+class WStackPlan:
+    """Static geometry for a w-stacking grid/degrid pass."""
+
+    image_size: int
+    subgrid_size: int
+    theta: float
+    w_step: float
+    shear_u: float
+    shear_v: float
+    support: int
+    oversampling: int
+    w_support: int
+    w_oversampling: int
+    subgrid_frac: float
+    w_tower_height: float
+    freq0_hz: float
+    dfreq_hz: float
+    num_chan: int
+    eff_sg_size: int
+    w_plane_ids: Tuple[int, ...]
+    tasks: Tuple[WStackTask, ...] = field(default=())
+
+    @property
+    def eff_sg_dist(self) -> float:
+        return self.eff_sg_size / self.theta
+
+    @property
+    def w_stack_dist(self) -> float:
+        return self.w_tower_height * self.w_step
+
+    def kernel(self) -> GridderWtowerUVW:
+        """Gridder plan for this geometry, cached by value so repeated
+        calls share one kernel object."""
+        key = (self.image_size, self.subgrid_size, self.theta,
+               self.w_step, self.shear_u, self.shear_v, self.support,
+               self.oversampling, self.w_support, self.w_oversampling)
+        kern = _KERNEL_CACHE.get(key)
+        if kern is None:
+            kern = GridderWtowerUVW(*key)
+            _KERNEL_CACHE[key] = kern
+        return kern
+
+
+def plan_wstack(uvw, freq0_hz: float, dfreq_hz: float, num_chan: int,
+                image_size: int, subgrid_size: int, theta: float,
+                w_step: float, shear_u: float = 0.0, shear_v: float = 0.0,
+                support: int = 8, oversampling: int = 16384,
+                w_support: int = 4, w_oversampling: int = 16384,
+                subgrid_frac: float = 2.0 / 3.0,
+                w_tower_height: float = 4.0) -> WStackPlan:
+    """Build the static task list from the full uvw distribution.
+
+    ``uvw`` is a NumPy array or a CPU tensor [rows, 3]; all planning is
+    host f64 through :mod:`..native`.
+    """
+    uvw_np = np.ascontiguousarray(np.asarray(uvw), np.float64)
+    num_rows = uvw_np.shape[0]
+    if subgrid_frac == 0.0:
+        subgrid_frac = 2.0 / 3.0
+    if dfreq_hz == 0.0:
+        dfreq_hz = 10.0
+    eff_sg_size = int(math.floor(subgrid_size * subgrid_frac))
+    eff_sg_dist = eff_sg_size / theta
+    w_stack_dist = w_tower_height * w_step
+
+    start_ch = np.zeros((num_rows,), np.int32)
+    end_ch = np.full((num_rows,), num_chan, np.int32)
+    uvw_min, uvw_max = native.uvw_bounds(uvw_np, freq0_hz, dfreq_hz,
+                                         start_ch, end_ch)
+    eta = 1e-5
+    min_iu = int(math.floor(uvw_min[0] / eff_sg_dist + 0.5 - eta))
+    max_iu = int(math.floor(uvw_max[0] / eff_sg_dist + 0.5 + eta))
+    min_iv = int(math.floor(uvw_min[1] / eff_sg_dist + 0.5 - eta))
+    max_iv = int(math.floor(uvw_max[1] / eff_sg_dist + 0.5 + eta))
+    min_iw = int(math.floor(uvw_min[2] / w_stack_dist + 0.5 - eta))
+    max_iw = int(math.floor(uvw_max[2] / w_stack_dist + 0.5 + eta))
+
+    counts, wmin, wmax = native.plan_wstack_boxes(
+        uvw_np, freq0_hz, dfreq_hz, num_chan, eff_sg_dist, w_stack_dist,
+        (min_iu, max_iu), (min_iv, max_iv), (min_iw, max_iw))
+
+    tasks = []
+    w_plane_ids = []
+    for jw in range(counts.shape[0]):
+        iw = min_iw + jw
+        plane_has_tasks = False
+        for ju in range(counts.shape[1]):
+            for jv in range(counts.shape[2]):
+                if counts[jw, ju, jv] == 0:
+                    continue
+                # W-tower plane range from the global data bounds
+                # (sdp_gridder_wtower_uvw.cpp:780-800).
+                off_w = int(iw * w_tower_height)
+                first = int(np.floor(wmin[jw, ju, jv] / w_step - eta)) \
+                    - off_w
+                last = int(np.ceil(wmax[jw, ju, jv] / w_step + eta)) \
+                    - off_w + 1
+                tasks.append(WStackTask(min_iu + ju, min_iv + jv, iw,
+                                        first, 1 + last - first))
+                plane_has_tasks = True
+        if plane_has_tasks:
+            w_plane_ids.append(iw)
+
+    return WStackPlan(
+        image_size=int(image_size), subgrid_size=int(subgrid_size),
+        theta=float(theta), w_step=float(w_step), shear_u=float(shear_u),
+        shear_v=float(shear_v), support=int(support),
+        oversampling=int(oversampling), w_support=int(w_support),
+        w_oversampling=int(w_oversampling), subgrid_frac=float(subgrid_frac),
+        w_tower_height=float(w_tower_height), freq0_hz=float(freq0_hz),
+        dfreq_hz=float(dfreq_hz), num_chan=int(num_chan),
+        eff_sg_size=eff_sg_size, w_plane_ids=tuple(w_plane_ids),
+        tasks=tuple(tasks))

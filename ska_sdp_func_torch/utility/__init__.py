@@ -1,0 +1,23 @@
+"""Errors and constants shared by the port's modules."""
+
+from .constants import C_0
+from .errors import (
+    CError,
+    SdpDataTypeError,
+    SdpError,
+    SdpInvalidArgumentError,
+    SdpMemLocationError,
+    SdpRuntimeError,
+    SdpShapeError,
+)
+
+__all__ = [
+    "C_0",
+    "CError",
+    "SdpDataTypeError",
+    "SdpError",
+    "SdpInvalidArgumentError",
+    "SdpMemLocationError",
+    "SdpRuntimeError",
+    "SdpShapeError",
+]

@@ -1,0 +1,58 @@
+"""Shared small scenario for the PyTorch-port parity tests.
+
+The 150-row x 2-channel, 256^2 scenario of test_packed_driver.py, drawn
+from a NumPy seed so the JAX package and the port see identical inputs.
+"""
+
+import numpy as np
+
+C_0 = 299792458.0
+
+PARAMS = dict(
+    subgrid_size=128,
+    theta=0.002,
+    w_step=50.0,
+    shear_u=0.0,
+    shear_v=0.0,
+    support=8,
+    oversampling=16 * 1024,
+    w_support=4,
+    w_oversampling=16 * 1024,
+    subgrid_frac=2.0 / 3.0,
+    w_tower_height=4.0,
+)
+IMAGE_SIZE = 256
+NUM_ROWS, NUM_CHAN = 150, 2
+FREQ0, DFREQ = C_0, C_0 / 100
+
+
+def make_inputs(seed: int = 5):
+    """(uvw [rows, 3] f64, vis [rows, chan] complex64)."""
+    rng = np.random.default_rng(seed)
+    uvw = rng.uniform(-1, 1, (NUM_ROWS, 3))
+    uvw[:, :2] *= 0.3 * IMAGE_SIZE / 2 / PARAMS["theta"]
+    uvw[:, 2] *= 2.0 * PARAMS["w_step"] * PARAMS["w_tower_height"] / 2
+    vis = (rng.standard_normal((NUM_ROWS, NUM_CHAN))
+           + 1j * rng.standard_normal((NUM_ROWS, NUM_CHAN))
+           ).astype(np.complex64)
+    return uvw, vis
+
+
+def two_point_image() -> np.ndarray:
+    """The bounded two-point model test_packed_driver.py degrids."""
+    img = np.zeros((IMAGE_SIZE, IMAGE_SIZE), np.float32)
+    img[IMAGE_SIZE // 2 + 12, IMAGE_SIZE // 2 - 9] = 1.0
+    img[IMAGE_SIZE // 2 - 20, IMAGE_SIZE // 2 + 15] = 0.5
+    return img
+
+
+def taper(jax_plan) -> np.ndarray:
+    """1 / grid_correct(ones): weights the 1/PSWF-amplified border down
+    so images compare where they are well conditioned
+    (test_packed_driver.py:350-368)."""
+    import jax.numpy as jnp
+
+    kern = jax_plan.kernel()
+    n = jax_plan.image_size
+    return 1.0 / np.asarray(kern.grid_correct(
+        jnp.ones((n, n), jnp.float32)))

@@ -1,0 +1,138 @@
+"""The port's PackedGridder against the JAX package's, whole image.
+
+Both sides run on identical plans (the port's planner is byte-identical,
+test_torch_plan.py) and identical visibilities. Images compare
+taper-weighted at 1e-5 of peak (the 1/PSWF-corrected border is
+ill-conditioned, test_packed_driver.py:350-368); visibilities at 1e-5
+of max|vis|. Both bounds allow f32 reassociation only.
+"""
+
+import numpy as np
+import pytest
+
+pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from _torch_scenario import DFREQ, FREQ0, IMAGE_SIZE, NUM_CHAN, NUM_ROWS, \
+    PARAMS, make_inputs, taper, two_point_image  # noqa: E402
+from ska_sdp_func_torch.parallel import packed as tpacked  # noqa: E402
+from ska_sdp_func_torch.parallel import from_jax_plan  # noqa: E402
+from ska_sdp_func_tpu.parallel import plan_wstack as j_plan_wstack  # noqa
+from ska_sdp_func_tpu.parallel.packed import (  # noqa: E402
+    packed_gridder as j_gridder,
+    plan_packed as j_plan_packed,
+)
+
+PRECISIONS = ["high", "highest"]
+
+
+@pytest.fixture(scope="module")
+def scenario():
+    uvw, vis = make_inputs()
+    jplan = j_plan_wstack(uvw, FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE, **PARAMS)
+    jpp = j_plan_packed(jplan, uvw, block_v=128)
+    return dict(uvw=uvw, vis=vis, jplan=jplan, jpp=jpp,
+                tpp=from_jax_plan(jpp), taper=taper(jplan))
+
+
+@pytest.fixture(scope="module")
+def images(scenario):
+    """Dirty images and two-point degrids per precision, both sides."""
+    s = scenario
+    out = {}
+    for prec in PRECISIONS:
+        jg = j_gridder(s["jpp"], precision=prec)
+        tg = tpacked.packed_gridder(s["tpp"], precision=prec)
+        vre, vim = jg.sort(jnp.asarray(s["vis"]))
+        model = two_point_image()
+        out[prec] = dict(
+            j_img=np.asarray(jg.grid_sorted(vre, vim)),
+            t_img=tg.grid_sorted(*tg.sort(s["vis"])).numpy(),
+            j_vis=np.asarray(jg.degrid_sorted(jnp.asarray(model))),
+            t_vis=tg.degrid_sorted(model).numpy(),
+            j_nat=np.asarray(jg.degrid(jnp.asarray(model))),
+            t_nat=tg.degrid(model).numpy(),
+            j_grid=np.asarray(jg.grid(jnp.asarray(s["vis"]))),
+            t_grid=tg.grid(torch.as_tensor(s["vis"])).numpy())
+    return out
+
+
+def test_sort_unsort_roundtrip(scenario):
+    g = tpacked.packed_gridder(scenario["tpp"])
+    vre, vim = g.sort(scenario["vis"])
+    back = g.unsort(torch.complex(vre, vim)).numpy()
+    np.testing.assert_array_equal(back, scenario["vis"])
+
+
+def test_sort_matches_jax(scenario):
+    jg = j_gridder(scenario["jpp"])
+    tg = tpacked.packed_gridder(scenario["tpp"])
+    for got, want in zip(tg.sort(scenario["vis"]),
+                         jg.sort(jnp.asarray(scenario["vis"]))):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _taper_err(scenario, got, want):
+    t = scenario["taper"]
+    return np.abs((got - want) * t).max() / np.abs(want * t).max()
+
+
+@pytest.mark.parametrize("prec", PRECISIONS)
+def test_grid_sorted_matches_jax(scenario, images, prec):
+    im = images[prec]
+    assert im["t_img"].dtype == np.float32
+    assert im["t_img"].shape == (IMAGE_SIZE, IMAGE_SIZE)
+    assert _taper_err(scenario, im["t_img"], im["j_img"]) < 1e-5
+
+
+@pytest.mark.parametrize("prec", PRECISIONS)
+def test_grid_natural_order_matches_jax(scenario, images, prec):
+    im = images[prec]
+    assert _taper_err(scenario, im["t_grid"], im["j_grid"]) < 1e-5
+
+
+@pytest.mark.parametrize("prec", PRECISIONS)
+def test_degrid_sorted_matches_jax(images, prec):
+    im = images[prec]
+    assert im["t_vis"].dtype == np.complex64
+    vscale = np.abs(im["j_vis"]).max()
+    np.testing.assert_allclose(im["t_vis"], im["j_vis"], atol=1e-5 * vscale)
+
+
+@pytest.mark.parametrize("prec", PRECISIONS)
+def test_degrid_natural_order_matches_jax(images, prec):
+    im = images[prec]
+    assert im["t_nat"].shape == (NUM_ROWS, NUM_CHAN)
+    vscale = np.abs(im["j_nat"]).max()
+    np.testing.assert_allclose(im["t_nat"], im["j_nat"], atol=1e-5 * vscale)
+
+
+def test_fast_mode_matches_jax(scenario):
+    """fast=True (bf16 bands) runs the same arithmetic on both sides."""
+    s = scenario
+    jg = j_gridder(s["jpp"], fast=True)
+    tg = tpacked.packed_gridder(s["tpp"], fast=True)
+    vre, vim = jg.sort(jnp.asarray(s["vis"]))
+    j_img = np.asarray(jg.grid_sorted(vre, vim))
+    t_img = tg.grid_sorted(*tg.sort(s["vis"])).numpy()
+    assert _taper_err(s, t_img, j_img) < 1e-5
+
+
+def test_gridder_cache_keys_on_resolved_defaults(scenario):
+    p = scenario["tpp"]
+    g = tpacked.packed_gridder(p)
+    assert tpacked.packed_gridder(p, precision="high") is g
+    assert tpacked.packed_gridder(p, engine="auto", device="cpu") is g
+    assert tpacked.packed_gridder(p, precision="highest") is not g
+    fast = tpacked.packed_gridder(p, fast=True)
+    assert fast.precision == "bf16"
+    assert tpacked.packed_gridder(p, fast=True, precision="bf16") is fast
+    assert len(tpacked._GRIDDER_CACHE) <= tpacked._GRIDDER_CACHE_MAX
+
+
+@pytest.mark.parametrize("engine", ["fused", "compact"])
+def test_unported_engines_raise(scenario, engine):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpacked.PackedGridder(scenario["tpp"], engine=engine)
