@@ -8,27 +8,44 @@ line of output each (or a few), failing loudly on the first fault:
 
 1. toolchain: the card's name and power limit (nvidia-smi), torch, CUDA
    and nvcc versions;
-2. build: compiles the port's CUDA kernels from ``csrc/`` (timed);
+2. build: compiles the port's CUDA kernels from ``csrc/`` (one nvcc per
+   source, in parallel; timed);
 3. kernels vs plain: each kernel against its plain PyTorch version on the
-   card, all three precision modes, on the small test scenario and on
-   the main path's plan;
-4. main path at the bench scenario (512^2 image, 128^2 sub-grids,
-   16384 rows x 64 channels = 1,048,576 visibilities, seed 1):
-   ``plan_wstack`` -> ``plan_packed`` -> ``packed_gridder(device=cuda)``,
-   ``grid_sorted``, ``degrid_sorted`` of a unit point, and two
-   ``major_cycle_imager(bucketed=True)`` iterations, with the kernels'
-   launch counters read around it; the kernel-path dirty image is held
-   against the plain-path image on the card, and a small point-source
-   solve against the CPU port;
-5. times: grid, degrid and one major-cycle iteration at the bench
-   scenario, and each kernel beside its plain version at the main path's
-   shapes.
+   card: the packed kernels (K1, K2) in all three precision modes, and
+   the w-towers tap kernels (K14-K17), each on the small test scenario
+   and at the shapes of the main paths below;
+4. main paths, each driven with the launch counters set to 0 just before
+   it and read just after:
+   a. the packed path at the bench scenario (512^2 image, 128^2
+      sub-grids, 16384 rows x 64 channels = 1,048,576 visibilities,
+      seed 1): ``plan_wstack`` -> ``plan_packed`` ->
+      ``packed_gridder(device=cuda)``, ``grid_sorted``, ``degrid_sorted``
+      of a unit point and two ``major_cycle_imager(bucketed=True)``
+      iterations; the kernel-path dirty image against the plain-path
+      image on the card, and a small point-source solve against the CPU
+      port;
+   b. the w-towers path at the same data with 64^2 sub-grids (a geometry
+      the packed path cannot take): ``plan_wstack`` -> ``plan_bucketed``,
+      ``grid_all_bucketed``, ``degrid_all_bucketed`` of a unit point and
+      two ``major_cycle_imager(bucketed=True)`` iterations, which take
+      the bucketed fallback; the kernel-path dirty image against the
+      plain path on the card. Then, at stated reduced row counts (these
+      paths stream every visibility through every task):
+      ``GridderWtowerUVW.degrid_subgrid`` / ``grid_subgrid`` on
+      complex64 with an adjointness check and against the CPU port,
+      ``wstack_wtower_{degrid,grid}_all(engine="reference")`` against
+      the bucketed drivers, and one ``major_cycle_imager(bucketed=False)``
+      point-source solve against the CPU port;
+5. times: grid, degrid and one major-cycle iteration of both paths at
+   the bench scenario, and each kernel beside its plain version at the
+   main paths' shapes.
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits non-zero and prints no result. It imports nothing of jax.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -42,13 +59,26 @@ C_0 = 299792458.0
 IMAGE, SUBGRID = 512, 128
 THETA, W_STEP, HEIGHT = 0.002, 100.0, 4.0
 ROWS, CHANS = 16384, 64
+# The w-towers path: the same data on 64^2 sub-grids.
+TOWER_SUBGRID = 64
+# Reduced row counts of the O(tasks x V) paths: the reference-API
+# drivers take the first REF_ROWS bench rows; the sub-grid gridder and
+# the task-driver solve use their own small scenarios (below).
+REF_ROWS = 256
 # The small test scenario (tests/_torch_scenario.py).
 SMALL = dict(image=256, rows=150, chans=2, w_step=50.0, seed=5)
 MODES = {"highest": dict(precision="highest"),
          "high": dict(precision="high"),
          "bf16": dict(fast=True)}
 TOL = 1e-5           # relative to max|reference| (f32 reordering only)
-KERNEL_SOURCE = "ska_sdp_func_torch/kernels/csrc/packed_tap.cu"
+PACKED_SOURCE = "ska_sdp_func_torch/kernels/csrc/packed_tap.cu"
+TOWER_SOURCE = "ska_sdp_func_torch/kernels/csrc/tower_tap.cu"
+TOWER_KERNELS = (
+    ("grid_plane", "ska_sdp_func_tpu/kernels/pallas_tap.py:147"),
+    ("degrid_plane", "ska_sdp_func_tpu/kernels/pallas_tap.py:220"),
+    ("grid_all_layers", "ska_sdp_func_tpu/kernels/pallas_tap.py:309"),
+    ("degrid_all_layers", "ska_sdp_func_tpu/kernels/pallas_tap.py:369"),
+)
 
 
 def say(msg: str) -> None:
@@ -100,6 +130,33 @@ def bench_inputs():
     return uvw, vis
 
 
+def subgrid_inputs():
+    """The sub-grid gridder scenario of tests/test_wtower.py: earth-
+    rotation coverage of 8 antennas over 12 times (336 rows x 3
+    channels) inside a 64^2 sub-grid, and a two-source image."""
+    rng = np.random.default_rng(42)
+    ants = rng.uniform(-2000.0, 2000.0, (8, 3))
+    ants[:, 2] *= 0.02
+    bl = np.array([ants[i] - ants[j] for i in range(8)
+                   for j in range(i + 1, 8)])
+    sd, cd = np.sin(np.radians(40.0)), np.cos(np.radians(40.0))
+    rows = []
+    for ha in np.linspace(0, np.pi / 3, 12, endpoint=False):
+        sh, ch = np.sin(ha), np.cos(ha)
+        rows.append(np.stack([sh * bl[:, 0] + ch * bl[:, 1],
+                              -sd * ch * bl[:, 0] + sd * sh * bl[:, 1]
+                              + cd * bl[:, 2],
+                              cd * ch * bl[:, 0] - cd * sh * bl[:, 1]
+                              + sd * bl[:, 2]], axis=-1))
+    uvw = np.concatenate(rows)
+    uvw[:, :2] *= 16.0 / THETA / np.abs(uvw[:, :2]).max()
+    uvw[:, 2] *= 350.0 / np.abs(uvw[:, 2]).max()
+    image = np.zeros((TOWER_SUBGRID, TOWER_SUBGRID), np.complex64)
+    image[16, 16] = 1.0
+    image[53, 21] = 0.5
+    return uvw, 3, image
+
+
 def kernel_operands(torch, g, pplan, dev, seed):
     """Seeded stream and stack operands at the plan's shapes."""
     rng = np.random.default_rng(seed)
@@ -120,8 +177,8 @@ def kernel_operands(torch, g, pplan, dev, seed):
 
 
 def check_kernels(torch, tk, PackedGridder, pplan, dev, label):
-    """Each kernel against its plain version in every mode; returns the
-    "high" (default) mode's absolute errors."""
+    """Each packed kernel against its plain version in every mode;
+    returns the "high" (default) mode's absolute errors."""
     out = {}
     for mode, kw in MODES.items():
         g = PackedGridder(pplan, device=dev, **kw)
@@ -150,6 +207,115 @@ def check_kernels(torch, tk, PackedGridder, pplan, dev, label):
     return out
 
 
+# -- w-towers kernels ----------------------------------------------------------
+
+def tower_operands(torch, dev, plan, uvw_dev, vis_dev, bplan, sort_index,
+                   valid, seed):
+    """Operands of the four w-towers kernels at a main path's shapes.
+
+    grid_all_layers / degrid_all_layers: the taps of the bucketed plan's
+    largest task slice (as ``grid_all_bucketed`` builds them); grid_plane
+    / degrid_plane: one w-plane of that task's tower over every row and
+    channel of ``uvw_dev`` (as the task drivers build it).
+    """
+    from ska_sdp_func_torch.grid_data import wtower
+    from ska_sdp_func_torch.parallel import bucketed as bk
+    from ska_sdp_func_torch.parallel import wstack as pw
+
+    rng = np.random.default_rng(seed)
+    uvw_s, chan_idx, _, vld = bk._sorted_inputs(bplan, uvw_dev, sort_index,
+                                                valid)
+    taps = bk._stream_taps(bplan, bk._device_constants(bplan, dev)["terms"],
+                           uvw_s, chan_idx, vld, plan.freq0_hz,
+                           plan.dfreq_hz)
+    k = max(range(len(bplan.tasks)), key=lambda i: bplan.tasks[i].size)
+    task = bplan.tasks[k]
+    iu0, iv0, uk, vk, weights = bk._task_taps(taps, task)
+    n = plan.subgrid_size
+    num_k = task.num_layers
+
+    def rnd(shape, cplx=False):
+        x = rng.standard_normal(shape)
+        if cplx:
+            x = x + 1j * rng.standard_normal(shape)
+        return torch.as_tensor(x, dtype=torch.complex64 if cplx
+                               else torch.float32, device=dev)
+
+    vre, vim = rnd(task.size), rnd(task.size)
+    layers = rnd((num_k, n, n), cplx=True)
+    ops = dict(
+        grid_all_layers=((vre, vim, iu0, iv0, uk, vk, weights, num_k, n,
+                          plan.support), {}),
+        degrid_all_layers=((layers, iu0, iv0, uk, vk, weights,
+                            plan.support), {}))
+
+    ptask = plan.tasks[k]
+    s_w, e_w = pw.clamp_channels_single(
+        uvw_dev, 2, plan.freq0_hz, plan.dfreq_hz,
+        torch.zeros(uvw_dev.shape[0], dtype=torch.int32, device=dev),
+        torch.full((uvw_dev.shape[0],), plan.num_chan, dtype=torch.int32,
+                   device=dev), *pw._wslab_bounds(plan, ptask.iw))
+    s_uv, e_uv = pw.clamp_channels_uv(uvw_dev, plan.freq0_hz, plan.dfreq_hz,
+                                      s_w, e_w, *pw._box_bounds(plan, ptask))
+    off = pw._task_offsets(plan, ptask)
+    geom = wtower._plane_geometry(
+        uvw_dev, s_uv, e_uv, ptask.first_w_plane + ptask.num_planes // 2,
+        *off, plan.freq0_hz, plan.dfreq_hz, plan.num_chan, plan.theta,
+        plan.w_step, plan.support, plan.oversampling, plan.w_support,
+        plan.w_oversampling, n, 0, uvw_dev.shape[0])
+    uv_k, w_k, _ = plan.kernel().tables(torch.float32, dev)
+    sub = rnd((plan.w_support, n, n), cplx=True)
+    ops["grid_plane"] = ((sub, vis_dev, uv_k, w_k, geom, plan.support,
+                          plan.w_support), {})
+    ops["degrid_plane"] = ((sub, uv_k, w_k, geom, plan.support,
+                            plan.w_support), {})
+    shapes = (f"{task.size} taps x {num_k} layers; plane {tuple(geom[0].shape)}"
+              f" with {int(geom[0].sum())} active")
+    return ops, shapes
+
+
+def check_tower_kernels(torch, tt, ops, label):
+    """Each w-towers kernel against its plain version; returns the
+    absolute errors. The plane kernels compare their contribution (the
+    input stack subtracted)."""
+    errs = {}
+    for name, _ in TOWER_KERNELS:
+        args, kw = ops[name]
+        got = getattr(tt, name)(*args, **kw)
+        want = getattr(tt, name + "_reference")(*args, **kw)
+        if name == "grid_plane":
+            got, want = got - args[0], want - args[0]
+        torch.cuda.synchronize()
+        errs[name] = (rel_err(got, want), float((got - want).abs().max()))
+    say(f"# tower kernels vs plain [{label}]: " + ", ".join(
+        f"{n} rel err {e[0]:.3e}" for n, e in errs.items())
+        + f" (tolerance {TOL:g})")
+    bad = [n for n, e in errs.items() if not e[0] <= TOL]
+    if bad:
+        raise SystemExit(f"kernel disagrees with its plain version "
+                         f"[{label}]: {bad}")
+    return {n: e[1] for n, e in errs.items()}
+
+
+@contextlib.contextmanager
+def plain_all_layers(bk, tt):
+    """The bucketed drivers on the all-layer kernels' plain versions
+    (the plain path the kernel path is held against)."""
+    saved = bk.grid_all_layers, bk.degrid_all_layers
+    bk.grid_all_layers = tt.grid_all_layers_reference
+    bk.degrid_all_layers = tt.degrid_all_layers_reference
+    try:
+        yield
+    finally:
+        bk.grid_all_layers, bk.degrid_all_layers = saved
+
+
+def finite(torch, named):
+    for name, t in named:
+        if not bool(torch.isfinite(t).all()):
+            raise SystemExit(f"{name} is not finite")
+
+
 def main() -> int:
     import torch
 
@@ -157,15 +323,27 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from ska_sdp_func_torch.grid_data import grid_correct_pswf
+    from ska_sdp_func_torch import kernels as tkern
+    from ska_sdp_func_torch.grid_data import (
+        GridderWtowerUVW,
+        grid_correct_pswf,
+        wstack_wtower_degrid_all,
+        wstack_wtower_grid_all,
+    )
     from ska_sdp_func_torch.kernels import _build
     from ska_sdp_func_torch.kernels import packed_tap as tk
+    from ska_sdp_func_torch.kernels import tower_tap as tt
     from ska_sdp_func_torch.parallel import (
         PackedGridder,
+        degrid_all_bucketed,
+        grid_all_bucketed,
+        inverse_index_of,
         packed_gridder,
+        plan_bucketed,
         plan_packed,
         plan_wstack,
     )
+    from ska_sdp_func_torch.parallel import bucketed as bk
     from ska_sdp_func_torch.pipeline import major_cycle as mc
     from ska_sdp_func_torch.pipeline import major_cycle_imager
 
@@ -189,7 +367,7 @@ def main() -> int:
         f"(nvcc {_build.build_info['seconds']:.1f} s) -> "
         f"{os.path.relpath(_build.build_info['path'])}")
     for line in _build.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             say("#   ptxas" + line.split("ptxas", 1)[-1])
 
     # 3. kernels vs plain ----------------------------------------------
@@ -212,10 +390,39 @@ def main() -> int:
         f"{pplan.num_blocks} blocks ({plan_time:.2f} s host)")
     abs_err = check_kernels(torch, tk, PackedGridder, pplan, dev, "main")
 
-    # 4. main path -------------------------------------------------------
+    uvw_dev = torch.as_tensor(uvw, device=dev)
+    vis_dev = torch.as_tensor(vis, device=dev)
+    plan_ss = plan_wstack(uvw_s, C_0, C_0 / 100, SMALL["chans"],
+                          SMALL["image"], TOWER_SUBGRID, THETA,
+                          SMALL["w_step"], support=8, w_support=4,
+                          w_tower_height=HEIGHT)
+    bplan_ss, sort_ss, valid_ss = plan_bucketed(plan_ss, uvw_s, block_v=128)
+    ops_ss, shapes = tower_operands(
+        torch, dev, plan_ss, torch.as_tensor(uvw_s, device=dev),
+        torch.as_tensor(vis_s, device=dev), bplan_ss, sort_ss, valid_ss, 21)
+    say(f"# small tower operands: {shapes}")
+    check_tower_kernels(torch, tt, ops_ss, "small")
+    t0 = time.perf_counter()
+    tplan = plan_wstack(uvw, C_0, C_0 / (100 * CHANS), CHANS, IMAGE,
+                        TOWER_SUBGRID, THETA, W_STEP, support=8, w_support=4,
+                        w_tower_height=HEIGHT)
+    bplan, sort_index, valid = plan_bucketed(tplan, uvw)
+    inv = inverse_index_of(sort_index, valid, num_vis)
+    plan_time = time.perf_counter() - t0
+    slabs = sorted({t.iw for t in tplan.tasks})
+    say(f"# tower plan: {len(bplan.tasks)} tasks over {len(slabs)} w-slabs, "
+        f"{min(t.num_layers for t in bplan.tasks)}-"
+        f"{max(t.num_layers for t in bplan.tasks)} layers, {bplan.total} "
+        f"slots ({plan_time:.2f} s host)")
+    ops, shapes = tower_operands(torch, dev, tplan, uvw_dev, vis_dev, bplan,
+                                 sort_index, valid, 22)
+    say(f"# main tower operands: {shapes}")
+    tower_err = check_tower_kernels(torch, tt, ops, "main")
+
+    # 4a. packed main path ---------------------------------------------
     g = packed_gridder(pplan, device=dev)
     torch.cuda.synchronize()
-    tk.reset_launch_counts()
+    tkern.reset_launch_counts()
     vre, vim = g.sort(vis)
     img = g.grid_sorted(vre, vim)
     model = torch.zeros((IMAGE, IMAGE), dtype=torch.float32, device=dev)
@@ -224,16 +431,14 @@ def main() -> int:
     res = major_cycle_imager(plan, vis, uvw, n_major=2, bucketed=True,
                              device=dev)
     torch.cuda.synchronize()
-    launches = tk.launch_counts()
-    say(f"# main path launches: {json.dumps(launches)}")
-    if min(launches.values()) < 1:
-        raise SystemExit("a kernel of the main path was never launched")
-    for name, t in (("dirty image", img), ("degrid", pred),
-                    ("model", res.model), ("restored", res.restored)):
-        if not bool(torch.isfinite(t).all()):
-            raise SystemExit(f"{name} is not finite")
+    launches = tkern.launch_counts()
+    say(f"# packed path launches: {json.dumps(launches)}")
+    if min(launches["grid_packed_stack"], launches["degrid_stack"]) < 1:
+        raise SystemExit("a kernel of the packed path was never launched")
+    finite(torch, (("dirty image", img), ("degrid", pred),
+                   ("model", res.model), ("restored", res.restored)))
     if tuple(img.shape) != (IMAGE, IMAGE) or pred.shape[0] != pplan.total:
-        raise SystemExit("main-path outputs have the wrong shape")
+        raise SystemExit("packed-path outputs have the wrong shape")
     # Kernel path vs plain path on the card, taper-weighted (the
     # 1/PSWF-corrected border is ill-conditioned).
     stack = tk.grid_packed_stack_reference(
@@ -245,8 +450,8 @@ def main() -> int:
         IMAGE, THETA, W_STEP, 0.0, 0.0, 8, 4,
         torch.ones((IMAGE, IMAGE), device=dev))
     e_img = rel_err(img * taper, img_plain * taper)
-    say(f"# dirty image, kernel vs plain path: taper-weighted rel err "
-        f"{e_img:.3e} (tolerance {TOL:g}); degrid |vis| max "
+    say(f"# packed dirty image, kernel vs plain path: taper-weighted rel "
+        f"err {e_img:.3e} (tolerance {TOL:g}); degrid |vis| max "
         f"{float(pred.abs().max()):.4g}; major-cycle peaks "
         f"{res.peak_history}")
     if not e_img <= TOL:
@@ -261,10 +466,122 @@ def main() -> int:
     r_cpu = major_cycle_imager(plan_s, vis_pt, uvw_s, bucketed=True)
     e_mc = rel_err(r_gpu.model.cpu(), r_cpu.model)
     flux = float(r_gpu.model[src])
-    say(f"# small point-source solve, card vs CPU: model rel err "
+    say(f"# small point-source solve (packed), card vs CPU: model rel err "
         f"{e_mc:.3e} (tolerance 1e-4), recovered flux {flux:.4f}")
     if not (e_mc <= 1e-4 and abs(flux - 1.0) < 0.05):
         raise SystemExit("the point-source solve disagrees")
+
+    # 4b. w-towers path --------------------------------------------------
+    torch.cuda.synchronize()
+    tkern.reset_launch_counts()
+    t_img = grid_all_bucketed(bplan, vis_dev, uvw_dev, sort_index, valid)
+    t_pred = degrid_all_bucketed(bplan, model, uvw_dev, sort_index, valid,
+                                 inv)
+    t_res = major_cycle_imager(tplan, vis, uvw, n_major=2, bucketed=True,
+                               device=dev)
+    # Reduced rows: the sub-grid gridder on complex64.
+    uvw_g, ch_g, img_g = subgrid_inputs()
+    rows_g = uvw_g.shape[0]
+    kern_g = GridderWtowerUVW(IMAGE, TOWER_SUBGRID, THETA, W_STEP, 0.0, 0.0,
+                              8, 16384, 4, 16384)
+    st_g = np.zeros(rows_g, np.int32)
+    en_g = np.full(rows_g, ch_g, np.int32)
+    sub_out = {}
+    for d in (dev, torch.device("cpu")):
+        args = [torch.as_tensor(a, device=d) for a in (uvw_g, st_g, en_g)]
+        x = torch.as_tensor(img_g, device=d)
+        ax = kern_g.degrid_subgrid(x, (10, -6, 1), ch_g, C_0, C_0 / 100,
+                                   *args)
+        rng = np.random.default_rng(3)
+        v = torch.as_tensor((rng.standard_normal((rows_g, ch_g))
+                             + 1j * rng.standard_normal((rows_g, ch_g))
+                             ).astype(np.complex64), device=d)
+        atv = kern_g.grid_subgrid(
+            v, *args, ch_g, C_0, C_0 / 100,
+            torch.zeros_like(x), (10, -6, 1))
+        sub_out[d.type] = (ax.cpu(), atv.cpu(), v.cpu(), x.cpu())
+    # Reduced rows: the reference-API whole-image drivers.
+    uvw_r = uvw[:REF_ROWS]
+    geom = dict(subgrid_size=TOWER_SUBGRID, theta=THETA, w_step=W_STEP,
+                shear_u=0.0, shear_v=0.0, support=8, oversampling=16384,
+                w_support=4, w_oversampling=16384, subgrid_frac=2.0 / 3.0,
+                w_tower_height=HEIGHT)
+    ref_vis = wstack_wtower_degrid_all(
+        model, C_0, C_0 / (100 * CHANS), torch.as_tensor(uvw_r, device=dev),
+        vis=torch.zeros((REF_ROWS, CHANS), dtype=torch.complex64,
+                        device=dev), **geom)
+    ref_img = wstack_wtower_grid_all(
+        vis_dev[:REF_ROWS], C_0, C_0 / (100 * CHANS),
+        torch.as_tensor(uvw_r, device=dev),
+        image=torch.zeros((IMAGE, IMAGE), device=dev), **geom)
+    # Reduced rows: one task-driver solve of a point source.
+    plan_ts = plan_wstack(uvw_s, C_0, C_0 / 100, SMALL["chans"],
+                          SMALL["image"], TOWER_SUBGRID, THETA,
+                          SMALL["w_step"], support=8, w_support=4,
+                          w_tower_height=HEIGHT)
+    r_tgpu = major_cycle_imager(plan_ts, vis_pt, uvw_s, n_major=1,
+                                device=dev)
+    torch.cuda.synchronize()
+    t_launches = tkern.launch_counts()
+    say(f"# w-towers path launches: {json.dumps(t_launches)}")
+    missing = [n for n, _ in TOWER_KERNELS if t_launches[n] < 1]
+    if missing:
+        raise SystemExit(f"w-towers kernels never launched: {missing}")
+
+    finite(torch, (("tower dirty image", t_img), ("tower degrid", t_pred),
+                   ("tower model", t_res.model),
+                   ("tower restored", t_res.restored),
+                   ("reference-engine vis", ref_vis),
+                   ("reference-engine image", ref_img)))
+    if tuple(t_img.shape) != (IMAGE, IMAGE) or \
+            tuple(t_pred.shape) != (ROWS, CHANS):
+        raise SystemExit("w-towers outputs have the wrong shape")
+    with plain_all_layers(bk, tt):
+        t_img_plain = grid_all_bucketed(bplan, vis_dev, uvw_dev, sort_index,
+                                        valid)
+        t_pred_plain = degrid_all_bucketed(bplan, model, uvw_dev,
+                                           sort_index, valid, inv)
+    e_timg = rel_err(t_img * taper, t_img_plain * taper)
+    e_tpred = rel_err(t_pred, t_pred_plain)
+    say(f"# tower dirty image, kernel vs plain path: taper-weighted rel err "
+        f"{e_timg:.3e}; degrid rel err {e_tpred:.3e} (tolerance {TOL:g}); "
+        f"fallback major-cycle peaks {t_res.peak_history}")
+    if not (e_timg <= TOL and e_tpred <= TOL):
+        raise SystemExit("w-towers kernel path disagrees with the plain path")
+    ax, atv, v, x = sub_out["cuda"]
+    lhs, rhs = complex(np.vdot(v.numpy(), ax.numpy())), \
+        complex(np.vdot(atv.numpy(), x.numpy()))
+    e_adj = abs(lhs - rhs) / abs(lhs)
+    e_sub = max(rel_err(ax, sub_out["cpu"][0]),
+                rel_err(atv, sub_out["cpu"][1]))
+    say(f"# sub-grid gridder ({rows_g} rows x {ch_g} channels, complex64): "
+        f"adjointness rel err {e_adj:.3e} (tolerance 1e-4), card vs CPU "
+        f"rel err {e_sub:.3e} (tolerance 1e-4)")
+    if not (e_adj <= 1e-4 and e_sub <= 1e-4):
+        raise SystemExit("the sub-grid gridder disagrees")
+    ref_plan = plan_wstack(uvw_r, C_0, C_0 / (100 * CHANS), CHANS, IMAGE,
+                           TOWER_SUBGRID, THETA, W_STEP, support=8,
+                           w_support=4, w_tower_height=HEIGHT)
+    b_r, s_r, v_r = plan_bucketed(ref_plan, uvw_r)
+    uvw_rd = torch.as_tensor(uvw_r, device=dev)
+    b_vis = degrid_all_bucketed(b_r, model, uvw_rd, s_r, v_r,
+                                inverse_index_of(s_r, v_r, REF_ROWS * CHANS))
+    b_img = grid_all_bucketed(b_r, vis_dev[:REF_ROWS], uvw_rd, s_r, v_r)
+    e_rvis = rel_err(ref_vis, b_vis)
+    e_rimg = rel_err(ref_img * taper, b_img * taper)
+    say(f"# reference engine ({REF_ROWS} rows x {CHANS} channels) vs the "
+        f"bucketed drivers: degrid rel err {e_rvis:.3e}, grid taper-weighted "
+        f"rel err {e_rimg:.3e} (tolerance 1e-4: two f32 formulations)")
+    if not (e_rvis <= 1e-4 and e_rimg <= 1e-4):
+        raise SystemExit("the reference engine disagrees")
+    r_tcpu = major_cycle_imager(plan_ts, vis_pt, uvw_s, n_major=1)
+    e_tmc = rel_err(r_tgpu.model.cpu(), r_tcpu.model)
+    flux = float(r_tgpu.model[src])
+    say(f"# small point-source solve (task drivers, bucketed=False), card "
+        f"vs CPU: model rel err {e_tmc:.3e} (tolerance 1e-4), component "
+        f"flux {flux:.4f}")
+    if not (e_tmc <= 1e-4 and flux > 0.5):
+        raise SystemExit("the task-driver solve disagrees")
 
     # 5. times -----------------------------------------------------------
     t_grid = cuda_ms(torch, lambda: g.grid_sorted(vre, vim), 10)
@@ -286,10 +603,36 @@ def main() -> int:
         state["model"] = state["model"] + delta
 
     t_mc = cuda_ms(torch, mc_step, 5, warmup=1)
-    say(f"# [{gpu}] grid {num_vis / t_grid / 1e3:.2f} Mvis/s "
+    say(f"# [{gpu}] packed: grid {num_vis / t_grid / 1e3:.2f} Mvis/s "
         f"({t_grid:.3f} ms), degrid {num_vis / t_degrid / 1e3:.2f} Mvis/s "
         f"({t_degrid:.3f} ms), major cycle {1e3 / t_mc:.3f} iters/s "
         f"({t_mc:.3f} ms; minor cycle 50 components)")
+
+    tt_grid = cuda_ms(torch, lambda: grid_all_bucketed(
+        bplan, vis_dev, uvw_dev, sort_index, valid), 3, warmup=1)
+    tt_degrid = cuda_ms(torch, lambda: degrid_all_bucketed(
+        bplan, model, uvw_dev, sort_index, valid, inv), 3, warmup=1)
+    t_psf_plan = mc.make_psf_plan(tplan, uvw)
+    pb, ps, pv = plan_bucketed(t_psf_plan, uvw)
+    t_psf = grid_all_bucketed(pb, torch.ones_like(vis_dev), uvw_dev, ps, pv)
+    t_peak = t_psf[IMAGE, IMAGE]
+    t_psf = mc._norm_mask(t_psf, t_peak, 2 * border)
+    state["model"] = torch.zeros((IMAGE, IMAGE), device=dev)
+
+    def tower_mc_step():
+        p = degrid_all_bucketed(bplan, state["model"], uvw_dev, sort_index,
+                                valid, inv)
+        dirty = mc._norm_mask(grid_all_bucketed(
+            bplan, vis_dev - p, uvw_dev, sort_index, valid), t_peak, border)
+        delta, _ = mc._minor_cycle(dirty, t_psf, 0.1, stop, 50)
+        state["model"] = state["model"] + delta
+
+    tt_mc = cuda_ms(torch, tower_mc_step, 2, warmup=1)
+    say(f"# [{gpu}] w-towers fallback ({len(bplan.tasks)} tasks): grid "
+        f"{num_vis / tt_grid / 1e3:.2f} Mvis/s ({tt_grid:.3f} ms), degrid "
+        f"{num_vis / tt_degrid / 1e3:.2f} Mvis/s ({tt_degrid:.3f} ms), "
+        f"major cycle {1e3 / tt_mc:.3f} iters/s ({tt_mc:.3f} ms; minor "
+        f"cycle 50 components)")
 
     grid_args, degrid_args = kernel_operands(torch, g, pplan, dev, 12)
     bv = pplan.block_v
@@ -307,21 +650,36 @@ def main() -> int:
         times[name] = (k2, p2)
         say(f"# [{gpu}] {name} at main-path shapes, 'high': kernel "
             f"{k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms")
+    for name, _ in TOWER_KERNELS:
+        args, kw = ops[name]
+        kern = getattr(tt, name)
+        ref = getattr(tt, name + "_reference")
+        p1 = cuda_ms(torch, lambda: ref(*args, **kw), 5)
+        k1 = cuda_ms(torch, lambda: kern(*args, **kw), 20)
+        k2 = cuda_ms(torch, lambda: kern(*args, **kw), 20)
+        p2 = cuda_ms(torch, lambda: ref(*args, **kw), 5)
+        times[name] = (k2, p2)
+        say(f"# [{gpu}] {name} at main-path shapes: kernel "
+            f"{k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms")
 
     kernels = [
-        dict(name="grid_packed_stack", route="cuda", source=KERNEL_SOURCE,
+        dict(name="grid_packed_stack", route="cuda", source=PACKED_SOURCE,
              replaces="ska_sdp_func_tpu/kernels/packed_tap.py:249",
              launches=launches["grid_packed_stack"],
              max_abs_err=abs_err["grid"],
              ms=times["grid_packed_stack"][0],
              plain_ms=times["grid_packed_stack"][1]),
-        dict(name="degrid_stack", route="cuda", source=KERNEL_SOURCE,
+        dict(name="degrid_stack", route="cuda", source=PACKED_SOURCE,
              replaces="ska_sdp_func_tpu/kernels/packed_tap.py:839",
              launches=launches["degrid_stack"],
              max_abs_err=abs_err["degrid"],
              ms=times["degrid_stack"][0],
              plain_ms=times["degrid_stack"][1]),
-    ]
+    ] + [
+        dict(name=name, route="cuda", source=TOWER_SOURCE, replaces=where,
+             launches=t_launches[name], max_abs_err=tower_err[name],
+             ms=times[name][0], plain_ms=times[name][1])
+        for name, where in TOWER_KERNELS]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,14 +8,20 @@ NumPy (plus the shared C++ host runtime, :mod:`.native`), and every
 Pallas kernel on the ported path is a hand-written CUDA kernel
 (:mod:`.kernels`).
 
-Ported so far (the packed whole-image imaging path):
+Ported so far (the packed whole-image path and the per-task w-towers
+path, on one device):
 
 - :mod:`.parallel` — ``plan_wstack``, ``plan_packed``, ``packed_gridder``
-  and :class:`~.parallel.packed.PackedGridder`
-- :mod:`.pipeline` — ``major_cycle_imager(..., bucketed=True)``
+  and :class:`~.parallel.packed.PackedGridder`; the task drivers
+  ``grid_all_tasks`` / ``degrid_all_tasks``; the bucketed drivers
+  ``plan_bucketed``, ``grid_all_bucketed``, ``degrid_all_bucketed``
+- :mod:`.grid_data` — the sub-grid gridder ``GridderWtowerUVW`` and the
+  whole-image drivers ``wstack_wtower_{grid,degrid}_all``
+- :mod:`.pipeline` — ``major_cycle_imager`` (``bucketed=False`` and
+  ``True``)
 - :mod:`.clean` — Hogbom CLEAN
-- :mod:`.fourier_transforms`, :mod:`.grid_data`,
-  :mod:`.numeric_functions`, :mod:`.utility` — the helpers that path uses
+- :mod:`.fourier_transforms`, :mod:`.numeric_functions`,
+  :mod:`.utility` — the helpers those paths use
 
 The package imports ``torch`` and never ``jax``.
 """

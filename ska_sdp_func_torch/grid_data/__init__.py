@@ -1,8 +1,25 @@
-"""Gridding helpers: kernel tables, grid correction, sub-grid placement
-and the w-towers plan object."""
+"""Gridding helpers and drivers: kernel tables, grid correction, channel
+clamping, sub-grid placement, the w-towers gridder and the w-stacking
+whole-image drivers."""
 
-from .grid_correct import grid_correct_pswf, w_screen_stack
-from .gridder_utils import subgrid_add_static, subgrid_cut_out_static
+from .clamp_channels import (
+    clamp_channels_inline,
+    clamp_channels_single,
+    clamp_channels_uv,
+)
+from .grid_correct import (
+    grid_correct_pswf,
+    grid_correct_w_stack,
+    w_screen_stack,
+)
+from .gridder_utils import (
+    shift_subgrids,
+    subgrid_add,
+    subgrid_add_static,
+    subgrid_cut_out,
+    subgrid_cut_out_static,
+    uvw_bounds_all,
+)
 from .kernels import (
     eval_kernel_taps,
     kernel_tap_coeffs,
@@ -11,18 +28,29 @@ from .kernels import (
     make_pswf_kernel,
     make_w_pattern,
 )
+from .wstack import wstack_wtower_degrid_all, wstack_wtower_grid_all
 from .wtower import GridderWtowerUVW
 
 __all__ = [
     "GridderWtowerUVW",
+    "clamp_channels_inline",
+    "clamp_channels_single",
+    "clamp_channels_uv",
     "eval_kernel_taps",
     "grid_correct_pswf",
+    "grid_correct_w_stack",
     "kernel_tap_coeffs",
     "lm_to_n",
     "make_kernel",
     "make_pswf_kernel",
     "make_w_pattern",
+    "shift_subgrids",
+    "subgrid_add",
     "subgrid_add_static",
+    "subgrid_cut_out",
     "subgrid_cut_out_static",
+    "uvw_bounds_all",
     "w_screen_stack",
+    "wstack_wtower_degrid_all",
+    "wstack_wtower_grid_all",
 ]

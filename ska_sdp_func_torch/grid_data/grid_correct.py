@@ -1,4 +1,6 @@
-"""Grid correction: PSWF image-response division and w-stacking screens.
+"""Grid correction: PSWF image-response division and w-stacking screens
+(:func:`grid_correct_pswf`, :func:`w_screen_stack`,
+:func:`grid_correct_w_stack`).
 
 Counterpart of ska_sdp_func_tpu.grid_data.grid_correct (reference:
 sdp_gridder_grid_correct.cpp:19-115). Both corrections depend only on
@@ -86,3 +88,33 @@ def w_screen_stack(image_size: int, theta: float, w_step: float,
     ang = ang[None] * offs[:, None, None]
     screens = np.cos(ang) + 1j * np.sin(ang)
     return torch.as_tensor(screens).to(device=device, dtype=dtype)
+
+
+def grid_correct_w_stack(image_size: int, theta: float, w_step: float,
+                         shear_u: float, shear_v: float,
+                         facet: torch.Tensor, facet_offset_l: int = 0,
+                         facet_offset_m: int = 0, w_offset: int = 0,
+                         inverse: bool = False) -> torch.Tensor:
+    """Apply the w-stacking screen ``exp(2 pi i w_step n w_offset)``
+    (grid_corr_w_stack, sdp_gridder_grid_correct.cpp:77-115): divide
+    when ``inverse`` is False, multiply when True, as the JAX version
+    does. A no-op for ``w_offset == 0``; the facet must be complex."""
+    if w_offset == 0:
+        return facet
+    num_l, num_m = facet.shape
+    screen = torch.as_tensor(_w_screen_host(
+        int(image_size), float(theta), float(w_step), float(shear_u),
+        float(shear_v), int(w_offset), int(facet_offset_l),
+        int(facet_offset_m), int(num_l), int(num_m))).to(
+            device=facet.device, dtype=facet.dtype)
+    return facet * screen if inverse else facet / screen
+
+
+@lru_cache(maxsize=64)
+def _w_screen_host(image_size, theta, w_step, shear_u, shear_v, w_offset,
+                   facet_offset_l, facet_offset_m, num_l, num_m):
+    """One w-screen, host complex128 (cached: the drivers apply the same
+    per-plane screens on every call)."""
+    return w_screen_stack(image_size, theta, w_step, shear_u, shear_v,
+                          [w_offset], facet_offset_l, facet_offset_m, num_l,
+                          num_m)[0].numpy()

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels (nvcc + ctypes).
 
-The sources under ``csrc/`` have a plain C interface. On first use they
-are compiled with ``nvcc`` for ``sm_90a`` into one shared library in
-``_build/`` beside this file (git-ignored), keyed by a hash of the
-sources and flags, and loaded with ctypes. Nothing is compiled when the
-module is imported: :func:`load` runs only from a wrapper that is about
-to launch a kernel on a CUDA tensor, so CPU-only hosts never need
-``nvcc``.
+The sources under ``csrc/`` have a plain C interface. On first use each
+``.cu`` file is compiled with ``nvcc`` for ``sm_90a`` into an object,
+all of them at once in parallel processes, and the objects are linked
+into one shared library ``sdp_kernels_<hash>.so`` in ``_build/`` beside
+this file (git-ignored), keyed by a hash of the sources and flags, and
+loaded with ctypes. Nothing is compiled when the module is imported:
+:func:`load` runs only from a wrapper that is about to launch a kernel
+on a CUDA tensor, so CPU-only hosts never need ``nvcc``.
 """
 
 import ctypes
@@ -24,7 +25,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_TIMEOUT = 900
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -46,27 +48,53 @@ def _sources():
                   + glob.glob(os.path.join(_CSRC, "*.cuh")))
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; raise on the first failure."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        try:
+            out, _ = proc.communicate(timeout=_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            raise SdpRuntimeError(f"nvcc timed out: {' '.join(cmd)}")
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({' '.join(cmd)}):\n{out}")
+    if failed:
+        raise SdpRuntimeError("\n".join(failed))
+    return "".join(logs)
+
+
 def _build() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in _sources():
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)
-    so_path = os.path.join(BUILD_DIR, f"packed_tap_{h.hexdigest()[:16]}.so")
+    tag = h.hexdigest()[:16]
+    so_path = os.path.join(BUILD_DIR, f"sdp_kernels_{tag}.so")
     if os.path.exists(so_path):
         build_info.update(seconds=0.0, path=so_path)
         return so_path
-    tmp = so_path + f".tmp{os.getpid()}"
+    nvcc = _nvcc()
+    suffix = f"{tag}.{os.getpid()}"
     cu = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(p)[:-3]}_{suffix}.o")
+            for p in cu]
+    tmp = so_path + f".tmp{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise SdpRuntimeError(
-            f"nvcc failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}")
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+                    for src, obj in zip(cu, objs)])
+    log += _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
     os.replace(tmp, so_path)
-    build_info.update(seconds=time.perf_counter() - t0,
-                      log=proc.stdout + proc.stderr, path=so_path)
+    for obj in objs:
+        os.remove(obj)
+    build_info.update(seconds=time.perf_counter() - t0, log=log,
+                      path=so_path)
     return so_path
 
 
@@ -86,6 +114,12 @@ def load() -> ctypes.CDLL:
                 lib.sdp_torch_degrid_stack.argtypes = [
                     p, p, p, p, i, p, p, p, i, p, i64, i, i, i, i, p, p]
                 lib.sdp_torch_degrid_stack.restype = i
+                lib.sdp_torch_tower_grid.argtypes = [
+                    p, p, p, p, p, p, p, i64, i, i, i, i, p, p]
+                lib.sdp_torch_tower_grid.restype = i
+                lib.sdp_torch_tower_degrid.argtypes = [
+                    p, p, p, p, p, p, i64, i, i, i, p, p]
+                lib.sdp_torch_tower_degrid.restype = i
                 _LIB = lib
     return _LIB
 

@@ -1,6 +1,16 @@
-"""Plans and whole-image drivers: the w-stacking task plan, the packed
-ingest plan and :class:`~.packed.PackedGridder`."""
+"""Plans and whole-image drivers: the w-stacking task plan and task
+drivers, the bucketed per-task drivers, the packed ingest plan and
+:class:`~.packed.PackedGridder`."""
 
+from .bucketed import (
+    BucketedPlan,
+    BucketedTask,
+    degrid_all_bucketed,
+    grid_all_bucketed,
+    inverse_index_of,
+    plan_bucketed,
+    task_id_stream,
+)
 from .convert import from_jax_plan
 from .packed import (
     PackedGridder,
@@ -10,17 +20,32 @@ from .packed import (
     packed_gridder,
     plan_packed,
 )
-from .wstack import WStackPlan, WStackTask, plan_wstack
+from .wstack import (
+    WStackPlan,
+    WStackTask,
+    degrid_all_tasks,
+    grid_all_tasks,
+    plan_wstack,
+)
 
 __all__ = [
+    "BucketedPlan",
+    "BucketedTask",
     "PackedGridder",
     "PackedPlan",
     "PackedTask",
     "WStackPlan",
     "WStackTask",
+    "degrid_all_bucketed",
+    "degrid_all_tasks",
     "from_jax_plan",
+    "grid_all_bucketed",
+    "grid_all_tasks",
+    "inverse_index_of",
     "packed_geometry_ok",
     "packed_gridder",
+    "plan_bucketed",
     "plan_packed",
     "plan_wstack",
+    "task_id_stream",
 ]

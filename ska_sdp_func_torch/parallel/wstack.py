@@ -1,10 +1,18 @@
-"""W-stacking task plan (host only).
+"""W-stacking task plan and the single-device task drivers.
 
-Counterpart of the plan half of ska_sdp_func_tpu.parallel.wstack
-(wstack.py:55-190; reference sdp_grid_wstack_wtower.cpp:24-136,
-310-330): enumerate the non-empty (w-plane, sub-grid) boxes and their
-static w-tower plane ranges. The task drivers and the sharded operators
-are not ported yet (ROADMAP Queue 1 items 10 and 15).
+Counterpart of ska_sdp_func_tpu.parallel.wstack (wstack.py:55-294;
+reference sdp_grid_wstack_wtower.cpp:24-165, 310-330):
+
+1. **Plan** (host, once per uvw distribution): enumerate the non-empty
+   (w-plane, sub-grid) boxes and their static w-tower plane ranges.
+2. **Execute** (device): :func:`grid_all_tasks` / :func:`degrid_all_tasks`
+   run the static task list over all visibilities; per-task channel
+   clamping selects the rows and channels in each box, as the reference
+   routes rows to tasks, and each task runs the per-plane w-towers
+   drivers (the ``grid_plane`` / ``degrid_plane`` kernels on complex64
+   CUDA data). Every task streams every visibility: O(tasks x V).
+
+The mesh-sharded wrappers are not ported yet (ROADMAP Queue 1 item 15).
 """
 
 import math
@@ -12,9 +20,23 @@ from dataclasses import dataclass, field
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from .. import native
-from ..grid_data.wtower import GridderWtowerUVW
+from ..fourier_transforms.fft import fft_shifted, ifft_shifted_norm
+from ..grid_data.clamp_channels import (
+    clamp_channels_single,
+    clamp_channels_uv,
+)
+from ..grid_data.gridder_utils import (
+    subgrid_add_static,
+    subgrid_cut_out_static,
+)
+from ..grid_data.wtower import (
+    GridderWtowerUVW,
+    _degrid_all_planes,
+    _grid_all_planes,
+)
 
 _KERNEL_CACHE: dict = {}
 
@@ -146,3 +168,98 @@ def plan_wstack(uvw, freq0_hz: float, dfreq_hz: float, num_chan: int,
         dfreq_hz=float(dfreq_hz), num_chan=int(num_chan),
         eff_sg_size=eff_sg_size, w_plane_ids=tuple(w_plane_ids),
         tasks=tuple(tasks))
+
+
+# ---------------------------------------------------------------------------
+# Single-device task drivers
+# ---------------------------------------------------------------------------
+
+def _box_bounds(plan: WStackPlan, task: WStackTask):
+    d = plan.eff_sg_dist
+    return (task.iu * d - d / 2, (task.iu + 1) * d - d / 2,
+            task.iv * d - d / 2, (task.iv + 1) * d - d / 2)
+
+
+def _wslab_bounds(plan: WStackPlan, iw: int):
+    d = plan.w_stack_dist
+    return iw * d - d / 2, (iw + 1) * d - d / 2
+
+
+def _task_offsets(plan: WStackPlan, task: WStackTask):
+    return (task.iu * plan.eff_sg_size, task.iv * plan.eff_sg_size,
+            int(task.iw * plan.w_tower_height))
+
+
+def _plane_tasks(plan: WStackPlan, uvw, start_chs, end_chs):
+    """Per w-plane, each task with its clamped channel ranges."""
+    for iw in plan.w_plane_ids:
+        min_w, max_w = _wslab_bounds(plan, iw)
+        s_w, e_w = clamp_channels_single(
+            uvw, 2, plan.freq0_hz, plan.dfreq_hz, start_chs, end_chs,
+            min_w, max_w)
+        tasks = []
+        for task in plan.tasks:
+            if task.iw != iw:
+                continue
+            s_uv, e_uv = clamp_channels_uv(
+                uvw, plan.freq0_hz, plan.dfreq_hz, s_w, e_w,
+                *_box_bounds(plan, task))
+            tasks.append((task, s_uv, e_uv))
+        yield iw, tasks
+
+
+def grid_all_tasks(plan: WStackPlan, kernel: GridderWtowerUVW, vis, uvw,
+                   start_chs, end_chs) -> torch.Tensor:
+    """Grid all visibilities over the static task list into a complex
+    image of ``vis``'s dtype (tensors on one device)."""
+    image_size = plan.image_size
+    dev = vis.device
+    sg_factor = (image_size / plan.subgrid_size) ** 2
+    uv_kernel, w_kernel, w_pattern = kernel.tables(vis.dtype, dev)
+    image = torch.zeros((image_size, image_size), dtype=vis.dtype,
+                        device=dev)
+    for iw, tasks in _plane_tasks(plan, uvw, start_chs, end_chs):
+        grid = torch.zeros((image_size, image_size), dtype=vis.dtype,
+                           device=dev)
+        for task, s_uv, e_uv in tasks:
+            off = _task_offsets(plan, task)
+            subgrid = _grid_all_planes(
+                vis, w_pattern, uv_kernel, w_kernel, uvw, s_uv, e_uv,
+                torch.zeros((plan.subgrid_size, plan.subgrid_size),
+                            dtype=vis.dtype, device=dev),
+                *off, task.first_w_plane, plan.freq0_hz, plan.dfreq_hz,
+                task.num_planes, plan.theta, plan.w_step, plan.support,
+                plan.oversampling, plan.w_support, plan.w_oversampling,
+                plan.subgrid_size, 0, uvw.shape[0])
+            subgrid_add_static(grid, -off[0], -off[1],
+                               fft_shifted(subgrid), sg_factor)
+        grid = kernel.grid_correct(ifft_shifted_norm(grid), 0, 0,
+                                   int(iw * plan.w_tower_height))
+        image = image + grid.to(image.dtype)
+    return image
+
+
+def degrid_all_tasks(plan: WStackPlan, kernel: GridderWtowerUVW, image, uvw,
+                     start_chs, end_chs,
+                     vis_dtype=torch.complex128) -> torch.Tensor:
+    """Degrid an image over the static task list into
+    ``[rows, num_chan]`` visibilities of ``vis_dtype``."""
+    dev = image.device
+    vis = torch.zeros((uvw.shape[0], plan.num_chan), dtype=vis_dtype,
+                      device=dev)
+    uv_kernel, w_kernel, w_pattern = kernel.tables(vis_dtype, dev)
+    w_pattern = w_pattern.to(vis_dtype)
+    for iw, tasks in _plane_tasks(plan, uvw, start_chs, end_chs):
+        grid = fft_shifted(kernel.degrid_correct(
+            image.to(vis_dtype), 0, 0, int(iw * plan.w_tower_height)))
+        for task, s_uv, e_uv in tasks:
+            off = _task_offsets(plan, task)
+            subgrid = ifft_shifted_norm(subgrid_cut_out_static(
+                grid, off[0], off[1], plan.subgrid_size))
+            vis = _degrid_all_planes(
+                subgrid.to(vis_dtype), w_pattern, uv_kernel, w_kernel, uvw,
+                s_uv, e_uv, vis, *off, task.first_w_plane, plan.freq0_hz,
+                plan.dfreq_hz, task.num_planes, plan.theta, plan.w_step,
+                plan.support, plan.oversampling, plan.w_support,
+                plan.w_oversampling, plan.subgrid_size, 0, uvw.shape[0])
+    return vis

@@ -1,7 +1,7 @@
-"""Major-cycle CLEAN imaging solver (packed single-device path).
+"""Major-cycle CLEAN imaging solver (single device).
 
-Counterpart of ska_sdp_func_tpu.pipeline.major_cycle for its
-single-device ``bucketed=True`` packed branch (major_cycle.py:226-487):
+Counterpart of ska_sdp_func_tpu.pipeline.major_cycle
+(major_cycle.py:99-487) on one device:
 
     psf    = normalise(grid(1))                     (once, 2N)
     repeat n_major times:
@@ -11,8 +11,22 @@ single-device ``bucketed=True`` packed branch (major_cycle.py:226-487):
         model       += delta
     restored = model * cbeam + res
 
-Branches that are not ported raise ``NotImplementedError`` naming their
-ROADMAP item; none is silently rerouted.
+Three operator paths, chosen as the JAX package chooses them:
+
+- ``bucketed=False`` (the default): the per-task drivers
+  (:func:`~..parallel.wstack.grid_all_tasks` /
+  :func:`~..parallel.wstack.degrid_all_tasks`; the ``grid_plane`` /
+  ``degrid_plane`` kernels for complex64 on CUDA), O(tasks x V);
+- ``bucketed=True`` on a geometry the packed path can express: the
+  packed whole-image gridder (:mod:`..parallel.packed`) in the plan's
+  sorted stream;
+- ``bucketed=True`` on any other geometry (a sub-grid that is not a
+  multiple of 128, say): the bucketed per-task fallback
+  (:mod:`..parallel.bucketed`; the all-layer kernels), O(V).
+
+Branches that are not ported (``mesh``, msclean, checkpointing) raise
+``NotImplementedError`` naming their ROADMAP item; none is silently
+rerouted.
 """
 
 from dataclasses import dataclass
@@ -23,10 +37,23 @@ import torch
 
 from ..clean.hogbom import _minor_cycle, create_cbeam
 from ..numeric_functions.fft_convolution import fft_convolution
+from ..parallel.bucketed import (
+    degrid_all_bucketed,
+    grid_all_bucketed,
+    inverse_index_of,
+    plan_bucketed,
+)
 from ..parallel.packed import packed_gridder, plan_packed
-from ..parallel.wstack import WStackPlan, plan_wstack
+from ..parallel.wstack import (
+    WStackPlan,
+    degrid_all_tasks,
+    grid_all_tasks,
+    plan_wstack,
+)
 from ..utility.errors import SdpInvalidArgumentError
+from ..utility.logging import log_info
 from ..utility.tensors import to_device
+from ..utility.timers import Timers, TimerType
 
 
 @dataclass
@@ -49,6 +76,26 @@ def make_psf_plan(plan: WStackPlan, uvw) -> WStackPlan:
         plan.w_step, plan.shear_u, plan.shear_v, plan.support,
         plan.oversampling, plan.w_support, plan.w_oversampling,
         plan.subgrid_frac, plan.w_tower_height)
+
+
+def _channel_ranges(plan: WStackPlan, uvw: torch.Tensor):
+    num_rows = uvw.shape[0]
+    return (torch.zeros((num_rows,), dtype=torch.int32, device=uvw.device),
+            torch.full((num_rows,), plan.num_chan, dtype=torch.int32,
+                       device=uvw.device))
+
+
+def _grid(plan: WStackPlan, vis: torch.Tensor,
+          uvw: torch.Tensor) -> torch.Tensor:
+    """Task-driver dirty image (real part, vis's real precision)."""
+    return grid_all_tasks(plan, plan.kernel(), vis, uvw,
+                          *_channel_ranges(plan, uvw)).real
+
+
+def _degrid(plan: WStackPlan, image: torch.Tensor, uvw: torch.Tensor,
+            vis_dtype) -> torch.Tensor:
+    return degrid_all_tasks(plan, plan.kernel(), image, uvw,
+                            *_channel_ranges(plan, uvw), vis_dtype)
 
 
 def _stop_level(dirty, threshold, mgain):
@@ -96,20 +143,20 @@ def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
                        checkpointer=None, weights=None,
                        clean_algorithm: str = "hogbom",
                        bucketed: bool = False, fast: bool = False,
-                       device="cpu") -> ImagingResult:
+                       verbosity: int = 0, device="cpu") -> ImagingResult:
     """Run the major/minor-cycle imaging solve on ``device``.
 
     ``vis`` [rows, chan] complex and ``weights`` [rows, chan] are NumPy
     arrays or tensors; ``uvw`` [rows, 3] is NumPy or a CPU tensor (the
-    planners run on the host). Only ``bucketed=True`` on one device with
-    a packed-compatible geometry is ported. ``mgain`` bounds each minor
-    cycle at ``max(threshold, (1 - mgain) * dirty_peak)``; ``fast=True``
-    runs the kernels on bf16 bands.
+    planners run on the host, and the device drivers take it in f64).
+    ``bucketed`` picks the operator path (module docstring). ``mgain``
+    bounds each minor cycle at ``max(threshold, (1 - mgain) *
+    dirty_peak)``; ``fast=True`` runs the packed kernels on bf16 bands.
+    ``verbosity > 0`` logs a per-stage timing report after the solve
+    (the reference driver's report_timing,
+    sdp_grid_wstack_wtower.cpp:169-213), timed with CUDA events on a
+    CUDA device.
     """
-    if not bucketed:
-        raise NotImplementedError(
-            "bucketed=False (the per-task drivers, kernels K16/K17) is not "
-            "ported yet: ROADMAP Queue 1 item 10")
     if mesh is not None:
         raise NotImplementedError(
             "multi-device solves are not ported yet: ROADMAP Queue 1 "
@@ -126,55 +173,113 @@ def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
     image_size = plan.image_size
     uvw = np.asarray(uvw, np.float64)
     vis = to_device(vis, device)
+    dev = vis.device
     rdtype = vis.real.dtype
+    timers = (Timers("major_cycle_imager", TimerType.DEVICE, device=dev)
+              if verbosity > 0 else None)
     psf_plan = make_psf_plan(plan, uvw)
     if border is None:
         border = image_size // 16
-    try:
-        pplan = plan_packed(plan, uvw)
-        psf_pplan = plan_packed(psf_plan, uvw)
-    except SdpInvalidArgumentError as exc:
-        raise NotImplementedError(
-            "this geometry needs the per-task bucketed fallback, which is "
-            "not ported yet: ROADMAP Queue 1 item 16") from exc
-    gri = packed_gridder(pplan, fast=fast, device=device)
-    psf_gri = packed_gridder(psf_pplan, fast=fast, device=device)
+    if timers:
+        timers.push("planning")
+    packed = bucket = None
+    if bucketed:
+        # The packed ingest where the geometry allows it; otherwise the
+        # bucketed per-task fallback.
+        try:
+            packed = (packed_gridder(plan_packed(plan, uvw), fast=fast,
+                                     device=dev),
+                      packed_gridder(plan_packed(psf_plan, uvw), fast=fast,
+                                     device=dev))
+        except SdpInvalidArgumentError:
+            bplan, sort_index, valid = plan_bucketed(plan, uvw)
+            psf_bplan, psf_sort, psf_valid = plan_bucketed(psf_plan, uvw)
+            bucket = dict(
+                bplan=bplan, sort=sort_index, valid=valid,
+                inv=inverse_index_of(sort_index, valid, vis.numel()),
+                psf_bplan=psf_bplan, psf_sort=psf_sort, psf_valid=psf_valid)
+    uvw_dev = torch.as_tensor(uvw, device=dev)
 
+    psf_vis = None
     if weights is None:
-        psf_vis = torch.ones_like(vis)
-        w_sorted = None
+        psf_vis_grid = torch.ones_like(vis)
     else:
         # The PSF uses the weights, the data the weighted visibilities;
         # the PSF-peak normalisation keeps the scale consistent.
-        psf_vis = to_device(weights, device).to(vis.dtype)
+        psf_vis = to_device(weights, dev).to(vis.dtype)
+        psf_vis_grid = psf_vis
         vis = vis * psf_vis
-        w_sorted = gri.sort(psf_vis)[0]
-    psf = psf_gri.grid(psf_vis)
-    vre, vim = gri.sort(vis)
+    if timers:
+        timers.pop_push("psf grid + sort")
+    if packed is not None:
+        gri, psf_gri = packed
+        psf = psf_gri.grid(psf_vis_grid)
+        vre, vim = gri.sort(vis)
+        w_sorted = None if psf_vis is None else gri.sort(psf_vis)[0]
+    elif bucket is not None:
+        psf = grid_all_bucketed(bucket["psf_bplan"], psf_vis_grid, uvw_dev,
+                                bucket["psf_sort"], bucket["psf_valid"])
+    else:
+        psf = _grid(psf_plan, psf_vis_grid, uvw_dev)
     peak = psf[image_size, image_size]  # centre of the 2N PSF
     psf = _norm_mask(psf, peak, 2 * border)
+    if timers:
+        timers.pop()
 
-    model = torch.zeros((image_size, image_size), dtype=rdtype,
-                        device=vis.device)
+    model = torch.zeros((image_size, image_size), dtype=rdtype, device=dev)
     residual_img = torch.zeros_like(model)
     peak_history: List[float] = []
-    threshold_t = torch.as_tensor(threshold, dtype=rdtype, device=vis.device)
-    mgain_t = torch.as_tensor(mgain, dtype=rdtype, device=vis.device)
+    threshold_t = torch.as_tensor(threshold, dtype=rdtype, device=dev)
+    mgain_t = torch.as_tensor(mgain, dtype=rdtype, device=dev)
     for _cycle in range(n_major):
-        pred = gri.degrid_sorted(model)
-        res_re, res_im = _packed_residual(vre, vim, pred, w_sorted)
-        dirty = _norm_mask(gri.grid_sorted(res_re, res_im), peak, border)
+        if timers:
+            timers.push("degrid predict")
+        if packed is not None:
+            pred = gri.degrid_sorted(model)
+            res_re, res_im = _packed_residual(vre, vim, pred, w_sorted)
+            if timers:
+                timers.pop_push("grid residual")
+            raw = gri.grid_sorted(res_re, res_im)
+        else:
+            if bucket is not None:
+                pred = degrid_all_bucketed(
+                    bucket["bplan"], model, uvw_dev, bucket["sort"],
+                    bucket["valid"], bucket["inv"]).to(vis.dtype)
+            else:
+                pred = _degrid(plan, model, uvw_dev, vis.dtype)
+            if psf_vis is not None:
+                # dirty = A^T W (V - A model): weight the prediction too.
+                pred = pred * psf_vis
+            res_vis = vis - pred
+            if timers:
+                timers.pop_push("grid residual")
+            if bucket is not None:
+                raw = grid_all_bucketed(bucket["bplan"], res_vis, uvw_dev,
+                                        bucket["sort"], bucket["valid"])
+            else:
+                raw = _grid(plan, res_vis, uvw_dev)
+        dirty = _norm_mask(raw, peak, border)
+        if timers:
+            timers.pop_push("minor cycle")
         stop = _stop_level(dirty, threshold_t, mgain_t)
         delta, residual_img = _minor_cycle(dirty, psf, float(loop_gain),
                                            stop, int(cycle_limit))
         model = model + delta
         peak_history.append(float(residual_img.abs().max()))
+        if timers:
+            timers.pop()
         if peak_history[-1] < threshold:
             break
 
+    if timers:
+        timers.push("restore")
     cbeam = create_cbeam(
-        torch.as_tensor(cbeam_details, dtype=rdtype, device=vis.device),
+        torch.as_tensor(cbeam_details, dtype=rdtype, device=dev),
         int(cbeam_details[3]))
     restored = _restore(model, cbeam, residual_img)
+    if timers:
+        timers.pop()
+        timers.report(print_fn=lambda text: [
+            log_info("%s", line) for line in text.splitlines()])
     return ImagingResult(model=model, residual=residual_img,
                          restored=restored, peak_history=peak_history)

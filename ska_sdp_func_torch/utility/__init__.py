@@ -1,4 +1,5 @@
-"""Errors and constants shared by the port's modules."""
+"""Errors and constants shared by the port's modules, SKA-format logging
+(:mod:`.logging`) and the named timer tree (:mod:`.timers`)."""
 
 from .constants import C_0
 from .errors import (

@@ -56,3 +56,47 @@ def taper(jax_plan) -> np.ndarray:
     n = jax_plan.image_size
     return 1.0 / np.asarray(kern.grid_correct(
         jnp.ones((n, n), jnp.float32)))
+
+
+# The w-towers sub-grid scenario of test_wtower.py:239-295: earth-rotation
+# coverage of 8 antennas over 12 times (336 rows x 3 channels), scaled
+# inside a 64^2 sub-grid with a few w-planes, and a two-source sub-grid
+# image.
+WTOWER_PARAMS = dict(
+    image_size=256,
+    subgrid_size=64,
+    theta=0.002,
+    w_step=100.0,
+    shear_u=0.1,
+    shear_v=-0.15,
+    support=8,
+    oversampling=16 * 1024,
+    w_support=4,
+    w_oversampling=16 * 1024,
+)
+
+
+def wtower_scenario(num_ant=8, num_times=12, max_bl=4000.0, seed=42):
+    """(uvw [rows, 3] f64, ch_count, subgrid image [64, 64] f64)."""
+    rng = np.random.default_rng(seed)
+    ants = rng.uniform(-max_bl / 2, max_bl / 2, (num_ant, 3))
+    ants[:, 2] *= 0.02
+    baselines = np.array([ants[i] - ants[j] for i in range(num_ant)
+                          for j in range(i + 1, num_ant)])
+    sd, cd = np.sin(np.radians(40.0)), np.cos(np.radians(40.0))
+    rows = []
+    for ha in np.linspace(0, np.pi / 3, num_times, endpoint=False):
+        sh, ch = np.sin(ha), np.cos(ha)
+        bx, by, bz = baselines.T
+        rows.append(np.stack([sh * bx + ch * by,
+                              -sd * ch * bx + sd * sh * by + cd * bz,
+                              cd * ch * bx - cd * sh * by + sd * bz],
+                             axis=-1))
+    uvw = np.concatenate(rows, axis=0)
+    uvw[:, :2] *= 16.0 / WTOWER_PARAMS["theta"] / np.abs(uvw[:, :2]).max()
+    uvw[:, 2] *= 350.0 / np.abs(uvw[:, 2]).max()
+    sg = WTOWER_PARAMS["subgrid_size"]
+    image = np.zeros((sg, sg))
+    image[sg // 4, sg // 4] = 1.0
+    image[5 * sg // 6, 2 * sg // 6] = 0.5
+    return uvw, 3, image

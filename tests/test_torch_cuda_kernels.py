@@ -8,19 +8,23 @@ is absent, with::
 
 Tolerances: the grid stack at 1e-5 of max|stack| (f32 atomics reorder
 the sums); degridded visibilities at 1e-5 of max|vis| (same products,
-other summation order).
+other summation order). The same holds for the w-towers tap kernels
+(``tower_tap``: grid_plane, degrid_plane, grid_all_layers,
+degrid_all_layers) against their plain versions.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_scenario import DFREQ, FREQ0, IMAGE_SIZE, NUM_CHAN, PARAMS, \
-    make_inputs, two_point_image
+from _torch_scenario import C_0, DFREQ, FREQ0, IMAGE_SIZE, NUM_CHAN, \
+    PARAMS, WTOWER_PARAMS, make_inputs, two_point_image, wtower_scenario
 from ska_sdp_func_torch.grid_data import grid_correct_pswf
+from ska_sdp_func_torch.grid_data import wtower as tw
 from ska_sdp_func_torch.kernels import packed_tap as tk
-from ska_sdp_func_torch.parallel import PackedGridder, plan_packed, \
-    plan_wstack
+from ska_sdp_func_torch.kernels import tower_tap as tt
+from ska_sdp_func_torch.parallel import PackedGridder, degrid_all_tasks, \
+    grid_all_tasks, plan_packed, plan_wstack
 from ska_sdp_func_torch.utility.errors import SdpMemLocationError
 
 pytestmark = pytest.mark.cuda
@@ -119,3 +123,147 @@ def test_wrappers_reject_mixed_devices(setup):
                              g.vband, (g.wk_t, s["vre"], s["vim"]),
                              len(pplan.tasks), pplan.num_layers, 128, 4,
                              block_v=pplan.block_v)
+
+
+# -- w-towers tap kernels ----------------------------------------------------
+
+def _tower_operands(device, size, num_layers=7, total=5000, seed=0):
+    """Flat taps (each visibility on W consecutive layers, a tenth of
+    them inactive) and a plane geometry at sub-grid size ``size``."""
+    rng = np.random.default_rng(seed)
+    s_, w_ = 8, 4
+    iu0 = rng.integers(0, size - s_ + 1, total)
+    iv0 = rng.integers(0, size - s_ + 1, total)
+    j = rng.integers(0, num_layers - w_ + 1, total)
+    weights = np.zeros((total, num_layers), np.float32)
+    for layer in range(w_):
+        weights[np.arange(total), j + layer] = rng.uniform(0.1, 1, total)
+    weights[rng.random(total) < 0.1] = 0.0
+
+    def put(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    flat = dict(
+        iu0=put(iu0, torch.int32), iv0=put(iv0, torch.int32),
+        uk=put(rng.standard_normal((total, s_)), torch.float32),
+        vk=put(rng.standard_normal((total, s_)), torch.float32),
+        weights=put(weights, torch.float32),
+        vre=put(rng.standard_normal(total), torch.float32),
+        vim=put(rng.standard_normal(total), torch.float32),
+        layers=put(rng.standard_normal((num_layers, size, size))
+                   + 1j * rng.standard_normal((num_layers, size, size)),
+                   torch.complex64))
+    rows = total // 2
+    ov = 64
+    tables = (put(rng.uniform(0, 1, (ov + 1, s_)), torch.float32),
+              put(rng.uniform(0, 1, (ov + 1, w_)), torch.float32))
+    geom = (put(rng.random((rows, 2)) < 0.8, torch.bool),
+            put(iu0[:2 * rows].reshape(rows, 2), torch.int32),
+            put(iv0[:2 * rows].reshape(rows, 2), torch.int32),
+            put(rng.integers(0, ov + 1, (rows, 2)), torch.int64),
+            put(rng.integers(0, ov + 1, (rows, 2)), torch.int64),
+            put(rng.integers(0, ov + 1, (rows, 2)), torch.int64))
+    vis = put(rng.standard_normal((rows, 2))
+              + 1j * rng.standard_normal((rows, 2)), torch.complex64)
+    sub = put(rng.standard_normal((w_, size, size))
+              + 1j * rng.standard_normal((w_, size, size)), torch.complex64)
+    return flat, tables, geom, vis, sub
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+# 256 takes the kernel's global-atomic path (no shared-memory plane).
+@pytest.mark.parametrize("size", [32, 64, 128, 256])
+def test_tower_grid_kernels_match_plain(device, size):
+    f, tables, geom, vis, sub = _tower_operands(device, size)
+    k = f["weights"].shape[1]
+    args = (f["vre"], f["vim"], f["iu0"], f["iv0"], f["uk"], f["vk"],
+            f["weights"], k, size, 8)
+    before = tt.launch_counts()
+    got = tt.grid_all_layers(*args)
+    want = tt.grid_all_layers_reference(*args)
+    assert _rel(got, want) <= 1e-5
+    got = tt.grid_plane(sub, vis, *tables, geom, 8, 4)
+    want = tt.grid_plane_reference(sub, vis, *tables, geom, 8, 4)
+    torch.cuda.synchronize()
+    assert _rel(got - sub, want - sub) <= 1e-5
+    after = tt.launch_counts()
+    assert after["grid_all_layers"] == before["grid_all_layers"] + 1
+    assert after["grid_plane"] == before["grid_plane"] + 1
+
+
+@pytest.mark.parametrize("size", [32, 64, 128, 256])
+def test_tower_degrid_kernels_match_plain(device, size):
+    f, tables, geom, _, sub = _tower_operands(device, size, seed=1)
+    args = (f["layers"], f["iu0"], f["iv0"], f["uk"], f["vk"],
+            f["weights"], 8)
+    before = tt.launch_counts()
+    assert _rel(tt.degrid_all_layers(*args),
+                tt.degrid_all_layers_reference(*args)) <= 1e-5
+    got = tt.degrid_plane(sub, *tables, geom, 8, 4)
+    want = tt.degrid_plane_reference(sub, *tables, geom, 8, 4)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 1e-5
+    after = tt.launch_counts()
+    assert after["degrid_all_layers"] == before["degrid_all_layers"] + 1
+    assert after["degrid_plane"] == before["degrid_plane"] + 1
+
+
+def test_wtower_c64_on_card_takes_fused_kernels(device):
+    """GridderWtowerUVW on complex64 CUDA data launches the all-layer
+    kernels and agrees with the CPU port, which runs the per-plane form
+    of the same operator."""
+    uvw, ch, image = wtower_scenario()
+    rows = uvw.shape[0]
+    st, en = np.zeros(rows, np.int32), np.full(rows, ch, np.int32)
+    out = {}
+    for dev in ("cpu", device):
+        plan = tw.GridderWtowerUVW(**WTOWER_PARAMS)
+        args = [torch.as_tensor(a, device=dev) for a in (uvw, st, en)]
+        vis = plan.degrid_subgrid(
+            torch.as_tensor(image, dtype=torch.complex64, device=dev),
+            (10, -6, 1), ch, C_0, C_0 / 100, *args,
+            torch.zeros((rows, ch), dtype=torch.complex64, device=dev))
+        before = tt.launch_counts()
+        sub = plan.grid_subgrid(
+            vis, *args, ch, C_0, C_0 / 100,
+            torch.zeros((64, 64), dtype=torch.complex64, device=dev),
+            (10, -6, 1))
+        out[str(dev)] = vis.cpu(), sub.cpu(), before, tt.launch_counts()
+    (v0, s0, _, _), (v1, s1, b1, a1) = out["cpu"], out[str(device)]
+    assert _rel(v1, v0) <= 1e-5 and _rel(s1, s0) <= 1e-5
+    assert a1["grid_all_layers"] == b1["grid_all_layers"] + 1
+
+
+def test_task_drivers_on_card_launch_plane_kernels(device):
+    uvw, vis = make_inputs()
+    plan = plan_wstack(uvw, FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE, **PARAMS)
+    st = torch.zeros(uvw.shape[0], dtype=torch.int32)
+    en = torch.full((uvw.shape[0],), NUM_CHAN, dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", device):
+        u = torch.as_tensor(uvw, device=dev)
+        tt.reset_launch_counts()
+        img = grid_all_tasks(plan, plan.kernel(),
+                             torch.as_tensor(vis, device=dev), u,
+                             st.to(dev), en.to(dev)).real
+        # A bounded model: degridding the raw dirty image would read its
+        # 1/PSWF-amplified border.
+        pred = degrid_all_tasks(
+            plan, plan.kernel(),
+            torch.as_tensor(two_point_image(), dtype=torch.complex64,
+                            device=dev), u, st.to(dev), en.to(dev),
+            torch.complex64)
+        out[str(dev)] = img.cpu(), pred.cpu(), tt.launch_counts()
+    (i0, p0, c0), (i1, p1, c1) = out["cpu"], out[str(device)]
+    assert set(c0.values()) == {0}
+    assert c1["grid_plane"] > 0 and c1["degrid_plane"] > 0
+    k = plan.kernel()
+    taper = 1.0 / grid_correct_pswf(
+        k.image_size, k.theta, k.w_step, k.shear_u, k.shear_v, k.support,
+        k.w_support, torch.ones(k.image_size, k.image_size))
+    assert _rel(i1 * taper, i0 * taper) <= 1e-5
+    assert _rel(p1, p0) <= 1e-5

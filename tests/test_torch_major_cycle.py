@@ -1,9 +1,12 @@
-"""Hogbom minor cycle and the packed major-cycle solver against JAX.
+"""Hogbom minor cycle and the major-cycle solver against JAX: the packed
+path (``bucketed=True``), the task drivers (``bucketed=False``, the
+default) and the bucketed fallback (``bucketed=True`` on a 32^2
+sub-grid, which the packed path cannot take).
 
 Tolerances: minor-cycle model 1e-5 of the dirty peak (same f32 update
 arithmetic and first-maximum argmax, so the same components in the same
-order); whole solve 1e-4 of the model peak (three major cycles of
-grid/degrid at f32 reassociation level feeding the argmax).
+order); whole solve 1e-4 of the model peak (major cycles of grid/degrid
+at f32 reassociation level feeding the argmax).
 """
 
 import numpy as np
@@ -21,6 +24,7 @@ from ska_sdp_func_torch.parallel import plan_wstack as t_plan_wstack  # noqa
 from ska_sdp_func_torch.pipeline import major_cycle as tmc  # noqa: E402
 from ska_sdp_func_tpu.clean import hogbom as jhog  # noqa: E402
 from ska_sdp_func_tpu.parallel import plan_wstack as j_plan_wstack  # noqa
+from ska_sdp_func_tpu.parallel import wstack as jpw  # noqa: E402
 from ska_sdp_func_tpu.parallel.packed import (  # noqa: E402
     packed_gridder as j_gridder,
     plan_packed as j_plan_packed,
@@ -129,7 +133,6 @@ def test_major_cycle_weights_match_jax():
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(bucketed=False), "item 10"),
     (dict(bucketed=True, mesh=object()), "item 15"),
     (dict(bucketed=True, clean_algorithm="msclean"), "item 13"),
     (dict(bucketed=True, checkpoint_path="x.npz"), "item 13"),
@@ -139,3 +142,76 @@ def test_unported_branches_raise(kwargs, item):
     tplan = t_plan_wstack(uvw, FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE, **PARAMS)
     with pytest.raises(NotImplementedError, match=item):
         tmc.major_cycle_imager(tplan, vis, uvw, **kwargs)
+
+
+# A 32^2 sub-grid scenario (test_torch_wstack_drivers.py's geometry).
+SMALL_PARAMS = dict(PARAMS, subgrid_size=32)
+SMALL_IMAGE, SMALL_ROWS = 64, 60
+SMALL_SRC = (SMALL_IMAGE // 2 + 6, SMALL_IMAGE // 2 - 5)
+
+
+@pytest.fixture(scope="module")
+def small():
+    """A point source (flux 1) predicted with JAX's task drivers."""
+    rng = np.random.default_rng(5)
+    uvw = rng.uniform(-1, 1, (SMALL_ROWS, 3))
+    uvw[:, :2] *= 0.3 * SMALL_IMAGE / 2 / PARAMS["theta"]
+    uvw[:, 2] *= PARAMS["w_step"] * PARAMS["w_tower_height"]
+    jplan = j_plan_wstack(uvw, FREQ0, DFREQ, NUM_CHAN, SMALL_IMAGE,
+                          **SMALL_PARAMS)
+    img = np.zeros((SMALL_IMAGE, SMALL_IMAGE), np.complex64)
+    img[SMALL_SRC] = 1.0
+    st = jnp.zeros((SMALL_ROWS,), jnp.int32)
+    en = jnp.full((SMALL_ROWS,), NUM_CHAN, jnp.int32)
+    vis = np.asarray(jpw.degrid_all_tasks(
+        jplan, jplan.kernel(), jnp.asarray(img), jnp.asarray(uvw), st, en,
+        jnp.complex64))
+    tplan = t_plan_wstack(uvw, FREQ0, DFREQ, NUM_CHAN, SMALL_IMAGE,
+                          **SMALL_PARAMS)
+    weights = np.random.default_rng(8).uniform(0.5, 1.5, vis.shape)
+    return dict(uvw=uvw, vis=vis, jplan=jplan, tplan=tplan, weights=weights)
+
+
+def _solve_pair(small, **kw):
+    kw = dict(n_major=2, cycle_limit=200, **kw)
+    w = kw.pop("weights", None)
+    jres = jmc.major_cycle_imager(
+        small["jplan"], jnp.asarray(small["vis"]), jnp.asarray(small["uvw"]),
+        weights=None if w is None else jnp.asarray(w), **kw)
+    tres = tmc.major_cycle_imager(small["tplan"], small["vis"],
+                                  small["uvw"], weights=w, **kw)
+    return np.asarray(jres.model), tres
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_major_cycle_task_drivers_match_jax(small, weighted):
+    """bucketed=False (the default): the per-task drivers."""
+    j_model, tres = _solve_pair(
+        small, weights=small["weights"] if weighted else None)
+    t_model = tres.model.numpy()
+    assert t_model.dtype == np.float32
+    assert np.abs(t_model - j_model).max() <= 1e-4 * np.abs(j_model).max()
+    assert t_model[SMALL_SRC] > 0.5
+
+
+def test_major_cycle_bucketed_fallback_matches_jax(small):
+    """bucketed=True on a 32^2 sub-grid takes the bucketed per-task
+    fallback in both packages."""
+    j_model, tres = _solve_pair(small, bucketed=True)
+    t_model = tres.model.numpy()
+    assert np.abs(t_model - j_model).max() <= 1e-4 * np.abs(j_model).max()
+    assert tres.model.abs().argmax() == np.abs(j_model).argmax()
+
+
+def test_major_cycle_stage_report(small, monkeypatch):
+    """verbosity=1 logs the solver's stage report, one line each."""
+    lines = []
+    monkeypatch.setattr(tmc, "log_info",
+                        lambda fmt, *args: lines.append(fmt % args))
+    tmc.major_cycle_imager(small["tplan"], small["vis"], small["uvw"],
+                           n_major=1, bucketed=True, cycle_limit=20,
+                           verbosity=1)
+    assert lines[0].startswith("major_cycle_imager (")
+    for stage in ("planning", "psf grid + sort", "degrid predict",
+                  "grid residual", "minor cycle", "restore"):
+        assert any(f"+- {stage}:" in line for line in lines)
