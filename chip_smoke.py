@@ -15,8 +15,9 @@ line of output each (or a few), failing loudly on the first fault:
    the w-towers tap kernels (K14-K17), each on the small test scenario
    and at the shapes of the main paths below;
 4. main paths, each driven with the launch counters set to 0 just before
-   it and read just after:
-   a. the packed path at the bench scenario (512^2 image, 128^2
+   it and read just after; each path must launch its own kernels and
+   none of another path's:
+   a. the packed path (K1, K2) at the bench scenario (512^2 image, 128^2
       sub-grids, 16384 rows x 64 channels = 1,048,576 visibilities,
       seed 1): ``plan_wstack`` -> ``plan_packed`` ->
       ``packed_gridder(device=cuda)``, ``grid_sorted``, ``degrid_sorted``
@@ -24,21 +25,32 @@ line of output each (or a few), failing loudly on the first fault:
       iterations; the kernel-path dirty image against the plain-path
       image on the card, and a small point-source solve against the CPU
       port;
-   b. the w-towers path at the same data with 64^2 sub-grids (a geometry
-      the packed path cannot take): ``plan_wstack`` -> ``plan_bucketed``,
-      ``grid_all_bucketed``, ``degrid_all_bucketed`` of a unit point and
-      two ``major_cycle_imager(bucketed=True)`` iterations, which take
-      the bucketed fallback; the kernel-path dirty image against the
-      plain path on the card. Then, at stated reduced row counts (these
-      paths stream every visibility through every task):
-      ``GridderWtowerUVW.degrid_subgrid`` / ``grid_subgrid`` on
-      complex64 with an adjointness check and against the CPU port,
-      ``wstack_wtower_{degrid,grid}_all(engine="reference")`` against
-      the bucketed drivers, and one ``major_cycle_imager(bucketed=False)``
-      point-source solve against the CPU port;
-5. times: grid, degrid and one major-cycle iteration of both paths at
-   the bench scenario, and each kernel beside its plain version at the
-   main paths' shapes.
+   b. the bucketed fallback (K16, K17) at the same data with 64^2
+      sub-grids (a geometry the packed path cannot take):
+      ``plan_wstack`` -> ``plan_bucketed``, ``grid_all_bucketed``,
+      ``degrid_all_bucketed`` of a unit point and two
+      ``major_cycle_imager(bucketed=True)`` iterations on that point's
+      visibilities; each held against the same calls on the plain path
+      on the card;
+   c. the task drivers (K14, K15) at the same full width:
+      ``grid_all_tasks``, ``degrid_all_tasks`` and a one-cycle
+      ``major_cycle_imager(bucketed=False)`` solve (the default) of the
+      unit point, each
+      timed and held against the plain path on the card, and against
+      the bucketed fallback's image and visibilities;
+   d. the sub-grid gridder (K16, K17): ``GridderWtowerUVW``
+      ``degrid_subgrid`` / ``grid_subgrid`` on complex64 on a 336-row
+      sub-grid scenario, with an adjointness check and against the CPU
+      port;
+   e. the reference-API whole-image drivers (K16, K17) at REF_ROWS bench
+      rows: ``wstack_wtower_{degrid,grid}_all(engine="reference")``
+      against the bucketed drivers; then a small
+      ``major_cycle_imager(bucketed=False)`` point-source solve against
+      the CPU port;
+5. times: grid, degrid and one major-cycle iteration of the packed path
+   and the fallback at the bench scenario, the task drivers' calls of
+   4c, and each kernel beside its plain version at the main paths'
+   shapes.
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -61,9 +73,9 @@ THETA, W_STEP, HEIGHT = 0.002, 100.0, 4.0
 ROWS, CHANS = 16384, 64
 # The w-towers path: the same data on 64^2 sub-grids.
 TOWER_SUBGRID = 64
-# Reduced row counts of the O(tasks x V) paths: the reference-API
-# drivers take the first REF_ROWS bench rows; the sub-grid gridder and
-# the task-driver solve use their own small scenarios (below).
+# The reference-API whole-image drivers (a host sync per sub-grid and
+# every visibility through every sub-grid) take the first REF_ROWS bench
+# rows; the sub-grid gridder uses its own scenario (below).
 REF_ROWS = 256
 # The small test scenario (tests/_torch_scenario.py).
 SMALL = dict(image=256, rows=150, chans=2, w_step=50.0, seed=5)
@@ -298,16 +310,59 @@ def check_tower_kernels(torch, tt, ops, label):
 
 
 @contextlib.contextmanager
-def plain_all_layers(bk, tt):
-    """The bucketed drivers on the all-layer kernels' plain versions
-    (the plain path the kernel path is held against)."""
-    saved = bk.grid_all_layers, bk.degrid_all_layers
+def plain_tower_kernels(bk, tt):
+    """The w-towers drivers on the four tap kernels' plain versions (the
+    plain path the kernel path is held against). The bucketed drivers
+    import the all-layer wrappers by name; the sub-grid gridder reaches
+    all four through ``tower_tap``."""
+    names = [n for n, _ in TOWER_KERNELS]
+    saved = ([getattr(tt, n) for n in names], bk.grid_all_layers,
+             bk.degrid_all_layers)
+    for n in names:
+        setattr(tt, n, getattr(tt, n + "_reference"))
     bk.grid_all_layers = tt.grid_all_layers_reference
     bk.degrid_all_layers = tt.degrid_all_layers_reference
     try:
         yield
     finally:
-        bk.grid_all_layers, bk.degrid_all_layers = saved
+        for n, f in zip(names, saved[0]):
+            setattr(tt, n, f)
+        bk.grid_all_layers, bk.degrid_all_layers = saved[1:]
+
+
+@contextlib.contextmanager
+def launch_window(torch, tkern, label, need, idle=()):
+    """Counts the kernel launches of one main path: zeroes the counters,
+    runs the block, reads them into the yielded dict. Fails if a kernel
+    in ``need`` was never launched, or one in ``idle`` was."""
+    counts = {}
+    torch.cuda.synchronize()
+    tkern.reset_launch_counts()
+    yield counts
+    torch.cuda.synchronize()
+    counts.update(tkern.launch_counts())
+    say(f"# {label} launches: {json.dumps(counts)}")
+    missing = [n for n in need if counts[n] < 1]
+    stray = [n for n in idle if counts[n] > 0]
+    if missing or stray:
+        raise SystemExit(f"{label}: kernels never launched {missing}, "
+                         f"launched off their path {stray}")
+
+
+def timed(torch, fn):
+    """(result, wall seconds) of one call, the card synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def solve_err(a, b, taper) -> float:
+    """Two solves apart: the larger of the model's relative error and the
+    final residual's, taper-weighted."""
+    return max(rel_err(a.model, b.model),
+               rel_err(a.residual * taper, b.residual * taper))
 
 
 def finite(torch, named):
@@ -336,7 +391,9 @@ def main() -> int:
     from ska_sdp_func_torch.parallel import (
         PackedGridder,
         degrid_all_bucketed,
+        degrid_all_tasks,
         grid_all_bucketed,
+        grid_all_tasks,
         inverse_index_of,
         packed_gridder,
         plan_bucketed,
@@ -421,20 +478,17 @@ def main() -> int:
 
     # 4a. packed main path ---------------------------------------------
     g = packed_gridder(pplan, device=dev)
-    torch.cuda.synchronize()
-    tkern.reset_launch_counts()
-    vre, vim = g.sort(vis)
-    img = g.grid_sorted(vre, vim)
     model = torch.zeros((IMAGE, IMAGE), dtype=torch.float32, device=dev)
     model[300, 200] = 1.0
-    pred = g.degrid_sorted(model)
-    res = major_cycle_imager(plan, vis, uvw, n_major=2, bucketed=True,
-                             device=dev)
-    torch.cuda.synchronize()
-    launches = tkern.launch_counts()
-    say(f"# packed path launches: {json.dumps(launches)}")
-    if min(launches["grid_packed_stack"], launches["degrid_stack"]) < 1:
-        raise SystemExit("a kernel of the packed path was never launched")
+    tower_names = [n for n, _ in TOWER_KERNELS]
+    with launch_window(torch, tkern, "packed path",
+                       ("grid_packed_stack", "degrid_stack"),
+                       tower_names) as launches:
+        vre, vim = g.sort(vis)
+        img = g.grid_sorted(vre, vim)
+        pred = g.degrid_sorted(model)
+        res = major_cycle_imager(plan, vis, uvw, n_major=2, bucketed=True,
+                                 device=dev)
     finite(torch, (("dirty image", img), ("degrid", pred),
                    ("model", res.model), ("restored", res.restored)))
     if tuple(img.shape) != (IMAGE, IMAGE) or pred.shape[0] != pplan.total:
@@ -471,99 +525,150 @@ def main() -> int:
     if not (e_mc <= 1e-4 and abs(flux - 1.0) < 0.05):
         raise SystemExit("the point-source solve disagrees")
 
-    # 4b. w-towers path --------------------------------------------------
-    torch.cuda.synchronize()
-    tkern.reset_launch_counts()
-    t_img = grid_all_bucketed(bplan, vis_dev, uvw_dev, sort_index, valid)
-    t_pred = degrid_all_bucketed(bplan, model, uvw_dev, sort_index, valid,
-                                 inv)
-    t_res = major_cycle_imager(tplan, vis, uvw, n_major=2, bucketed=True,
-                               device=dev)
-    # Reduced rows: the sub-grid gridder on complex64.
+    # 4b. w-towers path, bucketed fallback, full width -----------------
+    with launch_window(torch, tkern, "bucketed fallback",
+                       ("grid_all_layers", "degrid_all_layers"),
+                       ("grid_plane", "degrid_plane")) as fb_launches:
+        t_img = grid_all_bucketed(bplan, vis_dev, uvw_dev, sort_index,
+                                  valid)
+        t_pred = degrid_all_bucketed(bplan, model, uvw_dev, sort_index,
+                                     valid, inv)
+        # The solve images the unit point's visibilities: on the noise
+        # of the bench data CLEAN's argmax meets near-ties, and a
+        # 1e-7 difference between two sum orders then picks another
+        # component.
+        t_res = major_cycle_imager(tplan, t_pred, uvw, n_major=2,
+                                   bucketed=True, device=dev)
+    finite(torch, (("tower dirty image", t_img), ("tower degrid", t_pred),
+                   ("tower model", t_res.model),
+                   ("tower restored", t_res.restored)))
+    if tuple(t_img.shape) != (IMAGE, IMAGE) or \
+            tuple(t_pred.shape) != (ROWS, CHANS):
+        raise SystemExit("w-towers outputs have the wrong shape")
+    with plain_tower_kernels(bk, tt):
+        t_img_plain = grid_all_bucketed(bplan, vis_dev, uvw_dev, sort_index,
+                                        valid)
+        t_pred_plain = degrid_all_bucketed(bplan, model, uvw_dev,
+                                           sort_index, valid, inv)
+        t_res_plain = major_cycle_imager(tplan, t_pred, uvw, n_major=2,
+                                         bucketed=True, device=dev)
+    e_timg = rel_err(t_img * taper, t_img_plain * taper)
+    e_tpred = rel_err(t_pred, t_pred_plain)
+    e_tres = solve_err(t_res, t_res_plain, taper)
+    flux = float(t_res.model[300, 200])
+    say(f"# fallback, kernel vs plain path: dirty image taper-weighted rel "
+        f"err {e_timg:.3e}, degrid rel err {e_tpred:.3e}, two major cycles "
+        f"of the unit point (model, taper-weighted residual) rel err "
+        f"{e_tres:.3e} (tolerance {TOL:g}); recovered flux {flux:.4f}, "
+        f"peaks {t_res.peak_history}")
+    if not (e_timg <= TOL and e_tpred <= TOL and e_tres <= TOL
+            and abs(flux - 1.0) < 0.05):
+        raise SystemExit("the bucketed fallback disagrees with the plain "
+                         "path")
+
+    # 4c. w-towers path, task drivers (bucketed=False), full width -------
+    st = torch.zeros((ROWS,), dtype=torch.int32, device=dev)
+    en = torch.full((ROWS,), CHANS, dtype=torch.int32, device=dev)
+
+    def task_drivers():
+        d_img, s_grid = timed(torch, lambda: grid_all_tasks(
+            tplan, tplan.kernel(), vis_dev, uvw_dev, st, en).real)
+        d_pred, s_degrid = timed(torch, lambda: degrid_all_tasks(
+            tplan, tplan.kernel(), model, uvw_dev, st, en, torch.complex64))
+        d_res, s_solve = timed(torch, lambda: major_cycle_imager(
+            tplan, t_pred, uvw, n_major=1, device=dev))
+        return d_img, d_pred, d_res, (s_grid, s_degrid, s_solve)
+
+    with launch_window(torch, tkern, "task drivers",
+                       ("grid_plane", "degrid_plane"),
+                       ("grid_all_layers", "degrid_all_layers")
+                       ) as td_launches:
+        d_img, d_pred, d_res, td_s = task_drivers()
+    finite(torch, (("task-driver image", d_img),
+                   ("task-driver degrid", d_pred),
+                   ("task-driver model", d_res.model)))
+    with plain_tower_kernels(bk, tt):
+        d_img_p, d_pred_p, d_res_p, td_plain_s = task_drivers()
+    e_dimg = rel_err(d_img * taper, d_img_p * taper)
+    e_dpred = rel_err(d_pred, d_pred_p)
+    e_dres = solve_err(d_res, d_res_p, taper)
+    flux = float(d_res.model[300, 200])
+    # The two formulations of one operator: O(tasks x V) and bucketed.
+    e_dfb = max(rel_err(d_img * taper, t_img * taper),
+                rel_err(d_pred, t_pred))
+    say(f"# task drivers ({len(tplan.tasks)} tasks, "
+        f"{sum(t.num_planes for t in tplan.tasks)} planes), kernel vs plain "
+        f"path: dirty image taper-weighted rel err {e_dimg:.3e}, degrid rel "
+        f"err {e_dpred:.3e}, one major cycle of the unit point (model, "
+        f"taper-weighted residual) rel err {e_dres:.3e} (tolerance "
+        f"{TOL:g}), component flux {flux:.4f}; vs the bucketed fallback "
+        f"{e_dfb:.3e} (tolerance 1e-4)")
+    if not (e_dimg <= TOL and e_dpred <= TOL and e_dres <= TOL
+            and e_dfb <= 1e-4 and flux > 0.5):
+        raise SystemExit("the task drivers disagree")
+
+    # 4d. the sub-grid gridder (reference API), complex64 ----------------
     uvw_g, ch_g, img_g = subgrid_inputs()
     rows_g = uvw_g.shape[0]
     kern_g = GridderWtowerUVW(IMAGE, TOWER_SUBGRID, THETA, W_STEP, 0.0, 0.0,
                               8, 16384, 4, 16384)
     st_g = np.zeros(rows_g, np.int32)
     en_g = np.full(rows_g, ch_g, np.int32)
-    sub_out = {}
-    for d in (dev, torch.device("cpu")):
+
+    def subgrid_pair(d):
         args = [torch.as_tensor(a, device=d) for a in (uvw_g, st_g, en_g)]
         x = torch.as_tensor(img_g, device=d)
-        ax = kern_g.degrid_subgrid(x, (10, -6, 1), ch_g, C_0, C_0 / 100,
-                                   *args)
+        # The vis template sets the precision (without one it follows
+        # uvw's f64, the complex128 path).
+        ax = kern_g.degrid_subgrid(
+            x, (10, -6, 1), ch_g, C_0, C_0 / 100, *args,
+            vis=torch.zeros((rows_g, ch_g), dtype=torch.complex64, device=d))
         rng = np.random.default_rng(3)
         v = torch.as_tensor((rng.standard_normal((rows_g, ch_g))
                              + 1j * rng.standard_normal((rows_g, ch_g))
                              ).astype(np.complex64), device=d)
-        atv = kern_g.grid_subgrid(
-            v, *args, ch_g, C_0, C_0 / 100,
-            torch.zeros_like(x), (10, -6, 1))
-        sub_out[d.type] = (ax.cpu(), atv.cpu(), v.cpu(), x.cpu())
-    # Reduced rows: the reference-API whole-image drivers.
-    uvw_r = uvw[:REF_ROWS]
-    geom = dict(subgrid_size=TOWER_SUBGRID, theta=THETA, w_step=W_STEP,
-                shear_u=0.0, shear_v=0.0, support=8, oversampling=16384,
-                w_support=4, w_oversampling=16384, subgrid_frac=2.0 / 3.0,
-                w_tower_height=HEIGHT)
-    ref_vis = wstack_wtower_degrid_all(
-        model, C_0, C_0 / (100 * CHANS), torch.as_tensor(uvw_r, device=dev),
-        vis=torch.zeros((REF_ROWS, CHANS), dtype=torch.complex64,
-                        device=dev), **geom)
-    ref_img = wstack_wtower_grid_all(
-        vis_dev[:REF_ROWS], C_0, C_0 / (100 * CHANS),
-        torch.as_tensor(uvw_r, device=dev),
-        image=torch.zeros((IMAGE, IMAGE), device=dev), **geom)
-    # Reduced rows: one task-driver solve of a point source.
-    plan_ts = plan_wstack(uvw_s, C_0, C_0 / 100, SMALL["chans"],
-                          SMALL["image"], TOWER_SUBGRID, THETA,
-                          SMALL["w_step"], support=8, w_support=4,
-                          w_tower_height=HEIGHT)
-    r_tgpu = major_cycle_imager(plan_ts, vis_pt, uvw_s, n_major=1,
-                                device=dev)
-    torch.cuda.synchronize()
-    t_launches = tkern.launch_counts()
-    say(f"# w-towers path launches: {json.dumps(t_launches)}")
-    missing = [n for n, _ in TOWER_KERNELS if t_launches[n] < 1]
-    if missing:
-        raise SystemExit(f"w-towers kernels never launched: {missing}")
+        atv = kern_g.grid_subgrid(v, *args, ch_g, C_0, C_0 / 100,
+                                  torch.zeros_like(x), (10, -6, 1))
+        return ax.cpu(), atv.cpu(), v.cpu(), x.cpu()
 
-    finite(torch, (("tower dirty image", t_img), ("tower degrid", t_pred),
-                   ("tower model", t_res.model),
-                   ("tower restored", t_res.restored),
-                   ("reference-engine vis", ref_vis),
-                   ("reference-engine image", ref_img)))
-    if tuple(t_img.shape) != (IMAGE, IMAGE) or \
-            tuple(t_pred.shape) != (ROWS, CHANS):
-        raise SystemExit("w-towers outputs have the wrong shape")
-    with plain_all_layers(bk, tt):
-        t_img_plain = grid_all_bucketed(bplan, vis_dev, uvw_dev, sort_index,
-                                        valid)
-        t_pred_plain = degrid_all_bucketed(bplan, model, uvw_dev,
-                                           sort_index, valid, inv)
-    e_timg = rel_err(t_img * taper, t_img_plain * taper)
-    e_tpred = rel_err(t_pred, t_pred_plain)
-    say(f"# tower dirty image, kernel vs plain path: taper-weighted rel err "
-        f"{e_timg:.3e}; degrid rel err {e_tpred:.3e} (tolerance {TOL:g}); "
-        f"fallback major-cycle peaks {t_res.peak_history}")
-    if not (e_timg <= TOL and e_tpred <= TOL):
-        raise SystemExit("w-towers kernel path disagrees with the plain path")
-    ax, atv, v, x = sub_out["cuda"]
+    with launch_window(torch, tkern, "sub-grid gridder",
+                       ("grid_all_layers", "degrid_all_layers"),
+                       ("grid_plane", "degrid_plane")):
+        ax, atv, v, x = subgrid_pair(dev)
+    ax_cpu, atv_cpu, _, _ = subgrid_pair(torch.device("cpu"))
     lhs, rhs = complex(np.vdot(v.numpy(), ax.numpy())), \
         complex(np.vdot(atv.numpy(), x.numpy()))
     e_adj = abs(lhs - rhs) / abs(lhs)
-    e_sub = max(rel_err(ax, sub_out["cpu"][0]),
-                rel_err(atv, sub_out["cpu"][1]))
+    e_sub = max(rel_err(ax, ax_cpu), rel_err(atv, atv_cpu))
     say(f"# sub-grid gridder ({rows_g} rows x {ch_g} channels, complex64): "
         f"adjointness rel err {e_adj:.3e} (tolerance 1e-4), card vs CPU "
         f"rel err {e_sub:.3e} (tolerance 1e-4)")
     if not (e_adj <= 1e-4 and e_sub <= 1e-4):
         raise SystemExit("the sub-grid gridder disagrees")
+
+    # 4e. the reference-API whole-image drivers, reduced rows ------------
+    uvw_r = uvw[:REF_ROWS]
+    uvw_rd = torch.as_tensor(uvw_r, device=dev)
+    geom = dict(subgrid_size=TOWER_SUBGRID, theta=THETA, w_step=W_STEP,
+                shear_u=0.0, shear_v=0.0, support=8, oversampling=16384,
+                w_support=4, w_oversampling=16384, subgrid_frac=2.0 / 3.0,
+                w_tower_height=HEIGHT)
+    with launch_window(torch, tkern, "reference engine",
+                       ("grid_all_layers", "degrid_all_layers"),
+                       ("grid_plane", "degrid_plane")):
+        ref_vis = wstack_wtower_degrid_all(
+            model, C_0, C_0 / (100 * CHANS), uvw_rd,
+            vis=torch.zeros((REF_ROWS, CHANS), dtype=torch.complex64,
+                            device=dev), **geom)
+        ref_img = wstack_wtower_grid_all(
+            vis_dev[:REF_ROWS], C_0, C_0 / (100 * CHANS), uvw_rd,
+            image=torch.zeros((IMAGE, IMAGE), device=dev), **geom)
+    finite(torch, (("reference-engine vis", ref_vis),
+                   ("reference-engine image", ref_img)))
     ref_plan = plan_wstack(uvw_r, C_0, C_0 / (100 * CHANS), CHANS, IMAGE,
                            TOWER_SUBGRID, THETA, W_STEP, support=8,
                            w_support=4, w_tower_height=HEIGHT)
     b_r, s_r, v_r = plan_bucketed(ref_plan, uvw_r)
-    uvw_rd = torch.as_tensor(uvw_r, device=dev)
     b_vis = degrid_all_bucketed(b_r, model, uvw_rd, s_r, v_r,
                                 inverse_index_of(s_r, v_r, REF_ROWS * CHANS))
     b_img = grid_all_bucketed(b_r, vis_dev[:REF_ROWS], uvw_rd, s_r, v_r)
@@ -574,6 +679,14 @@ def main() -> int:
         f"rel err {e_rimg:.3e} (tolerance 1e-4: two f32 formulations)")
     if not (e_rvis <= 1e-4 and e_rimg <= 1e-4):
         raise SystemExit("the reference engine disagrees")
+
+    # A point source through the task-driver solve: card vs CPU port.
+    plan_ts = plan_wstack(uvw_s, C_0, C_0 / 100, SMALL["chans"],
+                          SMALL["image"], TOWER_SUBGRID, THETA,
+                          SMALL["w_step"], support=8, w_support=4,
+                          w_tower_height=HEIGHT)
+    r_tgpu = major_cycle_imager(plan_ts, vis_pt, uvw_s, n_major=1,
+                                device=dev)
     r_tcpu = major_cycle_imager(plan_ts, vis_pt, uvw_s, n_major=1)
     e_tmc = rel_err(r_tgpu.model.cpu(), r_tcpu.model)
     flux = float(r_tgpu.model[src])
@@ -633,6 +746,11 @@ def main() -> int:
         f"{num_vis / tt_degrid / 1e3:.2f} Mvis/s ({tt_degrid:.3f} ms), "
         f"major cycle {1e3 / tt_mc:.3f} iters/s ({tt_mc:.3f} ms; minor "
         f"cycle 50 components)")
+    say(f"# [{gpu}] task drivers ({len(tplan.tasks)} tasks, one call each "
+        f"at full width): grid {td_s[0]:.3f} s, degrid {td_s[1]:.3f} s, "
+        f"one-cycle solve (PSF grid, degrid, grid) {td_s[2]:.3f} s; plain "
+        f"path {td_plain_s[0]:.3f} s, {td_plain_s[1]:.3f} s, "
+        f"{td_plain_s[2]:.3f} s")
 
     grid_args, degrid_args = kernel_operands(torch, g, pplan, dev, 12)
     bv = pplan.block_v
@@ -677,7 +795,9 @@ def main() -> int:
              plain_ms=times["degrid_stack"][1]),
     ] + [
         dict(name=name, route="cuda", source=TOWER_SOURCE, replaces=where,
-             launches=t_launches[name], max_abs_err=tower_err[name],
+             launches=(td_launches if name.endswith("plane")
+                       else fb_launches)[name],
+             max_abs_err=tower_err[name],
              ms=times[name][0], plain_ms=times[name][1])
         for name, where in TOWER_KERNELS]
     say(json.dumps({"kernels": kernels}))

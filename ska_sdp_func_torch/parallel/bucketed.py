@@ -21,6 +21,7 @@ yet (ROADMAP Queue 1 item 15).
 """
 
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Tuple
 
 import numpy as np
@@ -192,55 +193,45 @@ def _task_taps(taps, task: BucketedTask):
             weights[sl, :task.num_layers].contiguous())
 
 
-_CONST_CACHE: dict = {}
-_CONST_CACHE_MAX = 4
-
-
-def _device_constants(bplan: BucketedPlan, device):
-    """Per-plan constants on ``device`` (LRU-cached, as the JAX package's
+@lru_cache(maxsize=4)
+def _device_constants(bplan: BucketedPlan, device: torch.device):
+    """Per-plan constants on ``device`` (cached, as the JAX package's
     traced constants are): the per-slot task terms of
     :func:`_stream_taps`, and per task the w-pattern power ladders of
     its tower drain (``w_pattern ** (first + Sw//2 - Sw + k)``) and fill
     (``w_pattern ** -(first - Sw//2 + k)``), computed on the host in
     complex128 as in the JAX package and kept as complex64."""
-    key = (bplan, str(device))
-    consts = _CONST_CACHE.pop(key, None)
-    if consts is None:
-        plan = bplan.plan
-        sizes = [t.size for t in bplan.tasks]
+    plan = bplan.plan
+    sizes = [t.size for t in bplan.tasks]
 
-        def per_slot(values, dtype):
-            return torch.as_tensor(np.repeat(np.asarray(values, dtype),
-                                             sizes), device=device)
+    def per_slot(values, dtype):
+        return torch.as_tensor(np.repeat(np.asarray(values, dtype), sizes),
+                               device=device)
 
-        terms = (
-            per_slot([t.iu * plan.eff_sg_size / plan.theta
-                      for t in bplan.tasks], np.float64),
-            per_slot([t.iv * plan.eff_sg_size / plan.theta
-                      for t in bplan.tasks], np.float64),
-            per_slot([int(t.iw * plan.w_tower_height) * plan.w_step
-                      for t in bplan.tasks], np.float64),
-            per_slot([t.first_w_plane for t in bplan.tasks], np.int32),
-            per_slot([t.num_layers for t in bplan.tasks], np.int32))
-        pattern = plan.kernel().w_pattern[None]
-        sw = plan.w_support
-        grid_ladders, degrid_ladders = [], []
-        for task in bplan.tasks:
-            k = np.arange(task.num_layers)
-            exps = (task.first_w_plane + sw // 2 - sw + k).astype(np.float32)
-            grid_ladders.append(torch.as_tensor(
-                (pattern ** exps[:, None, None]).astype(np.complex64),
-                device=device))
-            exps = (task.first_w_plane - sw // 2 + k).astype(np.float32)
-            degrid_ladders.append(torch.as_tensor(
-                (pattern ** (-exps[:, None, None])).astype(np.complex64),
-                device=device))
-        consts = dict(terms=terms, grid_ladders=grid_ladders,
-                      degrid_ladders=degrid_ladders)
-    _CONST_CACHE[key] = consts
-    while len(_CONST_CACHE) > _CONST_CACHE_MAX:
-        _CONST_CACHE.pop(next(iter(_CONST_CACHE)))
-    return consts
+    terms = (
+        per_slot([t.iu * plan.eff_sg_size / plan.theta
+                  for t in bplan.tasks], np.float64),
+        per_slot([t.iv * plan.eff_sg_size / plan.theta
+                  for t in bplan.tasks], np.float64),
+        per_slot([int(t.iw * plan.w_tower_height) * plan.w_step
+                  for t in bplan.tasks], np.float64),
+        per_slot([t.first_w_plane for t in bplan.tasks], np.int32),
+        per_slot([t.num_layers for t in bplan.tasks], np.int32))
+    pattern = plan.kernel().w_pattern[None]
+    sw = plan.w_support
+    grid_ladders, degrid_ladders = [], []
+    for task in bplan.tasks:
+        k = np.arange(task.num_layers)
+        exps = (task.first_w_plane + sw // 2 - sw + k).astype(np.float32)
+        grid_ladders.append(torch.as_tensor(
+            (pattern ** exps[:, None, None]).astype(np.complex64),
+            device=device))
+        exps = (task.first_w_plane - sw // 2 + k).astype(np.float32)
+        degrid_ladders.append(torch.as_tensor(
+            (pattern ** (-exps[:, None, None])).astype(np.complex64),
+            device=device))
+    return dict(terms=terms, grid_ladders=grid_ladders,
+                degrid_ladders=degrid_ladders)
 
 
 def _sorted_inputs(bplan: BucketedPlan, uvw, sort_index, valid):

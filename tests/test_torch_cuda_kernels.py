@@ -223,11 +223,11 @@ def test_wtower_c64_on_card_takes_fused_kernels(device):
     for dev in ("cpu", device):
         plan = tw.GridderWtowerUVW(**WTOWER_PARAMS)
         args = [torch.as_tensor(a, device=dev) for a in (uvw, st, en)]
+        before = tt.launch_counts()
         vis = plan.degrid_subgrid(
             torch.as_tensor(image, dtype=torch.complex64, device=dev),
             (10, -6, 1), ch, C_0, C_0 / 100, *args,
             torch.zeros((rows, ch), dtype=torch.complex64, device=dev))
-        before = tt.launch_counts()
         sub = plan.grid_subgrid(
             vis, *args, ch, C_0, C_0 / 100,
             torch.zeros((64, 64), dtype=torch.complex64, device=dev),
@@ -235,6 +235,7 @@ def test_wtower_c64_on_card_takes_fused_kernels(device):
         out[str(dev)] = vis.cpu(), sub.cpu(), before, tt.launch_counts()
     (v0, s0, _, _), (v1, s1, b1, a1) = out["cpu"], out[str(device)]
     assert _rel(v1, v0) <= 1e-5 and _rel(s1, s0) <= 1e-5
+    assert a1["degrid_all_layers"] == b1["degrid_all_layers"] + 1
     assert a1["grid_all_layers"] == b1["grid_all_layers"] + 1
 
 
