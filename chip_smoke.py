@@ -11,9 +11,11 @@ line of output each (or a few), failing loudly on the first fault:
 2. build: compiles the port's CUDA kernels from ``csrc/`` (one nvcc per
    source, in parallel; timed);
 3. kernels vs plain: each kernel against its plain PyTorch version on the
-   card: the packed kernels (K1, K2) in all three precision modes, and
-   the w-towers tap kernels (K14-K17), each on the small test scenario
-   and at the shapes of the main paths below;
+   card: the packed kernels (K1, K2) and the fused kernels (K3, K4) in all
+   three precision modes, the placement kernel (K5) bit for bit, and the
+   w-towers tap kernels (K14-K17), each on the small test scenario and at
+   the shapes of the main paths below (K3-K5 with the very arguments the
+   streaming path passes them);
 4. main paths, each driven with the launch counters set to 0 just before
    it and read just after; each path must launch its own kernels and
    none of another path's:
@@ -47,10 +49,21 @@ line of output each (or a few), failing loudly on the first fault:
       against the bucketed drivers; then a small
       ``major_cycle_imager(bucketed=False)`` point-source solve against
       the CPU port;
+   f. the device-planned streaming path (K3, K4, K5) on bench.py's dense
+      stream (the same rows and seed, 256 channels: 4,194,304
+      visibilities per chunk, block_v 1024, cap_factor 1.4):
+      ``stream_tasks`` -> ``plan_stream`` -> ``StreamingGridder`` with the
+      full chunk and a short chunk of its first SHORT_ROWS rows ->
+      ``finalize()``, and ``StreamingDegridder.set_model(unit point)`` ->
+      ``predict`` -> ``check()``; held against the same calls on the plain
+      path on the card and against the host-planned packed path;
+   g. the packed gridder's ``engine="fused"`` (K3, K4) at the bench
+      scenario, "highest" and "high", against the band engine;
 5. times: grid, degrid and one major-cycle iteration of the packed path
    and the fallback at the bench scenario, the task drivers' calls of
-   4c, and each kernel beside its plain version at the main paths'
-   shapes.
+   4c, streaming ingest and predict beside their plain paths, the fused
+   engine beside the band engine, and each kernel beside its plain
+   version at the main paths' shapes.
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -85,6 +98,19 @@ MODES = {"highest": dict(precision="highest"),
 TOL = 1e-5           # relative to max|reference| (f32 reordering only)
 PACKED_SOURCE = "ska_sdp_func_torch/kernels/csrc/packed_tap.cu"
 TOWER_SOURCE = "ska_sdp_func_torch/kernels/csrc/tower_tap.cu"
+# bench.py's dense stream: the bench rows and seed at 256 channels, one
+# chunk of 4,194,304 visibilities; then a short chunk of its first rows.
+STREAM_CHANS, STREAM_BLOCK_V, STREAM_CAP_FACTOR = 256, 1024, 1.4
+SHORT_ROWS = 12288
+# The streaming path's kernels: name, module, source, replaced TPU kernel.
+STREAM_KERNELS = (
+    ("grid_fused_stack", "fused_tap", "csrc/fused_tap.cu",
+     "ska_sdp_func_tpu/kernels/fused_tap.py:426"),
+    ("degrid_fused2_stack", "fused_tap", "csrc/fused_tap.cu",
+     "ska_sdp_func_tpu/kernels/fused_tap.py:924"),
+    ("place_stream", "place", "csrc/place.cu",
+     "ska_sdp_func_tpu/kernels/place.py:92"),
+)
 TOWER_KERNELS = (
     ("grid_plane", "ska_sdp_func_tpu/kernels/pallas_tap.py:147"),
     ("degrid_plane", "ska_sdp_func_tpu/kernels/pallas_tap.py:220"),
@@ -167,6 +193,21 @@ def subgrid_inputs():
     image[16, 16] = 1.0
     image[53, 21] = 0.5
     return uvw, 3, image
+
+
+def stream_inputs():
+    """bench.py's dense stream: the bench rows, the same draws in the same
+    order (the two 64-channel planes skipped), 256 channels."""
+    rng = np.random.default_rng(1)
+    uvw = rng.uniform(-1, 1, (ROWS, 3))
+    uvw[:, :2] *= 0.45 * IMAGE / 2 / THETA
+    uvw[:, 2] *= 1.5 * W_STEP * HEIGHT
+    rng.standard_normal((ROWS, CHANS))
+    rng.standard_normal((ROWS, CHANS))
+    vis = (rng.standard_normal((ROWS, STREAM_CHANS))
+           + 1j * rng.standard_normal((ROWS, STREAM_CHANS))
+           ).astype(np.complex64)
+    return uvw, vis
 
 
 def kernel_operands(torch, g, pplan, dev, seed):
@@ -331,6 +372,83 @@ def plain_tower_kernels(bk, tt):
 
 
 @contextlib.contextmanager
+def plain_stream_kernels(record=None):
+    """The streaming path and the fused engine on the plain versions of
+    K3, K4 and K5 (the plain path the kernel path is held against). With
+    ``record``, each call's arguments are appended under the kernel's
+    name: the very operands the path passes its kernels."""
+    from ska_sdp_func_torch.kernels import fused_tap, place
+
+    swaps = [(fused_tap, name) for name, mod, _, _ in STREAM_KERNELS
+             if mod == "fused_tap"] + [(place, "place_stream")]
+    saved = [getattr(m, n) for m, n in swaps]
+
+    def plain_of(name, ref):
+        def plain(*args, **kw):
+            if record is not None:
+                record.setdefault(name, []).append((args, kw))
+            return ref(*args, **kw)
+        return plain
+
+    for m, n in swaps:
+        setattr(m, n, plain_of(n, getattr(m, n + "_reference")))
+    try:
+        yield record
+    finally:
+        for (m, n), f in zip(swaps, saved):
+            setattr(m, n, f)
+
+
+def check_stream_kernels(torch, StreamingGridder, StreamingDegridder, sp,
+                         uvw, vis, model, label):
+    """K3 and K4 (three modes) and K5 against their plain versions on the
+    operands one streaming accumulate and predict pass them (captured on
+    the plain path). Returns the absolute errors of the path's own mode
+    and the captured operands."""
+    from ska_sdp_func_torch.kernels import fused_tap, place
+
+    dev = uvw.device
+    captured = {}
+    with plain_stream_kernels(captured):
+        StreamingGridder(sp, device=dev).accumulate(uvw, vis)
+        StreamingDegridder(sp, device=dev).set_model(model).predict(uvw)
+    errs, lines = {}, []
+    for name in ("grid_fused_stack", "degrid_fused2_stack"):
+        args, kw = captured[name][0]
+        for mode in MODES:
+            kw_m = {**kw, "precision": mode}
+            got = getattr(fused_tap, name)(*args, **kw_m)
+            want = getattr(fused_tap, name + "_reference")(*args, **kw_m)
+            torch.cuda.synchronize()
+            e = rel_err(got, want)
+            lines.append(f"{name}[{mode}] {e:.3e}")
+            if not e <= TOL:
+                raise SystemExit(f"{name} disagrees with its plain version "
+                                 f"[{label}, {mode}]: {e:.3e}")
+            if kw_m["precision"] == kw["precision"]:
+                errs[name] = float((got - want).abs().max())
+            del got, want
+    # K5: the grid plan's call (int32 words and f32 visibilities in one
+    # launch) is a copy, so bit for bit.
+    args, kw = captured["place_stream"][0]
+    got = place.place_stream(*args, **kw)
+    want = place.place_stream_reference(*args, **kw)
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, want))
+    errs["place_stream"] = max(float((a.float() - b.float()).abs().max())
+                               for a, b in zip(got, want))
+    lines.append(f"place_stream {'bit-equal' if same else 'DIFFERS'}")
+    k3 = captured["grid_fused_stack"][0][0]
+    say(f"# stream kernels vs plain [{label}]: " + ", ".join(lines)
+        + f" (tolerance {TOL:g}; {k3[0].shape[0]} blocks of "
+        f"{sp.block_v}, {k3[3].shape[0]} slots, {len(args[2])} payloads)")
+    if not same:
+        raise SystemExit(f"place_stream disagrees with its plain version "
+                         f"[{label}]")
+    return errs, captured
+
+
+@contextlib.contextmanager
 def launch_window(torch, tkern, label, need, idle=()):
     """Counts the kernel launches of one main path: zeroes the counters,
     runs the block, reads them into the yielded dict. Fails if a kernel
@@ -385,11 +503,13 @@ def main() -> int:
         wstack_wtower_degrid_all,
         wstack_wtower_grid_all,
     )
-    from ska_sdp_func_torch.kernels import _build
+    from ska_sdp_func_torch.kernels import _build, fused_tap, place
     from ska_sdp_func_torch.kernels import packed_tap as tk
     from ska_sdp_func_torch.kernels import tower_tap as tt
     from ska_sdp_func_torch.parallel import (
         PackedGridder,
+        StreamingDegridder,
+        StreamingGridder,
         degrid_all_bucketed,
         degrid_all_tasks,
         grid_all_bucketed,
@@ -398,7 +518,9 @@ def main() -> int:
         packed_gridder,
         plan_bucketed,
         plan_packed,
+        plan_stream,
         plan_wstack,
+        stream_tasks,
     )
     from ska_sdp_func_torch.parallel import bucketed as bk
     from ska_sdp_func_torch.pipeline import major_cycle as mc
@@ -476,14 +598,48 @@ def main() -> int:
     say(f"# main tower operands: {shapes}")
     tower_err = check_tower_kernels(torch, tt, ops, "main")
 
-    # 4a. packed main path ---------------------------------------------
-    g = packed_gridder(pplan, device=dev)
+    # The streaming path's kernels (K3, K4, K5): the small scenario, then
+    # bench.py's dense stream (the operands of 4f).
     model = torch.zeros((IMAGE, IMAGE), dtype=torch.float32, device=dev)
     model[300, 200] = 1.0
+    model_s = torch.zeros((SMALL["image"],) * 2, device=dev)
+    model_s[SMALL["image"] // 3, SMALL["image"] // 2] = 1.0
+    n_small = SMALL["rows"] * SMALL["chans"]
+    sp_s = plan_stream(plan_s, stream_tasks(plan_s, uvw_s),
+                       chunk_rows=SMALL["rows"], block_v=128,
+                       cap_slots=128 * n_small)
+    check_stream_kernels(torch, StreamingGridder, StreamingDegridder, sp_s,
+                         torch.as_tensor(uvw_s, device=dev),
+                         torch.as_tensor(vis_s, device=dev), model_s,
+                         "small")
+    uvw_d, vis_d = stream_inputs()
+    num_vis_d = ROWS * STREAM_CHANS
+    t0 = time.perf_counter()
+    plan_d = plan_wstack(uvw_d, C_0, C_0 / (100 * STREAM_CHANS), STREAM_CHANS,
+                         IMAGE, SUBGRID, THETA, W_STEP, support=8, w_support=4,
+                         w_tower_height=HEIGHT)
+    sp_d = plan_stream(plan_d, stream_tasks(plan_d, uvw_d), chunk_rows=ROWS,
+                       block_v=STREAM_BLOCK_V, cap_factor=STREAM_CAP_FACTOR)
+    plan_time = time.perf_counter() - t0
+    stack_bytes = (len(sp_d.tasks) * 2 * sp_d.num_layers * (SUBGRID + 8)
+                   * SUBGRID * 4)
+    say(f"# stream plan: {len(sp_d.tasks)} tasks, {sp_d.num_layers} layers, "
+        f"block_v {sp_d.block_v}, cap {sp_d.cap} slots ({sp_d.num_blocks} "
+        f"blocks) for {num_vis_d} visibilities per chunk, task stack "
+        f"{stack_bytes} bytes ({plan_time:.2f} s host)")
+    uvw_dd = torch.as_tensor(uvw_d, device=dev)
+    vis_dd = torch.as_tensor(vis_d, device=dev)
+    stream_err, stream_ops = check_stream_kernels(
+        torch, StreamingGridder, StreamingDegridder, sp_d, uvw_dd, vis_dd,
+        model, "dense stream")
+
+    # 4a. packed main path ---------------------------------------------
+    g = packed_gridder(pplan, device=dev)
     tower_names = [n for n, _ in TOWER_KERNELS]
+    stream_names = [n for n, _, _, _ in STREAM_KERNELS]
     with launch_window(torch, tkern, "packed path",
                        ("grid_packed_stack", "degrid_stack"),
-                       tower_names) as launches:
+                       tower_names + stream_names) as launches:
         vre, vim = g.sort(vis)
         img = g.grid_sorted(vre, vim)
         pred = g.degrid_sorted(model)
@@ -528,7 +684,8 @@ def main() -> int:
     # 4b. w-towers path, bucketed fallback, full width -----------------
     with launch_window(torch, tkern, "bucketed fallback",
                        ("grid_all_layers", "degrid_all_layers"),
-                       ("grid_plane", "degrid_plane")) as fb_launches:
+                       ("grid_plane", "degrid_plane", *stream_names)
+                       ) as fb_launches:
         t_img = grid_all_bucketed(bplan, vis_dev, uvw_dev, sort_index,
                                   valid)
         t_pred = degrid_all_bucketed(bplan, model, uvw_dev, sort_index,
@@ -581,8 +738,8 @@ def main() -> int:
 
     with launch_window(torch, tkern, "task drivers",
                        ("grid_plane", "degrid_plane"),
-                       ("grid_all_layers", "degrid_all_layers")
-                       ) as td_launches:
+                       ("grid_all_layers", "degrid_all_layers",
+                        *stream_names)) as td_launches:
         d_img, d_pred, d_res, td_s = task_drivers()
     finite(torch, (("task-driver image", d_img),
                    ("task-driver degrid", d_pred),
@@ -633,7 +790,7 @@ def main() -> int:
 
     with launch_window(torch, tkern, "sub-grid gridder",
                        ("grid_all_layers", "degrid_all_layers"),
-                       ("grid_plane", "degrid_plane")):
+                       ("grid_plane", "degrid_plane", *stream_names)):
         ax, atv, v, x = subgrid_pair(dev)
     ax_cpu, atv_cpu, _, _ = subgrid_pair(torch.device("cpu"))
     lhs, rhs = complex(np.vdot(v.numpy(), ax.numpy())), \
@@ -655,7 +812,7 @@ def main() -> int:
                 w_tower_height=HEIGHT)
     with launch_window(torch, tkern, "reference engine",
                        ("grid_all_layers", "degrid_all_layers"),
-                       ("grid_plane", "degrid_plane")):
+                       ("grid_plane", "degrid_plane", *stream_names)):
         ref_vis = wstack_wtower_degrid_all(
             model, C_0, C_0 / (100 * CHANS), uvw_rd,
             vis=torch.zeros((REF_ROWS, CHANS), dtype=torch.complex64,
@@ -695,6 +852,104 @@ def main() -> int:
         f"flux {flux:.4f}")
     if not (e_tmc <= 1e-4 and flux > 0.5):
         raise SystemExit("the task-driver solve disagrees")
+
+    # 4f. the device-planned streaming path (K3, K4, K5), dense stream --
+    packed_names = ["grid_packed_stack", "degrid_stack"]
+    expected = (ROWS + SHORT_ROWS) * STREAM_CHANS
+
+    def stream_pass():
+        sg = StreamingGridder(sp_d, device=dev)
+        sg.accumulate(uvw_dd, vis_dd)
+        sg.accumulate(uvw_dd[:SHORT_ROWS], vis_dd[:SHORT_ROWS])
+        s_img = sg.finalize()
+        sd = StreamingDegridder(sp_d, device=dev).set_model(model)
+        s_pred = sd.predict(uvw_dd)
+        sd.check()
+        return (s_img, s_pred, [int(x) for x in sg.counters()],
+                [int(x) for x in sd.counters()])
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    with launch_window(torch, tkern, "streaming path", stream_names,
+                       packed_names + tower_names) as st_launches:
+        s_img, s_pred, s_cnt, d_cnt = stream_pass()
+    peak_bytes = torch.cuda.max_memory_allocated(dev)
+    finite(torch, (("streaming image", s_img),
+                   ("streaming predict", s_pred)))
+    if tuple(s_img.shape) != (IMAGE, IMAGE) or \
+            tuple(s_pred.shape) != (ROWS, STREAM_CHANS):
+        raise SystemExit("streaming outputs have the wrong shape")
+    if s_cnt != [expected, 0, 0] or d_cnt != [num_vis_d, 0, 0]:
+        raise SystemExit(f"streaming counters (processed, dropped, voided) "
+                         f"{s_cnt} / {d_cnt}, expected {expected} / "
+                         f"{num_vis_d} with none dropped or voided")
+    with plain_stream_kernels():
+        p_img, p_pred, _, _ = stream_pass()
+    e_simg = rel_err(s_img * taper, p_img * taper)
+    e_spred = rel_err(s_pred, p_pred)
+    del p_img, p_pred
+    # The host-planned packed path at "highest" (band engine, K1/K2, run
+    # outside the window): the full chunk plus the short one.
+    pplan_d = plan_packed(plan_d, uvw_d)
+    g_d = PackedGridder(pplan_d, precision="highest", device=dev)
+    vis_short = vis_dd.clone()
+    vis_short[SHORT_ROWS:] = 0
+    r_img = g_d.grid(vis_dd) + g_d.grid(vis_short)
+    r_pred = g_d.degrid(model)
+    del g_d, vis_short
+    # The JAX suite's interior is a margin of 1/8 of the side (32 px at
+    # 256^2, test_streaming.py:93-96): 64 px here. The two plans tile
+    # the towers to different depths, and next to the 1/PSWF border
+    # that reads as ~4e-3 of the interior peak at 32 px.
+    m = IMAGE // 8
+    e_int = rel_err(s_img[m:-m, m:-m], r_img[m:-m, m:-m])
+    e_int32 = rel_err(s_img[32:-32, 32:-32], r_img[32:-32, 32:-32])
+    e_ptap = rel_err(s_img * taper, r_img * taper)
+    e_ppred = rel_err(s_pred, r_pred)
+    say(f"# streaming ({len(sp_d.tasks)} tasks, cap {sp_d.cap}, task stack "
+        f"{stack_bytes} bytes, peak device memory {peak_bytes} bytes): "
+        f"processed {s_cnt[0]} of {expected} (dropped {s_cnt[1]}, voided "
+        f"{s_cnt[2]}), predicted {d_cnt[0]}; kernel vs plain path: image "
+        f"taper-weighted rel err {e_simg:.3e}, predict rel err "
+        f"{e_spred:.3e} (tolerance {TOL:g}); vs the packed path at "
+        f"'highest' ({len(pplan_d.tasks)} tasks, {pplan_d.num_layers} "
+        f"layers): interior (margin {m}) rel err {e_int:.3e}, predict "
+        f"rel err {e_ppred:.3e} (tolerance 2e-4); margin 32 "
+        f"{e_int32:.3e}, whole image taper-weighted {e_ptap:.3e}")
+    if not (e_simg <= TOL and e_spred <= TOL and e_int <= 2e-4
+            and e_ppred <= 2e-4):
+        raise SystemExit("the streaming path disagrees")
+    del r_img, r_pred
+
+    # 4g. the packed gridder's engine="fused" (K3, K4), bench scenario --
+    fused_out = {}
+    for prec in ("highest", "high"):
+        band = PackedGridder(pplan, precision=prec, device=dev)
+        fused_out[prec] = [band.grid_sorted(vre, vim),
+                           band.degrid_sorted(model)]
+        del band
+    fused_g = {prec: PackedGridder(pplan, precision=prec, engine="fused",
+                                   device=dev) for prec in fused_out}
+    if any(fg.engine != "fused" for fg in fused_g.values()):
+        raise SystemExit("the bench plan did not take the fused engine")
+    with launch_window(torch, tkern, "fused engine", stream_names[:2],
+                       packed_names + ["place_stream"] + tower_names):
+        for prec, fg in fused_g.items():
+            fused_out[prec] += [fg.grid_sorted(vre, vim),
+                                fg.degrid_sorted(model)]
+    lines, ok = [], True
+    for prec, (b_img, b_pred, f_img, f_pred) in fused_out.items():
+        finite(torch, ((f"fused image [{prec}]", f_img),
+                       (f"fused degrid [{prec}]", f_pred)))
+        e_fi = rel_err(f_img * taper, b_img * taper)
+        e_fp = rel_err(f_pred, b_pred)
+        lines.append(f"'{prec}' image taper-weighted rel err {e_fi:.3e}, "
+                     f"degrid rel err {e_fp:.3e}")
+        ok = ok and e_fi <= TOL and e_fp <= TOL
+    say("# fused engine vs band engine (bench scenario): "
+        + "; ".join(lines) + f" (tolerance {TOL:g})")
+    if not ok:
+        raise SystemExit("the fused engine disagrees with the band engine")
+    del fused_out
 
     # 5. times -----------------------------------------------------------
     t_grid = cuda_ms(torch, lambda: g.grid_sorted(vre, vim), 10)
@@ -752,6 +1007,44 @@ def main() -> int:
         f"path {td_plain_s[0]:.3f} s, {td_plain_s[1]:.3f} s, "
         f"{td_plain_s[2]:.3f} s")
 
+    # Streaming: bench's stream_ingest_mvis_s (visibilities / accumulate
+    # step over chained steps) and the predict twin, then the plain path.
+    sg_t = StreamingGridder(sp_d, device=dev)
+    sd_t = StreamingDegridder(sp_d, device=dev).set_model(model)
+    ingest, predict = (lambda: sg_t.accumulate(uvw_dd, vis_dd),
+                       lambda: sd_t.predict(uvw_dd))
+    t_ing = cuda_ms(torch, ingest, 10, warmup=1)
+    t_pre = cuda_ms(torch, predict, 10, warmup=1)
+    with plain_stream_kernels():
+        tp_ing = cuda_ms(torch, ingest, 3, warmup=1)
+        tp_pre = cuda_ms(torch, predict, 3, warmup=1)
+    sg_t.finalize()
+    sd_t.check()
+    say(f"# [{gpu}] streaming (dense stream, {num_vis_d} visibilities per "
+        f"chunk): ingest {num_vis_d / t_ing / 1e3:.2f} Mvis/s "
+        f"({t_ing:.3f} ms per accumulate, 10 steps), predict "
+        f"{num_vis_d / t_pre / 1e3:.2f} Mvis/s ({t_pre:.3f} ms); plain path "
+        f"ingest {num_vis_d / tp_ing / 1e3:.2f} Mvis/s ({tp_ing:.3f} ms, 3 "
+        f"steps), predict {num_vis_d / tp_pre / 1e3:.2f} Mvis/s "
+        f"({tp_pre:.3f} ms)")
+    del sg_t, sd_t
+    # The fused engine beside the band engine, "high"; turns: band,
+    # fused, fused, band.
+    fg = fused_g["high"]
+    for what, band_fn, fused_fn in (
+            ("grid", lambda: g.grid_sorted(vre, vim),
+             lambda: fg.grid_sorted(vre, vim)),
+            ("degrid", lambda: g.degrid_sorted(model),
+             lambda: fg.degrid_sorted(model))):
+        b1 = cuda_ms(torch, band_fn, 10)
+        f1 = cuda_ms(torch, fused_fn, 10)
+        f2 = cuda_ms(torch, fused_fn, 10)
+        b2 = cuda_ms(torch, band_fn, 10)
+        say(f"# [{gpu}] packed {what}, 'high': fused engine "
+            f"{num_vis / f2 / 1e3:.2f} Mvis/s ({f1:.3f}/{f2:.3f} ms), band "
+            f"engine {num_vis / b2 / 1e3:.2f} Mvis/s ({b1:.3f}/{b2:.3f} ms)")
+    del fused_g, fg
+
     grid_args, degrid_args = kernel_operands(torch, g, pplan, dev, 12)
     bv = pplan.block_v
     times = {}
@@ -779,6 +1072,19 @@ def main() -> int:
         times[name] = (k2, p2)
         say(f"# [{gpu}] {name} at main-path shapes: kernel "
             f"{k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms")
+    stream_mods = {"fused_tap": fused_tap, "place": place}
+    for name, mod, _, _ in STREAM_KERNELS:
+        args, kw = stream_ops[name][0]
+        kern = getattr(stream_mods[mod], name)
+        ref = getattr(stream_mods[mod], name + "_reference")
+        p1 = cuda_ms(torch, lambda: ref(*args, **kw), 2, warmup=1)
+        k1 = cuda_ms(torch, lambda: kern(*args, **kw), 10)
+        k2 = cuda_ms(torch, lambda: kern(*args, **kw), 10)
+        p2 = cuda_ms(torch, lambda: ref(*args, **kw), 2, warmup=1)
+        times[name] = (k2, p2)
+        say(f"# [{gpu}] {name} at the dense stream's shapes, "
+            f"'{kw.get('precision', 'copy')}': kernel {k1:.3f}/{k2:.3f} ms, "
+            f"plain {p1:.3f}/{p2:.3f} ms")
 
     kernels = [
         dict(name="grid_packed_stack", route="cuda", source=PACKED_SOURCE,
@@ -793,6 +1099,12 @@ def main() -> int:
              max_abs_err=abs_err["degrid"],
              ms=times["degrid_stack"][0],
              plain_ms=times["degrid_stack"][1]),
+    ] + [
+        dict(name=name, route="cuda",
+             source="ska_sdp_func_torch/kernels/" + src, replaces=where,
+             launches=st_launches[name], max_abs_err=stream_err[name],
+             ms=times[name][0], plain_ms=times[name][1])
+        for name, _, src, where in STREAM_KERNELS
     ] + [
         dict(name=name, route="cuda", source=TOWER_SOURCE, replaces=where,
              launches=(td_launches if name.endswith("plane")

@@ -1,15 +1,18 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch twins.
 
-:mod:`.packed_tap` holds the packed whole-image path's two kernels (the
+:mod:`.packed_tap` holds the packed whole-image path's band kernels (the
 ports of the Pallas kernels ``grid_packed_stack_pallas`` and
-``degrid_stack_pallas``); :mod:`.tower_tap` the w-towers tap kernels
-(the ports of ``grid_plane_pallas``, ``degrid_plane_pallas``,
+``degrid_stack_pallas``); :mod:`.fused_tap` the fused kernels that
+evaluate the taps themselves (``grid_fused_stack_pallas``,
+``degrid_fused2_stack_pallas``); :mod:`.place` the streaming plan's
+placement (``place_stream_pallas``); :mod:`.tower_tap` the w-towers tap
+kernels (the ports of ``grid_plane_pallas``, ``degrid_plane_pallas``,
 ``grid_all_layers_pallas`` and ``degrid_all_layers_pallas``);
 :mod:`.dense_tap` the dense banded products of any dtype; :mod:`._build`
 compiles ``csrc/`` with nvcc at first use.
 """
 
-from . import tower_tap
+from . import fused_tap, packed_tap, place, tower_tap
 from .packed_tap import (
     build_bands,
     degrid_stack,
@@ -19,28 +22,32 @@ from .packed_tap import (
     split_bf16,
 )
 
+_COUNTED = (packed_tap, fused_tap, place, tower_tap)
+
 
 def launch_counts() -> dict:
     """Kernel launches per wrapper, every kernel of the package."""
-    from . import packed_tap
-
-    return {**packed_tap.launch_counts(), **tower_tap.launch_counts()}
+    counts = {}
+    for mod in _COUNTED:
+        counts.update(mod.launch_counts())
+    return counts
 
 
 def reset_launch_counts() -> None:
-    from . import packed_tap
-
-    packed_tap.reset_launch_counts()
-    tower_tap.reset_launch_counts()
+    for mod in _COUNTED:
+        mod.reset_launch_counts()
 
 
 __all__ = [
     "build_bands",
     "degrid_stack",
     "degrid_stack_reference",
+    "fused_tap",
     "grid_packed_stack",
     "grid_packed_stack_reference",
     "launch_counts",
+    "packed_tap",
+    "place",
     "reset_launch_counts",
     "split_bf16",
     "tower_tap",

@@ -120,6 +120,18 @@ def load() -> ctypes.CDLL:
                 lib.sdp_torch_tower_degrid.argtypes = [
                     p, p, p, p, p, p, i64, i, i, i, p, p]
                 lib.sdp_torch_tower_degrid.restype = i
+                f, pp = ctypes.c_float, ctypes.POINTER(ctypes.c_void_p)
+                lib.sdp_torch_fused_grid_stack.argtypes = [
+                    p, p, p, p, p, p, p, p, p, p, i, f, f, i, i, i, i, i, i,
+                    i, p, p]
+                lib.sdp_torch_fused_grid_stack.restype = i
+                lib.sdp_torch_fused_degrid_stack.argtypes = [
+                    p, p, p, p, p, p, p, p, p, i, f, f, i64, i, i, i, i, i,
+                    i, p, p]
+                lib.sdp_torch_fused_degrid_stack.restype = i
+                lib.sdp_torch_place_stream.argtypes = [
+                    p, p, pp, pp, i, i64, i, i, p]
+                lib.sdp_torch_place_stream.restype = i
                 _LIB = lib
     return _LIB
 

@@ -1,6 +1,7 @@
 """Plans and whole-image drivers: the w-stacking task plan and task
 drivers, the bucketed per-task drivers, the packed ingest plan and
-:class:`~.packed.PackedGridder`."""
+:class:`~.packed.PackedGridder`, and the device-planned streaming
+gridder and degridder."""
 
 from .bucketed import (
     BucketedPlan,
@@ -11,7 +12,7 @@ from .bucketed import (
     plan_bucketed,
     task_id_stream,
 )
-from .convert import from_jax_plan
+from .convert import from_jax_plan, from_jax_stream_plan
 from .packed import (
     PackedGridder,
     PackedPlan,
@@ -19,6 +20,13 @@ from .packed import (
     packed_geometry_ok,
     packed_gridder,
     plan_packed,
+)
+from .streaming import (
+    StreamingDegridder,
+    StreamingGridder,
+    StreamPlan,
+    plan_stream,
+    stream_tasks,
 )
 from .wstack import (
     WStackPlan,
@@ -34,11 +42,15 @@ __all__ = [
     "PackedGridder",
     "PackedPlan",
     "PackedTask",
+    "StreamPlan",
+    "StreamingDegridder",
+    "StreamingGridder",
     "WStackPlan",
     "WStackTask",
     "degrid_all_bucketed",
     "degrid_all_tasks",
     "from_jax_plan",
+    "from_jax_stream_plan",
     "grid_all_bucketed",
     "grid_all_tasks",
     "inverse_index_of",
@@ -46,6 +58,8 @@ __all__ = [
     "packed_gridder",
     "plan_bucketed",
     "plan_packed",
+    "plan_stream",
     "plan_wstack",
+    "stream_tasks",
     "task_id_stream",
 ]

@@ -14,9 +14,12 @@ Counterpart of ska_sdp_func_tpu.parallel.packed (packed.py:76-1001):
    contraction -> FFT -> wrap-around sub-grid adds per w-plane -> plane
    iFFTs, w-screens and the PSWF correction. Degrid mirrors it.
 
-Only the band engine is ported; the fused/compact engines, the
-mesh-sharded drivers and the stage-timing reports are not yet
-(ROADMAP Queue 1 items 11 and 15, Queue 2 K3/K4/K12/K13).
+The band engine (K1/K2) and ``engine="fused"`` (K3/K4: taps evaluated
+in the kernel from two packed words per slot) are ported; the compact
+engine, the mesh-sharded drivers and the stage-timing reports are not
+yet (ROADMAP Queue 1 items 13 and 15, Queue 2 K12/K13). The stages
+around the stack kernels (:class:`_TowerImaging`) are shared with the
+streaming engine (:mod:`.streaming`).
 """
 
 import math
@@ -36,6 +39,7 @@ from ..grid_data.gridder_utils import (
 )
 from ..grid_data.kernels import eval_kernel_taps
 from ..grid_data.wtower import _tap_coeffs_cached
+from ..kernels import fused_tap
 from ..kernels.packed_tap import (
     WIN_ROWS,
     build_bands,
@@ -288,87 +292,40 @@ def packed_gridder(pplan: PackedPlan, fast: bool = False,
     return g
 
 
-class PackedGridder:
-    """Per-plan device tensors and the whole-image grid/degrid drivers.
+def _planes_to_image(planes, screens, correction):
+    """Per-w-plane uv grids [P, N, N] -> corrected real image: one
+    batched iFFT, the stacked screens and the shared PSWF correction."""
+    stack = ifft_shifted_norm(planes)
+    image = torch.einsum("puv,puv->uv", screens, stack)
+    return (image * correction).real.to(torch.float32)
 
-    ``grid``/``degrid`` take/return visibilities in the natural
-    ``[rows, chan]`` layout; ``grid_sorted``/``degrid_sorted`` work on
-    the plan's sorted stream (the major-cycle solver keeps residuals in
-    sorted form).
+
+def _image_to_plane_stack(image, screens, correction):
+    """Real image -> per-w-plane degrid-corrected uv grids [P, N, N]: the
+    shared PSWF scale, the stacked conjugate screens and one batched
+    FFT (the mirror of :func:`_planes_to_image`)."""
+    base = image.to(torch.complex64) * correction
+    return fft_shifted(base[None] * screens)
+
+
+class _TowerImaging:
+    """The stages around the stack kernels, on one device.
+
+    ``self.pplan`` is a :class:`PackedPlan` or a streaming ``StreamPlan``
+    (anything with ``wplan``, ``tasks``, ``num_layers`` and
+    ``w_plane_ids``). :meth:`_init_imaging` builds the per-plan
+    constants: the w-pattern ladders and per-task prefactors, the PSWF
+    correction and the per-plane w-screens.
     """
 
-    def __init__(self, pplan: PackedPlan, fast: bool = False,
-                 precision: str = None, engine: str = None,
-                 device="cpu"):
-        if engine is None:
-            engine = _DEFAULT_ENGINE
-        if engine in ("fused", "compact"):
-            raise NotImplementedError(
-                f"engine={engine!r} is not ported yet (ROADMAP Queue 2 "
-                "K3/K4 fused, K12/K13 compact); use the band engine")
-        if engine not in ("auto", "bands"):
-            raise SdpInvalidArgumentError(f"unknown engine {engine!r}")
-        if precision is None:
-            precision = "bf16" if fast else _DEFAULT_PRECISION
-        self.pplan = pplan
-        self.fast = bool(fast)
-        self.precision = precision
-        self.device = _resolve_device(device)
+    def _init_imaging(self):
+        pplan = self.pplan
         plan = pplan.wplan
         kernel = plan.kernel()
-        arrays = pplan.arrays
-        if arrays is None:
-            raise SdpInvalidArgumentError("plan has no host arrays")
-        if pplan.total >= 2 ** 31 or arrays["sort_index"].max(
-                initial=0) >= 2 ** 31:
-            raise SdpInvalidArgumentError(
-                "packed stream too large for int32 indexing")
         dev = self.device
 
-        def put(a, dtype=None):
-            return torch.as_tensor(np.ascontiguousarray(a),
-                                   dtype=dtype).to(dev)
-
-        self.sort_index = put(arrays["sort_index"], torch.int64)
-        self.valid = put(arrays["valid"])
-        self.inv_index = put(inverse_index_of(
-            arrays["sort_index"], arrays["valid"],
-            pplan.num_rows * plan.num_chan))
-        # Per-block (task, w-slab, u-octet) for the stack kernels.
-        bb = arrays["block_bucket"].astype(np.int64)
-        self.g_idx = put(bb % pplan.num_octets, torch.int32)
-        self.k_idx = put((bb // pplan.num_octets) % pplan.num_slabs,
-                         torch.int32)
-        self.t_idx = put(bb // (pplan.num_octets * pplan.num_slabs),
-                         torch.int32)
-
-        # Taps evaluated on the device from the plan's integer kernel
-        # rows (Chebyshev fits, ~1e-13 of the f64 tables), then placed
-        # into the bands once per plan.
-        uv_c = _tap_coeffs_cached(plan.support, plan.oversampling)
-        w_c = _tap_coeffs_cached(plan.w_support, plan.w_oversampling)
-        uk = eval_kernel_taps(put(arrays["u_frac"]), uv_c,
-                              plan.oversampling)
-        vk = eval_kernel_taps(put(arrays["v_frac"]), uv_c,
-                              plan.oversampling)
-        wk = torch.where(
-            self.valid[:, None],
-            eval_kernel_taps(put(arrays["w_row"]), w_c,
-                             plan.w_oversampling), 0.0)
-        self.ubase, vband, vband_t = build_bands(
-            put(arrays["u_off"]), put(arrays["iv0"]), uk, vk,
-            plan.subgrid_size)
-        del uk, vk
-        if self.precision == "high":
-            # bf16 hi/lo halves (same bytes as f32): three bf16
-            # products with f32 sums in the kernels.
-            vband = split_bf16(vband)
-            vband_t = split_bf16(vband_t)
-        elif self.fast:
-            vband = vband.to(torch.bfloat16)
-            vband_t = vband_t.to(torch.bfloat16)
-        self.vband, self.vband_t = vband, vband_t
-        self.wk_t = wk.T.contiguous()                       # [Sw, V]
+        def put(a):
+            return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
 
         # Shared w-pattern ladders + per-task prefactors (host c128).
         w_pattern = kernel.w_pattern
@@ -410,6 +367,192 @@ class PackedGridder:
         return [int(np.trunc(iw * plan.w_tower_height))
                 for iw in self.pplan.w_plane_ids]
 
+    # -- grid ----------------------------------------------------------
+
+    def _stage_drain(self, layers, ladder, pref):
+        layers = ifft_shifted(layers)
+        subgrids = torch.einsum("tkuv,kuv->tuv", layers, ladder) * pref
+        return fft_shifted(subgrids)
+
+    def _stage_planes(self, subgrids):
+        pplan = self.pplan
+        plan = pplan.wplan
+        n = plan.image_size
+        sg_factor = (n / plan.subgrid_size) ** 2
+        planes = torch.zeros((len(pplan.w_plane_ids), n, n),
+                             dtype=torch.complex64, device=self.device)
+        pos = {iw: i for i, iw in enumerate(pplan.w_plane_ids)}
+        for t, task in enumerate(pplan.tasks):
+            subgrid_add_static(
+                planes[pos[task.iw]], -task.iu * plan.eff_sg_size,
+                -task.iv * plan.eff_sg_size, subgrids[t], sg_factor)
+        return self._planes_to_image(planes)
+
+    def _planes_to_image(self, planes):
+        return _planes_to_image(planes, self.screens_grid, self.correction)
+
+    def _stack_to_layers(self, stack):
+        """[T, 2, K*(G+8), G] stack -> [T, K, G, G] complex layers (the
+        8-row octet overhang cropped)."""
+        pplan = self.pplan
+        g = pplan.wplan.subgrid_size
+        st = stack.reshape(stack.shape[0], 2, pplan.num_layers,
+                           g + 8, g)[:, :, :, :g, :]
+        return torch.complex(st[:, 0], st[:, 1])
+
+    def _layers_to_stack(self, layers):
+        """[T, K, G, G] complex layers -> [T, 2, K*(G+8), G] f32 stack
+        (zero 8-row u-pad per layer)."""
+        pplan = self.pplan
+        g = pplan.wplan.subgrid_size
+        st = torch.stack([layers.real.to(torch.float32),
+                          layers.imag.to(torch.float32)], dim=1)
+        st = torch.nn.functional.pad(st, (0, 0, 0, 8))
+        return st.reshape(layers.shape[0], 2, pplan.num_layers * (g + 8), g)
+
+    def _image_from_stack(self, stack, visited=None):
+        """The grid stages after the kernel: stack -> layers -> drain ->
+        per-plane adds -> corrected image. ``visited`` ([T] bool) zeroes
+        the layers of tasks no block visited."""
+        layers = self._stack_to_layers(stack)
+        if visited is not None:
+            layers = torch.where(visited[:, None, None, None], layers, 0)
+        subgrids = self._stage_drain(layers, self.ladder_grid,
+                                     self.pref_grid)
+        return self._stage_planes(subgrids)
+
+    # -- degrid ---------------------------------------------------------
+
+    def _dstage_planes(self, image):
+        """Real image -> per-w-plane degrid-corrected uv grids [P, N, N]."""
+        return _image_to_plane_stack(image, self.screens_degrid,
+                                     self.correction)
+
+    def _dstage_layers(self, plane_stack, ladder, pref):
+        pplan = self.pplan
+        plan = pplan.wplan
+        pos = {iw: i for i, iw in enumerate(pplan.w_plane_ids)}
+        subgrids = torch.stack([
+            subgrid_cut_out_static(
+                plane_stack[pos[task.iw]], task.iu * plan.eff_sg_size,
+                task.iv * plan.eff_sg_size, plan.subgrid_size)
+            for task in pplan.tasks]).to(torch.complex64)
+        subgrids = ifft_shifted_norm(subgrids)
+        layers = fft_shifted((subgrids * pref)[:, None, :, :] * ladder[None])
+        return self._layers_to_stack(layers)
+
+    def _model_stack(self, image):
+        """Image on the device -> the task-major stack the degrid kernels
+        read."""
+        planes = self._dstage_planes(image)
+        return self._dstage_layers(planes, self.ladder_degrid,
+                                   self.pref_degrid)
+
+
+class PackedGridder(_TowerImaging):
+    """Per-plan device tensors and the whole-image grid/degrid drivers.
+
+    ``grid``/``degrid`` take/return visibilities in the natural
+    ``[rows, chan]`` layout; ``grid_sorted``/``degrid_sorted`` work on
+    the plan's sorted stream (the major-cycle solver keeps residuals in
+    sorted form). ``engine="bands"``/``"auto"`` stream pre-built tap
+    bands through K1/K2; ``engine="fused"`` streams two packed int32 plan
+    words per slot through K3/K4 (on plans whose fields fit the words;
+    others take the band engine, as in the JAX package).
+    """
+
+    def __init__(self, pplan: PackedPlan, fast: bool = False,
+                 precision: str = None, engine: str = None,
+                 device="cpu"):
+        if engine is None:
+            engine = _DEFAULT_ENGINE
+        if engine == "compact":
+            raise NotImplementedError(
+                "engine='compact' is not ported yet (ROADMAP Queue 1 item "
+                "13, Queue 2 K12/K13); use 'bands' or 'fused'")
+        if engine not in ("auto", "bands", "fused"):
+            raise SdpInvalidArgumentError(f"unknown engine {engine!r}")
+        if precision is None:
+            precision = "bf16" if fast else _DEFAULT_PRECISION
+        self.pplan = pplan
+        self.fast = bool(fast)
+        self.precision = precision
+        self.device = _resolve_device(device)
+        plan = pplan.wplan
+        arrays = pplan.arrays
+        if arrays is None:
+            raise SdpInvalidArgumentError("plan has no host arrays")
+        if pplan.total >= 2 ** 31 or arrays["sort_index"].max(
+                initial=0) >= 2 ** 31:
+            raise SdpInvalidArgumentError(
+                "packed stream too large for int32 indexing")
+        dev = self.device
+
+        def put(a, dtype=None):
+            return torch.as_tensor(np.ascontiguousarray(a),
+                                   dtype=dtype).to(dev)
+
+        self.sort_index = put(arrays["sort_index"], torch.int64)
+        self.valid = put(arrays["valid"])
+        self.inv_index = put(inverse_index_of(
+            arrays["sort_index"], arrays["valid"],
+            pplan.num_rows * plan.num_chan))
+        # Per-block (task, w-slab, u-octet) for the stack kernels.
+        bb = arrays["block_bucket"].astype(np.int64)
+        self.g_idx = put(bb % pplan.num_octets, torch.int32)
+        self.k_idx = put((bb // pplan.num_octets) % pplan.num_slabs,
+                         torch.int32)
+        self.t_idx = put(bb // (pplan.num_octets * pplan.num_slabs),
+                         torch.int32)
+
+        uv_c = _tap_coeffs_cached(plan.support, plan.oversampling)
+        w_c = _tap_coeffs_cached(plan.w_support, plan.w_oversampling)
+        self.engine = "fused" if engine == "fused" and \
+            fused_tap.fused_geometry_ok(plan.subgrid_size, plan.support,
+                                        plan.oversampling,
+                                        plan.w_oversampling) else "bands"
+        self.pa = self.pb = self.ubase = self.vband = self.vband_t = None
+        self.wk_t = None
+        if self.engine == "fused":
+            # Two plan words per slot; the kernels evaluate the taps.
+            pa, pb = fused_tap.pack_plan_words(
+                arrays["iv0"], arrays["u_off"], arrays["w_row"],
+                arrays["u_frac"], arrays["v_frac"], arrays["valid"])
+            self.pa, self.pb = put(pa), put(pb)
+            self.uv_coeffs = put(uv_c, torch.float32)
+            self.w_coeffs = put(w_c, torch.float32)
+        else:
+            self._init_bands(arrays, put, uv_c, w_c)
+        self._init_imaging()
+
+    def _init_bands(self, arrays, put, uv_c, w_c):
+        """Taps evaluated on the device from the plan's integer kernel
+        rows (Chebyshev fits, ~1e-13 of the f64 tables), then placed into
+        the bands once per plan."""
+        plan = self.pplan.wplan
+        uk = eval_kernel_taps(put(arrays["u_frac"]), uv_c,
+                              plan.oversampling)
+        vk = eval_kernel_taps(put(arrays["v_frac"]), uv_c,
+                              plan.oversampling)
+        wk = torch.where(
+            self.valid[:, None],
+            eval_kernel_taps(put(arrays["w_row"]), w_c,
+                             plan.w_oversampling), 0.0)
+        self.ubase, vband, vband_t = build_bands(
+            put(arrays["u_off"]), put(arrays["iv0"]), uk, vk,
+            plan.subgrid_size)
+        del uk, vk
+        if self.precision == "high":
+            # bf16 hi/lo halves (same bytes as f32): three bf16
+            # products with f32 sums in the kernels.
+            vband = split_bf16(vband)
+            vband_t = split_bf16(vband_t)
+        elif self.fast:
+            vband = vband.to(torch.bfloat16)
+            vband_t = vband_t.to(torch.bfloat16)
+        self.vband, self.vband_t = vband, vband_t
+        self.wk_t = wk.T.contiguous()                       # [Sw, V]
+
     # -- sorted-stream transforms ------------------------------------
 
     def sort(self, vis):
@@ -433,56 +576,17 @@ class PackedGridder:
     def _stage_kernel(self, vre, vim):
         pplan = self.pplan
         plan = pplan.wplan
+        if self.engine == "fused":
+            return fused_tap.grid_fused_stack(
+                self.t_idx, self.k_idx, self.g_idx, self.pa, self.pb, vre,
+                vim, self.uv_coeffs, self.w_coeffs, len(pplan.tasks),
+                pplan.num_layers, plan.subgrid_size, plan.support,
+                plan.w_support, plan.oversampling, plan.w_oversampling,
+                block_v=pplan.block_v, precision=self.precision)
         return grid_packed_stack(
             self.t_idx, self.k_idx, self.g_idx, self.ubase, self.vband,
             (self.wk_t, vre, vim), len(pplan.tasks), pplan.num_layers,
             plan.subgrid_size, plan.w_support, block_v=pplan.block_v)
-
-    def _stage_drain(self, layers, ladder, pref):
-        layers = ifft_shifted(layers)
-        subgrids = torch.einsum("tkuv,kuv->tuv", layers, ladder) * pref
-        return fft_shifted(subgrids)
-
-    def _stage_planes(self, subgrids):
-        pplan = self.pplan
-        plan = pplan.wplan
-        n = plan.image_size
-        sg_factor = (n / plan.subgrid_size) ** 2
-        planes = torch.zeros((len(pplan.w_plane_ids), n, n),
-                             dtype=torch.complex64, device=self.device)
-        pos = {iw: i for i, iw in enumerate(pplan.w_plane_ids)}
-        for t, task in enumerate(pplan.tasks):
-            subgrid_add_static(
-                planes[pos[task.iw]], -task.iu * plan.eff_sg_size,
-                -task.iv * plan.eff_sg_size, subgrids[t], sg_factor)
-        return self._planes_to_image(planes)
-
-    def _planes_to_image(self, planes):
-        """Per-w-plane uv grids [P, N, N] -> corrected real image: one
-        batched iFFT, the stacked screens and the shared PSWF
-        correction."""
-        stack = ifft_shifted_norm(planes)
-        image = torch.einsum("puv,puv->uv", self.screens_grid, stack)
-        return (image * self.correction).real.to(torch.float32)
-
-    def _stack_to_layers(self, stack):
-        """[T, 2, K*(G+8), G] stack -> [T, K, G, G] complex layers (the
-        8-row octet overhang cropped)."""
-        pplan = self.pplan
-        g = pplan.wplan.subgrid_size
-        st = stack.reshape(stack.shape[0], 2, pplan.num_layers,
-                           g + 8, g)[:, :, :, :g, :]
-        return torch.complex(st[:, 0], st[:, 1])
-
-    def _layers_to_stack(self, layers):
-        """[T, K, G, G] complex layers -> [T, 2, K*(G+8), G] f32 stack
-        (zero 8-row u-pad per layer)."""
-        pplan = self.pplan
-        g = pplan.wplan.subgrid_size
-        st = torch.stack([layers.real.to(torch.float32),
-                          layers.imag.to(torch.float32)], dim=1)
-        st = torch.nn.functional.pad(st, (0, 0, 0, 8))
-        return st.reshape(layers.shape[0], 2, pplan.num_layers * (g + 8), g)
 
     def grid_sorted(self, vre: torch.Tensor,
                     vim: torch.Tensor) -> torch.Tensor:
@@ -491,14 +595,6 @@ class PackedGridder:
         is accumulated by the kernel."""
         return self._image_from_stack(self._stage_kernel(vre, vim))
 
-    def _image_from_stack(self, stack):
-        """The grid stages after the kernel: stack -> layers -> drain ->
-        per-plane adds -> corrected image."""
-        layers = self._stack_to_layers(stack)
-        subgrids = self._stage_drain(layers, self.ladder_grid,
-                                     self.pref_grid)
-        return self._stage_planes(subgrids)
-
     def grid(self, vis) -> torch.Tensor:
         """[rows, chan] visibilities -> real dirty image."""
         vre, vim = self.sort(vis)
@@ -506,37 +602,23 @@ class PackedGridder:
 
     # -- degrid ---------------------------------------------------------
 
-    def _dstage_planes(self, image):
-        """Real image -> per-w-plane degrid-corrected uv grids [P, N, N]."""
-        base = image.to(torch.complex64) * self.correction
-        return fft_shifted(base[None] * self.screens_degrid)
-
-    def _dstage_layers(self, plane_stack, ladder, pref):
-        pplan = self.pplan
-        plan = pplan.wplan
-        pos = {iw: i for i, iw in enumerate(pplan.w_plane_ids)}
-        subgrids = torch.stack([
-            subgrid_cut_out_static(
-                plane_stack[pos[task.iw]], task.iu * plan.eff_sg_size,
-                task.iv * plan.eff_sg_size, plan.subgrid_size)
-            for task in pplan.tasks]).to(torch.complex64)
-        subgrids = ifft_shifted_norm(subgrids)
-        layers = fft_shifted((subgrids * pref)[:, None, :, :] * ladder[None])
-        return self._layers_to_stack(layers)
-
     def _dstage_kernel(self, st):
         pplan = self.pplan
+        plan = pplan.wplan
+        if self.engine == "fused":
+            return fused_tap.degrid_fused2_stack(
+                st, self.t_idx, self.k_idx, self.g_idx, self.pa, self.pb,
+                self.uv_coeffs, self.w_coeffs, plan.support, plan.w_support,
+                plan.oversampling, plan.w_oversampling,
+                block_v=pplan.block_v, precision=self.precision)
         return degrid_stack(
             st, self.t_idx, self.k_idx, self.g_idx, self.ubase,
-            self.vband_t, self.wk_t, pplan.wplan.w_support,
-            block_v=pplan.block_v)
+            self.vband_t, self.wk_t, plan.w_support, block_v=pplan.block_v)
 
     def degrid_sorted(self, image) -> torch.Tensor:
         """Real/complex image -> sorted-stream complex64 visibilities."""
-        planes = self._dstage_planes(to_device(image, self.device))
-        st = self._dstage_layers(planes, self.ladder_degrid,
-                                 self.pref_degrid)
-        return self._dstage_kernel(st)
+        return self._dstage_kernel(
+            self._model_stack(to_device(image, self.device)))
 
     def degrid(self, image) -> torch.Tensor:
         """Image -> [rows, chan] complex64 visibilities."""

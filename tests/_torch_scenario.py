@@ -100,3 +100,52 @@ def wtower_scenario(num_ant=8, num_times=12, max_bl=4000.0, seed=42):
     image[sg // 4, sg // 4] = 1.0
     image[5 * sg // 6, 2 * sg // 6] = 0.5
     return uvw, 3, image
+
+
+# Operands of the fused kernels (K3/K4) at the small scenario's geometry:
+# 12 plan blocks of 128 slots over 3 tasks of 6 layers, two blocks marked
+# empty, random plan words (a few v columns past the 128 lanes) and a
+# random task stack.
+FUSED = dict(lanes=128, support=8, w_support=4, oversampling=16384,
+             w_oversampling=16384, tasks=3, layers=6, block_v=128, blocks=12)
+
+
+def fused_kernel_operands(seed: int = 17):
+    """NumPy plan fields, packed words, block indices, visibilities and a
+    stack for the fused kernels (``FUSED`` geometry)."""
+    f = FUSED
+    rng = np.random.default_rng(seed)
+    total = f["blocks"] * f["block_v"]
+    s, lanes = f["support"], f["lanes"]
+    fields = dict(
+        iv0=rng.integers(0, lanes - s + 1, total),
+        u_off=rng.integers(0, 8, total),
+        w_row=rng.integers(0, f["w_oversampling"] + 1, total),
+        u_frac=rng.integers(0, f["oversampling"] + 1, total),
+        v_frac=rng.integers(0, f["oversampling"] + 1, total),
+        valid=rng.random(total) < 0.9)
+    fields["iv0"][:5] = lanes - np.arange(1, 6)
+    fields = {k: v.astype(np.int32) for k, v in fields.items()}
+    pa = ((fields["iv0"] << 20) | (fields["u_off"] << 17)
+          | fields["w_row"]).astype(np.int32)
+    pb = ((fields["valid"] << 30) | (fields["u_frac"] << 15)
+          | fields["v_frac"]).astype(np.int32)
+    valid = fields["valid"].astype(bool)
+    nonempty = np.ones(f["blocks"], np.int32)
+    nonempty[[1, 6]] = 0
+    ops = dict(
+        t=np.repeat(np.arange(f["tasks"]),
+                    f["blocks"] // f["tasks"]).astype(np.int32),
+        k=rng.integers(0, f["layers"] - f["w_support"] + 1,
+                       f["blocks"]).astype(np.int32),
+        g=rng.integers(0, lanes // 8, f["blocks"]).astype(np.int32),
+        pa=pa, pb=pb,
+        vre=np.where(valid, rng.standard_normal(total), 0.0
+                     ).astype(np.float32),
+        vim=np.where(valid, rng.standard_normal(total), 0.0
+                     ).astype(np.float32),
+        nonempty=nonempty,
+        stack=rng.standard_normal(
+            (f["tasks"], 2, f["layers"] * (lanes + 8), lanes)
+        ).astype(np.float32))
+    return fields, ops

@@ -10,21 +10,28 @@ Tolerances: the grid stack at 1e-5 of max|stack| (f32 atomics reorder
 the sums); degridded visibilities at 1e-5 of max|vis| (same products,
 other summation order). The same holds for the w-towers tap kernels
 (``tower_tap``: grid_plane, degrid_plane, grid_all_layers,
-degrid_all_layers) against their plain versions.
+degrid_all_layers) and the fused kernels (``fused_tap``) against their
+plain versions; the placement kernel (``place``) is a copy and compares
+bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_scenario import C_0, DFREQ, FREQ0, IMAGE_SIZE, NUM_CHAN, \
-    PARAMS, WTOWER_PARAMS, make_inputs, two_point_image, wtower_scenario
+from _torch_scenario import C_0, DFREQ, FREQ0, FUSED, IMAGE_SIZE, \
+    NUM_CHAN, PARAMS, WTOWER_PARAMS, fused_kernel_operands, make_inputs, \
+    two_point_image, wtower_scenario
+from ska_sdp_func_torch import kernels
 from ska_sdp_func_torch.grid_data import grid_correct_pswf
 from ska_sdp_func_torch.grid_data import wtower as tw
+from ska_sdp_func_torch.kernels import fused_tap as tf
 from ska_sdp_func_torch.kernels import packed_tap as tk
+from ska_sdp_func_torch.kernels import place as tp
 from ska_sdp_func_torch.kernels import tower_tap as tt
-from ska_sdp_func_torch.parallel import PackedGridder, degrid_all_tasks, \
-    grid_all_tasks, plan_packed, plan_wstack
+from ska_sdp_func_torch.parallel import PackedGridder, StreamingDegridder, \
+    StreamingGridder, degrid_all_tasks, grid_all_tasks, plan_packed, \
+    plan_stream, plan_wstack, stream_tasks
 from ska_sdp_func_torch.utility.errors import SdpMemLocationError
 
 pytestmark = pytest.mark.cuda
@@ -262,6 +269,114 @@ def test_task_drivers_on_card_launch_plane_kernels(device):
     (i0, p0, c0), (i1, p1, c1) = out["cpu"], out[str(device)]
     assert set(c0.values()) == {0}
     assert c1["grid_plane"] > 0 and c1["degrid_plane"] > 0
+    k = plan.kernel()
+    taper = 1.0 / grid_correct_pswf(
+        k.image_size, k.theta, k.w_step, k.shear_u, k.shear_v, k.support,
+        k.w_support, torch.ones(k.image_size, k.image_size))
+    assert _rel(i1 * taper, i0 * taper) <= 1e-5
+    assert _rel(p1, p0) <= 1e-5
+
+
+# -- fused kernels (K3, K4) and placement (K5) ---------------------------------
+
+@pytest.fixture(scope="module")
+def fused(device):
+    from ska_sdp_func_torch.grid_data.wtower import _tap_coeffs_cached
+
+    f = FUSED
+    _, ops = fused_kernel_operands()
+    t = {k: torch.as_tensor(v, device=device) for k, v in ops.items()}
+    t["uv"] = torch.as_tensor(_tap_coeffs_cached(
+        f["support"], f["oversampling"]), dtype=torch.float32, device=device)
+    t["w"] = torch.as_tensor(_tap_coeffs_cached(
+        f["w_support"], f["w_oversampling"]), dtype=torch.float32,
+        device=device)
+    return t
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_fused_grid_kernel_matches_plain(fused, mode):
+    f, t = FUSED, fused
+    args = (t["t"], t["k"], t["g"], t["pa"], t["pb"], t["vre"], t["vim"],
+            t["uv"], t["w"], f["tasks"], f["layers"], f["lanes"],
+            f["support"], f["w_support"], f["oversampling"],
+            f["w_oversampling"])
+    kw = dict(block_v=f["block_v"], precision=mode, nonempty=t["nonempty"])
+    before = tf.grid_fused_stack.launches
+    got = tf.grid_fused_stack(*args, **kw)
+    torch.cuda.synchronize()
+    assert tf.grid_fused_stack.launches == before + 1
+    want = tf.grid_fused_stack_reference(*args, **kw)
+    assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_fused_degrid_kernel_matches_plain(fused, mode):
+    f, t = FUSED, fused
+    args = (t["stack"], t["t"], t["k"], t["g"], t["pa"], t["pb"], t["uv"],
+            t["w"], f["support"], f["w_support"], f["oversampling"],
+            f["w_oversampling"])
+    kw = dict(block_v=f["block_v"], precision=mode, nonempty=t["nonempty"])
+    before = tf.degrid_fused2_stack.launches
+    got = tf.degrid_fused2_stack(*args, **kw)
+    torch.cuda.synchronize()
+    assert tf.degrid_fused2_stack.launches == before + 1
+    want = tf.degrid_fused2_stack_reference(*args, **kw)
+    assert _rel(got, want) <= 1e-5
+    empty = torch.repeat_interleave(t["nonempty"] == 0, f["block_v"])
+    assert not bool(got[empty].abs().max() > 0)
+
+
+@pytest.mark.parametrize("bv", [128, 1024])
+def test_place_kernel_matches_plain(device, bv):
+    rng = np.random.default_rng(bv)
+    n, nblocks = 20000, 40
+    vcnt = rng.integers(-3, bv + 1, nblocks)
+    vcnt[::4] = 0
+    src0 = rng.integers(0, n + 1, nblocks)
+    src0[1], vcnt[1] = n - 5, bv          # reads past the end
+    ops = [torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, n,
+                                        dtype=np.int64).astype(np.int32),
+                           device=device),
+           torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                           device=device)] * 5   # 10 payloads, 2 launches
+    args = (torch.as_tensor(src0, dtype=torch.int32, device=device),
+            torch.as_tensor(vcnt, dtype=torch.int32, device=device), ops,
+            bv, bv * nblocks)
+    before = tp.place_stream.launches
+    got = tp.place_stream(*args)
+    torch.cuda.synchronize()
+    assert tp.place_stream.launches == before + 2
+    for g, w in zip(got, tp.place_stream_reference(*args)):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def test_streaming_on_card_launches_fused_kernels(device):
+    """StreamingGridder/StreamingDegridder on the card: only K3, K4 and
+    K5 launch, and the image and predictions agree with the CPU port."""
+    uvw, vis = make_inputs()
+    plan = plan_wstack(uvw, FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE, **PARAMS)
+    sp = plan_stream(plan, stream_tasks(plan, uvw), chunk_rows=64,
+                     block_v=128, cap_slots=20480)
+    model = two_point_image()
+    out = {}
+    for dev in ("cpu", device):
+        kernels.reset_launch_counts()
+        sg = StreamingGridder(sp, device=dev)
+        sd = StreamingDegridder(sp, device=dev).set_model(model)
+        preds = []
+        for lo in range(0, uvw.shape[0], 64):
+            sg.accumulate(uvw[lo:lo + 64], vis[lo:lo + 64])
+            preds.append(sd.predict(uvw[lo:lo + 64]))
+        img = sg.finalize()
+        sd.check()
+        out[str(dev)] = (img.cpu(), torch.cat(preds).cpu(),
+                         kernels.launch_counts())
+    (i0, p0, c0), (i1, p1, c1) = out["cpu"], out[str(device)]
+    assert set(c0.values()) == {0}
+    fused_names = {"grid_fused_stack", "degrid_fused2_stack", "place_stream"}
+    assert all(c1[n] > 0 for n in fused_names)
+    assert all(v == 0 for n, v in c1.items() if n not in fused_names)
     k = plan.kernel()
     taper = 1.0 / grid_correct_pswf(
         k.image_size, k.theta, k.w_step, k.shear_u, k.shear_v, k.support,

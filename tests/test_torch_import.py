@@ -30,13 +30,16 @@ MODULES = [
     "ska_sdp_func_torch.grid_data.wtower",
     "ska_sdp_func_torch.kernels",
     "ska_sdp_func_torch.kernels._build",
+    "ska_sdp_func_torch.kernels.fused_tap",
     "ska_sdp_func_torch.kernels.packed_tap",
+    "ska_sdp_func_torch.kernels.place",
     "ska_sdp_func_torch.native",
     "ska_sdp_func_torch.numeric_functions",
     "ska_sdp_func_torch.numeric_functions.fft_convolution",
     "ska_sdp_func_torch.parallel",
     "ska_sdp_func_torch.parallel.convert",
     "ska_sdp_func_torch.parallel.packed",
+    "ska_sdp_func_torch.parallel.streaming",
     "ska_sdp_func_torch.parallel.wstack",
     "ska_sdp_func_torch.pipeline",
     "ska_sdp_func_torch.pipeline.major_cycle",
