@@ -59,15 +59,32 @@ line of output each (or a few), failing loudly on the first fault:
       path on the card and against the host-planned packed path;
    g. the packed gridder's ``engine="fused"`` (K3, K4) at the bench
       scenario, "highest" and "high", against the band engine;
+   h. the ES-FFT gridder (K8, K11) on the bench data (pixel THETA / 512,
+      epsilon 1e-5, complex64): ``GridderUvwEsFft`` 3-D (w-stacking) and
+      2-D, ``grid_uvw_es_fft`` and ``ifft_degrid_uvw_es_fft`` of a unit
+      point; held against the plain path and the ES oracle in f32 and in
+      f64 on the card, and checked for adjointness;
+   i. the packed gridder's ``engine="compact"`` (K12, K13) at the bench
+      scenario, "highest" and "bf16", against the plain path and the band
+      engine;
 5. times: grid, degrid and one major-cycle iteration of the packed path
    and the fallback at the bench scenario, the task drivers' calls of
    4c, streaming ingest and predict beside their plain paths, the fused
-   engine beside the band engine, and each kernel beside its plain
-   version at the main paths' shapes.
+   and compact engines beside the band engine, the ES-FFT gridder beside
+   the packed path, and each kernel beside its plain version at the main
+   paths' shapes (K12/K13 also beside K3/K4 on the same plan).
 
-The line before the last is a JSON object describing each kernel; the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
-script exits non-zero and prints no result. It imports nothing of jax.
+The line before the last is a JSON object describing each kernel: its
+launches in its path's window, its largest absolute difference from its
+plain version, its time and the plain version's, and its bound: the
+larger of the bytes it must move (each input read once, each output
+written once) over the H100's 3.35 TB/s and the f32 operations of the
+valid slots its plan gives it (the non-zero tap products, two
+operations each, and the fused kernels' tap evaluation) over its 67
+TFLOP/s outside the tensor cores. ``library_ms`` is null: no single PyTorch call computes any
+of these functions. The last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device the script exits non-zero and prints no result. It
+imports nothing of jax.
 """
 
 import contextlib
@@ -117,6 +134,27 @@ TOWER_KERNELS = (
     ("grid_all_layers", "ska_sdp_func_tpu/kernels/pallas_tap.py:309"),
     ("degrid_all_layers", "ska_sdp_func_tpu/kernels/pallas_tap.py:369"),
 )
+# The ES-FFT gridder on the bench data, and its kernels.
+ES_EPSILON = 1e-5
+ES_LAYOUTS = {"3-D": True, "2-D": False}
+ES_ORACLE_TOL = 5e-6    # complex64 path vs the f64 oracle, of max|oracle|
+BAND_SOURCE = "ska_sdp_func_torch/kernels/csrc/band_tap.cu"
+ES_KERNELS = (
+    ("grid_packed", "ska_sdp_func_tpu/kernels/packed_tap.py:397"),
+    ("degrid_fused", "ska_sdp_func_tpu/kernels/packed_tap.py:935"),
+)
+# The packed engine="compact"'s kernels.
+FUSED_SOURCE = "ska_sdp_func_torch/kernels/csrc/fused_tap.cu"
+COMPACT_KERNELS = (
+    ("grid_compact", "ska_sdp_func_tpu/kernels/fused_tap.py:555"),
+    ("degrid_compact", "ska_sdp_func_tpu/kernels/fused_tap.py:636"),
+)
+COMPACT_MODES = {"highest": dict(precision="highest"),
+                 "bf16": dict(fast=True)}
+# The H100 SXM's published peaks (NVIDIA H100 datasheet): HBM bytes/s
+# and f32 operations/s outside the tensor cores.
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
 
 
 def say(msg: str) -> None:
@@ -269,7 +307,9 @@ def tower_operands(torch, dev, plan, uvw_dev, vis_dev, bplan, sort_index,
     grid_all_layers / degrid_all_layers: the taps of the bucketed plan's
     largest task slice (as ``grid_all_bucketed`` builds them); grid_plane
     / degrid_plane: one w-plane of that task's tower over every row and
-    channel of ``uvw_dev`` (as the task drivers build it).
+    channel of ``uvw_dev`` (as the task drivers build it). Also returns
+    each kernel's valid slots: the bucketed plan's valid slots in the
+    task's slice, and the plane geometry's active visibilities.
     """
     from ska_sdp_func_torch.grid_data import wtower
     from ska_sdp_func_torch.parallel import bucketed as bk
@@ -322,9 +362,13 @@ def tower_operands(torch, dev, plan, uvw_dev, vis_dev, bplan, sort_index,
                           plan.w_support), {})
     ops["degrid_plane"] = ((sub, uv_k, w_k, geom, plan.support,
                             plan.w_support), {})
-    shapes = (f"{task.size} taps x {num_k} layers; plane {tuple(geom[0].shape)}"
-              f" with {int(geom[0].sum())} active")
-    return ops, shapes
+    active = int(geom[0].sum())         # geom[0]: the plane's mask
+    in_task = int(valid[task.start:task.start + task.size].sum())
+    counts = dict(grid_plane=active, degrid_plane=active,
+                  grid_all_layers=in_task, degrid_all_layers=in_task)
+    shapes = (f"{task.size} taps ({in_task} valid) x {num_k} layers; plane "
+              f"{tuple(geom[0].shape)} with {active} active")
+    return ops, shapes, counts
 
 
 def check_tower_kernels(torch, tt, ops, label):
@@ -372,16 +416,13 @@ def plain_tower_kernels(bk, tt):
 
 
 @contextlib.contextmanager
-def plain_stream_kernels(record=None):
-    """The streaming path and the fused engine on the plain versions of
-    K3, K4 and K5 (the plain path the kernel path is held against). With
+def plain_kernels(swaps, record=None):
+    """A path on its kernels' plain versions (the plain path the kernel
+    path is held against): ``swaps`` lists (module the path calls
+    through, kernel name, module holding ``<name>_reference``). With
     ``record``, each call's arguments are appended under the kernel's
     name: the very operands the path passes its kernels."""
-    from ska_sdp_func_torch.kernels import fused_tap, place
-
-    swaps = [(fused_tap, name) for name, mod, _, _ in STREAM_KERNELS
-             if mod == "fused_tap"] + [(place, "place_stream")]
-    saved = [getattr(m, n) for m, n in swaps]
+    saved = [getattr(m, n) for m, n, _ in swaps]
 
     def plain_of(name, ref):
         def plain(*args, **kw):
@@ -390,28 +431,95 @@ def plain_stream_kernels(record=None):
             return ref(*args, **kw)
         return plain
 
-    for m, n in swaps:
-        setattr(m, n, plain_of(n, getattr(m, n + "_reference")))
+    for m, n, src in swaps:
+        setattr(m, n, plain_of(n, getattr(src, n + "_reference")))
     try:
         yield record
     finally:
-        for (m, n), f in zip(swaps, saved):
+        for (m, n, _), f in zip(swaps, saved):
             setattr(m, n, f)
+
+
+def plain_stream_kernels(record=None):
+    """The streaming path and the fused engine on the plain versions of
+    K3, K4 and K5."""
+    from ska_sdp_func_torch.kernels import fused_tap, place
+
+    return plain_kernels(
+        [(fused_tap, name, fused_tap) for name, mod, _, _ in STREAM_KERNELS
+         if mod == "fused_tap"] + [(place, "place_stream", place)], record)
+
+
+def plain_es_kernels(record=None):
+    """The ES-FFT gridder on the plain versions of K8 and K11 (its module
+    imports the wrappers by name)."""
+    from ska_sdp_func_torch.grid_data import es_fft_packed
+    from ska_sdp_func_torch.kernels import band_tap
+
+    return plain_kernels([(es_fft_packed, n, band_tap)
+                          for n, _ in ES_KERNELS], record)
+
+
+def plain_compact_kernels(record=None):
+    """The compact engine on the plain versions of K12 and K13."""
+    from ska_sdp_func_torch.kernels import fused_tap
+
+    return plain_kernels([(fused_tap, n, fused_tap)
+                          for n, _ in COMPACT_KERNELS], record)
+
+
+# -- bounds ------------------------------------------------------------------
+
+def nbytes(*objs) -> int:
+    """Bytes of every tensor among ``objs`` (tuples and lists searched)."""
+    total = 0
+    for o in objs:
+        if isinstance(o, (tuple, list)):
+            total += nbytes(*o)
+        elif hasattr(o, "element_size"):
+            total += o.numel() * o.element_size()
+    return total
+
+
+def bound(args, out, ops):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to read ``args`` once, write ``out`` once and do ``ops`` f32
+    operations."""
+    t_bytes = (nbytes(args) + nbytes(out)) / HBM_BYTES_S * 1e3
+    t_ops = ops / F32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tap_ops(valid, support, w_support):
+    """f32 operations of the non-zero tap products of ``valid`` slots: 2
+    halves x Sw x S x S products, a multiply and an add each."""
+    return int(valid) * 2 * w_support * support * support * 2
+
+
+def cheb_ops(valid, support, w_support, ncoef):
+    """f32 operations of the fused kernels' tap evaluation: three
+    Chebyshev bases and 2S + Sw sums of ``ncoef`` terms per slot."""
+    return int(valid) * (3 + 2 * support + w_support) * 2 * ncoef
 
 
 def check_stream_kernels(torch, StreamingGridder, StreamingDegridder, sp,
                          uvw, vis, model, label):
     """K3 and K4 (three modes) and K5 against their plain versions on the
     operands one streaming accumulate and predict pass them (captured on
-    the plain path). Returns the absolute errors of the path's own mode
-    and the captured operands."""
+    the plain path). Returns the absolute errors of the path's own mode,
+    the captured operands and K3/K4's valid slots (the chunk's processed
+    count of the stream's device plan)."""
     from ska_sdp_func_torch.kernels import fused_tap, place
 
     dev = uvw.device
     captured = {}
+    sg = StreamingGridder(sp, device=dev)
+    sd = StreamingDegridder(sp, device=dev).set_model(model)
     with plain_stream_kernels(captured):
-        StreamingGridder(sp, device=dev).accumulate(uvw, vis)
-        StreamingDegridder(sp, device=dev).set_model(model).predict(uvw)
+        sg.accumulate(uvw, vis)
+        sd.predict(uvw)
+    counts = dict(grid_fused_stack=int(sg.counters()[0]),
+                  degrid_fused2_stack=int(sd.counters()[0]))
     errs, lines = {}, []
     for name in ("grid_fused_stack", "degrid_fused2_stack"):
         args, kw = captured[name][0]
@@ -445,7 +553,7 @@ def check_stream_kernels(torch, StreamingGridder, StreamingDegridder, sp,
     if not same:
         raise SystemExit(f"place_stream disagrees with its plain version "
                          f"[{label}]")
-    return errs, captured
+    return errs, captured, counts
 
 
 @contextlib.contextmanager
@@ -487,6 +595,215 @@ def finite(torch, named):
     for name, t in named:
         if not bool(torch.isfinite(t).all()):
             raise SystemExit(f"{name} is not finite")
+
+
+def es_phase(torch, tkern, dev, uvw, vis, model):
+    """4h: the ES-FFT gridder (K8, K11) on the bench data, 3-D and 2-D.
+    Returns the plans, the window's launches, the kernels' absolute
+    errors on the main path's operands and those operands."""
+    from ska_sdp_func_torch.grid_data import GridderUvwEsFft
+    from ska_sdp_func_torch.kernels import band_tap
+
+    freq = C_0 + np.arange(CHANS) * (C_0 / (100 * CHANS))
+    pix = THETA / IMAGE
+    t0 = time.perf_counter()
+    plans = {name: GridderUvwEsFft(
+        uvw, freq, vis, np.ones(vis.shape, np.float32),
+        np.zeros((IMAGE, IMAGE), np.float32), pix, pix, ES_EPSILON,
+        *GridderUvwEsFft.get_w_range(uvw, freq), ws, device=dev)
+        for name, ws in ES_LAYOUTS.items()}
+    plan_time = time.perf_counter() - t0
+    for name, p in plans.items():
+        ep = p._packed
+        say(f"# ES-FFT plan [{name}]: grid {p.grid_size}, support "
+            f"{p.support}, {p.num_total_w_grids} w-planes, {ep.num_slabs} "
+            f"slab(s), {ep.total} slots in {ep.num_blocks} blocks of "
+            f"{ep.block_v}, {int(ep.arrays['visited'].sum())} occupied "
+            f"buckets of {ep.gu * ep.gv} per slab, {ep.num_clipped} clipped")
+    say(f"# ES-FFT plans: {plan_time:.2f} s host (both)")
+    a = dict(uvw=torch.as_tensor(uvw, device=dev),
+             freq=torch.as_tensor(freq, device=dev),
+             vis=torch.as_tensor(vis, device=dev),
+             weight=torch.ones(vis.shape, device=dev),
+             dirty=torch.zeros((IMAGE, IMAGE), device=dev))
+    zeros = torch.zeros_like(a["vis"])
+
+    def es_grid(p, v=None):
+        return p.grid_uvw_es_fft(a["uvw"], a["freq"],
+                                 a["vis"] if v is None else v, a["weight"],
+                                 a["dirty"])
+
+    def es_degrid(p, image):
+        return p.ifft_degrid_uvw_es_fft(a["uvw"], a["freq"], zeros,
+                                        a["weight"], image)
+
+    names = [n for n, _ in ES_KERNELS]
+    others = [n for n in tkern.launch_counts() if n not in names]
+    with launch_window(torch, tkern, "ES-FFT gridder", names,
+                       others) as launches:
+        out = {k: (es_grid(p), es_degrid(p, model))
+               for k, p in plans.items()}
+    ops = {}
+    with plain_es_kernels(ops):
+        plain = {k: (es_grid(p), es_degrid(p, model))
+                 for k, p in plans.items()}
+    rng = np.random.default_rng(7)
+    x = torch.as_tensor(rng.standard_normal((IMAGE, IMAGE)),
+                        dtype=torch.float32, device=dev)
+    lines, ok = [], True
+    for k, p in plans.items():
+        img, pred = out[k]
+        finite(torch, ((f"ES image [{k}]", img), (f"ES degrid [{k}]", pred)))
+        if tuple(img.shape) != (IMAGE, IMAGE) or \
+                tuple(pred.shape) != (ROWS, CHANS):
+            raise SystemExit("ES-FFT outputs have the wrong shape")
+        e_plain = max(rel_err(img, plain[k][0]), rel_err(pred, plain[k][1]))
+        # The oracle path (per-plane scatter, FFT, screen) on the card.
+        packed, p._packed = p._packed, None
+        try:
+            o_img, o_pred = es_grid(p), es_degrid(p, model)
+        finally:
+            p._packed = packed
+        e_ogrid, e_odegrid = rel_err(img, o_img), rel_err(pred, o_pred)
+        del o_img, o_pred
+        # The independent witness: the oracle in f64 (complex128 inputs
+        # take it by rule), against which the complex64 path is held.
+        o_img = p.grid_uvw_es_fft(
+            a["uvw"], a["freq"], a["vis"].to(torch.complex128),
+            a["weight"].double(), a["dirty"].double())
+        o_pred = p.ifft_degrid_uvw_es_fft(
+            a["uvw"], a["freq"], zeros.to(torch.complex128),
+            a["weight"].double(), model.double())
+        e_fgrid = rel_err(img.double(), o_img)
+        e_fdegrid = rel_err(pred.to(torch.complex128), o_pred)
+        del o_img, o_pred
+        # Adjointness: <grid(vis), x> against <vis * weight, degrid(x)>.
+        ax = es_degrid(p, x).to(torch.complex128)
+        lhs = float((img.double() * x.double()).sum())
+        rhs = float((a["vis"].to(torch.complex128).conj() * a["weight"]
+                     * ax).sum().real)
+        e_adj = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
+        lines.append(f"[{k}] kernel vs plain path rel err {e_plain:.3e}, "
+                     f"vs the f32 ES oracle: grid {e_ogrid:.3e}, degrid "
+                     f"{e_odegrid:.3e} (tolerance {TOL:g}), vs the f64 ES "
+                     f"oracle: grid {e_fgrid:.3e}, degrid {e_fdegrid:.3e} "
+                     f"(tolerance {ES_ORACLE_TOL:g}), adjointness "
+                     f"{e_adj:.3e} (tolerance 1e-5)")
+        ok = ok and max(e_plain, e_ogrid, e_odegrid) <= TOL \
+            and max(e_fgrid, e_fdegrid) <= ES_ORACLE_TOL and e_adj <= 1e-5
+    # Taper-free (ES has no 1/PSWF border). The f64 oracle is the witness
+    # the complex64 path is held to, at tests/test_es_fft.py's 5e-6 of
+    # peak. The f32 oracle is a third f32 summation order over 1,048,576
+    # visibilities, so two f32 orders meet at TOL.
+    say("# ES-FFT gridder (bench visibilities, unit-point degrid): "
+        + "; ".join(lines))
+    if not ok:
+        raise SystemExit("the ES-FFT gridder disagrees")
+    # The kernels on the operands the path passed them (3-D, then 2-D),
+    # K8 also with the scale stack built from the split form.
+    errs, lines = {}, []
+    g_args, g_kw = ops["grid_packed"][0]
+    wk_t, vre, vim = g_args[5]
+    stack_call = (g_args[:5] + (torch.cat([wk_t * vre, wk_t * vim]),)
+                  + g_args[6:], g_kw)
+    calls = [(n, c) for n in names for c in ops[n]] + [
+        ("grid_packed", stack_call)]
+    for i, (name, (args, kw)) in enumerate(calls):
+        got = getattr(band_tap, name)(*args, **kw)
+        want = getattr(band_tap, name + "_reference")(*args, **kw)
+        torch.cuda.synchronize()
+        e = rel_err(got, want)
+        lines.append(f"{name} {e:.3e}")
+        if not e <= TOL:
+            raise SystemExit(f"{name} disagrees with its plain version "
+                             f"[ES-FFT call {i}]: {e:.3e}")
+        errs.setdefault(name, float((got - want).abs().max()))
+        del got, want
+    say("# ES-FFT kernels vs plain (3-D, 2-D, 3-D with the scale stack): "
+        + ", ".join(lines) + f" (tolerance {TOL:g})")
+    return dict(plans=plans, launches=launches, errs=errs, ops=ops,
+                grid=es_grid, degrid=es_degrid)
+
+
+def compact_phase(torch, tkern, PackedGridder, pplan, dev, vre, vim, model,
+                  taper):
+    """4i: the packed engine="compact" (K12, K13) at the bench scenario,
+    "highest" and "bf16", against the plain path and the band engine.
+    Returns the gridders, the window's launches, the kernels' absolute
+    errors ("highest") and their operands."""
+    from ska_sdp_func_torch.kernels import fused_tap
+
+    band = {}
+    for mode, kw in COMPACT_MODES.items():
+        g = PackedGridder(pplan, engine="bands", device=dev, **kw)
+        band[mode] = (g.grid_sorted(vre, vim), g.degrid_sorted(model))
+        del g
+    comp = {mode: PackedGridder(pplan, engine="compact", device=dev, **kw)
+            for mode, kw in COMPACT_MODES.items()}
+    if [g.engine for g in comp.values()] != ["compact"] * 2 or \
+            comp["highest"].precision != "highest":
+        raise SystemExit("the bench plan did not take the compact engine")
+    names = [n for n, _ in COMPACT_KERNELS]
+    others = [n for n in tkern.launch_counts() if n not in names]
+
+    def run():
+        return {m: (g.grid_sorted(vre, vim), g.degrid_sorted(model))
+                for m, g in comp.items()}
+
+    with launch_window(torch, tkern, "compact engine", names,
+                       others) as launches:
+        out = run()
+    ops = {}
+    with plain_compact_kernels(ops):
+        plain = run()
+    m = IMAGE // 8
+    lines, ok = [], True
+    for mode, (img, pred) in out.items():
+        finite(torch, ((f"compact image [{mode}]", img),
+                       (f"compact degrid [{mode}]", pred)))
+        e_plain = max(rel_err(img * taper, plain[mode][0] * taper),
+                      rel_err(pred, plain[mode][1]))
+        b_img, b_pred = band[mode]
+        e_int = rel_err(img[m:-m, m:-m], b_img[m:-m, m:-m])
+        e_int_plain = rel_err(img[m:-m, m:-m], plain[mode][0][m:-m, m:-m])
+        e_tap = rel_err(img * taper, b_img * taper)
+        e_deg = rel_err(pred, b_pred)
+        # bf16 rounds the same two factors in both engines; the f32 sums
+        # come in another order, as in the CPU tests. The raw interior is
+        # printed, not held: any two f32 summation orders of one image,
+        # the kernel's and its own plain path's included, differ there
+        # by ~1e-4 of peak once the 1/PSWF correction lifts the noise
+        # next to the border (PERF.md).
+        tol = 2e-6 if mode == "highest" else 1e-5
+        lines.append(f"'{mode}' kernel vs plain path {e_plain:.3e} "
+                     f"(tolerance {TOL:g}); vs the band engine: "
+                     f"taper-weighted {e_tap:.3e}, degrid {e_deg:.3e} "
+                     f"(tolerance {tol:g}); raw interior (margin {m}) vs "
+                     f"the band engine {e_int:.3e}, vs the plain path "
+                     f"{e_int_plain:.3e}")
+        ok = ok and e_plain <= TOL and max(e_tap, e_deg) <= tol
+    say("# compact engine (bench scenario): " + "; ".join(lines))
+    if not ok:
+        raise SystemExit("the compact engine disagrees")
+    errs, lines = {}, []
+    for name in names:
+        args, kw = ops[name][0]          # the "highest" gridder's call
+        for mode in ("highest", "bf16"):
+            kw_m = {**kw, "precision": mode}
+            got = getattr(fused_tap, name)(*args, **kw_m)
+            want = getattr(fused_tap, name + "_reference")(*args, **kw_m)
+            torch.cuda.synchronize()
+            e = rel_err(got, want)
+            lines.append(f"{name}[{mode}] {e:.3e}")
+            if not e <= TOL:
+                raise SystemExit(f"{name} disagrees with its plain version "
+                                 f"[{mode}]: {e:.3e}")
+            if mode == "highest":
+                errs[name] = float((got - want).abs().max())
+            del got, want
+    say("# compact kernels vs plain (bench scenario): " + ", ".join(lines)
+        + f" (tolerance {TOL:g})")
+    return dict(gridders=comp, launches=launches, errs=errs, ops=ops)
 
 
 def main() -> int:
@@ -576,7 +893,7 @@ def main() -> int:
                           SMALL["w_step"], support=8, w_support=4,
                           w_tower_height=HEIGHT)
     bplan_ss, sort_ss, valid_ss = plan_bucketed(plan_ss, uvw_s, block_v=128)
-    ops_ss, shapes = tower_operands(
+    ops_ss, shapes, _ = tower_operands(
         torch, dev, plan_ss, torch.as_tensor(uvw_s, device=dev),
         torch.as_tensor(vis_s, device=dev), bplan_ss, sort_ss, valid_ss, 21)
     say(f"# small tower operands: {shapes}")
@@ -593,8 +910,8 @@ def main() -> int:
         f"{min(t.num_layers for t in bplan.tasks)}-"
         f"{max(t.num_layers for t in bplan.tasks)} layers, {bplan.total} "
         f"slots ({plan_time:.2f} s host)")
-    ops, shapes = tower_operands(torch, dev, tplan, uvw_dev, vis_dev, bplan,
-                                 sort_index, valid, 22)
+    ops, shapes, tower_valid = tower_operands(
+        torch, dev, tplan, uvw_dev, vis_dev, bplan, sort_index, valid, 22)
     say(f"# main tower operands: {shapes}")
     tower_err = check_tower_kernels(torch, tt, ops, "main")
 
@@ -629,7 +946,7 @@ def main() -> int:
         f"{stack_bytes} bytes ({plan_time:.2f} s host)")
     uvw_dd = torch.as_tensor(uvw_d, device=dev)
     vis_dd = torch.as_tensor(vis_d, device=dev)
-    stream_err, stream_ops = check_stream_kernels(
+    stream_err, stream_ops, stream_valid = check_stream_kernels(
         torch, StreamingGridder, StreamingDegridder, sp_d, uvw_dd, vis_dd,
         model, "dense stream")
 
@@ -670,10 +987,12 @@ def main() -> int:
     img_pt = np.zeros((SMALL["image"], SMALL["image"]), np.float32)
     src = (SMALL["image"] // 2 + 12, SMALL["image"] // 2 - 9)
     img_pt[src] = 1.0
-    vis_pt = packed_gridder(plan_packed(plan_s, uvw_s)).degrid(img_pt)
+    vis_pt = packed_gridder(plan_packed(plan_s, uvw_s),
+                            device="cpu").degrid(img_pt)
     r_gpu = major_cycle_imager(plan_s, vis_pt, uvw_s, bucketed=True,
                                device=dev)
-    r_cpu = major_cycle_imager(plan_s, vis_pt, uvw_s, bucketed=True)
+    r_cpu = major_cycle_imager(plan_s, vis_pt, uvw_s, bucketed=True,
+                               device="cpu")
     e_mc = rel_err(r_gpu.model.cpu(), r_cpu.model)
     flux = float(r_gpu.model[src])
     say(f"# small point-source solve (packed), card vs CPU: model rel err "
@@ -779,13 +1098,14 @@ def main() -> int:
         # uvw's f64, the complex128 path).
         ax = kern_g.degrid_subgrid(
             x, (10, -6, 1), ch_g, C_0, C_0 / 100, *args,
-            vis=torch.zeros((rows_g, ch_g), dtype=torch.complex64, device=d))
+            vis=torch.zeros((rows_g, ch_g), dtype=torch.complex64, device=d),
+            device=d)
         rng = np.random.default_rng(3)
         v = torch.as_tensor((rng.standard_normal((rows_g, ch_g))
                              + 1j * rng.standard_normal((rows_g, ch_g))
                              ).astype(np.complex64), device=d)
         atv = kern_g.grid_subgrid(v, *args, ch_g, C_0, C_0 / 100,
-                                  torch.zeros_like(x), (10, -6, 1))
+                                  torch.zeros_like(x), (10, -6, 1), device=d)
         return ax.cpu(), atv.cpu(), v.cpu(), x.cpu()
 
     with launch_window(torch, tkern, "sub-grid gridder",
@@ -844,7 +1164,8 @@ def main() -> int:
                           w_tower_height=HEIGHT)
     r_tgpu = major_cycle_imager(plan_ts, vis_pt, uvw_s, n_major=1,
                                 device=dev)
-    r_tcpu = major_cycle_imager(plan_ts, vis_pt, uvw_s, n_major=1)
+    r_tcpu = major_cycle_imager(plan_ts, vis_pt, uvw_s, n_major=1,
+                                device="cpu")
     e_tmc = rel_err(r_tgpu.model.cpu(), r_tcpu.model)
     flux = float(r_tgpu.model[src])
     say(f"# small point-source solve (task drivers, bucketed=False), card "
@@ -951,6 +1272,13 @@ def main() -> int:
         raise SystemExit("the fused engine disagrees with the band engine")
     del fused_out
 
+    # 4h. the ES-FFT gridder (K8, K11), bench data -----------------------
+    es = es_phase(torch, tkern, dev, uvw, vis, model)
+
+    # 4i. the packed gridder's engine="compact" (K12, K13), bench scenario
+    cp = compact_phase(torch, tkern, PackedGridder, pplan, dev, vre, vim,
+                       model, taper)
+
     # 5. times -----------------------------------------------------------
     t_grid = cuda_ms(torch, lambda: g.grid_sorted(vre, vim), 10)
     t_degrid = cuda_ms(torch, lambda: g.degrid_sorted(model), 10)
@@ -1045,73 +1373,152 @@ def main() -> int:
             f"engine {num_vis / b2 / 1e3:.2f} Mvis/s ({b1:.3f}/{b2:.3f} ms)")
     del fused_g, fg
 
+    # The ES-FFT gridder beside the packed path (band engine, "high", its
+    # sort and unsort included) on the same data; turns: packed, ES, ES,
+    # packed.
+    lines = []
+    for what, packed_fn, es_fn in (
+            ("grid", lambda: g.grid(vis_dev),
+             lambda p: es["grid"](p)),
+            ("degrid", lambda: g.degrid(model),
+             lambda p: es["degrid"](p, model))):
+        b1 = cuda_ms(torch, packed_fn, 10)
+        es_t = {k: [cuda_ms(torch, lambda: es_fn(p), 10) for _ in range(2)]
+                for k, p in es["plans"].items()}
+        b2 = cuda_ms(torch, packed_fn, 10)
+        lines.append(f"{what}: " + ", ".join(
+            f"ES-FFT {k} {num_vis / t[1] / 1e3:.2f} Mvis/s ({t[0]:.3f}/"
+            f"{t[1]:.3f} ms)" for k, t in es_t.items())
+            + f"; packed path {num_vis / b2 / 1e3:.2f} Mvis/s ({b1:.3f}/"
+            f"{b2:.3f} ms)")
+    say(f"# [{gpu}] ES-FFT gridder vs packed path (bench data, "
+        f"{num_vis} visibilities): " + "; ".join(lines))
+    # The compact engine beside the band and fused engines, "highest" (the
+    # compact engine's precision); turns: band, fused, compact, compact,
+    # fused, band.
+    cg = cp["gridders"]["highest"]
+    bg = PackedGridder(pplan, precision="highest", device=dev)
+    fh = PackedGridder(pplan, precision="highest", engine="fused",
+                       device=dev)
+    for what, fn in (("grid", lambda x: x.grid_sorted(vre, vim)),
+                     ("degrid", lambda x: x.degrid_sorted(model))):
+        t = [cuda_ms(torch, lambda: fn(x), 10)
+             for x in (bg, fh, cg, cg, fh, bg)]
+        say(f"# [{gpu}] packed {what}, 'highest': compact engine "
+            f"{num_vis / t[3] / 1e3:.2f} Mvis/s ({t[2]:.3f}/{t[3]:.3f} ms), "
+            f"fused engine {num_vis / t[4] / 1e3:.2f} Mvis/s ({t[1]:.3f}/"
+            f"{t[4]:.3f} ms), band engine {num_vis / t[5] / 1e3:.2f} Mvis/s "
+            f"({t[0]:.3f}/{t[5]:.3f} ms)")
+    # K3/K4's operands on the same plan, for K12/K13 beside them.
+    fused_ops = {}
+    with plain_stream_kernels(fused_ops):
+        fh.grid_sorted(vre, vim)
+        fh.degrid_sorted(model)
+    del bg, fh
+
     grid_args, degrid_args = kernel_operands(torch, g, pplan, dev, 12)
     bv = pplan.block_v
+    valid_p = int(pplan.arrays["valid"].sum())
     times = {}
+
+    def time_kernel(name, kern, ref, args, kw, ops, k_iters=10, p_iters=5,
+                    p_warmup=2):
+        """Turns: plain, kernel, kernel, plain; keeps the second of each
+        and the bound of one call's operands and output."""
+        p1 = cuda_ms(torch, lambda: ref(*args, **kw), p_iters, p_warmup)
+        k1 = cuda_ms(torch, lambda: kern(*args, **kw), k_iters)
+        k2 = cuda_ms(torch, lambda: kern(*args, **kw), k_iters)
+        p2 = cuda_ms(torch, lambda: ref(*args, **kw), p_iters, p_warmup)
+        times[name] = (k2, p2) + bound(args, kern(*args, **kw), ops)
+        return f"kernel {k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms, " \
+            f"bound {times[name][2]:.4f} ms by {times[name][3]}"
+
     for name, kern, ref, args in (
             ("grid_packed_stack", tk.grid_packed_stack,
              tk.grid_packed_stack_reference, grid_args),
             ("degrid_stack", tk.degrid_stack, tk.degrid_stack_reference,
              degrid_args)):
-        # Turns: plain, kernel, kernel, plain; keep the second of each.
-        p1 = cuda_ms(torch, lambda: ref(*args, block_v=bv), 5)
-        k1 = cuda_ms(torch, lambda: kern(*args, block_v=bv), 10)
-        k2 = cuda_ms(torch, lambda: kern(*args, block_v=bv), 10)
-        p2 = cuda_ms(torch, lambda: ref(*args, block_v=bv), 5)
-        times[name] = (k2, p2)
-        say(f"# [{gpu}] {name} at main-path shapes, 'high': kernel "
-            f"{k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms")
+        say(f"# [{gpu}] {name} at main-path shapes, 'high': " + time_kernel(
+            name, kern, ref, args, dict(block_v=bv), tap_ops(valid_p, 8, 4)))
     for name, _ in TOWER_KERNELS:
         args, kw = ops[name]
-        kern = getattr(tt, name)
-        ref = getattr(tt, name + "_reference")
-        p1 = cuda_ms(torch, lambda: ref(*args, **kw), 5)
-        k1 = cuda_ms(torch, lambda: kern(*args, **kw), 20)
-        k2 = cuda_ms(torch, lambda: kern(*args, **kw), 20)
-        p2 = cuda_ms(torch, lambda: ref(*args, **kw), 5)
-        times[name] = (k2, p2)
-        say(f"# [{gpu}] {name} at main-path shapes: kernel "
-            f"{k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms")
+        # The plane kernels take one layer's w taps, the all-layer kernels
+        # one w tap per slot and layer.
+        w_taps = 4 if name.endswith("plane") else 1
+        say(f"# [{gpu}] {name} at main-path shapes: " + time_kernel(
+            name, getattr(tt, name), getattr(tt, name + "_reference"), args,
+            kw, tap_ops(tower_valid[name], 8, w_taps), k_iters=20))
     stream_mods = {"fused_tap": fused_tap, "place": place}
+    # The fused kernels' Chebyshev terms: the stream plan's uv tap fit.
+    from ska_sdp_func_torch.grid_data.wtower import _tap_coeffs_cached
+
+    ncoef = _tap_coeffs_cached(sp_d.wplan.support,
+                               sp_d.wplan.oversampling).shape[0]
     for name, mod, _, _ in STREAM_KERNELS:
         args, kw = stream_ops[name][0]
-        kern = getattr(stream_mods[mod], name)
-        ref = getattr(stream_mods[mod], name + "_reference")
-        p1 = cuda_ms(torch, lambda: ref(*args, **kw), 2, warmup=1)
-        k1 = cuda_ms(torch, lambda: kern(*args, **kw), 10)
-        k2 = cuda_ms(torch, lambda: kern(*args, **kw), 10)
-        p2 = cuda_ms(torch, lambda: ref(*args, **kw), 2, warmup=1)
-        times[name] = (k2, p2)
+        v = stream_valid.get(name, 0)
+        n_ops = tap_ops(v, 8, 4) + cheb_ops(v, 8, 4, ncoef)
         say(f"# [{gpu}] {name} at the dense stream's shapes, "
-            f"'{kw.get('precision', 'copy')}': kernel {k1:.3f}/{k2:.3f} ms, "
-            f"plain {p1:.3f}/{p2:.3f} ms")
+            f"'{kw.get('precision', 'copy')}': " + time_kernel(
+                name, getattr(stream_mods[mod], name),
+                getattr(stream_mods[mod], name + "_reference"), args, kw,
+                n_ops, p_iters=2, p_warmup=1))
+    from ska_sdp_func_torch.kernels import band_tap
+
+    es_valid = int(es["plans"]["3-D"]._packed.arrays["valid"].sum())
+    for name, _ in ES_KERNELS:
+        args, kw = es["ops"][name][0]        # the 3-D plan's call
+        say(f"# [{gpu}] {name} at the ES-FFT 3-D shapes: " + time_kernel(
+            name, getattr(band_tap, name),
+            getattr(band_tap, name + "_reference"), args, kw,
+            tap_ops(es_valid, 8, 8), p_iters=2, p_warmup=1))
+    # K12/K13 at "highest" beside K3/K4 on the same plan and stream (the
+    # price of the fused kernels' Chebyshev evaluation); turns: fused,
+    # compact, compact, fused.
+    for name, fused_name in (("grid_compact", "grid_fused_stack"),
+                             ("degrid_compact", "degrid_fused2_stack")):
+        args, kw = cp["ops"][name][0]
+        say(f"# [{gpu}] {name} at main-path shapes, 'highest': "
+            + time_kernel(name, getattr(fused_tap, name),
+                          getattr(fused_tap, name + "_reference"), args, kw,
+                          tap_ops(valid_p, 8, 4), p_iters=2, p_warmup=1))
+        f_args, f_kw = fused_ops[fused_name][0]
+        f_kern = getattr(fused_tap, fused_name)
+        f1 = cuda_ms(torch, lambda: f_kern(*f_args, **f_kw), 10)
+        c1 = cuda_ms(torch, lambda: getattr(fused_tap, name)(*args, **kw), 10)
+        c2 = cuda_ms(torch, lambda: getattr(fused_tap, name)(*args, **kw), 10)
+        f2 = cuda_ms(torch, lambda: f_kern(*f_args, **f_kw), 10)
+        say(f"# [{gpu}] {name} beside {fused_name} on the same plan, "
+            f"'highest': {c1:.3f}/{c2:.3f} ms vs {f1:.3f}/{f2:.3f} ms")
+
+    def row(name, source, where, launched, err):
+        k, p, b, by = times[name]
+        return dict(name=name, route="cuda", source=source, replaces=where,
+                    launches=launched, max_abs_err=err, ms=k, plain_ms=p,
+                    bound_ms=b, bound_by=by, library_ms=None)
 
     kernels = [
-        dict(name="grid_packed_stack", route="cuda", source=PACKED_SOURCE,
-             replaces="ska_sdp_func_tpu/kernels/packed_tap.py:249",
-             launches=launches["grid_packed_stack"],
-             max_abs_err=abs_err["grid"],
-             ms=times["grid_packed_stack"][0],
-             plain_ms=times["grid_packed_stack"][1]),
-        dict(name="degrid_stack", route="cuda", source=PACKED_SOURCE,
-             replaces="ska_sdp_func_tpu/kernels/packed_tap.py:839",
-             launches=launches["degrid_stack"],
-             max_abs_err=abs_err["degrid"],
-             ms=times["degrid_stack"][0],
-             plain_ms=times["degrid_stack"][1]),
+        row("grid_packed_stack", PACKED_SOURCE,
+            "ska_sdp_func_tpu/kernels/packed_tap.py:249",
+            launches["grid_packed_stack"], abs_err["grid"]),
+        row("degrid_stack", PACKED_SOURCE,
+            "ska_sdp_func_tpu/kernels/packed_tap.py:839",
+            launches["degrid_stack"], abs_err["degrid"]),
     ] + [
-        dict(name=name, route="cuda",
-             source="ska_sdp_func_torch/kernels/" + src, replaces=where,
-             launches=st_launches[name], max_abs_err=stream_err[name],
-             ms=times[name][0], plain_ms=times[name][1])
+        row(name, "ska_sdp_func_torch/kernels/" + src, where,
+            st_launches[name], stream_err[name])
         for name, _, src, where in STREAM_KERNELS
     ] + [
-        dict(name=name, route="cuda", source=TOWER_SOURCE, replaces=where,
-             launches=(td_launches if name.endswith("plane")
-                       else fb_launches)[name],
-             max_abs_err=tower_err[name],
-             ms=times[name][0], plain_ms=times[name][1])
-        for name, where in TOWER_KERNELS]
+        row(name, TOWER_SOURCE, where,
+            (td_launches if name.endswith("plane") else fb_launches)[name],
+            tower_err[name])
+        for name, where in TOWER_KERNELS
+    ] + [
+        row(name, BAND_SOURCE, where, es["launches"][name], es["errs"][name])
+        for name, where in ES_KERNELS
+    ] + [
+        row(name, FUSED_SOURCE, where, cp["launches"][name], cp["errs"][name])
+        for name, where in COMPACT_KERNELS]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

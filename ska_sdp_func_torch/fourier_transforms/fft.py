@@ -53,6 +53,22 @@ def ifft_shifted(data: torch.Tensor, num_dims_fft: int = 2) -> torch.Tensor:
     return fft_phase(_fft_nd(fft_phase(data), num_dims_fft, False))
 
 
+def padded_fft_size(size: int, padding_factor: float = 1.0) -> int:
+    """Next even number >= size*padding_factor whose prime factors are
+    all in {2, 3, 5, 7, 11} (reference: sdp_fft_padded_size.h:20)."""
+    candidate = max(2, int(size * padding_factor + 0.5))
+    if candidate % 2:
+        candidate += 1
+    while True:
+        n = candidate
+        for p in (2, 3, 5, 7, 11):
+            while n % p == 0:
+                n //= p
+        if n == 1:
+            return candidate
+        candidate += 2
+
+
 def ifft_shifted_norm(data: torch.Tensor,
                       num_dims_fft: int = 2) -> torch.Tensor:
     """phase -> normalised (1/N^d) iFFT -> phase."""

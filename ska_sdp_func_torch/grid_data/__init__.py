@@ -1,12 +1,13 @@
 """Gridding helpers and drivers: kernel tables, grid correction, channel
-clamping, sub-grid placement, the w-towers gridder and the w-stacking
-whole-image drivers."""
+clamping, sub-grid placement, the w-towers gridder, the w-stacking
+whole-image drivers and the ES-FFT gridder."""
 
 from .clamp_channels import (
     clamp_channels_inline,
     clamp_channels_single,
     clamp_channels_uv,
 )
+from .es_fft import GridderUvwEsFft
 from .grid_correct import (
     grid_correct_pswf,
     grid_correct_w_stack,
@@ -32,6 +33,7 @@ from .wstack import wstack_wtower_degrid_all, wstack_wtower_grid_all
 from .wtower import GridderWtowerUVW
 
 __all__ = [
+    "GridderUvwEsFft",
     "GridderWtowerUVW",
     "clamp_channels_inline",
     "clamp_channels_single",

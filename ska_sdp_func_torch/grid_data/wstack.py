@@ -13,8 +13,9 @@ iFFT). The processed-visibility cross-check (reference :442-448) raises
 
 ``engine="packed"`` routes through the packed whole-image path
 (:mod:`..parallel.packed`); ``"auto"`` takes it for single-precision
-templates where the geometry allows. The device of ``vis`` / ``image``
-(when they are tensors) is where the work runs.
+templates where the geometry allows. Both drivers run on ``device``
+(``None``: the CUDA card; CPU runs pass ``device="cpu"``) and move their
+inputs there.
 """
 
 import math
@@ -25,10 +26,11 @@ import torch
 from ..fourier_transforms.fft import fft_shifted, ifft_shifted_norm
 from ..utility.errors import SdpInvalidArgumentError, SdpRuntimeError
 from ..utility.logging import log_info
+from ..utility.tensors import resolve_device
 from ..utility.timers import Timers
 from .clamp_channels import clamp_channels_single, clamp_channels_uv
 from .gridder_utils import subgrid_add, subgrid_cut_out, uvw_bounds_all
-from .wtower import GridderWtowerUVW, _device_of, _tensor
+from .wtower import GridderWtowerUVW, _tensor
 
 _SINGLE = ("complex64", "float32")
 
@@ -109,10 +111,12 @@ def wstack_wtower_degrid_all(image, freq0_hz: float, dfreq_hz: float, uvw,
                              w_oversampling: int, subgrid_frac: float,
                              w_tower_height: float, verbosity: int = 0,
                              vis=None, num_threads: int = 0,
-                             engine: str = "reference") -> torch.Tensor:
+                             engine: str = "reference",
+                             device=None) -> torch.Tensor:
     """Degrid a whole image into visibilities (forward operator;
-    `sdp_grid_wstack_wtower_degrid_all`, sdp_grid_wstack_wtower.h:44-76).
-    ``vis`` is required and gives only shape and dtype.
+    `sdp_grid_wstack_wtower_degrid_all`, sdp_grid_wstack_wtower.h:44-76)
+    on ``device`` (``None``: the CUDA card). ``vis`` is required and
+    gives only shape and dtype.
 
     ``engine``: "reference" (default) runs the reference per-task loop
     at the template's precision; "packed" the packed whole-image path
@@ -123,7 +127,7 @@ def wstack_wtower_degrid_all(image, freq0_hz: float, dfreq_hz: float, uvw,
     if vis is None:
         raise SdpInvalidArgumentError(
             "vis template required (shape [num_rows, num_chan])")
-    device = _device_of(vis, image)
+    device = resolve_device(device)
     eng = _resolve_engine(engine, vis, subgrid_size, support, w_support,
                           subgrid_frac)
     image = _tensor(image, device)
@@ -172,7 +176,7 @@ def wstack_wtower_degrid_all(image, freq0_hz: float, dfreq_hz: float, uvw,
         # Image correction / w-stacking, then FFT to the full grid.
         timers.push("Degrid correct")
         grid = kernel.degrid_correct(image.to(vis.dtype), 0, 0,
-                                     int(iw * w_tower_height))
+                                     int(iw * w_tower_height), device=device)
         timers.pop_push("FFT(grid)")
         grid = fft_shifted(grid)
         timers.pop()
@@ -197,7 +201,8 @@ def wstack_wtower_degrid_all(image, freq0_hz: float, dfreq_hz: float, uvw,
                 vis = kernel.degrid_subgrid(
                     subgrid, (iu * eff_sg_size, iv * eff_sg_size,
                               int(iw * w_tower_height)),
-                    num_chan, freq0_hz, dfreq_hz, uvw, s_uv, e_uv, vis)
+                    num_chan, freq0_hz, dfreq_hz, uvw, s_uv, e_uv, vis,
+                    device=device)
         timers.pop()
         if vis_count_check != num_vis:
             raise SdpRuntimeError(
@@ -215,15 +220,16 @@ def wstack_wtower_grid_all(vis, freq0_hz: float, dfreq_hz: float, uvw,
                            w_oversampling: int, subgrid_frac: float,
                            w_tower_height: float, verbosity: int = 0,
                            image=None, num_threads: int = 0,
-                           engine: str = "reference") -> torch.Tensor:
+                           engine: str = "reference",
+                           device=None) -> torch.Tensor:
     """Grid all visibilities into a whole image (adjoint operator;
-    `sdp_grid_wstack_wtower_grid_all`, sdp_grid_wstack_wtower.h:78-109).
-    ``image`` gives shape and dtype (real or complex); the output is
-    freshly accumulated. ``engine`` as for
-    :func:`wstack_wtower_degrid_all`."""
+    `sdp_grid_wstack_wtower_grid_all`, sdp_grid_wstack_wtower.h:78-109)
+    on ``device`` (``None``: the CUDA card). ``image`` gives shape and
+    dtype (real or complex); the output is freshly accumulated.
+    ``engine`` as for :func:`wstack_wtower_degrid_all`."""
     if image is None:
         raise SdpInvalidArgumentError("image template required")
-    device = _device_of(vis, image)
+    device = resolve_device(device)
     eng = _resolve_engine(engine, image, subgrid_size, support, w_support,
                           subgrid_frac)
     vis = _tensor(vis, device)
@@ -292,7 +298,7 @@ def wstack_wtower_grid_all(vis, freq0_hz: float, dfreq_hz: float, uvw,
                     torch.zeros((subgrid_size, subgrid_size),
                                 dtype=vis.dtype, device=device),
                     (iu * eff_sg_size, iv * eff_sg_size,
-                     int(iw * w_tower_height)))
+                     int(iw * w_tower_height)), device=device)
                 grid = subgrid_add(grid, -iu * eff_sg_size,
                                    -iv * eff_sg_size, fft_shifted(subgrid),
                                    sg_factor)
@@ -306,7 +312,8 @@ def wstack_wtower_grid_all(vis, freq0_hz: float, dfreq_hz: float, uvw,
         timers.push("FFT(grid)")
         grid = ifft_shifted_norm(grid)
         timers.pop_push("Grid correct")
-        grid = kernel.grid_correct(grid, 0, 0, int(iw * w_tower_height))
+        grid = kernel.grid_correct(grid, 0, 0, int(iw * w_tower_height),
+                                   device=device)
         timers.pop()
         if image.is_complex():
             image = image + grid.to(image.dtype)

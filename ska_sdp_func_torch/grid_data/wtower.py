@@ -26,7 +26,8 @@ Two drivers per direction, chosen as the JAX package chooses them
 
 All integer snapping follows the C (round half away from zero, floor
 division of non-negative values). The dtype of the visibilities sets
-the arithmetic, the device of the tensors passed in sets the device.
+the arithmetic. Each entry point takes ``device`` (``None``: the CUDA
+card; CPU runs pass ``device="cpu"``) and moves its inputs there.
 """
 
 from functools import lru_cache
@@ -44,6 +45,7 @@ from ..utility.errors import (
     SdpInvalidArgumentError,
     SdpShapeError,
 )
+from ..utility.tensors import resolve_device
 from .clamp_channels import clamp_channels_inline
 from .grid_correct import grid_correct_pswf, grid_correct_w_stack
 from .gridder_utils import shift_subgrids, uvw_bounds_all
@@ -68,14 +70,6 @@ def _round_half_away(x: torch.Tensor) -> torch.Tensor:
 
 def _complex_dtype(dtype):
     return torch.promote_types(dtype, torch.complex64)
-
-
-def _device_of(*xs) -> torch.device:
-    """Device of the first tensor among ``xs`` (CPU when there is none)."""
-    for x in xs:
-        if isinstance(x, torch.Tensor):
-            return x.device
-    return torch.device("cpu")
 
 
 def _tensor(x, device, dtype=None) -> torch.Tensor:
@@ -163,10 +157,13 @@ class GridderWtowerUVW:
         return first, last
 
     def degrid_num_planes(self, uvws, start_chs, end_chs, freq0_hz,
-                          dfreq_hz, subgrid_offset_w: int = 0) -> int:
+                          dfreq_hz, subgrid_offset_w: int = 0,
+                          device=None) -> int:
+        device = resolve_device(device)
         first, last = self._w_plane_range(
-            _tensor(uvws, _device_of(uvws)), start_chs, end_chs, freq0_hz,
-            dfreq_hz or 10.0, subgrid_offset_w)
+            _tensor(uvws, device), _tensor(start_chs, device),
+            _tensor(end_chs, device), freq0_hz, dfreq_hz or 10.0,
+            subgrid_offset_w)
         return 1 + last - first
 
     grid_num_planes = degrid_num_planes
@@ -203,31 +200,32 @@ class GridderWtowerUVW:
     def degrid(self, subgrid_image, subgrid_offset_u: int,
                subgrid_offset_v: int, subgrid_offset_w: int,
                freq0_hz: float, dfreq_hz: float, uvws, start_chs, end_chs,
-               vis, start_row: int = -1, end_row: int = -1):
+               vis, start_row: int = -1, end_row: int = -1, device=None):
         """Deprecated pre-1.2 signature; forwards to
         :meth:`degrid_subgrid` and returns the visibilities."""
         return self.degrid_subgrid(
             subgrid_image,
             (subgrid_offset_u, subgrid_offset_v, subgrid_offset_w),
             vis.shape[1], freq0_hz, dfreq_hz, uvws, start_chs, end_chs,
-            vis, start_row, end_row)
+            vis, start_row, end_row, device=device)
 
     def degrid_subgrid(self, subgrid_image,
                        subgrid_offset: Tuple[int, int, int],
                        ch_count: int, freq0_hz: float, dfreq_hz: float,
                        uvws, start_chs, end_chs, vis=None,
                        start_row: int = -1, end_row: int = -1,
-                       w_plane_range: Optional[Tuple[int, int]] = None
-                       ) -> torch.Tensor:
+                       w_plane_range: Optional[Tuple[int, int]] = None,
+                       device=None) -> torch.Tensor:
         """Degrid visibilities from one sub-grid image
         (`sdp_gridder_wtower_uvw_degrid`, sdp_gridder_wtower_uvw.cpp:
-        726-909). Returns the visibilities (``vis +`` contribution when
-        ``vis`` is given). ``w_plane_range`` (first, last) skips the
-        bounds readback when the caller planned the tower already."""
+        726-909) on ``device`` (``None``: the CUDA card). Returns the
+        visibilities (``vis +`` contribution when ``vis`` is given).
+        ``w_plane_range`` (first, last) skips the bounds readback when
+        the caller planned the tower already."""
         if dfreq_hz == 0.0:
             dfreq_hz = 10.0  # Prevent divide-by-zero (reference :744).
         off_u, off_v, off_w = (int(o) for o in subgrid_offset)
-        device = _device_of(vis, subgrid_image, uvws)
+        device = resolve_device(device)
         uvws = _tensor(uvws, device)
         subgrid_image = _tensor(subgrid_image, device)
         vis = None if vis is None else _tensor(vis, device)
@@ -263,31 +261,31 @@ class GridderWtowerUVW:
     def grid(self, vis, uvw, start_chs, end_chs, freq0_hz: float,
              dfreq_hz: float, subgrid_image, subgrid_offset_u: int,
              subgrid_offset_v: int, subgrid_offset_w: int,
-             start_row: int = -1, end_row: int = -1):
+             start_row: int = -1, end_row: int = -1, device=None):
         """Deprecated pre-1.2 signature; forwards to :meth:`grid_subgrid`
         and returns ``subgrid_image + contribution``."""
         return self.grid_subgrid(
             vis, uvw, start_chs, end_chs, vis.shape[1], freq0_hz, dfreq_hz,
             subgrid_image,
             (subgrid_offset_u, subgrid_offset_v, subgrid_offset_w),
-            start_row, end_row)
+            start_row, end_row, device=device)
 
     def grid_subgrid(self, vis, uvws, start_chs, end_chs, ch_count: int,
                      freq0_hz: float, dfreq_hz: float, subgrid_image,
                      subgrid_offset: Tuple[int, int, int],
                      start_row: int = -1, end_row: int = -1,
-                     w_plane_range: Optional[Tuple[int, int]] = None
-                     ) -> torch.Tensor:
+                     w_plane_range: Optional[Tuple[int, int]] = None,
+                     device=None) -> torch.Tensor:
         """Grid visibilities onto one sub-grid image, the adjoint of
         :meth:`degrid_subgrid` (`sdp_gridder_wtower_uvw_grid`,
-        sdp_gridder_wtower_uvw.cpp:935-1123). Returns
-        ``subgrid_image + contribution``."""
+        sdp_gridder_wtower_uvw.cpp:935-1123), on ``device`` (``None``:
+        the CUDA card). Returns ``subgrid_image + contribution``."""
         if dfreq_hz == 0.0:
             dfreq_hz = 10.0
         if ch_count and vis.shape[1] != ch_count:
             raise SdpInvalidArgumentError("Inconsistent channel dimensions")
         off_u, off_v, off_w = (int(o) for o in subgrid_offset)
-        device = _device_of(vis, subgrid_image, uvws)
+        device = resolve_device(device)
         vis = _tensor(vis, device)
         uvws = _tensor(uvws, device)
         subgrid_image = _tensor(subgrid_image, device)
@@ -319,14 +317,15 @@ class GridderWtowerUVW:
 
     # -- corrections ---------------------------------------------------------
     def degrid_correct(self, facet: torch.Tensor, facet_offset_l: int = 0,
-                       facet_offset_m: int = 0,
-                       w_offset: int = 0) -> torch.Tensor:
+                       facet_offset_m: int = 0, w_offset: int = 0,
+                       device=None) -> torch.Tensor:
         """Degrid correction (sdp_gridder_wtower_uvw_degrid_correct,
-        sdp_gridder_wtower_uvw.cpp:912-932)."""
+        sdp_gridder_wtower_uvw.cpp:912-932) on ``device`` (``None``: the
+        CUDA card)."""
         facet = grid_correct_pswf(
             self.image_size, self.theta, self.w_step, self.shear_u,
             self.shear_v, self.support, self.w_support,
-            _tensor(facet, _device_of(facet)), facet_offset_l,
+            _tensor(facet, resolve_device(device)), facet_offset_l,
             facet_offset_m)
         if facet.is_complex():
             facet = grid_correct_w_stack(
@@ -336,14 +335,15 @@ class GridderWtowerUVW:
         return facet
 
     def grid_correct(self, facet: torch.Tensor, facet_offset_l: int = 0,
-                     facet_offset_m: int = 0,
-                     w_offset: int = 0) -> torch.Tensor:
+                     facet_offset_m: int = 0, w_offset: int = 0,
+                     device=None) -> torch.Tensor:
         """Grid correction (sdp_gridder_wtower_uvw_grid_correct,
-        sdp_gridder_wtower_uvw.cpp:1126-1146)."""
+        sdp_gridder_wtower_uvw.cpp:1126-1146) on ``device`` (``None``: the
+        CUDA card)."""
         facet = grid_correct_pswf(
             self.image_size, self.theta, self.w_step, self.shear_u,
             self.shear_v, self.support, self.w_support,
-            _tensor(facet, _device_of(facet)), facet_offset_l,
+            _tensor(facet, resolve_device(device)), facet_offset_l,
             facet_offset_m)
         if facet.is_complex():
             facet = grid_correct_w_stack(

@@ -4,7 +4,11 @@
 ports of the Pallas kernels ``grid_packed_stack_pallas`` and
 ``degrid_stack_pallas``); :mod:`.fused_tap` the fused kernels that
 evaluate the taps themselves (``grid_fused_stack_pallas``,
-``degrid_fused2_stack_pallas``); :mod:`.place` the streaming plan's
+``degrid_fused2_stack_pallas``) and the compact ones that read
+pre-evaluated taps (``grid_compact_pallas``, ``degrid_compact_pallas``);
+:mod:`.band_tap` the ES-FFT gridder's bucket-window kernels
+(``grid_packed_pallas``, ``degrid_fused_pallas``); :mod:`.place` the
+streaming plan's
 placement (``place_stream_pallas``); :mod:`.tower_tap` the w-towers tap
 kernels (the ports of ``grid_plane_pallas``, ``degrid_plane_pallas``,
 ``grid_all_layers_pallas`` and ``degrid_all_layers_pallas``);
@@ -12,7 +16,7 @@ kernels (the ports of ``grid_plane_pallas``, ``degrid_plane_pallas``,
 compiles ``csrc/`` with nvcc at first use.
 """
 
-from . import fused_tap, packed_tap, place, tower_tap
+from . import band_tap, fused_tap, packed_tap, place, tower_tap
 from .packed_tap import (
     build_bands,
     degrid_stack,
@@ -22,7 +26,7 @@ from .packed_tap import (
     split_bf16,
 )
 
-_COUNTED = (packed_tap, fused_tap, place, tower_tap)
+_COUNTED = (packed_tap, fused_tap, place, tower_tap, band_tap)
 
 
 def launch_counts() -> dict:
@@ -39,6 +43,7 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "band_tap",
     "build_bands",
     "degrid_stack",
     "degrid_stack_reference",

@@ -121,14 +121,17 @@ def load() -> ctypes.CDLL:
                     p, p, p, p, p, p, i64, i, i, i, p, p]
                 lib.sdp_torch_tower_degrid.restype = i
                 f, pp = ctypes.c_float, ctypes.POINTER(ctypes.c_void_p)
-                lib.sdp_torch_fused_grid_stack.argtypes = [
-                    p, p, p, p, p, p, p, p, p, p, i, f, f, i, i, i, i, i, i,
-                    i, p, p]
+                lib.sdp_torch_fused_grid_stack.argtypes = (
+                    [p] * 13 + [i, f, f] + [i] * 7 + [p, p])
                 lib.sdp_torch_fused_grid_stack.restype = i
-                lib.sdp_torch_fused_degrid_stack.argtypes = [
-                    p, p, p, p, p, p, p, p, p, i, f, f, i64, i, i, i, i, i,
-                    i, p, p]
+                lib.sdp_torch_fused_degrid_stack.argtypes = (
+                    [p] * 12 + [i, f, f, i64] + [i] * 6 + [p, p])
                 lib.sdp_torch_fused_degrid_stack.restype = i
+                lib.sdp_torch_band_grid.argtypes = [p] * 9 + [i] * 6 + [p, p]
+                lib.sdp_torch_band_grid.restype = i
+                lib.sdp_torch_band_degrid.argtypes = (
+                    [p] * 9 + [i] * 3 + [i64] + [i] * 4 + [p, p])
+                lib.sdp_torch_band_degrid.restype = i
                 lib.sdp_torch_place_stream.argtypes = [
                     p, p, pp, pp, i, i64, i, i, p]
                 lib.sdp_torch_place_stream.restype = i

@@ -1,20 +1,29 @@
-// Fused packed gridding / degridding kernels for Hopper (sm_90a): the
-// kernel taps are evaluated in the kernel from two bit-packed int32 plan
-// words per slot.
+// Fused and compact packed gridding / degridding kernels for Hopper
+// (sm_90a): per-task stacks from a placed stream of slots whose taps are
+// either evaluated in the kernel from two bit-packed int32 plan words per
+// slot (fused), or pre-evaluated once per plan and read per slot beside
+// the word pa (compact).
 //
 // Replace the stack forms of the Pallas TPU kernels in
 // ska_sdp_func_tpu/kernels/fused_tap.py:
 //   - grid_fused_stack_pallas (_grid_stack_kernel, _block_contrib,
-//     _prep_common, _stack_accumulate)      -> fused_grid_stack_kernel
-//   - degrid_fused2_stack_pallas (_degrid_fstack_kernel,
-//     _degrid_fused_core, _window_from_stack) -> fused_degrid_stack_kernel
+//     _prep_common, _stack_accumulate)  -> fused_grid_stack_kernel<M, false>
+//   - degrid_fused2_stack_pallas (_degrid_fstack_kernel, _degrid_fused_core,
+//     _window_from_stack)             -> fused_degrid_stack_kernel<M, false>
+//   - grid_compact_pallas (_grid_compact_kernel)
+//                                     -> fused_grid_stack_kernel<M, true>
+//   - degrid_compact_pallas (_degrid_compact_kernel)
+//                                     -> fused_degrid_stack_kernel<M, true>
 //
 // Layout (shared with the plain PyTorch versions in fused_tap.py): the
 // placed stream of `total` slots is cut into plan blocks of `block_v`
 // slots; block b belongs to one (task t, w-slab k0, u-octet g) bucket.
 // Slot words: pa = iv0 << 20 | u_off << 17 | w_row,
 //             pb = valid << 30 | u_frac << 15 | v_frac.
-// Taps: uk[s] / vk[s] / wk[j] = sum_d c[d][s] T_d(x), x = (2/ov) frac - 1,
+// Compact taps: uk_t / vk_t [S][total], wk_t [Sw][total] f32 (wk_t zero on
+// padding and invalid slots, so valid = 1); pb and the fits are not read.
+// Fused taps: uk[s] / vk[s] / wk[j] = sum_d c[d][s] T_d(x),
+// x = (2/ov) frac - 1,
 // T_d by the three-term recurrence; every operation is rounded on its own
 // (__fmul_rn / __fadd_rn, never contracted), in the order the plain
 // versions use, so both evaluate identical taps. Stacks are
@@ -42,8 +51,11 @@
 // of one slot; the 8-float row padding puts those rows on distinct
 // banks), and flushes the window's non-zero cells once into the task's
 // stack with global atomicAdd (so the f32 sum order varies run to run).
-// Degrid: one warp per slot; lanes 0..2S+Sw-1 each evaluate one tap and
-// shuffle them to the others; lane (j, su) gathers its S stack cells
+// The compact kernels stream 92 B (grid) and 84 B (degrid) per slot where
+// the fused ones stream 16 B and evaluate a ~30-operation Chebyshev chain
+// per tap; their time beside the fused ones' on one plan prices that chain.
+// Degrid: one warp per slot; lanes 0..2S+Sw-1 each evaluate (or load) one
+// tap and shuffle them to the others; lane (j, su) gathers its S stack cells
 // (L1/L2-resident: consecutive slots share a bucket's window), forms its
 // partial sums, and a shuffle reduction adds the 2 * Sw * S partials.
 
@@ -122,6 +134,14 @@ struct Geometry {
   float inv2_ov, inv2_wov;
 };
 
+// Pre-evaluated taps of the compact kernels ([S or Sw][total] f32).
+struct CompactTaps {
+  const float* uk_t;
+  const float* vk_t;
+  const float* wk_t;
+  int64_t total;
+};
+
 __host__ __device__ __forceinline__ int win_stride(int lanes) {
   return lanes + 8;
 }
@@ -134,7 +154,7 @@ __host__ __device__ __forceinline__ size_t grid_smem_bytes(int w_support,
   return sizeof(float) * (window + staged);
 }
 
-template <int MODE>
+template <int MODE, bool COMPACT>
 __global__ void __launch_bounds__(kThreads)
 fused_grid_stack_kernel(const int* __restrict__ t_idx,
                         const int* __restrict__ k_idx,
@@ -145,8 +165,8 @@ fused_grid_stack_kernel(const int* __restrict__ t_idx,
                         const float* __restrict__ vre,
                         const float* __restrict__ vim,
                         const float* __restrict__ c_uv,
-                        const float* __restrict__ c_w, Geometry geo,
-                        float* __restrict__ out) {
+                        const float* __restrict__ c_w, CompactTaps ct,
+                        Geometry geo, float* __restrict__ out) {
   extern __shared__ float smem[];
   const int b = blockIdx.x;
   if (nonempty != nullptr && nonempty[b] == 0) return;  // uniform
@@ -171,21 +191,33 @@ fused_grid_stack_kernel(const int* __restrict__ t_idx,
     if (tid < n) {
       const int64_t p = p_begin + c0 + tid;
       const int a = pa[p];
-      const int w = pb[p];
-      float t[kMaxCoef];
-      cheb_basis(frac_x((w >> 15) & 32767, geo.inv2_ov), geo.ncoef, t);
-      for (int s = 0; s < S; ++s)
-        s_uk[tid * kMaxS + s] = cheb_sum(c_uv + s, S, geo.ncoef, t);
-      cheb_basis(frac_x(w & 32767, geo.inv2_ov), geo.ncoef, t);
-      for (int s = 0; s < S; ++s)
-        s_vk[tid * kMaxS + s] = cheb_sum(c_uv + s, S, geo.ncoef, t);
-      cheb_basis(frac_x(a & 131071, geo.inv2_wov), geo.ncoef, t);
       const float re = vre[p];
       const float im = vim[p];
-      for (int j = 0; j < Sw; ++j) {
-        const float wk = cheb_sum(c_w + j, Sw, geo.ncoef, t);
-        s_wv[(tid * 2 + 0) * kMaxSw + j] = __fmul_rn(wk, re);
-        s_wv[(tid * 2 + 1) * kMaxSw + j] = __fmul_rn(wk, im);
+      if (COMPACT) {
+        for (int s = 0; s < S; ++s) {
+          s_uk[tid * kMaxS + s] = ct.uk_t[s * ct.total + p];
+          s_vk[tid * kMaxS + s] = ct.vk_t[s * ct.total + p];
+        }
+        for (int j = 0; j < Sw; ++j) {
+          const float wk = ct.wk_t[j * ct.total + p];
+          s_wv[(tid * 2 + 0) * kMaxSw + j] = __fmul_rn(wk, re);
+          s_wv[(tid * 2 + 1) * kMaxSw + j] = __fmul_rn(wk, im);
+        }
+      } else {
+        const int w = pb[p];
+        float t[kMaxCoef];
+        cheb_basis(frac_x((w >> 15) & 32767, geo.inv2_ov), geo.ncoef, t);
+        for (int s = 0; s < S; ++s)
+          s_uk[tid * kMaxS + s] = cheb_sum(c_uv + s, S, geo.ncoef, t);
+        cheb_basis(frac_x(w & 32767, geo.inv2_ov), geo.ncoef, t);
+        for (int s = 0; s < S; ++s)
+          s_vk[tid * kMaxS + s] = cheb_sum(c_uv + s, S, geo.ncoef, t);
+        cheb_basis(frac_x(a & 131071, geo.inv2_wov), geo.ncoef, t);
+        for (int j = 0; j < Sw; ++j) {
+          const float wk = cheb_sum(c_w + j, Sw, geo.ncoef, t);
+          s_wv[(tid * 2 + 0) * kMaxSw + j] = __fmul_rn(wk, re);
+          s_wv[(tid * 2 + 1) * kMaxSw + j] = __fmul_rn(wk, im);
+        }
       }
       s_pos[2 * tid] = (a >> 17) & 7;  // u_off
       s_pos[2 * tid + 1] = a >> 20;    // iv0
@@ -233,7 +265,7 @@ fused_grid_stack_kernel(const int* __restrict__ t_idx,
   }
 }
 
-template <int MODE>
+template <int MODE, bool COMPACT>
 __global__ void __launch_bounds__(kThreads)
 fused_degrid_stack_kernel(const float* __restrict__ stack,
                           const int* __restrict__ t_idx,
@@ -243,8 +275,9 @@ fused_degrid_stack_kernel(const float* __restrict__ stack,
                           const int* __restrict__ pa,
                           const int* __restrict__ pb,
                           const float* __restrict__ c_uv,
-                          const float* __restrict__ c_w, Geometry geo,
-                          int64_t total, float* __restrict__ out) {
+                          const float* __restrict__ c_w, CompactTaps ct,
+                          Geometry geo, int64_t total,
+                          float* __restrict__ out) {
   const int lane = threadIdx.x & 31;
   const int64_t p = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) +
                     threadIdx.x / 32;
@@ -261,12 +294,20 @@ fused_degrid_stack_kernel(const float* __restrict__ stack,
   const int Sw = geo.w_support;
   const int lanes = geo.lanes;
   const int a = pa[p];
-  const int w = pb[p];
+  const int w = COMPACT ? (1 << 30) : pb[p];  // compact: valid = 1
 
   // One tap per lane: vk on lanes [0, S), uk on [S, 2S), wk on
   // [2S, 2S + Sw).
   float tap = 0.0f;
-  if (lane < 2 * S + Sw) {
+  if (COMPACT) {
+    if (lane < S) {
+      tap = ct.vk_t[lane * ct.total + p];
+    } else if (lane < 2 * S) {
+      tap = ct.uk_t[(lane - S) * ct.total + p];
+    } else if (lane < 2 * S + Sw) {
+      tap = ct.wk_t[(lane - 2 * S) * ct.total + p];
+    }
+  } else if (lane < 2 * S + Sw) {
     float t[kMaxCoef];
     if (lane < S) {
       cheb_basis(frac_x(w & 32767, geo.inv2_ov), geo.ncoef, t);
@@ -326,107 +367,138 @@ fused_degrid_stack_kernel(const float* __restrict__ stack,
   }
 }
 
-bool geometry_ok(const Geometry& geo) {
+bool geometry_ok(const Geometry& geo, bool compact) {
   return geo.block_v > 0 && geo.support >= 1 && geo.support <= kMaxS &&
          geo.w_support >= 1 && geo.w_support <= kMaxSw &&
-         2 * geo.support + geo.w_support <= 32 && geo.ncoef >= 2 &&
-         geo.ncoef <= kMaxCoef && geo.lanes > 0 && geo.num_layers > 0;
+         2 * geo.support + geo.w_support <= 32 &&
+         (compact || (geo.ncoef >= 2 && geo.ncoef <= kMaxCoef)) &&
+         geo.lanes > 0 && geo.num_layers > 0;
+}
+
+template <int MODE, bool COMPACT>
+cudaError_t launch_grid(unsigned blocks, size_t smem, cudaStream_t s,
+                        const int* t_idx, const int* k_idx, const int* g_idx,
+                        const int* nonempty, const int* pa, const int* pb,
+                        const float* vre, const float* vim, const float* c_uv,
+                        const float* c_w, const CompactTaps& ct,
+                        const Geometry& geo, float* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_grid_stack_kernel<MODE, COMPACT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  fused_grid_stack_kernel<MODE, COMPACT><<<blocks, kThreads, smem, s>>>(
+      t_idx, k_idx, g_idx, nonempty, pa, pb, vre, vim, c_uv, c_w, ct, geo,
+      out);
+  return cudaGetLastError();
+}
+
+template <int MODE, bool COMPACT>
+cudaError_t launch_degrid(unsigned ctas, cudaStream_t s, const float* stack,
+                          const int* t_idx, const int* k_idx,
+                          const int* g_idx, const int* nonempty,
+                          const int* pa, const int* pb, const float* c_uv,
+                          const float* c_w, const CompactTaps& ct,
+                          const Geometry& geo, int64_t total, float* out) {
+  fused_degrid_stack_kernel<MODE, COMPACT><<<ctas, kThreads, 0, s>>>(
+      stack, t_idx, k_idx, g_idx, nonempty, pa, pb, c_uv, c_w, ct, geo,
+      total, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each returns the cudaError_t of its launch (0 on success).
+// Each returns the cudaError_t of its launch (0 on success). The compact
+// kernels run when uk_t is not null: then pb, the fits and nonempty are
+// not read (pass null and ncoef 0).
 int sdp_torch_fused_grid_stack(const int* t_idx, const int* k_idx,
                                const int* g_idx, const int* nonempty,
                                const int* pa, const int* pb,
                                const float* vre, const float* vim,
                                const float* c_uv, const float* c_w,
-                               int ncoef, float inv2_ov, float inv2_wov,
-                               int num_blocks, int block_v, int support,
-                               int w_support, int lanes, int num_layers,
-                               int mode, float* out, void* stream) {
+                               const float* uk_t, const float* vk_t,
+                               const float* wk_t, int ncoef, float inv2_ov,
+                               float inv2_wov, int num_blocks, int block_v,
+                               int support, int w_support, int lanes,
+                               int num_layers, int mode, float* out,
+                               void* stream) {
   const Geometry geo{block_v, support, w_support, lanes, num_layers, ncoef,
                      inv2_ov, inv2_wov};
-  if (!geometry_ok(geo)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool compact = uk_t != nullptr;
+  if (!geometry_ok(geo, compact)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (num_blocks <= 0) return 0;
   const size_t smem = grid_smem_bytes(w_support, lanes);
   if (smem > static_cast<size_t>(kMaxSmem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const CompactTaps ct{uk_t, vk_t, wk_t,
+                       static_cast<int64_t>(num_blocks) * block_v};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaSuccess;
+  const unsigned nb = static_cast<unsigned>(num_blocks);
+#define SDP_GRID(M, C)                                                      \
+  launch_grid<M, C>(nb, smem, s, t_idx, k_idx, g_idx, nonempty, pa, pb, vre, \
+                    vim, c_uv, c_w, ct, geo, out)
+  cudaError_t err;
   switch (mode) {
     case kF32:
-      err = cudaFuncSetAttribute(fused_grid_stack_kernel<kF32>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      fused_grid_stack_kernel<kF32><<<num_blocks, kThreads, smem, s>>>(
-          t_idx, k_idx, g_idx, nonempty, pa, pb, vre, vim, c_uv, c_w, geo,
-          out);
+      err = compact ? SDP_GRID(kF32, true) : SDP_GRID(kF32, false);
       break;
     case kHigh:
-      err = cudaFuncSetAttribute(fused_grid_stack_kernel<kHigh>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      fused_grid_stack_kernel<kHigh><<<num_blocks, kThreads, smem, s>>>(
-          t_idx, k_idx, g_idx, nonempty, pa, pb, vre, vim, c_uv, c_w, geo,
-          out);
+      err = compact ? SDP_GRID(kHigh, true) : SDP_GRID(kHigh, false);
       break;
     case kBf16:
-      err = cudaFuncSetAttribute(fused_grid_stack_kernel<kBf16>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      fused_grid_stack_kernel<kBf16><<<num_blocks, kThreads, smem, s>>>(
-          t_idx, k_idx, g_idx, nonempty, pa, pb, vre, vim, c_uv, c_w, geo,
-          out);
+      err = compact ? SDP_GRID(kBf16, true) : SDP_GRID(kBf16, false);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+#undef SDP_GRID
+  return static_cast<int>(err);
 }
 
 int sdp_torch_fused_degrid_stack(const float* stack, const int* t_idx,
                                  const int* k_idx, const int* g_idx,
                                  const int* nonempty, const int* pa,
                                  const int* pb, const float* c_uv,
-                                 const float* c_w, int ncoef, float inv2_ov,
-                                 float inv2_wov, int64_t total, int block_v,
-                                 int support, int w_support, int lanes,
-                                 int num_layers, int mode, float* out,
-                                 void* stream) {
+                                 const float* c_w, const float* uk_t,
+                                 const float* vk_t, const float* wk_t,
+                                 int ncoef, float inv2_ov, float inv2_wov,
+                                 int64_t total, int block_v, int support,
+                                 int w_support, int lanes, int num_layers,
+                                 int mode, float* out, void* stream) {
   const Geometry geo{block_v, support, w_support, lanes, num_layers, ncoef,
                      inv2_ov, inv2_wov};
-  if (!geometry_ok(geo)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool compact = uk_t != nullptr;
+  if (!geometry_ok(geo, compact)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (total <= 0) return 0;
   constexpr int per_cta = kThreads / 32;
   const unsigned ctas = static_cast<unsigned>((total + per_cta - 1) / per_cta);
+  const CompactTaps ct{uk_t, vk_t, wk_t, total};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SDP_DEGRID(M, C)                                                     \
+  launch_degrid<M, C>(ctas, s, stack, t_idx, k_idx, g_idx, nonempty, pa, pb, \
+                      c_uv, c_w, ct, geo, total, out)
+  cudaError_t err;
   switch (mode) {
     case kF32:
-      fused_degrid_stack_kernel<kF32><<<ctas, kThreads, 0, s>>>(
-          stack, t_idx, k_idx, g_idx, nonempty, pa, pb, c_uv, c_w, geo,
-          total, out);
+      err = compact ? SDP_DEGRID(kF32, true) : SDP_DEGRID(kF32, false);
       break;
     case kHigh:
-      fused_degrid_stack_kernel<kHigh><<<ctas, kThreads, 0, s>>>(
-          stack, t_idx, k_idx, g_idx, nonempty, pa, pb, c_uv, c_w, geo,
-          total, out);
+      err = compact ? SDP_DEGRID(kHigh, true) : SDP_DEGRID(kHigh, false);
       break;
     case kBf16:
-      fused_degrid_stack_kernel<kBf16><<<ctas, kThreads, 0, s>>>(
-          stack, t_idx, k_idx, g_idx, nonempty, pa, pb, c_uv, c_w, geo,
-          total, out);
+      err = compact ? SDP_DEGRID(kBf16, true) : SDP_DEGRID(kBf16, false);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+#undef SDP_DEGRID
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

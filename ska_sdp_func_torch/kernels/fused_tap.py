@@ -1,16 +1,23 @@
-"""Fused packed gridding / degridding: taps evaluated in the kernel.
+"""Fused and compact packed gridding / degridding into per-task stacks.
 
 Counterpart of ska_sdp_func_tpu.kernels.fused_tap (the stack forms the
-streaming engine and the packed ``engine="fused"`` run):
+streaming engine and the packed ``engine="fused"``/``"compact"`` run):
 
 - :func:`grid_fused_stack` replaces the Pallas kernel
   ``grid_fused_stack_pallas`` and :func:`degrid_fused2_stack` replaces
-  ``degrid_fused2_stack_pallas``. On a CUDA tensor each launches its
-  hand-written kernel (``csrc/fused_tap.cu``) or raises; on a CPU tensor
-  it runs its plain PyTorch version (``*_reference``). Each counts its
-  kernel launches in ``.launches``.
+  ``degrid_fused2_stack_pallas``: taps evaluated in the kernel;
+- :func:`grid_compact` replaces ``grid_compact_pallas`` and
+  :func:`degrid_compact` replaces ``degrid_compact_pallas``: taps
+  pre-evaluated once per plan (``uk_t``/``vk_t`` [S, V], ``wk_t`` [Sw, V]
+  f32, ``wk_t`` zero on padding and invalid slots) and read per slot with
+  the plan word ``pa``;
 - :func:`pack_plan_words` / :func:`unpack_plan_words` and the tap
   evaluation :func:`cheb_taps` are torch (and NumPy) ops.
+
+On a CUDA tensor each kernel wrapper launches its hand-written kernel
+(``csrc/fused_tap.cu``) or raises; on a CPU tensor it runs its plain
+PyTorch version (``*_reference``). Each counts its kernel launches in
+``.launches``.
 
 Plan words (bit for bit the JAX layout):
 
@@ -139,6 +146,14 @@ def _slot_taps(pa, pb, uv_coeffs, w_coeffs, oversampling, w_oversampling):
     return iv0, u_off, valid, uk, vk, wk
 
 
+def _compact_taps(p, pa, uk_t, vk_t, wk_t):
+    """The fields of slots ``p`` in the compact form (``wk_t`` carries
+    the valid mask)."""
+    a = pa[p]
+    return (a >> 20, (a >> 17) & 7, torch.ones_like(a), uk_t[:, p].T,
+            vk_t[:, p].T, wk_t[:, p].T)
+
+
 def _window_index(t, k0, g, u_off, iv0, num_layers, lanes, support,
                   w_support):
     """Flat stack index [n, 2, Sw, S, S] of each slot's window taps and
@@ -169,26 +184,20 @@ def _occupied_slots(nonempty, num_blocks, block_v, device):
             + torch.arange(block_v, device=device)[None, :]).reshape(-1)
 
 
-def grid_fused_stack_reference(t_idx, k_idx, g_idx, pa, pb, vre, vim,
-                               uv_coeffs, w_coeffs, num_tasks: int,
-                               num_layers: int, lanes: int, support: int,
-                               w_support: int, oversampling: int,
-                               w_oversampling: int, block_v: int = 1024,
-                               precision: str = "highest",
-                               nonempty=None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`grid_fused_stack`: per slot, the
-    ``2 x Sw x S x S`` window taps, ``index_add_`` into the flat stack
-    (chunked over slots)."""
-    dev = pa.device
-    total = pa.shape[0]
+def _grid_reference(taps_of, t_idx, k_idx, g_idx, vre, vim, num_tasks,
+                    num_layers, lanes, support, w_support, block_v,
+                    precision, nonempty):
+    """Per slot, the ``2 x Sw x S x S`` window taps of ``taps_of(p)``,
+    ``index_add_`` into the flat stack (chunked over slots)."""
+    dev = vre.device
+    total = vre.shape[0]
     out = torch.zeros(num_tasks * 2 * num_layers * (lanes + 8) * lanes,
                       dtype=torch.float32, device=dev)
     slots = _occupied_slots(nonempty, total // block_v, block_v, dev)
     for lo in range(0, slots.shape[0], _REF_CHUNK):
         p = slots[lo:lo + _REF_CHUNK]
         b = p // block_v
-        iv0, u_off, _, uk, vk, wk = _slot_taps(
-            pa[p], pb[p], uv_coeffs, w_coeffs, oversampling, w_oversampling)
+        iv0, u_off, _, uk, vk, wk = taps_of(p)
         v = torch.stack([vre[p], vim[p]], dim=1)               # [n, 2]
         a = uk[:, None, None, :] * (wk[:, None, :, None]
                                     * v[:, :, None, None])    # [n,2,Sw,S]
@@ -201,17 +210,38 @@ def grid_fused_stack_reference(t_idx, k_idx, g_idx, pa, pb, vre, vim,
     return out.reshape(num_tasks, 2, num_layers * (lanes + 8), lanes)
 
 
-def degrid_fused2_stack_reference(stack, t_idx, k_idx, g_idx, pa, pb,
-                                  uv_coeffs, w_coeffs, support: int,
-                                  w_support: int, oversampling: int,
-                                  w_oversampling: int, block_v: int = 1024,
-                                  precision: str = "highest",
-                                  nonempty=None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`degrid_fused2_stack`: per slot,
-    gather the ``2 x Sw x S x S`` window taps and contract them with the
-    v, u and w taps (chunked over slots)."""
-    dev = pa.device
-    total = pa.shape[0]
+def grid_fused_stack_reference(t_idx, k_idx, g_idx, pa, pb, vre, vim,
+                               uv_coeffs, w_coeffs, num_tasks: int,
+                               num_layers: int, lanes: int, support: int,
+                               w_support: int, oversampling: int,
+                               w_oversampling: int, block_v: int = 1024,
+                               precision: str = "highest",
+                               nonempty=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`grid_fused_stack`."""
+    return _grid_reference(
+        lambda p: _slot_taps(pa[p], pb[p], uv_coeffs, w_coeffs,
+                             oversampling, w_oversampling),
+        t_idx, k_idx, g_idx, vre, vim, num_tasks, num_layers, lanes,
+        support, w_support, block_v, precision, nonempty)
+
+
+def grid_compact_reference(t_idx, k_idx, g_idx, pa, uk_t, vk_t, wk_t, vre,
+                           vim, num_tasks: int, num_layers: int, lanes: int,
+                           support: int, w_support: int, block_v: int = 1024,
+                           precision: str = "highest") -> torch.Tensor:
+    """Plain PyTorch version of :func:`grid_compact`."""
+    return _grid_reference(
+        lambda p: _compact_taps(p, pa, uk_t, vk_t, wk_t), t_idx, k_idx,
+        g_idx, vre, vim, num_tasks, num_layers, lanes, support, w_support,
+        block_v, precision, None)
+
+
+def _degrid_reference(taps_of, stack, t_idx, k_idx, g_idx, total, support,
+                      w_support, block_v, precision, nonempty):
+    """Per slot, gather the ``2 x Sw x S x S`` window taps and contract
+    them with the v, u and w taps of ``taps_of(p)`` (chunked over
+    slots)."""
+    dev = stack.device
     num_tasks, _, ksp, lanes = stack.shape
     num_layers = ksp // (lanes + 8)
     flat = stack.reshape(-1)
@@ -220,8 +250,7 @@ def degrid_fused2_stack_reference(stack, t_idx, k_idx, g_idx, pa, pb,
     for lo in range(0, slots.shape[0], _REF_CHUNK):
         p = slots[lo:lo + _REF_CHUNK]
         b = p // block_v
-        iv0, u_off, valid, uk, vk, wk = _slot_taps(
-            pa[p], pb[p], uv_coeffs, w_coeffs, oversampling, w_oversampling)
+        iv0, u_off, valid, uk, vk, wk = taps_of(p)
         idx, inside = _window_index(t_idx[b], k_idx[b], g_idx[b], u_off,
                                     iv0, num_layers, lanes, support,
                                     w_support)
@@ -235,8 +264,34 @@ def degrid_fused2_stack_reference(stack, t_idx, k_idx, g_idx, pa, pb,
     return out
 
 
-def _check_fused(t_idx, k_idx, g_idx, pa, pb, uv_coeffs, w_coeffs,
-                 support, w_support, block_v, lanes, precision, nonempty):
+def degrid_fused2_stack_reference(stack, t_idx, k_idx, g_idx, pa, pb,
+                                  uv_coeffs, w_coeffs, support: int,
+                                  w_support: int, oversampling: int,
+                                  w_oversampling: int, block_v: int = 1024,
+                                  precision: str = "highest",
+                                  nonempty=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`degrid_fused2_stack`."""
+    return _degrid_reference(
+        lambda p: _slot_taps(pa[p], pb[p], uv_coeffs, w_coeffs,
+                             oversampling, w_oversampling),
+        stack, t_idx, k_idx, g_idx, pa.shape[0], support, w_support,
+        block_v, precision, nonempty)
+
+
+def degrid_compact_reference(stack, t_idx, k_idx, g_idx, pa, uk_t, vk_t,
+                             wk_t, support: int, w_support: int,
+                             block_v: int = 512,
+                             precision: str = "highest") -> torch.Tensor:
+    """Plain PyTorch version of :func:`degrid_compact`."""
+    return _degrid_reference(
+        lambda p: _compact_taps(p, pa, uk_t, vk_t, wk_t), stack, t_idx,
+        k_idx, g_idx, pa.shape[0], support, w_support, block_v, precision,
+        None)
+
+
+def _check_blocks(t_idx, k_idx, g_idx, pa, support, w_support, block_v,
+                  lanes, precision, nonempty=None):
+    """Checks shared by the fused and compact wrappers."""
     dev = pa.device
     if precision not in _MODES:
         raise SdpInvalidArgumentError(f"unknown precision {precision!r}")
@@ -256,7 +311,21 @@ def _check_fused(t_idx, k_idx, g_idx, pa, pb, uv_coeffs, w_coeffs,
     if nonempty is not None:
         named.append(("nonempty", nonempty))
     _check(dev, named, torch.int32, (nb,))
-    _check(dev, [("pa", pa), ("pb", pb)], torch.int32, (total,))
+    _check(dev, [("pa", pa)], torch.int32, (total,))
+    if dev.type not in ("cpu", "cuda"):
+        raise SdpMemLocationError(f"unsupported device {dev}")
+    if dev.type == "cuda" and lanes % 8:
+        raise SdpInvalidArgumentError(
+            f"the CUDA kernels need lanes % 8 == 0 (got {lanes})")
+    return dev, total, nb
+
+
+def _check_fused(t_idx, k_idx, g_idx, pa, pb, uv_coeffs, w_coeffs,
+                 support, w_support, block_v, lanes, precision, nonempty):
+    dev, total, nb = _check_blocks(t_idx, k_idx, g_idx, pa, support,
+                                   w_support, block_v, lanes, precision,
+                                   nonempty)
+    _check(dev, [("pb", pb)], torch.int32, (total,))
     ncoef = uv_coeffs.shape[0]
     if not 1 <= ncoef <= _MAX_COEFFS:
         raise SdpInvalidArgumentError(
@@ -264,12 +333,17 @@ def _check_fused(t_idx, k_idx, g_idx, pa, pb, uv_coeffs, w_coeffs,
     _check(dev, [("uv_coeffs", uv_coeffs)], torch.float32, (ncoef, support))
     _check(dev, [("w_coeffs", w_coeffs)], torch.float32,
            (ncoef, w_support))
-    if dev.type not in ("cpu", "cuda"):
-        raise SdpMemLocationError(f"unsupported device {dev}")
-    if dev.type == "cuda" and lanes % 8:
-        raise SdpInvalidArgumentError(
-            f"the CUDA kernels need lanes % 8 == 0 (got {lanes})")
     return dev, total, nb, ncoef
+
+
+def _check_compact(t_idx, k_idx, g_idx, pa, uk_t, vk_t, wk_t, support,
+                   w_support, block_v, lanes, precision):
+    dev, total, nb = _check_blocks(t_idx, k_idx, g_idx, pa, support,
+                                   w_support, block_v, lanes, precision)
+    _check(dev, [("uk_t", uk_t), ("vk_t", vk_t)], torch.float32,
+           (support, total))
+    _check(dev, [("wk_t", wk_t)], torch.float32, (w_support, total))
+    return dev, total, nb
 
 
 def grid_fused_stack(t_idx, k_idx, g_idx, pa, pb, vre, vim, uv_coeffs,
@@ -307,8 +381,8 @@ def grid_fused_stack(t_idx, k_idx, g_idx, pa, pb, vre, vim, uv_coeffs,
             t_idx.data_ptr(), k_idx.data_ptr(), g_idx.data_ptr(),
             None if nonempty is None else nonempty.data_ptr(),
             pa.data_ptr(), pb.data_ptr(), vre.data_ptr(), vim.data_ptr(),
-            uv_coeffs.data_ptr(), w_coeffs.data_ptr(), ncoef,
-            _inv2(oversampling), _inv2(w_oversampling), nb, block_v,
+            uv_coeffs.data_ptr(), w_coeffs.data_ptr(), None, None, None,
+            ncoef, _inv2(oversampling), _inv2(w_oversampling), nb, block_v,
             support, w_support, lanes, num_layers, _MODES[precision],
             out.data_ptr(), stream)
     _build.check(lib, err, "grid_fused_stack")
@@ -357,9 +431,10 @@ def degrid_fused2_stack(stack, t_idx, k_idx, g_idx, pa, pb, uv_coeffs,
             g_idx.data_ptr(),
             None if nonempty is None else nonempty.data_ptr(),
             pa.data_ptr(), pb.data_ptr(), uv_coeffs.data_ptr(),
-            w_coeffs.data_ptr(), ncoef, _inv2(oversampling),
-            _inv2(w_oversampling), total, block_v, support, w_support,
-            lanes, num_layers, _MODES[precision], out.data_ptr(), stream)
+            w_coeffs.data_ptr(), None, None, None, ncoef,
+            _inv2(oversampling), _inv2(w_oversampling), total, block_v,
+            support, w_support, lanes, num_layers, _MODES[precision],
+            out.data_ptr(), stream)
     _build.check(lib, err, "degrid_fused2_stack")
     degrid_fused2_stack.launches += 1
     return torch.complex(out[0], out[1])
@@ -368,12 +443,98 @@ def degrid_fused2_stack(stack, t_idx, k_idx, g_idx, pa, pb, uv_coeffs,
 degrid_fused2_stack.launches = 0
 
 
+def grid_compact(t_idx, k_idx, g_idx, pa, uk_t, vk_t, wk_t, vre, vim,
+                 num_tasks: int, num_layers: int, lanes: int, support: int,
+                 w_support: int, block_v: int = 1024,
+                 precision: str = "highest") -> torch.Tensor:
+    """Compact-tap gridding of the sorted stream into per-task stacks.
+
+    t_idx/k_idx/g_idx: [NB] int32 per-block (task, w-slab, u-octet);
+    ``pa`` [V] int32 plan words (``iv0``, ``u_off``); ``uk_t``/``vk_t``
+    [S, V] and ``wk_t`` [Sw, V] f32 pre-evaluated taps; vre/vim [V] f32
+    (zero on padding slots). Returns the zero-based stack f32
+    ``[num_tasks, 2, num_layers * (lanes + 8), lanes]``.
+    """
+    dev, total, nb = _check_compact(t_idx, k_idx, g_idx, pa, uk_t, vk_t,
+                                    wk_t, support, w_support, block_v, lanes,
+                                    precision)
+    _check(dev, [("vre", vre), ("vim", vim)], torch.float32, (total,))
+    if dev.type == "cpu":
+        return grid_compact_reference(
+            t_idx, k_idx, g_idx, pa, uk_t, vk_t, wk_t, vre, vim, num_tasks,
+            num_layers, lanes, support, w_support, block_v, precision)
+    from . import _build
+
+    lib = _build.load()
+    out = torch.zeros((num_tasks, 2, num_layers * (lanes + 8), lanes),
+                      dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sdp_torch_fused_grid_stack(
+            t_idx.data_ptr(), k_idx.data_ptr(), g_idx.data_ptr(), None,
+            pa.data_ptr(), None, vre.data_ptr(), vim.data_ptr(), None, None,
+            uk_t.data_ptr(), vk_t.data_ptr(), wk_t.data_ptr(), 0, 0.0, 0.0,
+            nb, block_v, support, w_support, lanes, num_layers,
+            _MODES[precision], out.data_ptr(), stream)
+    _build.check(lib, err, "grid_compact")
+    grid_compact.launches += 1
+    return out
+
+
+grid_compact.launches = 0
+
+
+def degrid_compact(stack, t_idx, k_idx, g_idx, pa, uk_t, vk_t, wk_t,
+                   support: int, w_support: int, block_v: int = 512,
+                   precision: str = "highest") -> torch.Tensor:
+    """Compact-tap degridding from per-task tower stacks.
+
+    ``stack``: f32 [T, 2, K * (lanes + 8), lanes]; other operands as in
+    :func:`grid_compact` (``wk_t`` zero on padding and invalid slots).
+    Returns complex64 [V] in stream order.
+    """
+    if stack.ndim != 4 or stack.shape[1] != 2:
+        raise SdpShapeError("stack must be [T, 2, K * (lanes + 8), lanes]")
+    lanes = stack.shape[3]
+    if stack.shape[2] % (lanes + 8):
+        raise SdpShapeError("stack rows must be K * (lanes + 8)")
+    num_layers = stack.shape[2] // (lanes + 8)
+    dev, total, nb = _check_compact(t_idx, k_idx, g_idx, pa, uk_t, vk_t,
+                                    wk_t, support, w_support, block_v, lanes,
+                                    precision)
+    _check(dev, [("stack", stack)], torch.float32)
+    if dev.type == "cpu":
+        return degrid_compact_reference(
+            stack, t_idx, k_idx, g_idx, pa, uk_t, vk_t, wk_t, support,
+            w_support, block_v, precision)
+    from . import _build
+
+    lib = _build.load()
+    out = torch.empty((2, total), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sdp_torch_fused_degrid_stack(
+            stack.data_ptr(), t_idx.data_ptr(), k_idx.data_ptr(),
+            g_idx.data_ptr(), None, pa.data_ptr(), None, None, None,
+            uk_t.data_ptr(), vk_t.data_ptr(), wk_t.data_ptr(), 0, 0.0, 0.0,
+            total, block_v, support, w_support, lanes, num_layers,
+            _MODES[precision], out.data_ptr(), stream)
+    _build.check(lib, err, "degrid_compact")
+    degrid_compact.launches += 1
+    return torch.complex(out[0], out[1])
+
+
+degrid_compact.launches = 0
+
+_WRAPPERS = (grid_fused_stack, degrid_fused2_stack, grid_compact,
+             degrid_compact)
+
+
 def launch_counts() -> dict:
     """Kernel launches per wrapper since the last reset."""
-    return {"grid_fused_stack": grid_fused_stack.launches,
-            "degrid_fused2_stack": degrid_fused2_stack.launches}
+    return {f.__name__: f.launches for f in _WRAPPERS}
 
 
 def reset_launch_counts() -> None:
-    grid_fused_stack.launches = 0
-    degrid_fused2_stack.launches = 0
+    for f in _WRAPPERS:
+        f.launches = 0

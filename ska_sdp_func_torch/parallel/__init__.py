@@ -12,7 +12,7 @@ from .bucketed import (
     plan_bucketed,
     task_id_stream,
 )
-from .convert import from_jax_plan, from_jax_stream_plan
+from .convert import from_jax_es_plan, from_jax_plan, from_jax_stream_plan
 from .packed import (
     PackedGridder,
     PackedPlan,
@@ -49,6 +49,7 @@ __all__ = [
     "WStackTask",
     "degrid_all_bucketed",
     "degrid_all_tasks",
+    "from_jax_es_plan",
     "from_jax_plan",
     "from_jax_stream_plan",
     "grid_all_bucketed",

@@ -16,8 +16,10 @@ cannot express (a sub-grid that is not a multiple of 128, say).
 Box membership is decided per (row, channel) in f64 on the host; the
 reference's row-level bounds rejection (sdp_gridder_wtower_uvw.cpp:
 112-121) is replaced by the guarantee that a box plus the kernel
-support fits inside the sub-grid. The mesh-sharded driver is not ported
-yet (ROADMAP Queue 1 item 15).
+support fits inside the sub-grid. The drivers run on ``device``
+(``None``: the CUDA card; CPU runs pass ``device="cpu"``) and move their
+inputs there. The mesh-sharded driver is not ported yet (ROADMAP Queue
+1 item 15).
 """
 
 from dataclasses import dataclass
@@ -39,6 +41,7 @@ from ..grid_data.wtower import _round_half_away, _slab_weights, \
 from ..kernels.tower_tap import degrid_all_layers, grid_all_layers
 from ..utility.constants import C_0
 from ..utility.errors import SdpInvalidArgumentError
+from ..utility.tensors import resolve_device, to_device
 from .packed import _host_uvw
 from .wstack import WStackPlan
 
@@ -247,14 +250,15 @@ def _sorted_inputs(bplan: BucketedPlan, uvw, sort_index, valid):
 
 
 def grid_all_bucketed(bplan: BucketedPlan, vis, uvw, sort_index, valid,
-                      image_dtype=torch.float32) -> torch.Tensor:
-    """Grid all visibilities, one all-layer kernel launch per task over
-    its own slice: O(V) work. ``vis`` [rows, chan] and ``uvw`` [rows, 3]
-    are tensors on one device (``uvw``'s precision sets the geometry's);
-    returns the dirty image (real unless ``image_dtype`` is complex)."""
+                      image_dtype=torch.float32, device=None) -> torch.Tensor:
+    """Grid all visibilities on ``device``, one all-layer kernel launch
+    per task over its own slice: O(V) work. ``vis`` [rows, chan] and
+    ``uvw`` [rows, 3] (whose precision sets the geometry's); returns the
+    dirty image (real unless ``image_dtype`` is complex)."""
     plan = bplan.plan
     kernel = plan.kernel()
-    dev = vis.device
+    dev = resolve_device(device)
+    vis, uvw = to_device(vis, dev), to_device(uvw, dev)
     sgs = plan.subgrid_size
     image_size = plan.image_size
     sg_factor = (image_size / sgs) ** 2
@@ -290,7 +294,7 @@ def grid_all_bucketed(bplan: BucketedPlan, vis, uvw, sort_index, valid,
 
     for iw, g in per_plane_grid.items():
         g = kernel.grid_correct(ifft_shifted_norm(g), 0, 0,
-                                int(iw * plan.w_tower_height))
+                                int(iw * plan.w_tower_height), device=dev)
         image = image + g.to(image.dtype)
     if not image_dtype.is_complex:
         return image.real.to(image_dtype)
@@ -298,14 +302,16 @@ def grid_all_bucketed(bplan: BucketedPlan, vis, uvw, sort_index, valid,
 
 
 def degrid_all_bucketed(bplan: BucketedPlan, image, uvw, sort_index, valid,
-                        inverse_index) -> torch.Tensor:
+                        inverse_index, device=None) -> torch.Tensor:
     """Degrid an image into all [rows, chan] visibilities (complex64)
-    through the bucketed path. ``inverse_index`` maps each flattened
-    (row, channel) output to its sorted position (:func:`inverse_index_of`);
-    entries the plan never assigned read a slot that stays zero."""
+    through the bucketed path on ``device``. ``inverse_index`` maps each
+    flattened (row, channel) output to its sorted position
+    (:func:`inverse_index_of`); entries the plan never assigned read a
+    slot that stays zero."""
     plan = bplan.plan
     kernel = plan.kernel()
-    dev = image.device
+    dev = resolve_device(device)
+    image, uvw = to_device(image, dev), to_device(uvw, dev)
     sgs = plan.subgrid_size
     num_chan = plan.num_chan
     freq0, dfreq = plan.freq0_hz, (plan.dfreq_hz or 10.0)
@@ -318,7 +324,8 @@ def degrid_all_bucketed(bplan: BucketedPlan, image, uvw, sort_index, valid,
     # Per w-plane FFT'd full grid, shared by the plane's tasks.
     plane_grids = {
         iw: fft_shifted(kernel.degrid_correct(
-            image.to(torch.complex64), 0, 0, int(iw * plan.w_tower_height)))
+            image.to(torch.complex64), 0, 0, int(iw * plan.w_tower_height),
+            device=dev))
         for iw in bplan.w_plane_ids}
 
     out_sorted = torch.zeros((bplan.total + 1,), dtype=torch.complex64,

@@ -3,22 +3,26 @@
 This system has no learned weights: the state both packages must share
 is the plan (sort order, taps, task layout). :func:`from_jax_plan` turns
 a ``ska_sdp_func_tpu`` ``WStackPlan`` or ``PackedPlan`` into the port's,
-and :func:`from_jax_stream_plan` a ``StreamPlan``, by reading dataclass
-fields, task tuples and the NumPy ``arrays``/``consts`` by attribute, so
-they need no jax import and both packages compute on identical plans. Images and models are plain arrays: NumPy in, tensors
-out.
+:func:`from_jax_stream_plan` a ``StreamPlan`` and :func:`from_jax_es_plan`
+a ``GridderUvwEsFft``, by reading dataclass fields, task tuples, scalars
+and the NumPy ``arrays``/``consts`` by attribute, so they need no jax
+import and both packages compute on identical plans. Images and models
+are plain arrays: NumPy in, tensors out.
 """
 
 from dataclasses import fields
 
+from ..grid_data.es_fft import GridderUvwEsFft
+from ..grid_data.es_fft_packed import EsPackedPlan, attach
+from ..utility.tensors import resolve_device
 from .packed import PackedPlan, PackedTask
 from .streaming import StreamPlan
 from .wstack import WStackPlan, WStackTask
 
 
 def _copy(cls, obj, **override):
-    return cls(**{f.name: override.get(f.name, getattr(obj, f.name))
-                  for f in fields(cls)})
+    return cls(**{f.name: override[f.name] if f.name in override
+                  else getattr(obj, f.name) for f in fields(cls)})
 
 
 def from_jax_plan(plan):
@@ -40,3 +44,29 @@ def from_jax_stream_plan(splan):
     return _copy(StreamPlan, splan, wplan=from_jax_plan(splan.wplan),
                  tasks=tuple(_copy(PackedTask, t) for t in splan.tasks),
                  consts=dict(splan.consts))
+
+
+# The ES-FFT plan's state: scalars and its host quadrature arrays.
+_ES_FIELDS = (
+    "pixsize_x_rad", "pixsize_y_rad", "pixel_size", "epsilon",
+    "do_wstacking", "num_rows", "num_chan", "image_size", "grid_size",
+    "support", "beta", "sigma", "uv_scale", "min_plane_w", "max_plane_w",
+    "num_total_w_grids", "w_scale", "inv_w_range", "min_abs_w",
+    "max_abs_w", "inv_w_scale", "_quad_nodes", "_quad_weights",
+    "_quad_kernel", "conv_corr_norm_factor", "conv_corr_kernel")
+
+
+def from_jax_es_plan(jplan, device=None) -> GridderUvwEsFft:
+    """Port of a JAX ``GridderUvwEsFft`` on ``device`` (``None``: the CUDA
+    card): its scalars, quadrature and packed plan's host arrays (shared,
+    not copied); the packed plan's tensors are built on ``device``."""
+    plan = GridderUvwEsFft.__new__(GridderUvwEsFft)
+    for name in _ES_FIELDS:
+        setattr(plan, name, getattr(jplan, name))
+    plan.device = resolve_device(device)
+    plan._packed = None
+    jp = jplan._packed
+    if jp is not None:
+        ep = _copy(EsPackedPlan, jp, arrays=dict(jp.arrays), dev=None)
+        plan._packed = attach(plan, ep)
+    return plan

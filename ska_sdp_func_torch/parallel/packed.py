@@ -51,7 +51,7 @@ from ..utility.errors import (
     SdpInvalidArgumentError,
     SdpMemLocationError,
 )
-from ..utility.tensors import to_device
+from ..utility.tensors import resolve_device, to_device
 from .wstack import WStackPlan
 
 
@@ -262,25 +262,19 @@ _DEFAULT_PRECISION = "high"
 _DEFAULT_ENGINE = "auto"
 
 
-def _resolve_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
-
-
 def packed_gridder(pplan: PackedPlan, fast: bool = False,
                    precision: str = None, engine: str = None,
-                   device="cpu") -> "PackedGridder":
+                   device=None) -> "PackedGridder":
     """Per-plan device driver, LRU-cached by (plan, resolved options,
-    device)."""
+    device). ``device=None`` is the CUDA card; CPU runs pass
+    ``device="cpu"``."""
     # Resolve defaults BEFORE keying: packed_gridder(p) and
     # packed_gridder(p, precision="high") share one entry.
     if engine is None:
         engine = _DEFAULT_ENGINE
     if precision is None:
         precision = "bf16" if fast else _DEFAULT_PRECISION
-    device = _resolve_device(device)
+    device = resolve_device(device)
     key = (pplan, bool(fast), precision, engine, str(device))
     g = _GRIDDER_CACHE.pop(key, None)
     if g is None:
@@ -457,27 +451,29 @@ class PackedGridder(_TowerImaging):
     the plan's sorted stream (the major-cycle solver keeps residuals in
     sorted form). ``engine="bands"``/``"auto"`` stream pre-built tap
     bands through K1/K2; ``engine="fused"`` streams two packed int32 plan
-    words per slot through K3/K4 (on plans whose fields fit the words;
-    others take the band engine, as in the JAX package).
+    words per slot through K3/K4; ``engine="compact"`` streams the word
+    ``pa`` and taps evaluated once per plan (92 B per slot to grid, 84 B
+    to degrid) through K12/K13. The fused and compact engines take plans
+    whose fields fit the words; others take the band engine, as in the
+    JAX package. Compact runs "high" as "highest" (no pre-split
+    streams) and degrids in bf16 only with ``fast``, as the JAX package
+    does. ``device=None`` is the CUDA card; CPU runs pass
+    ``device="cpu"``.
     """
 
     def __init__(self, pplan: PackedPlan, fast: bool = False,
                  precision: str = None, engine: str = None,
-                 device="cpu"):
+                 device=None):
         if engine is None:
             engine = _DEFAULT_ENGINE
-        if engine == "compact":
-            raise NotImplementedError(
-                "engine='compact' is not ported yet (ROADMAP Queue 1 item "
-                "13, Queue 2 K12/K13); use 'bands' or 'fused'")
-        if engine not in ("auto", "bands", "fused"):
+        if engine not in ("auto", "bands", "fused", "compact"):
             raise SdpInvalidArgumentError(f"unknown engine {engine!r}")
         if precision is None:
             precision = "bf16" if fast else _DEFAULT_PRECISION
         self.pplan = pplan
         self.fast = bool(fast)
         self.precision = precision
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         plan = pplan.wplan
         arrays = pplan.arrays
         if arrays is None:
@@ -507,13 +503,30 @@ class PackedGridder(_TowerImaging):
 
         uv_c = _tap_coeffs_cached(plan.support, plan.oversampling)
         w_c = _tap_coeffs_cached(plan.w_support, plan.w_oversampling)
-        self.engine = "fused" if engine == "fused" and \
-            fused_tap.fused_geometry_ok(plan.subgrid_size, plan.support,
-                                        plan.oversampling,
-                                        plan.w_oversampling) else "bands"
+        packable = fused_tap.fused_geometry_ok(
+            plan.subgrid_size, plan.support, plan.oversampling,
+            plan.w_oversampling)
+        self.engine = engine if engine in ("fused", "compact") \
+            and packable else "bands"
+        if self.engine == "compact" and self.precision == "high":
+            self.precision = "highest"
         self.pa = self.pb = self.ubase = self.vband = self.vband_t = None
-        self.wk_t = None
-        if self.engine == "fused":
+        self.uk_t = self.vk_t = self.wk_t = None
+        if self.engine == "compact":
+            # The word pa and the taps, evaluated once on the device.
+            pa, _ = fused_tap.pack_plan_words(
+                arrays["iv0"], arrays["u_off"], arrays["w_row"],
+                arrays["u_frac"], arrays["v_frac"], arrays["valid"])
+            self.pa = put(pa)
+            self.uk_t = eval_kernel_taps(put(arrays["u_frac"]), uv_c,
+                                         plan.oversampling).T.contiguous()
+            self.vk_t = eval_kernel_taps(put(arrays["v_frac"]), uv_c,
+                                         plan.oversampling).T.contiguous()
+            self.wk_t = torch.where(
+                self.valid[:, None],
+                eval_kernel_taps(put(arrays["w_row"]), w_c,
+                                 plan.w_oversampling), 0.0).T.contiguous()
+        elif self.engine == "fused":
             # Two plan words per slot; the kernels evaluate the taps.
             pa, pb = fused_tap.pack_plan_words(
                 arrays["iv0"], arrays["u_off"], arrays["w_row"],
@@ -576,6 +589,13 @@ class PackedGridder(_TowerImaging):
     def _stage_kernel(self, vre, vim):
         pplan = self.pplan
         plan = pplan.wplan
+        if self.engine == "compact":
+            return fused_tap.grid_compact(
+                self.t_idx, self.k_idx, self.g_idx, self.pa, self.uk_t,
+                self.vk_t, self.wk_t, vre, vim, len(pplan.tasks),
+                pplan.num_layers, plan.subgrid_size, plan.support,
+                plan.w_support, block_v=pplan.block_v,
+                precision=self.precision)
         if self.engine == "fused":
             return fused_tap.grid_fused_stack(
                 self.t_idx, self.k_idx, self.g_idx, self.pa, self.pb, vre,
@@ -605,6 +625,12 @@ class PackedGridder(_TowerImaging):
     def _dstage_kernel(self, st):
         pplan = self.pplan
         plan = pplan.wplan
+        if self.engine == "compact":
+            return fused_tap.degrid_compact(
+                st, self.t_idx, self.k_idx, self.g_idx, self.pa, self.uk_t,
+                self.vk_t, self.wk_t, plan.support, plan.w_support,
+                block_v=pplan.block_v,
+                precision="bf16" if self.fast else "highest")
         if self.engine == "fused":
             return fused_tap.degrid_fused2_stack(
                 st, self.t_idx, self.k_idx, self.g_idx, self.pa, self.pb,

@@ -45,11 +45,11 @@ from ..grid_data.wtower import _round_half_away, _tap_coeffs_cached
 from ..kernels import fused_tap, place
 from ..utility.constants import C_0
 from ..utility.errors import SdpInvalidArgumentError, SdpRuntimeError
+from ..utility.tensors import resolve_device
 from .packed import (
     PackedTask,
     _TowerImaging,
     _host_uvw,
-    _resolve_device,
     packed_geometry_ok,
 )
 from .wstack import WStackPlan
@@ -494,7 +494,8 @@ def _check_single_device(mesh):
 class StreamingGridder:
     """Accumulates a dirty image over visibility chunks, planning on the
     device (module docstring). Engines are shared across instances of the
-    same (plan, fast, device).
+    same (plan, fast, device). ``device=None`` is the CUDA card; CPU runs
+    pass ``device="cpu"``.
 
     >>> sg = StreamingGridder(plan_stream(wplan, stream_tasks(wplan,
     ...                                   uvw_meta), chunk_rows=4096),
@@ -505,11 +506,11 @@ class StreamingGridder:
     """
 
     def __init__(self, splan: StreamPlan, fast: bool = False, mesh=None,
-                 device="cpu"):
+                 device=None):
         _check_single_device(mesh)
         self.splan = splan
         self.fast = bool(fast)
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self._engine = _stream_engine(splan, self.fast, self.device)
         n = splan.wplan.image_size
         self._image = torch.zeros((n, n), dtype=torch.float32,
@@ -592,11 +593,11 @@ class StreamingDegridder:
     are counted; :meth:`check` raises on them."""
 
     def __init__(self, splan: StreamPlan, fast: bool = False, mesh=None,
-                 device="cpu"):
+                 device=None):
         _check_single_device(mesh)
         self.splan = splan
         self.fast = bool(fast)
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self._engine = _stream_engine(splan, self.fast, self.device)
         self._st = None
         self._counters = _zero_counters(self.device)

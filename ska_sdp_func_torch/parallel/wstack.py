@@ -10,7 +10,9 @@ reference sdp_grid_wstack_wtower.cpp:24-165, 310-330):
    clamping selects the rows and channels in each box, as the reference
    routes rows to tasks, and each task runs the per-plane w-towers
    drivers (the ``grid_plane`` / ``degrid_plane`` kernels on complex64
-   CUDA data). Every task streams every visibility: O(tasks x V).
+   CUDA data). Every task streams every visibility: O(tasks x V). The
+   drivers run on ``device`` (``None``: the CUDA card; CPU runs pass
+   ``device="cpu"``) and move their inputs there.
 
 The mesh-sharded wrappers are not ported yet (ROADMAP Queue 1 item 15).
 """
@@ -37,6 +39,7 @@ from ..grid_data.wtower import (
     _degrid_all_planes,
     _grid_all_planes,
 )
+from ..utility.tensors import resolve_device, to_device
 
 _KERNEL_CACHE: dict = {}
 
@@ -209,11 +212,13 @@ def _plane_tasks(plan: WStackPlan, uvw, start_chs, end_chs):
 
 
 def grid_all_tasks(plan: WStackPlan, kernel: GridderWtowerUVW, vis, uvw,
-                   start_chs, end_chs) -> torch.Tensor:
+                   start_chs, end_chs, device=None) -> torch.Tensor:
     """Grid all visibilities over the static task list into a complex
-    image of ``vis``'s dtype (tensors on one device)."""
+    image of ``vis``'s dtype, on ``device``."""
     image_size = plan.image_size
-    dev = vis.device
+    dev = resolve_device(device)
+    vis, uvw, start_chs, end_chs = (
+        to_device(x, dev) for x in (vis, uvw, start_chs, end_chs))
     sg_factor = (image_size / plan.subgrid_size) ** 2
     uv_kernel, w_kernel, w_pattern = kernel.tables(vis.dtype, dev)
     image = torch.zeros((image_size, image_size), dtype=vis.dtype,
@@ -234,24 +239,27 @@ def grid_all_tasks(plan: WStackPlan, kernel: GridderWtowerUVW, vis, uvw,
             subgrid_add_static(grid, -off[0], -off[1],
                                fft_shifted(subgrid), sg_factor)
         grid = kernel.grid_correct(ifft_shifted_norm(grid), 0, 0,
-                                   int(iw * plan.w_tower_height))
+                                   int(iw * plan.w_tower_height), device=dev)
         image = image + grid.to(image.dtype)
     return image
 
 
 def degrid_all_tasks(plan: WStackPlan, kernel: GridderWtowerUVW, image, uvw,
-                     start_chs, end_chs,
-                     vis_dtype=torch.complex128) -> torch.Tensor:
+                     start_chs, end_chs, vis_dtype=torch.complex128,
+                     device=None) -> torch.Tensor:
     """Degrid an image over the static task list into
-    ``[rows, num_chan]`` visibilities of ``vis_dtype``."""
-    dev = image.device
+    ``[rows, num_chan]`` visibilities of ``vis_dtype``, on ``device``."""
+    dev = resolve_device(device)
+    image, uvw, start_chs, end_chs = (
+        to_device(x, dev) for x in (image, uvw, start_chs, end_chs))
     vis = torch.zeros((uvw.shape[0], plan.num_chan), dtype=vis_dtype,
                       device=dev)
     uv_kernel, w_kernel, w_pattern = kernel.tables(vis_dtype, dev)
     w_pattern = w_pattern.to(vis_dtype)
     for iw, tasks in _plane_tasks(plan, uvw, start_chs, end_chs):
         grid = fft_shifted(kernel.degrid_correct(
-            image.to(vis_dtype), 0, 0, int(iw * plan.w_tower_height)))
+            image.to(vis_dtype), 0, 0, int(iw * plan.w_tower_height),
+            device=dev))
         for task, s_uv, e_uv in tasks:
             off = _task_offsets(plan, task)
             subgrid = ifft_shifted_norm(subgrid_cut_out_static(

@@ -52,7 +52,7 @@ from ..parallel.wstack import (
 )
 from ..utility.errors import SdpInvalidArgumentError
 from ..utility.logging import log_info
-from ..utility.tensors import to_device
+from ..utility.tensors import resolve_device, to_device
 from ..utility.timers import Timers, TimerType
 
 
@@ -89,13 +89,14 @@ def _grid(plan: WStackPlan, vis: torch.Tensor,
           uvw: torch.Tensor) -> torch.Tensor:
     """Task-driver dirty image (real part, vis's real precision)."""
     return grid_all_tasks(plan, plan.kernel(), vis, uvw,
-                          *_channel_ranges(plan, uvw)).real
+                          *_channel_ranges(plan, uvw), device=vis.device).real
 
 
 def _degrid(plan: WStackPlan, image: torch.Tensor, uvw: torch.Tensor,
             vis_dtype) -> torch.Tensor:
     return degrid_all_tasks(plan, plan.kernel(), image, uvw,
-                            *_channel_ranges(plan, uvw), vis_dtype)
+                            *_channel_ranges(plan, uvw), vis_dtype,
+                            device=image.device)
 
 
 def _stop_level(dirty, threshold, mgain):
@@ -143,8 +144,9 @@ def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
                        checkpointer=None, weights=None,
                        clean_algorithm: str = "hogbom",
                        bucketed: bool = False, fast: bool = False,
-                       verbosity: int = 0, device="cpu") -> ImagingResult:
-    """Run the major/minor-cycle imaging solve on ``device``.
+                       verbosity: int = 0, device=None) -> ImagingResult:
+    """Run the major/minor-cycle imaging solve on ``device`` (``None``:
+    the CUDA card; CPU runs pass ``device="cpu"``).
 
     ``vis`` [rows, chan] complex and ``weights`` [rows, chan] are NumPy
     arrays or tensors; ``uvw`` [rows, 3] is NumPy or a CPU tensor (the
@@ -172,7 +174,7 @@ def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
 
     image_size = plan.image_size
     uvw = np.asarray(uvw, np.float64)
-    vis = to_device(vis, device)
+    vis = to_device(vis, resolve_device(device))
     dev = vis.device
     rdtype = vis.real.dtype
     timers = (Timers("major_cycle_imager", TimerType.DEVICE, device=dev)
@@ -218,7 +220,8 @@ def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
         w_sorted = None if psf_vis is None else gri.sort(psf_vis)[0]
     elif bucket is not None:
         psf = grid_all_bucketed(bucket["psf_bplan"], psf_vis_grid, uvw_dev,
-                                bucket["psf_sort"], bucket["psf_valid"])
+                                bucket["psf_sort"], bucket["psf_valid"],
+                                device=dev)
     else:
         psf = _grid(psf_plan, psf_vis_grid, uvw_dev)
     peak = psf[image_size, image_size]  # centre of the 2N PSF
@@ -244,7 +247,7 @@ def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
             if bucket is not None:
                 pred = degrid_all_bucketed(
                     bucket["bplan"], model, uvw_dev, bucket["sort"],
-                    bucket["valid"], bucket["inv"]).to(vis.dtype)
+                    bucket["valid"], bucket["inv"], device=dev).to(vis.dtype)
             else:
                 pred = _degrid(plan, model, uvw_dev, vis.dtype)
             if psf_vis is not None:
@@ -255,7 +258,8 @@ def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
                 timers.pop_push("grid residual")
             if bucket is not None:
                 raw = grid_all_bucketed(bucket["bplan"], res_vis, uvw_dev,
-                                        bucket["sort"], bucket["valid"])
+                                        bucket["sort"], bucket["valid"],
+                                        device=dev)
             else:
                 raw = _grid(plan, res_vis, uvw_dev)
         dirty = _norm_mask(raw, peak, border)

@@ -149,3 +149,21 @@ def fused_kernel_operands(seed: int = 17):
             (f["tasks"], 2, f["layers"] * (lanes + 8), lanes)
         ).astype(np.float32))
     return fields, ops
+
+
+def es_scenario(seed: int = 42):
+    """tests/test_es_fft.py's ES-FFT data: 150 rows x 2 channels inside a
+    64^2 image of 2 degrees, complex128 visibilities, unit weights."""
+    rng = np.random.default_rng(seed)
+    num_rows, num_chan = 150, 2
+    image_size = 64
+    pixel_size = 2.0 * np.pi / 180.0 / image_size
+    max_u = 0.4 * image_size / 2 / (image_size * pixel_size)
+    uvw = rng.uniform(-1, 1, (num_rows, 3)) * max_u
+    uvw[:, 2] *= 0.1
+    freq = np.array([C_0, 1.1 * C_0])
+    vis = (rng.standard_normal((num_rows, num_chan))
+           + 1j * rng.standard_normal((num_rows, num_chan)))
+    return dict(uvw=uvw, freq=freq, vis=vis,
+                weight=np.ones((num_rows, num_chan)), image_size=image_size,
+                pixel_size=pixel_size)

@@ -10,9 +10,9 @@ Tolerances: the grid stack at 1e-5 of max|stack| (f32 atomics reorder
 the sums); degridded visibilities at 1e-5 of max|vis| (same products,
 other summation order). The same holds for the w-towers tap kernels
 (``tower_tap``: grid_plane, degrid_plane, grid_all_layers,
-degrid_all_layers) and the fused kernels (``fused_tap``) against their
-plain versions; the placement kernel (``place``) is a copy and compares
-bit for bit.
+degrid_all_layers), the fused and compact kernels (``fused_tap``) and
+the ES-FFT band kernels (``band_tap``) against their plain versions; the
+placement kernel (``place``) is a copy and compares bit for bit.
 """
 
 import numpy as np
@@ -20,11 +20,12 @@ import pytest
 import torch
 
 from _torch_scenario import C_0, DFREQ, FREQ0, FUSED, IMAGE_SIZE, \
-    NUM_CHAN, PARAMS, WTOWER_PARAMS, fused_kernel_operands, make_inputs, \
-    two_point_image, wtower_scenario
+    NUM_CHAN, PARAMS, WTOWER_PARAMS, es_scenario, fused_kernel_operands, \
+    make_inputs, two_point_image, wtower_scenario
 from ska_sdp_func_torch import kernels
-from ska_sdp_func_torch.grid_data import grid_correct_pswf
+from ska_sdp_func_torch.grid_data import GridderUvwEsFft, grid_correct_pswf
 from ska_sdp_func_torch.grid_data import wtower as tw
+from ska_sdp_func_torch.kernels import band_tap as tb
 from ska_sdp_func_torch.kernels import fused_tap as tf
 from ska_sdp_func_torch.kernels import packed_tap as tk
 from ska_sdp_func_torch.kernels import place as tp
@@ -61,7 +62,8 @@ def setup(device):
         pplan=pplan, vis=vis,
         gs={m: PackedGridder(pplan, device=device, **kw)
             for m, kw in MODES.items()},
-        cpu={m: PackedGridder(pplan, **kw) for m, kw in MODES.items()},
+        cpu={m: PackedGridder(pplan, device="cpu", **kw)
+             for m, kw in MODES.items()},
         vre=torch.as_tensor(rng.standard_normal(pplan.total),
                             dtype=torch.float32, device=device),
         vim=torch.as_tensor(rng.standard_normal(pplan.total),
@@ -234,11 +236,12 @@ def test_wtower_c64_on_card_takes_fused_kernels(device):
         vis = plan.degrid_subgrid(
             torch.as_tensor(image, dtype=torch.complex64, device=dev),
             (10, -6, 1), ch, C_0, C_0 / 100, *args,
-            torch.zeros((rows, ch), dtype=torch.complex64, device=dev))
+            torch.zeros((rows, ch), dtype=torch.complex64, device=dev),
+            device=dev)
         sub = plan.grid_subgrid(
             vis, *args, ch, C_0, C_0 / 100,
             torch.zeros((64, 64), dtype=torch.complex64, device=dev),
-            (10, -6, 1))
+            (10, -6, 1), device=dev)
         out[str(dev)] = vis.cpu(), sub.cpu(), before, tt.launch_counts()
     (v0, s0, _, _), (v1, s1, b1, a1) = out["cpu"], out[str(device)]
     assert _rel(v1, v0) <= 1e-5 and _rel(s1, s0) <= 1e-5
@@ -257,14 +260,14 @@ def test_task_drivers_on_card_launch_plane_kernels(device):
         tt.reset_launch_counts()
         img = grid_all_tasks(plan, plan.kernel(),
                              torch.as_tensor(vis, device=dev), u,
-                             st.to(dev), en.to(dev)).real
+                             st.to(dev), en.to(dev), device=dev).real
         # A bounded model: degridding the raw dirty image would read its
         # 1/PSWF-amplified border.
         pred = degrid_all_tasks(
             plan, plan.kernel(),
             torch.as_tensor(two_point_image(), dtype=torch.complex64,
                             device=dev), u, st.to(dev), en.to(dev),
-            torch.complex64)
+            torch.complex64, device=dev)
         out[str(dev)] = img.cpu(), pred.cpu(), tt.launch_counts()
     (i0, p0, c0), (i1, p1, c1) = out["cpu"], out[str(device)]
     assert set(c0.values()) == {0}
@@ -382,4 +385,164 @@ def test_streaming_on_card_launches_fused_kernels(device):
         k.image_size, k.theta, k.w_step, k.shear_u, k.shear_v, k.support,
         k.w_support, torch.ones(k.image_size, k.image_size))
     assert _rel(i1 * taper, i0 * taper) <= 1e-5
+    assert _rel(p1, p0) <= 1e-5
+
+
+# -- compact kernels (K12, K13) and the compact engine -------------------------
+
+@pytest.fixture(scope="module")
+def compact(fused):
+    """The fused kernels' operands with the compact taps (uk_t/vk_t
+    [S, V], wk_t [Sw, V] zero on invalid slots) evaluated on the card."""
+    f = FUSED
+    fields, _ = fused_kernel_operands()
+    dev = fused["pa"].device
+
+    def taps(name, coeffs, ov):
+        return tf.cheb_taps(torch.as_tensor(fields[name], device=dev),
+                            coeffs, ov)
+
+    valid = torch.as_tensor(fields["valid"].astype(bool), device=dev)
+    t = dict(fused)
+    t["uk_t"] = taps("u_frac", fused["uv"], f["oversampling"]).T.contiguous()
+    t["vk_t"] = taps("v_frac", fused["uv"], f["oversampling"]).T.contiguous()
+    t["wk_t"] = torch.where(valid[:, None], taps(
+        "w_row", fused["w"], f["w_oversampling"]), 0.0).T.contiguous()
+    return t
+
+
+@pytest.mark.parametrize("mode", ["highest", "bf16"])
+def test_compact_grid_kernel_matches_plain(compact, mode):
+    f, t = FUSED, compact
+    args = tuple(t[k] for k in ("t", "k", "g", "pa", "uk_t", "vk_t", "wk_t",
+                                "vre", "vim")) + (
+        f["tasks"], f["layers"], f["lanes"], f["support"], f["w_support"])
+    kw = dict(block_v=f["block_v"], precision=mode)
+    before = tf.grid_compact.launches
+    got = tf.grid_compact(*args, **kw)
+    torch.cuda.synchronize()
+    assert tf.grid_compact.launches == before + 1
+    assert _rel(got, tf.grid_compact_reference(*args, **kw)) <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["highest", "bf16"])
+def test_compact_degrid_kernel_matches_plain(compact, mode):
+    f, t = FUSED, compact
+    args = tuple(t[k] for k in ("stack", "t", "k", "g", "pa", "uk_t",
+                                "vk_t", "wk_t")) + (f["support"],
+                                                    f["w_support"])
+    kw = dict(block_v=f["block_v"], precision=mode)
+    before = tf.degrid_compact.launches
+    got = tf.degrid_compact(*args, **kw)
+    torch.cuda.synchronize()
+    assert tf.degrid_compact.launches == before + 1
+    assert _rel(got, tf.degrid_compact_reference(*args, **kw)) <= 1e-5
+
+
+def test_compact_engine_on_card_launches_compact_kernels(setup):
+    """PackedGridder(engine="compact") on the card: only K12/K13 launch,
+    and the image (taper-weighted) and degrid agree with the CPU port."""
+    pplan, dev = setup["pplan"], setup["vre"].device
+    out = {}
+    for d in ("cpu", dev):
+        g = PackedGridder(pplan, engine="compact", device=d)
+        kernels.reset_launch_counts()
+        img = g.grid(setup["vis"])
+        pred = g.degrid_sorted(two_point_image())
+        torch.cuda.synchronize()
+        out[str(d)] = (img.cpu(), pred.cpu(), kernels.launch_counts())
+    (i0, p0, c0), (i1, p1, c1) = out["cpu"], out[str(dev)]
+    assert set(c0.values()) == {0}
+    names = {"grid_compact", "degrid_compact"}
+    assert all(c1[n] == 1 for n in names)
+    assert all(v == 0 for n, v in c1.items() if n not in names)
+    k = pplan.wplan.kernel()
+    taper = 1.0 / grid_correct_pswf(
+        k.image_size, k.theta, k.w_step, k.shear_u, k.shear_v, k.support,
+        k.w_support, torch.ones(k.image_size, k.image_size))
+    assert _rel(i1 * taper, i0 * taper) <= 1e-5
+    assert _rel(p1, p0) <= 1e-5
+
+
+# -- ES-FFT band kernels (K8, K11) and the ES-FFT gridder ---------------------
+
+def _es_plan(d, do_wstacking, device):
+    vis = d["vis"].astype(np.complex64)
+    return GridderUvwEsFft(
+        d["uvw"], d["freq"], vis, d["weight"],
+        np.zeros((d["image_size"],) * 2, np.float32), d["pixel_size"],
+        d["pixel_size"], 1e-5,
+        *GridderUvwEsFft.get_w_range(d["uvw"], d["freq"]), do_wstacking,
+        device=device)
+
+
+@pytest.fixture(scope="module")
+def es(device):
+    d = es_scenario()
+    return d, {ws: _es_plan(d, ws, device) for ws in (False, True)}
+
+
+@pytest.mark.parametrize("form", ["split", "stack"])
+@pytest.mark.parametrize("ws", [False, True], ids=["2d", "3d"])
+def test_band_grid_kernel_matches_plain(es, ws, form):
+    ep = es[1][ws]._packed
+    dd = ep.dev
+    gen = torch.Generator(device=dd["uk"].device).manual_seed(4)
+    vre, vim = (torch.randn(ep.total, generator=gen, device=dd["uk"].device)
+                * dd["valid"] for _ in range(2))
+    scales = ((dd["kw_t"], vre, vim) if form == "split"
+              else torch.cat([dd["kw_t"] * vre, dd["kw_t"] * vim]))
+    args = (dd["block_bucket"], dd["u_off"], dd["iv0"], dd["uk"], dd["vk"],
+            scales, ep.num_slabs * ep.gu * ep.gv, 256, ep.w_support)
+    before = tb.grid_packed.launches
+    got = tb.grid_packed(*args, block_v=ep.block_v)
+    torch.cuda.synchronize()
+    assert tb.grid_packed.launches == before + 1
+    assert _rel(got, tb.grid_packed_reference(*args, block_v=ep.block_v)) \
+        <= 1e-5
+
+
+@pytest.mark.parametrize("n_vq", [1, 2])
+def test_band_degrid_kernel_matches_plain(es, n_vq):
+    ep = es[1][True]._packed
+    dd = ep.dev
+    gen = torch.Generator(device=dd["uk"].device).manual_seed(5)
+    planes = torch.randn((2, ep.num_w_grids, ep.rows_pad, ep.lanes_pad),
+                         generator=gen, device=dd["uk"].device)
+    args = (planes, dd["k_idx"], dd["g_idx"], dd["hv_idx"], dd["u_off"],
+            dd["iv0"], dd["uk"], dd["vk"], dd["kw_t"], ep.w_support,
+            128 * n_vq)
+    before = tb.degrid_fused.launches
+    got = tb.degrid_fused(*args, block_v=ep.block_v, raw=True)
+    torch.cuda.synchronize()
+    assert tb.degrid_fused.launches == before + 1
+    want = tb.degrid_fused_reference(*args, block_v=ep.block_v, raw=True)
+    assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("ws", [False, True], ids=["2d", "3d"])
+def test_es_gridder_on_card_launches_band_kernels(es, ws):
+    """GridderUvwEsFft (complex64) on the card: only K8/K11 launch, and
+    the image and predictions agree with the CPU port at 1e-5."""
+    d, plans = es
+    dev = plans[ws].device
+    vis = d["vis"].astype(np.complex64)
+    model = np.random.default_rng(3).standard_normal(
+        (d["image_size"],) * 2).astype(np.float32)
+    out = {}
+    for plan in (_es_plan(d, ws, "cpu"), plans[ws]):
+        kernels.reset_launch_counts()
+        img = plan.grid_uvw_es_fft(d["uvw"], d["freq"], vis, d["weight"],
+                                   np.zeros_like(model))
+        pred = plan.ifft_degrid_uvw_es_fft(d["uvw"], d["freq"], vis * 0,
+                                           d["weight"], model)
+        torch.cuda.synchronize()
+        out[str(plan.device)] = (img.cpu(), pred.cpu(),
+                                 kernels.launch_counts())
+    (i0, p0, c0), (i1, p1, c1) = out["cpu"], out[str(dev)]
+    assert set(c0.values()) == {0}
+    names = {"grid_packed", "degrid_fused"}
+    assert all(c1[n] >= 1 for n in names)
+    assert all(v == 0 for n, v in c1.items() if n not in names)
+    assert _rel(i1, i0) <= 1e-5
     assert _rel(p1, p0) <= 1e-5

@@ -24,19 +24,26 @@ MODULES = [
     "ska_sdp_func_torch.fourier_transforms.fft",
     "ska_sdp_func_torch.fourier_transforms.pswf",
     "ska_sdp_func_torch.grid_data",
+    "ska_sdp_func_torch.grid_data.es_fft",
+    "ska_sdp_func_torch.grid_data.es_fft_packed",
+    "ska_sdp_func_torch.grid_data.es_params",
     "ska_sdp_func_torch.grid_data.grid_correct",
     "ska_sdp_func_torch.grid_data.gridder_utils",
     "ska_sdp_func_torch.grid_data.kernels",
     "ska_sdp_func_torch.grid_data.wtower",
     "ska_sdp_func_torch.kernels",
     "ska_sdp_func_torch.kernels._build",
+    "ska_sdp_func_torch.kernels.band_tap",
     "ska_sdp_func_torch.kernels.fused_tap",
     "ska_sdp_func_torch.kernels.packed_tap",
     "ska_sdp_func_torch.kernels.place",
+    "ska_sdp_func_torch.kernels.tower_tap",
+    "ska_sdp_func_torch.kernels.dense_tap",
     "ska_sdp_func_torch.native",
     "ska_sdp_func_torch.numeric_functions",
     "ska_sdp_func_torch.numeric_functions.fft_convolution",
     "ska_sdp_func_torch.parallel",
+    "ska_sdp_func_torch.parallel.bucketed",
     "ska_sdp_func_torch.parallel.convert",
     "ska_sdp_func_torch.parallel.packed",
     "ska_sdp_func_torch.parallel.streaming",
@@ -46,6 +53,7 @@ MODULES = [
     "ska_sdp_func_torch.utility",
     "ska_sdp_func_torch.utility.constants",
     "ska_sdp_func_torch.utility.errors",
+    "ska_sdp_func_torch.utility.tensors",
 ]
 
 

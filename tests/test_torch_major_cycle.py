@@ -126,7 +126,8 @@ def test_major_cycle_weights_match_jax():
     jres = jmc.major_cycle_imager(jplan, jnp.asarray(vis), jnp.asarray(uvw),
                                   weights=jnp.asarray(weights), **kw)
     tplan = t_plan_wstack(uvw, FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE, **PARAMS)
-    tres = tmc.major_cycle_imager(tplan, vis, uvw, weights=weights, **kw)
+    tres = tmc.major_cycle_imager(tplan, vis, uvw, weights=weights,
+                                  device="cpu", **kw)
     j_model = np.asarray(jres.model)
     assert np.abs(tres.model.numpy() - j_model).max() \
         <= 1e-4 * np.abs(j_model).max()
@@ -141,7 +142,7 @@ def test_unported_branches_raise(kwargs, item):
     uvw, vis = make_inputs()
     tplan = t_plan_wstack(uvw, FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE, **PARAMS)
     with pytest.raises(NotImplementedError, match=item):
-        tmc.major_cycle_imager(tplan, vis, uvw, **kwargs)
+        tmc.major_cycle_imager(tplan, vis, uvw, device="cpu", **kwargs)
 
 
 # A 32^2 sub-grid scenario (test_torch_wstack_drivers.py's geometry).
@@ -179,7 +180,7 @@ def _solve_pair(small, **kw):
         small["jplan"], jnp.asarray(small["vis"]), jnp.asarray(small["uvw"]),
         weights=None if w is None else jnp.asarray(w), **kw)
     tres = tmc.major_cycle_imager(small["tplan"], small["vis"],
-                                  small["uvw"], weights=w, **kw)
+                                  small["uvw"], weights=w, device="cpu", **kw)
     return np.asarray(jres.model), tres
 
 
@@ -210,7 +211,7 @@ def test_major_cycle_stage_report(small, monkeypatch):
                         lambda fmt, *args: lines.append(fmt % args))
     tmc.major_cycle_imager(small["tplan"], small["vis"], small["uvw"],
                            n_major=1, bucketed=True, cycle_limit=20,
-                           verbosity=1)
+                           verbosity=1, device="cpu")
     assert lines[0].startswith("major_cycle_imager (")
     for stage in ("planning", "psf grid + sort", "degrid predict",
                   "grid residual", "minor cycle", "restore"):

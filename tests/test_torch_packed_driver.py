@@ -19,6 +19,9 @@ from _torch_scenario import DFREQ, FREQ0, IMAGE_SIZE, NUM_CHAN, NUM_ROWS, \
     PARAMS, make_inputs, taper, two_point_image  # noqa: E402
 from ska_sdp_func_torch.parallel import packed as tpacked  # noqa: E402
 from ska_sdp_func_torch.parallel import from_jax_plan  # noqa: E402
+from ska_sdp_func_torch.utility.errors import (  # noqa: E402
+    SdpInvalidArgumentError,
+)
 from ska_sdp_func_tpu.parallel import plan_wstack as j_plan_wstack  # noqa
 from ska_sdp_func_tpu.parallel.packed import (  # noqa: E402
     packed_gridder as j_gridder,
@@ -44,7 +47,8 @@ def images(scenario):
     out = {}
     for prec in PRECISIONS:
         jg = j_gridder(s["jpp"], precision=prec)
-        tg = tpacked.packed_gridder(s["tpp"], precision=prec)
+        tg = tpacked.packed_gridder(s["tpp"], precision=prec,
+                                    device="cpu")
         vre, vim = jg.sort(jnp.asarray(s["vis"]))
         model = two_point_image()
         out[prec] = dict(
@@ -60,7 +64,7 @@ def images(scenario):
 
 
 def test_sort_unsort_roundtrip(scenario):
-    g = tpacked.packed_gridder(scenario["tpp"])
+    g = tpacked.packed_gridder(scenario["tpp"], device="cpu")
     vre, vim = g.sort(scenario["vis"])
     back = g.unsort(torch.complex(vre, vim)).numpy()
     np.testing.assert_array_equal(back, scenario["vis"])
@@ -68,7 +72,7 @@ def test_sort_unsort_roundtrip(scenario):
 
 def test_sort_matches_jax(scenario):
     jg = j_gridder(scenario["jpp"])
-    tg = tpacked.packed_gridder(scenario["tpp"])
+    tg = tpacked.packed_gridder(scenario["tpp"], device="cpu")
     for got, want in zip(tg.sort(scenario["vis"]),
                          jg.sort(jnp.asarray(scenario["vis"]))):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -113,7 +117,7 @@ def test_fast_mode_matches_jax(scenario):
     """fast=True (bf16 bands) runs the same arithmetic on both sides."""
     s = scenario
     jg = j_gridder(s["jpp"], fast=True)
-    tg = tpacked.packed_gridder(s["tpp"], fast=True)
+    tg = tpacked.packed_gridder(s["tpp"], fast=True, device="cpu")
     vre, vim = jg.sort(jnp.asarray(s["vis"]))
     j_img = np.asarray(jg.grid_sorted(vre, vim))
     t_img = tg.grid_sorted(*tg.sort(s["vis"])).numpy()
@@ -122,20 +126,42 @@ def test_fast_mode_matches_jax(scenario):
 
 def test_gridder_cache_keys_on_resolved_defaults(scenario):
     p = scenario["tpp"]
-    g = tpacked.packed_gridder(p)
-    assert tpacked.packed_gridder(p, precision="high") is g
+    g = tpacked.packed_gridder(p, device="cpu")
+    assert tpacked.packed_gridder(p, precision="high",
+                                  device="cpu") is g
     assert tpacked.packed_gridder(p, engine="auto", device="cpu") is g
-    assert tpacked.packed_gridder(p, precision="highest") is not g
-    fast = tpacked.packed_gridder(p, fast=True)
+    assert tpacked.packed_gridder(p, precision="highest",
+                                  device="cpu") is not g
+    fast = tpacked.packed_gridder(p, fast=True, device="cpu")
     assert fast.precision == "bf16"
-    assert tpacked.packed_gridder(p, fast=True, precision="bf16") is fast
+    assert tpacked.packed_gridder(p, fast=True, precision="bf16",
+                                  device="cpu") is fast
     assert len(tpacked._GRIDDER_CACHE) <= tpacked._GRIDDER_CACHE_MAX
 
 
 @pytest.mark.parametrize("engine", ["compact"])
 def test_unported_engines_raise(scenario, engine):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpacked.PackedGridder(scenario["tpp"], engine=engine)
+    """Every engine of the JAX package runs in the port, and only those:
+    engine="compact" (K12/K13) against the JAX package's compact engine
+    at its default precision ("high", run as "highest" by both), image
+    taper-weighted and sorted-stream degrid at 1e-5; an unknown engine
+    raises."""
+    s = scenario
+    jg = j_gridder(s["jpp"], engine=engine)
+    tg = tpacked.PackedGridder(s["tpp"], engine=engine, device="cpu")
+    assert jg._compact and tg.engine == engine and tg.vband is None
+    assert tg.precision == jg.precision == "highest"
+    vre, vim = jg.sort(jnp.asarray(s["vis"]))
+    j_img = np.asarray(jg.grid_sorted(vre, vim))
+    t_img = tg.grid_sorted(*tg.sort(s["vis"])).numpy()
+    assert _taper_err(s, t_img, j_img) < 1e-5
+    model = two_point_image()
+    j_vis = np.asarray(jg.degrid_sorted(jnp.asarray(model)))
+    t_vis = tg.degrid_sorted(model).numpy()
+    np.testing.assert_allclose(t_vis, j_vis,
+                               atol=1e-5 * np.abs(j_vis).max())
+    with pytest.raises(SdpInvalidArgumentError, match="engine"):
+        tpacked.PackedGridder(s["tpp"], engine="dense", device="cpu")
 
 
 @pytest.mark.parametrize("prec", PRECISIONS)
@@ -145,7 +171,8 @@ def test_fused_engine_matches_jax(scenario, prec):
     sorted-stream degrid at 1e-5."""
     s = scenario
     jg = j_gridder(s["jpp"], precision=prec, engine="fused")
-    tg = tpacked.PackedGridder(s["tpp"], precision=prec, engine="fused")
+    tg = tpacked.PackedGridder(s["tpp"], precision=prec, engine="fused",
+                               device="cpu")
     assert jg._fused and tg.engine == "fused" and tg.vband is None
     vre, vim = jg.sort(jnp.asarray(s["vis"]))
     j_img = np.asarray(jg.grid_sorted(vre, vim))
@@ -159,3 +186,67 @@ def test_fused_engine_matches_jax(scenario, prec):
     # The plan words are the JAX engine's, bit for bit.
     np.testing.assert_array_equal(tg.pa.numpy(), np.asarray(jg.pa))
     np.testing.assert_array_equal(tg.pb.numpy(), np.asarray(jg.pb))
+
+
+@pytest.mark.parametrize("entry", [
+    "packed_gridder", "PackedGridder", "StreamingGridder",
+    "StreamingDegridder", "major_cycle_imager", "wstack_wtower_grid_all",
+    "wstack_wtower_degrid_all", "GridderWtowerUVW.grid_subgrid",
+    "GridderWtowerUVW.degrid_subgrid", "GridderWtowerUVW.grid_correct",
+    "grid_all_tasks", "degrid_all_tasks", "grid_all_bucketed",
+    "degrid_all_bucketed"])
+def test_entry_points_default_to_the_card(scenario, entry):
+    """Without ``device`` every entry point runs on the CUDA card, never
+    the CPU, even for NumPy or CPU-tensor inputs: on a host with no card
+    it raises at its first tensor move."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default works")
+    from ska_sdp_func_torch.grid_data import wstack as tws
+    from ska_sdp_func_torch.parallel import bucketed as tb
+    from ska_sdp_func_torch.parallel import streaming as tstream
+    from ska_sdp_func_torch.parallel import wstack as tpw
+    from ska_sdp_func_torch.pipeline import major_cycle as tmc
+
+    s = scenario
+    tplan = s["tpp"].wplan
+    kern = tplan.kernel()
+    uvw, vis = s["uvw"], torch.as_tensor(s["vis"])
+    img = np.zeros((IMAGE_SIZE, IMAGE_SIZE), np.float32)
+    sub = np.zeros((PARAMS["subgrid_size"],) * 2, np.complex64)
+    st = np.zeros(NUM_ROWS, np.int32)
+    en = np.full(NUM_ROWS, NUM_CHAN, np.int32)
+
+    def bucketed(fn, data, *extra):
+        bplan, sort_index, valid = tb.plan_bucketed(tplan, uvw)
+        return fn(bplan, data, uvw, sort_index, valid, *extra)
+
+    calls = {
+        "packed_gridder": lambda: tpacked.packed_gridder(s["tpp"]),
+        "PackedGridder": lambda: tpacked.PackedGridder(s["tpp"]),
+        "major_cycle_imager": lambda: tmc.major_cycle_imager(
+            tplan, s["vis"], uvw, bucketed=True),
+        "wstack_wtower_grid_all": lambda: tws.wstack_wtower_grid_all(
+            vis, FREQ0, DFREQ, uvw, **PARAMS, image=img),
+        "wstack_wtower_degrid_all": lambda: tws.wstack_wtower_degrid_all(
+            img, FREQ0, DFREQ, uvw, **PARAMS, vis=s["vis"]),
+        "GridderWtowerUVW.grid_subgrid": lambda: kern.grid_subgrid(
+            vis, uvw, st, en, NUM_CHAN, FREQ0, DFREQ, sub, (0, 0, 0)),
+        "GridderWtowerUVW.degrid_subgrid": lambda: kern.degrid_subgrid(
+            sub, (0, 0, 0), NUM_CHAN, FREQ0, DFREQ, uvw, st, en, vis),
+        "GridderWtowerUVW.grid_correct": lambda: kern.grid_correct(
+            torch.ones(IMAGE_SIZE, IMAGE_SIZE)),
+        "grid_all_tasks": lambda: tpw.grid_all_tasks(
+            tplan, kern, vis, uvw, st, en),
+        "degrid_all_tasks": lambda: tpw.degrid_all_tasks(
+            tplan, kern, img, uvw, st, en, torch.complex64),
+        "grid_all_bucketed": lambda: bucketed(tb.grid_all_bucketed, vis),
+        "degrid_all_bucketed": lambda: bucketed(
+            tb.degrid_all_bucketed, img,
+            np.zeros(NUM_ROWS * NUM_CHAN, np.int64)),
+    }
+    for name in ("StreamingGridder", "StreamingDegridder"):
+        sp = tstream.plan_stream(tplan, tstream.stream_tasks(tplan, s["uvw"]),
+                                 chunk_rows=64, block_v=128, cap_slots=20480)
+        calls[name] = (lambda cls: lambda: cls(sp))(getattr(tstream, name))
+    with pytest.raises((RuntimeError, AssertionError)):
+        calls[entry]()

@@ -49,7 +49,7 @@ def gridders():
     plan = plan_wstack(uvw, FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE, **PARAMS)
     pplan = plan_packed(plan, uvw, block_v=128)
     fast = {"highest": False, "high": False, "bf16": True}
-    gs = {m: packed_gridder(pplan, fast=fast[m],
+    gs = {m: packed_gridder(pplan, fast=fast[m], device="cpu",
                             precision=None if m == "bf16" else m)
           for m in MODES}
     rng = np.random.default_rng(11)

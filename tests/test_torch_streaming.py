@@ -89,7 +89,7 @@ def _interior_err(got, want):
 
 
 def _grid(sp, uvw, vis, chunks, weights=None):
-    sg = StreamingGridder(sp)
+    sg = StreamingGridder(sp, device="cpu")
     for lo, hi in chunks:
         sg.accumulate(uvw[lo:hi], vis[lo:hi],
                       None if weights is None else weights[lo:hi])
@@ -138,7 +138,7 @@ def test_device_plan_matches_jax(scenario, lo, hi):
     (ja, jdest, jbb, jvis, jproc, jdrop, jover) = jeng._plan_chunk(
         jnp.asarray(uvw32), jnp.asarray(mask), jnp.asarray(vre),
         jnp.asarray(vim))
-    eng = StreamingGridder(s["sp"])._engine
+    eng = StreamingGridder(s["sp"], device="cpu")._engine
     (ta, tdest, tbb, tvis, tproc, tdrop, tover) = eng._plan_chunk(
         torch.as_tensor(uvw32), torch.as_tensor(mask),
         torch.as_tensor(vre), torch.as_tensor(vim))
@@ -185,7 +185,7 @@ def test_streaming_matches_packed_interior(scenario):
     at "highest" on the interior (test_streaming.py:74-100)."""
     s = scenario
     g = packed_gridder(plan_packed(s["plan"], s["uvw"], block_v=128),
-                       precision="highest")
+                       precision="highest", device="cpu")
     img_ref = g.grid(s["vis"]).numpy()
     img = _grid(s["sp"], s["uvw"], s["vis"],
                 _chunks(s["rows"])).finalize().numpy()
@@ -218,7 +218,7 @@ def test_streaming_weights(scenario):
 
 def test_streaming_counts_dropped_and_raises(scenario):
     s = scenario
-    sg = StreamingGridder(s["sp"])
+    sg = StreamingGridder(s["sp"], device="cpu")
     uvw_bad = s["uvw"][:8].copy()
     uvw_bad[0, 0] *= 50.0     # far outside the task boxes
     sg.accumulate(uvw_bad, s["vis"][:8])
@@ -235,14 +235,14 @@ def test_streaming_overflow_voids_chunk(scenario):
     sp = plan_stream(s["plan"], s["jboxes"], chunk_rows=rows, block_v=128,
                      cap_slots=256)
     assert sp.cap == 1024
-    sg = StreamingGridder(sp)
+    sg = StreamingGridder(sp, device="cpu")
     sg.accumulate(s["uvw"], s["vis"])
     processed, dropped, voided = (int(x) for x in sg.counters())
     assert (processed, dropped, voided) == (0, 0, 1)
     assert float(sg.image.abs().max()) == 0.0
     with pytest.raises(SdpRuntimeError, match="capacity"):
         sg.finalize()
-    sd = StreamingDegridder(sp).set_model(_model())
+    sd = StreamingDegridder(sp, device="cpu").set_model(_model())
     assert not sd.predict(s["uvw"]).abs().max() > 0
     with pytest.raises(SdpRuntimeError, match="capacity"):
         sd.check()
@@ -252,7 +252,7 @@ def test_streaming_rejects_bad_shapes(scenario):
     s = scenario
     sp = plan_stream(s["plan"], s["jboxes"], chunk_rows=16, block_v=128,
                      cap_slots=20000)
-    sg = StreamingGridder(sp)
+    sg = StreamingGridder(sp, device="cpu")
     with pytest.raises(SdpInvalidArgumentError):
         sg.accumulate(s["uvw"][:32], s["vis"][:32])     # > chunk_rows
     with pytest.raises(SdpInvalidArgumentError):
@@ -264,7 +264,8 @@ def test_streaming_rejects_bad_shapes(scenario):
     with pytest.raises(SdpInvalidArgumentError):
         plan_stream(s["plan"], s["jboxes"], chunk_rows=0)
     with pytest.raises(SdpInvalidArgumentError):
-        StreamingDegridder(sp).set_model(np.zeros((8, 8), np.float32))
+        StreamingDegridder(sp, device="cpu").set_model(
+            np.zeros((8, 8), np.float32))
     sg.finalize(check=False)
     with pytest.raises(SdpRuntimeError, match="finalized"):
         sg.accumulate(s["uvw"][:8], s["vis"][:8])
@@ -272,7 +273,7 @@ def test_streaming_rejects_bad_shapes(scenario):
 
 def test_streaming_degridder_matches_jax(scenario):
     s = scenario
-    sd = StreamingDegridder(s["sp"]).set_model(_model())
+    sd = StreamingDegridder(s["sp"], device="cpu").set_model(_model())
     pred = torch.cat([sd.predict(s["uvw"][lo:hi])
                       for lo, hi in _chunks(s["rows"])]).numpy()
     sd.check()
@@ -282,14 +283,14 @@ def test_streaming_degridder_matches_jax(scenario):
                                atol=2e-4 * np.abs(s["j_pred"]).max())
     # And the port's own host-planned packed degrid.
     g = packed_gridder(plan_packed(s["plan"], s["uvw"], block_v=128),
-                       precision="highest")
+                       precision="highest", device="cpu")
     ref = g.degrid(_model()).numpy()
     np.testing.assert_allclose(pred, ref, atol=2e-4 * np.abs(ref).max())
 
 
 def test_streaming_predict_dropped_raises(scenario):
     s = scenario
-    sd = StreamingDegridder(s["sp"]).set_model(
+    sd = StreamingDegridder(s["sp"], device="cpu").set_model(
         np.zeros((IMAGE_SIZE, IMAGE_SIZE), np.float32))
     uvw_bad = s["uvw"][:4].copy()
     uvw_bad[1, 1] *= 50.0
@@ -297,7 +298,7 @@ def test_streaming_predict_dropped_raises(scenario):
     with pytest.raises(SdpRuntimeError, match="outside the task set"):
         sd.check()
     with pytest.raises(SdpRuntimeError, match="set_model"):
-        StreamingDegridder(s["sp"]).predict(s["uvw"][:4])
+        StreamingDegridder(s["sp"], device="cpu").predict(s["uvw"][:4])
 
 
 def test_box_membership_fma_hull():
@@ -320,7 +321,7 @@ def test_box_membership_fma_hull():
     plan = plan_wstack(uvw, FREQ0, 10.0, 1, IMAGE_SIZE, **PARAMS)
     sp = plan_stream(plan, stream_tasks(plan, uvw), chunk_rows=len(us),
                      block_v=128, cap_slots=81920)
-    sg = StreamingGridder(sp)
+    sg = StreamingGridder(sp, device="cpu")
     sg.accumulate(uvw, np.ones((len(us), 1), np.complex64))
     sg.finalize(check=True)
     assert [int(x) for x in sg.counters()] == [len(us), 0, 0]
@@ -331,9 +332,10 @@ def test_unported_options_raise(scenario, case):
     s = scenario
     if case == "mesh":
         with pytest.raises(NotImplementedError, match="item 15"):
-            StreamingGridder(s["sp"], mesh=object())
+            StreamingGridder(s["sp"], mesh=object(), device="cpu")
         with pytest.raises(NotImplementedError, match="item 15"):
-            StreamingDegridder(s["sp"], mesh=object())
+            StreamingDegridder(s["sp"], mesh=object(),
+                               device="cpu")
         return
     plan = s["plan"]
     if case == "oversampling":

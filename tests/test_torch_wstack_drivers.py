@@ -164,9 +164,10 @@ def _wstack_call(fn, data, scn, mod, template, verbosity=0):
     arr = jnp.asarray if mod is jnp else (
         lambda a: torch.tensor(np.asarray(a)))
     key = "vis" if fn.__name__.endswith("degrid_all") else "image"
+    cpu = {} if mod is jnp else dict(device="cpu")
     return np.asarray(fn(arr(data), FREQ0, DFREQ, arr(scn["uvw"]),
                          **PARAMS, **{key: arr(template)},
-                         verbosity=verbosity))
+                         verbosity=verbosity, **cpu))
 
 
 def test_wstack_reference_engine_matches_jax(scn):
@@ -200,7 +201,8 @@ def test_wstack_packed_and_auto_engines_match_jax():
     for engine in ("packed", "auto"):
         got = tws.wstack_wtower_grid_all(
             torch.as_tensor(vis), *args[1:], torch.as_tensor(uvw), **geom,
-            image=torch.as_tensor(tmpl), engine=engine).numpy()
+            image=torch.as_tensor(tmpl), engine=engine,
+            device="cpu").numpy()
         assert got.dtype == np.float32
         assert _rel(got * wt, want * wt) <= 1e-4
     sky = np.zeros((P_IMAGE, P_IMAGE), np.float32)
@@ -210,13 +212,13 @@ def test_wstack_packed_and_auto_engines_match_jax():
         engine="packed"))
     vgot = tws.wstack_wtower_degrid_all(
         torch.as_tensor(sky), *args[1:], torch.as_tensor(uvw), **geom,
-        vis=torch.as_tensor(vis), engine="packed").numpy()
+        vis=torch.as_tensor(vis), engine="packed", device="cpu").numpy()
     assert _rel(vgot, vwant) <= 1e-4
     with pytest.raises(SdpInvalidArgumentError):
         tws.wstack_wtower_grid_all(
             torch.as_tensor(vis), *args[1:], torch.as_tensor(uvw),
             **dict(geom, subgrid_size=96), image=torch.as_tensor(tmpl),
-            engine="packed")
+            engine="packed", device="cpu")
 
 
 def test_wstack_engine_routing(scn):
@@ -232,7 +234,8 @@ def test_wstack_engine_routing(scn):
         tws.wstack_wtower_grid_all(torch.as_tensor(scn["vis"]), FREQ0,
                                    DFREQ, torch.as_tensor(scn["uvw"]),
                                    **dict(PARAMS, w_tower_height=0.0),
-                                   image=torch.zeros(IMAGE, IMAGE))
+                                   image=torch.zeros(IMAGE, IMAGE),
+                                   device="cpu")
 
 
 # -- task drivers and bucketed drivers -----------------------------------------
@@ -241,8 +244,9 @@ def _task_grid(scn, mod, vis):
     p = scn["jplan"] if mod is jnp else scn["tplan"]
     fn = jpw.grid_all_tasks if mod is jnp else tpw.grid_all_tasks
     arr = jnp.asarray if mod is jnp else torch.as_tensor
+    cpu = {} if mod is jnp else dict(device="cpu")
     return np.asarray(fn(p, p.kernel(), arr(vis), arr(scn["uvw"]),
-                         arr(scn["st"]), arr(scn["en"])).real)
+                         arr(scn["st"]), arr(scn["en"]), **cpu).real)
 
 
 def _task_degrid(scn, mod, image):
@@ -250,9 +254,10 @@ def _task_degrid(scn, mod, image):
     fn = jpw.degrid_all_tasks if mod is jnp else tpw.degrid_all_tasks
     arr = jnp.asarray if mod is jnp else torch.as_tensor
     dt = jnp.complex64 if mod is jnp else torch.complex64
+    cpu = {} if mod is jnp else dict(device="cpu")
     return np.asarray(fn(p, p.kernel(), arr(image.astype(np.complex64)),
                          arr(scn["uvw"]), arr(scn["st"]), arr(scn["en"]),
-                         dt))
+                         dt, **cpu))
 
 
 @pytest.fixture(scope="module")
@@ -295,13 +300,14 @@ def test_bucketed_matches_jax_task_drivers(scn, jax_tasks):
                                                 block_v=128)
     uvw = torch.as_tensor(scn["uvw"])
     img = tb.grid_all_bucketed(bplan, torch.as_tensor(scn["vis"]), uvw,
-                               sort_index, valid).numpy()
+                               sort_index, valid, device="cpu").numpy()
     assert img.dtype == np.float32
     b = IMAGE // 8      # the 1/PSWF correction amplifies f32 noise
     assert _rel(img, jax_tasks["img"], interior=b) <= 1e-4
     inv = tb.inverse_index_of(sort_index, valid, ROWS * CHANS)
     vis = tb.degrid_all_bucketed(bplan, torch.as_tensor(scn["image"]), uvw,
-                                 sort_index, valid, inv).numpy()
+                                 sort_index, valid, inv,
+                                 device="cpu").numpy()
     assert vis.shape == (ROWS, CHANS) and vis.dtype == np.complex64
     assert _rel(vis, jax_tasks["vis"]) <= 1e-4
 

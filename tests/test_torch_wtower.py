@@ -48,13 +48,18 @@ def _array(mod):
         lambda a: torch.tensor(np.asarray(a)))
 
 
+def _cpu(mod):
+    """The port's entry points run on the card unless asked otherwise."""
+    return {} if mod is jnp else dict(device="cpu")
+
+
 def _degrid(plan, s, image, offsets, vis_dtype, mod):
     arr = _array(mod)
     uvw = s["uvw"]
     vis = np.zeros((uvw.shape[0], s["ch"]), vis_dtype)
     return np.asarray(plan.degrid_subgrid(
         arr(image), offsets, s["ch"], FREQ0, DFREQ, arr(uvw),
-        arr(s["start"]), arr(s["end"]), arr(vis)))
+        arr(s["start"]), arr(s["end"]), arr(vis), **_cpu(mod)))
 
 
 def _grid(plan, s, vis, offsets, mod):
@@ -63,7 +68,7 @@ def _grid(plan, s, vis, offsets, mod):
     sub = np.zeros(s["image"].shape, vis.dtype)
     return np.asarray(plan.grid_subgrid(
         arr(vis), arr(uvw), arr(s["start"]), arr(s["end"]), s["ch"], FREQ0,
-        DFREQ, arr(sub), offsets))
+        DFREQ, arr(sub), offsets, **_cpu(mod)))
 
 
 def test_plan_tables_match_jax(setup):
@@ -197,10 +202,12 @@ def test_corrections_match_jax(setup):
     j, t = setup["jplan"], setup["tplan"]
     for name in ("degrid_correct", "grid_correct"):
         want = np.asarray(getattr(j, name)(jnp.asarray(facet), 0, 0, 2))
-        got = getattr(t, name)(torch.as_tensor(facet), 0, 0, 2).numpy()
+        got = getattr(t, name)(torch.as_tensor(facet), 0, 0, 2,
+                               device="cpu").numpy()
         assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
         want = np.asarray(getattr(j, name)(jnp.asarray(facet.real)))
-        got = getattr(t, name)(torch.as_tensor(facet.real)).numpy()
+        got = getattr(t, name)(torch.as_tensor(facet.real),
+                               device="cpu").numpy()
         assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
 
 
@@ -210,7 +217,8 @@ def test_counters_and_plane_counts_match_jax(setup):
     tplan = tw.GridderWtowerUVW(**WTOWER_PARAMS)
     for off_w in (0, 1):
         assert tplan.degrid_num_planes(
-            s["uvw"], s["start"], s["end"], FREQ0, DFREQ, off_w) == \
+            s["uvw"], s["start"], s["end"], FREQ0, DFREQ, off_w,
+            device="cpu") == \
             jplan.degrid_num_planes(jnp.asarray(s["uvw"]), s["start"],
                                     s["end"], FREQ0, DFREQ, off_w)
     _degrid(tplan, s, s["image"], (0, 0, 0), np.complex128, torch)
@@ -226,14 +234,16 @@ def test_deprecated_forms_forward(setup):
     uvw = torch.as_tensor(s["uvw"])
     st, en = torch.as_tensor(s["start"]), torch.as_tensor(s["end"])
     vis0 = torch.zeros((uvw.shape[0], s["ch"]), dtype=torch.complex128)
-    vis = t.degrid(img, 10, -6, 1, FREQ0, DFREQ, uvw, st, en, vis0)
+    vis = t.degrid(img, 10, -6, 1, FREQ0, DFREQ, uvw, st, en, vis0,
+                   device="cpu")
     want = t.degrid_subgrid(img, (10, -6, 1), s["ch"], FREQ0, DFREQ, uvw,
-                            st, en, vis0)
+                            st, en, vis0, device="cpu")
     torch.testing.assert_close(vis, want, rtol=0, atol=0)
     sub0 = torch.zeros_like(img, dtype=torch.complex128)
-    got = t.grid(vis, uvw, st, en, FREQ0, DFREQ, sub0, 10, -6, 1)
+    got = t.grid(vis, uvw, st, en, FREQ0, DFREQ, sub0, 10, -6, 1,
+                 device="cpu")
     want = t.grid_subgrid(vis, uvw, st, en, s["ch"], FREQ0, DFREQ, sub0,
-                          (10, -6, 1))
+                          (10, -6, 1), device="cpu")
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
@@ -247,13 +257,13 @@ def test_input_contracts(setup):
         tw.GridderWtowerUVW(**bad)
     with pytest.raises(SdpShapeError):
         t.degrid_subgrid(torch.zeros(8, 8), (0, 0, 0), s["ch"], FREQ0,
-                         DFREQ, uvw, st, en)
+                         DFREQ, uvw, st, en, device="cpu")
     vis = torch.zeros((uvw.shape[0], s["ch"]), dtype=torch.complex128)
     with pytest.raises(SdpDataTypeError):
         t.grid_subgrid(vis, uvw.float(), st, en, s["ch"], FREQ0, DFREQ,
                        torch.zeros((64, 64), dtype=torch.complex128),
-                       (0, 0, 0))
+                       (0, 0, 0), device="cpu")
     with pytest.raises(SdpInvalidArgumentError):
         t.grid_subgrid(vis, uvw, st, en, s["ch"] + 1, FREQ0, DFREQ,
                        torch.zeros((64, 64), dtype=torch.complex128),
-                       (0, 0, 0))
+                       (0, 0, 0), device="cpu")
