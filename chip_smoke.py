@@ -12,10 +12,13 @@ line of output each (or a few), failing loudly on the first fault:
    source, in parallel; timed);
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card: the packed kernels (K1, K2) and the fused kernels (K3, K4) in all
-   three precision modes, the placement kernel (K5) bit for bit, and the
-   w-towers tap kernels (K14-K17), each on the small test scenario and at
-   the shapes of the main paths below (K3-K5 with the very arguments the
-   streaming path passes them);
+   three precision modes, the placement kernel (K5) bit for bit, the
+   w-towers tap kernels (K14-K17), and the non-packable streaming
+   branch's tap preparation (K6, K7) and window fold (K9 + K10, also
+   with NaN in every unvisited window) with K5, K8 and K11 at its shapes,
+   each on the small test scenario (the non-packable kernels on 64-slot
+   blocks) and at the shapes of the main paths below (K3-K11 with the
+   very arguments the streaming paths pass them);
 4. main paths, each driven with the launch counters set to 0 just before
    it and read just after; each path must launch its own kernels and
    none of another path's:
@@ -67,12 +70,19 @@ line of output each (or a few), failing loudly on the first fault:
    i. the packed gridder's ``engine="compact"`` (K12, K13) at the bench
       scenario, "highest" and "bf16", against the plain path and the band
       engine;
+   j. the streaming path's non-packable branch (K5, K6, K8, the fold, K7,
+      K11): window f's dense stream and calls with the plan at
+      oversampling 65536 (beyond the fused kernels' plan words), held
+      against the same calls on the plain path on the card and against
+      the host-planned packed path on that plan;
 5. times: grid, degrid and one major-cycle iteration of the packed path
    and the fallback at the bench scenario, the task drivers' calls of
-   4c, streaming ingest and predict beside their plain paths, the fused
-   and compact engines beside the band engine, the ES-FFT gridder beside
-   the packed path, and each kernel beside its plain version at the main
-   paths' shapes (K12/K13 also beside K3/K4 on the same plan).
+   4c, streaming ingest and predict beside their plain paths, the
+   non-packable ingest and predict beside the packable ones with their
+   stages, the fused and compact engines beside the band engine, the
+   ES-FFT gridder beside the packed path, and each kernel beside its
+   plain version at the main paths' shapes (K12/K13 also beside K3/K4
+   on the same plan).
 
 The line before the last is a JSON object describing each kernel: its
 launches in its path's window, its largest absolute difference from its
@@ -80,9 +90,12 @@ plain version, its time and the plain version's, and its bound: the
 larger of the bytes it must move (each input read once, each output
 written once) over the H100's 3.35 TB/s and the f32 operations of the
 valid slots its plan gives it (the non-zero tap products, two
-operations each, and the fused kernels' tap evaluation) over its 67
-TFLOP/s outside the tensor cores. ``library_ms`` is null: no single PyTorch call computes any
-of these functions. The last line is ``{"ok": true, "device": {...}}``.
+operations each, and the fused kernels' and the tap preparation's tap
+evaluation) over its 67 TFLOP/s outside the tensor cores; the fold
+counts only the visited windows it must read. One kernel replaces both
+TPU folds (K9, K10): it has a row for each. ``library_ms`` is null: no
+single PyTorch call computes any of these functions. The last line is
+``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero and prints no result. It
 imports nothing of jax.
 """
@@ -151,6 +164,21 @@ COMPACT_KERNELS = (
 )
 COMPACT_MODES = {"highest": dict(precision="highest"),
                  "bf16": dict(fast=True)}
+# Window j: the dense stream made non-packable (an oversampling beyond
+# the fused kernels' plan words), and the kernels of that branch: its tap
+# preparation (K6, K7) and the window fold (K9 and K10 in one kernel);
+# it also runs K5, K8 and K11.
+NP_OVERSAMPLING, NP_W_OVERSAMPLING = 65536, 16384
+PREP_SOURCE = "ska_sdp_func_torch/kernels/csrc/stream_prep.cu"
+FOLD_SOURCE = "ska_sdp_func_torch/kernels/csrc/fold.cu"
+PREP_KERNELS = (
+    ("stream_prep_grid", "ska_sdp_func_tpu/kernels/packed_tap.py:524"),
+    ("stream_prep_degrid", "ska_sdp_func_tpu/kernels/packed_tap.py:642"),
+)
+FOLD_REPLACES = (
+    ("fold_groups", "ska_sdp_func_tpu/kernels/packed_tap.py:720"),
+    ("fold_layers", "ska_sdp_func_tpu/kernels/packed_tap.py:770"),
+)
 # The H100 SXM's published peaks (NVIDIA H100 datasheet): HBM bytes/s
 # and f32 operations/s outside the tensor cores.
 HBM_BYTES_S = 3.35e12
@@ -468,6 +496,22 @@ def plain_compact_kernels(record=None):
                           for n, _ in COMPACT_KERNELS], record)
 
 
+def np_modules():
+    """Kernel name -> the module that holds it, for the non-packable
+    streaming branch (the streaming module calls each through it)."""
+    from ska_sdp_func_torch.kernels import band_tap, fold, place, stream_prep
+
+    return dict(place_stream=place, stream_prep_grid=stream_prep,
+                grid_packed=band_tap, fold_windows=fold,
+                stream_prep_degrid=stream_prep, degrid_fused=band_tap)
+
+
+def plain_np_kernels(record=None):
+    """The non-packable streaming branch on the plain versions of K5-K11."""
+    return plain_kernels([(m, n, m) for n, m in np_modules().items()],
+                         record)
+
+
 # -- bounds ------------------------------------------------------------------
 
 def nbytes(*objs) -> int:
@@ -481,11 +525,14 @@ def nbytes(*objs) -> int:
     return total
 
 
-def bound(args, out, ops):
+def bound(args, out, ops, moved=None):
     """(ms, "bytes" or "operations"): the least time the card could take
-    to read ``args`` once, write ``out`` once and do ``ops`` f32
+    to read ``args`` once, write ``out`` once (or move ``moved`` bytes,
+    where the data leaves part of ``args`` unread) and do ``ops`` f32
     operations."""
-    t_bytes = (nbytes(args) + nbytes(out)) / HBM_BYTES_S * 1e3
+    if moved is None:
+        moved = nbytes(args) + nbytes(out)
+    t_bytes = moved / HBM_BYTES_S * 1e3
     t_ops = ops / F32_OPS_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -500,6 +547,31 @@ def cheb_ops(valid, support, w_support, ncoef):
     """f32 operations of the fused kernels' tap evaluation: three
     Chebyshev bases and 2S + Sw sums of ``ncoef`` terms per slot."""
     return int(valid) * (3 + 2 * support + w_support) * 2 * ncoef
+
+
+def prep_ops(valid, support, w_support, ncoef, scale_rows):
+    """f32 operations of the streaming tap preparation (K6, K7) of
+    ``valid`` slots: three row coordinates (2 each), Clenshaw's
+    recurrence over 2S + Sw taps (3 per term) and ``scale_rows`` x Sw
+    products."""
+    return int(valid) * (6 + (2 * support + w_support) * 3 * ncoef
+                         + scale_rows * w_support)
+
+
+def fold_reads(wins, visited, num_octets) -> int:
+    """f32 window elements the window fold (K9 + K10) reads, one add
+    each: the 16 rows of each visited window, 8 of a last octet's (its
+    straddle half is clipped); an unvisited window is never read."""
+    v = visited.reshape(-1, num_octets)
+    rows = int(v[:, :-1].sum()) * 16 + int(v[:, -1].sum()) * 8
+    return rows * wins.shape[0] * wins.shape[3]
+
+
+def fold_bytes(wins, visited, num_octets, out) -> int:
+    """Bytes the window fold must move: the window rows it reads once,
+    the mask, the layers written once."""
+    return fold_reads(wins, visited, num_octets) * wins.element_size() \
+        + nbytes(visited, out)
 
 
 def check_stream_kernels(torch, StreamingGridder, StreamingDegridder, sp,
@@ -554,6 +626,67 @@ def check_stream_kernels(torch, StreamingGridder, StreamingDegridder, sp,
         raise SystemExit(f"place_stream disagrees with its plain version "
                          f"[{label}]")
     return errs, captured, counts
+
+
+def check_np_kernels(torch, StreamingGridder, StreamingDegridder, sp, uvw,
+                     vis, model, label):
+    """K6, K7 and the fold kernel, with K5, K8 and K11 at these shapes,
+    against their plain versions on the operands one non-packable
+    accumulate and predict pass them (captured on the plain path); the
+    fold also with NaN in every unvisited window, which it must never
+    read. Returns the absolute errors, the captured operands and the
+    chunk's valid slots."""
+    dev = uvw.device
+    captured = {}
+    sg = StreamingGridder(sp, device=dev)
+    sd = StreamingDegridder(sp, device=dev).set_model(model)
+    if sg._engine.packable:
+        raise SystemExit(f"the {label} plan is packable")
+    with plain_np_kernels(captured):
+        sg.accumulate(uvw, vis)
+        sd.predict(uvw)
+    valid = int(sg.counters()[0])
+    errs, lines = {}, []
+    for name, mod in np_modules().items():
+        args, kw = captured[name][0]
+        if name == "fold_windows":
+            nan_wins = args[0].clone()
+            nan_wins[:, ~args[1]] = float("nan")
+            calls = [("", args), (" (NaN unvisited)", (nan_wins,) + args[1:])]
+        else:
+            calls = [("", args)]
+        want = getattr(mod, name + "_reference")(*args, **kw)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        for tag, c_args in calls:
+            got = getattr(mod, name)(*c_args, **kw)
+            got = got if isinstance(got, (tuple, list)) else (got,)
+            torch.cuda.synchronize()
+            if name == "place_stream":
+                # A copy: bit for bit.
+                same = all(torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32))
+                           for a, b in zip(got, want))
+                e = 0.0 if same else float("inf")
+            else:
+                e = max(rel_err(a, b) for a, b in zip(got, want))
+            finite(torch, [(f"{name}{tag}", a) for a in got])
+            bits = all(torch.equal(a, b) for a, b in zip(got, want))
+            lines.append(f"{name}{tag} {e:.3e}"
+                         + (" (bit-equal)" if bits else ""))
+            if not e <= TOL:
+                raise SystemExit(f"{name}{tag} disagrees with its plain "
+                                 f"version [{label}]: {e:.3e}")
+            errs.setdefault(name, max(
+                float((a.to(b.dtype if b.is_complex() else torch.float64)
+                       - b).abs().max()) for a, b in zip(got, want)))
+            del got
+        del want
+    say(f"# non-packable stream kernels vs plain [{label}]: "
+        + ", ".join(lines) + f" (tolerance {TOL:g}; {sp.num_blocks} blocks "
+        f"of {sp.block_v}, {sp.cap} slots, {valid} valid, "
+        f"{int(captured['fold_windows'][0][0][1].sum())} visited buckets "
+        f"of {sp.num_buckets})")
+    return errs, captured, valid
 
 
 @contextlib.contextmanager
@@ -723,6 +856,38 @@ def es_phase(torch, tkern, dev, uvw, vis, model):
         + ", ".join(lines) + f" (tolerance {TOL:g})")
     return dict(plans=plans, launches=launches, errs=errs, ops=ops,
                 grid=es_grid, degrid=es_degrid)
+
+
+def np_stage_times(torch, sd, uvw, vis):
+    """CUDA-event ms of each stage of one non-packable accumulate step
+    (plan + K5, K6, K8, fold, drain) and predict step (plan + K5 with the
+    unsort map, K7, K11, unsort) of the degridder ``sd``'s stream, 10
+    calls each on the chunk ``uvw``/``vis``: the engine's own stage
+    methods, the ones its steps compose."""
+    from ska_sdp_func_torch.parallel import streaming
+
+    eng = sd._engine
+    _, uvw32, mask = streaming._padded_chunk(sd.splan, uvw, uvw.device)
+    vre, vim = vis.real.contiguous(), vis.imag.contiguous()
+    out = {}
+
+    def stage(name, fn):
+        out[name] = cuda_ms(torch, fn, 10, warmup=1)
+        return fn()
+
+    a, _, bb, visited, *_ = stage("plan + K5", lambda: eng._plan_chunk(
+        uvw32, mask, vre, vim, need_unsort=False))
+    taps = stage("K6", lambda: eng._prep_grid(a))
+    wins = stage("K8", lambda: eng._grid_windows(a, bb, *taps))
+    layers = stage("fold", lambda: eng._fold_windows(wins, visited))
+    stage("drain", lambda: eng._drain(layers))
+    del a, taps, wins, layers
+    a, dest, bb, *_ = stage("predict plan + K5", lambda: eng._plan_chunk(
+        uvw32, mask))
+    taps = stage("K7", lambda: eng._prep_degrid(a))
+    raw = stage("K11", lambda: eng._degrid_windows(sd._st, a, bb, *taps))
+    stage("unsort", lambda: eng._unsort(raw, dest))
+    return out
 
 
 def compact_phase(torch, tkern, PackedGridder, pplan, dev, vre, vim, model,
@@ -949,6 +1114,33 @@ def main() -> int:
     stream_err, stream_ops, stream_valid = check_stream_kernels(
         torch, StreamingGridder, StreamingDegridder, sp_d, uvw_dd, vis_dd,
         model, "dense stream")
+    # The non-packable branch's kernels (K6, K7, the fold; K5, K8 and K11
+    # at its shapes): the small scenario on 64-slot blocks, then window
+    # j's dense stream at oversampling 65536 (the operands of 4j).
+    sp_s64 = plan_stream(plan_s, stream_tasks(plan_s, uvw_s),
+                         chunk_rows=SMALL["rows"], block_v=64,
+                         cap_slots=128 * n_small)
+    check_np_kernels(torch, StreamingGridder, StreamingDegridder, sp_s64,
+                     torch.as_tensor(uvw_s, device=dev),
+                     torch.as_tensor(vis_s, device=dev), model_s,
+                     "small, block_v 64")
+    t0 = time.perf_counter()
+    plan_j = plan_wstack(uvw_d, C_0, C_0 / (100 * STREAM_CHANS), STREAM_CHANS,
+                         IMAGE, SUBGRID, THETA, W_STEP, support=8,
+                         oversampling=NP_OVERSAMPLING, w_support=4,
+                         w_oversampling=NP_W_OVERSAMPLING,
+                         w_tower_height=HEIGHT)
+    sp_j = plan_stream(plan_j, stream_tasks(plan_j, uvw_d), chunk_rows=ROWS,
+                       block_v=STREAM_BLOCK_V, cap_factor=STREAM_CAP_FACTOR)
+    plan_time = time.perf_counter() - t0
+    say(f"# non-packable stream plan (oversampling {NP_OVERSAMPLING}, w "
+        f"oversampling {NP_W_OVERSAMPLING}): {len(sp_j.tasks)} tasks, "
+        f"{sp_j.num_layers} layers, block_v {sp_j.block_v}, cap {sp_j.cap} "
+        f"slots ({sp_j.num_blocks} blocks), {sp_j.num_buckets} buckets "
+        f"({plan_time:.2f} s host)")
+    np_err, np_ops, np_valid = check_np_kernels(
+        torch, StreamingGridder, StreamingDegridder, sp_j, uvw_dd, vis_dd,
+        model, "dense stream, non-packable")
 
     # 4a. packed main path ---------------------------------------------
     g = packed_gridder(pplan, device=dev)
@@ -1178,68 +1370,79 @@ def main() -> int:
     packed_names = ["grid_packed_stack", "degrid_stack"]
     expected = (ROWS + SHORT_ROWS) * STREAM_CHANS
 
-    def stream_pass():
-        sg = StreamingGridder(sp_d, device=dev)
+    def stream_pass(sp):
+        sg = StreamingGridder(sp, device=dev)
         sg.accumulate(uvw_dd, vis_dd)
         sg.accumulate(uvw_dd[:SHORT_ROWS], vis_dd[:SHORT_ROWS])
         s_img = sg.finalize()
-        sd = StreamingDegridder(sp_d, device=dev).set_model(model)
+        sd = StreamingDegridder(sp, device=dev).set_model(model)
         s_pred = sd.predict(uvw_dd)
         sd.check()
         return (s_img, s_pred, [int(x) for x in sg.counters()],
                 [int(x) for x in sd.counters()])
 
+    def check_stream_outputs(label, s_img, s_pred, s_cnt, d_cnt):
+        finite(torch, ((f"{label} image", s_img),
+                       (f"{label} predict", s_pred)))
+        if tuple(s_img.shape) != (IMAGE, IMAGE) or \
+                tuple(s_pred.shape) != (ROWS, STREAM_CHANS):
+            raise SystemExit(f"{label} outputs have the wrong shape")
+        if s_cnt != [expected, 0, 0] or d_cnt != [num_vis_d, 0, 0]:
+            raise SystemExit(f"{label} counters (processed, dropped, "
+                             f"voided) {s_cnt} / {d_cnt}, expected "
+                             f"{expected} / {num_vis_d} with none dropped "
+                             f"or voided")
+
+    def against_packed(wplan, s_img, s_pred):
+        """The streaming image and predictions against the host-planned
+        packed path at "highest" on the same plan (band engine, K1/K2,
+        run outside the launch windows): the full chunk plus the short
+        one. The JAX suite's interior is a margin of 1/8 of the side (32
+        px at 256^2, test_streaming.py:93-96): 64 px here. The two plans
+        tile the towers to different depths, and next to the 1/PSWF
+        border that reads as ~4e-3 of the interior peak at 32 px."""
+        pp = plan_packed(wplan, uvw_d)
+        g_p = PackedGridder(pp, precision="highest", device=dev)
+        vis_short = vis_dd.clone()
+        vis_short[SHORT_ROWS:] = 0
+        r_img = g_p.grid(vis_dd) + g_p.grid(vis_short)
+        r_pred = g_p.degrid(model)
+        m = IMAGE // 8
+        errs = dict(interior=rel_err(s_img[m:-m, m:-m], r_img[m:-m, m:-m]),
+                    margin32=rel_err(s_img[32:-32, 32:-32],
+                                     r_img[32:-32, 32:-32]),
+                    taper=rel_err(s_img * taper, r_img * taper),
+                    predict=rel_err(s_pred, r_pred))
+        text = (f"vs the packed path at 'highest' ({len(pp.tasks)} tasks, "
+                f"{pp.num_layers} layers): interior (margin {m}) rel err "
+                f"{errs['interior']:.3e}, predict rel err "
+                f"{errs['predict']:.3e} (tolerance 2e-4); margin 32 "
+                f"{errs['margin32']:.3e}, whole image taper-weighted "
+                f"{errs['taper']:.3e}")
+        return errs["interior"] <= 2e-4 and errs["predict"] <= 2e-4, text
+
     torch.cuda.reset_peak_memory_stats(dev)
+    np_names = list(np_modules())
+    np_only = [n for n in np_names if n != "place_stream"]
     with launch_window(torch, tkern, "streaming path", stream_names,
-                       packed_names + tower_names) as st_launches:
-        s_img, s_pred, s_cnt, d_cnt = stream_pass()
+                       packed_names + tower_names + np_only) as st_launches:
+        s_img, s_pred, s_cnt, d_cnt = stream_pass(sp_d)
     peak_bytes = torch.cuda.max_memory_allocated(dev)
-    finite(torch, (("streaming image", s_img),
-                   ("streaming predict", s_pred)))
-    if tuple(s_img.shape) != (IMAGE, IMAGE) or \
-            tuple(s_pred.shape) != (ROWS, STREAM_CHANS):
-        raise SystemExit("streaming outputs have the wrong shape")
-    if s_cnt != [expected, 0, 0] or d_cnt != [num_vis_d, 0, 0]:
-        raise SystemExit(f"streaming counters (processed, dropped, voided) "
-                         f"{s_cnt} / {d_cnt}, expected {expected} / "
-                         f"{num_vis_d} with none dropped or voided")
+    check_stream_outputs("streaming", s_img, s_pred, s_cnt, d_cnt)
     with plain_stream_kernels():
-        p_img, p_pred, _, _ = stream_pass()
+        p_img, p_pred, _, _ = stream_pass(sp_d)
     e_simg = rel_err(s_img * taper, p_img * taper)
     e_spred = rel_err(s_pred, p_pred)
     del p_img, p_pred
-    # The host-planned packed path at "highest" (band engine, K1/K2, run
-    # outside the window): the full chunk plus the short one.
-    pplan_d = plan_packed(plan_d, uvw_d)
-    g_d = PackedGridder(pplan_d, precision="highest", device=dev)
-    vis_short = vis_dd.clone()
-    vis_short[SHORT_ROWS:] = 0
-    r_img = g_d.grid(vis_dd) + g_d.grid(vis_short)
-    r_pred = g_d.degrid(model)
-    del g_d, vis_short
-    # The JAX suite's interior is a margin of 1/8 of the side (32 px at
-    # 256^2, test_streaming.py:93-96): 64 px here. The two plans tile
-    # the towers to different depths, and next to the 1/PSWF border
-    # that reads as ~4e-3 of the interior peak at 32 px.
-    m = IMAGE // 8
-    e_int = rel_err(s_img[m:-m, m:-m], r_img[m:-m, m:-m])
-    e_int32 = rel_err(s_img[32:-32, 32:-32], r_img[32:-32, 32:-32])
-    e_ptap = rel_err(s_img * taper, r_img * taper)
-    e_ppred = rel_err(s_pred, r_pred)
+    ok_packed, packed_text = against_packed(plan_d, s_img, s_pred)
     say(f"# streaming ({len(sp_d.tasks)} tasks, cap {sp_d.cap}, task stack "
         f"{stack_bytes} bytes, peak device memory {peak_bytes} bytes): "
         f"processed {s_cnt[0]} of {expected} (dropped {s_cnt[1]}, voided "
         f"{s_cnt[2]}), predicted {d_cnt[0]}; kernel vs plain path: image "
         f"taper-weighted rel err {e_simg:.3e}, predict rel err "
-        f"{e_spred:.3e} (tolerance {TOL:g}); vs the packed path at "
-        f"'highest' ({len(pplan_d.tasks)} tasks, {pplan_d.num_layers} "
-        f"layers): interior (margin {m}) rel err {e_int:.3e}, predict "
-        f"rel err {e_ppred:.3e} (tolerance 2e-4); margin 32 "
-        f"{e_int32:.3e}, whole image taper-weighted {e_ptap:.3e}")
-    if not (e_simg <= TOL and e_spred <= TOL and e_int <= 2e-4
-            and e_ppred <= 2e-4):
+        f"{e_spred:.3e} (tolerance {TOL:g}); " + packed_text)
+    if not (e_simg <= TOL and e_spred <= TOL and ok_packed):
         raise SystemExit("the streaming path disagrees")
-    del r_img, r_pred
 
     # 4g. the packed gridder's engine="fused" (K3, K4), bench scenario --
     fused_out = {}
@@ -1278,6 +1481,28 @@ def main() -> int:
     # 4i. the packed gridder's engine="compact" (K12, K13), bench scenario
     cp = compact_phase(torch, tkern, PackedGridder, pplan, dev, vre, vim,
                        model, taper)
+
+    # 4j. the streaming path's non-packable branch (K5-K11), dense stream
+    others = [n for n in tkern.launch_counts() if n not in np_names]
+    with launch_window(torch, tkern, "non-packable streaming", np_names,
+                       others) as np_launches:
+        j_img, j_pred, j_cnt, jd_cnt = stream_pass(sp_j)
+    check_stream_outputs("non-packable streaming", j_img, j_pred, j_cnt,
+                         jd_cnt)
+    with plain_np_kernels():
+        p_img, p_pred, _, _ = stream_pass(sp_j)
+    e_jimg = rel_err(j_img * taper, p_img * taper)
+    e_jpred = rel_err(j_pred, p_pred)
+    del p_img, p_pred
+    ok_packed, packed_text = against_packed(plan_j, j_img, j_pred)
+    say(f"# non-packable streaming ({len(sp_j.tasks)} tasks, cap "
+        f"{sp_j.cap}, oversampling {NP_OVERSAMPLING}): processed "
+        f"{j_cnt[0]} of {expected}, predicted {jd_cnt[0]}; kernel vs plain "
+        f"path: image taper-weighted rel err {e_jimg:.3e}, predict rel err "
+        f"{e_jpred:.3e} (tolerance {TOL:g}); " + packed_text)
+    if not (e_jimg <= TOL and e_jpred <= TOL and ok_packed):
+        raise SystemExit("the non-packable streaming path disagrees")
+    del j_img, j_pred
 
     # 5. times -----------------------------------------------------------
     t_grid = cuda_ms(torch, lambda: g.grid_sorted(vre, vim), 10)
@@ -1346,8 +1571,6 @@ def main() -> int:
     with plain_stream_kernels():
         tp_ing = cuda_ms(torch, ingest, 3, warmup=1)
         tp_pre = cuda_ms(torch, predict, 3, warmup=1)
-    sg_t.finalize()
-    sd_t.check()
     say(f"# [{gpu}] streaming (dense stream, {num_vis_d} visibilities per "
         f"chunk): ingest {num_vis_d / t_ing / 1e3:.2f} Mvis/s "
         f"({t_ing:.3f} ms per accumulate, 10 steps), predict "
@@ -1355,7 +1578,37 @@ def main() -> int:
         f"ingest {num_vis_d / tp_ing / 1e3:.2f} Mvis/s ({tp_ing:.3f} ms, 3 "
         f"steps), predict {num_vis_d / tp_pre / 1e3:.2f} Mvis/s "
         f"({tp_pre:.3f} ms)")
-    del sg_t, sd_t
+    # The non-packable branch (window j) beside the packable one (window
+    # f) on the same chunk; turns: f, j, j, f. Then window j's stages and
+    # its plain path.
+    sg_j = StreamingGridder(sp_j, device=dev)
+    sd_j = StreamingDegridder(sp_j, device=dev).set_model(model)
+    ingest_j, predict_j = (lambda: sg_j.accumulate(uvw_dd, vis_dd),
+                           lambda: sd_j.predict(uvw_dd))
+    lines = []
+    for what, f_fn, j_fn in (("ingest", ingest, ingest_j),
+                             ("predict", predict, predict_j)):
+        t = [cuda_ms(torch, fn, 10, warmup=1)
+             for fn in (f_fn, j_fn, j_fn, f_fn)]
+        lines.append(f"{what} non-packable {num_vis_d / t[2] / 1e3:.2f} "
+                     f"Mvis/s ({t[1]:.3f}/{t[2]:.3f} ms), packable "
+                     f"{num_vis_d / t[3] / 1e3:.2f} Mvis/s ({t[0]:.3f}/"
+                     f"{t[3]:.3f} ms)")
+    with plain_np_kernels():
+        jp_ing = cuda_ms(torch, ingest_j, 3, warmup=1)
+        jp_pre = cuda_ms(torch, predict_j, 3, warmup=1)
+    sg_t.finalize()
+    sd_t.check()
+    sg_j.finalize()
+    sd_j.check()
+    stages = np_stage_times(torch, sd_j, uvw_dd, vis_dd)
+    say(f"# [{gpu}] streaming, non-packable (oversampling "
+        f"{NP_OVERSAMPLING}) vs packable, dense stream (10 steps each): "
+        + "; ".join(lines) + f"; non-packable plain path ingest "
+        f"{jp_ing:.3f} ms, predict {jp_pre:.3f} ms (3 steps); stages (ms, "
+        f"CUDA events, 10 calls each): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in stages.items()))
+    del sg_t, sd_t, sg_j, sd_j
     # The fused engine beside the band engine, "high"; turns: band,
     # fused, fused, band.
     fg = fused_g["high"]
@@ -1422,14 +1675,15 @@ def main() -> int:
     times = {}
 
     def time_kernel(name, kern, ref, args, kw, ops, k_iters=10, p_iters=5,
-                    p_warmup=2):
+                    p_warmup=2, moved=None):
         """Turns: plain, kernel, kernel, plain; keeps the second of each
-        and the bound of one call's operands and output."""
+        and the bound of one call's operands and output (or of ``moved``
+        bytes)."""
         p1 = cuda_ms(torch, lambda: ref(*args, **kw), p_iters, p_warmup)
         k1 = cuda_ms(torch, lambda: kern(*args, **kw), k_iters)
         k2 = cuda_ms(torch, lambda: kern(*args, **kw), k_iters)
         p2 = cuda_ms(torch, lambda: ref(*args, **kw), p_iters, p_warmup)
-        times[name] = (k2, p2) + bound(args, kern(*args, **kw), ops)
+        times[name] = (k2, p2) + bound(args, kern(*args, **kw), ops, moved)
         return f"kernel {k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms, " \
             f"bound {times[name][2]:.4f} ms by {times[name][3]}"
 
@@ -1472,6 +1726,28 @@ def main() -> int:
             name, getattr(band_tap, name),
             getattr(band_tap, name + "_reference"), args, kw,
             tap_ops(es_valid, 8, 8), p_iters=2, p_warmup=1))
+    # K6, K7 and the fold kernel on window j's operands (captured in 3).
+    from ska_sdp_func_torch.kernels import fold, stream_prep
+
+    ncoef_j = _tap_coeffs_cached(8, NP_OVERSAMPLING).shape[0]
+    for name, _ in PREP_KERNELS:
+        args, kw = np_ops[name][0]
+        scale_rows = 2 if name == "stream_prep_grid" else 1
+        say(f"# [{gpu}] {name} at the non-packable dense stream's shapes: "
+            + time_kernel(name, getattr(stream_prep, name),
+                          getattr(stream_prep, name + "_reference"), args,
+                          kw, prep_ops(np_valid, 8, 4, ncoef_j, scale_rows),
+                          p_iters=2, p_warmup=1))
+    args, kw = np_ops["fold_windows"][0]
+    wins, visited, num_octets = args[0], args[1], sp_j.num_octets
+    say(f"# [{gpu}] fold_windows at the non-packable dense stream's shapes "
+        f"({int(visited.sum())} visited buckets of {visited.numel()}, "
+        f"{int(visited.reshape(-1, num_octets)[:, -1].sum())} of them last "
+        f"octets): " + time_kernel(
+            "fold_windows", fold.fold_windows, fold.fold_windows_reference,
+            args, kw, fold_reads(wins, visited, num_octets), p_iters=2,
+            p_warmup=1, moved=fold_bytes(wins, visited, num_octets,
+                                         fold.fold_windows(*args, **kw))))
     # K12/K13 at "highest" beside K3/K4 on the same plan and stream (the
     # price of the fused kernels' Chebyshev evaluation); turns: fused,
     # compact, compact, fused.
@@ -1518,7 +1794,16 @@ def main() -> int:
         for name, where in ES_KERNELS
     ] + [
         row(name, FUSED_SOURCE, where, cp["launches"][name], cp["errs"][name])
-        for name, where in COMPACT_KERNELS]
+        for name, where in COMPACT_KERNELS
+    ] + [
+        row(name, PREP_SOURCE, where, np_launches[name], np_err[name])
+        for name, where in PREP_KERNELS
+    ] + [
+        # One kernel replaces both folds: a row for each, its numbers.
+        dict(row("fold_windows", FOLD_SOURCE, where,
+                 np_launches["fold_windows"], np_err["fold_windows"]),
+             name=f"fold_windows[{tpu_name}]")
+        for tpu_name, where in FOLD_REPLACES]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

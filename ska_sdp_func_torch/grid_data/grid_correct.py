@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..fourier_transforms.pswf import generate_pswf, pswf_evaluate_host
+from ..utility.tensors import resolve_device
 from .kernels import lm_to_n
 
 
@@ -70,11 +71,12 @@ def w_screen_stack(image_size: int, theta: float, w_step: float,
                    shear_u: float, shear_v: float, w_offsets,
                    facet_offset_l: int = 0, facet_offset_m: int = 0,
                    num_l: int = None, num_m: int = None,
-                   dtype=torch.complex128, device="cpu") -> torch.Tensor:
+                   dtype=torch.complex128, device=None) -> torch.Tensor:
     """Stacked w-stacking screens ``exp(+i 2 pi w_step w_offset n)``,
     ``[P] -> [P, num_l, num_m]`` (grid_corr_w_stack,
     sdp_gridder_grid_correct.cpp:77-115), built in f64 on the host and
-    returned as ``dtype`` on ``device``."""
+    returned as ``dtype`` on ``device`` (``None``: the CUDA card; CPU runs
+    pass ``device="cpu"``)."""
     num_l = image_size if num_l is None else num_l
     num_m = image_size if num_m is None else num_m
     pl = np.arange(num_l) - num_l // 2 + facet_offset_l
@@ -87,7 +89,8 @@ def w_screen_stack(image_size: int, theta: float, w_step: float,
     offs = np.asarray(w_offsets, np.float64)
     ang = ang[None] * offs[:, None, None]
     screens = np.cos(ang) + 1j * np.sin(ang)
-    return torch.as_tensor(screens).to(device=device, dtype=dtype)
+    return torch.as_tensor(screens).to(device=resolve_device(device),
+                                       dtype=dtype)
 
 
 def grid_correct_w_stack(image_size: int, theta: float, w_step: float,
@@ -117,4 +120,4 @@ def _w_screen_host(image_size, theta, w_step, shear_u, shear_v, w_offset,
     per-plane screens on every call)."""
     return w_screen_stack(image_size, theta, w_step, shear_u, shear_v,
                           [w_offset], facet_offset_l, facet_offset_m, num_l,
-                          num_m)[0].numpy()
+                          num_m, device="cpu")[0].numpy()

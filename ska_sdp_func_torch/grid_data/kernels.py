@@ -59,12 +59,13 @@ def eval_kernel_taps(row: torch.Tensor, coeffs,
     """f32 Clenshaw evaluation of the tap polynomials.
 
     row: integer tensor [V] (oversampled kernel row, 0..oversampling);
-    coeffs: NumPy [degree+1, support]. Returns f32 [V, support] on
-    row's device, with the same f32 operation order as the JAX version.
+    coeffs: NumPy or tensor [degree+1, support], rounded to f32. Returns
+    f32 [V, support] on row's device, with the same f32 operation order
+    as the JAX version.
     """
     x = (2.0 / oversampling) * row.to(torch.float32) - 1.0
     x = x[:, None]
-    c = torch.as_tensor(np.asarray(coeffs, np.float32), device=row.device)
+    c = torch.as_tensor(coeffs).to(device=row.device, dtype=torch.float32)
     b1 = torch.zeros((x.shape[0], c.shape[1]), dtype=torch.float32,
                      device=row.device)
     b2 = torch.zeros_like(b1)

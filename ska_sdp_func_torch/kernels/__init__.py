@@ -6,17 +6,21 @@ ports of the Pallas kernels ``grid_packed_stack_pallas`` and
 evaluate the taps themselves (``grid_fused_stack_pallas``,
 ``degrid_fused2_stack_pallas``) and the compact ones that read
 pre-evaluated taps (``grid_compact_pallas``, ``degrid_compact_pallas``);
-:mod:`.band_tap` the ES-FFT gridder's bucket-window kernels
-(``grid_packed_pallas``, ``degrid_fused_pallas``); :mod:`.place` the
-streaming plan's
-placement (``place_stream_pallas``); :mod:`.tower_tap` the w-towers tap
+:mod:`.band_tap` the bucket-window kernels of the ES-FFT gridder and the
+streaming engine's non-packable branch (``grid_packed_pallas``,
+``degrid_fused_pallas``); :mod:`.stream_prep` that branch's tap
+preparation (``stream_prep_grid_pallas``, ``stream_prep_degrid_pallas``)
+and :mod:`.fold` its window fold (``fold_groups_pallas`` with
+``fold_layers_pallas``); :mod:`.place` the streaming plan's placement
+(``place_stream_pallas``); :mod:`.tower_tap` the w-towers tap
 kernels (the ports of ``grid_plane_pallas``, ``degrid_plane_pallas``,
 ``grid_all_layers_pallas`` and ``degrid_all_layers_pallas``);
 :mod:`.dense_tap` the dense banded products of any dtype; :mod:`._build`
 compiles ``csrc/`` with nvcc at first use.
 """
 
-from . import band_tap, fused_tap, packed_tap, place, tower_tap
+from . import band_tap, fold, fused_tap, packed_tap, place, stream_prep, \
+    tower_tap
 from .packed_tap import (
     build_bands,
     degrid_stack,
@@ -26,7 +30,8 @@ from .packed_tap import (
     split_bf16,
 )
 
-_COUNTED = (packed_tap, fused_tap, place, tower_tap, band_tap)
+_COUNTED = (packed_tap, fused_tap, place, tower_tap, band_tap, stream_prep,
+            fold)
 
 
 def launch_counts() -> dict:
@@ -47,6 +52,7 @@ __all__ = [
     "build_bands",
     "degrid_stack",
     "degrid_stack_reference",
+    "fold",
     "fused_tap",
     "grid_packed_stack",
     "grid_packed_stack_reference",
@@ -55,5 +61,6 @@ __all__ = [
     "place",
     "reset_launch_counts",
     "split_bf16",
+    "stream_prep",
     "tower_tap",
 ]

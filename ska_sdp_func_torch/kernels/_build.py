@@ -135,6 +135,11 @@ def load() -> ctypes.CDLL:
                 lib.sdp_torch_place_stream.argtypes = [
                     p, p, pp, pp, i, i64, i, i, p]
                 lib.sdp_torch_place_stream.restype = i
+                lib.sdp_torch_stream_prep.argtypes = (
+                    [p] * 8 + [i] * 3 + [f, f, i64] + [p] * 4)
+                lib.sdp_torch_stream_prep.restype = i
+                lib.sdp_torch_fold_windows.argtypes = [p, p] + [i] * 6 + [p, p]
+                lib.sdp_torch_fold_windows.restype = i
                 _LIB = lib
     return _LIB
 

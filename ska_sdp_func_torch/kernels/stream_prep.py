@@ -1,0 +1,164 @@
+"""Per-chunk tap preparation of the streaming engine's non-packable branch.
+
+Counterpart of two Pallas kernels of ska_sdp_func_tpu.kernels.packed_tap:
+:func:`stream_prep_grid` replaces ``stream_prep_grid_pallas`` and
+:func:`stream_prep_degrid` replaces ``stream_prep_degrid_pallas``. From the
+placed plan fields of a chunk (``u_frac``, ``v_frac``, ``w_row`` [V]
+int32) each evaluates the Chebyshev kernel taps by Clenshaw's recurrence
+(:func:`..grid_data.kernels.eval_kernel_taps`):
+
+- grid: ``uk``, ``vk`` [V, S] and the scale stack ``scales`` [2 Sw, V]
+  f32, rows ``wk[j] * vre`` then ``wk[j] * vim``;
+- degrid: ``uk``, ``vk`` and ``wk_t`` [Sw, V] ``= wk * valid_f``.
+
+The Pallas kernels place the taps into dense bands (``ubase`` [16, V],
+``vband`` [V, lanes] or ``vband_t`` [lanes, V], 1 KiB per slot at 256
+lanes); the port's band kernels (:mod:`.band_tap`) take the compact taps
+instead, and :func:`.packed_tap.build_bands` turns ``(u_off, iv0, uk,
+vk)`` into exactly those bands.
+
+On a CUDA tensor each wrapper launches its hand-written kernel
+(``csrc/stream_prep.cu``) or raises; on a CPU tensor it runs its plain
+PyTorch version (``*_reference``). Each counts its launches in
+``.launches``. Both round every operation on its own, in the same order,
+so they evaluate identical taps.
+"""
+
+import numpy as np
+import torch
+
+from ..grid_data.kernels import eval_kernel_taps
+from ..utility.errors import SdpInvalidArgumentError, SdpMemLocationError, \
+    SdpShapeError
+from .packed_tap import _check
+
+_MAX_SUPPORT = 8
+_MAX_W_SUPPORT = 8
+_MAX_COEFFS = 16
+
+
+def _taps(u_frac, v_frac, w_row, uv_coeffs, w_coeffs, oversampling,
+          w_oversampling):
+    return (eval_kernel_taps(u_frac, uv_coeffs, oversampling),
+            eval_kernel_taps(v_frac, uv_coeffs, oversampling),
+            eval_kernel_taps(w_row, w_coeffs, w_oversampling).T.contiguous())
+
+
+def stream_prep_grid_reference(u_frac, v_frac, w_row, vre, vim, uv_coeffs,
+                               w_coeffs, oversampling: int,
+                               w_oversampling: int):
+    """Plain PyTorch version of :func:`stream_prep_grid`."""
+    uk, vk, wk_t = _taps(u_frac, v_frac, w_row, uv_coeffs, w_coeffs,
+                         oversampling, w_oversampling)
+    return uk, vk, torch.cat([wk_t * vre[None, :], wk_t * vim[None, :]])
+
+
+def stream_prep_degrid_reference(u_frac, v_frac, w_row, valid_f, uv_coeffs,
+                                 w_coeffs, oversampling: int,
+                                 w_oversampling: int):
+    """Plain PyTorch version of :func:`stream_prep_degrid`."""
+    uk, vk, wk_t = _taps(u_frac, v_frac, w_row, uv_coeffs, w_coeffs,
+                         oversampling, w_oversampling)
+    return uk, vk, wk_t * valid_f[None, :]
+
+
+def _check_prep(u_frac, v_frac, w_row, extra, uv_coeffs, w_coeffs):
+    dev = u_frac.device
+    if dev.type not in ("cpu", "cuda"):
+        raise SdpMemLocationError(f"unsupported device {dev}")
+    if u_frac.ndim != 1:
+        raise SdpShapeError("u_frac must be [V]")
+    total = u_frac.shape[0]
+    _check(dev, [("u_frac", u_frac), ("v_frac", v_frac), ("w_row", w_row)],
+           torch.int32, (total,))
+    _check(dev, extra, torch.float32, (total,))
+    for name, c, most in (("uv_coeffs", uv_coeffs, _MAX_SUPPORT),
+                          ("w_coeffs", w_coeffs, _MAX_W_SUPPORT)):
+        if c.ndim != 2 or not 1 <= c.shape[0] <= _MAX_COEFFS \
+                or not 1 <= c.shape[1] <= most:
+            raise SdpInvalidArgumentError(
+                f"{name} must be [degree + 1 <= {_MAX_COEFFS}, taps <= "
+                f"{most}]")
+        _check(dev, [(name, c)], torch.float32)
+    if uv_coeffs.shape[0] != w_coeffs.shape[0]:
+        raise SdpInvalidArgumentError(
+            "uv_coeffs and w_coeffs must have the same degree")
+    return dev, total
+
+
+def _launch(dev, total, fields, vis, valid, uv_coeffs, w_coeffs,
+            oversampling, w_oversampling, wk_rows):
+    from . import _build
+
+    lib = _build.load()
+    support, w_support = uv_coeffs.shape[1], w_coeffs.shape[1]
+    uk = torch.empty((total, support), dtype=torch.float32, device=dev)
+    vk = torch.empty_like(uk)
+    wk = torch.empty((wk_rows * w_support, total), dtype=torch.float32,
+                     device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sdp_torch_stream_prep(
+            *(f.data_ptr() for f in fields),
+            *((v.data_ptr() for v in vis) if vis else (None, None)),
+            None if valid is None else valid.data_ptr(),
+            uv_coeffs.data_ptr(), w_coeffs.data_ptr(), uv_coeffs.shape[0],
+            support, w_support, float(np.float32(2.0 / oversampling)),
+            float(np.float32(2.0 / w_oversampling)), total, uk.data_ptr(),
+            vk.data_ptr(), wk.data_ptr(), stream)
+    _build.check(lib, err, "stream_prep")
+    return uk, vk, wk
+
+
+def stream_prep_grid(u_frac, v_frac, w_row, vre, vim, uv_coeffs, w_coeffs,
+                     oversampling: int, w_oversampling: int):
+    """Grid prep of a placed chunk: ``(uk [V, S], vk [V, S], scales
+    [2 Sw, V])`` f32 from the int32 fields ``u_frac``, ``v_frac``,
+    ``w_row`` and the f32 visibilities ``vre``, ``vim`` [V] (zero on
+    padding and invalid slots). ``uv_coeffs`` [degree + 1, S] and
+    ``w_coeffs`` [degree + 1, Sw] are the f32 Chebyshev fits."""
+    dev, total = _check_prep(u_frac, v_frac, w_row,
+                             [("vre", vre), ("vim", vim)], uv_coeffs,
+                             w_coeffs)
+    if dev.type == "cpu":
+        return stream_prep_grid_reference(u_frac, v_frac, w_row, vre, vim,
+                                          uv_coeffs, w_coeffs, oversampling,
+                                          w_oversampling)
+    out = _launch(dev, total, (u_frac, v_frac, w_row), (vre, vim), None,
+                  uv_coeffs, w_coeffs, oversampling, w_oversampling, 2)
+    stream_prep_grid.launches += 1
+    return out
+
+
+stream_prep_grid.launches = 0
+
+
+def stream_prep_degrid(u_frac, v_frac, w_row, valid_f, uv_coeffs, w_coeffs,
+                       oversampling: int, w_oversampling: int):
+    """Degrid prep of a placed chunk: ``(uk [V, S], vk [V, S], wk_t
+    [Sw, V])`` f32, ``wk_t`` the w taps times ``valid_f`` [V] f32 (1 on
+    valid slots, 0 elsewhere); arguments as :func:`stream_prep_grid`."""
+    dev, total = _check_prep(u_frac, v_frac, w_row, [("valid_f", valid_f)],
+                             uv_coeffs, w_coeffs)
+    if dev.type == "cpu":
+        return stream_prep_degrid_reference(u_frac, v_frac, w_row, valid_f,
+                                            uv_coeffs, w_coeffs,
+                                            oversampling, w_oversampling)
+    out = _launch(dev, total, (u_frac, v_frac, w_row), None, valid_f,
+                  uv_coeffs, w_coeffs, oversampling, w_oversampling, 1)
+    stream_prep_degrid.launches += 1
+    return out
+
+
+stream_prep_degrid.launches = 0
+
+
+def launch_counts() -> dict:
+    """Kernel launches per wrapper since the last reset."""
+    return {"stream_prep_grid": stream_prep_grid.launches,
+            "stream_prep_degrid": stream_prep_degrid.launches}
+
+
+def reset_launch_counts() -> None:
+    stream_prep_grid.launches = 0
+    stream_prep_degrid.launches = 0

@@ -14,12 +14,12 @@ Counterpart of ska_sdp_func_tpu.parallel.packed (packed.py:76-1001):
    contraction -> FFT -> wrap-around sub-grid adds per w-plane -> plane
    iFFTs, w-screens and the PSWF correction. Degrid mirrors it.
 
-The band engine (K1/K2) and ``engine="fused"`` (K3/K4: taps evaluated
-in the kernel from two packed words per slot) are ported; the compact
-engine, the mesh-sharded drivers and the stage-timing reports are not
-yet (ROADMAP Queue 1 items 13 and 15, Queue 2 K12/K13). The stages
-around the stack kernels (:class:`_TowerImaging`) are shared with the
-streaming engine (:mod:`.streaming`).
+The band engine (K1/K2), ``engine="fused"`` (K3/K4: taps evaluated in
+the kernel from two packed words per slot) and ``engine="compact"``
+(K12/K13) are ported; the mesh-sharded drivers and the stage-timing
+reports are not yet (ROADMAP Queue 1 items 15 and 8). The stages around
+the stack kernels (:class:`_TowerImaging`) are shared with the streaming
+engine (:mod:`.streaming`).
 """
 
 import math

@@ -2,9 +2,7 @@
 device.
 
 Counterpart of ska_sdp_func_tpu.parallel.streaming (streaming.py:103-1348)
-on one device, for packable geometries (the plan fields fit the fused
-kernels' two int32 words and ``block_v % 128 == 0``, which covers every
-production block size):
+on one device:
 
 1. **Static stream geometry** (host, once per observation):
    :func:`stream_tasks` finds the task boxes from uvw metadata in f32
@@ -16,10 +14,21 @@ production block size):
    keys with the payloads gathered by its permutation, bucket edges and
    padding by ``searchsorted``/``cumsum``, and K5 (``place_stream``)
    for the gap insertion into the padded stream.
-3. **Grid** (K3, ``grid_fused_stack``) or **predict** (K4,
-   ``degrid_fused2_stack``) with the taps evaluated in the kernels from
-   the placed plan words, then the packed path's tower drain
-   (:class:`.packed._TowerImaging`).
+3. **Grid** or **predict**, by one of two branches, then the packed
+   path's tower drain (:class:`.packed._TowerImaging`):
+
+   - *packable* plans (the fields fit the fused kernels' two int32
+     words and ``block_v % 128 == 0``, every production block size): K3
+     (``grid_fused_stack``) or K4 (``degrid_fused2_stack``) evaluate the
+     taps from the placed plan words;
+   - *non-packable* plans (``oversampling`` > 32768, ``w_oversampling``
+     > 131072, ``subgrid_size - support`` > 2047, or a ``block_v`` that
+     is not a multiple of 128): the five fields are placed separately;
+     K6 (``stream_prep_grid``) evaluates the compact taps and the scale
+     stack, K8 (``grid_packed``) grids them into bucket windows and one
+     kernel folds those onto the tower layers (K9 and K10,
+     ``fold_windows``); predict runs K7 (``stream_prep_degrid``) and K11
+     (``degrid_fused``) on a plane-major model stack.
 4. **Accumulation**: the image and the processed/dropped/voided counters
    stay on the device; :meth:`StreamingGridder.finalize` reads them once.
    A chunk whose bucket padding exceeds the capacity contributes nothing
@@ -42,7 +51,7 @@ import numpy as np
 import torch
 
 from ..grid_data.wtower import _round_half_away, _tap_coeffs_cached
-from ..kernels import fused_tap, place
+from ..kernels import band_tap, fold, fused_tap, place, stream_prep
 from ..utility.constants import C_0
 from ..utility.errors import SdpInvalidArgumentError, SdpRuntimeError
 from ..utility.tensors import resolve_device
@@ -240,23 +249,34 @@ def _f32(x) -> float:
 def _stream_engine(splan: StreamPlan, fast: bool,
                    device: torch.device) -> "_StreamEngine":
     """Per-(plan, fast, device) engine: its device constants are built
-    once and shared by every gridder and degridder of the stream."""
-    return _StreamEngine(splan, fast, device)
+    once and shared by every gridder and degridder of the stream. The
+    plan's geometry picks the branch once, by the JAX engine's ``_pack``
+    test (streaming.py:376-378)."""
+    plan = splan.wplan
+    if fused_tap.fused_geometry_ok(plan.subgrid_size, plan.support,
+                                   plan.oversampling, plan.w_oversampling) \
+            and splan.block_v % 128 == 0:
+        return _StreamEngine(splan, fast, device)
+    if fast:
+        raise NotImplementedError(
+            "fast=True on a non-packable stream plan needs the bf16 "
+            "mode of K8/K11, not ported yet (ROADMAP 'Next, in order' "
+            "item 1)")
+    return _SplitStreamEngine(splan, fast, device)
 
 
 class _StreamEngine(_TowerImaging):
-    """Device constants of a stream and its chunk steps."""
+    """Device constants of a stream and its chunk steps. This class is
+    the packable branch (K3/K4 evaluate the taps from two placed plan
+    words per slot); :class:`_SplitStreamEngine` is the non-packable one.
+    """
+
+    packable = True
+    # The placed plan fields, in the order of :meth:`_plan_fields`.
+    fields = ("packed_a", "packed_b")
 
     def __init__(self, splan: StreamPlan, fast: bool, device: torch.device):
         plan = splan.wplan
-        if not (fused_tap.fused_geometry_ok(
-                plan.subgrid_size, plan.support, plan.oversampling,
-                plan.w_oversampling) and splan.block_v % 128 == 0):
-            raise NotImplementedError(
-                "this stream plan is not packable (plan fields beyond the "
-                "fused kernels' int32 words, or block_v % 128 != 0); its "
-                "prep/band/fold kernels K6-K11 are not ported yet (ROADMAP "
-                "Queue 1 item 11)")
         self.splan = self.pplan = splan
         self.fast = bool(fast)
         # The JAX streaming engine runs "highest" (or "bf16" when fast).
@@ -285,17 +305,28 @@ class _StreamEngine(_TowerImaging):
 
     # -- device plan ----------------------------------------------------
 
+    def _plan_fields(self, iv0, u_off, w_row, u_frac, v_frac, ok):
+        """Per-entry fields to place: the two packed words, with the valid
+        bit set on ``ok`` entries (the placement zero-fills padding)."""
+        return fused_tap.pack_plan_words(iv0, u_off, w_row, u_frac, v_frac,
+                                         ok)
+
+    def _occupancy(self, vcnt, overflow):
+        """(block valid counts to place, slot-side arrays): every block is
+        placed, and ``nonempty`` [num_blocks] lets K3/K4 skip the empty
+        ones (an overflowed chunk's result is discarded by the step)."""
+        return vcnt, dict(nonempty=(vcnt > 0).to(torch.int32))
+
     def _plan_chunk(self, uvw, row_mask, vre=None, vim=None,
                     need_unsort: bool = True):
         """Per-chunk device plan (uvw [R, 3] f32, row_mask [R] bool,
         optional vre/vim [R, C] f32), the JAX engine's ``_plan_chunk``.
 
         Returns (arrays, dest_by_orig, block_bucket, visited, processed,
-        dropped, overflow): ``arrays`` holds the placed ``packed_a``,
-        ``packed_b`` (and ``vre``/``vim``) [cap] and ``nonempty``
-        [num_blocks]; ``dest_by_orig`` [R * C] maps each entry to its slot
-        (``cap`` when it was not placed); counters are 0-d device
-        tensors.
+        dropped, overflow): ``arrays`` holds the placed ``fields``, the
+        branch's :meth:`_occupancy` arrays and ``vre``/``vim`` when given;
+        ``dest_by_orig`` [R * C] maps each entry to its slot (``cap`` when
+        it was not placed); counters are 0-d device tensors.
         """
         splan = self.splan
         plan = splan.wplan
@@ -352,14 +383,11 @@ class _StreamEngine(_TowerImaging):
         bucket = torch.where(
             ok, (tsafe * splan.num_slabs + j) * splan.num_octets
             + (iu0 >> 3), nb)
-        # The valid bit is set on ok entries (the placement zero-fills
-        # padding slots).
-        pa, pb = fused_tap.pack_plan_words(iv0, iu0 & 7, w_row, u_frac,
-                                           v_frac, ok)
+        fields = self._plan_fields(iv0, iu0 & 7, w_row, u_frac, v_frac, ok)
 
         # One stable sort of the keys; payloads follow by gathers.
         b_s, order = torch.sort(bucket, stable=True)
-        payloads = [pa[order], pb[order]]
+        payloads = [f[order] for f in fields]
         if vre is not None:
             payloads += [vre.reshape(-1)[order], vim.reshape(-1)[order]]
 
@@ -379,13 +407,13 @@ class _StreamEngine(_TowerImaging):
         off_in_b = slots - pad_off[block_bucket]
         src0 = (edges[block_bucket] + off_in_b).clamp(0, n).to(i32)
         vcnt = (counts[block_bucket] - off_in_b).clamp(0, bv).to(i32)
-        nonempty = (vcnt > 0).to(i32)
+        vcnt, occupancy = self._occupancy(vcnt, overflow)
+        # One launch: at most 5 fields and 2 visibility planes.
         placed = place.place_stream(src0, vcnt, payloads, bv, cap)
 
-        arrays = dict(packed_a=placed[0], packed_b=placed[1],
-                      nonempty=nonempty)
+        arrays = dict(zip(self.fields, placed), **occupancy)
         if vre is not None:
-            arrays["vre"], arrays["vim"] = placed[2], placed[3]
+            arrays["vre"], arrays["vim"] = placed[len(self.fields):]
         not_over = ~overflow
         visited = (counts > 0) & not_over
         processed = torch.sum(ok & not_over, dtype=i32)
@@ -415,24 +443,41 @@ class _StreamEngine(_TowerImaging):
                     w_oversampling=plan.w_oversampling,
                     block_v=self.splan.block_v, precision=self.precision)
 
+    # -- branch stages --------------------------------------------------
+
+    def _chunk_image(self, arrays, block_bucket, visited):
+        """Placed chunk -> its dirty image: K3 tower stacks, then the drain
+        of the tasks a block visited (none of an overflowed chunk)."""
+        splan = self.splan
+        num_tasks = len(splan.tasks)
+        stack = fused_tap.grid_fused_stack(
+            *self._block_coords(block_bucket), arrays["packed_a"],
+            arrays["packed_b"], arrays["vre"], arrays["vim"],
+            self.uv_coeffs, self.w_coeffs, num_tasks, splan.num_layers,
+            splan.wplan.subgrid_size, nonempty=arrays["nonempty"],
+            **self._kernel_dims())
+        tvis = visited.reshape(num_tasks, -1).any(dim=1)
+        return self._image_from_stack(stack, tvis)
+
+    def _predict(self, st, arrays, block_bucket, dest):
+        """Placed chunk and task-major model stack -> visibilities [R * C]
+        in entry order: K4, then the unsort (unplaced entries read the
+        zero slot ``cap``)."""
+        out = fused_tap.degrid_fused2_stack(
+            st, *self._block_coords(block_bucket), arrays["packed_a"],
+            arrays["packed_b"], self.uv_coeffs, self.w_coeffs,
+            nonempty=arrays["nonempty"], **self._kernel_dims())
+        return torch.cat([out, out.new_zeros(1)])[dest]
+
     # -- chunk steps ----------------------------------------------------
 
     def step(self, image, counters, uvw, row_mask, vre, vim):
         """Grid one padded chunk: returns the new image and counters
         (processed, dropped, voided)."""
-        splan = self.splan
         (arrays, _, bb, visited, processed, dropped,
          overflow) = self._plan_chunk(uvw, row_mask, vre, vim,
                                       need_unsort=False)
-        num_tasks = len(splan.tasks)
-        stack = fused_tap.grid_fused_stack(
-            *self._block_coords(bb), arrays["packed_a"], arrays["packed_b"],
-            arrays["vre"], arrays["vim"], self.uv_coeffs, self.w_coeffs,
-            num_tasks, splan.num_layers, splan.wplan.subgrid_size,
-            nonempty=arrays["nonempty"], **self._kernel_dims())
-        # Tasks no block visited (or every task of an overflowed chunk).
-        tvis = visited.reshape(num_tasks, -1).any(dim=1)
-        chunk_img = self._image_from_stack(stack, tvis)
+        chunk_img = self._chunk_image(arrays, bb, visited)
         # An overflow voids the whole chunk, never a truncated image.
         gain = (~overflow).to(torch.float32)
         p_acc, d_acc, v_acc = counters
@@ -443,20 +488,122 @@ class _StreamEngine(_TowerImaging):
     def dstep(self, counters, uvw, row_mask, st):
         """Predict one padded chunk from the model stack ``st``: returns
         the visibilities [R, C] and the counters."""
-        splan = self.splan
         (arrays, dest, bb, _, processed, dropped,
          overflow) = self._plan_chunk(uvw, row_mask)
-        out = fused_tap.degrid_fused2_stack(
-            st, *self._block_coords(bb), arrays["packed_a"],
-            arrays["packed_b"], self.uv_coeffs, self.w_coeffs,
-            nonempty=arrays["nonempty"], **self._kernel_dims())
-        padded = torch.cat([out, out.new_zeros(1)])
-        vis = padded[dest].reshape(uvw.shape[0], splan.wplan.num_chan)
+        vis = self._predict(st, arrays, bb, dest).reshape(
+            uvw.shape[0], self.splan.wplan.num_chan)
         vis = torch.where(overflow, 0, vis)
         p_acc, d_acc, v_acc = counters
         return vis, (p_acc + processed,
                      d_acc + torch.where(overflow, 0, dropped),
                      v_acc + overflow.to(torch.int32))
+
+
+class _SplitStreamEngine(_StreamEngine):
+    """The non-packable branch (JAX streaming.py:855-873, :1110-1123):
+    the plan fields placed one by one. Grid: K6 taps and scale stack, K8
+    bucket windows, the K9/K10 fold, the drain. Predict: K7 taps, K11 on
+    a plane-major model stack, the unsort. Each stage is a method of its
+    own, and the steps compose them."""
+
+    packable = False
+    fields = ("u_off", "iv0", "u_frac", "v_frac", "w_row")
+
+    def _plan_fields(self, iv0, u_off, w_row, u_frac, v_frac, ok):
+        return u_off, iv0, u_frac, v_frac, w_row
+
+    def _occupancy(self, vcnt, overflow):
+        """JAX masks every placed field with slot_ok, which is false on an
+        overflowed chunk: place nothing there. ``valid`` [cap] is the slot
+        mask."""
+        vcnt = torch.where(overflow, 0, vcnt)
+        lane = torch.arange(self.splan.block_v, device=vcnt.device)
+        return vcnt, dict(valid=(lane[None, :] < vcnt[:, None]).reshape(-1))
+
+    def _model_stack(self, image):
+        """Image -> the plane-major [2, T K, G + 8, G] stack K11 reads
+        (JAX streaming.py:1066-1070), from the task-major one."""
+        st = super()._model_stack(image)
+        g = self.splan.wplan.subgrid_size
+        num_planes = len(self.splan.tasks) * self.splan.num_layers
+        return st.reshape(-1, 2, self.splan.num_layers, g + 8, g).transpose(
+            0, 1).reshape(2, num_planes, g + 8, g)
+
+    # -- grid stages ----------------------------------------------------
+
+    def _prep_grid(self, arrays):
+        """K6: compact taps ``uk``, ``vk`` [cap, S] and the scale stack
+        [2 Sw, cap]."""
+        plan = self.splan.wplan
+        return stream_prep.stream_prep_grid(
+            arrays["u_frac"], arrays["v_frac"], arrays["w_row"],
+            arrays["vre"], arrays["vim"], self.uv_coeffs, self.w_coeffs,
+            plan.oversampling, plan.w_oversampling)
+
+    def _grid_windows(self, arrays, block_bucket, uk, vk, scales):
+        """K8: bucket windows [2 Sw, num_buckets, 16, G]."""
+        splan = self.splan
+        plan = splan.wplan
+        return band_tap.grid_packed(
+            block_bucket, arrays["u_off"], arrays["iv0"], uk, vk, scales,
+            splan.num_buckets, plan.subgrid_size, plan.w_support,
+            block_v=splan.block_v)
+
+    def _fold_windows(self, wins, visited):
+        """The JAX driver's ``_fold_windows`` (packed.py:478-492): K9 and
+        K10 in one kernel, bucket windows -> complex64 tower layers [T, K,
+        G, G]. Unvisited buckets, and every bucket of an overflowed chunk,
+        read as zero."""
+        splan = self.splan
+        return fold.fold_windows(wins, visited, len(splan.tasks),
+                                 splan.num_slabs, splan.num_octets,
+                                 splan.wplan.w_support, splan.num_layers)
+
+    def _drain(self, layers):
+        """Tower layers -> the chunk's dirty image."""
+        return self._stage_planes(self._stage_drain(
+            layers, self.ladder_grid, self.pref_grid))
+
+    def _chunk_image(self, arrays, block_bucket, visited):
+        wins = self._grid_windows(arrays, block_bucket,
+                                  *self._prep_grid(arrays))
+        return self._drain(self._fold_windows(wins, visited))
+
+    # -- predict stages -------------------------------------------------
+
+    def _prep_degrid(self, arrays):
+        """K7: compact taps ``uk``, ``vk`` and ``wk_t`` [Sw, cap] masked
+        by the slot mask."""
+        plan = self.splan.wplan
+        return stream_prep.stream_prep_degrid(
+            arrays["u_frac"], arrays["v_frac"], arrays["w_row"],
+            arrays["valid"].to(torch.float32), self.uv_coeffs, self.w_coeffs,
+            plan.oversampling, plan.w_oversampling)
+
+    def _degrid_windows(self, st, arrays, block_bucket, uk, vk, wk_t):
+        """K11: f32 [8, cap] sorted predictions (rows 0/1 re/im), gathered
+        from plane ``task * K + slab``, rows of octet ``g``."""
+        splan = self.splan
+        plan = splan.wplan
+        task, slab, octet = self._block_coords(block_bucket)
+        return band_tap.degrid_fused(
+            st, task * splan.num_layers + slab, octet,
+            torch.zeros_like(octet), arrays["u_off"], arrays["iv0"], uk, vk,
+            wk_t, plan.w_support, plan.subgrid_size, block_v=splan.block_v,
+            raw=True)
+
+    @staticmethod
+    def _unsort(raw, dest):
+        """Sorted predictions -> visibilities [R * C] in entry order: one
+        gather of the re/im rows; unplaced entries read the zero column
+        ``cap``."""
+        rows = torch.cat([raw[:2], raw.new_zeros((2, 1))], dim=1)[:, dest]
+        return torch.complex(rows[0], rows[1])
+
+    def _predict(self, st, arrays, block_bucket, dest):
+        raw = self._degrid_windows(st, arrays, block_bucket,
+                                   *self._prep_degrid(arrays))
+        return self._unsort(raw, dest)
 
 
 def _zero_counters(device):
@@ -588,9 +735,9 @@ class StreamingGridder:
 class StreamingDegridder:
     """Predict (degrid) visibilities for a model image chunk by chunk,
     planning on the device: the predict half of a streaming selfcal
-    loop. The model's task-major stack is built once per
-    :meth:`set_model`. Visibilities outside the task set predict zero and
-    are counted; :meth:`check` raises on them."""
+    loop. The model's stack is built once per :meth:`set_model`.
+    Visibilities outside the task set predict zero and are counted;
+    :meth:`check` raises on them."""
 
     def __init__(self, splan: StreamPlan, fast: bool = False, mesh=None,
                  device=None):

@@ -11,8 +11,10 @@ the sums); degridded visibilities at 1e-5 of max|vis| (same products,
 other summation order). The same holds for the w-towers tap kernels
 (``tower_tap``: grid_plane, degrid_plane, grid_all_layers,
 degrid_all_layers), the fused and compact kernels (``fused_tap``) and
-the ES-FFT band kernels (``band_tap``) against their plain versions; the
-placement kernel (``place``) is a copy and compares bit for bit.
+the ES-FFT band kernels (``band_tap``), the streaming tap preparation
+(``stream_prep``) and the window fold (``fold``) against their plain
+versions; the placement kernel (``place``) is a copy and compares bit
+for bit.
 """
 
 import numpy as np
@@ -330,7 +332,7 @@ def test_fused_degrid_kernel_matches_plain(fused, mode):
     assert not bool(got[empty].abs().max() > 0)
 
 
-@pytest.mark.parametrize("bv", [128, 1024])
+@pytest.mark.parametrize("bv", [64, 128, 1024])
 def test_place_kernel_matches_plain(device, bv):
     rng = np.random.default_rng(bv)
     n, nblocks = 20000, 40
@@ -354,13 +356,14 @@ def test_place_kernel_matches_plain(device, bv):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
-def test_streaming_on_card_launches_fused_kernels(device):
-    """StreamingGridder/StreamingDegridder on the card: only K3, K4 and
-    K5 launch, and the image and predictions agree with the CPU port."""
+def _stream_on_card(device, params, block_v, names):
+    """StreamingGridder/StreamingDegridder on the card and on the CPU:
+    only the kernels ``names`` launch on the card, and the image
+    (taper-weighted) and predictions agree with the CPU port."""
     uvw, vis = make_inputs()
-    plan = plan_wstack(uvw, FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE, **PARAMS)
+    plan = plan_wstack(uvw, FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE, **params)
     sp = plan_stream(plan, stream_tasks(plan, uvw), chunk_rows=64,
-                     block_v=128, cap_slots=20480)
+                     block_v=block_v, cap_slots=20480)
     model = two_point_image()
     out = {}
     for dev in ("cpu", device):
@@ -377,15 +380,89 @@ def test_streaming_on_card_launches_fused_kernels(device):
                          kernels.launch_counts())
     (i0, p0, c0), (i1, p1, c1) = out["cpu"], out[str(device)]
     assert set(c0.values()) == {0}
-    fused_names = {"grid_fused_stack", "degrid_fused2_stack", "place_stream"}
-    assert all(c1[n] > 0 for n in fused_names)
-    assert all(v == 0 for n, v in c1.items() if n not in fused_names)
+    assert all(c1[n] > 0 for n in names)
+    assert all(v == 0 for n, v in c1.items() if n not in names)
     k = plan.kernel()
     taper = 1.0 / grid_correct_pswf(
         k.image_size, k.theta, k.w_step, k.shear_u, k.shear_v, k.support,
         k.w_support, torch.ones(k.image_size, k.image_size))
     assert _rel(i1 * taper, i0 * taper) <= 1e-5
     assert _rel(p1, p0) <= 1e-5
+
+
+def test_streaming_on_card_launches_fused_kernels(device):
+    """A packable stream on the card launches K3, K4 and K5 only."""
+    _stream_on_card(device, PARAMS, 128,
+                    {"grid_fused_stack", "degrid_fused2_stack", "place_stream"})
+
+
+@pytest.mark.parametrize("geom", ["oversampling", "block_v"])
+def test_non_packable_streaming_on_card(device, geom):
+    """A non-packable stream (oversampling 65536, or 64-slot blocks) on the
+    card launches K5, K6, K7, K8, K11 and the fold kernel only."""
+    params = {**PARAMS, "oversampling": 65536} if geom == "oversampling" \
+        else PARAMS
+    _stream_on_card(device, params, 128 if geom == "oversampling" else 64,
+                    {"place_stream", "stream_prep_grid", "stream_prep_degrid",
+                     "grid_packed", "fold_windows", "degrid_fused"})
+
+
+@pytest.mark.parametrize("bv", [64, 1024])
+def test_stream_prep_and_fold_kernels_match_plain(device, bv):
+    """K6, K7 and the fold kernel (K9 + K10) against their plain versions
+    on 24 plan blocks of ``bv`` slots at oversampling 65536 over 3 tasks x
+    8 slabs x 16 octets; the fold reads the windows K8 grids from K6's
+    output, NaN in the unvisited buckets. Same operations in the same
+    order: equal to 1e-5 (expected bit for bit)."""
+    from ska_sdp_func_torch.grid_data.wtower import _tap_coeffs_cached
+    from ska_sdp_func_torch.kernels import fold
+    from ska_sdp_func_torch.kernels import stream_prep as tsp
+
+    rng = np.random.default_rng(bv)
+    ov, wov, s_, sw, lanes = 65536, 16384, 8, 4, 128
+    tasks, slabs, octets = 3, 8, 16
+    nb, total = tasks * slabs * octets, 24 * bv
+    valid = rng.random(total) < 0.9
+
+    def put(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    f = {k: put(np.where(valid, v, 0), torch.int32) for k, v in dict(
+        u_off=rng.integers(0, 8, total),
+        iv0=rng.integers(0, lanes - s_ + 1, total),
+        u_frac=rng.integers(0, ov + 1, total),
+        v_frac=rng.integers(0, ov + 1, total),
+        w_row=rng.integers(0, wov + 1, total)).items()}
+    vre, vim = (put(np.where(valid, rng.standard_normal(total), 0),
+                    torch.float32) for _ in range(2))
+    uv = put(_tap_coeffs_cached(s_, ov), torch.float32)
+    w = put(_tap_coeffs_cached(sw, wov), torch.float32)
+    fields = (f["u_frac"], f["v_frac"], f["w_row"])
+    before = kernels.launch_counts()
+    taps = tsp.stream_prep_grid(*fields, vre, vim, uv, w, ov, wov)
+    want = tsp.stream_prep_grid_reference(*fields, vre, vim, uv, w, ov, wov)
+    assert all(_rel(a, b) <= 1e-5 for a, b in zip(taps, want))
+    got = tsp.stream_prep_degrid(*fields, put(valid, torch.float32), uv, w,
+                                 ov, wov)
+    want = tsp.stream_prep_degrid_reference(*fields, put(valid, torch.float32),
+                                            uv, w, ov, wov)
+    assert all(_rel(a, b) <= 1e-5 for a, b in zip(got, want))
+    bb = np.sort(rng.choice(nb, 24, replace=False))
+    wins = tb.grid_packed(put(bb, torch.int32), f["u_off"], f["iv0"], *taps,
+                          nb, lanes, sw, block_v=bv)
+    visited = torch.zeros(nb, dtype=torch.bool, device=device)
+    visited[put(bb, torch.int64)] = True
+    wins[:, ~visited] = float("nan")
+    args = (wins, visited, tasks, slabs, octets, sw, slabs + sw - 1)
+    got = fold.fold_windows(*args)
+    torch.cuda.synchronize()
+    want = fold.fold_windows_reference(*args)
+    assert bool(torch.isfinite(got).all()) and _rel(got, want) <= 1e-5
+    after = kernels.launch_counts()
+    for name in ("stream_prep_grid", "stream_prep_degrid", "fold_windows",
+                 "grid_packed"):
+        assert after[name] == before[name] + 1, name
 
 
 # -- compact kernels (K12, K13) and the compact engine -------------------------

@@ -124,7 +124,8 @@ def test_grid_correct_pswf_matches_jax(dtype):
 
 def test_w_screen_stack_matches_jax():
     offs = np.asarray([-8.0, 0.0, 4.0, 12.0])
-    got = t_screens(*GEOM[:5], offs, dtype=torch.complex64).numpy()
+    got = t_screens(*GEOM[:5], offs, dtype=torch.complex64,
+                    device="cpu").numpy()
     want = np.asarray(j_screens(*GEOM[:5], offs, dtype=jnp.complex64))
     assert got.shape == (4, GEOM[0], GEOM[0])
     assert np.abs(got - want).max() <= 1e-6

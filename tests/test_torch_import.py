@@ -34,9 +34,11 @@ MODULES = [
     "ska_sdp_func_torch.kernels",
     "ska_sdp_func_torch.kernels._build",
     "ska_sdp_func_torch.kernels.band_tap",
+    "ska_sdp_func_torch.kernels.fold",
     "ska_sdp_func_torch.kernels.fused_tap",
     "ska_sdp_func_torch.kernels.packed_tap",
     "ska_sdp_func_torch.kernels.place",
+    "ska_sdp_func_torch.kernels.stream_prep",
     "ska_sdp_func_torch.kernels.tower_tap",
     "ska_sdp_func_torch.kernels.dense_tap",
     "ska_sdp_func_torch.native",

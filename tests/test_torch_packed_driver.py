@@ -194,13 +194,14 @@ def test_fused_engine_matches_jax(scenario, prec):
     "wstack_wtower_degrid_all", "GridderWtowerUVW.grid_subgrid",
     "GridderWtowerUVW.degrid_subgrid", "GridderWtowerUVW.grid_correct",
     "grid_all_tasks", "degrid_all_tasks", "grid_all_bucketed",
-    "degrid_all_bucketed"])
+    "degrid_all_bucketed", "w_screen_stack"])
 def test_entry_points_default_to_the_card(scenario, entry):
     """Without ``device`` every entry point runs on the CUDA card, never
     the CPU, even for NumPy or CPU-tensor inputs: on a host with no card
     it raises at its first tensor move."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default works")
+    from ska_sdp_func_torch.grid_data import w_screen_stack
     from ska_sdp_func_torch.grid_data import wstack as tws
     from ska_sdp_func_torch.parallel import bucketed as tb
     from ska_sdp_func_torch.parallel import streaming as tstream
@@ -243,6 +244,9 @@ def test_entry_points_default_to_the_card(scenario, entry):
         "degrid_all_bucketed": lambda: bucketed(
             tb.degrid_all_bucketed, img,
             np.zeros(NUM_ROWS * NUM_CHAN, np.int64)),
+        "w_screen_stack": lambda: w_screen_stack(
+            IMAGE_SIZE, PARAMS["theta"], PARAMS["w_step"], 0.0, 0.0,
+            [0.0, 1.0]),
     }
     for name in ("StreamingGridder", "StreamingDegridder"):
         sp = tstream.plan_stream(tplan, tstream.stream_tasks(tplan, s["uvw"]),

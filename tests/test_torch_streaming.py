@@ -9,6 +9,11 @@ task/bucket assignment, block tables, occupancy, counters and the
 unsort map exactly equal and allows tap-word differences of one bin on
 at most 5 % of the placed slots. Images and predictions compare at the
 JAX streaming suite's envelope, 2e-4 of the interior peak (margin 32).
+
+The non-packable branch (K6-K11) runs on two geometries, oversampling
+65536 and 64-slot blocks, each held against the JAX engine's same
+branch: plan fields, image (interior and taper-weighted), predictions
+and counters.
 """
 
 import numpy as np
@@ -329,6 +334,12 @@ def test_box_membership_fma_hull():
 
 @pytest.mark.parametrize("case", ["mesh", "oversampling", "block_v"])
 def test_unported_options_raise(scenario, case):
+    """What the port does not run raises, naming its ROADMAP item:
+    ``mesh=`` (item 15), and ``fast=True`` on a non-packable plan (an
+    oversampling beyond the plan words, or a block_v that is not a
+    multiple of 128), whose bf16 mode of K8/K11 is not ported. Without
+    ``fast`` those plans take the non-packable branch (held against JAX
+    by the ``non_packable`` tests below)."""
     s = scenario
     if case == "mesh":
         with pytest.raises(NotImplementedError, match="item 15"):
@@ -345,5 +356,150 @@ def test_unported_options_raise(scenario, case):
                      block_v=64 if case == "block_v" else 128,
                      cap_slots=CAP)
     for cls in (StreamingGridder, StreamingDegridder):
-        with pytest.raises(NotImplementedError, match="K6-K11"):
-            cls(sp)
+        assert not cls(sp, device="cpu")._engine.packable
+        with pytest.raises(NotImplementedError, match="bf16 mode of K8/K11"):
+            cls(sp, fast=True, device="cpu")
+    assert StreamingGridder(s["sp"], fast=True, device="cpu")._engine.packable
+
+
+# -- the non-packable branch (K6, K7, K8, K9/K10 fold, K11) -------------------
+
+# Geometry -> (oversampling, block_v): plan fields beyond the packed words
+# (the JAX suite's case, tests/test_streaming.py:437-470), and 64-slot
+# blocks.
+NON_PACKABLE = {"oversampling": (65536, 128), "block_v": (16384, 64)}
+
+
+@pytest.fixture(scope="module", params=list(NON_PACKABLE))
+def non_packable(request, scenario):
+    """The JAX engine's non-packable branch on the scenario, once per
+    geometry: three grid chunks and three predict chunks."""
+    s = scenario
+    ov, bv = NON_PACKABLE[request.param]
+    jplan = s["jplan"]
+    if ov != PARAMS["oversampling"]:
+        jplan = j_plan_wstack(s["uvw"], FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE,
+                              **{**PARAMS, "oversampling": ov})
+    jsp = j_plan_stream(jplan, s["jboxes"], chunk_rows=CHUNK, block_v=bv,
+                        cap_slots=CAP)
+    plan = from_jax_plan(jplan)
+    sp = plan_stream(plan, s["jboxes"], chunk_rows=CHUNK, block_v=bv,
+                     cap_slots=CAP)
+    jsg = JStreamingGridder(jsp)
+    assert not jsg._engine._pack
+    for lo, hi in _chunks(s["rows"]):
+        jsg.accumulate(s["uvw"][lo:hi], s["vis"][lo:hi])
+    jsd = JStreamingDegridder(jsp).set_model(_model())
+    j_pred = np.concatenate([np.asarray(jsd.predict(s["uvw"][lo:hi]))
+                             for lo, hi in _chunks(s["rows"])])
+    return dict(jplan=jplan, jsp=jsp, plan=plan, sp=sp,
+                j_img=np.asarray(jsg.finalize()), j_pred=j_pred,
+                j_counts=[int(x) for x in jsg.counters()],
+                jd_counts=[int(x) for x in jsd.counters()])
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 64), (128, 150)])
+def test_non_packable_device_plan_matches_jax(scenario, non_packable, lo,
+                                              hi):
+    """The placed fields, slot mask, tables, counters and unsort map of
+    the non-packable plan equal JAX's; tap fields within one bin on <= 5 %
+    of the valid slots."""
+    s, n = scenario, non_packable
+    uvw32 = np.zeros((CHUNK, 3), np.float32)
+    uvw32[:hi - lo] = s["uvw"][lo:hi]
+    mask = np.arange(CHUNK) < hi - lo
+    vis = np.zeros((CHUNK, NUM_CHAN), np.complex64)
+    vis[:hi - lo] = s["vis"][lo:hi]
+    vre, vim = vis.real.copy(), vis.imag.copy()
+    (ja, jdest, jbb, jvis, jproc, jdrop, jover) = JStreamingGridder(
+        n["jsp"])._engine._plan_chunk(jnp.asarray(uvw32), jnp.asarray(mask),
+                                      jnp.asarray(vre), jnp.asarray(vim))
+    (ta, tdest, tbb, tvis, tproc, tdrop, tover) = StreamingGridder(
+        n["sp"], device="cpu")._engine._plan_chunk(
+            torch.as_tensor(uvw32), torch.as_tensor(mask),
+            torch.as_tensor(vre), torch.as_tensor(vim))
+    np.testing.assert_array_equal(tbb.numpy(), np.asarray(jbb))
+    np.testing.assert_array_equal(tvis.numpy(), np.asarray(jvis))
+    np.testing.assert_array_equal(tdest.numpy(), np.asarray(jdest))
+    assert (int(tproc), int(tdrop), bool(tover)) == \
+        (int(jproc), int(jdrop), bool(jover))
+    assert int(tproc) == (hi - lo) * NUM_CHAN and not bool(tover)
+    valid = ta["valid"].numpy()
+    assert int(valid.sum()) == int(tproc)
+    for name in ("valid", "u_off", "iv0", "vre", "vim"):
+        np.testing.assert_array_equal(ta[name].numpy(), np.asarray(ja[name]),
+                                      err_msg=name)
+    for name in ("u_frac", "v_frac", "w_row"):
+        diff = np.abs(ta[name].numpy() - np.asarray(ja[name]))
+        assert diff.max() <= 1, name
+        assert (diff > 0).sum() <= 0.05 * valid.sum(), name
+
+
+def test_non_packable_gridder_matches_jax(scenario, non_packable):
+    s, n = scenario, non_packable
+    sg = _grid(n["sp"], s["uvw"], s["vis"], _chunks(s["rows"]))
+    assert not sg._engine.packable
+    img = sg.finalize().numpy()
+    assert img.dtype == np.float32 and img.shape == (IMAGE_SIZE, IMAGE_SIZE)
+    assert _interior_err(img, n["j_img"]) < 2e-4
+    t = taper(n["jplan"])
+    assert np.abs((img - n["j_img"]) * t).max() \
+        <= 1e-5 * np.abs(n["j_img"] * t).max()
+    assert [int(x) for x in sg.counters()] == n["j_counts"] == [
+        s["rows"] * NUM_CHAN, 0, 0]
+
+
+def test_non_packable_degridder_matches_jax(scenario, non_packable):
+    s, n = scenario, non_packable
+    sd = StreamingDegridder(n["sp"], device="cpu").set_model(_model())
+    pred = torch.cat([sd.predict(s["uvw"][lo:hi])
+                      for lo, hi in _chunks(s["rows"])]).numpy()
+    sd.check()
+    assert pred.dtype == np.complex64 and pred.shape == (s["rows"], NUM_CHAN)
+    np.testing.assert_allclose(pred, n["j_pred"],
+                               atol=2e-4 * np.abs(n["j_pred"]).max())
+    assert [int(x) for x in sd.counters()] == n["jd_counts"] == [
+        s["rows"] * NUM_CHAN, 0, 0]
+
+
+def test_non_packable_matches_packed_interior(scenario, non_packable):
+    """The non-packable stream against the port's host-planned packed
+    path at "highest" on the same plan (test_streaming.py:437-470): image
+    interior at 2e-4, predictions at 2e-4 of their peak."""
+    s, n = scenario, non_packable
+    g = packed_gridder(plan_packed(n["plan"], s["uvw"], block_v=128),
+                       precision="highest", device="cpu")
+    img = _grid(n["sp"], s["uvw"], s["vis"],
+                _chunks(s["rows"])).finalize().numpy()
+    assert _interior_err(img, g.grid(s["vis"]).numpy()) < 2e-4
+    sd = StreamingDegridder(n["sp"], device="cpu").set_model(_model())
+    pred = sd.predict(s["uvw"][:CHUNK]).numpy()
+    ref = g.degrid(_model()).numpy()[:CHUNK]
+    np.testing.assert_allclose(pred, ref, atol=2e-4 * np.abs(ref).max())
+
+
+def test_non_packable_overflow_voids_chunk(scenario):
+    """An overflowed non-packable chunk places nothing, contributes
+    nothing, and finalize/check raise."""
+    s = scenario
+    rows = s["rows"]
+    sp = plan_stream(s["plan"], s["jboxes"], chunk_rows=rows, block_v=64,
+                     cap_slots=256)
+    sg = StreamingGridder(sp, device="cpu")
+    eng = sg._engine
+    assert not eng.packable
+    uvw32, mask = torch.as_tensor(s["uvw"], dtype=torch.float32), \
+        torch.ones(rows, dtype=torch.bool)
+    arrays, *_, overflow = eng._plan_chunk(uvw32, mask)
+    assert bool(overflow) and not bool(arrays["valid"].any())
+    assert all(not bool(arrays[k].any())
+               for k in ("u_off", "iv0", "u_frac", "v_frac", "w_row"))
+    sg.accumulate(s["uvw"], s["vis"])
+    assert [int(x) for x in sg.counters()] == [0, 0, 1]
+    assert float(sg.image.abs().max()) == 0.0
+    with pytest.raises(SdpRuntimeError, match="capacity"):
+        sg.finalize()
+    sd = StreamingDegridder(sp, device="cpu").set_model(_model())
+    assert not sd.predict(s["uvw"]).abs().max() > 0
+    with pytest.raises(SdpRuntimeError, match="capacity"):
+        sd.check()
