@@ -16,9 +16,10 @@ line of output each (or a few), failing loudly on the first fault:
    w-towers tap kernels (K14-K17), and the non-packable streaming
    branch's tap preparation (K6, K7) and window fold (K9 + K10, also
    with NaN in every unvisited window) with K5, K8 and K11 at its shapes,
-   each on the small test scenario (the non-packable kernels on 64-slot
-   blocks) and at the shapes of the main paths below (K3-K11 with the
-   very arguments the streaming paths pass them);
+   f32 and bf16 (K6, K7 bit for bit), each on the small test scenario
+   (the non-packable kernels on 64-slot blocks) and at the shapes of the
+   main paths below (K3-K11 with the very arguments the streaming paths
+   pass them);
 4. main paths, each driven with the launch counters set to 0 just before
    it and read just after; each path must launch its own kernels and
    none of another path's:
@@ -75,11 +76,23 @@ line of output each (or a few), failing loudly on the first fault:
       oversampling 65536 (beyond the fused kernels' plan words), held
       against the same calls on the plain path on the card and against
       the host-planned packed path on that plan;
+   k. the same branch with ``fast=True``: window j's plan, chunk and
+      calls, the bf16 modes of K6, K7, K8 and K11 (K5 and the fold as
+      in j), held against the same calls on the plain path on the card
+      and against window j's f32 result at the bf16 envelope (5e-3);
+   l. the word-fed bucket-window kernels K18 (``grid_fused``) and K19
+      (``degrid_fused2``), which no entry point of either package runs:
+      driven once each on window f's placed plan words, visibilities and
+      plane-major model stack (``block_bucket``, ``nonempty``), in a
+      window of their own, then held against their plain versions in all
+      three precision modes and, at "highest", against K8/K11 fed the
+      same taps;
 5. times: grid, degrid and one major-cycle iteration of the packed path
    and the fallback at the bench scenario, the task drivers' calls of
    4c, streaming ingest and predict beside their plain paths, the
    non-packable ingest and predict beside the packable ones with their
-   stages, the fused and compact engines beside the band engine, the
+   stages, and the fast (bf16) ones beside the f32 ones, the fused and
+   compact engines beside the band engine, the
    ES-FFT gridder beside the packed path, and each kernel beside its
    plain version at the main paths' shapes (K12/K13 also beside K3/K4
    on the same plan).
@@ -93,8 +106,10 @@ valid slots its plan gives it (the non-zero tap products, two
 operations each, and the fused kernels' and the tap preparation's tap
 evaluation) over its 67 TFLOP/s outside the tensor cores; the fold
 counts only the visited windows it must read. One kernel replaces both
-TPU folds (K9, K10): it has a row for each. ``library_ms`` is null: no
-single PyTorch call computes any of these functions. The last line is
+TPU folds (K9, K10): it has a row for each; the bf16 modes of K6, K7, K8
+and K11 have rows of their own (``[bf16]``, window k's operands), bytes
+counted for the bf16 ``vk``. ``library_ms`` is null: no single PyTorch
+call computes any of these functions. The last line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero and prints no result. It
 imports nothing of jax.
@@ -178,6 +193,23 @@ PREP_KERNELS = (
 FOLD_REPLACES = (
     ("fold_groups", "ska_sdp_func_tpu/kernels/packed_tap.py:720"),
     ("fold_layers", "ska_sdp_func_tpu/kernels/packed_tap.py:770"),
+)
+# Window k: window j's stream with fast=True, the bf16 modes of these four
+# (name, source, the TPU kernel whose bf16 mode it is).
+BF16_KERNELS = (
+    ("stream_prep_grid", PREP_SOURCE,
+     "ska_sdp_func_tpu/kernels/packed_tap.py:524"),
+    ("stream_prep_degrid", PREP_SOURCE,
+     "ska_sdp_func_tpu/kernels/packed_tap.py:642"),
+    ("grid_packed", BAND_SOURCE, "ska_sdp_func_tpu/kernels/packed_tap.py:397"),
+    ("degrid_fused", BAND_SOURCE,
+     "ska_sdp_func_tpu/kernels/packed_tap.py:935"),
+)
+FAST_TOL = 5e-3      # bf16 against f32, of peak (the JAX bf16 envelope)
+# The word-fed bucket-window kernels (window l, on window f's operands).
+WORD_KERNELS = (
+    ("grid_fused", "ska_sdp_func_tpu/kernels/fused_tap.py:328"),
+    ("degrid_fused2", "ska_sdp_func_tpu/kernels/fused_tap.py:814"),
 )
 # The H100 SXM's published peaks (NVIDIA H100 datasheet): HBM bytes/s
 # and f32 operations/s outside the tensor cores.
@@ -629,17 +661,17 @@ def check_stream_kernels(torch, StreamingGridder, StreamingDegridder, sp,
 
 
 def check_np_kernels(torch, StreamingGridder, StreamingDegridder, sp, uvw,
-                     vis, model, label):
+                     vis, model, label, fast=False):
     """K6, K7 and the fold kernel, with K5, K8 and K11 at these shapes,
     against their plain versions on the operands one non-packable
-    accumulate and predict pass them (captured on the plain path); the
-    fold also with NaN in every unvisited window, which it must never
-    read. Returns the absolute errors, the captured operands and the
-    chunk's valid slots."""
+    accumulate and predict (``fast`` as given) pass them (captured on the
+    plain path); the fold also with NaN in every unvisited window, which
+    it must never read. Returns the absolute errors, the captured operands
+    and the chunk's valid slots."""
     dev = uvw.device
     captured = {}
-    sg = StreamingGridder(sp, device=dev)
-    sd = StreamingDegridder(sp, device=dev).set_model(model)
+    sg = StreamingGridder(sp, fast=fast, device=dev)
+    sd = StreamingDegridder(sp, fast=fast, device=dev).set_model(model)
     if sg._engine.packable:
         raise SystemExit(f"the {label} plan is packable")
     with plain_np_kernels(captured):
@@ -671,6 +703,9 @@ def check_np_kernels(torch, StreamingGridder, StreamingDegridder, sp, uvw,
                 e = max(rel_err(a, b) for a, b in zip(got, want))
             finite(torch, [(f"{name}{tag}", a) for a in got])
             bits = all(torch.equal(a, b) for a, b in zip(got, want))
+            if fast and name.startswith("stream_prep") and not bits:
+                raise SystemExit(f"{name} [bf16] is not bit-equal to its "
+                                 f"plain version [{label}]")
             lines.append(f"{name}{tag} {e:.3e}"
                          + (" (bit-equal)" if bits else ""))
             if not e <= TOL:
@@ -687,6 +722,95 @@ def check_np_kernels(torch, StreamingGridder, StreamingDegridder, sp, uvw,
         f"{int(captured['fold_windows'][0][0][1].sum())} visited buckets "
         f"of {sp.num_buckets})")
     return errs, captured, valid
+
+
+def word_operands(torch, sp, uvw, vis, model):
+    """Window l's operands, from window f's packable stream: the engine's
+    placed plan words, visibilities, block table and occupancy for the
+    chunk ``uvw``/``vis``, and the plane-major form ``[2, T K, G + 8, G]``
+    of its model stack with each block's tile (plane ``task * K + slab``,
+    octet ``g``, ``hv`` 0), as the JAX engine derives them
+    (streaming.py:1090-1095). Returns (K18 arguments, K19 arguments,
+    keywords, valid slots)."""
+    from ska_sdp_func_torch.parallel import streaming
+
+    dev = uvw.device
+    eng = streaming._stream_engine(sp, False, dev)
+    if not eng.packable:
+        raise SystemExit("window f's plan is not packable")
+    _, uvw32, mask = streaming._padded_chunk(sp, uvw, dev)
+    arrays, _, bb, _, processed, _, _ = eng._plan_chunk(
+        uvw32, mask, vis.real.contiguous(), vis.imag.contiguous(),
+        need_unsort=False)
+    task, slab, octet = eng._block_coords(bb)
+    g = sp.wplan.subgrid_size
+    planes = eng._model_stack(model).reshape(
+        -1, 2, sp.num_layers, g + 8, g).transpose(0, 1).reshape(
+            2, len(sp.tasks) * sp.num_layers, g + 8, g).contiguous()
+    words = (arrays["packed_a"], arrays["packed_b"])
+    coeffs = (eng.uv_coeffs, eng.w_coeffs)
+    grid_args = (bb, *words, arrays["vre"], arrays["vim"], *coeffs,
+                 sp.num_buckets, g)
+    degrid_args = (planes, (task * sp.num_layers + slab).to(torch.int32),
+                   octet, torch.zeros_like(octet), *words, *coeffs, g)
+    kw = dict(support=sp.wplan.support, w_support=sp.wplan.w_support,
+              oversampling=sp.wplan.oversampling,
+              w_oversampling=sp.wplan.w_oversampling, block_v=sp.block_v,
+              nonempty=arrays["nonempty"])
+    return grid_args, degrid_args, kw, int(processed)
+
+
+def check_word_kernels(torch, grid_args, degrid_args, kw):
+    """K18 and K19 against their plain versions in the three modes, and
+    at "highest" against K8/K11 fed the same taps (``cheb_taps`` of the
+    words; w taps times ``valid``, visibilities and taps of empty blocks
+    zero). Returns their absolute errors at "highest"."""
+    from ska_sdp_func_torch.kernels import band_tap as bt
+    from ska_sdp_func_torch.kernels import fused_tap as tf
+
+    calls = (("grid_fused", grid_args, {}),
+             ("degrid_fused2", degrid_args, dict(raw=True)))
+    errs, lines, out = {}, [], {}
+    for name, args, extra in calls:
+        for mode in MODES:
+            kw_m = {**kw, **extra, "precision": mode}
+            got = getattr(bt, name)(*args, **kw_m)
+            want = getattr(bt, name + "_reference")(*args, **kw_m)
+            torch.cuda.synchronize()
+            finite(torch, [(f"{name}[{mode}]", got)])
+            e = rel_err(got, want)
+            lines.append(f"{name}[{mode}] {e:.3e}")
+            if not e <= TOL:
+                raise SystemExit(f"{name} disagrees with its plain version "
+                                 f"[{mode}]: {e:.3e}")
+            if mode == "highest":
+                errs[name] = float((got - want).abs().max())
+                out[name] = got
+            del want
+    # K8 and K11 fed the words' taps.
+    bb, pa, pb, vre, vim, c_uv, c_w, num_buckets, lanes = grid_args
+    occ = torch.repeat_interleave(kw["nonempty"] != 0, kw["block_v"])
+    iv0, u_off, w_row, u_frac, v_frac, valid = tf.unpack_plan_words(pa, pb)
+    uk = tf.cheb_taps(u_frac, c_uv, kw["oversampling"])
+    vk = tf.cheb_taps(v_frac, c_uv, kw["oversampling"])
+    wk_t = tf.cheb_taps(w_row, c_w, kw["w_oversampling"]).T.contiguous()
+    e_grid = rel_err(out["grid_fused"], bt.grid_packed(
+        bb, u_off, iv0, uk, vk, (wk_t, vre * occ, vim * occ), num_buckets,
+        lanes, kw["w_support"], block_v=kw["block_v"]))
+    planes, p_idx, g_idx, hv_idx = degrid_args[:4]
+    e_degrid = rel_err(out["degrid_fused2"], bt.degrid_fused(
+        planes, p_idx, g_idx, hv_idx, u_off, iv0, uk, vk,
+        (wk_t * valid * occ).contiguous(), kw["w_support"], lanes,
+        block_v=kw["block_v"], raw=True))
+    torch.cuda.synchronize()
+    say(f"# word-fed bucket-window kernels vs plain (window f's operands: "
+        f"{pa.shape[0]} slots, {num_buckets} buckets, windows "
+        f"{tuple(out['grid_fused'].shape)}): " + ", ".join(lines)
+        + f" (tolerance {TOL:g}); at 'highest' vs K8/K11 on the same taps: "
+        f"grid {e_grid:.3e}, degrid {e_degrid:.3e} (tolerance {TOL:g})")
+    if not (e_grid <= TOL and e_degrid <= TOL):
+        raise SystemExit("K18/K19 disagree with K8/K11 on the same taps")
+    return errs
 
 
 @contextlib.contextmanager
@@ -1141,6 +1265,15 @@ def main() -> int:
     np_err, np_ops, np_valid = check_np_kernels(
         torch, StreamingGridder, StreamingDegridder, sp_j, uvw_dd, vis_dd,
         model, "dense stream, non-packable")
+    # Their bf16 modes (K6, K7 bit for bit): the small case, then window
+    # k's operands.
+    check_np_kernels(torch, StreamingGridder, StreamingDegridder, sp_s64,
+                     torch.as_tensor(uvw_s, device=dev),
+                     torch.as_tensor(vis_s, device=dev), model_s,
+                     "small, block_v 64, bf16", fast=True)
+    bf_err, bf_ops, _ = check_np_kernels(
+        torch, StreamingGridder, StreamingDegridder, sp_j, uvw_dd, vis_dd,
+        model, "dense stream, non-packable, bf16", fast=True)
 
     # 4a. packed main path ---------------------------------------------
     g = packed_gridder(pplan, device=dev)
@@ -1370,12 +1503,12 @@ def main() -> int:
     packed_names = ["grid_packed_stack", "degrid_stack"]
     expected = (ROWS + SHORT_ROWS) * STREAM_CHANS
 
-    def stream_pass(sp):
-        sg = StreamingGridder(sp, device=dev)
+    def stream_pass(sp, fast=False):
+        sg = StreamingGridder(sp, fast=fast, device=dev)
         sg.accumulate(uvw_dd, vis_dd)
         sg.accumulate(uvw_dd[:SHORT_ROWS], vis_dd[:SHORT_ROWS])
         s_img = sg.finalize()
-        sd = StreamingDegridder(sp, device=dev).set_model(model)
+        sd = StreamingDegridder(sp, fast=fast, device=dev).set_model(model)
         s_pred = sd.predict(uvw_dd)
         sd.check()
         return (s_img, s_pred, [int(x) for x in sg.counters()],
@@ -1502,7 +1635,42 @@ def main() -> int:
         f"{e_jpred:.3e} (tolerance {TOL:g}); " + packed_text)
     if not (e_jimg <= TOL and e_jpred <= TOL and ok_packed):
         raise SystemExit("the non-packable streaming path disagrees")
-    del j_img, j_pred
+
+    # 4k. the non-packable branch with fast=True (bf16 K6, K7, K8, K11) --
+    with launch_window(torch, tkern, "non-packable streaming, fast",
+                       np_names, others) as k_launches:
+        k_img, k_pred, k_cnt, kd_cnt = stream_pass(sp_j, fast=True)
+    check_stream_outputs("non-packable streaming, fast", k_img, k_pred,
+                         k_cnt, kd_cnt)
+    with plain_np_kernels():
+        p_img, p_pred, _, _ = stream_pass(sp_j, fast=True)
+    e_kimg = rel_err(k_img * taper, p_img * taper)
+    e_kpred = rel_err(k_pred, p_pred)
+    del p_img, p_pred
+    # bf16 against f32 (window j), the unit point's prediction bounded.
+    e_fimg = rel_err(k_img * taper, j_img * taper)
+    e_fpred = rel_err(k_pred, j_pred)
+    say(f"# non-packable streaming, fast (bf16): processed {k_cnt[0]} of "
+        f"{expected}, predicted {kd_cnt[0]}; kernel vs plain path: image "
+        f"taper-weighted rel err {e_kimg:.3e}, predict rel err {e_kpred:.3e} "
+        f"(tolerance {TOL:g}); vs window j's f32 result: image "
+        f"taper-weighted {e_fimg:.3e}, predict {e_fpred:.3e} (tolerance "
+        f"{FAST_TOL:g})")
+    if not (e_kimg <= TOL and e_kpred <= TOL and e_fimg <= FAST_TOL
+            and e_fpred <= FAST_TOL and e_fimg > 0):
+        raise SystemExit("the fast non-packable streaming path disagrees")
+    del j_img, j_pred, k_img, k_pred
+
+    # 4l. K18 and K19, driven once on window f's operands ----------------
+    word_grid, word_degrid, word_kw, word_valid = word_operands(
+        torch, sp_d, uvw_dd, vis_dd, model)
+    word_names = [n for n, _ in WORD_KERNELS]
+    with launch_window(torch, tkern, "word-fed bucket-window kernels",
+                       word_names, [n for n in tkern.launch_counts()
+                                    if n not in word_names]) as w_launches:
+        tkern.band_tap.grid_fused(*word_grid, **word_kw)
+        tkern.band_tap.degrid_fused2(*word_degrid, **word_kw, raw=True)
+    word_err = check_word_kernels(torch, word_grid, word_degrid, word_kw)
 
     # 5. times -----------------------------------------------------------
     t_grid = cuda_ms(torch, lambda: g.grid_sorted(vre, vim), 10)
@@ -1597,10 +1765,26 @@ def main() -> int:
     with plain_np_kernels():
         jp_ing = cuda_ms(torch, ingest_j, 3, warmup=1)
         jp_pre = cuda_ms(torch, predict_j, 3, warmup=1)
+    # Window k (fast) beside window j; turns: j, k, k, j.
+    sg_k = StreamingGridder(sp_j, fast=True, device=dev)
+    sd_k = StreamingDegridder(sp_j, fast=True, device=dev).set_model(model)
+    fast_lines = []
+    for what, j_fn, k_fn in (
+            ("ingest", ingest_j, lambda: sg_k.accumulate(uvw_dd, vis_dd)),
+            ("predict", predict_j, lambda: sd_k.predict(uvw_dd))):
+        t = [cuda_ms(torch, fn, 10, warmup=1)
+             for fn in (j_fn, k_fn, k_fn, j_fn)]
+        fast_lines.append(
+            f"{what} fast {num_vis_d / t[2] / 1e3:.2f} Mvis/s ({t[1]:.3f}/"
+            f"{t[2]:.3f} ms), f32 {num_vis_d / t[3] / 1e3:.2f} Mvis/s "
+            f"({t[0]:.3f}/{t[3]:.3f} ms)")
     sg_t.finalize()
     sd_t.check()
     sg_j.finalize()
     sd_j.check()
+    sg_k.finalize()
+    sd_k.check()
+    fast_stages = np_stage_times(torch, sd_k, uvw_dd, vis_dd)
     stages = np_stage_times(torch, sd_j, uvw_dd, vis_dd)
     say(f"# [{gpu}] streaming, non-packable (oversampling "
         f"{NP_OVERSAMPLING}) vs packable, dense stream (10 steps each): "
@@ -1608,7 +1792,11 @@ def main() -> int:
         f"{jp_ing:.3f} ms, predict {jp_pre:.3f} ms (3 steps); stages (ms, "
         f"CUDA events, 10 calls each): " + ", ".join(
             f"{k} {v:.3f}" for k, v in stages.items()))
-    del sg_t, sd_t, sg_j, sd_j
+    say(f"# [{gpu}] streaming, non-packable, fast (bf16) vs f32, dense stream "
+        f"(10 steps each): " + "; ".join(fast_lines) + "; fast stages (ms, "
+        f"CUDA events, 10 calls each): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in fast_stages.items()))
+    del sg_t, sd_t, sg_j, sd_j, sg_k, sd_k
     # The fused engine beside the band engine, "high"; turns: band,
     # fused, fused, band.
     fg = fused_g["high"]
@@ -1748,6 +1936,35 @@ def main() -> int:
             args, kw, fold_reads(wins, visited, num_octets), p_iters=2,
             p_warmup=1, moved=fold_bytes(wins, visited, num_octets,
                                          fold.fold_windows(*args, **kw))))
+    # The bf16 modes of K6, K7, K8 and K11 on window k's operands.
+    bf16_mods = {"stream_prep_grid": stream_prep, "stream_prep_degrid":
+                 stream_prep, "grid_packed": band_tap,
+                 "degrid_fused": band_tap}
+    for name, _, _ in BF16_KERNELS:
+        args, kw = bf_ops[name][0]
+        if name.startswith("stream_prep"):
+            n_ops = prep_ops(np_valid, 8, 4, ncoef_j,
+                             2 if name == "stream_prep_grid" else 1)
+        else:
+            n_ops = tap_ops(np_valid, 8, 4)
+        say(f"# [{gpu}] {name} [bf16] at the non-packable dense stream's "
+            f"shapes: " + time_kernel(
+                f"{name}[bf16]", getattr(bf16_mods[name], name),
+                getattr(bf16_mods[name], name + "_reference"), args, kw,
+                n_ops, p_iters=2, p_warmup=1))
+    # K18 and K19 at "highest" on window f's operands; the bound counts
+    # each slot's taps once (the kernels evaluate them per window plane,
+    # K18, or per warp lane, K19).
+    for name, args, extra in (("grid_fused", word_grid, {}),
+                              ("degrid_fused2", word_degrid,
+                               dict(raw=True))):
+        say(f"# [{gpu}] {name} at the dense stream's shapes, 'highest': "
+            + time_kernel(name, getattr(band_tap, name),
+                          getattr(band_tap, name + "_reference"), args,
+                          {**word_kw, **extra},
+                          tap_ops(word_valid, 8, 4)
+                          + cheb_ops(word_valid, 8, 4, ncoef),
+                          p_iters=2, p_warmup=1))
     # K12/K13 at "highest" beside K3/K4 on the same plan and stream (the
     # price of the fused kernels' Chebyshev evaluation); turns: fused,
     # compact, compact, fused.
@@ -1803,7 +2020,13 @@ def main() -> int:
         dict(row("fold_windows", FOLD_SOURCE, where,
                  np_launches["fold_windows"], np_err["fold_windows"]),
              name=f"fold_windows[{tpu_name}]")
-        for tpu_name, where in FOLD_REPLACES]
+        for tpu_name, where in FOLD_REPLACES
+    ] + [
+        row(f"{name}[bf16]", source, where, k_launches[name], bf_err[name])
+        for name, source, where in BF16_KERNELS
+    ] + [
+        row(name, BAND_SOURCE, where, w_launches[name], word_err[name])
+        for name, where in WORD_KERNELS]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

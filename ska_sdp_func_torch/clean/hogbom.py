@@ -26,6 +26,7 @@ import torch
 
 from ..numeric_functions.fft_convolution import fft_convolution
 from ..utility.errors import SdpShapeError
+from ..utility.tensors import as_tensors
 
 
 def create_cbeam(cbeam_details, size: int) -> torch.Tensor:
@@ -89,12 +90,15 @@ def _minor_cycle(dirty: torch.Tensor, psf: torch.Tensor, loop_gain,
     return model, residual
 
 
-def hogbom_clean(dirty_img: torch.Tensor, psf: torch.Tensor, cbeam_details,
-                 loop_gain: float, threshold: float, cycle_limit: int
+def hogbom_clean(dirty_img, psf, cbeam_details, loop_gain: float,
+                 threshold: float, cycle_limit: int, device=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run Hogbom CLEAN; returns ``(clean_model, residual, skymodel)``
     (sdp_hogbom_clean.h:36-47). ``cbeam_details`` is
-    ``[bmaj, bmin, theta_deg, size]``."""
+    ``[bmaj, bmin, theta_deg, size]``. NumPy images go to the first
+    tensor's device, or to ``device`` (None: the CUDA card) when neither
+    is a tensor."""
+    dirty_img, psf = as_tensors(dirty_img, psf, device=device)
     if dirty_img.ndim != 2:
         raise SdpShapeError("dirty image must be 2D")
     if psf.shape[0] < 2 * dirty_img.shape[0]:

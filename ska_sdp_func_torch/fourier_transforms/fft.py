@@ -13,6 +13,7 @@ reference's conventions (sdp_fft.h:119-128, sdp_fft.cpp:640-666):
 import torch
 
 from ..utility.errors import SdpDataTypeError
+from ..utility.tensors import as_tensors
 
 
 def _check_complex(data: torch.Tensor) -> None:
@@ -42,14 +43,18 @@ def fft_phase(data: torch.Tensor) -> torch.Tensor:
     return data * sign
 
 
-def fft_shifted(data: torch.Tensor, num_dims_fft: int = 2) -> torch.Tensor:
-    """phase -> unnormalised FFT -> phase."""
+def fft_shifted(data, num_dims_fft: int = 2, device=None) -> torch.Tensor:
+    """phase -> unnormalised FFT -> phase. NumPy input is copied to
+    ``device`` (None: the CUDA card); a tensor stays where it is."""
+    (data,) = as_tensors(data, device=device)
     return fft_phase(_fft_nd(fft_phase(data), num_dims_fft, True))
 
 
-def ifft_shifted(data: torch.Tensor, num_dims_fft: int = 2) -> torch.Tensor:
+def ifft_shifted(data, num_dims_fft: int = 2, device=None) -> torch.Tensor:
     """phase -> unnormalised iFFT -> phase (no 1/N^d factor, like the
-    reference's backward PocketFFT/cuFFT calls)."""
+    reference's backward PocketFFT/cuFFT calls); input as
+    :func:`fft_shifted`."""
+    (data,) = as_tensors(data, device=device)
     return fft_phase(_fft_nd(fft_phase(data), num_dims_fft, False))
 
 

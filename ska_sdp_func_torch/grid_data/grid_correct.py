@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..fourier_transforms.pswf import generate_pswf, pswf_evaluate_host
-from ..utility.tensors import resolve_device
+from ..utility.tensors import as_tensors, resolve_device
 from .kernels import lm_to_n
 
 
@@ -50,12 +50,13 @@ def _pswf_correction_host(image_size: int, theta: float, w_step: float,
 
 def grid_correct_pswf(image_size: int, theta: float, w_step: float,
                       shear_u: float, shear_v: float, support: int,
-                      w_support: int, facet: torch.Tensor,
-                      facet_offset_l: int = 0,
-                      facet_offset_m: int = 0) -> torch.Tensor:
+                      w_support: int, facet, facet_offset_l: int = 0,
+                      facet_offset_m: int = 0, device=None) -> torch.Tensor:
     """Divide the facet by the PSWF image responses (returns a new
     tensor). The f64 scale is cast to the facet's real precision before
-    the multiply, as in the JAX version."""
+    the multiply, as in the JAX version. A NumPy facet is copied to
+    ``device`` (None: the CUDA card); a tensor keeps its device."""
+    (facet,) = as_tensors(facet, device=device)
     num_l, num_m = facet.shape
     scale = _pswf_correction_host(
         int(image_size), float(theta), float(w_step), float(shear_u),
@@ -94,14 +95,16 @@ def w_screen_stack(image_size: int, theta: float, w_step: float,
 
 
 def grid_correct_w_stack(image_size: int, theta: float, w_step: float,
-                         shear_u: float, shear_v: float,
-                         facet: torch.Tensor, facet_offset_l: int = 0,
-                         facet_offset_m: int = 0, w_offset: int = 0,
-                         inverse: bool = False) -> torch.Tensor:
+                         shear_u: float, shear_v: float, facet,
+                         facet_offset_l: int = 0, facet_offset_m: int = 0,
+                         w_offset: int = 0, inverse: bool = False,
+                         device=None) -> torch.Tensor:
     """Apply the w-stacking screen ``exp(2 pi i w_step n w_offset)``
     (grid_corr_w_stack, sdp_gridder_grid_correct.cpp:77-115): divide
     when ``inverse`` is False, multiply when True, as the JAX version
-    does. A no-op for ``w_offset == 0``; the facet must be complex."""
+    does. A no-op for ``w_offset == 0``; the facet must be complex. The
+    facet is taken as in :func:`grid_correct_pswf`."""
+    (facet,) = as_tensors(facet, device=device)
     if w_offset == 0:
         return facet
     num_l, num_m = facet.shape

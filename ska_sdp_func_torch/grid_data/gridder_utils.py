@@ -4,7 +4,9 @@ with wrap-around, and scaled uvw bounds.
 Counterpart of ska_sdp_func_tpu.grid_data.gridder_utils
 (gridder_utils.py:110-274; reference sdp_gridder_utils.cpp:529-720).
 The offset forms :func:`subgrid_add` / :func:`subgrid_cut_out` return
-new tensors, as in the JAX package; the static forms take plan
+new tensors, as in the JAX package, and take NumPy input as it does:
+copied to ``device`` (None: the CUDA card), while a tensor keeps its
+device (:func:`..utility.tensors.as_tensors`); the static forms take plan
 constants (Python ints), decompose the wrap-around into at most four
 contiguous slice copies, and :func:`subgrid_add_static` adds in place.
 """
@@ -13,12 +15,14 @@ import torch
 
 from ..utility.constants import C_0
 from ..utility.errors import SdpInvalidArgumentError, SdpShapeError
+from ..utility.tensors import as_tensors
 
 
-def shift_subgrids(subgrids: torch.Tensor) -> torch.Tensor:
+def shift_subgrids(subgrids, device=None) -> torch.Tensor:
     """Shift the w-tower stack down one plane: ``out[:-1] = in[1:]``,
     the last plane left as it was (`sdp_gridder_shift_subgrids`,
     sdp_gridder_utils.cpp:529-550). Returns a new tensor."""
+    (subgrids,) = as_tensors(subgrids, device=device)
     return torch.cat([subgrids[1:], subgrids[-1:]], dim=0)
 
 
@@ -27,13 +31,14 @@ def _wrap_index(sub: int, n: int, offset: int, device) -> torch.Tensor:
             + int(offset)) % n
 
 
-def subgrid_add(grid: torch.Tensor, offset_u: int, offset_v: int,
-                subgrid: torch.Tensor, factor=1.0) -> torch.Tensor:
+def subgrid_add(grid, offset_u: int, offset_v: int, subgrid, factor=1.0,
+                device=None) -> torch.Tensor:
     """``grid`` plus ``subgrid * factor`` with wrap-around indexing
     (`sdp_gridder_subgrid_add`, sdp_gridder_utils.cpp:553-600): sub-grid
     pixel (i, j) lands on grid pixel ``(i + G/2 - S/2 - offset_u) mod G``
     (the minus is the reverse of :func:`subgrid_cut_out`). Returns a new
     tensor."""
+    grid, subgrid = as_tensors(grid, subgrid, device=device)
     if grid.ndim != 2 or subgrid.ndim != 2:
         raise SdpShapeError("subgrid_add: grid and subgrid must be 2D")
     if subgrid.shape[0] > grid.shape[0] or subgrid.shape[1] > grid.shape[1]:
@@ -49,11 +54,12 @@ def subgrid_add(grid: torch.Tensor, offset_u: int, offset_v: int,
                           accumulate=True)
 
 
-def subgrid_cut_out(grid: torch.Tensor, offset_u: int, offset_v: int,
-                    subgrid_size: int) -> torch.Tensor:
+def subgrid_cut_out(grid, offset_u: int, offset_v: int,
+                    subgrid_size: int, device=None) -> torch.Tensor:
     """The ``subgrid_size``-square block centred at (+offset_u,
     +offset_v) relative to the grid centre, with wrap-around
     (`sdp_gridder_subgrid_cut_out`, sdp_gridder_utils.cpp:603-650)."""
+    (grid,) = as_tensors(grid, device=device)
     if grid.ndim != 2:
         raise SdpShapeError("subgrid_cut_out: grid must be 2D")
     if subgrid_size > min(grid.shape):

@@ -20,13 +20,12 @@ inputs there.
 
 import math
 
-import numpy as np
 import torch
 
 from ..fourier_transforms.fft import fft_shifted, ifft_shifted_norm
 from ..utility.errors import SdpInvalidArgumentError, SdpRuntimeError
 from ..utility.logging import log_info
-from ..utility.tensors import resolve_device
+from ..utility.tensors import host_uvw, resolve_device
 from ..utility.timers import Timers
 from .clamp_channels import clamp_channels_single, clamp_channels_uv
 from .gridder_utils import subgrid_add, subgrid_cut_out, uvw_bounds_all
@@ -83,12 +82,6 @@ def _resolve_engine(engine: str, template, subgrid_size: int, support: int,
     raise SdpInvalidArgumentError(f"unknown engine {engine!r}")
 
 
-def _host_uvw(uvw) -> np.ndarray:
-    if isinstance(uvw, torch.Tensor):
-        uvw = uvw.detach().cpu().numpy()
-    return np.ascontiguousarray(uvw, np.float64)
-
-
 def _packed_gridder(uvw, freq0_hz, dfreq_hz, num_chan, image_size,
                     subgrid_size, theta, w_step, shear_u, shear_v, support,
                     oversampling, w_support, w_oversampling, subgrid_frac,
@@ -96,7 +89,7 @@ def _packed_gridder(uvw, freq0_hz, dfreq_hz, num_chan, image_size,
     from ..parallel.packed import packed_gridder, plan_packed
     from ..parallel.wstack import plan_wstack
 
-    uvw_np = _host_uvw(uvw)
+    uvw_np = host_uvw(uvw)
     plan = plan_wstack(
         uvw_np, freq0_hz, dfreq_hz, num_chan, image_size, subgrid_size,
         theta, w_step, shear_u, shear_v, support, oversampling, w_support,

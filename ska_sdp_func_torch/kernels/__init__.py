@@ -8,7 +8,9 @@ evaluate the taps themselves (``grid_fused_stack_pallas``,
 pre-evaluated taps (``grid_compact_pallas``, ``degrid_compact_pallas``);
 :mod:`.band_tap` the bucket-window kernels of the ES-FFT gridder and the
 streaming engine's non-packable branch (``grid_packed_pallas``,
-``degrid_fused_pallas``); :mod:`.stream_prep` that branch's tap
+``degrid_fused_pallas``, with their bf16 mode) and their twins that
+evaluate the taps from the plan words (``grid_fused_pallas``,
+``degrid_fused2_pallas``); :mod:`.stream_prep` that branch's tap
 preparation (``stream_prep_grid_pallas``, ``stream_prep_degrid_pallas``)
 and :mod:`.fold` its window fold (``fold_groups_pallas`` with
 ``fold_layers_pallas``); :mod:`.place` the streaming plan's placement

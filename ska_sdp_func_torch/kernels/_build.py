@@ -127,16 +127,23 @@ def load() -> ctypes.CDLL:
                 lib.sdp_torch_fused_degrid_stack.argtypes = (
                     [p] * 12 + [i, f, f, i64] + [i] * 6 + [p, p])
                 lib.sdp_torch_fused_degrid_stack.restype = i
-                lib.sdp_torch_band_grid.argtypes = [p] * 9 + [i] * 6 + [p, p]
+                lib.sdp_torch_band_grid.argtypes = [p] * 9 + [i] * 7 + [p, p]
                 lib.sdp_torch_band_grid.restype = i
+                lib.sdp_torch_band_grid_fused.argtypes = (
+                    [p] * 8 + [i, f, f] + [i] * 7 + [p, p])
+                lib.sdp_torch_band_grid_fused.restype = i
                 lib.sdp_torch_band_degrid.argtypes = (
-                    [p] * 9 + [i] * 3 + [i64] + [i] * 4 + [p, p])
+                    [p] * 9 + [i] * 3 + [i64] + [i] * 5 + [p, p])
                 lib.sdp_torch_band_degrid.restype = i
+                lib.sdp_torch_band_degrid_fused.argtypes = (
+                    [p] * 9 + [i, f, f] + [i] * 3 + [i64] + [i] * 5
+                    + [p, p])
+                lib.sdp_torch_band_degrid_fused.restype = i
                 lib.sdp_torch_place_stream.argtypes = [
                     p, p, pp, pp, i, i64, i, i, p]
                 lib.sdp_torch_place_stream.restype = i
                 lib.sdp_torch_stream_prep.argtypes = (
-                    [p] * 8 + [i] * 3 + [f, f, i64] + [p] * 4)
+                    [p] * 8 + [i] * 3 + [f, f, i64] + [p] * 3 + [i, p])
                 lib.sdp_torch_stream_prep.restype = i
                 lib.sdp_torch_fold_windows.argtypes = [p, p] + [i] * 6 + [p, p]
                 lib.sdp_torch_fold_windows.restype = i

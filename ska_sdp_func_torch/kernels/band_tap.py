@@ -1,18 +1,30 @@
 """Bucket-window band gridding and plane-stack degridding.
 
-Counterpart of two Pallas kernels of ska_sdp_func_tpu.kernels.packed_tap
-that the ES-FFT gridder runs (:mod:`..grid_data.es_fft_packed`):
+Counterpart of four Pallas kernels of the JAX package, two of
+ska_sdp_func_tpu.kernels.packed_tap that the ES-FFT gridder
+(:mod:`..grid_data.es_fft_packed`) and the streaming engine's
+non-packable branch run, and their twins of
+ska_sdp_func_tpu.kernels.fused_tap that evaluate the taps from the two
+plan words:
 
-- :func:`grid_packed` replaces ``grid_packed_pallas``: bucket-sorted
+- :func:`grid_packed` replaces ``grid_packed_pallas`` (K8): bucket-sorted
   slots -> per-bucket windows ``[2 * Sw, num_buckets, 16, lanes]``;
-- :func:`degrid_fused` replaces ``degrid_fused_pallas``: a padded plane
-  stack ``[2, P, rows_pad, lanes_pad]`` -> sorted visibilities.
+- :func:`degrid_fused` replaces ``degrid_fused_pallas`` (K11): a padded
+  plane stack ``[2, P, rows_pad, lanes_pad]`` -> sorted visibilities;
+- :func:`grid_fused` replaces ``grid_fused_pallas`` (K18) and
+  :func:`degrid_fused2` replaces ``degrid_fused2_pallas`` (K19): the same
+  from the plan words ``pa``/``pb`` (:mod:`.fused_tap`), in the three
+  precision modes "highest", "high" and "bf16".
 
 On a CUDA tensor each launches its hand-written kernel
 (``csrc/band_tap.cu``, built by :mod:`._build`) or raises; on a CPU tensor
 it runs its plain PyTorch version (``*_reference``). Each counts its
-kernel launches in ``.launches``. Both run in full f32 (the Pallas
-kernels' "highest").
+kernel launches in ``.launches``. K8 and K11 run in full f32 (the Pallas
+kernels' "highest"), or in their bf16 mode when ``vk`` is bf16 (the
+streaming engine's fast mode, whose prep rounds the v taps once; JAX
+switches on the band's dtype the same way, packed_tap.py:135, :374):
+each product is then ``bf16(a) * vk`` with ``a`` the scaled u tap
+(grid) or the window cell (degrid), summed in f32.
 
 Taps come in the compact per-slot form, 72 B per slot: ``u_off`` [V]
 int32 (the u row of tap 0 inside the 16-row window), ``iv0`` [V] int32
@@ -31,12 +43,26 @@ window row ``(h * Sw + j) * 16 + u_off + su``, lane ``iv0 + sv``:
 with ``s_hj`` the scale stack row ``h * Sw + j``: given as ``[2 Sw, V]``,
 or split as ``wk_t[j] * vre`` (h = 0) / ``wk_t[j] * vim`` (h = 1).
 Lanes ``>= lanes`` are dropped, as the Pallas band build drops them.
+K18/K19 unpack ``iv0``, ``u_off``, ``w_row``, ``u_frac``, ``v_frac`` and
+``valid`` from the words and evaluate ``uk``, ``vk`` and ``wk`` with
+:func:`.fused_tap.cheb_taps` (each operation rounded on its own, so the
+kernel and its plain version see identical taps); the grid's scale is
+``wk[j] * v_h``, the degrid's w tap ``wk[j] * valid``. The products are
+those of :mod:`.fused_tap`: f32, bf16 hi/lo halves, or bf16 factors.
 """
 
 import torch
 
-from .packed_tap import WIN_ROWS, _check, _full_f32_matmul, build_bands
+from .fused_tap import _MODES, _check_fused, _inv2, _slot_taps
+from .packed_tap import (
+    WIN_ROWS,
+    _check,
+    _products,
+    build_bands,
+    split_bf16,
+)
 from ..utility.errors import (
+    SdpDataTypeError,
     SdpInvalidArgumentError,
     SdpMemLocationError,
     SdpShapeError,
@@ -50,6 +76,8 @@ _REF_BLOCKS = 512
 
 
 def _check_taps(u_off, iv0, uk, vk, block_v, w_support):
+    """Checks of the compact taps; also returns the mode ``vk``'s dtype
+    selects ("bf16" for a bf16 ``vk``, else "highest")."""
     dev = uk.device
     if uk.ndim != 2 or not 1 <= uk.shape[1] <= _MAX_SUPPORT:
         raise SdpShapeError(f"uk must be [V, S] with S <= {_MAX_SUPPORT}")
@@ -61,10 +89,29 @@ def _check_taps(u_off, iv0, uk, vk, block_v, w_support):
         raise SdpInvalidArgumentError(
             f"w_support must be in [1, {_MAX_W_SUPPORT}]")
     _check(dev, [("u_off", u_off), ("iv0", iv0)], torch.int32, (total,))
-    _check(dev, [("uk", uk), ("vk", vk)], torch.float32, (total, support))
+    _check(dev, [("uk", uk)], torch.float32, (total, support))
+    if vk.dtype not in (torch.float32, torch.bfloat16):
+        raise SdpDataTypeError(f"vk must be float32 or bfloat16, got "
+                               f"{vk.dtype}")
+    _check(dev, [("vk", vk)], vk.dtype, (total, support))
     if dev.type not in ("cpu", "cuda"):
         raise SdpMemLocationError(f"unsupported device {dev}")
-    return dev, total, support, total // block_v
+    mode = "bf16" if vk.dtype == torch.bfloat16 else "highest"
+    return dev, total, support, total // block_v, mode
+
+
+def _band(vband, mode):
+    """A dense band in the operand form of the mode (``_products``)."""
+    if mode == "bf16":
+        return vband.to(torch.bfloat16)
+    if mode == "high":
+        return split_bf16(vband)
+    return vband
+
+
+def _occupied(nonempty, block_v):
+    """[V] bool: the slots of the blocks ``nonempty`` marks occupied."""
+    return (nonempty != 0).repeat_interleave(block_v)
 
 
 def _scale_rows(scales, sl):
@@ -78,10 +125,15 @@ def _scale_rows(scales, sl):
 
 def grid_packed_reference(bucket_ids, u_off, iv0, uk, vk, scales,
                           num_buckets: int, lanes: int, w_support: int,
-                          block_v: int = 128) -> torch.Tensor:
+                          block_v: int = 128,
+                          precision: str = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`grid_packed`: the bands of each
     chunk of blocks, the Pallas kernel's ``[2 Sw 16, B] @ [B, lanes]``
-    product per block, ``index_add_`` into the bucket windows."""
+    product per block in the mode's arithmetic (``precision``, by default
+    the one ``vk``'s dtype selects), ``index_add_`` into the bucket
+    windows."""
+    if precision is None:
+        precision = "bf16" if vk.dtype == torch.bfloat16 else "highest"
     num_p = 2 * w_support
     total = uk.shape[0]
     nb = total // block_v
@@ -96,8 +148,8 @@ def grid_packed_reference(bucket_ids, u_off, iv0, uk, vk, scales,
                                       lanes)
         u_all = ubase[None] * _scale_rows(scales, sl)[:, None, :]
         u_all = u_all.reshape(num_p * WIN_ROWS, n, block_v).permute(1, 0, 2)
-        with _full_f32_matmul():
-            contrib = torch.bmm(u_all, vband.reshape(n, block_v, lanes))
+        contrib = _products(u_all, _band(vband.reshape(n, block_v, lanes),
+                                         precision), precision)
         out.index_add_(1, ids[b0:b1], contrib.reshape(
             n, num_p, WIN_ROWS, lanes).permute(1, 0, 2, 3))
     return out
@@ -111,11 +163,12 @@ def grid_packed(bucket_ids, u_off, iv0, uk, vk, scales, num_buckets: int,
     ``bucket_ids`` [NB] int32: block ``b`` (``block_v`` slots) belongs to
     bucket ``bucket_ids[b]``. ``scales``: the ``[2 Sw, V]`` f32 stack or
     the split form ``(wk_t [Sw, V], vre [V], vim [V])`` f32 (zero on
-    padding and invalid slots). Returns the zero-based windows f32
-    ``[2 Sw, num_buckets, 16, lanes]``; buckets no block visits stay zero.
+    padding and invalid slots). A bf16 ``vk`` selects the bf16 mode.
+    Returns the zero-based windows f32 ``[2 Sw, num_buckets, 16,
+    lanes]``; buckets no block visits stay zero.
     """
-    dev, total, support, nb = _check_taps(u_off, iv0, uk, vk, block_v,
-                                          w_support)
+    dev, total, support, nb, mode = _check_taps(u_off, iv0, uk, vk, block_v,
+                                                w_support)
     num_p = 2 * w_support
     _check(dev, [("bucket_ids", bucket_ids)], torch.int32, (nb,))
     split = isinstance(scales, (tuple, list))
@@ -140,7 +193,8 @@ def grid_packed(bucket_ids, u_off, iv0, uk, vk, scales, num_buckets: int,
         err = lib.sdp_torch_band_grid(
             bucket_ids.data_ptr(), u_off.data_ptr(), iv0.data_ptr(),
             uk.data_ptr(), vk.data_ptr(), *ptrs, nb, block_v, support,
-            w_support, lanes, num_buckets, out.data_ptr(), stream)
+            w_support, lanes, num_buckets, _MODES[mode], out.data_ptr(),
+            stream)
     _build.check(lib, err, "grid_packed")
     grid_packed.launches += 1
     return out
@@ -168,13 +222,30 @@ def _window_index(p_idx, g_idx, hv_idx, planes_shape, w_support,
     return idx.reshape(p_idx.shape[0], -1, lanes_win)
 
 
+def _plane_dims(planes, lanes_win):
+    """(P, rows_pad, lanes_pad) of a plane stack the degrid kernels take."""
+    if planes.ndim != 4 or planes.shape[0] != 2:
+        raise SdpShapeError("planes must be [2, P, rows_pad, lanes_pad]")
+    _, num_planes, rows_pad, lanes_pad = planes.shape
+    if rows_pad % 8 or lanes_pad % 128 or lanes_win % 128 \
+            or lanes_win > lanes_pad:
+        raise SdpShapeError(
+            "planes need rows_pad % 8 == 0 and lanes_pad % 128 == 0, and "
+            "lanes_win a multiple of 128 no wider than lanes_pad")
+    return num_planes, rows_pad, lanes_pad
+
+
 def degrid_fused_reference(planes, p_idx, g_idx, hv_idx, u_off, iv0, uk, vk,
                            wk_t, w_support: int, lanes_win: int,
-                           block_v: int = 128,
-                           raw: bool = False) -> torch.Tensor:
+                           block_v: int = 128, raw: bool = False,
+                           precision: str = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`degrid_fused`: gather each chunk's
-    windows, the Pallas kernel's window x transposed-band product, scale
-    by the u-tap x w-tap stack and sum each half's rows."""
+    windows, the Pallas kernel's window x transposed-band product in the
+    mode's arithmetic (``precision``, by default the one ``vk``'s dtype
+    selects), scale by the u-tap x w-tap stack and sum each half's
+    rows."""
+    if precision is None:
+        precision = "bf16" if vk.dtype == torch.bfloat16 else "highest"
     total = uk.shape[0]
     nb = total // block_v
     out = torch.zeros((8, total), dtype=torch.float32, device=uk.device)
@@ -188,9 +259,9 @@ def degrid_fused_reference(planes, p_idx, g_idx, hv_idx, u_off, iv0, uk, vk,
                                         lanes_win)
         win = flat[_window_index(p_idx[b0:b1], g_idx[b0:b1], hv_idx[b0:b1],
                                  planes.shape, w_support, lanes_win)]
-        with _full_f32_matmul():
-            t_t = torch.bmm(win, vband_t.reshape(lanes_win, n, block_v)
-                            .permute(1, 0, 2))               # [n, 2 half, B]
+        t_t = _products(win, _band(vband_t.reshape(lanes_win, n, block_v)
+                                   .permute(1, 0, 2), precision),
+                        precision)                           # [n, 2 half, B]
         uwh = (ubase[None] * wk_t[:, sl][:, None, :]).reshape(
             half, n, block_v).permute(1, 0, 2)               # [n, half, B]
         prod = torch.cat([uwh, uwh], dim=1) * t_t
@@ -211,18 +282,11 @@ def degrid_fused(planes, p_idx, g_idx, hv_idx, u_off, iv0, uk, vk, wk_t,
     ``[128 hv, 128 hv + lanes_win)`` of planes ``p_idx + j``. ``wk_t``
     [Sw, V] f32 (zero on padding and invalid slots). Returns complex64
     [V] in sorted order, or with ``raw`` the f32 ``[8, V]`` pair (row 0
-    re, row 1 im, the rest zero).
+    re, row 1 im, the rest zero). A bf16 ``vk`` selects the bf16 mode.
     """
-    if planes.ndim != 4 or planes.shape[0] != 2:
-        raise SdpShapeError("planes must be [2, P, rows_pad, lanes_pad]")
-    _, num_planes, rows_pad, lanes_pad = planes.shape
-    if rows_pad % 8 or lanes_pad % 128 or lanes_win % 128 \
-            or lanes_win > lanes_pad:
-        raise SdpShapeError(
-            "planes need rows_pad % 8 == 0 and lanes_pad % 128 == 0, and "
-            "lanes_win a multiple of 128 no wider than lanes_pad")
-    dev, total, support, nb = _check_taps(u_off, iv0, uk, vk, block_v,
-                                          w_support)
+    num_planes, rows_pad, lanes_pad = _plane_dims(planes, lanes_win)
+    dev, total, support, nb, mode = _check_taps(u_off, iv0, uk, vk, block_v,
+                                                w_support)
     _check(dev, [("planes", planes)], torch.float32)
     _check(dev, [("p_idx", p_idx), ("g_idx", g_idx), ("hv_idx", hv_idx)],
            torch.int32, (nb,))
@@ -243,7 +307,7 @@ def degrid_fused(planes, p_idx, g_idx, hv_idx, u_off, iv0, uk, vk, wk_t,
                 hv_idx.data_ptr(), u_off.data_ptr(), iv0.data_ptr(),
                 uk.data_ptr(), vk.data_ptr(), wk_t.data_ptr(), num_planes,
                 rows_pad, lanes_pad, total, block_v, support, w_support,
-                lanes_win, out.data_ptr(), stream)
+                lanes_win, _MODES[mode], out.data_ptr(), stream)
         _build.check(lib, err, "degrid_fused")
         degrid_fused.launches += 1
     if raw:
@@ -254,12 +318,155 @@ def degrid_fused(planes, p_idx, g_idx, hv_idx, u_off, iv0, uk, vk, wk_t,
 degrid_fused.launches = 0
 
 
+def grid_fused_reference(bucket_ids, pa, pb, vre, vim, uv_coeffs, w_coeffs,
+                         num_buckets: int, lanes: int, support: int,
+                         w_support: int, oversampling: int,
+                         w_oversampling: int, block_v: int = 1024,
+                         precision: str = "highest",
+                         nonempty=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`grid_fused`: the words' taps
+    (:func:`.fused_tap._slot_taps`) through K8's plain version in the
+    mode's arithmetic; the visibilities of the blocks ``nonempty`` marks 0
+    are left out."""
+    iv0, u_off, _, uk, vk, wk = _slot_taps(pa, pb, uv_coeffs, w_coeffs,
+                                           oversampling, w_oversampling)
+    if nonempty is not None:
+        occ = _occupied(nonempty, block_v)
+        vre, vim = torch.where(occ, vre, 0.0), torch.where(occ, vim, 0.0)
+    return grid_packed_reference(bucket_ids, u_off, iv0, uk, vk,
+                                 (wk.T.contiguous(), vre, vim), num_buckets,
+                                 lanes, w_support, block_v, precision)
+
+
+def grid_fused(bucket_ids, pa, pb, vre, vim, uv_coeffs, w_coeffs,
+               num_buckets: int, lanes: int, support: int, w_support: int,
+               oversampling: int, w_oversampling: int, block_v: int = 1024,
+               precision: str = "highest", nonempty=None) -> torch.Tensor:
+    """Fused gridding of a bucket-sorted stream of plan words into bucket
+    windows (JAX ``grid_fused_pallas``, whose ``sub_v`` and ``band_form``
+    are TPU layout choices with the same function).
+
+    ``bucket_ids`` [NB] int32 as :func:`grid_packed`; ``pa``/``pb`` [V]
+    int32 plan words (:func:`.fused_tap.pack_plan_words`); ``vre``/``vim``
+    [V] f32 (zero on padding and invalid slots); ``uv_coeffs`` [degree +
+    1, S] and ``w_coeffs`` [degree + 1, Sw] f32 Chebyshev fits;
+    ``precision`` "highest", "high" or "bf16"; ``nonempty`` optional [NB]
+    int32, 0-marked blocks are skipped. Returns the zero-based windows
+    f32 ``[2 Sw, num_buckets, 16, lanes]``; buckets no block visits stay
+    zero (JAX leaves them unwritten).
+    """
+    dev, total, nb, ncoef = _check_fused(
+        [("bucket_ids", bucket_ids)], pa, pb, uv_coeffs, w_coeffs, support,
+        w_support, block_v, lanes, precision, nonempty)
+    _check(dev, [("vre", vre), ("vim", vim)], torch.float32, (total,))
+    if dev.type == "cpu":
+        return grid_fused_reference(
+            bucket_ids, pa, pb, vre, vim, uv_coeffs, w_coeffs, num_buckets,
+            lanes, support, w_support, oversampling, w_oversampling,
+            block_v, precision, nonempty)
+    from . import _build
+
+    lib = _build.load()
+    out = torch.zeros((2 * w_support, num_buckets, WIN_ROWS, lanes),
+                      dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sdp_torch_band_grid_fused(
+            bucket_ids.data_ptr(),
+            None if nonempty is None else nonempty.data_ptr(),
+            pa.data_ptr(), pb.data_ptr(), vre.data_ptr(), vim.data_ptr(),
+            uv_coeffs.data_ptr(), w_coeffs.data_ptr(), ncoef,
+            _inv2(oversampling), _inv2(w_oversampling), nb, block_v,
+            support, w_support, lanes, num_buckets, _MODES[precision],
+            out.data_ptr(), stream)
+    _build.check(lib, err, "grid_fused")
+    grid_fused.launches += 1
+    return out
+
+
+grid_fused.launches = 0
+
+
+def degrid_fused2_reference(planes, p_idx, g_idx, hv_idx, pa, pb, uv_coeffs,
+                            w_coeffs, lanes: int, support: int,
+                            w_support: int, oversampling: int,
+                            w_oversampling: int, block_v: int = 1024,
+                            precision: str = "highest", nonempty=None,
+                            raw: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`degrid_fused2`: the words' taps
+    (w taps times ``valid``) through K11's plain version in the mode's
+    arithmetic; the blocks ``nonempty`` marks 0 predict zero."""
+    iv0, u_off, valid, uk, vk, wk = _slot_taps(pa, pb, uv_coeffs, w_coeffs,
+                                               oversampling, w_oversampling)
+    wk_t = (wk * valid.to(torch.float32)[:, None]).T.contiguous()
+    out = degrid_fused_reference(planes, p_idx, g_idx, hv_idx, u_off, iv0,
+                                 uk, vk, wk_t, w_support, lanes, block_v,
+                                 raw=True, precision=precision)
+    if nonempty is not None:
+        out = torch.where(_occupied(nonempty, block_v)[None, :], out, 0.0)
+    return out if raw else torch.complex(out[0], out[1])
+
+
+def degrid_fused2(planes, p_idx, g_idx, hv_idx, pa, pb, uv_coeffs,
+                  w_coeffs, lanes: int, support: int, w_support: int,
+                  oversampling: int, w_oversampling: int,
+                  block_v: int = 1024, precision: str = "highest",
+                  nonempty=None, raw: bool = False) -> torch.Tensor:
+    """Fused degridding from a padded plane stack with the taps evaluated
+    from the plan words (JAX ``degrid_fused2_pallas``, without its TPU
+    ``sub_v``).
+
+    ``planes``, ``p_idx``, ``g_idx``, ``hv_idx`` as :func:`degrid_fused`,
+    ``lanes`` the window lane width; ``pa``/``pb`` [V] int32 plan words
+    (the ``valid`` bit of ``pb`` zeroes padding slots); fits, ``precision``
+    and ``nonempty`` as :func:`grid_fused` (0-marked blocks predict
+    zero). Returns complex64 [V] in sorted order, or with ``raw`` the f32
+    ``[8, V]`` pair (row 0 re, row 1 im, the rest zero).
+    """
+    num_planes, rows_pad, lanes_pad = _plane_dims(planes, lanes)
+    dev, total, nb, ncoef = _check_fused(
+        [("p_idx", p_idx), ("g_idx", g_idx), ("hv_idx", hv_idx)], pa, pb,
+        uv_coeffs, w_coeffs, support, w_support, block_v, lanes, precision,
+        nonempty)
+    _check(dev, [("planes", planes)], torch.float32)
+    if dev.type == "cpu":
+        out = degrid_fused2_reference(
+            planes, p_idx, g_idx, hv_idx, pa, pb, uv_coeffs, w_coeffs,
+            lanes, support, w_support, oversampling, w_oversampling,
+            block_v, precision, nonempty, raw=True)
+    else:
+        from . import _build
+
+        lib = _build.load()
+        out = torch.zeros((8, total), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.sdp_torch_band_degrid_fused(
+                planes.data_ptr(), p_idx.data_ptr(), g_idx.data_ptr(),
+                hv_idx.data_ptr(),
+                None if nonempty is None else nonempty.data_ptr(),
+                pa.data_ptr(), pb.data_ptr(), uv_coeffs.data_ptr(),
+                w_coeffs.data_ptr(), ncoef, _inv2(oversampling),
+                _inv2(w_oversampling), num_planes, rows_pad, lanes_pad,
+                total, block_v, support, w_support, lanes,
+                _MODES[precision], out.data_ptr(), stream)
+        _build.check(lib, err, "degrid_fused2")
+        degrid_fused2.launches += 1
+    if raw:
+        return out
+    return torch.complex(out[0], out[1])
+
+
+degrid_fused2.launches = 0
+
+_WRAPPERS = (grid_packed, degrid_fused, grid_fused, degrid_fused2)
+
+
 def launch_counts() -> dict:
     """Kernel launches per wrapper since the last reset."""
-    return {"grid_packed": grid_packed.launches,
-            "degrid_fused": degrid_fused.launches}
+    return {f.__name__: f.launches for f in _WRAPPERS}
 
 
 def reset_launch_counts() -> None:
-    grid_packed.launches = 0
-    degrid_fused.launches = 0
+    for f in _WRAPPERS:
+        f.launches = 0

@@ -24,9 +24,9 @@
 // padding and invalid slots, so valid = 1); pb and the fits are not read.
 // Fused taps: uk[s] / vk[s] / wk[j] = sum_d c[d][s] T_d(x),
 // x = (2/ov) frac - 1,
-// T_d by the three-term recurrence; every operation is rounded on its own
-// (__fmul_rn / __fadd_rn, never contracted), in the order the plain
-// versions use, so both evaluate identical taps. Stacks are
+// T_d by the three-term recurrence (taps.cuh, shared with band_tap.cu);
+// every operation is rounded on its own, in the order the plain versions
+// use, so both evaluate identical taps. Stacks are
 // f32 [T, 2, num_layers * (lanes + 8), lanes].
 //
 //   grid:   stack[t, h, (k0+j) sub_pad + 8g + u_off + su, iv0 + sv]
@@ -59,10 +59,7 @@
 // (L1/L2-resident: consecutive slots share a bucket's window), forms its
 // partial sums, and a shuffle reduction adds the 2 * Sw * S partials.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "taps.cuh"
 
 namespace {
 
@@ -71,63 +68,7 @@ constexpr int kThreads = 256;
 constexpr int kChunk = kThreads;  // slots whose taps are staged at once
 constexpr int kMaxS = 8;
 constexpr int kMaxSw = 4;
-constexpr int kMaxCoef = 16;
 constexpr int kMaxSmem = 227 * 1024;
-
-enum Mode { kF32 = 0, kHigh = 1, kBf16 = 2 };
-
-__device__ __forceinline__ float split_hi(float x) {
-  const uint32_t u = __float_as_uint(x);
-  return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <int MODE>
-__device__ __forceinline__ float prod(float a, float b) {
-  if (MODE == kHigh) {
-    const float ah = split_hi(a);
-    const float al = round_bf16(__fsub_rn(a, ah));
-    const float bh = split_hi(b);
-    const float bl = round_bf16(__fsub_rn(b, bh));
-    return __fadd_rn(__fmul_rn(ah, bh),
-                     __fadd_rn(__fmul_rn(ah, bl), __fmul_rn(al, bh)));
-  } else if (MODE == kBf16) {
-    return __fmul_rn(round_bf16(a), round_bf16(b));
-  }
-  return __fmul_rn(a, b);
-}
-
-// Chebyshev basis T_0..T_{ncoef-1} of x.
-__device__ __forceinline__ void cheb_basis(float x, int ncoef,
-                                           float (&t)[kMaxCoef]) {
-  const float two_x = __fmul_rn(2.0f, x);
-  t[0] = 1.0f;
-  t[1] = x;
-#pragma unroll
-  for (int d = 2; d < kMaxCoef; ++d) {
-    t[d] = d < ncoef ? __fsub_rn(__fmul_rn(two_x, t[d - 1]), t[d - 2])
-                     : 0.0f;
-  }
-}
-
-// sum_d c[d * stride] * t[d], in order d = 0..ncoef-1.
-__device__ __forceinline__ float cheb_sum(const float* __restrict__ c,
-                                          int stride, int ncoef,
-                                          const float (&t)[kMaxCoef]) {
-  float acc = __fmul_rn(c[0], t[0]);
-#pragma unroll
-  for (int d = 1; d < kMaxCoef; ++d) {
-    if (d < ncoef) acc = __fadd_rn(acc, __fmul_rn(c[d * stride], t[d]));
-  }
-  return acc;
-}
-
-__device__ __forceinline__ float frac_x(int frac, float inv2) {
-  return __fsub_rn(__fmul_rn(inv2, static_cast<float>(frac)), 1.0f);
-}
 
 struct Geometry {
   int block_v, support, w_support, lanes, num_layers, ncoef;

@@ -3,9 +3,9 @@
 //
 // Replaces two Pallas TPU kernels of ska_sdp_func_tpu/kernels/packed_tap.py:
 //   - stream_prep_grid_pallas (_stream_prep_grid_kernel)
-//                                          -> stream_prep_kernel<true>
+//                                     -> stream_prep_kernel<true, BF16>
 //   - stream_prep_degrid_pallas (_stream_prep_degrid_kernel)
-//                                          -> stream_prep_kernel<false>
+//                                     -> stream_prep_kernel<false, BF16>
 //
 // Per slot p of the placed stream (layout shared with the plain PyTorch
 // versions in stream_prep.py):
@@ -19,6 +19,9 @@
 // versions, so both evaluate identical taps.
 //   grid:   scales[j][p] = wk[j] * vre[p], scales[Sw + j][p] = wk[j] * vim[p];
 //   degrid: wk_t[j][p]   = wk[j] * valid[p].
+// In the bf16 mode (the streaming engine's fast mode) vk is stored as bf16,
+// each tap rounded once to nearest even, as the Pallas kernels store their
+// v-band in bf16 (packed_tap.py:521, :639); uk and the w scales stay f32.
 // The Pallas kernels also place the taps into dense bands (ubase [16, V],
 // vband [V, lanes], 1 KiB per slot); the port's band kernels (band_tap.cu)
 // read the compact taps, so no band is built here.
@@ -27,9 +30,11 @@
 // in and 96 B out per slot at S = 8, Sw = 4 grid (88 B degrid), against
 // ~45 f32 operations per tap; at the dense stream's 5.9M slots that is
 // ~0.2 ms of device-memory traffic and ~0.08 ms of f32 work, so bytes bound
-// it. One thread per slot, the coefficient tables in shared memory; the
-// scale rows are written coalesced, each slot's S taps as one 32 B run.
+// it (the bf16 vk saves 16 B of the output per slot). One thread per slot,
+// the coefficient tables in shared memory; the scale rows are written
+// coalesced, each slot's S taps as one 32 B (bf16: 16 B) run.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -54,7 +59,7 @@ struct PrepArgs {
   float inv2_ov, inv2_wov;
   int64_t total;
   float* uk;            // [total][S]
-  float* vk;            // [total][S]
+  void* vk;             // [total][S], f32 or bf16
   float* wk;            // grid: scales [2 Sw][total]; degrid: wk_t [Sw][total]
 };
 
@@ -77,7 +82,7 @@ __device__ __forceinline__ void clenshaw(int row, float inv2,
   }
 }
 
-template <bool kGrid>
+template <bool kGrid, bool kBf16>
 __global__ void __launch_bounds__(kThreads) stream_prep_kernel(PrepArgs a) {
   __shared__ float c_uv[kMaxCoeffs * kMaxS];
   __shared__ float c_w[kMaxCoeffs * kMaxSw];
@@ -93,7 +98,15 @@ __global__ void __launch_bounds__(kThreads) stream_prep_kernel(PrepArgs a) {
   const int64_t p = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (p >= a.total) return;
   clenshaw(a.u_frac[p], a.inv2_ov, c_uv, a.ncoef, S, a.uk + p * S, 1);
-  clenshaw(a.v_frac[p], a.inv2_ov, c_uv, a.ncoef, S, a.vk + p * S, 1);
+  if (kBf16) {
+    float vk[kMaxS];
+    clenshaw(a.v_frac[p], a.inv2_ov, c_uv, a.ncoef, S, vk, 1);
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.vk) + p * S;
+    for (int s = 0; s < S; ++s) out[s] = __float2bfloat16_rn(vk[s]);
+  } else {
+    clenshaw(a.v_frac[p], a.inv2_ov, c_uv, a.ncoef, S,
+             static_cast<float*>(a.vk) + p * S, 1);
+  }
   float wk[kMaxSw];
   clenshaw(a.w_row[p], a.inv2_wov, c_w, a.ncoef, Sw, wk, 1);
   if (kGrid) {
@@ -117,14 +130,15 @@ extern "C" {
 
 // Returns the cudaError_t of the launch (0 on success). Grid: vre and vim
 // given, valid null, `wk` the [2 Sw][total] scale stack. Degrid: valid
-// given, vre and vim null, `wk` the [Sw][total] masked w taps.
+// given, vre and vim null, `wk` the [Sw][total] masked w taps. With
+// `vk_bf16`, vk is bf16.
 int sdp_torch_stream_prep(const int* u_frac, const int* v_frac,
                           const int* w_row, const float* vre, const float* vim,
                           const float* valid, const float* uv_coeffs,
                           const float* w_coeffs, int ncoef, int support,
                           int w_support, float inv2_ov, float inv2_wov,
-                          int64_t total, float* uk, float* vk, float* wk,
-                          void* stream) {
+                          int64_t total, float* uk, void* vk, float* wk,
+                          int vk_bf16, void* stream) {
   const bool grid = vre != nullptr && vim != nullptr && valid == nullptr;
   const bool degrid = vre == nullptr && vim == nullptr && valid != nullptr;
   if ((!grid && !degrid) || support < 1 || support > kMaxS ||
@@ -139,9 +153,15 @@ int sdp_torch_stream_prep(const int* u_frac, const int* v_frac,
   const unsigned ctas = static_cast<unsigned>((total + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (grid) {
-    stream_prep_kernel<true><<<ctas, kThreads, 0, s>>>(a);
+    if (vk_bf16) {
+      stream_prep_kernel<true, true><<<ctas, kThreads, 0, s>>>(a);
+    } else {
+      stream_prep_kernel<true, false><<<ctas, kThreads, 0, s>>>(a);
+    }
+  } else if (vk_bf16) {
+    stream_prep_kernel<false, true><<<ctas, kThreads, 0, s>>>(a);
   } else {
-    stream_prep_kernel<false><<<ctas, kThreads, 0, s>>>(a);
+    stream_prep_kernel<false, false><<<ctas, kThreads, 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -289,9 +289,11 @@ def degrid_compact_reference(stack, t_idx, k_idx, g_idx, pa, uk_t, vk_t,
         None)
 
 
-def _check_blocks(t_idx, k_idx, g_idx, pa, support, w_support, block_v,
-                  lanes, precision, nonempty=None):
-    """Checks shared by the fused and compact wrappers."""
+def _check_blocks(idx, pa, support, w_support, block_v, lanes, precision,
+                  nonempty=None):
+    """Checks shared by the fused and compact wrappers (and the word-fed
+    bucket-window ones of :mod:`.band_tap`): ``idx`` the per-block index
+    tensors as (name, tensor) pairs."""
     dev = pa.device
     if precision not in _MODES:
         raise SdpInvalidArgumentError(f"unknown precision {precision!r}")
@@ -307,7 +309,7 @@ def _check_blocks(t_idx, k_idx, g_idx, pa, support, w_support, block_v,
             f"support must be in [1, {_MAX_SUPPORT}] and w_support in "
             f"[1, {_MAX_W_SUPPORT}]")
     nb = total // block_v
-    named = [("t_idx", t_idx), ("k_idx", k_idx), ("g_idx", g_idx)]
+    named = list(idx)
     if nonempty is not None:
         named.append(("nonempty", nonempty))
     _check(dev, named, torch.int32, (nb,))
@@ -320,11 +322,10 @@ def _check_blocks(t_idx, k_idx, g_idx, pa, support, w_support, block_v,
     return dev, total, nb
 
 
-def _check_fused(t_idx, k_idx, g_idx, pa, pb, uv_coeffs, w_coeffs,
-                 support, w_support, block_v, lanes, precision, nonempty):
-    dev, total, nb = _check_blocks(t_idx, k_idx, g_idx, pa, support,
-                                   w_support, block_v, lanes, precision,
-                                   nonempty)
+def _check_fused(idx, pa, pb, uv_coeffs, w_coeffs, support, w_support,
+                 block_v, lanes, precision, nonempty):
+    dev, total, nb = _check_blocks(idx, pa, support, w_support, block_v,
+                                   lanes, precision, nonempty)
     _check(dev, [("pb", pb)], torch.int32, (total,))
     ncoef = uv_coeffs.shape[0]
     if not 1 <= ncoef <= _MAX_COEFFS:
@@ -338,8 +339,9 @@ def _check_fused(t_idx, k_idx, g_idx, pa, pb, uv_coeffs, w_coeffs,
 
 def _check_compact(t_idx, k_idx, g_idx, pa, uk_t, vk_t, wk_t, support,
                    w_support, block_v, lanes, precision):
-    dev, total, nb = _check_blocks(t_idx, k_idx, g_idx, pa, support,
-                                   w_support, block_v, lanes, precision)
+    dev, total, nb = _check_blocks(
+        [("t_idx", t_idx), ("k_idx", k_idx), ("g_idx", g_idx)], pa, support,
+        w_support, block_v, lanes, precision)
     _check(dev, [("uk_t", uk_t), ("vk_t", vk_t)], torch.float32,
            (support, total))
     _check(dev, [("wk_t", wk_t)], torch.float32, (w_support, total))
@@ -362,8 +364,9 @@ def grid_fused_stack(t_idx, k_idx, g_idx, pa, pb, vre, vim, uv_coeffs,
     (lanes + 8), lanes]``; tasks no block visits stay zero.
     """
     dev, total, nb, ncoef = _check_fused(
-        t_idx, k_idx, g_idx, pa, pb, uv_coeffs, w_coeffs, support,
-        w_support, block_v, lanes, precision, nonempty)
+        [("t_idx", t_idx), ("k_idx", k_idx), ("g_idx", g_idx)], pa, pb,
+        uv_coeffs, w_coeffs, support, w_support, block_v, lanes, precision,
+        nonempty)
     _check(dev, [("vre", vre), ("vim", vim)], torch.float32, (total,))
     if dev.type == "cpu":
         return grid_fused_stack_reference(
@@ -412,8 +415,9 @@ def degrid_fused2_stack(stack, t_idx, k_idx, g_idx, pa, pb, uv_coeffs,
         raise SdpShapeError("stack rows must be K * (lanes + 8)")
     num_layers = stack.shape[2] // (lanes + 8)
     dev, total, nb, ncoef = _check_fused(
-        t_idx, k_idx, g_idx, pa, pb, uv_coeffs, w_coeffs, support,
-        w_support, block_v, lanes, precision, nonempty)
+        [("t_idx", t_idx), ("k_idx", k_idx), ("g_idx", g_idx)], pa, pb,
+        uv_coeffs, w_coeffs, support, w_support, block_v, lanes, precision,
+        nonempty)
     _check(dev, [("stack", stack)], torch.float32)
     if dev.type == "cpu":
         return degrid_fused2_stack_reference(

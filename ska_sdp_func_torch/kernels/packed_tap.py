@@ -63,17 +63,20 @@ def build_bands(u_off: torch.Tensor, iv0: torch.Tensor, uk: torch.Tensor,
     u_off: [V] int in [0, 8); iv0: [V] int; uk/vk: [V, support].
     Returns (ubase [16, V], vband [V, lanes], vband_t [lanes, V]) with
     ``ubase[u_off[p] + s, p] = uk[p, s]`` and
-    ``vband[p, iv0[p] + s] = vk[p, s]``, zero elsewhere. Each entry
-    receives at most one tap, so the scatters equal the JAX version's
-    sum of masked selects exactly.
+    ``vband[p, iv0[p] + s] = vk[p, s]``, zero elsewhere; taps at lanes
+    ``>= lanes`` are dropped, as the JAX version's selects drop them. Each
+    entry receives at most one tap, so the scatters equal the JAX
+    version's sum of masked selects exactly.
     """
     support = uk.shape[1]
     total = u_off.shape[0]
     dev = uk.device
     s = torch.arange(support, device=dev)
-    vband = torch.zeros((total, lanes), dtype=torch.float32, device=dev)
-    vband.scatter_(1, iv0.to(torch.int64)[:, None] + s[None, :],
-                   vk.to(torch.float32))
+    # One extra column takes the dropped taps.
+    wide = torch.zeros((total, lanes + 1), dtype=torch.float32, device=dev)
+    wide.scatter_(1, (iv0.to(torch.int64)[:, None] + s[None, :]).clamp(
+        max=lanes), vk.to(torch.float32))
+    vband = wide[:, :lanes].contiguous()
     ubase = torch.zeros((WIN_ROWS, total), dtype=torch.float32, device=dev)
     ubase.scatter_(0, u_off.to(torch.int64)[None, :] + s[:, None],
                    uk.to(torch.float32).T)

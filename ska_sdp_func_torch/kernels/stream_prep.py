@@ -11,6 +11,12 @@ int32) each evaluates the Chebyshev kernel taps by Clenshaw's recurrence
   f32, rows ``wk[j] * vre`` then ``wk[j] * vim``;
 - degrid: ``uk``, ``vk`` and ``wk_t`` [Sw, V] ``= wk * valid_f``.
 
+With ``fast`` (the streaming engine's bf16 mode) ``vk`` comes back as a
+``torch.bfloat16`` [V, S] tensor: the same taps, each rounded once to
+nearest even, as the Pallas kernels store their v-band in bf16
+(packed_tap.py:521, :639); ``uk`` and the scales stay f32, as in JAX.
+The band kernels (:mod:`.band_tap`) take their bf16 mode from that dtype.
+
 The Pallas kernels place the taps into dense bands (``ubase`` [16, V],
 ``vband`` [V, lanes] or ``vband_t`` [lanes, V], 1 KiB per slot at 256
 lanes); the port's band kernels (:mod:`.band_tap`) take the compact taps
@@ -38,27 +44,28 @@ _MAX_COEFFS = 16
 
 
 def _taps(u_frac, v_frac, w_row, uv_coeffs, w_coeffs, oversampling,
-          w_oversampling):
+          w_oversampling, fast):
+    vk = eval_kernel_taps(v_frac, uv_coeffs, oversampling)
     return (eval_kernel_taps(u_frac, uv_coeffs, oversampling),
-            eval_kernel_taps(v_frac, uv_coeffs, oversampling),
+            vk.to(torch.bfloat16) if fast else vk,
             eval_kernel_taps(w_row, w_coeffs, w_oversampling).T.contiguous())
 
 
 def stream_prep_grid_reference(u_frac, v_frac, w_row, vre, vim, uv_coeffs,
                                w_coeffs, oversampling: int,
-                               w_oversampling: int):
+                               w_oversampling: int, fast: bool = False):
     """Plain PyTorch version of :func:`stream_prep_grid`."""
     uk, vk, wk_t = _taps(u_frac, v_frac, w_row, uv_coeffs, w_coeffs,
-                         oversampling, w_oversampling)
+                         oversampling, w_oversampling, fast)
     return uk, vk, torch.cat([wk_t * vre[None, :], wk_t * vim[None, :]])
 
 
 def stream_prep_degrid_reference(u_frac, v_frac, w_row, valid_f, uv_coeffs,
                                  w_coeffs, oversampling: int,
-                                 w_oversampling: int):
+                                 w_oversampling: int, fast: bool = False):
     """Plain PyTorch version of :func:`stream_prep_degrid`."""
     uk, vk, wk_t = _taps(u_frac, v_frac, w_row, uv_coeffs, w_coeffs,
-                         oversampling, w_oversampling)
+                         oversampling, w_oversampling, fast)
     return uk, vk, wk_t * valid_f[None, :]
 
 
@@ -87,13 +94,14 @@ def _check_prep(u_frac, v_frac, w_row, extra, uv_coeffs, w_coeffs):
 
 
 def _launch(dev, total, fields, vis, valid, uv_coeffs, w_coeffs,
-            oversampling, w_oversampling, wk_rows):
+            oversampling, w_oversampling, wk_rows, fast):
     from . import _build
 
     lib = _build.load()
     support, w_support = uv_coeffs.shape[1], w_coeffs.shape[1]
     uk = torch.empty((total, support), dtype=torch.float32, device=dev)
-    vk = torch.empty_like(uk)
+    vk = torch.empty((total, support), device=dev,
+                     dtype=torch.bfloat16 if fast else torch.float32)
     wk = torch.empty((wk_rows * w_support, total), dtype=torch.float32,
                      device=dev)
     with torch.cuda.device(dev):
@@ -105,27 +113,29 @@ def _launch(dev, total, fields, vis, valid, uv_coeffs, w_coeffs,
             uv_coeffs.data_ptr(), w_coeffs.data_ptr(), uv_coeffs.shape[0],
             support, w_support, float(np.float32(2.0 / oversampling)),
             float(np.float32(2.0 / w_oversampling)), total, uk.data_ptr(),
-            vk.data_ptr(), wk.data_ptr(), stream)
+            vk.data_ptr(), wk.data_ptr(), int(fast), stream)
     _build.check(lib, err, "stream_prep")
     return uk, vk, wk
 
 
 def stream_prep_grid(u_frac, v_frac, w_row, vre, vim, uv_coeffs, w_coeffs,
-                     oversampling: int, w_oversampling: int):
+                     oversampling: int, w_oversampling: int,
+                     fast: bool = False):
     """Grid prep of a placed chunk: ``(uk [V, S], vk [V, S], scales
-    [2 Sw, V])`` f32 from the int32 fields ``u_frac``, ``v_frac``,
-    ``w_row`` and the f32 visibilities ``vre``, ``vim`` [V] (zero on
-    padding and invalid slots). ``uv_coeffs`` [degree + 1, S] and
-    ``w_coeffs`` [degree + 1, Sw] are the f32 Chebyshev fits."""
+    [2 Sw, V])`` f32 (``vk`` bf16 with ``fast``) from the int32 fields
+    ``u_frac``, ``v_frac``, ``w_row`` and the f32 visibilities ``vre``,
+    ``vim`` [V] (zero on padding and invalid slots). ``uv_coeffs``
+    [degree + 1, S] and ``w_coeffs`` [degree + 1, Sw] are the f32
+    Chebyshev fits."""
     dev, total = _check_prep(u_frac, v_frac, w_row,
                              [("vre", vre), ("vim", vim)], uv_coeffs,
                              w_coeffs)
     if dev.type == "cpu":
         return stream_prep_grid_reference(u_frac, v_frac, w_row, vre, vim,
                                           uv_coeffs, w_coeffs, oversampling,
-                                          w_oversampling)
+                                          w_oversampling, fast)
     out = _launch(dev, total, (u_frac, v_frac, w_row), (vre, vim), None,
-                  uv_coeffs, w_coeffs, oversampling, w_oversampling, 2)
+                  uv_coeffs, w_coeffs, oversampling, w_oversampling, 2, fast)
     stream_prep_grid.launches += 1
     return out
 
@@ -134,18 +144,21 @@ stream_prep_grid.launches = 0
 
 
 def stream_prep_degrid(u_frac, v_frac, w_row, valid_f, uv_coeffs, w_coeffs,
-                       oversampling: int, w_oversampling: int):
+                       oversampling: int, w_oversampling: int,
+                       fast: bool = False):
     """Degrid prep of a placed chunk: ``(uk [V, S], vk [V, S], wk_t
-    [Sw, V])`` f32, ``wk_t`` the w taps times ``valid_f`` [V] f32 (1 on
-    valid slots, 0 elsewhere); arguments as :func:`stream_prep_grid`."""
+    [Sw, V])`` f32 (``vk`` bf16 with ``fast``), ``wk_t`` the w taps times
+    ``valid_f`` [V] f32 (1 on valid slots, 0 elsewhere); arguments as
+    :func:`stream_prep_grid`."""
     dev, total = _check_prep(u_frac, v_frac, w_row, [("valid_f", valid_f)],
                              uv_coeffs, w_coeffs)
     if dev.type == "cpu":
         return stream_prep_degrid_reference(u_frac, v_frac, w_row, valid_f,
                                             uv_coeffs, w_coeffs,
-                                            oversampling, w_oversampling)
+                                            oversampling, w_oversampling,
+                                            fast)
     out = _launch(dev, total, (u_frac, v_frac, w_row), None, valid_f,
-                  uv_coeffs, w_coeffs, oversampling, w_oversampling, 1)
+                  uv_coeffs, w_coeffs, oversampling, w_oversampling, 1, fast)
     stream_prep_degrid.launches += 1
     return out
 

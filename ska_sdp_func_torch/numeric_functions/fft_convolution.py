@@ -9,6 +9,7 @@ fftshift, crop to in1's size with the reference's (extra - 1) offset.
 import torch
 
 from ..utility.errors import SdpShapeError
+from ..utility.tensors import as_tensors
 
 
 def _next_pow2(n: int) -> int:
@@ -17,9 +18,12 @@ def _next_pow2(n: int) -> int:
     return n
 
 
-def fft_convolution(in1: torch.Tensor, in2: torch.Tensor) -> torch.Tensor:
-    """Convolve two square 2-D tensors; the output has in1's shape
-    (scipy.signal.convolve 'same' semantics)."""
+def fft_convolution(in1, in2, device=None) -> torch.Tensor:
+    """Convolve two square 2-D arrays; the output has in1's shape
+    (scipy.signal.convolve 'same' semantics). NumPy input goes to the
+    first tensor's device, or to ``device`` (None: the CUDA card) when
+    neither is a tensor."""
+    in1, in2 = as_tensors(in1, in2, device=device)
     if in1.ndim != 2 or in1.shape[0] != in1.shape[1]:
         raise SdpShapeError("in1 must be square 2D")
     if in2.ndim != 2 or in2.shape[0] != in2.shape[1]:

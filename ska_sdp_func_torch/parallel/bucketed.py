@@ -41,8 +41,7 @@ from ..grid_data.wtower import _round_half_away, _slab_weights, \
 from ..kernels.tower_tap import degrid_all_layers, grid_all_layers
 from ..utility.constants import C_0
 from ..utility.errors import SdpInvalidArgumentError
-from ..utility.tensors import resolve_device, to_device
-from .packed import _host_uvw
+from ..utility.tensors import host_uvw, resolve_device, to_device
 from .wstack import WStackPlan
 
 
@@ -75,9 +74,9 @@ def plan_bucketed(plan: WStackPlan, uvw, block_v: int = 1024
     Returns (bucketed_plan, sort_index [Vp], valid [Vp]), both host
     NumPy: ``sort_index`` gathers the flattened (row, channel) stream
     into task order (padded entries point at 0 with ``valid`` False).
-    ``uvw`` is a NumPy array or a CPU tensor.
+    ``uvw`` is a NumPy array or a tensor on any device.
     """
-    uvw = _host_uvw(uvw)
+    uvw = host_uvw(uvw)
     if plan.eff_sg_size + plan.support > plan.subgrid_size:
         raise SdpInvalidArgumentError(
             "bucketed path requires eff_sg_size + support <= subgrid_size "

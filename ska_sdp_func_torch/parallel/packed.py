@@ -47,11 +47,8 @@ from ..kernels.packed_tap import (
     grid_packed_stack,
     split_bf16,
 )
-from ..utility.errors import (
-    SdpInvalidArgumentError,
-    SdpMemLocationError,
-)
-from ..utility.tensors import resolve_device, to_device
+from ..utility.errors import SdpInvalidArgumentError
+from ..utility.tensors import host_uvw, resolve_device, to_device
 from .wstack import WStackPlan
 
 
@@ -120,16 +117,6 @@ def packed_geometry_ok(subgrid_size: int, support: int, w_support: int,
             and eff + support <= subgrid_size)
 
 
-def _host_uvw(uvw) -> np.ndarray:
-    if isinstance(uvw, torch.Tensor):
-        if uvw.device.type != "cpu":
-            raise SdpMemLocationError(
-                "uvw must be a NumPy array or a CPU tensor "
-                f"(got {uvw.device})")
-        uvw = uvw.numpy()
-    return np.ascontiguousarray(uvw, np.float64)
-
-
 def inverse_index_of(sort_index: np.ndarray, valid: np.ndarray,
                      num_vis: int) -> np.ndarray:
     """Host inverse permutation: flattened (row, channel) -> sorted
@@ -147,7 +134,7 @@ def plan_packed(wplan: WStackPlan, uvw, block_v=None,
     Same arithmetic and C++ planner as the JAX package's ``plan_packed``:
     task enumeration, bucket sort by (task, w-slab, u-octet), padding
     to ``block_v`` (auto-selected when None) and tap-table lookups.
-    ``uvw`` is a NumPy array or a CPU tensor.
+    ``uvw`` is a NumPy array or a tensor on any device.
     """
     support, w_support = wplan.support, wplan.w_support
     sgs = wplan.subgrid_size
@@ -159,7 +146,7 @@ def plan_packed(wplan: WStackPlan, uvw, block_v=None,
             f"support={support}, w_support={w_support}, "
             f"subgrid_size={sgs}, eff_sg_size={wplan.eff_sg_size})")
 
-    uvw = _host_uvw(uvw)
+    uvw = host_uvw(uvw)
     num_rows = uvw.shape[0]
     num_chan = wplan.num_chan
     freq0 = wplan.freq0_hz

@@ -29,6 +29,11 @@ on one device:
      kernel folds those onto the tower layers (K9 and K10,
      ``fold_windows``); predict runs K7 (``stream_prep_degrid``) and K11
      (``degrid_fused``) on a plane-major model stack.
+
+   ``fast=True`` is JAX's bf16 mode on both branches: K3/K4 run
+   ``precision="bf16"``; K6/K7 return the v taps as bf16, and that dtype
+   selects the bf16 mode of K8/K11 (each product ``bf16(a) * vk``, summed
+   in f32), as the JAX engine's bf16 v-band selects it.
 4. **Accumulation**: the image and the processed/dropped/voided counters
    stay on the device; :meth:`StreamingGridder.finalize` reads them once.
    A chunk whose bucket padding exceeds the capacity contributes nothing
@@ -54,11 +59,10 @@ from ..grid_data.wtower import _round_half_away, _tap_coeffs_cached
 from ..kernels import band_tap, fold, fused_tap, place, stream_prep
 from ..utility.constants import C_0
 from ..utility.errors import SdpInvalidArgumentError, SdpRuntimeError
-from ..utility.tensors import resolve_device
+from ..utility.tensors import host_uvw, resolve_device
 from .packed import (
     PackedTask,
     _TowerImaging,
-    _host_uvw,
     packed_geometry_ok,
 )
 from .wstack import WStackPlan
@@ -78,7 +82,7 @@ def stream_tasks(wplan: WStackPlan, uvw) -> np.ndarray:
     neighbouring boxes (a backend may contract ``x * inv + 0.5`` into one
     rounding), so the set holds every box the device can assign.
     """
-    uvw = _host_uvw(uvw).astype(np.float32)
+    uvw = host_uvw(uvw).astype(np.float32)
     # Reciprocal multiplies, not divisions: a backend's f32 divide may
     # differ by more than the one-ulp contraction neighbourhood.
     inv_d = np.float32(1.0 / wplan.eff_sg_dist)
@@ -257,11 +261,6 @@ def _stream_engine(splan: StreamPlan, fast: bool,
                                    plan.oversampling, plan.w_oversampling) \
             and splan.block_v % 128 == 0:
         return _StreamEngine(splan, fast, device)
-    if fast:
-        raise NotImplementedError(
-            "fast=True on a non-packable stream plan needs the bf16 "
-            "mode of K8/K11, not ported yet (ROADMAP 'Next, in order' "
-            "item 1)")
     return _SplitStreamEngine(splan, fast, device)
 
 
@@ -279,7 +278,8 @@ class _StreamEngine(_TowerImaging):
         plan = splan.wplan
         self.splan = self.pplan = splan
         self.fast = bool(fast)
-        # The JAX streaming engine runs "highest" (or "bf16" when fast).
+        # The JAX streaming engine runs "highest" (or "bf16" when fast);
+        # the non-packable branch's bf16 mode follows from K6/K7's bf16 vk.
         self.precision = "bf16" if fast else "highest"
         self.device = device
         c = splan.consts
@@ -532,16 +532,17 @@ class _SplitStreamEngine(_StreamEngine):
     # -- grid stages ----------------------------------------------------
 
     def _prep_grid(self, arrays):
-        """K6: compact taps ``uk``, ``vk`` [cap, S] and the scale stack
-        [2 Sw, cap]."""
+        """K6: compact taps ``uk``, ``vk`` [cap, S] (``vk`` bf16 when fast)
+        and the scale stack [2 Sw, cap]."""
         plan = self.splan.wplan
         return stream_prep.stream_prep_grid(
             arrays["u_frac"], arrays["v_frac"], arrays["w_row"],
             arrays["vre"], arrays["vim"], self.uv_coeffs, self.w_coeffs,
-            plan.oversampling, plan.w_oversampling)
+            plan.oversampling, plan.w_oversampling, fast=self.fast)
 
     def _grid_windows(self, arrays, block_bucket, uk, vk, scales):
-        """K8: bucket windows [2 Sw, num_buckets, 16, G]."""
+        """K8: bucket windows [2 Sw, num_buckets, 16, G] (bf16 mode for a
+        bf16 ``vk``)."""
         splan = self.splan
         plan = splan.wplan
         return band_tap.grid_packed(
@@ -572,17 +573,18 @@ class _SplitStreamEngine(_StreamEngine):
     # -- predict stages -------------------------------------------------
 
     def _prep_degrid(self, arrays):
-        """K7: compact taps ``uk``, ``vk`` and ``wk_t`` [Sw, cap] masked
-        by the slot mask."""
+        """K7: compact taps ``uk``, ``vk`` (bf16 when fast) and ``wk_t``
+        [Sw, cap] masked by the slot mask."""
         plan = self.splan.wplan
         return stream_prep.stream_prep_degrid(
             arrays["u_frac"], arrays["v_frac"], arrays["w_row"],
             arrays["valid"].to(torch.float32), self.uv_coeffs, self.w_coeffs,
-            plan.oversampling, plan.w_oversampling)
+            plan.oversampling, plan.w_oversampling, fast=self.fast)
 
     def _degrid_windows(self, st, arrays, block_bucket, uk, vk, wk_t):
         """K11: f32 [8, cap] sorted predictions (rows 0/1 re/im), gathered
-        from plane ``task * K + slab``, rows of octet ``g``."""
+        from plane ``task * K + slab``, rows of octet ``g`` (bf16 mode for
+        a bf16 ``vk``)."""
         splan = self.splan
         plan = splan.wplan
         task, slab, octet = self._block_coords(block_bucket)

@@ -39,7 +39,7 @@ from ..grid_data.wtower import (
     _degrid_all_planes,
     _grid_all_planes,
 )
-from ..utility.tensors import resolve_device, to_device
+from ..utility.tensors import host_uvw, resolve_device, to_device
 
 _KERNEL_CACHE: dict = {}
 
@@ -110,10 +110,10 @@ def plan_wstack(uvw, freq0_hz: float, dfreq_hz: float, num_chan: int,
                 w_tower_height: float = 4.0) -> WStackPlan:
     """Build the static task list from the full uvw distribution.
 
-    ``uvw`` is a NumPy array or a CPU tensor [rows, 3]; all planning is
-    host f64 through :mod:`..native`.
+    ``uvw`` is a NumPy array or a tensor [rows, 3] on any device; all
+    planning is host f64 through :mod:`..native`.
     """
-    uvw_np = np.ascontiguousarray(np.asarray(uvw), np.float64)
+    uvw_np = host_uvw(uvw)
     num_rows = uvw_np.shape[0]
     if subgrid_frac == 0.0:
         subgrid_frac = 2.0 / 3.0

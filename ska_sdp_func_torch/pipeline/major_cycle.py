@@ -32,7 +32,6 @@ rerouted.
 from dataclasses import dataclass
 from typing import List, Optional
 
-import numpy as np
 import torch
 
 from ..clean.hogbom import _minor_cycle, create_cbeam
@@ -52,7 +51,7 @@ from ..parallel.wstack import (
 )
 from ..utility.errors import SdpInvalidArgumentError
 from ..utility.logging import log_info
-from ..utility.tensors import resolve_device, to_device
+from ..utility.tensors import host_uvw, resolve_device, to_device
 from ..utility.timers import Timers, TimerType
 
 
@@ -149,8 +148,9 @@ def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
     the CUDA card; CPU runs pass ``device="cpu"``).
 
     ``vis`` [rows, chan] complex and ``weights`` [rows, chan] are NumPy
-    arrays or tensors; ``uvw`` [rows, 3] is NumPy or a CPU tensor (the
-    planners run on the host, and the device drivers take it in f64).
+    arrays or tensors; ``uvw`` [rows, 3] is NumPy or a tensor on any
+    device (the planners run on the host, and the device drivers take it
+    in f64).
     ``bucketed`` picks the operator path (module docstring). ``mgain``
     bounds each minor cycle at ``max(threshold, (1 - mgain) *
     dirty_peak)``; ``fast=True`` runs the packed kernels on bf16 bands.
@@ -167,13 +167,15 @@ def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
         raise NotImplementedError(
             "solver checkpointing is not ported yet: ROADMAP Queue 1 "
             "item 13")
-    if clean_algorithm != "hogbom":
+    if clean_algorithm == "msclean":
         raise NotImplementedError(
-            f"clean_algorithm={clean_algorithm!r} is not ported yet "
-            "(msclean: ROADMAP Queue 1 item 13)")
+            "clean_algorithm='msclean' is not ported yet (ROADMAP Queue 1 "
+            "item 13)")
+    if clean_algorithm != "hogbom":
+        raise ValueError("unknown clean_algorithm")
 
     image_size = plan.image_size
-    uvw = np.asarray(uvw, np.float64)
+    uvw = host_uvw(uvw)
     vis = to_device(vis, resolve_device(device))
     dev = vis.device
     rdtype = vis.real.dtype

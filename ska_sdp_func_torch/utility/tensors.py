@@ -21,3 +21,22 @@ def to_device(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device)
     return torch.tensor(np.asarray(x), device=device)
+
+
+def as_tensors(*xs, device=None):
+    """Caller data as tensors on one device, where the JAX package's public
+    helpers take it with ``jnp.asarray``: tensors keep their device, and
+    NumPy arrays or sequences are copied to the first tensor's device, or
+    to ``device`` when none is a tensor (None: the CUDA card,
+    :func:`resolve_device`). Returns a tuple."""
+    dev = next((x.device for x in xs if isinstance(x, torch.Tensor)), None)
+    dev = resolve_device(device) if dev is None else dev
+    return tuple(to_device(x, dev) for x in xs)
+
+
+def host_uvw(uvw) -> np.ndarray:
+    """uvw as a host f64 NumPy array, from NumPy data or a tensor on any
+    device (one copy to the host)."""
+    if isinstance(uvw, torch.Tensor):
+        uvw = uvw.detach().cpu().numpy()
+    return np.ascontiguousarray(uvw, dtype=np.float64)

@@ -11,10 +11,12 @@ the sums); degridded visibilities at 1e-5 of max|vis| (same products,
 other summation order). The same holds for the w-towers tap kernels
 (``tower_tap``: grid_plane, degrid_plane, grid_all_layers,
 degrid_all_layers), the fused and compact kernels (``fused_tap``) and
-the ES-FFT band kernels (``band_tap``), the streaming tap preparation
-(``stream_prep``) and the window fold (``fold``) against their plain
-versions; the placement kernel (``place``) is a copy and compares bit
-for bit.
+the ES-FFT band kernels (``band_tap``: K8 and K11 in f32 and bf16, the
+word-fed K18 and K19 in all three modes), the streaming tap preparation
+(``stream_prep``, f32 and bf16) and the window fold (``fold``) against
+their plain versions; the placement kernel (``place``) is a copy and
+compares bit for bit. The host planners and the solver take a uvw tensor
+on the card.
 """
 
 import numpy as np
@@ -356,10 +358,10 @@ def test_place_kernel_matches_plain(device, bv):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
-def _stream_on_card(device, params, block_v, names):
-    """StreamingGridder/StreamingDegridder on the card and on the CPU:
-    only the kernels ``names`` launch on the card, and the image
-    (taper-weighted) and predictions agree with the CPU port."""
+def _stream_on_card(device, params, block_v, names, fast=False):
+    """StreamingGridder/StreamingDegridder (``fast`` as given) on the card
+    and on the CPU: only the kernels ``names`` launch on the card, and the
+    image (taper-weighted) and predictions agree with the CPU port."""
     uvw, vis = make_inputs()
     plan = plan_wstack(uvw, FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE, **params)
     sp = plan_stream(plan, stream_tasks(plan, uvw), chunk_rows=64,
@@ -368,8 +370,8 @@ def _stream_on_card(device, params, block_v, names):
     out = {}
     for dev in ("cpu", device):
         kernels.reset_launch_counts()
-        sg = StreamingGridder(sp, device=dev)
-        sd = StreamingDegridder(sp, device=dev).set_model(model)
+        sg = StreamingGridder(sp, fast=fast, device=dev)
+        sd = StreamingDegridder(sp, fast=fast, device=dev).set_model(model)
         preds = []
         for lo in range(0, uvw.shape[0], 64):
             sg.accumulate(uvw[lo:lo + 64], vis[lo:lo + 64])
@@ -405,6 +407,18 @@ def test_non_packable_streaming_on_card(device, geom):
     _stream_on_card(device, params, 128 if geom == "oversampling" else 64,
                     {"place_stream", "stream_prep_grid", "stream_prep_degrid",
                      "grid_packed", "fold_windows", "degrid_fused"})
+
+
+@pytest.mark.parametrize("geom", ["oversampling", "block_v"])
+def test_non_packable_fast_streaming_on_card(device, geom):
+    """The same streams with ``fast=True``: the bf16 modes of K6, K7, K8
+    and K11, and no other kernel."""
+    params = {**PARAMS, "oversampling": 65536} if geom == "oversampling" \
+        else PARAMS
+    _stream_on_card(device, params, 128 if geom == "oversampling" else 64,
+                    {"place_stream", "stream_prep_grid", "stream_prep_degrid",
+                     "grid_packed", "fold_windows", "degrid_fused"},
+                    fast=True)
 
 
 @pytest.mark.parametrize("bv", [64, 1024])
@@ -443,6 +457,15 @@ def test_stream_prep_and_fold_kernels_match_plain(device, bv):
     taps = tsp.stream_prep_grid(*fields, vre, vim, uv, w, ov, wov)
     want = tsp.stream_prep_grid_reference(*fields, vre, vim, uv, w, ov, wov)
     assert all(_rel(a, b) <= 1e-5 for a, b in zip(taps, want))
+    # The bf16 mode: bit for bit, vk bf16.
+    for prep, extra in ((tsp.stream_prep_grid, (vre, vim)),
+                        (tsp.stream_prep_degrid,
+                         (put(valid, torch.float32),))):
+        got = prep(*fields, *extra, uv, w, ov, wov, fast=True)
+        ref = getattr(tsp, prep.__name__ + "_reference")(
+            *fields, *extra, uv, w, ov, wov, fast=True)
+        assert got[1].dtype == torch.bfloat16
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
     got = tsp.stream_prep_degrid(*fields, put(valid, torch.float32), uv, w,
                                  ov, wov)
     want = tsp.stream_prep_degrid_reference(*fields, put(valid, torch.float32),
@@ -460,9 +483,9 @@ def test_stream_prep_and_fold_kernels_match_plain(device, bv):
     want = fold.fold_windows_reference(*args)
     assert bool(torch.isfinite(got).all()) and _rel(got, want) <= 1e-5
     after = kernels.launch_counts()
-    for name in ("stream_prep_grid", "stream_prep_degrid", "fold_windows",
-                 "grid_packed"):
-        assert after[name] == before[name] + 1, name
+    for name, n in (("stream_prep_grid", 2), ("stream_prep_degrid", 2),
+                    ("fold_windows", 1), ("grid_packed", 1)):
+        assert after[name] == before[name] + n, name
 
 
 # -- compact kernels (K12, K13) and the compact engine -------------------------
@@ -623,3 +646,129 @@ def test_es_gridder_on_card_launches_band_kernels(es, ws):
     assert all(v == 0 for n, v in c1.items() if n not in names)
     assert _rel(i1, i0) <= 1e-5
     assert _rel(p1, p0) <= 1e-5
+
+
+def test_band_kernels_bf16_match_plain(es):
+    """K8 and K11 in their bf16 mode (a bf16 ``vk``) against their plain
+    versions on the ES-FFT 3-D plan."""
+    ep = es[1][True]._packed
+    dd = ep.dev
+    dev = dd["uk"].device
+    gen = torch.Generator(device=dev).manual_seed(6)
+    vk = dd["vk"].to(torch.bfloat16)
+    vre, vim = (torch.randn(ep.total, generator=gen, device=dev)
+                * dd["valid"] for _ in range(2))
+    args = (dd["block_bucket"], dd["u_off"], dd["iv0"], dd["uk"], vk,
+            (dd["kw_t"], vre, vim), ep.num_slabs * ep.gu * ep.gv, 256,
+            ep.w_support)
+    got = tb.grid_packed(*args, block_v=ep.block_v)
+    torch.cuda.synchronize()
+    want = tb.grid_packed_reference(*args, block_v=ep.block_v)
+    assert _rel(got, want) <= 1e-5
+    # Another result than f32: the mode rounds.
+    assert _rel(got, tb.grid_packed(*args[:4], dd["vk"], *args[5:],
+                                    block_v=ep.block_v)) > 1e-6
+    planes = torch.randn((2, ep.num_w_grids, ep.rows_pad, ep.lanes_pad),
+                         generator=gen, device=dev)
+    args = (planes, dd["k_idx"], dd["g_idx"], dd["hv_idx"], dd["u_off"],
+            dd["iv0"], dd["uk"], vk, dd["kw_t"], ep.w_support, 256)
+    got = tb.degrid_fused(*args, block_v=ep.block_v, raw=True)
+    torch.cuda.synchronize()
+    want = tb.degrid_fused_reference(*args, block_v=ep.block_v, raw=True)
+    assert _rel(got, want) <= 1e-5
+
+
+# -- word-fed bucket-window kernels (K18, K19) ---------------------------------
+
+def _window_operands(fused):
+    """K18's bucket ids and K19's plane-major stack and tile indices from
+    the fused kernels' operands (bucket = (task, slab, octet))."""
+    f = FUSED
+    octets, layers = f["lanes"] // 8, f["layers"]
+    slabs = layers - f["w_support"] + 1
+    t, k, g = fused["t"], fused["k"], fused["g"]
+    bucket_ids = ((t * slabs + k) * octets + g).to(torch.int32)
+    planes = fused["stack"].reshape(
+        f["tasks"], 2, layers, f["lanes"] + 8, f["lanes"]).transpose(
+            0, 1).reshape(2, f["tasks"] * layers, f["lanes"] + 8,
+                          f["lanes"]).contiguous()
+    return (bucket_ids, f["tasks"] * slabs * octets, planes,
+            (t * layers + k).to(torch.int32), g, torch.zeros_like(g))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_fused_window_kernels_match_plain(fused, mode):
+    """K18 and K19 against their plain versions in each mode, empty blocks
+    skipped; at "highest" also against K8/K11 fed ``cheb_taps`` taps."""
+    f, t = FUSED, fused
+    bucket_ids, num_buckets, planes, p_idx, g_idx, hv_idx = \
+        _window_operands(t)
+    dims = dict(support=f["support"], w_support=f["w_support"],
+                oversampling=f["oversampling"],
+                w_oversampling=f["w_oversampling"], block_v=f["block_v"],
+                precision=mode, nonempty=t["nonempty"])
+    before = kernels.launch_counts()
+    g_args = (bucket_ids, t["pa"], t["pb"], t["vre"], t["vim"], t["uv"],
+              t["w"], num_buckets, f["lanes"])
+    got = tb.grid_fused(*g_args, **dims)
+    torch.cuda.synchronize()
+    assert _rel(got, tb.grid_fused_reference(*g_args, **dims)) <= 1e-5
+    d_args = (planes, p_idx, g_idx, hv_idx, t["pa"], t["pb"], t["uv"],
+              t["w"], f["lanes"])
+    pred = tb.degrid_fused2(*d_args, **dims, raw=True)
+    torch.cuda.synchronize()
+    assert _rel(pred, tb.degrid_fused2_reference(*d_args, **dims,
+                                                 raw=True)) <= 1e-5
+    empty = torch.repeat_interleave(t["nonempty"] == 0, f["block_v"])
+    assert not bool(pred[:, empty].abs().max() > 0)
+    after = kernels.launch_counts()
+    assert after["grid_fused"] == before["grid_fused"] + 1
+    assert after["degrid_fused2"] == before["degrid_fused2"] + 1
+    if mode != "highest":
+        return
+    occ = ~empty
+    iv0, u_off, w_row, u_frac, v_frac, valid = tf.unpack_plan_words(
+        t["pa"], t["pb"])
+    uk = tf.cheb_taps(u_frac, t["uv"], f["oversampling"])
+    vk = tf.cheb_taps(v_frac, t["uv"], f["oversampling"])
+    wk_t = tf.cheb_taps(w_row, t["w"], f["w_oversampling"]).T.contiguous()
+    band = tb.grid_packed(bucket_ids, u_off, iv0, uk, vk,
+                          (wk_t, t["vre"] * occ, t["vim"] * occ),
+                          num_buckets, f["lanes"], f["w_support"],
+                          block_v=f["block_v"])
+    assert _rel(got, band) <= 1e-5
+    band = tb.degrid_fused(planes, p_idx, g_idx, hv_idx, u_off, iv0, uk, vk,
+                           (wk_t * valid * occ).contiguous(), f["w_support"],
+                           f["lanes"], block_v=f["block_v"], raw=True)
+    assert _rel(pred, band) <= 1e-5
+
+
+def test_planners_take_uvw_on_card(device):
+    """A uvw tensor on the card plans as its NumPy copy does: plan_wstack,
+    plan_packed, stream_tasks, the whole-image driver's packed engine and
+    the solver copy it to the host in f64."""
+    from ska_sdp_func_torch.grid_data import wstack_wtower_grid_all
+    from ska_sdp_func_torch.pipeline import major_cycle_imager
+
+    uvw, vis = make_inputs()
+    uvw_d = torch.as_tensor(uvw, device=device)
+    plan = plan_wstack(uvw_d, FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE, **PARAMS)
+    ref = plan_wstack(uvw, FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE, **PARAMS)
+    assert plan.tasks == ref.tasks
+    assert plan_packed(plan, uvw_d).digest == plan_packed(ref, uvw).digest
+    np.testing.assert_array_equal(stream_tasks(plan, uvw_d),
+                                  stream_tasks(ref, uvw))
+    img = torch.zeros((IMAGE_SIZE, IMAGE_SIZE), device=device)
+    a, b = (wstack_wtower_grid_all(
+        torch.as_tensor(vis, device=device), FREQ0, DFREQ, u, **PARAMS,
+        image=img, engine="packed", device=device) for u in (uvw_d, uvw))
+    # f32 atomics reorder the sums: compare taper-weighted.
+    k = plan.kernel()
+    taper = 1.0 / grid_correct_pswf(
+        k.image_size, k.theta, k.w_step, k.shear_u, k.shear_v, k.support,
+        k.w_support, torch.ones(k.image_size, k.image_size, device=device))
+    assert _rel(a * taper, b * taper) <= 1e-5
+    res = major_cycle_imager(plan, vis, uvw_d, n_major=1, bucketed=True,
+                             device=device)
+    assert res.model.shape == (IMAGE_SIZE, IMAGE_SIZE)
+    assert bool(torch.isfinite(res.model).all())

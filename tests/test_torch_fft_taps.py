@@ -163,6 +163,29 @@ def test_create_cbeam_matches_jax():
     assert np.abs(got - want).max() <= 1e-6
 
 
+@pytest.mark.parametrize("name", ["fft_shifted", "ifft_shifted",
+                                  "fft_convolution", "grid_correct_pswf"])
+def test_helpers_take_numpy_like_jax(name):
+    """NumPy input (seed 1: 16^2 complex64; a 64^2 facet for the
+    correction) is copied to ``device`` and meets JAX's result on the same
+    arrays, at the tolerances above."""
+    rng = np.random.default_rng(1)
+    x = _cplx(rng, (16, 16))
+    facet = _cplx(rng, (64, 64))
+    calls = {
+        "fft_shifted": (tfft.fft_shifted, jfft.fft_shifted, (x,), 1e-6),
+        "ifft_shifted": (tfft.ifft_shifted, jfft.ifft_shifted, (x,), 1e-6),
+        "fft_convolution": (t_conv, j_conv, (x, x.real.copy()), 1e-5),
+        "grid_correct_pswf": (lambda f, **kw: t_gc(*GEOM, f, **kw),
+                              lambda f: j_gc(*GEOM, f), (facet,), 1e-6)}
+    t_fn, j_fn, args, tol = calls[name]
+    got = t_fn(*args, device="cpu")
+    want = np.asarray(j_fn(*(jnp.asarray(a) for a in args)))
+    assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+    assert got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() <= tol * np.abs(want).max()
+
+
 @pytest.mark.parametrize("n1, n2", [(64, 16), (32, 33)])
 def test_fft_convolution_matches_jax(n1, n2):
     rng = np.random.default_rng(6)

@@ -145,6 +145,56 @@ def test_unported_branches_raise(kwargs, item):
         tmc.major_cycle_imager(tplan, vis, uvw, device="cpu", **kwargs)
 
 
+def test_unknown_clean_algorithm_raises():
+    """An unknown name raises ValueError("unknown clean_algorithm"), as the
+    JAX solver does (pipeline/major_cycle.py:392-393)."""
+    uvw, vis = make_inputs()
+    jplan = j_plan_wstack(uvw, FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE, **PARAMS)
+    with pytest.raises(ValueError, match="unknown clean_algorithm"):
+        jmc.major_cycle_imager(jplan, jnp.asarray(vis), jnp.asarray(uvw),
+                               clean_algorithm="foo")
+    tplan = t_plan_wstack(uvw, FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE, **PARAMS)
+    with pytest.raises(ValueError, match="unknown clean_algorithm"):
+        tmc.major_cycle_imager(tplan, vis, uvw, clean_algorithm="foo",
+                               device="cpu")
+
+
+def test_hogbom_clean_takes_numpy_like_jax():
+    """NumPy images (a 16^2 dirty image, a 32^2 PSF; seed 0) go where
+    ``device`` says and meet JAX's result on the same arrays."""
+    n = 16
+    x = np.arange(2 * n) - n
+    r = np.hypot(*np.meshgrid(x, 1.3 * x, indexing="ij")) / 3.0
+    psf = (np.sinc(r) * np.exp(-r / 20.0)).astype(np.float32)
+    dirty = 0.01 * np.random.default_rng(0).standard_normal((n, n))
+    for (px, py), flux in zip([(5, 7), (10, 3)], [1.0, 0.5]):
+        dirty += flux * psf[n - px:2 * n - px, n - py:2 * n - py]
+    dirty = dirty.astype(np.float32)
+    details = [2.0, 2.0, 1.0, 16.0]
+    got = thog.hogbom_clean(dirty, psf, details, 0.1, 0.05, 100,
+                            device="cpu")
+    want = jhog.hogbom_clean(jnp.asarray(dirty), jnp.asarray(psf), details,
+                             0.1, 0.05, 100)
+    peak = np.abs(dirty).max()
+    for g, w in zip(got, want):
+        assert isinstance(g, torch.Tensor) and g.device.type == "cpu"
+        assert np.abs(g.numpy() - np.asarray(w)).max() <= 1e-5 * peak
+
+
+def test_solver_takes_uvw_tensor():
+    """uvw as a tensor (on the card there; here on the CPU) plans as the
+    NumPy array does: the same solve."""
+    uvw, vis = make_inputs()
+    tplan = t_plan_wstack(torch.as_tensor(uvw), FREQ0, DFREQ, NUM_CHAN,
+                          IMAGE_SIZE, **PARAMS)
+    ref = t_plan_wstack(uvw, FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE, **PARAMS)
+    assert tplan.tasks == ref.tasks
+    kw = dict(n_major=1, bucketed=True, device="cpu")
+    a = tmc.major_cycle_imager(tplan, vis, torch.as_tensor(uvw), **kw)
+    b = tmc.major_cycle_imager(ref, vis, uvw, **kw)
+    assert torch.equal(a.model, b.model)
+
+
 # A 32^2 sub-grid scenario (test_torch_wstack_drivers.py's geometry).
 SMALL_PARAMS = dict(PARAMS, subgrid_size=32)
 SMALL_IMAGE, SMALL_ROWS = 64, 60

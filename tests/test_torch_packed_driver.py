@@ -194,14 +194,19 @@ def test_fused_engine_matches_jax(scenario, prec):
     "wstack_wtower_degrid_all", "GridderWtowerUVW.grid_subgrid",
     "GridderWtowerUVW.degrid_subgrid", "GridderWtowerUVW.grid_correct",
     "grid_all_tasks", "degrid_all_tasks", "grid_all_bucketed",
-    "degrid_all_bucketed", "w_screen_stack"])
+    "degrid_all_bucketed", "w_screen_stack", "fft_shifted",
+    "fft_convolution", "subgrid_add", "grid_correct_pswf", "hogbom_clean"])
 def test_entry_points_default_to_the_card(scenario, entry):
     """Without ``device`` every entry point runs on the CUDA card, never
     the CPU, even for NumPy or CPU-tensor inputs: on a host with no card
     it raises at its first tensor move."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default works")
-    from ska_sdp_func_torch.grid_data import w_screen_stack
+    from ska_sdp_func_torch.clean import hogbom_clean
+    from ska_sdp_func_torch.fourier_transforms import fft_shifted
+    from ska_sdp_func_torch.grid_data import grid_correct_pswf, \
+        subgrid_add, w_screen_stack
+    from ska_sdp_func_torch.numeric_functions import fft_convolution
     from ska_sdp_func_torch.grid_data import wstack as tws
     from ska_sdp_func_torch.parallel import bucketed as tb
     from ska_sdp_func_torch.parallel import streaming as tstream
@@ -211,6 +216,12 @@ def test_entry_points_default_to_the_card(scenario, entry):
     s = scenario
     tplan = s["tpp"].wplan
     kern = tplan.kernel()
+
+    def kern_gc(facet):
+        return grid_correct_pswf(IMAGE_SIZE, PARAMS["theta"],
+                                 PARAMS["w_step"], 0.0, 0.0,
+                                 PARAMS["support"], PARAMS["w_support"],
+                                 facet)
     uvw, vis = s["uvw"], torch.as_tensor(s["vis"])
     img = np.zeros((IMAGE_SIZE, IMAGE_SIZE), np.float32)
     sub = np.zeros((PARAMS["subgrid_size"],) * 2, np.complex64)
@@ -247,6 +258,13 @@ def test_entry_points_default_to_the_card(scenario, entry):
         "w_screen_stack": lambda: w_screen_stack(
             IMAGE_SIZE, PARAMS["theta"], PARAMS["w_step"], 0.0, 0.0,
             [0.0, 1.0]),
+        # The tensor helpers on NumPy input.
+        "fft_shifted": lambda: fft_shifted(sub),
+        "fft_convolution": lambda: fft_convolution(sub, sub.real),
+        "subgrid_add": lambda: subgrid_add(sub, 1, 2, sub[:8, :8]),
+        "grid_correct_pswf": lambda: kern_gc(img),
+        "hogbom_clean": lambda: hogbom_clean(
+            img[:8, :8], img[:16, :16], [2.0, 2.0, 1.0, 8.0], 0.1, 0.0, 1),
     }
     for name in ("StreamingGridder", "StreamingDegridder"):
         sp = tstream.plan_stream(tplan, tstream.stream_tasks(tplan, s["uvw"]),

@@ -125,3 +125,56 @@ def test_stream_prep_rejects_bad_inputs():
     with pytest.raises(SdpInvalidArgumentError):
         sp.stream_prep_degrid(*args[:3], f["valid_f"], c_uv[:, :0], c_w,
                               16384, 16384)
+
+
+@pytest.mark.parametrize("direction", ["grid", "degrid"])
+@pytest.mark.parametrize("ov,lanes", CASES)
+def test_stream_prep_fast_matches_jax(ov, lanes, direction):
+    """The bf16 mode (``fast``): ``vk`` comes back bf16, each tap of the
+    f32 mode rounded once, ``uk`` and the scales / w taps as the f32 mode;
+    through ``build_bands`` its v band equals the Pallas kernel's bf16 band
+    bit for bit wherever the two f32 bands are equal."""
+    f = _fields(ov, lanes, seed=5)
+    c_uv, c_w = _coeffs(ov)
+    t = {k: torch.as_tensor(v) for k, v in f.items()}
+    tc = (torch.as_tensor(c_uv, dtype=torch.float32),
+          torch.as_tensor(c_w, dtype=torch.float32), ov, ov)
+    if direction == "grid":
+        j_names = ("u_off", "u_frac", "v_frac", "w_row", "vre", "vim", "iv0")
+        band = 1
+
+        def port(fast):
+            return sp.stream_prep_grid(t["u_frac"], t["v_frac"], t["w_row"],
+                                       t["vre"], t["vim"], *tc, fast=fast)
+
+        def jax(fast):
+            return stream_prep_grid_pallas(
+                *(jnp.asarray(f[k]) for k in j_names), c_uv, c_w, ov, ov, S,
+                SW, lanes, BLOCK_V, fast=fast, interpret=True)
+    else:
+        j_names = ("u_off", "u_frac", "v_frac", "w_row", "valid_f", "iv0")
+        band = 2
+
+        def port(fast):
+            return sp.stream_prep_degrid(t["u_frac"], t["v_frac"],
+                                         t["w_row"], t["valid_f"], *tc,
+                                         fast=fast)
+
+        def jax(fast):
+            return stream_prep_degrid_pallas(
+                *(jnp.asarray(f[k]) for k in j_names), c_uv, c_w, ov, ov, S,
+                SW, lanes, BLOCK_V, fast=fast, interpret=True)
+    uk, vk, wk = port(False)
+    uk_f, vk_f, wk_f = port(True)
+    assert vk_f.dtype == torch.bfloat16 and vk_f.shape == (CAP, S)
+    assert torch.equal(uk_f, uk) and torch.equal(wk_f, wk)
+    assert torch.equal(vk_f, vk.to(torch.bfloat16))
+    j_exact = np.asarray(jax(False)[1])
+    j_fast = np.asarray(jax(True)[1]).astype(np.float32)
+    p_exact = build_bands(t["u_off"], t["iv0"], uk, vk, lanes)[band].numpy()
+    p_fast = build_bands(t["u_off"], t["iv0"], uk, vk_f.float(),
+                         lanes)[band].numpy()
+    same = p_exact == j_exact
+    taps = j_exact != 0
+    assert (same & taps).sum() >= 0.5 * taps.sum()
+    np.testing.assert_array_equal(p_fast[same], j_fast[same])

@@ -335,11 +335,12 @@ def test_box_membership_fma_hull():
 @pytest.mark.parametrize("case", ["mesh", "oversampling", "block_v"])
 def test_unported_options_raise(scenario, case):
     """What the port does not run raises, naming its ROADMAP item:
-    ``mesh=`` (item 15), and ``fast=True`` on a non-packable plan (an
+    ``mesh=`` (item 15). ``fast=True`` on a non-packable plan (an
     oversampling beyond the plan words, or a block_v that is not a
-    multiple of 128), whose bf16 mode of K8/K11 is not ported. Without
-    ``fast`` those plans take the non-packable branch (held against JAX
-    by the ``non_packable`` tests below)."""
+    multiple of 128) builds the non-packable engine in its bf16 mode
+    (held against JAX in tests/test_torch_streaming_fast.py); without
+    ``fast`` those plans take the same branch in f32 (the
+    ``non_packable`` tests below)."""
     s = scenario
     if case == "mesh":
         with pytest.raises(NotImplementedError, match="item 15"):
@@ -357,8 +358,8 @@ def test_unported_options_raise(scenario, case):
                      cap_slots=CAP)
     for cls in (StreamingGridder, StreamingDegridder):
         assert not cls(sp, device="cpu")._engine.packable
-        with pytest.raises(NotImplementedError, match="bf16 mode of K8/K11"):
-            cls(sp, fast=True, device="cpu")
+        eng = cls(sp, fast=True, device="cpu")._engine
+        assert not eng.packable and eng.precision == "bf16"
     assert StreamingGridder(s["sp"], fast=True, device="cpu")._engine.packable
 
 

@@ -144,6 +144,42 @@ def test_subgrid_add_cut_out_shift_match_jax(offset):
         np.asarray(jgu.shift_subgrids(jnp.asarray(stack))))
 
 
+@pytest.mark.parametrize("name", ["shift_subgrids", "subgrid_add",
+                                  "subgrid_cut_out", "grid_correct_w_stack"])
+def test_gridder_utils_take_numpy_like_jax(name):
+    """NumPy input (seed 1: 16^2 complex64 grids, a 64^2 facet) is copied
+    to ``device``; the results are tensors equal to JAX's on the same
+    arrays (the w-screen at 1e-6 of its peak, in complex64)."""
+    rng = np.random.default_rng(1)
+
+    def cplx(shape):
+        return (rng.standard_normal(shape)
+                + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+    grid, sub, facet = cplx((16, 16)), cplx((8, 8)), cplx((64, 64))
+    stack = cplx((3, 16, 16))
+    w_args = (128, 0.002, 100.0, 0.1, -0.15)
+    calls = {
+        "shift_subgrids": (tgu.shift_subgrids, jgu.shift_subgrids,
+                           (stack,), ()),
+        "subgrid_add": (tgu.subgrid_add, jgu.subgrid_add,
+                        (grid, 3, -2, sub), (2.5,)),
+        "subgrid_cut_out": (tgu.subgrid_cut_out, jgu.subgrid_cut_out,
+                            (grid, 3, -2), (8,)),
+        "grid_correct_w_stack": (
+            lambda f, *a, **kw: tgc.grid_correct_w_stack(*w_args, f, *a,
+                                                         **kw),
+            lambda f, *a: jgc.grid_correct_w_stack(*w_args, f, *a),
+            (facet,), (4, -2, 3, False))}
+    t_fn, j_fn, arrays, extra = calls[name]
+    got = t_fn(*arrays, *extra, device="cpu")
+    want = np.asarray(j_fn(*(jnp.asarray(a) if isinstance(a, np.ndarray)
+                             else a for a in arrays), *extra))
+    assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+    tol = 1e-6 if name == "grid_correct_w_stack" else 0.0
+    assert np.abs(got.numpy() - want).max() <= tol * np.abs(want).max()
+
+
 @pytest.mark.parametrize("inverse", [False, True])
 def test_grid_correct_w_stack_matches_jax(inverse):
     rng = np.random.default_rng(8)
