@@ -41,7 +41,7 @@ line of output each (or a few), failing loudly on the first fault:
    c. the task drivers (K14, K15) at the same full width:
       ``grid_all_tasks``, ``degrid_all_tasks`` and a one-cycle
       ``major_cycle_imager(bucketed=False)`` solve (the default) of the
-      unit point, each
+      unit point on the first SOLVE_ROWS rows, each
       timed and held against the plain path on the card, and against
       the bucketed fallback's image and visibilities;
    d. the sub-grid gridder (K16, K17): ``GridderWtowerUVW``
@@ -87,8 +87,29 @@ line of output each (or a few), failing loudly on the first fault:
       window of their own, then held against their plain versions in all
       three precision modes and, at "highest", against K8/K11 fed the
       same taps;
+   m. the sparse all-layer grid K20 (``grid_all_layers_sparse``), which no
+      entry point runs: once in each mode on the fallback's largest task
+      in the sparse form the bucketed driver makes before it densifies the
+      w taps, each in a window of its own; then against its plain version
+      and against K16 fed ``_slab_weights`` of the same taps;
+   n. the bf16 mode of K14-K17: once each on window c's plane and the
+      fallback's largest task, against the bf16 plain versions and the
+      f32 kernels (within JAX's 4e-3 envelope); then window d's sub-grid
+      gridder with ``SKA_SDP_FUNC_TPU_FAST_MXU=1``, which must launch
+      K16/K17 in bf16 mode, each call held to the bf16 rounding bound of
+      its f32 twin, the outputs against the plain path and window d's
+      f32 results;
+   o. the solvers at the bench scenario on visibilities of a sky of
+      points and a Gaussian source: ``major_cycle_imager(bucketed=True,
+      clean_algorithm="msclean", scale_list=(0, 8, 16), n_major=2)`` and
+      ``fista_imager(n_iter=10)``, which must launch K1/K2 and nothing
+      else, against the same calls on the plain path on the card; small
+      point-source msclean and FISTA solves against the CPU port; and a
+      ``checkpoint_path`` resume (two cycles, then three) against three
+      uninterrupted cycles;
 5. times: grid, degrid and one major-cycle iteration of the packed path
-   and the fallback at the bench scenario, the task drivers' calls of
+   (and one msclean and one FISTA iteration beside the Hogbom one) and
+   the fallback at the bench scenario, the task drivers' calls of
    4c, streaming ingest and predict beside their plain paths, the
    non-packable ingest and predict beside the packable ones with their
    stages, and the fast (bf16) ones beside the f32 ones, the fused and
@@ -108,7 +129,9 @@ evaluation) over its 67 TFLOP/s outside the tensor cores; the fold
 counts only the visited windows it must read. One kernel replaces both
 TPU folds (K9, K10): it has a row for each; the bf16 modes of K6, K7, K8
 and K11 have rows of their own (``[bf16]``, window k's operands), bytes
-counted for the bf16 ``vk``. ``library_ms`` is null: no single PyTorch
+counted for the bf16 ``vk``; so do K20 and the bf16 modes of K14-K17
+(window m's and n's operands, which the bf16 modes read as f32 and
+round in registers). ``library_ms`` is null: no single PyTorch
 call computes any of these functions. The last line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero and prints no result. It
@@ -125,6 +148,7 @@ import time
 import numpy as np
 
 C_0 = 299792458.0
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # bench.py's seeded main-path scenario.
 IMAGE, SUBGRID = 512, 128
 THETA, W_STEP, HEIGHT = 0.002, 100.0, 4.0
@@ -135,6 +159,12 @@ TOWER_SUBGRID = 64
 # every visibility through every sub-grid) take the first REF_ROWS bench
 # rows; the sub-grid gridder uses its own scenario (below).
 REF_ROWS = 256
+# Window c's one-cycle task-driver solve (a PSF grid on the 2N plan, a
+# degrid and a grid, each O(tasks x V) through the host-bound task loop,
+# on the kernel and the plain path) takes the first SOLVE_ROWS bench rows:
+# a cut of depth made when window o was added (about 100 s at all 16384
+# rows; the grid and degrid of window c keep every row).
+SOLVE_ROWS = 4096
 # The small test scenario (tests/_torch_scenario.py).
 SMALL = dict(image=256, rows=150, chans=2, w_step=50.0, seed=5)
 MODES = {"highest": dict(precision="highest"),
@@ -211,6 +241,24 @@ WORD_KERNELS = (
     ("grid_fused", "ska_sdp_func_tpu/kernels/fused_tap.py:328"),
     ("degrid_fused2", "ska_sdp_func_tpu/kernels/fused_tap.py:814"),
 )
+# Window m: the sparse all-layer grid (K20), on the fallback's largest task.
+SPARSE_SOURCE = TOWER_SOURCE
+SPARSE_REPLACES = "ska_sdp_func_tpu/kernels/sparse_tap.py:80"
+# Window n: the bf16 mode of K14-K17 against the f32 kernels, within JAX's
+# stated envelope of the single-pass bf16 dot (wtower.py:685). The
+# sub-grid gridder's outputs are held at CHAIN_TOL instead: its tap sums
+# cancel (a point's phase turns across the 8 x 8 support; the w layers
+# sum with the w-pattern ladder), so the kernels' per-term rounding
+# (each call held exactly to its bound, 2^-7 of the sum of |terms|) reads
+# as 2.1e-2 of the predicted visibilities and 3.8e-2 of the raw sub-grid
+# image on the CPU port's test scenario (tests/test_torch_tower_fast.py).
+TOWER_FAST_TOL = 4e-3
+CHAIN_TOL = 5e-2
+FAST_MXU = "SKA_SDP_FUNC_TPU_FAST_MXU"
+# Window o: the solvers at the bench scenario.
+MS_SCALES = (0, 8, 16)
+FISTA_ITERS = 10
+SOLVE_TOL = 1e-4     # of max|model|; FISTA's residual norms, of the first
 # The H100 SXM's published peaks (NVIDIA H100 datasheet): HBM bytes/s
 # and f32 operations/s outside the tensor cores.
 HBM_BYTES_S = 3.35e12
@@ -264,6 +312,19 @@ def bench_inputs():
     vis = (rng.standard_normal((ROWS, CHANS))
            + 1j * rng.standard_normal((ROWS, CHANS))).astype(np.complex64)
     return uvw, vis
+
+
+def bench_sky(torch, dev, size=IMAGE):
+    """Window o's sky on a ``size``^2 image (the bench image's by
+    default): three points and a Gaussian source (sigma 4 px), inside the
+    CLEAN window."""
+    x = np.arange(size) - size // 2
+    sky = 0.4 * np.exp(-((x[:, None] + 60 * size // IMAGE) ** 2
+                         + (x[None, :] - 40 * size // IMAGE) ** 2) / 32.0)
+    for (px, py), flux in (((300, 200), 1.0), ((180, 330), 0.7),
+                           ((260, 120), 0.5)):
+        sky[px * size // IMAGE, py * size // IMAGE] += flux
+    return torch.as_tensor(sky, dtype=torch.float32, device=dev)
 
 
 def subgrid_inputs():
@@ -1095,6 +1156,274 @@ def compact_phase(torch, tkern, PackedGridder, pplan, dev, vre, vim, model,
     return dict(gridders=comp, launches=launches, errs=errs, ops=ops)
 
 
+def sparse_operands(torch, dev, plan, uvw_dev, bplan, sort_index, valid,
+                    dense_ops):
+    """Window m's operands: the fallback's largest task in the sparse form
+    the bucketed driver makes before ``_slab_weights`` densifies it
+    (``bucketed._stream_sparse_taps``: first layer ``j``, w taps ``wk``,
+    ``keep``), ``wk`` zeroed where not kept; the visibilities of
+    ``dense_ops`` (the same task's K16 operands). Returns (K20 arguments,
+    the dense weights ``_slab_weights`` makes of them, valid slots)."""
+    from ska_sdp_func_torch.grid_data.wtower import _slab_weights
+    from ska_sdp_func_torch.parallel import bucketed as bk
+
+    uvw_s, chan_idx, _, vld = bk._sorted_inputs(bplan, uvw_dev, sort_index,
+                                                valid)
+    iu0, iv0, uk, vk, j, wk, keep = bk._stream_sparse_taps(
+        bplan, bk._device_constants(bplan, dev)["terms"], uvw_s, chan_idx,
+        vld, plan.freq0_hz, plan.dfreq_hz)
+    task = max(bplan.tasks, key=lambda t: t.size)
+    sl = slice(task.start, task.start + task.size)
+    wk = torch.where(keep[:, None], wk, 0.0)[sl].contiguous()
+    vre, vim = dense_ops[0][:2]
+    args = (vre, vim, iu0[sl], iv0[sl], j[sl].contiguous(), uk[sl],
+            vk[sl], wk, task.num_layers, plan.subgrid_size, plan.support,
+            plan.w_support)
+    weights = _slab_weights(wk, j[sl], keep[sl], task.num_layers)
+    return args, weights, int(keep[sl].sum())
+
+
+def check_sparse_kernel(torch, ts, tt, args, weights):
+    """K20 against its plain version in both modes, and against K16 fed
+    ``_slab_weights`` of the same taps; returns the absolute errors."""
+    errs, lines = {}, []
+    for fast in (False, True):
+        got = ts.grid_all_layers_sparse(*args, fast=fast)
+        want = ts.grid_all_layers_sparse_reference(*args, fast=fast)
+        torch.cuda.synchronize()
+        finite(torch, [("grid_all_layers_sparse", got)])
+        e = rel_err(got, want)
+        tag = "[bf16]" if fast else ""
+        lines.append(f"grid_all_layers_sparse{tag} {e:.3e}")
+        if not e <= TOL:
+            raise SystemExit(f"grid_all_layers_sparse{tag} disagrees with "
+                             f"its plain version: {e:.3e}")
+        errs[tag] = float((got - want).abs().max())
+        if not fast:
+            vre, vim, iu0, iv0, _, uk, vk, _, k, n, support, _ = args
+            e_dense = rel_err(got, tt.grid_all_layers(
+                vre, vim, iu0, iv0, uk, vk, weights, k, n, support))
+            torch.cuda.synchronize()
+        del got, want
+    say(f"# sparse all-layer grid (K20) vs plain (the fallback's largest "
+        f"task, {args[0].shape[0]} slots x {args[8]} layers): "
+        + ", ".join(lines) + f"; vs K16 on _slab_weights of the same taps "
+        f"{e_dense:.3e} (tolerance {TOL:g})")
+    if not e_dense <= TOL:
+        raise SystemExit("K20 disagrees with K16 on the same taps")
+    return errs
+
+
+def check_tower_fast(torch, tt, ops):
+    """K14-K17 with ``fast=True`` against their bf16 plain versions (at
+    TOL) and their f32 kernels (within TOWER_FAST_TOL, not equal);
+    returns the absolute errors against the bf16 plain versions."""
+    errs, lines = {}, []
+    for name, _ in TOWER_KERNELS:
+        args, kw = ops[name]
+        kern = getattr(tt, name)
+        got = kern(*args, **kw, fast=True)
+        want = getattr(tt, name + "_reference")(*args, **kw, fast=True)
+        f32 = kern(*args, **kw)
+        torch.cuda.synchronize()
+        if name == "grid_plane":
+            got, want, f32 = got - args[0], want - args[0], f32 - args[0]
+        e, e32 = rel_err(got, want), rel_err(got, f32)
+        lines.append(f"{name}[bf16] vs plain {e:.3e}, vs f32 {e32:.3e}")
+        if not (e <= TOL and 0 < e32 <= TOWER_FAST_TOL):
+            raise SystemExit(f"{name}[bf16] disagrees: plain {e:.3e}, f32 "
+                             f"{e32:.3e}")
+        errs[name] = float((got - want).abs().max())
+        del got, want, f32
+    say("# w-towers kernels, bf16 mode: " + "; ".join(lines)
+        + f" (tolerances {TOL:g} and {TOWER_FAST_TOL:g})")
+    return errs
+
+
+@contextlib.contextmanager
+def recorded(owner, attr, names, record):
+    """``owner.attr``, the kernel module a path calls its wrappers
+    through, is replaced by a proxy whose named wrappers record each
+    call's (name, arguments, keywords) into ``record`` and then launch
+    as usual (the wrappers themselves, and their counters, untouched)."""
+    module = getattr(owner, attr)
+
+    class Proxy:
+        def __getattr__(self, name):
+            fn = getattr(module, name)
+            if name not in names:
+                return fn
+
+            def call(*args, **kw):
+                record.append((name, args, kw))
+                return fn(*args, **kw)
+            return call
+
+    setattr(owner, attr, Proxy())
+    try:
+        yield record
+    finally:
+        setattr(owner, attr, module)
+
+
+def bf16_bound_ok(torch, tt, name, args, got):
+    """An all-layer call's bf16 result against its f32 twin, per output:
+    within 2^-7 (1 + 2^-9) of the sum of |terms| (each term's two rounded
+    operands, u = 2^-8), plus 1e-6 of max|f32| for the sum order."""
+    ref = getattr(tt, name + "_reference")
+    f32 = getattr(tt, name)(*args)
+    if name == "grid_all_layers":
+        vre, vim, iu0, iv0, uk, vk, w = args[:7]
+        bound = ref(vre.abs(), vim.abs(), iu0, iv0, uk.abs(), vk.abs(),
+                    w.abs(), *args[7:])
+    else:
+        layers, iu0, iv0, uk, vk, w = args[:6]
+        bound = ref(torch.complex(layers.real.abs(), layers.imag.abs()),
+                    iu0, iv0, uk.abs(), vk.abs(), w.abs(), *args[6:])
+    ok = True
+    for part in (torch.real, torch.imag):
+        err = (part(got) - part(f32)).abs()
+        ok = ok and not bool((err > 2 ** -7 * (1 + 2 ** -9) * part(bound)
+                              + 1e-6 * part(f32).abs().max()).any())
+    return ok
+
+
+def fast_subgrid_phase(torch, tkern, tt, bk, wtower, subgrid_pair, dev,
+                       ax, atv, idle):
+    """4n, second part: window d's sub-grid gridder with the JAX
+    package's switch set (restored after). Its fused drivers must call
+    K16/K17 in bf16 mode, each call within the bf16 bound of its f32 twin;
+    the outputs against the plain path on the card and against window d's
+    f32 results ``ax``/``atv``. Returns the window's launches."""
+    calls = []
+    saved_env = os.environ.get(FAST_MXU)
+    os.environ[FAST_MXU] = "1"
+    try:
+        with launch_window(torch, tkern, f"sub-grid gridder, {FAST_MXU}=1",
+                           ("grid_all_layers", "degrid_all_layers"), idle
+                           ) as launches, \
+                recorded(wtower, "tower_tap",
+                         ("grid_all_layers", "degrid_all_layers"), calls):
+            fax, fatv, _, _ = subgrid_pair(dev)
+        with plain_tower_kernels(bk, tt):
+            pax, patv, _, _ = subgrid_pair(dev)
+    finally:
+        if saved_env is None:
+            os.environ.pop(FAST_MXU)
+        else:
+            os.environ[FAST_MXU] = saved_env
+    modes = sorted({(n, kw.get("fast")) for n, _, kw in calls})
+    bound_ok = all(bf16_bound_ok(torch, tt, n, args,
+                                 getattr(tt, n)(*args, fast=True))
+                   for n, args, _ in calls)
+    e_fplain = max(rel_err(fax, pax), rel_err(fatv, patv))
+    e_fvis, e_fimg = rel_err(fax, ax), rel_err(fatv, atv)
+    say(f"# sub-grid gridder with {FAST_MXU}=1: wrapper calls {modes}; "
+        f"each call within the bf16 bound of its f32 twin: {bound_ok}; "
+        f"kernel vs plain path rel err {e_fplain:.3e} (tolerance 1e-4); vs "
+        f"window d's f32: visibilities {e_fvis:.3e}, sub-grid image "
+        f"{e_fimg:.3e} (tolerance {CHAIN_TOL:g}; the kernels' envelope is "
+        f"{TOWER_FAST_TOL:g})")
+    if not (modes == [("degrid_all_layers", True), ("grid_all_layers", True)]
+            and bound_ok and e_fplain <= 1e-4
+            and 0 < e_fvis <= CHAIN_TOL and 0 < e_fimg <= CHAIN_TOL):
+        raise SystemExit("the sub-grid gridder's bf16 mode disagrees")
+    return launches
+
+
+def solver_phase(torch, tkern, tk, dev, plan, uvw, g, small):
+    """4o: ``major_cycle_imager(clean_algorithm="msclean")`` and
+    ``fista_imager`` on ``plan``/``uvw`` with visibilities of
+    :func:`bench_sky` predicted by the packed gridder ``g``, launching
+    K1/K2 and nothing else, against the same calls on the plain path;
+    then ``small`` = (plan, visibilities, uvw, source pixel) solved on
+    the card against the CPU port, and a ``checkpoint_path`` resume.
+    Returns the window's launches."""
+    from ska_sdp_func_torch.parallel import packed as tpacked
+    from ska_sdp_func_torch.pipeline import fista_imager, major_cycle_imager
+
+    n = plan.image_size
+    vis = g.degrid(bench_sky(torch, dev, n))
+    kernels = ["grid_packed_stack", "degrid_stack"]
+    ms_kw = dict(bucketed=True, clean_algorithm="msclean",
+                 scale_list=MS_SCALES, device=dev)
+
+    def solves():
+        return (major_cycle_imager(plan, vis, uvw, n_major=2, **ms_kw),
+                fista_imager(plan, vis, uvw, n_iter=FISTA_ITERS,
+                             device=dev))
+
+    with launch_window(torch, tkern, "solvers (msclean, FISTA)", kernels,
+                       [k for k in tkern.launch_counts()
+                        if k not in kernels]) as launches:
+        (ms_res, fi_res), seconds = timed(torch, solves)
+    with plain_kernels([(tpacked, k, tk) for k in kernels]):
+        ms_plain, fi_plain = solves()
+    finite(torch, (("msclean model", ms_res.model),
+                   ("msclean restored", ms_res.restored),
+                   ("FISTA model", fi_res.model)))
+    if tuple(ms_res.model.shape) != (n, n) or \
+            tuple(fi_res.model.shape) != (n, n):
+        raise SystemExit("solver outputs have the wrong shape")
+    e_ms = rel_err(ms_res.model, ms_plain.model)
+    e_fi = rel_err(fi_res.model, fi_plain.model)
+    # FISTA's residual norms |V - A y| against the data norm (the first
+    # entry): the error of the difference scales with V, not with the
+    # shrinking norm.
+    e_fh = max(abs(a - b) for a, b in zip(fi_res.residual_norm,
+                                          fi_plain.residual_norm)
+               ) / fi_plain.residual_norm[0]
+    ms_hist, fi_hist = ms_res.peak_history, fi_res.residual_norm
+    say(f"# solvers ({vis.numel()} visibilities, {n}^2, {seconds:.2f} s "
+        f"both): msclean scales {MS_SCALES}, 2 major cycles, peaks "
+        f"{ms_hist}; FISTA {FISTA_ITERS} iterations, residual norms "
+        f"{fi_hist[0]:.6g} -> {fi_hist[-1]:.6g}; kernel vs plain path: "
+        f"msclean model rel err {e_ms:.3e}, FISTA model {e_fi:.3e}, FISTA "
+        f"residual norms {e_fh:.3e} of the first (tolerance {SOLVE_TOL:g})")
+    if not (max(e_ms, e_fi, e_fh) <= SOLVE_TOL
+            and ms_hist[-1] < ms_hist[0] and fi_hist[-1] < fi_hist[0]):
+        raise SystemExit("the solvers disagree with their plain path")
+    del ms_plain, fi_plain
+    # Small point-source solves: card vs CPU port.
+    plan_s, vis_s, uvw_s, src = small
+    small_kw = dict(bucketed=True, clean_algorithm="msclean",
+                    scale_list=(0, 4, 8))
+    ms_card = major_cycle_imager(plan_s, vis_s, uvw_s, device=dev,
+                                 **small_kw)
+    ms_cpu = major_cycle_imager(plan_s, vis_s, uvw_s, device="cpu",
+                                **small_kw)
+    fi_card = fista_imager(plan_s, vis_s, uvw_s, n_iter=5, device=dev)
+    fi_cpu = fista_imager(plan_s, vis_s, uvw_s, n_iter=5, device="cpu")
+    e_sms = rel_err(ms_card.model.cpu(), ms_cpu.model)
+    e_sfi = rel_err(fi_card.model.cpu(), fi_cpu.model)
+    say(f"# small point-source solves, card vs CPU: msclean model rel err "
+        f"{e_sms:.3e}, FISTA model rel err {e_sfi:.3e} (tolerance "
+        f"{SOLVE_TOL:g}); msclean flux at the source "
+        f"{float(ms_card.model[src]):.4f}")
+    if not (e_sms <= SOLVE_TOL and e_sfi <= SOLVE_TOL):
+        raise SystemExit("the small solves disagree with the CPU port")
+    # Checkpointing on the card: two cycles, then a resume to three,
+    # against three uninterrupted cycles.
+    path = os.path.join(ROOT, "build", "chip_smoke", "solve.npz")
+    if os.path.exists(path):
+        os.remove(path)
+    full = major_cycle_imager(plan, vis, uvw, n_major=3, **ms_kw)
+    major_cycle_imager(plan, vis, uvw, n_major=2, checkpoint_path=path,
+                       **ms_kw)
+    resumed = major_cycle_imager(plan, vis, uvw, n_major=3,
+                                 checkpoint_path=path, **ms_kw)
+    os.remove(path)
+    e_ck = rel_err(resumed.model, full.model)
+    say(f"# checkpoint_path (msclean, {n}^2): 2 cycles + resume to 3 vs 3 "
+        f"uninterrupted: model rel err {e_ck:.3e} (tolerance "
+        f"{SOLVE_TOL:g}: f32 atomics reorder the grid sums from run to "
+        f"run), peaks {resumed.peak_history} vs {full.peak_history}")
+    if not (e_ck <= SOLVE_TOL
+            and len(resumed.peak_history) == len(full.peak_history)):
+        raise SystemExit("the resumed solve disagrees")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1109,6 +1438,7 @@ def main() -> int:
         wstack_wtower_degrid_all,
         wstack_wtower_grid_all,
     )
+    from ska_sdp_func_torch.grid_data import wtower
     from ska_sdp_func_torch.kernels import _build, fused_tap, place
     from ska_sdp_func_torch.kernels import packed_tap as tk
     from ska_sdp_func_torch.kernels import tower_tap as tt
@@ -1129,6 +1459,8 @@ def main() -> int:
         stream_tasks,
     )
     from ska_sdp_func_torch.parallel import bucketed as bk
+    from ska_sdp_func_torch.kernels import sparse_tap as ts
+    from ska_sdp_func_torch.pipeline import fista as fi
     from ska_sdp_func_torch.pipeline import major_cycle as mc
     from ska_sdp_func_torch.pipeline import major_cycle_imager
 
@@ -1371,13 +1703,18 @@ def main() -> int:
     st = torch.zeros((ROWS,), dtype=torch.int32, device=dev)
     en = torch.full((ROWS,), CHANS, dtype=torch.int32, device=dev)
 
+    solve_plan = plan_wstack(uvw[:SOLVE_ROWS], C_0, C_0 / (100 * CHANS),
+                             CHANS, IMAGE, TOWER_SUBGRID, THETA, W_STEP,
+                             support=8, w_support=4, w_tower_height=HEIGHT)
+
     def task_drivers():
         d_img, s_grid = timed(torch, lambda: grid_all_tasks(
             tplan, tplan.kernel(), vis_dev, uvw_dev, st, en).real)
         d_pred, s_degrid = timed(torch, lambda: degrid_all_tasks(
             tplan, tplan.kernel(), model, uvw_dev, st, en, torch.complex64))
         d_res, s_solve = timed(torch, lambda: major_cycle_imager(
-            tplan, t_pred, uvw, n_major=1, device=dev))
+            solve_plan, t_pred[:SOLVE_ROWS], uvw[:SOLVE_ROWS], n_major=1,
+            device=dev))
         return d_img, d_pred, d_res, (s_grid, s_degrid, s_solve)
 
     with launch_window(torch, tkern, "task drivers",
@@ -1400,7 +1737,8 @@ def main() -> int:
     say(f"# task drivers ({len(tplan.tasks)} tasks, "
         f"{sum(t.num_planes for t in tplan.tasks)} planes), kernel vs plain "
         f"path: dirty image taper-weighted rel err {e_dimg:.3e}, degrid rel "
-        f"err {e_dpred:.3e}, one major cycle of the unit point (model, "
+        f"err {e_dpred:.3e}, one major cycle of the unit point on the "
+        f"first {SOLVE_ROWS} rows (model, "
         f"taper-weighted residual) rel err {e_dres:.3e} (tolerance "
         f"{TOL:g}), component flux {flux:.4f}; vs the bucketed fallback "
         f"{e_dfb:.3e} (tolerance 1e-4)")
@@ -1672,6 +2010,42 @@ def main() -> int:
         tkern.band_tap.degrid_fused2(*word_degrid, **word_kw, raw=True)
     word_err = check_word_kernels(torch, word_grid, word_degrid, word_kw)
 
+    # 4m. K20, the sparse all-layer grid, on the fallback's largest task,
+    # once in each mode ------------------------------------------------
+    sp_args, sp_weights, sparse_valid = sparse_operands(
+        torch, dev, tplan, uvw_dev, bplan, sort_index, valid,
+        ops["grid_all_layers"])
+    not_sparse = [n for n in tkern.launch_counts()
+                  if n != "grid_all_layers_sparse"]
+    m_launches = {}
+    for tag, fast in (("", False), ("[bf16]", True)):
+        with launch_window(torch, tkern, f"sparse all-layer grid{tag}",
+                           ["grid_all_layers_sparse"], not_sparse) as cnt:
+            ts.grid_all_layers_sparse(*sp_args, fast=fast)
+        m_launches[tag] = cnt["grid_all_layers_sparse"]
+    sparse_err = check_sparse_kernel(torch, ts, tt, sp_args, sp_weights)
+
+    # 4n. the bf16 mode of K14-K17: once each on the main paths' operands
+    # (window c's plane, the fallback's largest task), then the sub-grid
+    # gridder with the JAX package's switch set -------------------------
+    fast_names = [n for n, _ in TOWER_KERNELS]
+    with launch_window(torch, tkern, "w-towers kernels, bf16 mode",
+                       fast_names, [n for n in tkern.launch_counts()
+                                    if n not in fast_names]) as n_launches:
+        for name in fast_names:
+            args, kw = ops[name]
+            getattr(tt, name)(*args, **kw, fast=True)
+    fast_err = check_tower_fast(torch, tt, ops)
+    nd_launches = fast_subgrid_phase(
+        torch, tkern, tt, bk, wtower, subgrid_pair, dev, ax, atv,
+        ("grid_plane", "degrid_plane", *stream_names))
+
+    # 4o. the solvers at the bench scenario (K1, K2): the multi-scale
+    # major cycle and FISTA on the bench uvw, visibilities predicted from
+    # a sky of points and an extended source --------------------------
+    solver_phase(torch, tkern, tk, dev, plan, uvw, g,
+                 (plan_s, vis_pt, uvw_s, src))
+
     # 5. times -----------------------------------------------------------
     t_grid = cuda_ms(torch, lambda: g.grid_sorted(vre, vim), 10)
     t_degrid = cuda_ms(torch, lambda: g.degrid_sorted(model), 10)
@@ -1696,6 +2070,42 @@ def main() -> int:
         f"({t_grid:.3f} ms), degrid {num_vis / t_degrid / 1e3:.2f} Mvis/s "
         f"({t_degrid:.3f} ms), major cycle {1e3 / t_mc:.3f} iters/s "
         f"({t_mc:.3f} ms; minor cycle 50 components)")
+
+    # One msclean and one FISTA iteration beside it; turns: Hogbom,
+    # msclean, FISTA, FISTA, msclean, Hogbom.
+    ms_minor = mc._make_msclean_minor(psf, MS_SCALES, 0.1, 50)
+
+    def ms_step():
+        p = g.degrid_sorted(state["model"])
+        rre, rim = mc._packed_residual(vre, vim, p, None)
+        dirty = mc._norm_mask(g.grid_sorted(rre, rim), peak, border)
+        delta, _ = ms_minor(dirty, stop)
+        state["model"] = state["model"] + delta
+
+    fmask = mc._mask_border(torch.ones((IMAGE, IMAGE), device=dev),
+                            IMAGE // 8)
+    f32 = dict(dtype=torch.float32, device=dev)
+    fstate = dict(x=torch.zeros((IMAGE, IMAGE), **f32),
+                  y=torch.zeros((IMAGE, IMAGE), **f32),
+                  t=torch.tensor(1.0, **f32))
+    f_step, f_thresh = torch.tensor(1e-3, **f32), torch.tensor(1e-6, **f32)
+
+    def fista_step():
+        x, y, t, rre, rim = fi._fista_step(
+            g, lambda re, im: fmask * g.grid_sorted(re, im), vre, vim, None,
+            f_step, f_thresh, fstate["x"], fstate["y"], fstate["t"])
+        fstate.update(x=x, y=y, t=t)
+        float(fi._norm(rre, rim))
+
+    iters = []
+    for fn in (mc_step, ms_step, fista_step, fista_step, ms_step, mc_step):
+        state["model"] = torch.zeros((IMAGE, IMAGE), device=dev)
+        iters.append(cuda_ms(torch, fn, 5, warmup=1))
+    say(f"# [{gpu}] one solver iteration, bench scenario (degrid, "
+        f"residual, grid; CUDA events over 5): Hogbom (50 components) "
+        f"{iters[0]:.3f}/{iters[5]:.3f} ms, msclean scales {MS_SCALES} (50 "
+        f"components) {iters[1]:.3f}/{iters[4]:.3f} ms, FISTA "
+        f"{iters[2]:.3f}/{iters[3]:.3f} ms")
 
     tt_grid = cuda_ms(torch, lambda: grid_all_bucketed(
         bplan, vis_dev, uvw_dev, sort_index, valid), 3, warmup=1)
@@ -1724,7 +2134,8 @@ def main() -> int:
         f"cycle 50 components)")
     say(f"# [{gpu}] task drivers ({len(tplan.tasks)} tasks, one call each "
         f"at full width): grid {td_s[0]:.3f} s, degrid {td_s[1]:.3f} s, "
-        f"one-cycle solve (PSF grid, degrid, grid) {td_s[2]:.3f} s; plain "
+        f"one-cycle solve on {SOLVE_ROWS} rows (PSF grid, degrid, grid) "
+        f"{td_s[2]:.3f} s; plain "
         f"path {td_plain_s[0]:.3f} s, {td_plain_s[1]:.3f} s, "
         f"{td_plain_s[2]:.3f} s")
 
@@ -1884,12 +2295,23 @@ def main() -> int:
             name, kern, ref, args, dict(block_v=bv), tap_ops(valid_p, 8, 4)))
     for name, _ in TOWER_KERNELS:
         args, kw = ops[name]
-        # The plane kernels take one layer's w taps, the all-layer kernels
-        # one w tap per slot and layer.
-        w_taps = 4 if name.endswith("plane") else 1
+        # Each valid slot's S x S taps on its Sw layers (the plane kernels'
+        # stack, the all-layer kernels' window of the tower).
         say(f"# [{gpu}] {name} at main-path shapes: " + time_kernel(
             name, getattr(tt, name), getattr(tt, name + "_reference"), args,
-            kw, tap_ops(tower_valid[name], 8, w_taps), k_iters=20))
+            kw, tap_ops(tower_valid[name], 8, 4), k_iters=20))
+        # The bf16 mode reads the same f32 operands and rounds them in
+        # registers: the same bytes and operations.
+        say(f"# [{gpu}] {name} [bf16] at main-path shapes: " + time_kernel(
+            f"{name}[bf16]", getattr(tt, name),
+            getattr(tt, name + "_reference"), args, {**kw, "fast": True},
+            tap_ops(tower_valid[name], 8, 4), k_iters=20))
+    for tag, fast in (("", False), ("[bf16]", True)):
+        say(f"# [{gpu}] grid_all_layers_sparse{tag} on the fallback's "
+            f"largest task: " + time_kernel(
+                f"grid_all_layers_sparse{tag}", ts.grid_all_layers_sparse,
+                ts.grid_all_layers_sparse_reference, sp_args,
+                dict(fast=fast), tap_ops(sparse_valid, 8, 4), k_iters=20))
     stream_mods = {"fused_tap": fused_tap, "place": place}
     # The fused kernels' Chebyshev terms: the stream plan's uv tap fit.
     from ska_sdp_func_torch.grid_data.wtower import _tap_coeffs_cached
@@ -2026,7 +2448,17 @@ def main() -> int:
         for name, source, where in BF16_KERNELS
     ] + [
         row(name, BAND_SOURCE, where, w_launches[name], word_err[name])
-        for name, where in WORD_KERNELS]
+        for name, where in WORD_KERNELS
+    ] + [
+        row(f"grid_all_layers_sparse{tag}", SPARSE_SOURCE, SPARSE_REPLACES,
+            m_launches[tag], sparse_err[tag]) for tag in ("", "[bf16]")
+    ] + [
+        # K16/K17 reach the mode through the sub-grid gridder's switch
+        # (window n's second run); K14/K15 through their wrappers only.
+        row(f"{name}[bf16]", TOWER_SOURCE, where,
+            (n_launches if name.endswith("plane") else nd_launches)[name],
+            fast_err[name])
+        for name, where in TOWER_KERNELS]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,8 +18,9 @@ path, on one device):
 - :mod:`.grid_data` — the sub-grid gridder ``GridderWtowerUVW`` and the
   whole-image drivers ``wstack_wtower_{grid,degrid}_all``
 - :mod:`.pipeline` — ``major_cycle_imager`` (``bucketed=False`` and
-  ``True``)
-- :mod:`.clean` — Hogbom CLEAN
+  ``True``; Hogbom or multi-scale minor cycles), ``fista_imager``,
+  ``dirty_and_psf`` and solver checkpointing
+- :mod:`.clean` — Hogbom and multi-scale (Cornwell) CLEAN
 - :mod:`.fourier_transforms`, :mod:`.numeric_functions`,
   :mod:`.utility` — the helpers those paths use
 

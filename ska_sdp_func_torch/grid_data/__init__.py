@@ -8,6 +8,7 @@ from .clamp_channels import (
     clamp_channels_uv,
 )
 from .es_fft import GridderUvwEsFft
+from .es_params import calculate_params_from_epsilon
 from .grid_correct import (
     grid_correct_pswf,
     grid_correct_w_stack,
@@ -35,6 +36,7 @@ from .wtower import GridderWtowerUVW
 __all__ = [
     "GridderUvwEsFft",
     "GridderWtowerUVW",
+    "calculate_params_from_epsilon",
     "clamp_channels_inline",
     "clamp_channels_single",
     "clamp_channels_uv",

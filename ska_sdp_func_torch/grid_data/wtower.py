@@ -24,12 +24,19 @@ Two drivers per direction, chosen as the JAX package chooses them
   the dense banded products (:mod:`..kernels.dense_tap`) otherwise:
   complex128 anywhere, and every dtype on the CPU.
 
+The fused drivers read the JAX package's switch
+``SKA_SDP_FUNC_TPU_FAST_MXU`` at each call (wtower.py:684-687): when it
+is set, the all-layer kernels run in their bf16 mode (``fast=True``), so
+a pipeline that sets it gets the same mode in either package. The
+per-plane drivers never take that mode, as in the JAX package.
+
 All integer snapping follows the C (round half away from zero, floor
 division of non-negative values). The dtype of the visibilities sets
 the arithmetic. Each entry point takes ``device`` (``None``: the CUDA
 card; CPU runs pass ``device="cpu"``) and moves its inputs there.
 """
 
+import os
 from functools import lru_cache
 from typing import Optional, Tuple
 
@@ -654,6 +661,13 @@ def _slab_weights(wk: torch.Tensor, j: torch.Tensor, keep: torch.Tensor,
                                    device=wk.device)).contiguous()
 
 
+def _fast_mxu() -> bool:
+    """The bf16 mode of the all-layer kernels, opted into with the JAX
+    package's environment switch ``SKA_SDP_FUNC_TPU_FAST_MXU`` (any
+    non-empty value), read at call time."""
+    return bool(os.environ.get("SKA_SDP_FUNC_TPU_FAST_MXU"))
+
+
 def _grid_all_planes_fused(vis, w_pattern, uv_kernel, w_kernel, uvws,
                            start_chs, end_chs, subgrid_image, off_u, off_v,
                            off_w, first_w_plane: int, freq0_hz, dfreq_hz,
@@ -672,7 +686,7 @@ def _grid_all_planes_fused(vis, w_pattern, uv_kernel, w_kernel, uvws,
     vis_im = torch.where(mask_f, vis_f.imag, 0.0).to(torch.float32)
     acc = tower_tap.grid_all_layers(
         vis_re.contiguous(), vis_im.contiguous(), iu0, iv0, uk, vk, weights,
-        num_k, subgrid_size, support)                    # [K, N, N] c64
+        num_k, subgrid_size, support, fast=_fast_mxu())  # [K, N, N] c64
 
     # The w_img recurrence (reference :1029-1113) collapses to
     # sum_k ifft(acc_k) * w_pattern^(first + Sw//2 - Sw + k).
@@ -710,7 +724,8 @@ def _degrid_all_planes_fused(subgrid_image, w_pattern, uv_kernel, w_kernel,
     layers = fft_shifted(subgrid_image[None].to(vis.dtype)
                          * ladder.to(vis.dtype))
     vis_flat = tower_tap.degrid_all_layers(layers, iu0, iv0, uk, vk,
-                                           weights, support)
+                                           weights, support,
+                                           fast=_fast_mxu())
     contribution = torch.where(mask_f, vis_flat.to(vis.dtype),
                                torch.zeros((), dtype=vis.dtype,
                                            device=vis.device))

@@ -16,13 +16,15 @@ and :mod:`.fold` its window fold (``fold_groups_pallas`` with
 ``fold_layers_pallas``); :mod:`.place` the streaming plan's placement
 (``place_stream_pallas``); :mod:`.tower_tap` the w-towers tap
 kernels (the ports of ``grid_plane_pallas``, ``degrid_plane_pallas``,
-``grid_all_layers_pallas`` and ``degrid_all_layers_pallas``);
-:mod:`.dense_tap` the dense banded products of any dtype; :mod:`._build`
-compiles ``csrc/`` with nvcc at first use.
+``grid_all_layers_pallas`` and ``degrid_all_layers_pallas``, with
+their bf16 mode) and :mod:`.sparse_tap` their sparse all-layer twin
+(``grid_all_layers_sparse``); :mod:`.dense_tap` the dense banded
+products of any dtype; :mod:`._build` compiles ``csrc/`` with nvcc at
+first use.
 """
 
-from . import band_tap, fold, fused_tap, packed_tap, place, stream_prep, \
-    tower_tap
+from . import band_tap, fold, fused_tap, packed_tap, place, sparse_tap, \
+    stream_prep, tower_tap
 from .packed_tap import (
     build_bands,
     degrid_stack,
@@ -32,8 +34,8 @@ from .packed_tap import (
     split_bf16,
 )
 
-_COUNTED = (packed_tap, fused_tap, place, tower_tap, band_tap, stream_prep,
-            fold)
+_COUNTED = (packed_tap, fused_tap, place, tower_tap, sparse_tap, band_tap,
+            stream_prep, fold)
 
 
 def launch_counts() -> dict:
@@ -62,6 +64,7 @@ __all__ = [
     "packed_tap",
     "place",
     "reset_launch_counts",
+    "sparse_tap",
     "split_bf16",
     "stream_prep",
     "tower_tap",

@@ -115,10 +115,13 @@ def load() -> ctypes.CDLL:
                     p, p, p, p, i, p, p, p, i, p, i64, i, i, i, i, p, p]
                 lib.sdp_torch_degrid_stack.restype = i
                 lib.sdp_torch_tower_grid.argtypes = [
-                    p, p, p, p, p, p, p, i64, i, i, i, i, p, p]
+                    p, p, p, p, p, p, p, i64, i, i, i, i, i, p, p]
                 lib.sdp_torch_tower_grid.restype = i
+                lib.sdp_torch_tower_grid_sparse.argtypes = (
+                    [p] * 8 + [i64] + [i] * 6 + [p, p])
+                lib.sdp_torch_tower_grid_sparse.restype = i
                 lib.sdp_torch_tower_degrid.argtypes = [
-                    p, p, p, p, p, p, i64, i, i, i, p, p]
+                    p, p, p, p, p, p, i64, i, i, i, i, p, p]
                 lib.sdp_torch_tower_degrid.restype = i
                 f, pp = ctypes.c_float, ctypes.POINTER(ctypes.c_void_p)
                 lib.sdp_torch_fused_grid_stack.argtypes = (

@@ -22,6 +22,15 @@ is f32 throughout, the Pallas kernels' ``Precision.HIGHEST``; only the
 order of the sums differs (and, for the grid kernel's atomics, varies
 from run to run).
 
+``fast=True`` is the bf16 mode, the Pallas kernels' ``fast`` (one bf16
+pass per dot, ``Precision.DEFAULT``): exactly the operands of their dots
+are rounded to bf16, and products and sums stay f32. Grid: each term is
+``bf16(uk[a] * s) * bf16(vk[b])`` with ``s = weight * vis`` and ``uk[a] *
+s`` rounded once in f32 first; degrid: ``(bf16(uk[a]) * bf16(cell)) *
+vk[b]``, weighted by the f32 ``weight`` (``vk`` and the weights are not
+rounded). The plain versions round the same operands with
+``torch.bfloat16``.
+
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs its plain PyTorch version (``*_reference``). Each counts
 its own kernel launches in ``.launches``. ``block_v`` is the number of
@@ -85,13 +94,20 @@ def _check_taps(iu0, iv0, uk, vk, weights):
 
 
 def _launch_grid(vis_re, vis_im, iu0, iv0, uk, vk, weights, size: int,
-                 block_v: int) -> torch.Tensor:
+                 block_v: int, fast: bool = False, k0=None,
+                 num_layers: int = None) -> torch.Tensor:
     """``tower_grid_kernel`` -> f32 ``[2K, size, size]`` (re layers,
-    then im layers)."""
+    then im layers). Dense: ``weights`` [V, K]; sparse (``k0`` given):
+    ``weights`` is ``wk`` [V, Sw] and ``num_layers`` is K."""
     from . import _build
 
     _check_taps(iu0, iv0, uk, vk, weights)
-    total, num_layers = weights.shape
+    total, w_cols = weights.shape
+    if k0 is None:
+        num_layers = w_cols
+    elif k0.dtype != torch.int32 or tuple(k0.shape) != (total,) \
+            or not k0.is_contiguous():
+        raise SdpInvalidArgumentError(f"k0 must be contiguous int32 [{total}]")
     for name, t in (("vis_re", vis_re), ("vis_im", vis_im)):
         if t.dtype != torch.float32 or tuple(t.shape) != (total,) \
                 or not t.is_contiguous():
@@ -105,16 +121,24 @@ def _launch_grid(vis_re, vis_im, iu0, iv0, uk, vk, weights, size: int,
                       device=uk.device)
     with torch.cuda.device(uk.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sdp_torch_tower_grid(
-            vis_re.data_ptr(), vis_im.data_ptr(), iu0.data_ptr(),
-            iv0.data_ptr(), uk.data_ptr(), vk.data_ptr(),
-            weights.data_ptr(), total, uk.shape[1], num_layers, size,
-            block_v, out.data_ptr(), stream)
+        if k0 is None:
+            err = lib.sdp_torch_tower_grid(
+                vis_re.data_ptr(), vis_im.data_ptr(), iu0.data_ptr(),
+                iv0.data_ptr(), uk.data_ptr(), vk.data_ptr(),
+                weights.data_ptr(), total, uk.shape[1], num_layers, size,
+                block_v, int(fast), out.data_ptr(), stream)
+        else:
+            err = lib.sdp_torch_tower_grid_sparse(
+                vis_re.data_ptr(), vis_im.data_ptr(), iu0.data_ptr(),
+                iv0.data_ptr(), k0.data_ptr(), uk.data_ptr(), vk.data_ptr(),
+                weights.data_ptr(), total, uk.shape[1], w_cols, num_layers,
+                size, block_v, int(fast), out.data_ptr(), stream)
     _build.check(lib, err, "tower_grid_kernel")
     return out
 
 
-def _launch_degrid(planes, iu0, iv0, uk, vk, weights) -> torch.Tensor:
+def _launch_degrid(planes, iu0, iv0, uk, vk, weights,
+                   fast: bool = False) -> torch.Tensor:
     """``tower_degrid_kernel`` on f32 ``[2K, N, N]`` planes -> f32
     ``[2, V]`` (re, im)."""
     from . import _build
@@ -134,8 +158,8 @@ def _launch_degrid(planes, iu0, iv0, uk, vk, weights) -> torch.Tensor:
         err = lib.sdp_torch_tower_degrid(
             planes.data_ptr(), iu0.data_ptr(), iv0.data_ptr(),
             uk.data_ptr(), vk.data_ptr(), weights.data_ptr(), total,
-            uk.shape[1], num_layers, planes.shape[-1], out.data_ptr(),
-            stream)
+            uk.shape[1], num_layers, planes.shape[-1], int(fast),
+            out.data_ptr(), stream)
     _build.check(lib, err, "tower_degrid_kernel")
     return out
 
@@ -150,11 +174,26 @@ def _split_planes(layers: torch.Tensor) -> torch.Tensor:
 # Per-plane entry points (K14, K15)
 # ---------------------------------------------------------------------------
 
+def _masked_vis(vis, mask):
+    """One plane's visibilities as f32 (re, im) [V], zero where masked."""
+    vis_f = vis.reshape(-1)
+    return (torch.where(mask, vis_f.real, 0.0).to(torch.float32).contiguous(),
+            torch.where(mask, vis_f.imag, 0.0).to(torch.float32).contiguous())
+
+
 def grid_plane_reference(subgrids, vis, uv_kernel, w_kernel, geom,
-                         support: int, w_support: int,
-                         block_v: int = 2048) -> torch.Tensor:
+                         support: int, w_support: int, block_v: int = 2048,
+                         fast: bool = False) -> torch.Tensor:
     """Plain version of :func:`grid_plane`: the dense banded products
-    on f32 tables and complex64 visibilities."""
+    on f32 tables and complex64 visibilities; with ``fast``, the bf16
+    plain version of :func:`grid_all_layers` on the plane's flat taps (the
+    kernel's own operands)."""
+    if fast:
+        mask, iu0, iv0, uk, vk, wk = _plane_taps(uv_kernel, w_kernel, geom)
+        out = grid_all_layers_reference(
+            *_masked_vis(vis, mask), iu0, iv0, uk, vk, wk, w_support,
+            subgrids.shape[-1], support, block_v, fast=True)
+        return subgrids + out.to(subgrids.dtype)
     with _full_f32_matmul():
         out = grid_plane_dense(
             torch.zeros_like(subgrids, dtype=torch.complex64),
@@ -164,19 +203,18 @@ def grid_plane_reference(subgrids, vis, uv_kernel, w_kernel, geom,
 
 
 def grid_plane(subgrids, vis, uv_kernel, w_kernel, geom, support: int,
-               w_support: int, block_v: int = 2048) -> torch.Tensor:
+               w_support: int, block_v: int = 2048,
+               fast: bool = False) -> torch.Tensor:
     """Grid one w-plane's [R, C] visibilities into the ``[Sw, N, N]``
-    tower stack (f32 compute); returns ``subgrids + contribution``."""
+    tower stack (f32 compute, or the bf16 mode with ``fast``); returns
+    ``subgrids + contribution``."""
     dev = _device(subgrids, vis, uv_kernel, w_kernel, *geom)
     if dev.type == "cpu":
         return grid_plane_reference(subgrids, vis, uv_kernel, w_kernel,
-                                    geom, support, w_support, block_v)
+                                    geom, support, w_support, block_v, fast)
     mask, iu0, iv0, uk, vk, wk = _plane_taps(uv_kernel, w_kernel, geom)
-    vis_f = vis.reshape(-1)
-    vis_re = torch.where(mask, vis_f.real, 0.0).to(torch.float32)
-    vis_im = torch.where(mask, vis_f.imag, 0.0).to(torch.float32)
-    out = _launch_grid(vis_re.contiguous(), vis_im.contiguous(), iu0, iv0,
-                       uk, vk, wk, subgrids.shape[-1], block_v)
+    out = _launch_grid(*_masked_vis(vis, mask), iu0, iv0, uk, vk, wk,
+                       subgrids.shape[-1], block_v, fast)
     grid_plane.launches += 1
     contrib = torch.complex(out[:w_support], out[w_support:])
     return subgrids + contrib.to(subgrids.dtype)
@@ -186,10 +224,18 @@ grid_plane.launches = 0
 
 
 def degrid_plane_reference(subgrids, uv_kernel, w_kernel, geom,
-                           support: int, w_support: int,
-                           block_v: int = 1024) -> torch.Tensor:
+                           support: int, w_support: int, block_v: int = 1024,
+                           fast: bool = False) -> torch.Tensor:
     """Plain version of :func:`degrid_plane`: the dense banded products
-    on f32 tables and a complex64 stack."""
+    on f32 tables and a complex64 stack; with ``fast``, the bf16 plain
+    version of :func:`degrid_all_layers` on the plane's flat taps."""
+    if fast:
+        mask, iu0, iv0, uk, vk, wk = _plane_taps(uv_kernel, w_kernel, geom)
+        vis = degrid_all_layers_reference(subgrids, iu0, iv0, uk, vk, wk,
+                                          support, block_v, fast=True)
+        vis = torch.where(mask, vis, torch.zeros((), dtype=vis.dtype,
+                                                 device=vis.device))
+        return vis.to(subgrids.dtype).reshape(geom[0].shape)
     with _full_f32_matmul():
         vis = degrid_plane_dense(
             subgrids.to(torch.complex64), uv_kernel.to(torch.float32),
@@ -198,15 +244,18 @@ def degrid_plane_reference(subgrids, uv_kernel, w_kernel, geom,
 
 
 def degrid_plane(subgrids, uv_kernel, w_kernel, geom, support: int,
-                 w_support: int, block_v: int = 1024) -> torch.Tensor:
+                 w_support: int, block_v: int = 1024,
+                 fast: bool = False) -> torch.Tensor:
     """Degrid one w-plane's [R, C] visibilities from the ``[Sw, N, N]``
-    tower stack (f32 compute); masked entries are zero."""
+    tower stack (f32 compute, or the bf16 mode with ``fast``); masked
+    entries are zero."""
     dev = _device(subgrids, uv_kernel, w_kernel, *geom)
     if dev.type == "cpu":
         return degrid_plane_reference(subgrids, uv_kernel, w_kernel, geom,
-                                      support, w_support, block_v)
+                                      support, w_support, block_v, fast)
     mask, iu0, iv0, uk, vk, wk = _plane_taps(uv_kernel, w_kernel, geom)
-    out = _launch_degrid(_split_planes(subgrids), iu0, iv0, uk, vk, wk)
+    out = _launch_degrid(_split_planes(subgrids), iu0, iv0, uk, vk, wk,
+                         fast)
     degrid_plane.launches += 1
     vis = torch.complex(out[0], out[1]).to(subgrids.dtype)
     vis = torch.where(mask, vis, torch.zeros((), dtype=vis.dtype,
@@ -221,13 +270,22 @@ degrid_plane.launches = 0
 # All-layer entry points (K16, K17)
 # ---------------------------------------------------------------------------
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (nearest even), back in f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
 def grid_all_layers_reference(vis_re, vis_im, iu0, iv0, uk, vk, weights,
                               num_layers: int, size: int, support: int,
-                              block_v: int = 1024) -> torch.Tensor:
+                              block_v: int = 1024,
+                              fast: bool = False) -> torch.Tensor:
     """Plain version of :func:`grid_all_layers`: per layer and half,
-    ``(A_u * scale)^T @ A_v`` on f32 bands."""
+    ``(A_u * scale)^T @ A_v`` on f32 bands (with ``fast``, both factors
+    rounded to bf16 first)."""
     a_u = band_matrix(iu0, uk.to(torch.float32), size)
     a_v = band_matrix(iv0, vk.to(torch.float32), size)
+    if fast:
+        a_v = _bf16(a_v)
     weights = weights.to(torch.float32)
     out = torch.empty((2, num_layers, size, size), dtype=torch.float32,
                       device=a_u.device)
@@ -235,15 +293,16 @@ def grid_all_layers_reference(vis_re, vis_im, iu0, iv0, uk, vk, weights,
         for k in range(num_layers):
             for h, vals in enumerate((vis_re, vis_im)):
                 scale = weights[:, k] * vals.to(torch.float32)
-                out[h, k] = (a_u * scale[:, None]).T @ a_v
+                a_s = a_u * scale[:, None]
+                out[h, k] = (_bf16(a_s) if fast else a_s).T @ a_v
     return torch.complex(out[0], out[1])
 
 
 def grid_all_layers(vis_re, vis_im, iu0, iv0, uk, vk, weights,
                     num_layers: int, size: int, support: int,
-                    block_v: int = 1024) -> torch.Tensor:
+                    block_v: int = 1024, fast: bool = False) -> torch.Tensor:
     """All-layer gridding of flat taps into ``[K, size, size]``
-    complex64 (``weights`` [V, K])."""
+    complex64 (``weights`` [V, K]; ``fast``: the bf16 mode)."""
     dev = _device(vis_re, vis_im, iu0, iv0, uk, vk, weights)
     if weights.shape[-1] != num_layers:
         raise SdpShapeError(
@@ -251,9 +310,9 @@ def grid_all_layers(vis_re, vis_im, iu0, iv0, uk, vk, weights,
     if dev.type == "cpu":
         return grid_all_layers_reference(vis_re, vis_im, iu0, iv0, uk, vk,
                                          weights, num_layers, size, support,
-                                         block_v)
+                                         block_v, fast)
     out = _launch_grid(vis_re, vis_im, iu0, iv0, uk, vk, weights, size,
-                       block_v)
+                       block_v, fast)
     grid_all_layers.launches += 1
     return torch.complex(out[:num_layers], out[num_layers:])
 
@@ -262,13 +321,16 @@ grid_all_layers.launches = 0
 
 
 def degrid_all_layers_reference(layers, iu0, iv0, uk, vk, weights,
-                                support: int,
-                                block_v: int = 1024) -> torch.Tensor:
+                                support: int, block_v: int = 1024,
+                                fast: bool = False) -> torch.Tensor:
     """Plain version of :func:`degrid_all_layers`: per layer,
-    ``rowsum((A_u @ layer) * A_v)`` on f32 bands, weighted."""
+    ``rowsum((A_u @ layer) * A_v)`` on f32 bands, weighted (with
+    ``fast``, ``A_u`` and the layer rounded to bf16 for the product)."""
     size = layers.shape[-1]
     a_u = band_matrix(iu0, uk.to(torch.float32), size)
     a_v = band_matrix(iv0, vk.to(torch.float32), size)
+    rnd = _bf16 if fast else (lambda x: x)
+    a_u = rnd(a_u)
     weights = weights.to(torch.float32)
     re = torch.zeros(iu0.shape[0], dtype=torch.float32, device=a_u.device)
     im = torch.zeros_like(re)
@@ -276,16 +338,16 @@ def degrid_all_layers_reference(layers, iu0, iv0, uk, vk, weights,
         for k in range(layers.shape[0]):
             layer = layers[k]
             re += weights[:, k] * (
-                (a_u @ layer.real.to(torch.float32)) * a_v).sum(dim=1)
+                (a_u @ rnd(layer.real.to(torch.float32))) * a_v).sum(dim=1)
             im += weights[:, k] * (
-                (a_u @ layer.imag.to(torch.float32)) * a_v).sum(dim=1)
+                (a_u @ rnd(layer.imag.to(torch.float32))) * a_v).sum(dim=1)
     return torch.complex(re, im)
 
 
 def degrid_all_layers(layers, iu0, iv0, uk, vk, weights, support: int,
-                      block_v: int = 1024) -> torch.Tensor:
+                      block_v: int = 1024, fast: bool = False) -> torch.Tensor:
     """All-layer degridding: ``[K, N, N]`` complex layers -> [V]
-    complex64."""
+    complex64 (``fast``: the bf16 mode)."""
     dev = _device(layers, iu0, iv0, uk, vk, weights)
     if weights.shape[-1] != layers.shape[0]:
         raise SdpShapeError(
@@ -293,8 +355,9 @@ def degrid_all_layers(layers, iu0, iv0, uk, vk, weights, support: int,
             f"{layers.shape[0]}")
     if dev.type == "cpu":
         return degrid_all_layers_reference(layers, iu0, iv0, uk, vk,
-                                           weights, support, block_v)
-    out = _launch_degrid(_split_planes(layers), iu0, iv0, uk, vk, weights)
+                                           weights, support, block_v, fast)
+    out = _launch_degrid(_split_planes(layers), iu0, iv0, uk, vk, weights,
+                         fast)
     degrid_all_layers.launches += 1
     return torch.complex(out[0], out[1])
 

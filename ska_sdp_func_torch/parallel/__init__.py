@@ -17,6 +17,8 @@ from .packed import (
     PackedGridder,
     PackedPlan,
     PackedTask,
+    degrid_all_packed,
+    grid_all_packed,
     packed_geometry_ok,
     packed_gridder,
     plan_packed,
@@ -48,11 +50,13 @@ __all__ = [
     "WStackPlan",
     "WStackTask",
     "degrid_all_bucketed",
+    "degrid_all_packed",
     "degrid_all_tasks",
     "from_jax_es_plan",
     "from_jax_plan",
     "from_jax_stream_plan",
     "grid_all_bucketed",
+    "grid_all_packed",
     "grid_all_tasks",
     "inverse_index_of",
     "packed_geometry_ok",

@@ -130,18 +130,20 @@ def plan_bucketed(plan: WStackPlan, uvw, block_v: int = 1024
             np.concatenate(sort_index), np.concatenate(valid))
 
 
-def _stream_taps(bplan: BucketedPlan, terms, uvw_s, chan_s, valid_s,
-                 freq0: float, dfreq: float):
-    """Tap geometry of every sorted/padded slot at once: (iu0, iv0 [V]
-    int32, uk, vk [V, S] f32, weights [V, Kmax] f32), in ``uvw_s``'s
-    precision.
+def _stream_sparse_taps(bplan: BucketedPlan, terms, uvw_s, chan_s,
+                        valid_s, freq0: float, dfreq: float):
+    """Tap geometry of every sorted/padded slot at once, with the w taps
+    in their sparse form: (iu0, iv0 [V] int32, uk, vk [V, S], j [V]
+    int32, wk [V, Sw], keep [V] bool), in ``uvw_s``'s precision. Slot
+    ``v`` touches its task's layers ``j[v] .. j[v] + Sw - 1`` with the
+    weights ``wk[v]`` where ``keep[v]`` (valid and inside its task's
+    planes), and nothing elsewhere.
 
     The JAX package's ``_slice_taps`` (bucketed.py:127) evaluates the
     same elementwise arithmetic per task slice; here ``terms`` (from
     :func:`_device_constants`) carries each slot's task constants, so
     one pass of a few hundred launches serves every task. Slot ``p`` of
-    task ``t`` sees the values ``_slice_taps`` computes for ``t``, and
-    its weights are zero beyond ``t``'s own layers.
+    task ``t`` sees the values ``_slice_taps`` computes for ``t``.
     """
     plan = bplan.plan
     fdt = uvw_s.dtype
@@ -179,11 +181,21 @@ def _stream_taps(bplan: BucketedPlan, terms, uvw_s, chan_s, valid_s,
     wk = eval_kernel_taps(w_row, _tap_coeffs_cached(w_support, w_ov), w_ov)
 
     in_plan = (j >= 0) & (j < layers - w_support + 1)
-    weights = _slab_weights(wk, j, valid_s & in_plan,
-                            max(t.num_layers for t in bplan.tasks))
     return (iu0.to(torch.int32).contiguous(),
             iv0.to(torch.int32).contiguous(), uk.contiguous(),
-            vk.contiguous(), weights)
+            vk.contiguous(), j.to(torch.int32), wk, valid_s & in_plan)
+
+
+def _stream_taps(bplan: BucketedPlan, terms, uvw_s, chan_s, valid_s,
+                 freq0: float, dfreq: float):
+    """:func:`_stream_sparse_taps` with the w taps densified for the
+    all-layer kernels: (iu0, iv0, uk, vk, weights [V, Kmax] f32), each
+    slot's weights zero beyond its task's own layers."""
+    iu0, iv0, uk, vk, j, wk, keep = _stream_sparse_taps(
+        bplan, terms, uvw_s, chan_s, valid_s, freq0, dfreq)
+    weights = _slab_weights(wk, j, keep,
+                            max(t.num_layers for t in bplan.tasks))
+    return iu0, iv0, uk, vk, weights
 
 
 def _task_taps(taps, task: BucketedTask):

@@ -636,3 +636,24 @@ class PackedGridder(_TowerImaging):
     def degrid(self, image) -> torch.Tensor:
         """Image -> [rows, chan] complex64 visibilities."""
         return self.unsort(self.degrid_sorted(image))
+
+
+# ---------------------------------------------------------------------------
+# Functional API (JAX parallel/packed.py:1480-1496)
+# ---------------------------------------------------------------------------
+
+def grid_all_packed(pplan: PackedPlan, vis, fast: bool = False,
+                    precision: str = None, device=None) -> torch.Tensor:
+    """Whole-image gridding through the packed path on ``device``
+    (``None``: the CUDA card). Returns the real dirty image (f32)."""
+    return packed_gridder(pplan, fast, precision=precision,
+                          device=device).grid(vis)
+
+
+def degrid_all_packed(pplan: PackedPlan, image, fast: bool = False,
+                      precision: str = None, device=None) -> torch.Tensor:
+    """Whole-image degridding through the packed path on ``device``
+    (``None``: the CUDA card). Returns [rows, chan] complex64
+    visibilities."""
+    return packed_gridder(pplan, fast, precision=precision,
+                          device=device).degrid(image)

@@ -7,7 +7,7 @@ Counterpart of ska_sdp_func_tpu.pipeline.major_cycle
     repeat n_major times:
         residual_vis = vis - degrid(model)          (sorted stream)
         dirty        = normalise(grid(residual_vis))
-        delta, res   = hogbom_minor_cycle(dirty, psf)
+        delta, res   = minor_cycle(dirty, psf)     (Hogbom or MS-CLEAN)
         model       += delta
     restored = model * cbeam + res
 
@@ -24,17 +24,29 @@ Three operator paths, chosen as the JAX package chooses them:
   multiple of 128, say): the bucketed per-task fallback
   (:mod:`..parallel.bucketed`; the all-layer kernels), O(V).
 
-Branches that are not ported (``mesh``, msclean, checkpointing) raise
-``NotImplementedError`` naming their ROADMAP item; none is silently
-rerouted.
+The minor cycle is Hogbom (:mod:`..clean.hogbom`) or, with
+``clean_algorithm="msclean"``, multi-scale CLEAN over ``scale_list``
+(:func:`_make_msclean_minor`). ``checkpoint_path`` / ``checkpointer``
+persist the solver state after every major cycle and resume from it
+(:mod:`.checkpoint`). The one branch that is not ported, ``mesh``,
+raises ``NotImplementedError`` naming its ROADMAP item; it is not
+silently rerouted.
 """
 
+import os
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..clean.hogbom import _minor_cycle, create_cbeam
+from ..clean.ms_clean import (
+    _make_scale_kernels,
+    _ms_minor_cycle,
+    _scaled_psfs,
+    _scaled_residuals,
+)
 from ..numeric_functions.fft_convolution import fft_convolution
 from ..parallel.bucketed import (
     degrid_all_bucketed,
@@ -133,6 +145,68 @@ def _restore(model, cbeam, residual_img):
     return convolved.real.to(model.dtype) + residual_img
 
 
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "multi-device solves are not ported yet: ROADMAP Queue 1 "
+            "item 15")
+
+
+def dirty_and_psf(plan: WStackPlan, vis, uvw, mesh=None,
+                  psf_plan: Optional[WStackPlan] = None,
+                  border: Optional[int] = None,
+                  device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Grid the dirty image (N) and the PSF (2N) with the task drivers on
+    ``device`` (``None``: the CUDA card), both normalised so the PSF peak
+    is 1 (flux units), with a border margin (default size // 16) zeroed
+    on both: the CLEAN window."""
+    _no_mesh(mesh)
+    uvw = host_uvw(uvw)
+    if psf_plan is None:
+        psf_plan = make_psf_plan(plan, uvw)
+    if border is None:
+        border = plan.image_size // 16
+    vis = to_device(vis, resolve_device(device))
+    uvw_dev = torch.as_tensor(uvw, device=vis.device)
+    dirty = _grid(plan, vis, uvw_dev)
+    psf = _grid(psf_plan, torch.ones_like(vis), uvw_dev)
+    peak = psf[psf.shape[0] // 2, psf.shape[1] // 2]
+    return _norm_mask(dirty, peak, border), _norm_mask(psf, peak, 2 * border)
+
+
+def _make_msclean_minor(psf: torch.Tensor, scales: Tuple[int, ...],
+                        loop_gain: float, cycle_limit: int,
+                        scale_bias: float = 0.0):
+    """Multi-scale minor cycle closure: the scale kernels, doubly
+    convolved PSFs and coupling matrix once per (psf, scales); per major
+    cycle only the dirty image's scale convolutions and the minor loop
+    run. The selection bias vector (Cornwell 2008, ``1 - bias * s /
+    s_max``) exists only for a non-zero bias."""
+    kernels = _make_scale_kernels(np.asarray(scales, np.int64),
+                                  psf.shape[0], psf.dtype, psf.device)
+    s_arr = np.asarray(scales, np.float64)
+    s_max = s_arr.max() if s_arr.max() > 0 else 1.0
+    bias_vec = (np.asarray(1.0 - scale_bias * s_arr / s_max, np.float64)
+                if scale_bias else None)
+
+    def conv(a, b):
+        # The even-size 'same' convolution shifts its result by +1 pixel
+        # per axis; unshift it so the scale-convolved PSFs register with
+        # the raw kernel windows the model is built from, which the exact
+        # degrid re-prediction needs to cancel the subtracted components.
+        return torch.roll(fft_convolution(a, b), (-1, -1), dims=(-2, -1))
+
+    scaled_psfs, coupling = _scaled_psfs(psf, kernels, conv)
+
+    def minor(dirty, stop):
+        residuals, model = _ms_minor_cycle(
+            _scaled_residuals(dirty, kernels, conv), scaled_psfs, kernels,
+            coupling, loop_gain, stop, cycle_limit, scale_bias=bias_vec)
+        return model, residuals[0]
+
+    return minor
+
+
 def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
                        loop_gain: float = 0.1, threshold: float = 1e-3,
                        cycle_limit: int = 1000,
@@ -142,6 +216,8 @@ def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
                        checkpoint_path: Optional[str] = None,
                        checkpointer=None, weights=None,
                        clean_algorithm: str = "hogbom",
+                       scale_list: Tuple[int, ...] = (0, 8, 16),
+                       ms_scale_bias: float = 0.0,
                        bucketed: bool = False, fast: bool = False,
                        verbosity: int = 0, device=None) -> ImagingResult:
     """Run the major/minor-cycle imaging solve on ``device`` (``None``:
@@ -154,25 +230,24 @@ def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
     ``bucketed`` picks the operator path (module docstring). ``mgain``
     bounds each minor cycle at ``max(threshold, (1 - mgain) *
     dirty_peak)``; ``fast=True`` runs the packed kernels on bf16 bands.
+    ``clean_algorithm`` is "hogbom" or "msclean" (multi-scale minor cycles
+    over ``scale_list``, with the small-scale selection bias
+    ``ms_scale_bias``; 0 is the reference's unbiased selection).
+    ``checkpoint_path`` (a single ``.npz``) or ``checkpointer`` (a
+    :class:`~.checkpoint.SolverCheckpointer`; pass at most one) saves the
+    solver state after every major cycle and resumes from it on a
+    restart.
     ``verbosity > 0`` logs a per-stage timing report after the solve
     (the reference driver's report_timing,
     sdp_grid_wstack_wtower.cpp:169-213), timed with CUDA events on a
     CUDA device.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device solves are not ported yet: ROADMAP Queue 1 "
-            "item 15")
-    if checkpoint_path is not None or checkpointer is not None:
-        raise NotImplementedError(
-            "solver checkpointing is not ported yet: ROADMAP Queue 1 "
-            "item 13")
-    if clean_algorithm == "msclean":
-        raise NotImplementedError(
-            "clean_algorithm='msclean' is not ported yet (ROADMAP Queue 1 "
-            "item 13)")
-    if clean_algorithm != "hogbom":
-        raise ValueError("unknown clean_algorithm")
+    _no_mesh(mesh)
+    if clean_algorithm not in ("hogbom", "msclean"):
+        raise ValueError(f"unknown clean_algorithm {clean_algorithm!r}")
+    if checkpoint_path is not None and checkpointer is not None:
+        raise ValueError(
+            "pass at most one of checkpoint_path / checkpointer")
 
     image_size = plan.image_size
     uvw = host_uvw(uvw)
@@ -231,12 +306,35 @@ def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
     if timers:
         timers.pop()
 
+    if clean_algorithm == "msclean":
+        minor = _make_msclean_minor(psf, tuple(int(s) for s in scale_list),
+                                    float(loop_gain), int(cycle_limit),
+                                    float(ms_scale_bias))
+    else:
+        def minor(dirty, stop):
+            return _minor_cycle(dirty, psf, float(loop_gain), stop,
+                                int(cycle_limit))
+
     model = torch.zeros((image_size, image_size), dtype=rdtype, device=dev)
     residual_img = torch.zeros_like(model)
     peak_history: List[float] = []
+    start_cycle = 0
+    state = None
+    if checkpoint_path is not None:
+        # .checkpoint imports this module (ImagingResult).
+        from .checkpoint import load_state, save_state
+
+        if os.path.exists(checkpoint_path):
+            state = load_state(checkpoint_path, device=dev)
+    elif checkpointer is not None and checkpointer.latest_step() is not None:
+        state = checkpointer.restore(
+            template={"model": model, "residual": residual_img})
+    if state is not None:
+        model, residual_img, start_cycle, peak_history, _ = state
+        model, residual_img = model.to(rdtype), residual_img.to(rdtype)
     threshold_t = torch.as_tensor(threshold, dtype=rdtype, device=dev)
     mgain_t = torch.as_tensor(mgain, dtype=rdtype, device=dev)
-    for _cycle in range(n_major):
+    for cycle in range(start_cycle, n_major):
         if timers:
             timers.push("degrid predict")
         if packed is not None:
@@ -268,12 +366,16 @@ def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
         if timers:
             timers.pop_push("minor cycle")
         stop = _stop_level(dirty, threshold_t, mgain_t)
-        delta, residual_img = _minor_cycle(dirty, psf, float(loop_gain),
-                                           stop, int(cycle_limit))
+        delta, residual_img = minor(dirty, stop)
         model = model + delta
         peak_history.append(float(residual_img.abs().max()))
         if timers:
             timers.pop()
+        if checkpoint_path is not None:
+            save_state(checkpoint_path, model, residual_img, cycle + 1,
+                       peak_history)
+        elif checkpointer is not None:
+            checkpointer.save(cycle + 1, model, residual_img, peak_history)
         if peak_history[-1] < threshold:
             break
 

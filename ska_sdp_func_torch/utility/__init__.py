@@ -1,5 +1,6 @@
 """Errors and constants shared by the port's modules, SKA-format logging
-(:mod:`.logging`) and the named timer tree (:mod:`.timers`)."""
+(:mod:`.logging`), the named timer tree (:mod:`.timers`) and trace
+capture (:mod:`.profiling`)."""
 
 from .constants import C_0
 from .errors import (
@@ -11,6 +12,16 @@ from .errors import (
     SdpRuntimeError,
     SdpShapeError,
 )
+from .logging import (
+    get_logger,
+    log_critical,
+    log_debug,
+    log_error,
+    log_info,
+    log_warning,
+)
+from .profiling import annotate, trace
+from .timers import Timer, Timers, TimerType
 
 __all__ = [
     "C_0",
@@ -21,4 +32,15 @@ __all__ = [
     "SdpMemLocationError",
     "SdpRuntimeError",
     "SdpShapeError",
+    "Timer",
+    "TimerType",
+    "Timers",
+    "annotate",
+    "get_logger",
+    "log_critical",
+    "log_debug",
+    "log_error",
+    "log_info",
+    "log_warning",
+    "trace",
 ]

@@ -96,5 +96,21 @@ def _log(level: int, message: str, *args) -> None:
     logger.log(level, message % args if args else message, extra=extra)
 
 
+def log_debug(message: str, *args) -> None:
+    _log(logging.DEBUG, message, *args)
+
+
 def log_info(message: str, *args) -> None:
     _log(logging.INFO, message, *args)
+
+
+def log_warning(message: str, *args) -> None:
+    _log(logging.WARNING, message, *args)
+
+
+def log_error(message: str, *args) -> None:
+    _log(logging.ERROR, message, *args)
+
+
+def log_critical(message: str, *args) -> None:
+    _log(logging.CRITICAL, message, *args)

@@ -15,8 +15,12 @@ the ES-FFT band kernels (``band_tap``: K8 and K11 in f32 and bf16, the
 word-fed K18 and K19 in all three modes), the streaming tap preparation
 (``stream_prep``, f32 and bf16) and the window fold (``fold``) against
 their plain versions; the placement kernel (``place``) is a copy and
-compares bit for bit. The host planners and the solver take a uvw tensor
-on the card.
+compares bit for bit. The sparse all-layer grid (``sparse_tap``, K20)
+meets its plain version and the dense K16 on the same taps at 1e-5, in
+both modes; the bf16 mode of K14-K17 meets its bf16 plain versions at
+1e-5 and the f32 kernels within JAX's 4e-3 envelope. The host planners
+and the solver take a uvw tensor on the card, and the msclean and FISTA
+solves on the card meet the CPU port at 1e-4 of max|model|.
 """
 
 import numpy as np
@@ -772,3 +776,116 @@ def test_planners_take_uvw_on_card(device):
                              device=device)
     assert res.model.shape == (IMAGE_SIZE, IMAGE_SIZE)
     assert bool(torch.isfinite(res.model).all())
+
+
+# -- the sparse all-layer grid (K20) and the bf16 mode of K14-K17 ------------
+
+def _sparse_operands(f, num_layers, seed=3):
+    """K20's operands from the dense flat taps of ``_tower_operands``:
+    each visibility's first active layer and its Sw weights (zero rows
+    keep a random first layer)."""
+    w = f["weights"]
+    active = w != 0
+    k0 = torch.where(active.any(dim=1), active.int().argmax(dim=1),
+                     torch.randint(-2, num_layers + 2, (w.shape[0],),
+                                   generator=torch.Generator().manual_seed(
+                                       seed)).to(w.device))
+    idx = k0.clamp(0, num_layers - 4)[:, None] + torch.arange(
+        4, device=w.device)
+    return k0.to(torch.int32).contiguous(), w.gather(1, idx).contiguous()
+
+
+@pytest.mark.parametrize("size", [32, 64, 128, 256])
+def test_sparse_grid_kernel_matches_plain_and_dense(device, size):
+    from ska_sdp_func_torch.kernels import sparse_tap as ts
+
+    f, *_ = _tower_operands(device, size, seed=4)
+    k = f["weights"].shape[1]
+    k0, wk = _sparse_operands(f, k)
+    for fast in (False, True):
+        args = (f["vre"], f["vim"], f["iu0"], f["iv0"], k0, f["uk"],
+                f["vk"], wk, k, size, 8, 4)
+        before = ts.launch_counts()["grid_all_layers_sparse"]
+        got = ts.grid_all_layers_sparse(*args, fast=fast)
+        want = ts.grid_all_layers_sparse_reference(*args, fast=fast)
+        dense = tt.grid_all_layers(f["vre"], f["vim"], f["iu0"], f["iv0"],
+                                   f["uk"], f["vk"], f["weights"], k, size,
+                                   8, fast=fast)
+        torch.cuda.synchronize()
+        assert ts.launch_counts()["grid_all_layers_sparse"] == before + 1
+        assert _rel(got, want) <= 1e-5
+        assert _rel(got, dense) <= 1e-5
+
+
+@pytest.mark.parametrize("size", [32, 64, 128, 256])
+def test_tower_kernels_bf16_match_plain(device, size):
+    """K14-K17 with ``fast=True`` against their bf16 plain versions at
+    1e-5, and against their f32 kernels within 4e-3 (not equal)."""
+    f, tables, geom, vis, sub = _tower_operands(device, size, seed=5)
+    k = f["weights"].shape[1]
+    calls = {
+        "grid_all_layers": ((f["vre"], f["vim"], f["iu0"], f["iv0"],
+                             f["uk"], f["vk"], f["weights"], k, size, 8),
+                            None),
+        "degrid_all_layers": ((f["layers"], f["iu0"], f["iv0"], f["uk"],
+                               f["vk"], f["weights"], 8), None),
+        "grid_plane": ((sub, vis, *tables, geom, 8, 4), sub),
+        "degrid_plane": ((sub, *tables, geom, 8, 4), None),
+    }
+    for name, (args, base) in calls.items():
+        kern = getattr(tt, name)
+        got = kern(*args, fast=True)
+        want = getattr(tt, name + "_reference")(*args, fast=True)
+        f32 = kern(*args)
+        torch.cuda.synchronize()
+        if base is not None:
+            got, want, f32 = got - base, want - base, f32 - base
+        assert _rel(got, want) <= 1e-5, name
+        assert 0 < _rel(got, f32) <= 4e-3, name
+
+
+def _point_and_blob():
+    x = np.arange(IMAGE_SIZE) - IMAGE_SIZE // 2
+    img = np.exp(-((x[:, None] + 20) ** 2 + (x[None, :] - 15) ** 2) / 18.0)
+    img = (0.5 * img).astype(np.float32)
+    img[IMAGE_SIZE // 2 + 12, IMAGE_SIZE // 2 - 9] = 1.0
+    return img
+
+
+@pytest.fixture(scope="module")
+def solver_scene(device):
+    uvw, _ = make_inputs()
+    plan = plan_wstack(uvw, FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE, **PARAMS)
+    vis = PackedGridder(plan_packed(plan, uvw), device="cpu").degrid(
+        _point_and_blob()).numpy()
+    return plan, uvw, vis
+
+
+def test_msclean_solve_on_card_matches_cpu(solver_scene, device):
+    from ska_sdp_func_torch.pipeline import major_cycle_imager
+
+    plan, uvw, vis = solver_scene
+    kw = dict(n_major=2, bucketed=True, cycle_limit=100,
+              clean_algorithm="msclean", scale_list=(0, 4, 8))
+    kernels.reset_launch_counts()
+    card = major_cycle_imager(plan, vis, uvw, device=device, **kw)
+    counts = kernels.launch_counts()
+    cpu = major_cycle_imager(plan, vis, uvw, device="cpu", **kw)
+    assert counts["grid_packed_stack"] > 0 and counts["degrid_stack"] > 0
+    assert _rel(card.model.cpu(), cpu.model) <= 1e-4
+    np.testing.assert_allclose(card.peak_history, cpu.peak_history,
+                               rtol=1e-4)
+
+
+def test_fista_solve_on_card_matches_cpu(solver_scene, device):
+    from ska_sdp_func_torch.pipeline import fista_imager
+
+    plan, uvw, vis = solver_scene
+    card = fista_imager(plan, vis, uvw, n_iter=6, device=device)
+    cpu = fista_imager(plan, vis, uvw, n_iter=6, device="cpu")
+    assert card.model.device.type == "cuda"
+    assert _rel(card.model.cpu(), cpu.model) <= 1e-4
+    # The norms of V - A y, against the data norm (the first entry): the
+    # error of the difference scales with V, not with the shrinking norm.
+    np.testing.assert_allclose(card.residual_norm, cpu.residual_norm,
+                               rtol=0, atol=1e-4 * cpu.residual_norm[0])

@@ -8,6 +8,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # Fails when jax, jaxlib or the JAX package was imported.
@@ -20,6 +22,7 @@ MODULES = [
     "ska_sdp_func_torch",
     "ska_sdp_func_torch.clean",
     "ska_sdp_func_torch.clean.hogbom",
+    "ska_sdp_func_torch.clean.ms_clean",
     "ska_sdp_func_torch.fourier_transforms",
     "ska_sdp_func_torch.fourier_transforms.fft",
     "ska_sdp_func_torch.fourier_transforms.pswf",
@@ -38,6 +41,7 @@ MODULES = [
     "ska_sdp_func_torch.kernels.fused_tap",
     "ska_sdp_func_torch.kernels.packed_tap",
     "ska_sdp_func_torch.kernels.place",
+    "ska_sdp_func_torch.kernels.sparse_tap",
     "ska_sdp_func_torch.kernels.stream_prep",
     "ska_sdp_func_torch.kernels.tower_tap",
     "ska_sdp_func_torch.kernels.dense_tap",
@@ -51,11 +55,16 @@ MODULES = [
     "ska_sdp_func_torch.parallel.streaming",
     "ska_sdp_func_torch.parallel.wstack",
     "ska_sdp_func_torch.pipeline",
+    "ska_sdp_func_torch.pipeline.checkpoint",
+    "ska_sdp_func_torch.pipeline.fista",
     "ska_sdp_func_torch.pipeline.major_cycle",
     "ska_sdp_func_torch.utility",
     "ska_sdp_func_torch.utility.constants",
     "ska_sdp_func_torch.utility.errors",
+    "ska_sdp_func_torch.utility.logging",
+    "ska_sdp_func_torch.utility.profiling",
     "ska_sdp_func_torch.utility.tensors",
+    "ska_sdp_func_torch.utility.timers",
 ]
 
 
@@ -94,3 +103,42 @@ def test_planning_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py names neither jax nor the JAX package in any import,
+    and without a CUDA device it exits non-zero before printing a result,
+    having imported neither."""
+    import ast
+
+    path = os.path.join(REPO, "chip_smoke.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert "ska_sdp_func_torch" in roots
+    assert not roots & {"jax", "jaxlib", "ska_sdp_func_tpu"}
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the script would run")
+    code = (
+        "import runpy, sys\n"
+        "try:\n"
+        f"    runpy.run_path({path!r}, run_name='__main__')\n"
+        "    code = 0\n"
+        "except SystemExit as e:\n"
+        "    code = e.code\n"
+        f"{CHECK}"
+        "print('exit', code)\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "exit 1"
+    assert "no CUDA device" in proc.stderr

@@ -124,6 +124,30 @@ def test_fast_mode_matches_jax(scenario):
     assert _taper_err(s, t_img, j_img) < 1e-5
 
 
+@pytest.mark.parametrize("prec", PRECISIONS)
+def test_functional_api_matches_jax(scenario, prec):
+    """grid_all_packed / degrid_all_packed (JAX parallel/packed.py:
+    1480-1496): the natural-order image and visibilities."""
+    from ska_sdp_func_tpu.parallel.packed import degrid_all_packed, \
+        grid_all_packed
+
+    s = scenario
+    model = two_point_image()
+    t_img = tpacked.grid_all_packed(s["tpp"], s["vis"], precision=prec,
+                                    device="cpu").numpy()
+    j_img = np.asarray(grid_all_packed(s["jpp"], jnp.asarray(s["vis"]),
+                                       precision=prec))
+    assert t_img.shape == (IMAGE_SIZE, IMAGE_SIZE)
+    assert _taper_err(s, t_img, j_img) < 1e-5
+    t_vis = tpacked.degrid_all_packed(s["tpp"], model, precision=prec,
+                                      device="cpu").numpy()
+    j_vis = np.asarray(degrid_all_packed(s["jpp"], jnp.asarray(model),
+                                         precision=prec))
+    assert t_vis.shape == (NUM_ROWS, NUM_CHAN)
+    np.testing.assert_allclose(t_vis, j_vis,
+                               atol=1e-5 * np.abs(j_vis).max())
+
+
 def test_gridder_cache_keys_on_resolved_defaults(scenario):
     p = scenario["tpp"]
     g = tpacked.packed_gridder(p, device="cpu")
@@ -195,14 +219,16 @@ def test_fused_engine_matches_jax(scenario, prec):
     "GridderWtowerUVW.degrid_subgrid", "GridderWtowerUVW.grid_correct",
     "grid_all_tasks", "degrid_all_tasks", "grid_all_bucketed",
     "degrid_all_bucketed", "w_screen_stack", "fft_shifted",
-    "fft_convolution", "subgrid_add", "grid_correct_pswf", "hogbom_clean"])
-def test_entry_points_default_to_the_card(scenario, entry):
+    "fft_convolution", "subgrid_add", "grid_correct_pswf", "hogbom_clean",
+    "ms_clean_cornwell", "fista_imager", "dirty_and_psf", "grid_all_packed",
+    "degrid_all_packed", "load_state"])
+def test_entry_points_default_to_the_card(scenario, entry, tmp_path):
     """Without ``device`` every entry point runs on the CUDA card, never
     the CPU, even for NumPy or CPU-tensor inputs: on a host with no card
     it raises at its first tensor move."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default works")
-    from ska_sdp_func_torch.clean import hogbom_clean
+    from ska_sdp_func_torch.clean import hogbom_clean, ms_clean_cornwell
     from ska_sdp_func_torch.fourier_transforms import fft_shifted
     from ska_sdp_func_torch.grid_data import grid_correct_pswf, \
         subgrid_add, w_screen_stack
@@ -211,6 +237,8 @@ def test_entry_points_default_to_the_card(scenario, entry):
     from ska_sdp_func_torch.parallel import bucketed as tb
     from ska_sdp_func_torch.parallel import streaming as tstream
     from ska_sdp_func_torch.parallel import wstack as tpw
+    from ska_sdp_func_torch.pipeline import fista_imager, save_state
+    from ska_sdp_func_torch.pipeline import load_state
     from ska_sdp_func_torch.pipeline import major_cycle as tmc
 
     s = scenario
@@ -265,7 +293,19 @@ def test_entry_points_default_to_the_card(scenario, entry):
         "grid_correct_pswf": lambda: kern_gc(img),
         "hogbom_clean": lambda: hogbom_clean(
             img[:8, :8], img[:16, :16], [2.0, 2.0, 1.0, 8.0], 0.1, 0.0, 1),
+        "ms_clean_cornwell": lambda: ms_clean_cornwell(
+            img[:8, :8], img[:16, :16], [2.0, 2.0, 1.0, 8.0], [0, 2], 0.1,
+            0.0, 1),
+        # The solvers and the packed functional API.
+        "fista_imager": lambda: fista_imager(tplan, s["vis"], uvw, n_iter=1),
+        "dirty_and_psf": lambda: tmc.dirty_and_psf(tplan, s["vis"], uvw),
+        "grid_all_packed": lambda: tpacked.grid_all_packed(s["tpp"], vis),
+        "degrid_all_packed": lambda: tpacked.degrid_all_packed(s["tpp"],
+                                                               img),
     }
+    path = str(tmp_path / "state.npz")
+    save_state(path, img, img, 1)
+    calls["load_state"] = lambda: load_state(path)
     for name in ("StreamingGridder", "StreamingDegridder"):
         sp = tstream.plan_stream(tplan, tstream.stream_tasks(tplan, s["uvw"]),
                                  chunk_rows=64, block_v=128, cap_slots=20480)
