@@ -107,6 +107,20 @@ line of output each (or a few), failing loudly on the first fault:
       point-source msclean and FISTA solves against the CPU port; and a
       ``checkpoint_path`` resume (two cycles, then three) against three
       uninterrupted cycles;
+   p. the experiments' A/B kernels, which no entry point runs, through
+      their drivers (``ska_sdp_func_torch.experiments``) at each
+      experiment's own scale, one window each: bench.py's read probe
+      (``read_streams``, 6 streams and 1 of [4096, 8192]; a read rate
+      above 1.05 x 3.35 TB/s fails), exp_place_dma (K5 on 4 payloads,
+      bit for bit against the NumPy oracle, beside the placement sort),
+      exp_prep (``prep_variant`` in five modes, bit for bit), exp_dot's
+      ``_call`` and ``_call_npair`` forms (``bucket_dot``: three TF32
+      tensor-core products for f32, bf16, and ``prod_simt`` on the CUDA
+      cores; each at 1e-5 of its plain version, bf16 also at 5e-2 of f32
+      prod), exp_parity (``grid_parity`` at slots 1, 2, 4) and
+      exp_overlap (``overlap``, each block's sum |acc| included); each
+      window launches each variant once, then holds it against its plain
+      version and times it;
 5. times: grid, degrid and one major-cycle iteration of the packed path
    (and one msclean and one FISTA iteration beside the Hogbom one) and
    the fallback at the bench scenario, the task drivers' calls of
@@ -132,8 +146,15 @@ and K11 have rows of their own (``[bf16]``, window k's operands), bytes
 counted for the bf16 ``vk``; so do K20 and the bf16 modes of K14-K17
 (window m's and n's operands, which the bf16 modes read as f32 and
 round in registers). ``library_ms`` is null: no single PyTorch
-call computes any of these functions. The last line is
-``{"ok": true, "device": {...}}``.
+call computes any of these functions. The experiments' kernels (window p)
+have a row for each TPU kernel site (P1, P2a-P2f): the numbers of its
+headline variant and a ``variants`` list with each variant's; their
+bounds divide tensor-core operations by the published dense peaks (TF32
+495 TFLOP/s, three passes for an f32 product; bf16 989 TFLOP/s), and P1's
+and exp_dot's lhs_stream rows carry ``library_ms`` (ATen's block sums;
+``torch.bmm`` with TF32 off). Every kernel row also carries
+``bound_ms_read_rate``: its bound with the bytes over P1's measured read
+rate. The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero and prints no result. It
 imports nothing of jax.
 """
@@ -263,6 +284,34 @@ SOLVE_TOL = 1e-4     # of max|model|; FISTA's residual norms, of the first
 # and f32 operations/s outside the tensor cores.
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
+# Window p: each experiment's TPU kernel sites, as (row name, driver,
+# variants launched in its window or None for all, the wrapper it counts,
+# CUDA source, replaced TPU kernel, headline variant).
+KDIR = "ska_sdp_func_torch/kernels/csrc/"
+EXPERIMENT_SITES = (
+    ("read_streams[P1]", "rooflines", None, "read_streams",
+     KDIR + "read_probe.cu", "bench.py:168", "6 streams"),
+    ("place_stream[P2f exp_place_dma]", "exp_place_dma", None,
+     "place_stream", KDIR + "place.cu", "experiments/exp_place_dma.py:74",
+     "4 payloads"),
+    ("prep_variant[P2a exp_prep]", "exp_prep", None, "prep_variant",
+     KDIR + "prep_variants.cu", "experiments/exp_prep.py:115", "full"),
+    ("bucket_dot[P2c exp_dot _call]", "exp_dot",
+     ("prod", "prod_bf16", "prod_simt", "lhs_stream", "lhs_stream_bf16",
+      "ksplit2", "ksplit2_bf16", "ksplit4", "ksplit4_bf16", "nodot"),
+     "bucket_dot", KDIR + "bucket_dot.cu", "experiments/exp_dot.py:175",
+     "prod"),
+    ("bucket_dot[P2d exp_dot _call_npair]", "exp_dot",
+     ("npair", "npair_bf16"), "bucket_dot", KDIR + "bucket_dot.cu",
+     "experiments/exp_dot.py:199", "npair"),
+    ("grid_parity[P2e exp_parity]", "exp_parity", None, "grid_parity",
+     KDIR + "bucket_dot.cu", "experiments/exp_parity.py:94", "slots1"),
+    ("overlap[P2b exp_overlap]", "exp_overlap", None, "overlap",
+     KDIR + "overlap.cu", "experiments/exp_overlap.py:129", "both"),
+)
+# The wrappers only window p may launch.
+EXPERIMENT_KERNELS = ("read_streams", "prep_variant", "bucket_dot",
+                      "grid_parity", "overlap")
 
 
 def say(msg: str) -> None:
@@ -880,6 +929,7 @@ def launch_window(torch, tkern, label, need, idle=()):
     runs the block, reads them into the yielded dict. Fails if a kernel
     in ``need`` was never launched, or one in ``idle`` was."""
     counts = {}
+    idle = set(idle) | (set(EXPERIMENT_KERNELS) - set(need))
     torch.cuda.synchronize()
     tkern.reset_launch_counts()
     yield counts
@@ -887,7 +937,7 @@ def launch_window(torch, tkern, label, need, idle=()):
     counts.update(tkern.launch_counts())
     say(f"# {label} launches: {json.dumps(counts)}")
     missing = [n for n in need if counts[n] < 1]
-    stray = [n for n in idle if counts[n] > 0]
+    stray = [n for n in sorted(idle) if counts[n] > 0]
     if missing or stray:
         raise SystemExit(f"{label}: kernels never launched {missing}, "
                          f"launched off their path {stray}")
@@ -1422,6 +1472,68 @@ def solver_phase(torch, tkern, tk, dev, plan, uvw, g, small):
             and len(resumed.peak_history) == len(full.peak_history)):
         raise SystemExit("the resumed solve disagrees")
     return launches
+
+
+def experiments_phase(torch, tkern, gpu):
+    """4p: each experiment's kernels through its driver at the experiment's
+    own scale: one launch a variant in a window of its own, then each held
+    against its plain version (the drivers raise past their tolerances)
+    and timed. Returns {row name: (launches, result rows)}."""
+    from ska_sdp_func_torch import experiments
+
+    drivers = {d.NAME: d for d in experiments.drivers()}
+    everything = list(tkern.launch_counts())
+    sites = {}
+    ops, ops_of = None, None
+    for name, drv_name, variants, kernel, _, _, _ in EXPERIMENT_SITES:
+        drv = drivers[drv_name]
+        t0 = time.perf_counter()
+        if ops_of != drv_name:      # exp_dot's two sites share operands
+            ops = None
+            torch.cuda.empty_cache()
+            ops, ops_of = drv.operands("cuda"), drv_name
+        with launch_window(torch, tkern, f"experiment {name}", [kernel],
+                           [n for n in everything if n != kernel]) as cnt:
+            outs = drv.launch(ops) if variants is None \
+                else drv.launch(ops, variants)
+        result = drv.measure(ops, outs)
+        del outs
+        sites[name] = (cnt[kernel], result)
+        say(f"# [{gpu}] {name} ({time.perf_counter() - t0:.1f} s): " + "; "
+            .join(f"{r['variant']} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}"
+                  f", bound {r['bound_ms']:.4f} by {r['bound_by']}, rel err "
+                  f"{r['rel_err']:.2e})" for r in result))
+        if drv_name == "exp_overlap":
+            say(f"# [{gpu}] exp_overlap: overlap fraction "
+                f"{drv.overlap_fraction(result):.3f} (1: the build hides "
+                f"under the products; 0: they serialise)")
+    del ops
+    torch.cuda.empty_cache()
+    return sites
+
+
+def exp_row(name, source, where, launched, rows, headline, read_rate):
+    """A kernel row of window p: the headline variant's numbers, every
+    variant's in ``variants``."""
+    head = next(r for r in rows if r["variant"] == headline)
+    lib = next((r for r in rows if r.get("library_ms") is not None), None)
+    return dict(name=name, route="cuda", source=source, replaces=where,
+                launches=launched,
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=None if lib is None else lib["library_ms"],
+                library_variant=None if lib is None else lib["variant"],
+                bound_ms_read_rate=read_rate_bound(
+                    head["bytes"], head["bound_ms"], head["bound_by"],
+                    read_rate),
+                variants=rows)
+
+
+def read_rate_bound(moved, bound_ms, bound_by, read_rate):
+    """The bound with the bytes over the measured read rate (bytes/s)."""
+    return max(moved / read_rate * 1e3,
+               bound_ms if bound_by == "operations" else 0.0)
 
 
 def main() -> int:
@@ -2046,6 +2158,16 @@ def main() -> int:
     solver_phase(torch, tkern, tk, dev, plan, uvw, g,
                  (plan_s, vis_pt, uvw_s, src))
 
+    # 4p. the experiments' A/B kernels through their drivers -------------
+    say(f"# before window p: {torch.cuda.memory_allocated() / 1e9:.1f} GB "
+        f"allocated")
+    t0 = time.perf_counter()
+    exp_sites = experiments_phase(torch, tkern, gpu)
+    read_rate = exp_sites["read_streams[P1]"][1][0]["read_gb_s"] * 1e9
+    say(f"# window p: {time.perf_counter() - t0:.1f} s; measured read rate "
+        f"{read_rate / 1e9:.1f} GB/s ({read_rate / HBM_BYTES_S:.3f} of the "
+        f"published 3.35 TB/s)")
+
     # 5. times -----------------------------------------------------------
     t_grid = cuda_ms(torch, lambda: g.grid_sorted(vre, vim), 10)
     t_degrid = cuda_ms(torch, lambda: g.degrid_sorted(model), 10)
@@ -2272,6 +2394,7 @@ def main() -> int:
     bv = pplan.block_v
     valid_p = int(pplan.arrays["valid"].sum())
     times = {}
+    moved_bytes = {}
 
     def time_kernel(name, kern, ref, args, kw, ops, k_iters=10, p_iters=5,
                     p_warmup=2, moved=None):
@@ -2282,7 +2405,10 @@ def main() -> int:
         k1 = cuda_ms(torch, lambda: kern(*args, **kw), k_iters)
         k2 = cuda_ms(torch, lambda: kern(*args, **kw), k_iters)
         p2 = cuda_ms(torch, lambda: ref(*args, **kw), p_iters, p_warmup)
-        times[name] = (k2, p2) + bound(args, kern(*args, **kw), ops, moved)
+        out = kern(*args, **kw)
+        times[name] = (k2, p2) + bound(args, out, ops, moved)
+        moved_bytes[name] = nbytes(args) + nbytes(out) if moved is None \
+            else moved
         return f"kernel {k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms, " \
             f"bound {times[name][2]:.4f} ms by {times[name][3]}"
 
@@ -2410,7 +2536,9 @@ def main() -> int:
         k, p, b, by = times[name]
         return dict(name=name, route="cuda", source=source, replaces=where,
                     launches=launched, max_abs_err=err, ms=k, plain_ms=p,
-                    bound_ms=b, bound_by=by, library_ms=None)
+                    bound_ms=b, bound_by=by, library_ms=None,
+                    bound_ms_read_rate=read_rate_bound(
+                        moved_bytes[name], b, by, read_rate))
 
     kernels = [
         row("grid_packed_stack", PACKED_SOURCE,
@@ -2458,7 +2586,11 @@ def main() -> int:
         row(f"{name}[bf16]", TOWER_SOURCE, where,
             (n_launches if name.endswith("plane") else nd_launches)[name],
             fast_err[name])
-        for name, where in TOWER_KERNELS]
+        for name, where in TOWER_KERNELS
+    ] + [
+        exp_row(name, source, where, exp_sites[name][0], exp_sites[name][1],
+                headline, read_rate)
+        for name, _, _, _, source, where, headline in EXPERIMENT_SITES]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,10 +21,17 @@ their bf16 mode) and :mod:`.sparse_tap` their sparse all-layer twin
 (``grid_all_layers_sparse``); :mod:`.dense_tap` the dense banded
 products of any dtype; :mod:`._build` compiles ``csrc/`` with nvcc at
 first use.
+
+The A/B kernels of the experiments (no entry point runs them; the
+drivers in :mod:`ska_sdp_func_torch.experiments` do): :mod:`.read_probe`
+bench.py's device-memory read probe; :mod:`.prep_variants` exp_prep's
+stage sweep of the tap preparation; :mod:`.bucket_dot` exp_dot's and
+exp_parity's per-bucket band products on the tensor cores;
+:mod:`.overlap` exp_overlap's build / product overlap probe.
 """
 
-from . import band_tap, fold, fused_tap, packed_tap, place, sparse_tap, \
-    stream_prep, tower_tap
+from . import band_tap, bucket_dot, fold, fused_tap, overlap, packed_tap, \
+    place, prep_variants, read_probe, sparse_tap, stream_prep, tower_tap
 from .packed_tap import (
     build_bands,
     degrid_stack,
@@ -35,7 +42,8 @@ from .packed_tap import (
 )
 
 _COUNTED = (packed_tap, fused_tap, place, tower_tap, sparse_tap, band_tap,
-            stream_prep, fold)
+            stream_prep, fold, read_probe, prep_variants, bucket_dot,
+            overlap)
 
 
 def launch_counts() -> dict:
@@ -53,6 +61,7 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "band_tap",
+    "bucket_dot",
     "build_bands",
     "degrid_stack",
     "degrid_stack_reference",
@@ -61,8 +70,11 @@ __all__ = [
     "grid_packed_stack",
     "grid_packed_stack_reference",
     "launch_counts",
+    "overlap",
     "packed_tap",
     "place",
+    "prep_variants",
+    "read_probe",
     "reset_launch_counts",
     "sparse_tap",
     "split_bf16",

@@ -39,6 +39,8 @@
 
 #include <cstdint>
 
+#include "taps.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -62,25 +64,6 @@ struct PrepArgs {
   void* vk;             // [total][S], f32 or bf16
   float* wk;            // grid: scales [2 Sw][total]; degrid: wk_t [Sw][total]
 };
-
-// The taps of one slot: out[s * out_stride] for s < n.
-__device__ __forceinline__ void clenshaw(int row, float inv2,
-                                         const float* c, int ncoef, int n,
-                                         float* out, int64_t out_stride) {
-  const float x = __fsub_rn(__fmul_rn(inv2, static_cast<float>(row)), 1.0f);
-  const float two_x = __fmul_rn(2.0f, x);
-  for (int s = 0; s < n; ++s) {
-    float b1 = 0.0f;
-    float b2 = 0.0f;
-    for (int k = ncoef - 1; k >= 1; --k) {
-      const float b = __fsub_rn(__fadd_rn(c[k * n + s], __fmul_rn(two_x, b1)),
-                                b2);
-      b2 = b1;
-      b1 = b;
-    }
-    out[s * out_stride] = __fsub_rn(__fadd_rn(c[s], __fmul_rn(x, b1)), b2);
-  }
-}
 
 template <bool kGrid, bool kBf16>
 __global__ void __launch_bounds__(kThreads) stream_prep_kernel(PrepArgs a) {

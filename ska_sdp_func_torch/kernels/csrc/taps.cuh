@@ -1,6 +1,6 @@
 // Device helpers shared by the kernels that evaluate Chebyshev kernel taps
 // or take their products in one of the three precision modes
-// (fused_tap.cu, band_tap.cu).
+// (fused_tap.cu, band_tap.cu, stream_prep.cu, prep_variants.cu, overlap.cu).
 //
 // Modes: kF32 the f32 product a * b ("highest"); kHigh the bf16 hi/lo
 // halves hi*hi + (hi*lo + lo*hi), each product exact in f32 (the TPU's
@@ -74,6 +74,33 @@ __device__ __forceinline__ float cheb_sum(const float* __restrict__ c,
 
 __device__ __forceinline__ float frac_x(int frac, float inv2) {
   return __fsub_rn(__fmul_rn(inv2, static_cast<float>(frac)), 1.0f);
+}
+
+// Clenshaw's backward recurrence of the Chebyshev fit c[d][s] (n taps a
+// row), the Pallas kernels' _clenshaw_rows: tap s at x is
+//   b1 = c[k][s] + (2x) b1 - b2 for k = ncoef - 1 .. 1, then c[0][s] + x b1 - b2.
+__device__ __forceinline__ float clenshaw_at(float x, const float* c,
+                                             int ncoef, int n, int s) {
+  const float two_x = __fmul_rn(2.0f, x);
+  float b1 = 0.0f;
+  float b2 = 0.0f;
+  for (int k = ncoef - 1; k >= 1; --k) {
+    const float b = __fsub_rn(__fadd_rn(c[k * n + s], __fmul_rn(two_x, b1)),
+                              b2);
+    b2 = b1;
+    b1 = b;
+  }
+  return __fsub_rn(__fadd_rn(c[s], __fmul_rn(x, b1)), b2);
+}
+
+// The n taps of one slot at x = inv2 * row - 1: out[s * out_stride].
+__device__ __forceinline__ void clenshaw(int row, float inv2,
+                                         const float* c, int ncoef, int n,
+                                         float* out, int64_t out_stride) {
+  const float x = __fsub_rn(__fmul_rn(inv2, static_cast<float>(row)), 1.0f);
+  for (int s = 0; s < n; ++s) {
+    out[s * out_stride] = clenshaw_at(x, c, ncoef, n, s);
+  }
 }
 
 }  // namespace

@@ -20,7 +20,12 @@ meets its plain version and the dense K16 on the same taps at 1e-5, in
 both modes; the bf16 mode of K14-K17 meets its bf16 plain versions at
 1e-5 and the f32 kernels within JAX's 4e-3 envelope. The host planners
 and the solver take a uvw tensor on the card, and the msclean and FISTA
-solves on the card meet the CPU port at 1e-4 of max|model|.
+solves on the card meet the CPU port at 1e-4 of max|model|. The
+experiments' kernels: the read probe (``read_probe``) and the tensor-core
+band products (``bucket_dot``, three TF32 passes or bf16, and its CUDA-core
+form) and overlap probe (``overlap``, every block's sum |acc| too) at
+1e-5 of max|plain|; the tap-preparation sweep (``prep_variants``) bit for
+bit.
 """
 
 import numpy as np
@@ -889,3 +894,137 @@ def test_fista_solve_on_card_matches_cpu(solver_scene, device):
     # error of the difference scales with V, not with the shrinking norm.
     np.testing.assert_allclose(card.residual_norm, cpu.residual_norm,
                                rtol=0, atol=1e-4 * cpu.residual_norm[0])
+
+
+# -- the experiments' A/B kernels (P1, P2) -----------------------------------
+
+def test_read_probe_kernel_matches_plain(device):
+    """bench.py's read probe: the column sums of every row block over the
+    streams at 1e-5 (f32 sum order), the TPU layout sliced from them."""
+    from ska_sdp_func_torch.kernels import read_probe as rp
+
+    rng = np.random.default_rng(1)
+    for n, shape, br, bc in ((6, (64, 2048), 16, 512), (1, (512, 1024), 512,
+                                                        1024)):
+        xs = [torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                              device=device) for _ in range(n)]
+        before = rp.read_streams.launches
+        out, sums = rp.read_streams(xs, 1.25, br, bc)
+        want_out, want_sums = rp.read_streams_reference(xs, 1.25, br, bc)
+        torch.cuda.synchronize()
+        assert rp.read_streams.launches == before + 1
+        assert out.shape == (8 * shape[0] // br, 128 * shape[1] // bc)
+        assert _rel(sums, want_sums) <= 1e-5
+        assert _rel(out, want_out) <= 1e-5
+
+
+def _prep_fields(device, cap, seed):
+    from ska_sdp_func_torch.grid_data.wtower import _tap_coeffs_cached
+
+    rng = np.random.default_rng(seed)
+    ints = lambda hi: torch.as_tensor(  # noqa: E731
+        rng.integers(0, hi, cap).astype(np.int32), device=device)
+    f32 = lambda: torch.as_tensor(  # noqa: E731
+        rng.standard_normal(cap).astype(np.float32), device=device)
+    coeffs = [torch.as_tensor(np.asarray(_tap_coeffs_cached(s, 16384),
+                                         np.float32), device=device)
+              for s in (8, 4)]
+    return (ints(9), ints(16384), ints(16384), f32(), f32(), ints(124),
+            ints(16384), *coeffs, 16384, 16384)
+
+
+def test_prep_variant_kernel_matches_plain(device):
+    """exp_prep's five modes, bit for bit: the taps round op by op in K6's
+    order; the zero outputs and placements are copies. A ragged cap, u_off
+    up to 8 and iv0 up to 123 (taps past the band dropped)."""
+    from ska_sdp_func_torch.kernels import prep_variants as pv
+
+    args = _prep_fields(device, 2 * 1024 + 77, seed=3)
+    for mode in pv.MODES:
+        before = pv.prep_variant.launches
+        got = pv.prep_variant(mode, *args)
+        want = pv.prep_variant_reference(mode, *args)
+        torch.cuda.synchronize()
+        assert pv.prep_variant.launches == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), mode
+
+
+def _dot_operands(device, block_v, nb, per_bucket, seed):
+    rng = np.random.default_rng(seed)
+    total = block_v * nb
+    put = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                    device=device)
+    ubase = put(rng.standard_normal((16, total)))
+    vband = put(rng.standard_normal((total, 128)))
+    scales = put(rng.standard_normal((8, total)))
+    ids = torch.as_tensor(np.arange(nb) // per_bucket, dtype=torch.int32,
+                          device=device)
+    uall = (ubase[None] * scales[:, None]).reshape(128, total)
+    return ids, ubase, vband, scales, uall
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("form", ["prod", "prod_simt", "lhs_stream",
+                                  "ksplit2", "ksplit4", "npair", "nodot"])
+def test_bucket_dot_kernel_matches_plain(device, form, bf16):
+    """exp_dot's forms on the tensor cores (three TF32 products for f32,
+    bf16 with f32 sums) and the CUDA cores at 1e-5 of max|plain| (f32 sum
+    order; the TF32 hi/lo split keeps ~2^-22 of each product)."""
+    from ska_sdp_func_torch.kernels import bucket_dot as bd
+
+    if bf16 and form in ("prod_simt", "nodot"):
+        pytest.skip(f"{form} has no bf16 mode")
+    for block_v, nb, per in ((128, 8, 2), (256, 10, 5)):
+        ids, ubase, vband, scales, uall = _dot_operands(device, block_v, nb,
+                                                        per, seed=block_v)
+        if bf16:
+            vband, uall = vband.bfloat16(), uall.bfloat16()
+        ins = (uall, vband) if form == "lhs_stream" else (ubase, vband,
+                                                          scales)
+        before = bd.bucket_dot.launches
+        got = bd.bucket_dot(form, ids, ins, nb // per, block_v)
+        want = bd.bucket_dot_reference(form, ids, ins, nb // per, block_v)
+        torch.cuda.synchronize()
+        assert bd.bucket_dot.launches == before + 1
+        assert _rel(got, want) <= 1e-5, (form, block_v)
+
+
+@pytest.mark.parametrize("slots", [1, 2, 4])
+def test_grid_parity_kernel_matches_plain(device, slots):
+    """exp_parity's split accumulators at 1e-5 of max|plain|; buckets no
+    block visits stay zero."""
+    from ska_sdp_func_torch.kernels import bucket_dot as bd
+
+    _, ubase, vband, scales, _ = _dot_operands(device, 256, 9, 1, seed=7)
+    ids = torch.tensor([0, 0, 0, 2, 2, 5, 5, 5, 5], dtype=torch.int32,
+                       device=device)
+    args = (ids, ubase, vband, scales, 7, 128, 4, 256, slots)
+    before = bd.grid_parity.launches
+    got = bd.grid_parity(*args)
+    want = bd.grid_parity_reference(*args)
+    torch.cuda.synchronize()
+    assert bd.grid_parity.launches == before + 1
+    assert _rel(got, want) <= 1e-5
+    assert not got[:, [1, 3, 4, 6]].any()
+
+
+@pytest.mark.parametrize("variant", ["dot", "vpu", "both", "both2"])
+def test_overlap_kernel_matches_plain(device, variant):
+    """exp_overlap's variants: the last block's acc and every block's
+    sum |acc| at 1e-5 of max|plain| (vpu's f32 sums are bit-equal)."""
+    from ska_sdp_func_torch.kernels import overlap as ov
+
+    rng = np.random.default_rng(0)
+    pa, pb = (torch.as_tensor(rng.integers(0, 2 ** 22, 4 * 1024, np.int32),
+                              device=device) for _ in range(2))
+    c = torch.as_tensor(rng.standard_normal((12, 8)), dtype=torch.float32,
+                        device=device)
+    before = ov.overlap.launches
+    out, sums = ov.overlap(variant, pa, pb, c)
+    want_out, want_sums = ov.overlap_reference(variant, pa, pb, c, 1024, 512)
+    torch.cuda.synchronize()
+    assert ov.overlap.launches == before + 1
+    assert sums.shape == (4,)
+    assert _rel(out, want_out) <= 1e-5
+    assert _rel(sums, want_sums) <= 1e-5

@@ -12,15 +12,25 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# Fails when jax, jaxlib or the JAX package was imported.
+# Fails when jax, jaxlib, the JAX package or the JAX harnesses (bench.py,
+# experiments/) were imported.
 CHECK = (
     "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-    "             ('jax', 'jaxlib', 'ska_sdp_func_tpu'))\n"
+    "             ('jax', 'jaxlib', 'ska_sdp_func_tpu', 'bench',\n"
+    "              'experiments'))\n"
     "assert not bad, bad\n")
 
 MODULES = [
     "ska_sdp_func_torch",
     "ska_sdp_func_torch.clean",
+    "ska_sdp_func_torch.experiments",
+    "ska_sdp_func_torch.experiments._common",
+    "ska_sdp_func_torch.experiments.exp_dot",
+    "ska_sdp_func_torch.experiments.exp_overlap",
+    "ska_sdp_func_torch.experiments.exp_parity",
+    "ska_sdp_func_torch.experiments.exp_place_dma",
+    "ska_sdp_func_torch.experiments.exp_prep",
+    "ska_sdp_func_torch.experiments.rooflines",
     "ska_sdp_func_torch.clean.hogbom",
     "ska_sdp_func_torch.clean.ms_clean",
     "ska_sdp_func_torch.fourier_transforms",
@@ -37,10 +47,14 @@ MODULES = [
     "ska_sdp_func_torch.kernels",
     "ska_sdp_func_torch.kernels._build",
     "ska_sdp_func_torch.kernels.band_tap",
+    "ska_sdp_func_torch.kernels.bucket_dot",
     "ska_sdp_func_torch.kernels.fold",
     "ska_sdp_func_torch.kernels.fused_tap",
+    "ska_sdp_func_torch.kernels.overlap",
     "ska_sdp_func_torch.kernels.packed_tap",
     "ska_sdp_func_torch.kernels.place",
+    "ska_sdp_func_torch.kernels.prep_variants",
+    "ska_sdp_func_torch.kernels.read_probe",
     "ska_sdp_func_torch.kernels.sparse_tap",
     "ska_sdp_func_torch.kernels.stream_prep",
     "ska_sdp_func_torch.kernels.tower_tap",
@@ -121,7 +135,8 @@ def test_chip_smoke_imports_no_jax():
         elif isinstance(node, ast.ImportFrom) and node.module:
             roots.add(node.module.split(".")[0])
     assert "ska_sdp_func_torch" in roots
-    assert not roots & {"jax", "jaxlib", "ska_sdp_func_tpu"}
+    assert not roots & {"jax", "jaxlib", "ska_sdp_func_tpu", "bench",
+                        "experiments"}
     import torch
 
     if torch.cuda.is_available():
