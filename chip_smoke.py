@@ -43,7 +43,9 @@ line of output each (or a few), failing loudly on the first fault:
       ``major_cycle_imager(bucketed=False)`` solve (the default) of the
       unit point on the first SOLVE_ROWS rows, each
       timed and held against the plain path on the card, and against
-      the bucketed fallback's image and visibilities;
+      the bucketed fallback's image and visibilities; then the active
+      entries of every plane the grid call grids (median, maximum) and
+      of the plane K14/K15 are timed on;
    d. the sub-grid gridder (K16, K17): ``GridderWtowerUVW``
       ``degrid_subgrid`` / ``grid_subgrid`` on complex64 on a 336-row
       sub-grid scenario, with an adjointness check and against the CPU
@@ -124,13 +126,14 @@ line of output each (or a few), failing loudly on the first fault:
 5. times: grid, degrid and one major-cycle iteration of the packed path
    (and one msclean and one FISTA iteration beside the Hogbom one) and
    the fallback at the bench scenario, the task drivers' calls of
-   4c, streaming ingest and predict beside their plain paths, the
-   non-packable ingest and predict beside the packable ones with their
-   stages, and the fast (bf16) ones beside the f32 ones, the fused and
-   compact engines beside the band engine, the
+   4c with one task's calls split per plane by CUDA events (geometry,
+   the K14/K15 wrapper, the rest), streaming ingest and predict beside
+   their plain paths, the non-packable ingest and predict beside the
+   packable ones with their stages, and the fast (bf16) ones beside the
+   f32 ones, the fused and compact engines beside the band engine, the
    ES-FFT gridder beside the packed path, and each kernel beside its
    plain version at the main paths' shapes (K12/K13 also beside K3/K4
-   on the same plan).
+   on the same plan; K14/K15 also on an all-masked plane).
 
 The line before the last is a JSON object describing each kernel: its
 launches in its path's window, its largest absolute difference from its
@@ -140,7 +143,10 @@ written once) over the H100's 3.35 TB/s and the f32 operations of the
 valid slots its plan gives it (the non-zero tap products, two
 operations each, and the fused kernels' and the tap preparation's tap
 evaluation) over its 67 TFLOP/s outside the tensor cores; the fold
-counts only the visited windows it must read. One kernel replaces both
+counts only the visited windows it must read, and the per-plane kernels
+K14/K15 (redesigned: their rows carry ``redesigned``) the mask, their
+active entries' operands and the stack or result
+(``plane_bytes``). One kernel replaces both
 TPU folds (K9, K10): it has a row for each; the bf16 modes of K6, K7, K8
 and K11 have rows of their own (``[bf16]``, window k's operands), bytes
 counted for the bf16 ``vk``; so do K20 and the bf16 modes of K14-K17
@@ -162,6 +168,7 @@ imports nothing of jax.
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -194,6 +201,11 @@ MODES = {"highest": dict(precision="highest"),
 TOL = 1e-5           # relative to max|reference| (f32 reordering only)
 PACKED_SOURCE = "ska_sdp_func_torch/kernels/csrc/packed_tap.cu"
 TOWER_SOURCE = "ska_sdp_func_torch/kernels/csrc/tower_tap.cu"
+# K14/K15, redesigned for the card: active-entry compaction on the device,
+# then work for the active entries only.
+PLANE_SOURCE = "ska_sdp_func_torch/kernels/csrc/plane_tap.cu"
+PLANE_REDESIGN = ("redesigned: compacts the plane's active entries on the "
+                  "device and gathers their taps in the kernel")
 # bench.py's dense stream: the bench rows and seed at 256 channels, one
 # chunk of 4,194,304 visibilities; then a short chunk of its first rows.
 STREAM_CHANS, STREAM_BLOCK_V, STREAM_CAP_FACTOR = 256, 1024, 1.4
@@ -470,6 +482,81 @@ def check_kernels(torch, tk, PackedGridder, pplan, dev, label):
 
 # -- w-towers kernels ----------------------------------------------------------
 
+def plane_geometry(plan, uvw_dev, s_uv, e_uv, off, w_plane):
+    """One w-plane's geometry over every row, as the task drivers make
+    it (``_grid_all_planes`` / ``_degrid_all_planes``)."""
+    from ska_sdp_func_torch.grid_data import wtower
+
+    return wtower._plane_geometry(
+        uvw_dev, s_uv, e_uv, w_plane, *off, plan.freq0_hz, plan.dfreq_hz,
+        plan.num_chan, plan.theta, plan.w_step, plan.support,
+        plan.oversampling, plan.w_support, plan.w_oversampling,
+        plan.subgrid_size, 0, uvw_dev.shape[0])
+
+
+def plane_census(torch, plan, uvw_dev, st, en):
+    """Active entries of every plane that ``grid_all_tasks`` grids, task
+    by task (one mask per task plane)."""
+    from ska_sdp_func_torch.parallel import wstack as pw
+
+    counts = []
+    for _, tasks in pw._plane_tasks(plan, uvw_dev, st, en):
+        for task, s_uv, e_uv in tasks:
+            off = pw._task_offsets(plan, task)
+            counts += [plane_geometry(plan, uvw_dev, s_uv, e_uv, off,
+                                      task.first_w_plane + p)[0].sum()
+                       for p in range(task.num_planes)]
+    return torch.stack(counts).cpu().numpy()
+
+
+def plane_split(torch, plan, uvw_dev, vis_dev, sub_image, plane_task):
+    """ms per plane of one task's ``_grid_all_planes`` and
+    ``_degrid_all_planes`` call (as the task drivers make them) by CUDA
+    events: the whole call, its planes' geometry, its planes' kernel
+    wrapper calls on those geometries, and the rest (the rolling stack,
+    its FFTs and adds)."""
+    from ska_sdp_func_torch.grid_data import wtower
+    from ska_sdp_func_torch.kernels import tower_tap as tt
+
+    task, s_uv, e_uv, off = plane_task
+    dev = uvw_dev.device
+    n, first, num = plan.subgrid_size, task.first_w_plane, task.num_planes
+    uv_k, w_k, w_pattern = plan.kernel().tables(torch.complex64, dev)
+    tail = (plan.freq0_hz, plan.dfreq_hz, num, plan.theta, plan.w_step,
+            plan.support, plan.oversampling, plan.w_support,
+            plan.w_oversampling, n, 0, uvw_dev.shape[0])
+
+    def geoms():
+        return [plane_geometry(plan, uvw_dev, s_uv, e_uv, off, first + p)
+                for p in range(num)]
+
+    ready = geoms()
+    stack = torch.zeros((plan.w_support, n, n), dtype=torch.complex64,
+                        device=dev)
+    zero_vis = torch.zeros_like(vis_dev)
+    calls = dict(
+        grid=(lambda: wtower._grid_all_planes(
+                  vis_dev, w_pattern, uv_k, w_k, uvw_dev, s_uv, e_uv,
+                  torch.zeros((n, n), dtype=torch.complex64, device=dev),
+                  *off, first, *tail),
+              lambda: [tt.grid_plane(stack, vis_dev, uv_k, w_k, g,
+                                     plan.support, plan.w_support)
+                       for g in ready]),
+        degrid=(lambda: wtower._degrid_all_planes(
+                    sub_image, w_pattern.to(torch.complex64), uv_k, w_k,
+                    uvw_dev, s_uv, e_uv, zero_vis, *off, first, *tail),
+                lambda: [tt.degrid_plane(stack, uv_k, w_k, g, plan.support,
+                                         plan.w_support) for g in ready]))
+    t_geom = cuda_ms(torch, geoms, 5, warmup=1) / num
+    out = {}
+    for what, (whole, wrappers) in calls.items():
+        t_call = cuda_ms(torch, whole, 5, warmup=1) / num
+        t_wrap = cuda_ms(torch, wrappers, 5, warmup=1) / num
+        out[what] = dict(call=t_call, geometry=t_geom, wrapper=t_wrap,
+                         rest=t_call - t_geom - t_wrap)
+    return num, out
+
+
 def tower_operands(torch, dev, plan, uvw_dev, vis_dev, bplan, sort_index,
                    valid, seed):
     """Operands of the four w-towers kernels at a main path's shapes.
@@ -479,9 +566,10 @@ def tower_operands(torch, dev, plan, uvw_dev, vis_dev, bplan, sort_index,
     / degrid_plane: one w-plane of that task's tower over every row and
     channel of ``uvw_dev`` (as the task drivers build it). Also returns
     each kernel's valid slots: the bucketed plan's valid slots in the
-    task's slice, and the plane geometry's active visibilities.
+    task's slice, and the plane geometry's active visibilities; and the
+    plane's task with its clamped channel ranges and offsets (for the
+    per-plane split of window c's times).
     """
-    from ska_sdp_func_torch.grid_data import wtower
     from ska_sdp_func_torch.parallel import bucketed as bk
     from ska_sdp_func_torch.parallel import wstack as pw
 
@@ -521,11 +609,8 @@ def tower_operands(torch, dev, plan, uvw_dev, vis_dev, bplan, sort_index,
     s_uv, e_uv = pw.clamp_channels_uv(uvw_dev, plan.freq0_hz, plan.dfreq_hz,
                                       s_w, e_w, *pw._box_bounds(plan, ptask))
     off = pw._task_offsets(plan, ptask)
-    geom = wtower._plane_geometry(
-        uvw_dev, s_uv, e_uv, ptask.first_w_plane + ptask.num_planes // 2,
-        *off, plan.freq0_hz, plan.dfreq_hz, plan.num_chan, plan.theta,
-        plan.w_step, plan.support, plan.oversampling, plan.w_support,
-        plan.w_oversampling, n, 0, uvw_dev.shape[0])
+    geom = plane_geometry(plan, uvw_dev, s_uv, e_uv, off,
+                          ptask.first_w_plane + ptask.num_planes // 2)
     uv_k, w_k, _ = plan.kernel().tables(torch.float32, dev)
     sub = rnd((plan.w_support, n, n), cplx=True)
     ops["grid_plane"] = ((sub, vis_dev, uv_k, w_k, geom, plan.support,
@@ -538,7 +623,7 @@ def tower_operands(torch, dev, plan, uvw_dev, vis_dev, bplan, sort_index,
                   grid_all_layers=in_task, degrid_all_layers=in_task)
     shapes = (f"{task.size} taps ({in_task} valid) x {num_k} layers; plane "
               f"{tuple(geom[0].shape)} with {active} active")
-    return ops, shapes, counts
+    return ops, shapes, counts, (ptask, s_uv, e_uv, off)
 
 
 def check_tower_kernels(torch, tt, ops, label):
@@ -677,6 +762,19 @@ def bound(args, out, ops, moved=None):
     t_bytes = moved / HBM_BYTES_S * 1e3
     t_ops = ops / F32_OPS_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def plane_bytes(geom, stack, active, support, w_support, grid) -> int:
+    """Bytes K14 (``grid``) or K15 must move for one plane: the mask
+    once; for each active entry its cells and kernel rows (5 int32), its
+    two uv-kernel rows and its w-kernel row (f32) and, to grid, its
+    complex64 visibility; the complex64 stack read once; and the stack
+    written once (grid) or the complex64 [R, C] result (degrid). The
+    masked entries' operands are never needed."""
+    mask = geom[0]
+    per_entry = 5 * 4 + (2 * support + w_support) * 4 + (8 if grid else 0)
+    written = nbytes(stack) if grid else mask.numel() * 8
+    return mask.numel() + int(active) * per_entry + nbytes(stack) + written
 
 
 def tap_ops(valid, support, w_support):
@@ -941,6 +1039,34 @@ def launch_window(torch, tkern, label, need, idle=()):
     if missing or stray:
         raise SystemExit(f"{label}: kernels never launched {missing}, "
                          f"launched off their path {stray}")
+
+
+def device_us(torch, fn, iters: int = 20):
+    """(microseconds of device work per call, kernel names) by
+    ``torch.profiler`` over ``iters`` calls after one warm-up: the device's
+    own kernels, memsets and copies (not the host calls that launched
+    them, which carry the same time); (None, []) where the trace holds no
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in rows) / iters
+    names = set()
+    for e in rows:
+        words = [w for w in re.findall(r"([A-Za-z_]\w*)\s*[<(]", e.key)
+                 if w not in ("void", "anonymous")]
+        names.add(words[0] if words else e.key.strip()[:40])
+    return (total or None), sorted(names)
 
 
 def timed(torch, fn):
@@ -1626,7 +1752,7 @@ def main() -> int:
                           SMALL["w_step"], support=8, w_support=4,
                           w_tower_height=HEIGHT)
     bplan_ss, sort_ss, valid_ss = plan_bucketed(plan_ss, uvw_s, block_v=128)
-    ops_ss, shapes, _ = tower_operands(
+    ops_ss, shapes, _, _ = tower_operands(
         torch, dev, plan_ss, torch.as_tensor(uvw_s, device=dev),
         torch.as_tensor(vis_s, device=dev), bplan_ss, sort_ss, valid_ss, 21)
     say(f"# small tower operands: {shapes}")
@@ -1643,7 +1769,7 @@ def main() -> int:
         f"{min(t.num_layers for t in bplan.tasks)}-"
         f"{max(t.num_layers for t in bplan.tasks)} layers, {bplan.total} "
         f"slots ({plan_time:.2f} s host)")
-    ops, shapes, tower_valid = tower_operands(
+    ops, shapes, tower_valid, plane_task = tower_operands(
         torch, dev, tplan, uvw_dev, vis_dev, bplan, sort_index, valid, 22)
     say(f"# main tower operands: {shapes}")
     tower_err = check_tower_kernels(torch, tt, ops, "main")
@@ -1857,6 +1983,13 @@ def main() -> int:
     if not (e_dimg <= TOL and e_dpred <= TOL and e_dres <= TOL
             and e_dfb <= 1e-4 and flux > 0.5):
         raise SystemExit("the task drivers disagree")
+    census = plane_census(torch, tplan, uvw_dev, st, en)
+    say(f"# task-driver planes: {census.size} in the grid call, active "
+        f"entries of {num_vis} each: median {float(np.median(census)):g}, "
+        f"max {int(census.max())}, sum {int(census.sum())}; the timed plane "
+        f"(K14/K15's operands) {tower_valid['grid_plane']}")
+    if census.size != sum(t.num_planes for t in tplan.tasks):
+        raise SystemExit("the plane census missed planes")
 
     # 4d. the sub-grid gridder (reference API), complex64 ----------------
     uvw_g, ch_g, img_g = subgrid_inputs()
@@ -2260,6 +2393,14 @@ def main() -> int:
         f"{td_s[2]:.3f} s; plain "
         f"path {td_plain_s[0]:.3f} s, {td_plain_s[1]:.3f} s, "
         f"{td_plain_s[2]:.3f} s")
+    num_p, split = plane_split(
+        torch, tplan, uvw_dev, vis_dev, ops["degrid_plane"][0][0][0],
+        plane_task)
+    say(f"# [{gpu}] task drivers, per plane of the timed plane's task "
+        f"({num_p} planes; ms, CUDA events, 5 calls each): " + "; ".join(
+            f"{what} call {t['call']:.3f} = geometry {t['geometry']:.3f} + "
+            f"{what}_plane wrapper {t['wrapper']:.3f} + rest {t['rest']:.3f}"
+            for what, t in split.items()))
 
     # Streaming: bench's stream_ingest_mvis_s (visibilities / accumulate
     # step over chained steps) and the predict twin, then the plain path.
@@ -2422,16 +2563,41 @@ def main() -> int:
     for name, _ in TOWER_KERNELS:
         args, kw = ops[name]
         # Each valid slot's S x S taps on its Sw layers (the plane kernels'
-        # stack, the all-layer kernels' window of the tower).
+        # stack, the all-layer kernels' window of the tower). The plane
+        # kernels move the mask and their active entries' operands only.
+        moved = None
+        if name.endswith("plane"):
+            p_geom, p_stack = args[-3], args[0]
+            moved = plane_bytes(p_geom, p_stack, tower_valid[name], 8, 4,
+                                name == "grid_plane")
         say(f"# [{gpu}] {name} at main-path shapes: " + time_kernel(
             name, getattr(tt, name), getattr(tt, name + "_reference"), args,
-            kw, tap_ops(tower_valid[name], 8, 4), k_iters=20))
+            kw, tap_ops(tower_valid[name], 8, 4), k_iters=20, moved=moved))
         # The bf16 mode reads the same f32 operands and rounds them in
         # registers: the same bytes and operations.
         say(f"# [{gpu}] {name} [bf16] at main-path shapes: " + time_kernel(
             f"{name}[bf16]", getattr(tt, name),
             getattr(tt, name + "_reference"), args, {**kw, "fast": True},
-            tap_ops(tower_valid[name], 8, 4), k_iters=20))
+            tap_ops(tower_valid[name], 8, 4), k_iters=20, moved=moved))
+        if name.endswith("plane"):
+            # The same call on an all-masked plane: the stack copy (grid)
+            # or the result's zeroing (degrid), the compaction and an empty
+            # consumer launch, the floor of the two-launch design.
+            p_empty = list(args)
+            p_empty[-3] = (torch.zeros_like(p_geom[0]),) + tuple(p_geom[1:])
+            p_fn = getattr(tt, name)
+            t_empty = [cuda_ms(torch, lambda: p_fn(*p_empty, **kw), 20)
+                       for _ in range(2)]
+            d_full, d_names = device_us(torch, lambda: p_fn(*args, **kw))
+            d_empty, _ = device_us(torch, lambda: p_fn(*p_empty, **kw))
+            say(f"# [{gpu}] {name} on an all-masked plane of the same "
+                f"shapes: {t_empty[0]:.4f}/{t_empty[1]:.4f} ms; device "
+                f"time per call (torch.profiler, 20 calls): "
+                + (f"{d_full:.1f} us, all-masked {d_empty:.1f} us "
+                   f"({', '.join(d_names)})" if d_full and d_empty
+                   else "not measured (no device time in the trace)")
+                + f"; old bound (every entry's taps read) "
+                f"{bound(args, p_fn(*args, **kw), 0)[0]:.4f} ms")
     for tag, fast in (("", False), ("[bf16]", True)):
         say(f"# [{gpu}] grid_all_layers_sparse{tag} on the fallback's "
             f"largest task: " + time_kernel(
@@ -2540,6 +2706,12 @@ def main() -> int:
                     bound_ms_read_rate=read_rate_bound(
                         moved_bytes[name], b, by, read_rate))
 
+    def plane_row(r):
+        """K14/K15's rows name their redesigned kernels' source."""
+        if r["name"].split("[")[0].endswith("plane"):
+            r.update(source=PLANE_SOURCE, redesigned=PLANE_REDESIGN)
+        return r
+
     kernels = [
         row("grid_packed_stack", PACKED_SOURCE,
             "ska_sdp_func_tpu/kernels/packed_tap.py:249",
@@ -2552,9 +2724,9 @@ def main() -> int:
             st_launches[name], stream_err[name])
         for name, _, src, where in STREAM_KERNELS
     ] + [
-        row(name, TOWER_SOURCE, where,
-            (td_launches if name.endswith("plane") else fb_launches)[name],
-            tower_err[name])
+        plane_row(row(name, TOWER_SOURCE, where,
+                      (td_launches if name.endswith("plane")
+                       else fb_launches)[name], tower_err[name]))
         for name, where in TOWER_KERNELS
     ] + [
         row(name, BAND_SOURCE, where, es["launches"][name], es["errs"][name])
@@ -2583,9 +2755,9 @@ def main() -> int:
     ] + [
         # K16/K17 reach the mode through the sub-grid gridder's switch
         # (window n's second run); K14/K15 through their wrappers only.
-        row(f"{name}[bf16]", TOWER_SOURCE, where,
-            (n_launches if name.endswith("plane") else nd_launches)[name],
-            fast_err[name])
+        plane_row(row(f"{name}[bf16]", TOWER_SOURCE, where,
+                      (n_launches if name.endswith("plane")
+                       else nd_launches)[name], fast_err[name]))
         for name, where in TOWER_KERNELS
     ] + [
         exp_row(name, source, where, exp_sites[name][0], exp_sites[name][1],

@@ -123,6 +123,10 @@ def load() -> ctypes.CDLL:
                 lib.sdp_torch_tower_degrid.argtypes = [
                     p, p, p, p, p, p, i64, i, i, i, i, p, p]
                 lib.sdp_torch_tower_degrid.restype = i
+                for name in ("sdp_torch_plane_grid", "sdp_torch_plane_degrid"):
+                    getattr(lib, name).argtypes = (
+                        [p] * 8 + [i, p, i, i64] + [i] * 4 + [p, p, p])
+                    getattr(lib, name).restype = i
                 f, pp = ctypes.c_float, ctypes.POINTER(ctypes.c_void_p)
                 lib.sdp_torch_fused_grid_stack.argtypes = (
                     [p] * 13 + [i, f, f] + [i] * 7 + [p, p])

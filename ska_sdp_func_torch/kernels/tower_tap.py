@@ -2,24 +2,28 @@
 
 Counterpart of ska_sdp_func_tpu.kernels.pallas_tap. Its four Pallas
 entry points share two kernel bodies (``_grid_kernel``,
-``_degrid_kernel``); here they share two hand-written CUDA kernels
-(``csrc/tower_tap.cu``, built by :mod:`._build`):
+``_degrid_kernel``); here the per-plane pair and the all-layer pair have
+hand-written CUDA kernels of their own (built by :mod:`._build`):
 
 - :func:`grid_plane` replaces ``grid_plane_pallas`` (K14) and
-  :func:`grid_all_layers` replaces ``grid_all_layers_pallas`` (K16):
-  both launch ``tower_grid_kernel``;
-- :func:`degrid_plane` replaces ``degrid_plane_pallas`` (K15) and
+  :func:`degrid_plane` replaces ``degrid_plane_pallas`` (K15): the task
+  drivers' kernels in ``csrc/plane_tap.cu``. They read the plane
+  geometry and the kernel tables directly, compact the plane's active
+  entries on the device (no host sync) and touch only those: the grid
+  kernel accumulates into a shared-memory stack and adds it into a copy
+  of the complex64 input stack, the degrid kernel zeroes the [R, C]
+  result and writes one value per active entry.
+- :func:`grid_all_layers` replaces ``grid_all_layers_pallas`` (K16) and
   :func:`degrid_all_layers` replaces ``degrid_all_layers_pallas`` (K17):
-  both launch ``tower_degrid_kernel``.
+  ``tower_grid_kernel`` and ``tower_degrid_kernel`` in
+  ``csrc/tower_tap.cu``, on flat per-visibility taps: ``iu0``/``iv0``
+  [V] int32 sub-grid cells, ``uk``/``vk`` [V, S] f32 kernel taps and
+  ``weights`` [V, K] f32, the w-kernel value of each visibility for each
+  layer (zero outside its layers).
 
-Both kernels take flat per-visibility taps: ``iu0``/``iv0`` [V] int32
-sub-grid cells, ``uk``/``vk`` [V, S] f32 kernel taps and ``weights``
-[V, K] f32, the w-kernel value of each visibility for each layer (zero
-outside its layers). The per-plane wrappers gather those from the
-kernel tables and the plane geometry first, as the Pallas wrappers do.
 Taps that fall outside the ``[N, N]`` sub-grid are dropped. Arithmetic
 is f32 throughout, the Pallas kernels' ``Precision.HIGHEST``; only the
-order of the sums differs (and, for the grid kernel's atomics, varies
+order of the sums differs (and, for the grid kernels' atomics, varies
 from run to run).
 
 ``fast=True`` is the bf16 mode, the Pallas kernels' ``fast`` (one bf16
@@ -34,8 +38,9 @@ rounded). The plain versions round the same operands with
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs its plain PyTorch version (``*_reference``). Each counts
 its own kernel launches in ``.launches``. ``block_v`` is the number of
-visibilities one grid CTA accumulates (the Pallas block size); the
-degrid kernel takes one warp per visibility and ignores it.
+visibilities one all-layer grid CTA accumulates (the Pallas block size);
+the all-layer degrid kernel and both per-plane kernels ignore it (the
+plain versions of the per-plane pair pass it on).
 """
 
 import torch
@@ -181,6 +186,48 @@ def _masked_vis(vis, mask):
             torch.where(mask, vis_f.imag, 0.0).to(torch.float32).contiguous())
 
 
+def _as(t: torch.Tensor, dtype) -> torch.Tensor:
+    """``t`` contiguous in ``dtype``: itself where it already is (the task
+    drivers' geometry and tables), so that the wrappers copy nothing."""
+    if t.dtype != dtype:
+        t = t.to(dtype)
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def _launch_plane(entry: str, data, uv_kernel, w_kernel, geom, support: int,
+                  w_support: int, size: int, fast: bool, out) -> None:
+    """``plane_grid_kernel`` / ``plane_degrid_kernel`` (after the shared
+    compaction) via ``entry``: ``data`` is the visibilities (grid) or the
+    stack (degrid), complex64 and contiguous; ``out`` the complex64
+    stack to add into (grid) or the [V] result (degrid)."""
+    from . import _build
+
+    total = geom[0].numel()
+    mask = _as(geom[0], torch.bool)
+    idx = [_as(g, torch.int32) for g in geom[1:]]
+    for name, g in zip(("iu0", "iv0", "u_row", "v_row", "w_row"), idx):
+        if g.numel() != total:
+            raise SdpShapeError(
+                f"{name} has {g.numel()} entries, the mask {total}")
+    uv_kernel = _as(uv_kernel, torch.float32)
+    w_kernel = _as(w_kernel, torch.float32)
+    if uv_kernel.ndim != 2 or uv_kernel.shape[1] != support \
+            or w_kernel.ndim != 2 or w_kernel.shape[1] != w_support:
+        raise SdpShapeError(
+            f"tables {tuple(uv_kernel.shape)}, {tuple(w_kernel.shape)}: "
+            f"expected [rows, {support}] and [rows, {w_support}]")
+    lib = _build.load()
+    work = torch.empty(total + 1, dtype=torch.int32, device=mask.device)
+    with torch.cuda.device(mask.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, entry)(
+            mask.data_ptr(), *(g.data_ptr() for g in idx), data.data_ptr(),
+            uv_kernel.data_ptr(), uv_kernel.shape[0], w_kernel.data_ptr(),
+            w_kernel.shape[0], total, support, w_support, size, int(fast),
+            work.data_ptr(), out.data_ptr(), stream)
+    _build.check(lib, err, entry)
+
+
 def grid_plane_reference(subgrids, vis, uv_kernel, w_kernel, geom,
                          support: int, w_support: int, block_v: int = 2048,
                          fast: bool = False) -> torch.Tensor:
@@ -207,17 +254,27 @@ def grid_plane(subgrids, vis, uv_kernel, w_kernel, geom, support: int,
                fast: bool = False) -> torch.Tensor:
     """Grid one w-plane's [R, C] visibilities into the ``[Sw, N, N]``
     tower stack (f32 compute, or the bf16 mode with ``fast``); returns
-    ``subgrids + contribution``."""
+    ``subgrids + contribution``. The kernel ignores ``block_v``."""
     dev = _device(subgrids, vis, uv_kernel, w_kernel, *geom)
     if dev.type == "cpu":
         return grid_plane_reference(subgrids, vis, uv_kernel, w_kernel,
                                     geom, support, w_support, block_v, fast)
-    mask, iu0, iv0, uk, vk, wk = _plane_taps(uv_kernel, w_kernel, geom)
-    out = _launch_grid(*_masked_vis(vis, mask), iu0, iv0, uk, vk, wk,
-                       subgrids.shape[-1], block_v, fast)
+    size = subgrids.shape[-1]
+    if tuple(subgrids.shape) != (w_support, size, size) \
+            or vis.numel() != geom[0].numel():
+        raise SdpShapeError(
+            f"stack {tuple(subgrids.shape)} and {vis.numel()} visibilities "
+            f"for a [{w_support}, N, N] stack and {geom[0].numel()} entries")
+    c64 = subgrids.dtype == torch.complex64
+    # The kernel adds into a copy of the stack (or, for another dtype, into
+    # zeros that are added after).
+    out = subgrids.clone(memory_format=torch.contiguous_format) if c64 \
+        else torch.zeros(subgrids.shape, dtype=torch.complex64, device=dev)
+    _launch_plane("sdp_torch_plane_grid", _as(vis, torch.complex64),
+                  uv_kernel, w_kernel, geom, support, w_support, size, fast,
+                  out)
     grid_plane.launches += 1
-    contrib = torch.complex(out[:w_support], out[w_support:])
-    return subgrids + contrib.to(subgrids.dtype)
+    return out if c64 else subgrids + out.to(subgrids.dtype)
 
 
 grid_plane.launches = 0
@@ -248,19 +305,22 @@ def degrid_plane(subgrids, uv_kernel, w_kernel, geom, support: int,
                  fast: bool = False) -> torch.Tensor:
     """Degrid one w-plane's [R, C] visibilities from the ``[Sw, N, N]``
     tower stack (f32 compute, or the bf16 mode with ``fast``); masked
-    entries are zero."""
+    entries are zero. The kernel ignores ``block_v``."""
     dev = _device(subgrids, uv_kernel, w_kernel, *geom)
     if dev.type == "cpu":
         return degrid_plane_reference(subgrids, uv_kernel, w_kernel, geom,
                                       support, w_support, block_v, fast)
-    mask, iu0, iv0, uk, vk, wk = _plane_taps(uv_kernel, w_kernel, geom)
-    out = _launch_degrid(_split_planes(subgrids), iu0, iv0, uk, vk, wk,
-                         fast)
+    size = subgrids.shape[-1]
+    if tuple(subgrids.shape) != (w_support, size, size):
+        raise SdpShapeError(f"stack {tuple(subgrids.shape)}, expected "
+                            f"[{w_support}, N, N]")
+    out = torch.empty(geom[0].shape, dtype=torch.complex64, device=dev)
+    _launch_plane("sdp_torch_plane_degrid", _as(subgrids, torch.complex64),
+                  uv_kernel, w_kernel, geom, support, w_support, size, fast,
+                  out)
     degrid_plane.launches += 1
-    vis = torch.complex(out[0], out[1]).to(subgrids.dtype)
-    vis = torch.where(mask, vis, torch.zeros((), dtype=vis.dtype,
-                                             device=dev))
-    return vis.reshape(geom[0].shape)
+    return out if subgrids.dtype == torch.complex64 \
+        else out.to(subgrids.dtype)
 
 
 degrid_plane.launches = 0

@@ -167,3 +167,52 @@ def es_scenario(seed: int = 42):
     return dict(uvw=uvw, freq=freq, vis=vis,
                 weight=np.ones((num_rows, num_chan)), image_size=image_size,
                 pixel_size=pixel_size)
+
+
+# The per-plane tap kernels' (K14/K15) compaction cases: one w-plane's
+# [rows, chans] geometry whose active entries are none ("masked"), only
+# the last (row, channel) ("last"), a few rows with contiguous channel
+# ranges whose cells drift along the channels, as the task drivers make
+# them ("clustered"), or half the entries with cells at the clip edge
+# N - S ("edge").
+PLANE_CASES = ("masked", "last", "clustered", "edge")
+
+
+def plane_case(case: str, size: int, rows: int = 48, chans: int = 8,
+               support: int = 8, w_support: int = 4, ov: int = 64,
+               seed: int = 0):
+    """(geometry, uv_kernel [ov + 1, S], w_kernel [ov + 1, Sw], vis
+    [rows, chans] complex64, stack [Sw, size, size] complex64) as NumPy:
+    int32 cells and kernel rows, a bool mask, random tables."""
+    rng = np.random.default_rng(seed)
+    shape = (rows, chans)
+    top = size - support
+    iu0 = rng.integers(0, top + 1, shape)
+    iv0 = rng.integers(0, top + 1, shape)
+    mask = np.zeros(shape, bool)
+    if case == "last":
+        mask[-1, -1] = True
+    elif case == "clustered":
+        for r in rng.choice(rows, 4, replace=False):
+            lo = rng.integers(0, chans - 1)
+            mask[r, lo:rng.integers(lo + 1, chans + 1)] = True
+            ramp = np.arange(chans)
+            iu0[r] = np.clip(rng.integers(0, top + 1) + ramp // 2, 0, top)
+            iv0[r] = np.clip(rng.integers(0, top + 1) - ramp // 3, 0, top)
+    elif case == "edge":
+        mask = rng.random(shape) < 0.5
+        iu0[rng.random(shape) < 0.5] = top
+        iv0[rng.random(shape) < 0.5] = top
+    elif case != "masked":
+        raise ValueError(case)
+    geom = (mask, iu0.astype(np.int32), iv0.astype(np.int32),
+            *(rng.integers(0, ov + 1, shape).astype(np.int32)
+              for _ in range(3)))
+
+    def cplx(shp):
+        return (rng.standard_normal(shp)
+                + 1j * rng.standard_normal(shp)).astype(np.complex64)
+
+    return (geom, rng.uniform(-1, 1, (ov + 1, support)).astype(np.float32),
+            rng.uniform(0.1, 1, (ov + 1, w_support)).astype(np.float32),
+            cplx(shape), cplx((w_support, size, size)))

@@ -18,7 +18,11 @@ their plain versions; the placement kernel (``place``) is a copy and
 compares bit for bit. The sparse all-layer grid (``sparse_tap``, K20)
 meets its plain version and the dense K16 on the same taps at 1e-5, in
 both modes; the bf16 mode of K14-K17 meets its bf16 plain versions at
-1e-5 and the f32 kernels within JAX's 4e-3 envelope. The host planners
+1e-5 and the f32 kernels within JAX's 4e-3 envelope. The per-plane
+kernels (K14/K15) also meet their plain versions on the compaction cases
+(``_torch_scenario.plane_case``) at N = 64 (the whole stack in shared
+memory) and N = 128 (one layer at a time), in both modes, each call
+counted once and made with no host sync. The host planners
 and the solver take a uvw tensor on the card, and the msclean and FISTA
 solves on the card meet the CPU port at 1e-4 of max|model|. The
 experiments' kernels: the read probe (``read_probe``) and the tensor-core
@@ -33,8 +37,9 @@ import pytest
 import torch
 
 from _torch_scenario import C_0, DFREQ, FREQ0, FUSED, IMAGE_SIZE, \
-    NUM_CHAN, PARAMS, WTOWER_PARAMS, es_scenario, fused_kernel_operands, \
-    make_inputs, two_point_image, wtower_scenario
+    NUM_CHAN, PARAMS, PLANE_CASES, WTOWER_PARAMS, es_scenario, \
+    fused_kernel_operands, make_inputs, plane_case, two_point_image, \
+    wtower_scenario
 from ska_sdp_func_torch import kernels
 from ska_sdp_func_torch.grid_data import GridderUvwEsFft, grid_correct_pswf
 from ska_sdp_func_torch.grid_data import wtower as tw
@@ -232,6 +237,40 @@ def test_tower_degrid_kernels_match_plain(device, size):
     after = tt.launch_counts()
     assert after["degrid_all_layers"] == before["degrid_all_layers"] + 1
     assert after["degrid_plane"] == before["degrid_plane"] + 1
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("size", [64, 128])
+@pytest.mark.parametrize("case", PLANE_CASES)
+def test_plane_kernels_on_compaction_cases(device, case, size, fast):
+    """K14/K15 against their plain versions (an all-masked plane exactly
+    zero), one launch each, and no host sync inside either wrapper."""
+    geom, uv_k, w_k, vis, sub = plane_case(case, size, rows=300, chans=16,
+                                           seed=size)
+    geom = tuple(torch.as_tensor(g, device=device) for g in geom)
+    uv_k, w_k, vis, sub = (torch.as_tensor(a, device=device)
+                           for a in (uv_k, w_k, vis, sub))
+    before = tt.launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got_g = tt.grid_plane(sub, vis, uv_k, w_k, geom, 8, 4, fast=fast)
+        got_d = tt.degrid_plane(sub, uv_k, w_k, geom, 8, 4, fast=fast)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = tt.launch_counts()
+    assert after["grid_plane"] == before["grid_plane"] + 1
+    assert after["degrid_plane"] == before["degrid_plane"] + 1
+    want_g = tt.grid_plane_reference(sub, vis, uv_k, w_k, geom, 8, 4,
+                                     fast=fast)
+    want_d = tt.degrid_plane_reference(sub, uv_k, w_k, geom, 8, 4,
+                                       fast=fast)
+    torch.cuda.synchronize()
+    for got, want in ((got_g - sub, want_g - sub), (got_d, want_d)):
+        if not bool(geom[0].any()):
+            assert not bool(got.any()) and not bool(want.any())
+        else:
+            assert _rel(got, want) <= 1e-5
+    assert not bool(got_d[~geom[0]].any())
 
 
 def test_wtower_c64_on_card_takes_fused_kernels(device):

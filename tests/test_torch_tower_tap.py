@@ -5,7 +5,13 @@ kernels.dense_tap).
 Tolerances: the plain versions at 1e-5 of max|output| (the same f32
 products as the Pallas kernels at Precision.HIGHEST, summed in another
 order); the dense products on complex128 at 1e-12 of max|output| (the
-same banded algebra in f64).
+same banded algebra in f64). The per-plane pair on the compaction cases
+of their CUDA kernels (``_torch_scenario.plane_case``): f32 at 1e-5,
+an all-masked plane exactly zero, and the bf16 mode against JAX's
+``fast`` (f32 on the CPU) within the rounding of its terms, 2^-7 (1 +
+2^-9) of the sum of |terms| of each output: JAX's 4e-3 of max|output|
+holds for sums of many terms, but these planes' cells sum a few (the
+clustered grid reads 4.6e-3).
 """
 
 import numpy as np
@@ -15,6 +21,8 @@ pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
+
+from _torch_scenario import PLANE_CASES, plane_case  # noqa: E402
 
 from ska_sdp_func_torch.kernels import dense_tap as tdense  # noqa: E402
 from ska_sdp_func_torch.kernels import tower_tap as tt  # noqa: E402
@@ -198,3 +206,57 @@ def test_wrappers_reject_bad_operands():
     with pytest.raises(SdpMemLocationError):
         tt.grid_all_layers(vre.to("meta"), vre, iu0, iv0, uk, vk, weights,
                            5, 32, SUPPORT)
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("op", ["grid", "degrid"])
+@pytest.mark.parametrize("case", PLANE_CASES)
+def test_plane_cases_match_pallas(case, op, fast):
+    """grid_plane / degrid_plane on the geometries their kernels' active-
+    entry compaction must get right, against the Pallas kernels."""
+    geom, uv_k, w_k, vis, sub = plane_case(case, 32, seed=len(case))
+    jgeom = tuple(jnp.asarray(g) for g in geom)
+    tgeom = tuple(torch.as_tensor(g) for g in geom)
+    if op == "grid":
+        want = np.asarray(jp.grid_plane_pallas(
+            jnp.asarray(sub), jnp.asarray(vis), jnp.asarray(uv_k),
+            jnp.asarray(w_k), jgeom, SUPPORT, W_SUPPORT, block_v=128,
+            fast=fast, interpret=True)) - sub
+        got = tt.grid_plane(
+            torch.as_tensor(sub), torch.as_tensor(vis), torch.as_tensor(uv_k),
+            torch.as_tensor(w_k), tgeom, SUPPORT, W_SUPPORT, block_v=128,
+            fast=fast).numpy() - sub
+    else:
+        want = np.asarray(jp.degrid_plane_pallas(
+            jnp.asarray(sub), jnp.asarray(uv_k), jnp.asarray(w_k), jgeom,
+            SUPPORT, W_SUPPORT, block_v=128, fast=fast, interpret=True))
+        got = tt.degrid_plane(
+            torch.as_tensor(sub), torch.as_tensor(uv_k), torch.as_tensor(w_k),
+            tgeom, SUPPORT, W_SUPPORT, fast=fast).numpy()
+        assert not got[~geom[0]].any()
+    if not geom[0].any():
+        assert not got.any() and not want.any()
+    elif not fast:
+        _close(got, want)
+    else:
+        # Per output, the sum of |terms|: the f32 plain version on
+        # |operands|.
+        def parts(x):
+            return (np.abs(x.real) + 1j * np.abs(x.imag)).astype(x.dtype)
+
+        t_abs = [torch.as_tensor(np.abs(t)) for t in (uv_k, w_k)]
+        if op == "grid":
+            terms = tt.grid_plane_reference(
+                torch.zeros(sub.shape, dtype=torch.complex64),
+                torch.as_tensor(parts(vis)), *t_abs, tgeom, SUPPORT,
+                W_SUPPORT).numpy()
+        else:
+            terms = tt.degrid_plane_reference(
+                torch.as_tensor(parts(sub)), *t_abs, tgeom, SUPPORT,
+                W_SUPPORT).numpy()
+        slack = 2 ** -7 * (1 + 2 ** -9)
+        for part in (np.real, np.imag):
+            assert (np.abs(part(got) - part(want))
+                    <= slack * part(terms)
+                    + 1e-6 * np.abs(part(want)).max()).all()
+        assert not np.array_equal(got, want)
