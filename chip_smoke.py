@@ -13,7 +13,9 @@ line of output each (or a few), failing loudly on the first fault:
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card: the packed kernels (K1, K2) and the fused kernels (K3, K4) in all
    three precision modes, the placement kernel (K5) bit for bit, the
-   w-towers tap kernels (K14-K17), and the non-packable streaming
+   w-towers tap kernels (K14-K17; K16/K17 both over a whole fallback
+   stream of tasks, also at supports 12 and 20, and on one task), and
+   the non-packable streaming
    branch's tap preparation (K6, K7) and window fold (K9 + K10, also
    with NaN in every unvisited window) with K5, K8 and K11 at its shapes,
    f32 and bf16 (K6, K7 bit for bit), each on the small test scenario
@@ -36,8 +38,10 @@ line of output each (or a few), failing loudly on the first fault:
       ``plan_wstack`` -> ``plan_bucketed``, ``grid_all_bucketed``,
       ``degrid_all_bucketed`` of a unit point and two
       ``major_cycle_imager(bucketed=True)`` iterations on that point's
-      visibilities; each held against the same calls on the plain path
-      on the card;
+      visibilities, each grid call launching K16 and each degrid call
+      K17 exactly once over all 218 tasks (the counters read around every
+      call, the solver's included); each held against the same calls on
+      the plain path on the card;
    c. the task drivers (K14, K15) at the same full width:
       ``grid_all_tasks``, ``degrid_all_tasks`` and a one-cycle
       ``major_cycle_imager(bucketed=False)`` solve (the default) of the
@@ -125,7 +129,8 @@ line of output each (or a few), failing loudly on the first fault:
       version and times it;
 5. times: grid, degrid and one major-cycle iteration of the packed path
    (and one msclean and one FISTA iteration beside the Hogbom one) and
-   the fallback at the bench scenario, the task drivers' calls of
+   the fallback at the bench scenario (with its device operations per
+   call and busy share by ``torch.profiler``), the task drivers' calls of
    4c with one task's calls split per plane by CUDA events (geometry,
    the K14/K15 wrapper, the rest), streaming ingest and predict beside
    their plain paths, the non-packable ingest and predict beside the
@@ -133,7 +138,9 @@ line of output each (or a few), failing loudly on the first fault:
    f32 ones, the fused and compact engines beside the band engine, the
    ES-FFT gridder beside the packed path, and each kernel beside its
    plain version at the main paths' shapes (K12/K13 also beside K3/K4
-   on the same plan; K14/K15 also on an all-masked plane).
+   on the same plan; K14/K15 also on an all-masked plane; K16/K17 over
+   window b's whole stream, also at supports 12 and 20, and on its
+   largest task alone).
 
 The line before the last is a JSON object describing each kernel: its
 launches in its path's window, its largest absolute difference from its
@@ -146,7 +153,10 @@ evaluation) over its 67 TFLOP/s outside the tensor cores; the fold
 counts only the visited windows it must read, and the per-plane kernels
 K14/K15 (redesigned: their rows carry ``redesigned``) the mask, their
 active entries' operands and the stack or result
-(``plane_bytes``). One kernel replaces both
+(``plane_bytes``). K16/K17's rows (redesigned: ``entry`` names the
+batched wrapper) carry the batched call at window b's stream, its
+launches in window b, and ``single_task_*`` for the one-task call on the
+largest task. One kernel replaces both
 TPU folds (K9, K10): it has a row for each; the bf16 modes of K6, K7, K8
 and K11 have rows of their own (``[bf16]``, window k's operands), bytes
 counted for the bf16 ``vk``; so do K20 and the bf16 modes of K14-K17
@@ -225,6 +235,21 @@ TOWER_KERNELS = (
     ("grid_all_layers", "ska_sdp_func_tpu/kernels/pallas_tap.py:309"),
     ("degrid_all_layers", "ska_sdp_func_tpu/kernels/pallas_tap.py:369"),
 )
+# K16/K17, redesigned for the card: one launch over every task of a
+# fallback call (the one-task wrappers above launch the same kernels with
+# a one-task table). Their rows in the kernels line carry the batched
+# call's numbers at window b's stream, the one-task call's beside them.
+TASK_KERNELS = (
+    ("grid_all_layers_tasks", "grid_all_layers"),
+    ("degrid_all_layers_tasks", "degrid_all_layers"),
+)
+TASK_REDESIGN = ("redesigned: one launch over every task of a fallback "
+                 "call (a CTA per task plane in shared memory, a thread "
+                 "per slot to degrid)")
+# Supports past 8 take the batched kernels' wider bodies (to grid, 12: 16
+# taps a row in one pass, 20: two passes; to degrid, tap rows read from
+# memory); checked and timed on window b's stream with random taps.
+WIDE_SUPPORTS = (12, 20)
 # The ES-FFT gridder on the bench data, and its kernels.
 ES_EPSILON = 1e-5
 ES_LAYOUTS = {"3-D": True, "2-D": False}
@@ -561,14 +586,16 @@ def tower_operands(torch, dev, plan, uvw_dev, vis_dev, bplan, sort_index,
                    valid, seed):
     """Operands of the four w-towers kernels at a main path's shapes.
 
-    grid_all_layers / degrid_all_layers: the taps of the bucketed plan's
-    largest task slice (as ``grid_all_bucketed`` builds them); grid_plane
-    / degrid_plane: one w-plane of that task's tower over every row and
+    grid_all_layers_tasks / degrid_all_layers_tasks: the taps of the
+    bucketed plan's whole stream and its task table (as
+    ``grid_all_bucketed`` builds them); grid_all_layers /
+    degrid_all_layers: the slice of its largest task; grid_plane /
+    degrid_plane: one w-plane of that task's tower over every row and
     channel of ``uvw_dev`` (as the task drivers build it). Also returns
     each kernel's valid slots: the bucketed plan's valid slots in the
-    task's slice, and the plane geometry's active visibilities; and the
-    plane's task with its clamped channel ranges and offsets (for the
-    per-plane split of window c's times).
+    stream or the task's slice, and the plane geometry's active
+    visibilities; and the plane's task with its clamped channel ranges
+    and offsets (for the per-plane split of window c's times).
     """
     from ska_sdp_func_torch.parallel import bucketed as bk
     from ska_sdp_func_torch.parallel import wstack as pw
@@ -581,7 +608,9 @@ def tower_operands(torch, dev, plan, uvw_dev, vis_dev, bplan, sort_index,
                            plan.dfreq_hz)
     k = max(range(len(bplan.tasks)), key=lambda i: bplan.tasks[i].size)
     task = bplan.tasks[k]
-    iu0, iv0, uk, vk, weights = bk._task_taps(taps, task)
+    sl = slice(task.start, task.start + task.size)
+    iu0, iv0, uk, vk = (t[sl] for t in taps[:4])
+    weights = taps[4][sl, :task.num_layers].contiguous()
     n = plan.subgrid_size
     num_k = task.num_layers
 
@@ -617,21 +646,61 @@ def tower_operands(torch, dev, plan, uvw_dev, vis_dev, bplan, sort_index,
                           plan.w_support), {})
     ops["degrid_plane"] = ((sub, uv_k, w_k, geom, plan.support,
                             plan.w_support), {})
+    # The batched kernels on the whole stream, as window b's calls.
+    tasks = bk._device_constants(bplan, dev)["tasks"]
+    ops["grid_all_layers_tasks"] = ((rnd(bplan.total), rnd(bplan.total),
+                                     *taps, tasks, n, plan.support), {})
+    ops["degrid_all_layers_tasks"] = ((rnd((tasks.planes, n, n), cplx=True),
+                                       *taps, tasks, plan.support), {})
     active = int(geom[0].sum())         # geom[0]: the plane's mask
     in_task = int(valid[task.start:task.start + task.size].sum())
+    in_stream = int(valid.sum())
     counts = dict(grid_plane=active, degrid_plane=active,
-                  grid_all_layers=in_task, degrid_all_layers=in_task)
-    shapes = (f"{task.size} taps ({in_task} valid) x {num_k} layers; plane "
+                  grid_all_layers=in_task, degrid_all_layers=in_task,
+                  grid_all_layers_tasks=in_stream,
+                  degrid_all_layers_tasks=in_stream)
+    shapes = (f"stream of {bplan.total} taps ({in_stream} valid), "
+              f"{len(tasks.rows)} tasks, {tasks.planes} planes; largest task "
+              f"{task.size} taps ({in_task} valid) x {num_k} layers; plane "
               f"{tuple(geom[0].shape)} with {active} active")
     return ops, shapes, counts, (ptask, s_uv, e_uv, off)
 
 
-def check_tower_kernels(torch, tt, ops, label):
-    """Each w-towers kernel against its plain version; returns the
-    absolute errors. The plane kernels compare their contribution (the
-    input stack subtracted)."""
+def wide_task_operands(torch, ops, support, seed):
+    """The batched K16/K17 operands of ``ops`` at another ``support``:
+    random uk, vk rows and the cells clipped to N - support."""
+    gen = torch.Generator(device=ops["grid_all_layers_tasks"][0][0].device)
+    gen.manual_seed(seed)
+    wide = {}
+    for name, _ in TASK_KERNELS:
+        args, kw = ops[name]
+        grid = name.startswith("grid")
+        # grid: (vre, vim, iu0, ..., n, S); degrid: (layers, iu0, ..., S)
+        j, n = (2, args[-2]) if grid else (1, args[0].shape[-1])
+        iu0, iv0 = args[j], args[j + 1]
+        rows = [torch.randn((iu0.shape[0], support), generator=gen,
+                            device=iu0.device) for _ in range(2)]
+        wide[name] = (args[:j] + (iu0.clamp(max=n - support),
+                                  iv0.clamp(max=n - support), *rows)
+                      + args[j + 4:-1] + (support,), kw)
+    return wide
+
+
+def task_bytes(args, weights, tasks, out_bytes) -> int:
+    """Bytes K16 or K17 must move over a stream of tasks: each operand and
+    the output once, but of the weights [V, Kw] only each task's own K_t
+    columns of its slots (Kw is the largest K_t)."""
+    own = sum(count * layers for _, count, layers, _ in tasks.rows)
+    return (nbytes(args) - nbytes(weights) + own * weights.element_size()
+            + out_bytes)
+
+
+def check_tower_kernels(torch, tt, ops, label, names=None):
+    """Each w-towers kernel (or those of ``names``) against its plain
+    version; returns the absolute errors. The plane kernels compare their
+    contribution (the input stack subtracted)."""
     errs = {}
-    for name, _ in TOWER_KERNELS:
+    for name in names or [n for n, _ in TOWER_KERNELS + TASK_KERNELS]:
         args, kw = ops[name]
         got = getattr(tt, name)(*args, **kw)
         want = getattr(tt, name + "_reference")(*args, **kw)
@@ -639,6 +708,7 @@ def check_tower_kernels(torch, tt, ops, label):
             got, want = got - args[0], want - args[0]
         torch.cuda.synchronize()
         errs[name] = (rel_err(got, want), float((got - want).abs().max()))
+        del got, want
     say(f"# tower kernels vs plain [{label}]: " + ", ".join(
         f"{n} rel err {e[0]:.3e}" for n, e in errs.items())
         + f" (tolerance {TOL:g})")
@@ -651,23 +721,25 @@ def check_tower_kernels(torch, tt, ops, label):
 
 @contextlib.contextmanager
 def plain_tower_kernels(bk, tt):
-    """The w-towers drivers on the four tap kernels' plain versions (the
-    plain path the kernel path is held against). The bucketed drivers
-    import the all-layer wrappers by name; the sub-grid gridder reaches
-    all four through ``tower_tap``."""
-    names = [n for n, _ in TOWER_KERNELS]
-    saved = ([getattr(tt, n) for n in names], bk.grid_all_layers,
-             bk.degrid_all_layers)
+    """The w-towers drivers on the tap kernels' plain versions (the plain
+    path the kernel path is held against). The bucketed drivers import the
+    batched wrappers by name; the sub-grid gridder reaches the others
+    through ``tower_tap``."""
+    names = [n for n, _ in TOWER_KERNELS + TASK_KERNELS]
+    batched = [n for n, _ in TASK_KERNELS]
+    saved = ([getattr(tt, n) for n in names],
+             [getattr(bk, n) for n in batched])
     for n in names:
         setattr(tt, n, getattr(tt, n + "_reference"))
-    bk.grid_all_layers = tt.grid_all_layers_reference
-    bk.degrid_all_layers = tt.degrid_all_layers_reference
+    for n in batched:
+        setattr(bk, n, getattr(tt, n + "_reference"))
     try:
         yield
     finally:
         for n, f in zip(names, saved[0]):
             setattr(tt, n, f)
-        bk.grid_all_layers, bk.degrid_all_layers = saved[1:]
+        for n, f in zip(batched, saved[1]):
+            setattr(bk, n, f)
 
 
 @contextlib.contextmanager
@@ -1042,11 +1114,11 @@ def launch_window(torch, tkern, label, need, idle=()):
 
 
 def device_us(torch, fn, iters: int = 20):
-    """(microseconds of device work per call, kernel names) by
-    ``torch.profiler`` over ``iters`` calls after one warm-up: the device's
-    own kernels, memsets and copies (not the host calls that launched
-    them, which carry the same time); (None, []) where the trace holds no
-    device time."""
+    """(microseconds of device work per call, kernel names, device
+    operations per call) by ``torch.profiler`` over ``iters`` calls after
+    one warm-up: the device's own kernels, memsets and copies (not the
+    host calls that launched them, which carry the same time); (None, [],
+    0) where the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1061,12 +1133,62 @@ def device_us(torch, fn, iters: int = 20):
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     total = sum(e.self_device_time_total for e in rows) / iters
+    count = sum(e.count for e in rows) / iters
     names = set()
     for e in rows:
         words = [w for w in re.findall(r"([A-Za-z_]\w*)\s*[<(]", e.key)
                  if w not in ("void", "anonymous")]
         names.add(words[0] if words else e.key.strip()[:40])
-    return (total or None), sorted(names)
+    return (total or None), sorted(names), count
+
+
+def fallback_times(torch, dev, tplan, bplan, sort_index, valid, inv, uvw,
+                   uvw_dev, vis_dev, model):
+    """Window b's fallback calls, timed: for ``grid_all_bucketed``,
+    ``degrid_all_bucketed`` of ``model`` and one major-cycle iteration
+    (degrid, residual, grid, a 50-component Hogbom minor cycle), the ms
+    per call by CUDA events (5, 5 and 2 calls after a warm-up) and the
+    device time (us) and device operations per call by ``torch.profiler``.
+    Only the drivers and the solver's steps are called, as every version
+    of the port has them, so two checkouts compare on one card in turns.
+    """
+    from ska_sdp_func_torch.parallel import (
+        degrid_all_bucketed,
+        grid_all_bucketed,
+        plan_bucketed,
+    )
+    from ska_sdp_func_torch.pipeline import major_cycle as mc
+
+    def grid():
+        return grid_all_bucketed(bplan, vis_dev, uvw_dev, sort_index, valid)
+
+    def degrid():
+        return degrid_all_bucketed(bplan, model, uvw_dev, sort_index, valid,
+                                   inv)
+
+    border = IMAGE // 16
+    pb, ps, pv = plan_bucketed(mc.make_psf_plan(tplan, uvw), uvw)
+    psf = grid_all_bucketed(pb, torch.ones_like(vis_dev), uvw_dev, ps, pv)
+    peak = psf[IMAGE, IMAGE]
+    psf = mc._norm_mask(psf, peak, 2 * border)
+    stop = torch.zeros((), device=dev)
+    state = {"model": torch.zeros((IMAGE, IMAGE), device=dev)}
+
+    def major_cycle():
+        p = degrid_all_bucketed(bplan, state["model"], uvw_dev, sort_index,
+                                valid, inv)
+        dirty = mc._norm_mask(grid_all_bucketed(
+            bplan, vis_dev - p, uvw_dev, sort_index, valid), peak, border)
+        delta, _ = mc._minor_cycle(dirty, psf, 0.1, stop, 50)
+        state["model"] = state["model"] + delta
+
+    out = {}
+    for what, fn, iters in (("grid", grid, 5), ("degrid", degrid, 5),
+                            ("major cycle", major_cycle, 2)):
+        ms = cuda_ms(torch, fn, iters, warmup=1)
+        d_us, _, d_ops = device_us(torch, fn, iters)
+        out[what] = (ms, d_us, d_ops)
+    return out
 
 
 def timed(torch, fn):
@@ -1773,6 +1895,12 @@ def main() -> int:
         torch, dev, tplan, uvw_dev, vis_dev, bplan, sort_index, valid, 22)
     say(f"# main tower operands: {shapes}")
     tower_err = check_tower_kernels(torch, tt, ops, "main")
+    task_names = [n for n, _ in TASK_KERNELS]
+    wide_ops = {sup: wide_task_operands(torch, ops, sup, 30 + sup)
+                for sup in WIDE_SUPPORTS}
+    for sup, w_ops in wide_ops.items():
+        check_tower_kernels(torch, tt, w_ops, f"main, support {sup}",
+                            task_names)
 
     # The streaming path's kernels (K3, K4, K5): the small scenario, then
     # bench.py's dense stream (the operands of 4f).
@@ -1847,7 +1975,7 @@ def main() -> int:
 
     # 4a. packed main path ---------------------------------------------
     g = packed_gridder(pplan, device=dev)
-    tower_names = [n for n, _ in TOWER_KERNELS]
+    tower_names = [n for n, _ in TOWER_KERNELS + TASK_KERNELS]
     stream_names = [n for n, _, _, _ in STREAM_KERNELS]
     with launch_window(torch, tkern, "packed path",
                        ("grid_packed_stack", "degrid_stack"),
@@ -1896,20 +2024,46 @@ def main() -> int:
         raise SystemExit("the point-source solve disagrees")
 
     # 4b. w-towers path, bucketed fallback, full width -----------------
-    with launch_window(torch, tkern, "bucketed fallback",
-                       ("grid_all_layers", "degrid_all_layers"),
-                       ("grid_plane", "degrid_plane", *stream_names)
-                       ) as fb_launches:
-        t_img = grid_all_bucketed(bplan, vis_dev, uvw_dev, sort_index,
-                                  valid)
-        t_pred = degrid_all_bucketed(bplan, model, uvw_dev, sort_index,
-                                     valid, inv)
-        # The solve images the unit point's visibilities: on the noise
-        # of the bench data CLEAN's argmax meets near-ties, and a
-        # 1e-7 difference between two sum orders then picks another
-        # component.
-        t_res = major_cycle_imager(tplan, t_pred, uvw, n_major=2,
-                                   bucketed=True, device=dev)
+    # Each grid_all_bucketed call must launch K16 once and each
+    # degrid_all_bucketed call K17 once (the counters read around every
+    # call, the solver's included).
+    fb_calls = {"grid_all_layers_tasks": [], "degrid_all_layers_tasks": []}
+
+    def one_launch(fn, name):
+        def call(*args, **kw):
+            before = tt.launch_counts()[name]
+            out = fn(*args, **kw)
+            fb_calls[name].append(tt.launch_counts()[name] - before)
+            return out
+        return call
+
+    fb_grid = one_launch(grid_all_bucketed, "grid_all_layers_tasks")
+    fb_degrid = one_launch(degrid_all_bucketed, "degrid_all_layers_tasks")
+    saved_mc = (mc.grid_all_bucketed, mc.degrid_all_bucketed)
+    mc.grid_all_bucketed, mc.degrid_all_bucketed = fb_grid, fb_degrid
+    try:
+        with launch_window(torch, tkern, "bucketed fallback", task_names,
+                           ("grid_plane", "degrid_plane", "grid_all_layers",
+                            "degrid_all_layers", *stream_names)
+                           ) as fb_launches:
+            t_img = fb_grid(bplan, vis_dev, uvw_dev, sort_index, valid)
+            t_pred = fb_degrid(bplan, model, uvw_dev, sort_index, valid, inv)
+            # The solve images the unit point's visibilities: on the noise
+            # of the bench data CLEAN's argmax meets near-ties, and a
+            # 1e-7 difference between two sum orders then picks another
+            # component.
+            t_res = major_cycle_imager(tplan, t_pred, uvw, n_major=2,
+                                       bucketed=True, device=dev)
+    finally:
+        mc.grid_all_bucketed, mc.degrid_all_bucketed = saved_mc
+    say(f"# fallback K16/K17 launches per call: grid_all_bucketed "
+        f"{fb_calls['grid_all_layers_tasks']}, degrid_all_bucketed "
+        f"{fb_calls['degrid_all_layers_tasks']}")
+    if any(n != 1 for c in fb_calls.values() for n in c) or \
+            len(fb_calls["degrid_all_layers_tasks"]) < 2 or \
+            len(fb_calls["grid_all_layers_tasks"]) < 3:
+        raise SystemExit("a fallback call did not launch its all-layer "
+                         "kernel exactly once")
     finite(torch, (("tower dirty image", t_img), ("tower degrid", t_pred),
                    ("tower model", t_res.model),
                    ("tower restored", t_res.restored)))
@@ -1958,7 +2112,7 @@ def main() -> int:
     with launch_window(torch, tkern, "task drivers",
                        ("grid_plane", "degrid_plane"),
                        ("grid_all_layers", "degrid_all_layers",
-                        *stream_names)) as td_launches:
+                        *task_names, *stream_names)) as td_launches:
         d_img, d_pred, d_res, td_s = task_drivers()
     finite(torch, (("task-driver image", d_img),
                    ("task-driver degrid", d_pred),
@@ -2018,7 +2172,8 @@ def main() -> int:
 
     with launch_window(torch, tkern, "sub-grid gridder",
                        ("grid_all_layers", "degrid_all_layers"),
-                       ("grid_plane", "degrid_plane", *stream_names)):
+                       ("grid_plane", "degrid_plane", *task_names,
+                        *stream_names)):
         ax, atv, v, x = subgrid_pair(dev)
     ax_cpu, atv_cpu, _, _ = subgrid_pair(torch.device("cpu"))
     lhs, rhs = complex(np.vdot(v.numpy(), ax.numpy())), \
@@ -2040,7 +2195,8 @@ def main() -> int:
                 w_tower_height=HEIGHT)
     with launch_window(torch, tkern, "reference engine",
                        ("grid_all_layers", "degrid_all_layers"),
-                       ("grid_plane", "degrid_plane", *stream_names)):
+                       ("grid_plane", "degrid_plane", *task_names,
+                        *stream_names)):
         ref_vis = wstack_wtower_degrid_all(
             model, C_0, C_0 / (100 * CHANS), uvw_rd,
             vis=torch.zeros((REF_ROWS, CHANS), dtype=torch.complex64,
@@ -2283,7 +2439,7 @@ def main() -> int:
     fast_err = check_tower_fast(torch, tt, ops)
     nd_launches = fast_subgrid_phase(
         torch, tkern, tt, bk, wtower, subgrid_pair, dev, ax, atv,
-        ("grid_plane", "degrid_plane", *stream_names))
+        ("grid_plane", "degrid_plane", *task_names, *stream_names))
 
     # 4o. the solvers at the bench scenario (K1, K2): the multi-scale
     # major cycle and FISTA on the bench uvw, visibilities predicted from
@@ -2362,31 +2518,24 @@ def main() -> int:
         f"components) {iters[1]:.3f}/{iters[4]:.3f} ms, FISTA "
         f"{iters[2]:.3f}/{iters[3]:.3f} ms")
 
-    tt_grid = cuda_ms(torch, lambda: grid_all_bucketed(
-        bplan, vis_dev, uvw_dev, sort_index, valid), 3, warmup=1)
-    tt_degrid = cuda_ms(torch, lambda: degrid_all_bucketed(
-        bplan, model, uvw_dev, sort_index, valid, inv), 3, warmup=1)
-    t_psf_plan = mc.make_psf_plan(tplan, uvw)
-    pb, ps, pv = plan_bucketed(t_psf_plan, uvw)
-    t_psf = grid_all_bucketed(pb, torch.ones_like(vis_dev), uvw_dev, ps, pv)
-    t_peak = t_psf[IMAGE, IMAGE]
-    t_psf = mc._norm_mask(t_psf, t_peak, 2 * border)
-    state["model"] = torch.zeros((IMAGE, IMAGE), device=dev)
-
-    def tower_mc_step():
-        p = degrid_all_bucketed(bplan, state["model"], uvw_dev, sort_index,
-                                valid, inv)
-        dirty = mc._norm_mask(grid_all_bucketed(
-            bplan, vis_dev - p, uvw_dev, sort_index, valid), t_peak, border)
-        delta, _ = mc._minor_cycle(dirty, t_psf, 0.1, stop, 50)
-        state["model"] = state["model"] + delta
-
-    tt_mc = cuda_ms(torch, tower_mc_step, 2, warmup=1)
+    fb = fallback_times(torch, dev, tplan, bplan, sort_index, valid, inv,
+                        uvw, uvw_dev, vis_dev, model)
+    tt_grid, tt_degrid, tt_mc = (fb[w][0] for w in ("grid", "degrid",
+                                                    "major cycle"))
     say(f"# [{gpu}] w-towers fallback ({len(bplan.tasks)} tasks): grid "
         f"{num_vis / tt_grid / 1e3:.2f} Mvis/s ({tt_grid:.3f} ms), degrid "
         f"{num_vis / tt_degrid / 1e3:.2f} Mvis/s ({tt_degrid:.3f} ms), "
         f"major cycle {1e3 / tt_mc:.3f} iters/s ({tt_mc:.3f} ms; minor "
         f"cycle 50 components)")
+    say(f"# [{gpu}] w-towers fallback, per call (torch.profiler): "
+        + "; ".join(
+            f"{what} {d_ops:.0f} device operations a call, device "
+            + (f"{d_us / 1e3:.3f} ms, busy {d_us / 1e3 / wall:.1%}" if d_us
+               else "time not measured (no device time in the trace)")
+            for what, (wall, d_us, d_ops) in fb.items())
+        + f"; K16/K17 launches per grid / degrid call in window b: "
+        f"{fb_calls['grid_all_layers_tasks']} / "
+        f"{fb_calls['degrid_all_layers_tasks']}")
     say(f"# [{gpu}] task drivers ({len(tplan.tasks)} tasks, one call each "
         f"at full width): grid {td_s[0]:.3f} s, degrid {td_s[1]:.3f} s, "
         f"one-cycle solve on {SOLVE_ROWS} rows (PSF grid, degrid, grid) "
@@ -2588,8 +2737,9 @@ def main() -> int:
             p_fn = getattr(tt, name)
             t_empty = [cuda_ms(torch, lambda: p_fn(*p_empty, **kw), 20)
                        for _ in range(2)]
-            d_full, d_names = device_us(torch, lambda: p_fn(*args, **kw))
-            d_empty, _ = device_us(torch, lambda: p_fn(*p_empty, **kw))
+            d_full, d_names, _ = device_us(torch,
+                                           lambda: p_fn(*args, **kw))
+            d_empty, _, _ = device_us(torch, lambda: p_fn(*p_empty, **kw))
             say(f"# [{gpu}] {name} on an all-masked plane of the same "
                 f"shapes: {t_empty[0]:.4f}/{t_empty[1]:.4f} ms; device "
                 f"time per call (torch.profiler, 20 calls): "
@@ -2598,6 +2748,37 @@ def main() -> int:
                    else "not measured (no device time in the trace)")
                 + f"; old bound (every entry's taps read) "
                 f"{bound(args, p_fn(*args, **kw), 0)[0]:.4f} ms")
+    # K16/K17 as the fallback launches them: once over window b's stream
+    # (then at the wider supports, on random taps).
+    def task_moved(name, args):
+        tasks = args[-3] if name.startswith("grid") else args[-2]
+        weights = args[-4] if name.startswith("grid") else args[-3]
+        out = (tasks.planes * args[-2] ** 2 if name.startswith("grid")
+               else weights.shape[0]) * 8            # complex64
+        return task_bytes(args, weights, tasks, out)
+
+    for name, kernel_name in TASK_KERNELS:
+        args, kw = ops[name]
+        say(f"# [{gpu}] {name} ({kernel_name} over every task) at window "
+            f"b's stream: " + time_kernel(
+                name, getattr(tt, name), getattr(tt, name + "_reference"),
+                args, kw, tap_ops(tower_valid[name], 8, 4), k_iters=20,
+                p_iters=1, p_warmup=1, moved=task_moved(name, args)))
+        d_us, d_names, _ = device_us(torch, lambda: getattr(tt, name)(
+            *args, **kw))
+        say(f"# [{gpu}] {name} device time per call (torch.profiler, 20 "
+            f"calls): " + (f"{d_us:.1f} us ({', '.join(d_names)})" if d_us
+                           else "not measured (no device time in the "
+                           "trace)"))
+    for sup, w_ops in wide_ops.items():
+        for name, _ in TASK_KERNELS:
+            args, kw = w_ops[name]
+            say(f"# [{gpu}] {name} at support {sup} (window b's stream, "
+                f"random taps): " + time_kernel(
+                    f"{name}[S={sup}]", getattr(tt, name),
+                    getattr(tt, name + "_reference"), args, kw,
+                    tap_ops(tower_valid[name], sup, 4), k_iters=20, p_iters=1,
+                    p_warmup=1, moved=task_moved(name, args)))
     for tag, fast in (("", False), ("[bf16]", True)):
         say(f"# [{gpu}] grid_all_layers_sparse{tag} on the fallback's "
             f"largest task: " + time_kernel(
@@ -2712,6 +2893,19 @@ def main() -> int:
             r.update(source=PLANE_SOURCE, redesigned=PLANE_REDESIGN)
         return r
 
+    def task_row(name, where):
+        """K16/K17's rows: the batched call's numbers at window b's stream
+        and launches in window b, the one-task call's on the largest task
+        beside them."""
+        batched = {k: b for b, k in TASK_KERNELS}[name]
+        r = row(batched, TOWER_SOURCE, where, fb_launches[batched],
+                tower_err[batched])
+        k, p, b, _ = times[name]
+        r.update(name=name, entry=batched, redesigned=TASK_REDESIGN,
+                 single_task_ms=k, single_task_plain_ms=p,
+                 single_task_bound_ms=b)
+        return r
+
     kernels = [
         row("grid_packed_stack", PACKED_SOURCE,
             "ska_sdp_func_tpu/kernels/packed_tap.py:249",
@@ -2724,9 +2918,9 @@ def main() -> int:
             st_launches[name], stream_err[name])
         for name, _, src, where in STREAM_KERNELS
     ] + [
-        plane_row(row(name, TOWER_SOURCE, where,
-                      (td_launches if name.endswith("plane")
-                       else fb_launches)[name], tower_err[name]))
+        plane_row(row(name, TOWER_SOURCE, where, td_launches[name],
+                      tower_err[name])) if name.endswith("plane")
+        else task_row(name, where)
         for name, where in TOWER_KERNELS
     ] + [
         row(name, BAND_SOURCE, where, es["launches"][name], es["errs"][name])

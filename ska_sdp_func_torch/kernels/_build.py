@@ -114,15 +114,15 @@ def load() -> ctypes.CDLL:
                 lib.sdp_torch_degrid_stack.argtypes = [
                     p, p, p, p, i, p, p, p, i, p, i64, i, i, i, i, p, p]
                 lib.sdp_torch_degrid_stack.restype = i
-                lib.sdp_torch_tower_grid.argtypes = [
-                    p, p, p, p, p, p, p, i64, i, i, i, i, i, p, p]
-                lib.sdp_torch_tower_grid.restype = i
+                lib.sdp_torch_tower_grid_tasks.argtypes = (
+                    [p] * 9 + [i, i64] + [i] * 4 + [p, p])
+                lib.sdp_torch_tower_grid_tasks.restype = i
                 lib.sdp_torch_tower_grid_sparse.argtypes = (
                     [p] * 8 + [i64] + [i] * 6 + [p, p])
                 lib.sdp_torch_tower_grid_sparse.restype = i
-                lib.sdp_torch_tower_degrid.argtypes = [
-                    p, p, p, p, p, p, i64, i, i, i, i, p, p]
-                lib.sdp_torch_tower_degrid.restype = i
+                lib.sdp_torch_tower_degrid_tasks.argtypes = (
+                    [p] * 7 + [i, i64] + [i] * 4 + [p, p])
+                lib.sdp_torch_tower_degrid_tasks.restype = i
                 for name in ("sdp_torch_plane_grid", "sdp_torch_plane_degrid"):
                     getattr(lib, name).argtypes = (
                         [p] * 8 + [i, p, i, i64] + [i] * 4 + [p, p, p])

@@ -1,68 +1,100 @@
-// W-towers tap gridding / degridding kernels for Hopper (sm_90a).
+// W-towers all-layer tap gridding / degridding kernels for Hopper (sm_90a).
 //
-// Replace the Pallas TPU kernels of ska_sdp_func_tpu/kernels/pallas_tap.py
-// and kernels/sparse_tap.py. pallas_tap's four entry points share two
-// kernel bodies, and so do these:
-//   - _grid_kernel   (grid_plane_pallas, grid_all_layers_pallas)
-//                    -> tower_grid_kernel
-//   - _degrid_kernel (degrid_plane_pallas, degrid_all_layers_pallas)
-//                    -> tower_degrid_kernel
-// and sparse_tap's _sparse_grid_kernel (grid_all_layers_sparse) is the
-// SPARSE instantiation of tower_grid_kernel.
+// Replace the Pallas TPU kernels grid_all_layers_pallas (K16) and
+// degrid_all_layers_pallas (K17) of ska_sdp_func_tpu/kernels/pallas_tap.py
+// (their shared bodies _grid_kernel / _degrid_kernel), and the sparse
+// all-layer grid _sparse_grid_kernel (K20) of kernels/sparse_tap.py:
+//   - K16 -> tower_grid_tasks_kernel
+//   - K17 -> tower_degrid_tasks_kernel
+//   - K20 -> sparse_grid_kernel
 //
-// Inputs are flat per-visibility taps (shared with the plain PyTorch
-// versions in tower_tap.py and sparse_tap.py): iu0/iv0 [V] int32 sub-grid
-// cells, uk/vk [V, S] f32 kernel taps, and the w-kernel value of each
-// visibility for each of the K layers: dense, weights [V, K] f32 (zero
-// outside its Sw layers); or SPARSE, k0 [V] int32 first layer (clipped to
-// [0, K - Sw]) and wk [V, Sw] f32, so that layer k takes wk[v, k - k0]
-// when 0 <= k - k0 < Sw and 0 otherwise. Layer planes are f32 [2K, N, N]:
-// re of layers 0..K-1, then im.
+// Inputs are flat per-slot taps (shared with the plain PyTorch versions in
+// tower_tap.py and sparse_tap.py): iu0/iv0 [V] int32 sub-grid cells,
+// uk/vk [V, S] f32 kernel taps, and the w-kernel value of each slot on
+// each layer: dense, weights [V, Kw] f32 (zero outside its Sw layers); or,
+// for K20, k0 [V] int32 first layer (clipped to [0, K - Sw]) and wk [V, Sw]
+// f32, so that layer k takes wk[v, k - k0] when 0 <= k - k0 < Sw.
 //
-//   grid:   out[h*K + k, iu0+a, iv0+b] += (uk[v,a] * s) * vk[v,b],
-//           s = w[v,k] * (h ? vim : vre)[v], summed over v;
+// K16/K17 take a whole sorted stream of tasks at once. A task table int32
+// [T, 4] holds, per task and in slot order, (start, count, K_t, base): its
+// slots [start, start + count), its layer count K_t <= Kw, and the first of
+// its K_t planes in one output stack. A null table is one task over every
+// slot with K_t = Kw and base 0 (the one-task wrappers). For each task
+//
+//   grid:   stack[base + k, iu0+a, iv0+b] += (uk[v,a] * s) * vk[v,b],
+//           s = w[v,k] * (vre, vim)[v], summed over the task's slots;
 //   degrid: vis[v] = sum_k w[v,k] * sum_{a,b} uk[v,a] vk[v,b]
-//                    * layer_k[iu0+a, iv0+b]        (re and im).
-// Taps outside [0, N)^2 are dropped, as the TPU band build drops them (the
-// sparse TPU kernel's rows past its padded plane run into the next layer;
-// that is not copied).
+//                    * stack[base + k, iu0+a, iv0+b]        (re and im),
+//
+// with the stack complex64 [sum_t K_t, N, N] (interleaved re, im). Taps
+// outside [0, N)^2 are dropped, as the TPU band build drops them.
 //
 // Precision. f32 throughout by default (the Pallas kernels'
 // Precision.HIGHEST); only the order of the sums differs. BF16 is the
 // TPU's single-pass bf16 dot (Precision.DEFAULT, the Pallas `fast` mode),
 // rounding exactly the operands of its dots: grid, bf16(uk * s) *
 // bf16(vk), with uk * s rounded once in f32 first; degrid, (bf16(uk) *
-// bf16(cell)) * vk, vk and the w weight in f32. Each bf16 product is
-// exact in f32 and the sums are f32. The mode is a template argument: the
-// inner loops carry no branch on it.
+// bf16(cell)) * vk, vk and the w weight in f32. Each bf16 product is exact
+// in f32 and the sums are f32. The mode is a template argument.
 //
-// What bounds it on an H100. The TPU kernel rebuilt the scatter as dense
-// [N, B] x [B, N] band products for the MXU (2 N^2 flops per visibility
-// and layer, of which only S^2 = 64 are not zero). On the card the
-// sparse form is the cheap one: 2 S^2 flops and a handful of bytes per
-// visibility and active layer, so both kernels are bound by memory
-// latency (shared-memory atomics for the grid, L1/L2 gathers for the
-// degrid), not by flops or HBM bandwidth. The bf16 mode rounds in
-// registers and uses no tensor cores: it costs what f32 costs.
+// What bounds it on an H100. The TPU kernels rebuilt the scatter as dense
+// [N, B] x [B, N] band products for the MXU (2 N^2 flops per slot and
+// layer, of which only S^2 = 64 are not zero), one pallas_call per task,
+// and XLA put the per-task loop around them at no launch cost. On the card
+// the sparse form is the cheap one: 2 S^2 flops and ~120 bytes per slot
+// and active layer, so a whole fallback call (218 tasks, ~1.16M slots on
+// the bench data) is bound by its bytes, tens of microseconds, and a launch
+// per task (with the host work around it) is what costs. So each kernel
+// takes every task of a call in one launch.
 //
-// Grid design (the simple, correct one): one CTA of 256 threads per
-// (block of block_v visibilities, output plane h*K + k). A CTA first
-// checks whether any visibility of its block has a non-zero scale for
-// its plane and exits if none does (the Pallas per-(block, layer) skip
-// flags; with w-sorted input most of a block's K layers are inactive),
-// and takes the bounding box of the active visibilities' taps. It then
-// zeroes that box of an [N, N] f32 plane in shared memory, accumulates
-// the S x S taps of every active visibility with shared-memory atomics
-// (one visibility's taps per 64 threads, so a warp's atomics hit
-// distinct cells), and flushes the box's non-zero cells into the output
-// with one global atomicAdd each. Planes above kMaxSmemPlane bytes
-// (N > 156) skip the shared plane and add straight into global memory.
-// The sparse form reads 4 + 4 Sw bytes of w taps per visibility in place
-// of 4 K; the TPU kernel's sequential per-visibility read-modify-writes
-// become the same atomics.
-// Degrid design: one warp per visibility; for each layer with a non-zero
-// weight its lanes gather the S x S taps (coalesced rows of S floats
-// from the L2-resident planes), and a warp shuffle reduces the sums.
+// Grid design: one CTA of 16 warps per output plane (task, layer k), in
+// the order of a layer map int32 [sum K_t, 2] of (task row, k) that the
+// caller gives (largest tasks first, so they do not form the tail). The
+// CTA holds the plane's re and im halves in shared memory, rows padded to
+// a stride of 8 mod 32 floats so that the 4 x 8 taps a warp adds at once
+// fall on 32 distinct banks. Each warp takes 32 of the task's slots at a
+// time: lane i reads slot i's weight for k, visibility and cells. A slot
+// is active on Sw of the task's K_t layers and a row's channels share
+// their layers, so most chunks have no active slot and cost those few
+// loads. Otherwise the warp stages the chunk in its own corner of shared
+// memory: each slot's s = w * (vre, vim) and cell, and the uk and vk rows
+// of its active slots (contiguous: coalesced loads, all in flight at
+// once). Then every lane walks the 32 staged slots in order with
+// broadcast reads and sums its S^2/32 taps of each in registers.
+// Consecutive slots are neighbouring channels of one row and mostly share
+// their cell, so a lane adds its sums into the plane (shared-memory
+// atomics: other warps add into the same cells) only when the cell moves.
+// Then the CTA writes its whole plane pair with plain coalesced float2
+// stores, zeros included: no global atomics and no memset of the stack.
+// A plane pair that does not fit beside the staging (N > 140 at S = 8)
+// skips shared memory: the stack is zeroed by one memset and each lane
+// adds its sums straight into it with float2 global atomics. (Staging
+// the chunk first and summing in registers is what keeps a slot from
+// waiting on its own loads and from paying an atomic a tap.) A lane holds
+// 2 taps of a slot up to support 8 and 8 up to 16; a wider support walks
+// the task's slots again for each further 256 taps, up to S = 54, where
+// the 16 warps' staged rows fill shared memory.
+//
+// Degrid design: one thread per slot of the whole stream. It finds its
+// slot's task by a binary search of the table's starts (broadcast loads of
+// a few hundred bytes; the lanes of a warp, neighbouring slots, mostly
+// take one path), loads its S + S taps, and for each of the task's layers
+// with a non-zero weight gathers its S x S cells as float2 from the
+// complex64 stack (L2-resident), all of a layer's loads independent and
+// in flight at once; one float2 store. Neighbouring slots mostly fall on
+// the same cells, so a warp's gathers mostly coincide (a support over 8
+// reads its tap rows from memory where they are used). Every slot of the
+// stream is written (zero where no task holds it), in slot order. (A
+// thread a slot, rather than a warp, keeps all of a slot's gathers in
+// flight at once and needs no reduction across lanes.)
+//
+// K20 (sparse_grid_kernel, a simple form; no entry point runs it): one
+// CTA of 256 threads per (block of block_v slots, output plane h*K + k)
+// over an f32 [2K, N, N] stack; a CTA skips a plane that no slot of
+// its block touches, zeroes the box its slots' taps cover in a
+// shared-memory plane, adds every tap with shared-memory atomics and
+// flushes the box's non-zero cells with global atomics (N > 156: global
+// atomics throughout).
 
 #include <cuda_runtime.h>
 
@@ -72,49 +104,443 @@
 
 namespace {
 
-constexpr int kGridThreads = 256;
-constexpr int kDegridThreads = 256;  // 8 warps, one visibility each
-constexpr int kMaxSmemPlane = 96 * 1024;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTaskGridThreads = 512;     // 16 warps
+constexpr int kTaskGridWarps = kTaskGridThreads / 32;
+constexpr int kDegridThreads = 256;       // one slot a thread
+constexpr int kMaxSmem = 232448;          // 227 KB, opt-in
+constexpr int kSparseThreads = 256;
+constexpr int kMaxSparseSmemPlane = 96 * 1024;
 
-struct TowerGridArgs {
+struct TaskRow {
+  int start;
+  int count;
+  int num_layers;
+  int base;
+};
+
+__device__ __forceinline__ TaskRow task_row(const int* table, int t,
+                                            int64_t total, int w_cols) {
+  if (table == nullptr) {
+    return TaskRow{0, static_cast<int>(total), w_cols, 0};
+  }
+  const int4 r = reinterpret_cast<const int4*>(table)[t];
+  return TaskRow{r.x, r.y, r.z, r.w};
+}
+
+__device__ __forceinline__ void atomic_add2(float2* p, float x, float y) {
+#if CUDART_VERSION >= 12010
+  atomicAdd(p, make_float2(x, y));   // one vector atomic (sm_90, global)
+#else
+  atomicAdd(&p->x, x);
+  atomicAdd(&p->y, y);
+#endif
+}
+
+// The shared-memory row stride of an N-wide plane: N padded up to 8 mod 32.
+__host__ __device__ __forceinline__ int padded_stride(int size) {
+  return size + ((8 - size % 32) + 32) % 32;
+}
+
+// Floats of one warp's staged chunk of 32 slots: each slot's (s_re, s_im,
+// u0, v0), then its uk and vk rows, 2S floats padded to an odd pitch.
+__host__ __device__ __forceinline__ int stage_floats(int support) {
+  return 32 * 4 + 32 * (2 * support + 1);
+}
+
+struct TaskGridArgs {
   const float* vre;
   const float* vim;
   const int* iu0;
   const int* iv0;
-  const int* k0;      // SPARSE: [V] first layer; dense: unused
   const float* uk;
   const float* vk;
-  const float* w;     // dense: weights [V, K]; SPARSE: wk [V, Sw]
+  const float* w;          // weights [V, w_cols]
+  const int* table;        // [T, 4] or null (one task, every slot)
+  const int* layer_map;    // [planes, 2] (task row, k) or null (k = CTA)
   int64_t total;
   int support;
-  int w_support;      // SPARSE only
+  int w_cols;
+  int size;
+  float2* out;             // complex64 [planes, N, N]
+};
+
+// MAXS (8 or 16): each lane holds TPL = MAXS^2 / 32 of a slot's taps, so a
+// pass over the task's slots takes 32 TPL taps of each: one pass up to
+// support MAXS, ceil(S^2 / 256) passes past 16. The MAXS = 16 body keeps
+// 32 more registers of sums and cells a lane: one CTA an SM, not two.
+template <bool SMEM, bool BF16, int MAXS>
+__global__ void __launch_bounds__(kTaskGridThreads, MAXS <= 8 ? 2 : 1)
+tower_grid_tasks_kernel(const TaskGridArgs a) {
+  constexpr int TPL = MAXS * MAXS / 32;
+  // [re plane | im plane] (N x stride each, when SMEM), then each warp's
+  // staged slots: 32 (s_re, s_im, u0, v0) and 32 uk, vk rows.
+  extern __shared__ float smem[];
+
+  int t = 0;
+  int k = blockIdx.x;
+  if (a.layer_map != nullptr) {
+    const int2 m = reinterpret_cast<const int2*>(a.layer_map)[blockIdx.x];
+    t = m.x;
+    k = m.y;
+  }
+  const TaskRow task = task_row(a.table, t, a.total, a.w_cols);
+  const int size = a.size;
+  const int support = a.support;
+  const int stride = padded_stride(size);
+  const int pitch = 2 * support + 1;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  float* p_re = smem;
+  float* p_im = smem + size * stride;
+  float4* scal = reinterpret_cast<float4*>(
+      smem + (SMEM ? 2 * size * stride : 0) + warp * stage_floats(support));
+  float* stage = reinterpret_cast<float*>(scal + 32);
+  float2* dst = a.out + static_cast<int64_t>(task.base + k) * size * size;
+
+  if (SMEM) {
+    for (int i = tid; i < 2 * size * stride; i += kTaskGridThreads) {
+      smem[i] = 0.0f;
+    }
+    __syncthreads();
+  }
+
+  // Each pass: this lane's taps t = tap0 + lane + 32 i, row a = t / S,
+  // column b = t % S.
+  const int taps = support * support;
+  const int passes = MAXS <= 8 ? 1 : (taps + 32 * TPL - 1) / (32 * TPL);
+  for (int pass = 0; pass < passes; ++pass) {
+    const int tap0 = 32 * TPL * pass;
+    int tap_a[TPL];
+    int tap_b[TPL];
+#pragma unroll
+    for (int i = 0; i < TPL; ++i) {
+      const int tap = min(tap0 + lane + 32 * i, taps - 1);
+      tap_a[i] = tap / support;
+      tap_b[i] = tap % support;
+    }
+
+    // Each lane's running sums for its taps' cells: consecutive slots of a
+    // row are neighbouring channels, which mostly fall on the same sub-grid
+    // cell, so the sums are added into the plane only when the cell moves.
+    float acc_re[TPL];
+    float acc_im[TPL];
+    int at_u = 0;
+    int at_v = 0;
+    bool held = false;
+    auto flush = [&]() {
+#pragma unroll
+      for (int i = 0; i < TPL; ++i) {
+        const int u = at_u + tap_a[i];
+        const int c = at_v + tap_b[i];
+        if (tap0 + lane + 32 * i < taps && u >= 0 && u < size &&
+            c >= 0 && c < size) {
+          if (SMEM) {
+            atomicAdd(&p_re[u * stride + c], acc_re[i]);
+            atomicAdd(&p_im[u * stride + c], acc_im[i]);
+          } else {
+            atomic_add2(&dst[u * size + c], acc_re[i], acc_im[i]);
+          }
+        }
+      }
+    };
+
+    const int64_t end = static_cast<int64_t>(task.start) + task.count;
+    for (int64_t chunk = task.start + 32 * warp; chunk < end;
+         chunk += 32 * kTaskGridWarps) {
+      const int64_t v = chunk + lane;
+      const bool in = v < end;
+      const float wt = in ? a.w[v * a.w_cols + k] : 0.0f;
+      const float vr = in ? a.vre[v] : 0.0f;
+      const float vi = in ? a.vim[v] : 0.0f;
+      const int u0 = in ? a.iu0[v] : 0;
+      const int v0 = in ? a.iv0[v] : 0;
+      const unsigned active = __ballot_sync(kFull, wt != 0.0f);
+      if (active == 0) continue;               // uniform across the warp
+      // Stage the chunk (its rows contiguous: coalesced loads, all in flight
+      // at once): each slot's s and cell (an inactive slot's u0 = -1, "no
+      // move"), and the uk and vk rows of the active slots (zero for the
+      // others, which then add exact zeros).
+      __syncwarp();
+      scal[lane] = wt != 0.0f
+                       ? make_float4(wt * vr, wt * vi, __int_as_float(u0),
+                                     __int_as_float(v0))
+                       : make_float4(0.0f, 0.0f, __int_as_float(-1), 0.0f);
+      const int n =
+          static_cast<int>(min(static_cast<int64_t>(32), end - chunk));
+      for (int e = lane; e < 32 * support; e += 32) {
+        const int slot = e / support;
+        const int j = e - slot * support;
+        const bool on = slot < n && ((active >> slot) & 1u);
+        stage[slot * pitch + j] = on ? a.uk[chunk * support + e] : 0.0f;
+        stage[slot * pitch + support + j] =
+            on ? a.vk[chunk * support + e] : 0.0f;
+      }
+      __syncwarp();
+      // Every lane walks the 32 slots in order (broadcast reads, no branch
+      // but the rare move of the cell, so the reads of several slots are in
+      // flight together).
+#pragma unroll 4
+      for (int j = 0; j < 32; ++j) {
+        const float4 q = scal[j];
+        const int cu = __float_as_int(q.z);
+        const int cv = __float_as_int(q.w);
+        if (cu >= 0 && (!held || cu != at_u || cv != at_v)) {  // uniform
+          if (held) flush();
+          held = true;
+          at_u = cu;
+          at_v = cv;
+#pragma unroll
+          for (int i = 0; i < TPL; ++i) {
+            acc_re[i] = 0.0f;
+            acc_im[i] = 0.0f;
+          }
+        }
+        const float* rows = stage + j * pitch;
+#pragma unroll
+        for (int i = 0; i < TPL; ++i) {
+          const float ua = rows[tap_a[i]];
+          const float vb = rows[support + tap_b[i]];
+          if (BF16) {
+            // bf16 x bf16 is exact in f32: the product is the dot's term.
+            const float vrb = round_bf16(vb);
+            acc_re[i] += __fmul_rn(round_bf16(__fmul_rn(ua, q.x)), vrb);
+            acc_im[i] += __fmul_rn(round_bf16(__fmul_rn(ua, q.y)), vrb);
+          } else {
+            acc_re[i] += (ua * q.x) * vb;
+            acc_im[i] += (ua * q.y) * vb;
+          }
+        }
+      }
+    }
+    if (held) flush();
+  }
+
+  if (SMEM) {
+    __syncthreads();
+    for (int i = tid; i < size * size; i += kTaskGridThreads) {
+      const int cell = (i / size) * stride + i % size;
+      dst[i] = make_float2(p_re[cell], p_im[cell]);
+    }
+  }
+}
+
+// One thread per slot. MAXS = 8 holds the slot's taps in registers for
+// supports up to 8; MAXS = 0 takes any support, reading each tap row from
+// global memory (L1) where it is used. (A 16-wide register body took 1.79
+// ms at support 12 over the bench stream on an H100, more than this one's
+// 1.66 ms at support 20.)
+template <bool BF16, int MAXS>
+__global__ void __launch_bounds__(kDegridThreads, 4)
+tower_degrid_tasks_kernel(const float2* __restrict__ layers,
+                          const int* __restrict__ iu0,
+                          const int* __restrict__ iv0,
+                          const float* __restrict__ uk,
+                          const float* __restrict__ vk,
+                          const float* __restrict__ weights,
+                          const int* __restrict__ table, int num_tasks,
+                          int64_t total, int support, int w_cols, int size,
+                          float2* __restrict__ out) {
+  const int64_t v = static_cast<int64_t>(blockIdx.x) * kDegridThreads +
+                    threadIdx.x;
+  if (v >= total) return;
+
+  // The task holding slot v: the last row whose start is <= v (the lanes
+  // of a warp, neighbouring slots, mostly take one path).
+  int t = 0;
+  if (table != nullptr) {
+    int lo = 0;
+    int hi = num_tasks - 1;
+    t = -1;
+    while (lo <= hi) {
+      const int mid = (lo + hi) >> 1;
+      if (table[4 * mid] <= v) {
+        t = mid;
+        lo = mid + 1;
+      } else {
+        hi = mid - 1;
+      }
+    }
+  }
+  const TaskRow task = t < 0 ? TaskRow{0, 0, 0, 0}
+                             : task_row(table, t, total, w_cols);
+  if (t < 0 || v >= static_cast<int64_t>(task.start) + task.count) {
+    out[v] = make_float2(0.0f, 0.0f);
+    return;
+  }
+
+  const int u0 = iu0[v];
+  const int w0 = iv0[v];
+  const float* uk_v = uk + v * support;
+  const float* vk_v = vk + v * support;
+  constexpr int R = MAXS > 0 ? MAXS : 1;
+  float ua[R];   // f32: uk; bf16: bf16(uk)
+  float vb[R];
+  if (MAXS > 0) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      ua[j] = j < support ? uk_v[j] : 0.0f;
+      vb[j] = j < support ? vk_v[j] : 0.0f;
+      if (BF16) ua[j] = round_bf16(ua[j]);
+    }
+  }
+  // The taps inside [0, N)^2: rows a_lo .. a_hi - 1, columns b_lo ..
+  // b_hi - 1.
+  const int a_lo = max(0, -u0);
+  const int a_hi = min(support, size - u0);
+  const int b_lo = max(0, -w0);
+  const int b_hi = min(support, size - w0);
+  // One term: f32, tap = uk * vk times the cell; bf16, the bf16 dot's
+  // term bf16(uk) * bf16(cell), exact in f32, then the f32 product with vk.
+  auto add = [](float u, float w, float2 x, float& pr, float& pi) {
+    if (BF16) {
+      pr = fmaf(__fmul_rn(u, round_bf16(x.x)), w, pr);
+      pi = fmaf(__fmul_rn(u, round_bf16(x.y)), w, pi);
+    } else {
+      const float tap = u * w;
+      pr = fmaf(tap, x.x, pr);
+      pi = fmaf(tap, x.y, pi);
+    }
+  };
+
+  const int64_t plane = static_cast<int64_t>(size) * size;
+  float re = 0.0f;
+  float im = 0.0f;
+  for (int k = 0; k < task.num_layers; ++k) {
+    const float wt = weights[v * w_cols + k];
+    if (wt == 0.0f) continue;
+    const float2* cells = layers + (task.base + k) * plane +
+                          static_cast<int64_t>(u0) * size + w0;
+    float pr = 0.0f;
+    float pi = 0.0f;
+    if (MAXS > 0) {
+#pragma unroll
+      for (int ia = 0; ia < R; ++ia) {
+        if (ia < a_lo || ia >= a_hi) continue;
+#pragma unroll
+        for (int ib = 0; ib < R; ++ib) {
+          if (ib < b_lo || ib >= b_hi) continue;
+          add(ua[ia], vb[ib], cells[ia * size + ib], pr, pi);
+        }
+      }
+    } else {
+      for (int ia = a_lo; ia < a_hi; ++ia) {
+        const float u = BF16 ? round_bf16(uk_v[ia]) : uk_v[ia];
+        for (int ib = b_lo; ib < b_hi; ++ib) {
+          add(u, vk_v[ib], cells[ia * size + ib], pr, pi);
+        }
+      }
+    }
+    re = fmaf(wt, pr, re);
+    im = fmaf(wt, pi, im);
+  }
+  out[v] = make_float2(re, im);
+}
+
+template <bool BF16, int MAXS>
+cudaError_t launch_grid_tasks(const TaskGridArgs& a, int planes,
+                              cudaStream_t s) {
+  const size_t stage =
+      sizeof(float) * kTaskGridWarps * stage_floats(a.support);
+  const size_t smem =
+      sizeof(float) * 2 * a.size * padded_stride(a.size) + stage;
+  if (stage > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  if (smem <= static_cast<size_t>(kMaxSmem)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tower_grid_tasks_kernel<true, BF16, MAXS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    tower_grid_tasks_kernel<true, BF16, MAXS>
+        <<<planes, kTaskGridThreads, smem, s>>>(a);
+  } else {
+    cudaError_t err = cudaMemsetAsync(
+        a.out, 0, sizeof(float2) * planes * a.size * a.size, s);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(tower_grid_tasks_kernel<false, BF16, MAXS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(stage));
+    if (err != cudaSuccess) return err;
+    tower_grid_tasks_kernel<false, BF16, MAXS>
+        <<<planes, kTaskGridThreads, stage, s>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+template <bool BF16>
+cudaError_t launch_grid_tasks(const TaskGridArgs& a, int planes,
+                              cudaStream_t s) {
+  return a.support <= 8 ? launch_grid_tasks<BF16, 8>(a, planes, s)
+                        : launch_grid_tasks<BF16, 16>(a, planes, s);
+}
+
+template <bool BF16, int MAXS>
+void launch_degrid_tasks(const float2* l, const int* iu0, const int* iv0,
+                         const float* uk, const float* vk, const float* w,
+                         const int* table, int num_tasks, int64_t total,
+                         int support, int w_cols, int size, float2* o,
+                         cudaStream_t s) {
+  const unsigned ctas = static_cast<unsigned>(
+      (total + kDegridThreads - 1) / kDegridThreads);
+  tower_degrid_tasks_kernel<BF16, MAXS><<<ctas, kDegridThreads, 0, s>>>(
+      l, iu0, iv0, uk, vk, w, table, num_tasks, total, support, w_cols, size,
+      o);
+}
+
+template <bool BF16>
+cudaError_t launch_degrid_tasks(const float2* l, const int* iu0,
+                                const int* iv0, const float* uk,
+                                const float* vk, const float* w,
+                                const int* table, int num_tasks,
+                                int64_t total, int support, int w_cols,
+                                int size, float2* o, cudaStream_t s) {
+  if (support <= 8) {
+    launch_degrid_tasks<BF16, 8>(l, iu0, iv0, uk, vk, w, table, num_tasks,
+                                 total, support, w_cols, size, o, s);
+  } else {
+    launch_degrid_tasks<BF16, 0>(l, iu0, iv0, uk, vk, w, table, num_tasks,
+                                 total, support, w_cols, size, o, s);
+  }
+  return cudaGetLastError();
+}
+
+// -- K20 -------------------------------------------------------------------
+
+struct SparseGridArgs {
+  const float* vre;
+  const float* vim;
+  const int* iu0;
+  const int* iv0;
+  const int* k0;      // [V] first layer
+  const float* uk;
+  const float* vk;
+  const float* wk;    // [V, Sw]
+  int64_t total;
+  int support;
+  int w_support;
   int num_layers;
   int size;
   int block_v;
-  float* out;
+  float* out;         // f32 [2K, N, N]: re layers, then im
 };
 
-// The w-kernel value of visibility v on layer k.
-template <bool SPARSE>
-__device__ __forceinline__ float layer_weight(const TowerGridArgs& a,
+// The w-kernel value of slot v on layer k.
+__device__ __forceinline__ float layer_weight(const SparseGridArgs& a,
                                               int64_t v, int k) {
-  if (SPARSE) {
-    const int first = min(max(a.k0[v], 0), a.num_layers - a.w_support);
-    const int l = k - first;
-    return l >= 0 && l < a.w_support ? a.w[v * a.w_support + l] : 0.0f;
-  }
-  return a.w[v * a.num_layers + k];
+  const int first = min(max(a.k0[v], 0), a.num_layers - a.w_support);
+  const int l = k - first;
+  return l >= 0 && l < a.w_support ? a.wk[v * a.w_support + l] : 0.0f;
 }
 
-template <bool SMEM, bool BF16, bool SPARSE>
-__global__ void __launch_bounds__(kGridThreads)
-tower_grid_kernel(const TowerGridArgs a) {
-  extern __shared__ float plane[];  // [size * size] when SMEM
-  __shared__ int box[4];            // u_min, u_max, v_min, v_max
+template <bool SMEM, bool BF16>
+__global__ void __launch_bounds__(kSparseThreads)
+sparse_grid_kernel(const SparseGridArgs a) {
+  extern __shared__ float splane[];  // [size * size] when SMEM
+  __shared__ int box[4];             // u_min, u_max, v_min, v_max
 
   const int size = a.size;
   const int support = a.support;
-  const int p = blockIdx.y;         // output plane h * K + k
+  const int p = blockIdx.y;          // output plane h * K + k
   const int k = p % a.num_layers;
   const float* vals = p < a.num_layers ? a.vre : a.vim;
   const int64_t v_begin = static_cast<int64_t>(blockIdx.x) * a.block_v;
@@ -132,12 +558,12 @@ tower_grid_kernel(const TowerGridArgs a) {
   }
   __syncthreads();
 
-  // Pass 1: is any visibility active for this plane; tap bounding box.
+  // Pass 1: is any slot active for this plane; tap bounding box.
   int active = 0;
   int u_min = size, u_max = -1, v_min = size, v_max = -1;
-  for (int i = tid; i < count; i += kGridThreads) {
+  for (int i = tid; i < count; i += kSparseThreads) {
     const int64_t v = v_begin + i;
-    if (layer_weight<SPARSE>(a, v, k) * vals[v] != 0.0f) {
+    if (layer_weight(a, v, k) * vals[v] != 0.0f) {
       active = 1;
       u_min = min(u_min, a.iu0[v]);
       u_max = max(u_max, a.iu0[v]);
@@ -161,17 +587,17 @@ tower_grid_kernel(const TowerGridArgs a) {
     c0 = max(box[2], 0);
     c1 = min(box[3] + support, size);
     const int width = c1 - c0;
-    for (int i = tid; i < (r1 - r0) * width; i += kGridThreads) {
-      plane[(r0 + i / width) * size + c0 + i % width] = 0.0f;
+    for (int i = tid; i < (r1 - r0) * width; i += kSparseThreads) {
+      splane[(r0 + i / width) * size + c0 + i % width] = 0.0f;
     }
     __syncthreads();
   }
 
-  // Pass 2: S x S taps of every active visibility.
+  // Pass 2: S x S taps of every active slot.
   const int taps = support * support;
-  for (int i = tid; i < count * taps; i += kGridThreads) {
+  for (int i = tid; i < count * taps; i += kSparseThreads) {
     const int64_t v = v_begin + i / taps;
-    const float s = layer_weight<SPARSE>(a, v, k) * vals[v];
+    const float s = layer_weight(a, v, k) * vals[v];
     if (s == 0.0f) continue;
     const int t = i % taps;
     const int ia = t / support;
@@ -181,12 +607,11 @@ tower_grid_kernel(const TowerGridArgs a) {
     if (u < 0 || u >= size || w < 0 || w >= size) continue;
     const float uk = a.uk[v * support + ia];
     const float vk = a.vk[v * support + ib];
-    // bf16 x bf16 is exact in f32: the product is the dot's term.
     const float val = BF16 ? __fmul_rn(round_bf16(__fmul_rn(uk, s)),
                                        round_bf16(vk))
                            : (uk * s) * vk;
     if (SMEM) {
-      atomicAdd(&plane[u * size + w], val);
+      atomicAdd(&splane[u * size + w], val);
     } else {
       atomicAdd(&dst[u * size + w], val);
     }
@@ -196,108 +621,36 @@ tower_grid_kernel(const TowerGridArgs a) {
   if (SMEM) {
     __syncthreads();
     const int width = c1 - c0;
-    for (int i = tid; i < (r1 - r0) * width; i += kGridThreads) {
+    for (int i = tid; i < (r1 - r0) * width; i += kSparseThreads) {
       const int cell = (r0 + i / width) * size + c0 + i % width;
-      const float x = plane[cell];
+      const float x = splane[cell];
       if (x != 0.0f) atomicAdd(&dst[cell], x);
     }
   }
 }
 
 template <bool BF16>
-__global__ void __launch_bounds__(kDegridThreads)
-tower_degrid_kernel(const float* __restrict__ planes,
-                    const int* __restrict__ iu0,
-                    const int* __restrict__ iv0,
-                    const float* __restrict__ uk,
-                    const float* __restrict__ vk,
-                    const float* __restrict__ weights, int64_t total,
-                    int support, int num_layers, int size,
-                    float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int64_t v = static_cast<int64_t>(blockIdx.x) * (kDegridThreads / 32) +
-                    threadIdx.x / 32;
-  if (v >= total) return;  // uniform across the warp
-
-  const int u0 = iu0[v];
-  const int w0 = iv0[v];
-  const int taps = support * support;
-  const int64_t plane_size = static_cast<int64_t>(size) * size;
-  const float* uk_v = uk + v * support;
-  const float* vk_v = vk + v * support;
-  float re = 0.0f;
-  float im = 0.0f;
-  for (int k = 0; k < num_layers; ++k) {
-    const float wt = weights[v * num_layers + k];
-    if (wt == 0.0f) continue;  // uniform across the warp
-    const float* layer_re = planes + k * plane_size;
-    const float* layer_im = planes + (num_layers + k) * plane_size;
-    float pr = 0.0f;
-    float pi = 0.0f;
-    for (int t = lane; t < taps; t += 32) {
-      const int a = t / support;
-      const int b = t % support;
-      const int u = u0 + a;
-      const int w = w0 + b;
-      if (u < 0 || u >= size || w < 0 || w >= size) continue;
-      const int64_t cell = static_cast<int64_t>(u) * size + w;
-      if (BF16) {
-        // The bf16 dot's term bf16(uk) * bf16(cell), exact in f32, then
-        // the f32 product with vk.
-        const float ua = round_bf16(uk_v[a]);
-        pr = fmaf(__fmul_rn(ua, round_bf16(layer_re[cell])), vk_v[b], pr);
-        pi = fmaf(__fmul_rn(ua, round_bf16(layer_im[cell])), vk_v[b], pi);
-      } else {
-        const float tap = uk_v[a] * vk_v[b];
-        pr = fmaf(tap, layer_re[cell], pr);
-        pi = fmaf(tap, layer_im[cell], pi);
-      }
-    }
-    re = fmaf(wt, pr, re);
-    im = fmaf(wt, pi, im);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    re += __shfl_down_sync(0xffffffffu, re, off);
-    im += __shfl_down_sync(0xffffffffu, im, off);
-  }
-  if (lane == 0) {
-    out[v] = re;
-    out[total + v] = im;
-  }
-}
-
-template <bool BF16, bool SPARSE>
-cudaError_t launch_grid(const TowerGridArgs& a, cudaStream_t s) {
+cudaError_t launch_sparse(const SparseGridArgs& a, cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>((a.total + a.block_v - 1) /
                                         a.block_v),
                   2 * a.num_layers);
   const size_t smem = sizeof(float) * a.size * a.size;
-  if (smem <= static_cast<size_t>(kMaxSmemPlane)) {
+  if (smem <= static_cast<size_t>(kMaxSparseSmemPlane)) {
     const cudaError_t err = cudaFuncSetAttribute(
-        tower_grid_kernel<true, BF16, SPARSE>,
+        sparse_grid_kernel<true, BF16>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    tower_grid_kernel<true, BF16, SPARSE><<<grid, kGridThreads, smem, s>>>(
-        a);
+    sparse_grid_kernel<true, BF16><<<grid, kSparseThreads, smem, s>>>(a);
   } else {
-    tower_grid_kernel<false, BF16, SPARSE><<<grid, kGridThreads, 0, s>>>(a);
+    sparse_grid_kernel<false, BF16><<<grid, kSparseThreads, 0, s>>>(a);
   }
   return cudaGetLastError();
 }
 
-template <bool SPARSE>
-int grid_entry(const TowerGridArgs& a, int bf16, void* stream) {
-  if (a.total <= 0) return 0;
-  if (a.support < 1 || a.num_layers < 1 || a.size < 1 || a.block_v < 1 ||
-      2 * a.num_layers > 65535 ||
-      (SPARSE && (a.w_support < 1 || a.w_support > a.num_layers)) ||
-      static_cast<int64_t>(a.block_v) * a.support * a.support > INT32_MAX) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(bf16 ? launch_grid<true, SPARSE>(a, s)
-                               : launch_grid<false, SPARSE>(a, s));
+bool bad_task_args(int64_t total, int support, int w_cols, int size,
+                   const int* table) {
+  return support < 1 || w_cols < 1 || size < 1 ||
+         (table != nullptr && total > INT32_MAX);
 }
 
 }  // namespace
@@ -306,18 +659,61 @@ extern "C" {
 
 // Each returns the cudaError_t of its launch (0 on success); `bf16`
 // selects the bf16 mode.
-// Dense weights [V, K] (K14, K16).
-int sdp_torch_tower_grid(const float* vre, const float* vim, const int* iu0,
-                         const int* iv0, const float* uk, const float* vk,
-                         const float* weights, int64_t total, int support,
-                         int num_layers, int size, int block_v, int bf16,
-                         float* out, void* stream) {
-  const TowerGridArgs a{vre, vim, iu0, iv0, nullptr, uk, vk, weights,
-                        total, support, 0, num_layers, size, block_v, out};
-  return grid_entry<false>(a, bf16, stream);
+//
+// K16: grid the tasks of `table` ([num_tasks, 4], or null: one task over
+// every slot with K = w_cols) into `out`, complex64 [planes, N, N]; CTA i
+// takes the plane layer_map[i] = (task row, k) (null: k = i, one task).
+// The stack needs no zeroing: every plane of it is written.
+int sdp_torch_tower_grid_tasks(const float* vre, const float* vim,
+                               const int* iu0, const int* iv0,
+                               const float* uk, const float* vk,
+                               const float* weights, const int* table,
+                               const int* layer_map, int planes,
+                               int64_t total, int support, int w_cols,
+                               int size, int bf16, float* out, void* stream) {
+  if (planes <= 0) return 0;
+  if (bad_task_args(total, support, w_cols, size, table) ||
+      (table == nullptr) != (layer_map == nullptr) ||
+      (table == nullptr && planes != w_cols)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const TaskGridArgs a{vre, vim, iu0, iv0, uk, vk, weights, table, layer_map,
+                       total, support, w_cols, size,
+                       reinterpret_cast<float2*>(out)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(bf16 ? launch_grid_tasks<true>(a, planes, s)
+                               : launch_grid_tasks<false>(a, planes, s));
 }
 
-// Sparse w taps: k0 [V], wk [V, Sw] (K20).
+// K17: degrid every slot of the stream from `layers`, complex64
+// [planes, N, N], into `out`, complex64 [total] (zero where no task of
+// `table` holds the slot; a null table is one task over every slot).
+int sdp_torch_tower_degrid_tasks(const float* layers, const int* iu0,
+                                 const int* iv0, const float* uk,
+                                 const float* vk, const float* weights,
+                                 const int* table, int num_tasks,
+                                 int64_t total, int support, int w_cols,
+                                 int size, int bf16, float* out,
+                                 void* stream) {
+  if (total <= 0) return 0;
+  if (bad_task_args(total, support, w_cols, size, table) ||
+      (table != nullptr && num_tasks < 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float2* l = reinterpret_cast<const float2*>(layers);
+  float2* o = reinterpret_cast<float2*>(out);
+  return static_cast<int>(
+      bf16 ? launch_degrid_tasks<true>(l, iu0, iv0, uk, vk, weights, table,
+                                       num_tasks, total, support, w_cols,
+                                       size, o, s)
+           : launch_degrid_tasks<false>(l, iu0, iv0, uk, vk, weights, table,
+                                        num_tasks, total, support, w_cols,
+                                        size, o, s));
+}
+
+// K20: sparse w taps k0 [V], wk [V, Sw] into f32 [2K, N, N] (zeroed by the
+// caller).
 int sdp_torch_tower_grid_sparse(const float* vre, const float* vim,
                                 const int* iu0, const int* iv0,
                                 const int* k0, const float* uk,
@@ -325,34 +721,17 @@ int sdp_torch_tower_grid_sparse(const float* vre, const float* vim,
                                 int64_t total, int support, int w_support,
                                 int num_layers, int size, int block_v,
                                 int bf16, float* out, void* stream) {
-  const TowerGridArgs a{vre, vim, iu0, iv0, k0, uk, vk, wk, total,
-                        support, w_support, num_layers, size, block_v, out};
-  return grid_entry<true>(a, bf16, stream);
-}
-
-// K15, K17.
-int sdp_torch_tower_degrid(const float* planes, const int* iu0,
-                           const int* iv0, const float* uk, const float* vk,
-                           const float* weights, int64_t total, int support,
-                           int num_layers, int size, int bf16, float* out,
-                           void* stream) {
+  const SparseGridArgs a{vre, vim, iu0, iv0, k0, uk, vk, wk, total,
+                         support, w_support, num_layers, size, block_v, out};
   if (total <= 0) return 0;
-  if (support < 1 || num_layers < 1 || size < 1) {
+  if (support < 1 || num_layers < 1 || size < 1 || block_v < 1 ||
+      2 * num_layers > 65535 || w_support < 1 || w_support > num_layers ||
+      static_cast<int64_t>(block_v) * support * support > INT32_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  constexpr int per_cta = kDegridThreads / 32;
-  const unsigned ctas = static_cast<unsigned>((total + per_cta - 1) / per_cta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    tower_degrid_kernel<true><<<ctas, kDegridThreads, 0, s>>>(
-        planes, iu0, iv0, uk, vk, weights, total, support, num_layers, size,
-        out);
-  } else {
-    tower_degrid_kernel<false><<<ctas, kDegridThreads, 0, s>>>(
-        planes, iu0, iv0, uk, vk, weights, total, support, num_layers, size,
-        out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(bf16 ? launch_sparse<true>(a, s)
+                               : launch_sparse<false>(a, s));
 }
 
 }  // extern "C"

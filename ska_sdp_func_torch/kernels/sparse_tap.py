@@ -7,12 +7,13 @@ layer ``k0`` [V] and its ``Sw`` w taps ``wk`` [V, Sw] in place of a dense
 ``weights`` [V, K] row, and adds ``uk[a] * vk[b] * (wk[l] * vis)`` to
 layer ``k0 + l``, cell ``(iu0 + a, iv0 + b)``. ``k0`` is clipped to ``[0,
 K - Sw]``, as the Pallas wrapper clips it; entries with zero ``wk`` add
-nothing. Here :func:`grid_all_layers_sparse` launches the ``SPARSE``
-instantiation of ``tower_grid_kernel`` (``csrc/tower_tap.cu``, built by
-:mod:`._build`), which reads the sparse form directly: plane ``k`` of a
-visibility takes ``wk[v, k - k0[v]]`` inside its window and 0 outside,
-so K16's per-(block, plane) skip test and tap bounding box work
-unchanged, and no ``[V, K]`` array is made.
+nothing. Here :func:`grid_all_layers_sparse` launches
+``sparse_grid_kernel`` (``csrc/tower_tap.cu``, built by :mod:`._build`):
+one CTA per (block of ``block_v`` visibilities, output plane), which
+reads the sparse form directly: plane ``k`` of a visibility takes ``wk[v,
+k - k0[v]]`` inside its window and 0 outside, so a CTA skips a plane no
+visibility of its block touches and accumulates the bounding box of its
+taps, and no ``[V, K]`` array is made.
 
 Taps outside the ``[N, N]`` sub-grid are dropped, as K16 drops them. The
 Pallas kernel writes rows ``iu0 + a`` past its padded plane into the next
@@ -28,7 +29,7 @@ tensor it runs its plain PyTorch version
 import torch
 
 from ..utility.errors import SdpInvalidArgumentError, SdpShapeError
-from .tower_tap import _device, _launch_grid, grid_all_layers_reference
+from .tower_tap import _check_taps, _device, grid_all_layers_reference
 
 
 def _check_window(num_layers: int, w_support: int) -> None:
@@ -36,6 +37,39 @@ def _check_window(num_layers: int, w_support: int) -> None:
         raise SdpInvalidArgumentError(
             f"need 1 <= w_support <= num_layers (got {w_support}, "
             f"{num_layers})")
+
+
+def _launch_sparse(vis_re, vis_im, iu0, iv0, k0, uk, vk, wk,
+                   num_layers: int, size: int, block_v: int,
+                   fast: bool) -> torch.Tensor:
+    """``sparse_grid_kernel`` -> f32 ``[2K, size, size]`` (re layers,
+    then im layers)."""
+    from . import _build
+
+    _check_taps(iu0, iv0, uk, vk, wk)
+    total, w_support = wk.shape
+    for name, t, dtype in (("k0", k0, torch.int32),
+                           ("vis_re", vis_re, torch.float32),
+                           ("vis_im", vis_im, torch.float32)):
+        if t.dtype != dtype or tuple(t.shape) != (total,) \
+                or not t.is_contiguous():
+            raise SdpInvalidArgumentError(
+                f"{name} must be contiguous {dtype} [{total}]")
+    if size <= 0 or size % 2 or block_v <= 0:
+        raise SdpInvalidArgumentError(
+            f"need an even size and block_v > 0 (got {size}, {block_v})")
+    lib = _build.load()
+    out = torch.zeros((2 * num_layers, size, size), dtype=torch.float32,
+                      device=uk.device)
+    with torch.cuda.device(uk.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sdp_torch_tower_grid_sparse(
+            vis_re.data_ptr(), vis_im.data_ptr(), iu0.data_ptr(),
+            iv0.data_ptr(), k0.data_ptr(), uk.data_ptr(), vk.data_ptr(),
+            wk.data_ptr(), total, uk.shape[1], w_support, num_layers, size,
+            block_v, int(fast), out.data_ptr(), stream)
+    _build.check(lib, err, "sparse_grid_kernel")
+    return out
 
 
 def grid_all_layers_sparse_reference(vis_re, vis_im, iu0, iv0, k0, uk, vk,
@@ -73,8 +107,8 @@ def grid_all_layers_sparse(vis_re, vis_im, iu0, iv0, k0, uk, vk, wk,
         return grid_all_layers_sparse_reference(
             vis_re, vis_im, iu0, iv0, k0, uk, vk, wk, num_layers, size,
             support, w_support, block_v, fast)
-    out = _launch_grid(vis_re, vis_im, iu0, iv0, uk, vk, wk, size, block_v,
-                       fast, k0=k0, num_layers=num_layers)
+    out = _launch_sparse(vis_re, vis_im, iu0, iv0, k0, uk, vk, wk,
+                         num_layers, size, block_v, fast)
     grid_all_layers_sparse.launches += 1
     return torch.complex(out[:num_layers], out[num_layers:])
 

@@ -13,13 +13,19 @@ hand-written CUDA kernels of their own (built by :mod:`._build`):
   kernel accumulates into a shared-memory stack and adds it into a copy
   of the complex64 input stack, the degrid kernel zeroes the [R, C]
   result and writes one value per active entry.
-- :func:`grid_all_layers` replaces ``grid_all_layers_pallas`` (K16) and
-  :func:`degrid_all_layers` replaces ``degrid_all_layers_pallas`` (K17):
-  ``tower_grid_kernel`` and ``tower_degrid_kernel`` in
-  ``csrc/tower_tap.cu``, on flat per-visibility taps: ``iu0``/``iv0``
-  [V] int32 sub-grid cells, ``uk``/``vk`` [V, S] f32 kernel taps and
-  ``weights`` [V, K] f32, the w-kernel value of each visibility for each
-  layer (zero outside its layers).
+- :func:`grid_all_layers_tasks` replaces ``grid_all_layers_pallas``
+  (K16) and :func:`degrid_all_layers_tasks` replaces
+  ``degrid_all_layers_pallas`` (K17) for a whole stream of tasks at once:
+  ``tower_grid_tasks_kernel`` and ``tower_degrid_tasks_kernel`` in
+  ``csrc/tower_tap.cu``, on flat per-slot taps: ``iu0``/``iv0`` [V] int32
+  sub-grid cells, ``uk``/``vk`` [V, S] f32 kernel taps and ``weights``
+  [V, Kw] f32, the w-kernel value of each slot for each layer of its task
+  (zero outside its layers), with a :class:`TaskTable` that gives each
+  task its slots, its layer count and its planes in one complex64 stack.
+  The JAX package launches one Pallas kernel per task; on the card one
+  launch takes every task of a call. :func:`grid_all_layers` and
+  :func:`degrid_all_layers` (one task, the JAX signatures) launch the
+  same two kernels with a one-task table.
 
 Taps that fall outside the ``[N, N]`` sub-grid are dropped. Arithmetic
 is f32 throughout, the Pallas kernels' ``Precision.HIGHEST``; only the
@@ -37,11 +43,12 @@ rounded). The plain versions round the same operands with
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs its plain PyTorch version (``*_reference``). Each counts
-its own kernel launches in ``.launches``. ``block_v`` is the number of
-visibilities one all-layer grid CTA accumulates (the Pallas block size);
-the all-layer degrid kernel and both per-plane kernels ignore it (the
+its own kernel launches in ``.launches``. ``block_v`` (the Pallas block
+size) is accepted for the JAX signatures; the kernels ignore it (the
 plain versions of the per-plane pair pass it on).
 """
+
+from typing import NamedTuple
 
 import torch
 
@@ -96,83 +103,6 @@ def _check_taps(iu0, iv0, uk, vk, weights):
             raise SdpInvalidArgumentError(f"{name} must be contiguous")
     if weights.ndim != 2 or support < 1:
         raise SdpShapeError("uk/vk must be [V, S] and weights [V, K]")
-
-
-def _launch_grid(vis_re, vis_im, iu0, iv0, uk, vk, weights, size: int,
-                 block_v: int, fast: bool = False, k0=None,
-                 num_layers: int = None) -> torch.Tensor:
-    """``tower_grid_kernel`` -> f32 ``[2K, size, size]`` (re layers,
-    then im layers). Dense: ``weights`` [V, K]; sparse (``k0`` given):
-    ``weights`` is ``wk`` [V, Sw] and ``num_layers`` is K."""
-    from . import _build
-
-    _check_taps(iu0, iv0, uk, vk, weights)
-    total, w_cols = weights.shape
-    if k0 is None:
-        num_layers = w_cols
-    elif k0.dtype != torch.int32 or tuple(k0.shape) != (total,) \
-            or not k0.is_contiguous():
-        raise SdpInvalidArgumentError(f"k0 must be contiguous int32 [{total}]")
-    for name, t in (("vis_re", vis_re), ("vis_im", vis_im)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (total,) \
-                or not t.is_contiguous():
-            raise SdpInvalidArgumentError(
-                f"{name} must be contiguous f32 [{total}]")
-    if size <= 0 or size % 2 or block_v <= 0:
-        raise SdpInvalidArgumentError(
-            f"need an even size and block_v > 0 (got {size}, {block_v})")
-    lib = _build.load()
-    out = torch.zeros((2 * num_layers, size, size), dtype=torch.float32,
-                      device=uk.device)
-    with torch.cuda.device(uk.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if k0 is None:
-            err = lib.sdp_torch_tower_grid(
-                vis_re.data_ptr(), vis_im.data_ptr(), iu0.data_ptr(),
-                iv0.data_ptr(), uk.data_ptr(), vk.data_ptr(),
-                weights.data_ptr(), total, uk.shape[1], num_layers, size,
-                block_v, int(fast), out.data_ptr(), stream)
-        else:
-            err = lib.sdp_torch_tower_grid_sparse(
-                vis_re.data_ptr(), vis_im.data_ptr(), iu0.data_ptr(),
-                iv0.data_ptr(), k0.data_ptr(), uk.data_ptr(), vk.data_ptr(),
-                weights.data_ptr(), total, uk.shape[1], w_cols, num_layers,
-                size, block_v, int(fast), out.data_ptr(), stream)
-    _build.check(lib, err, "tower_grid_kernel")
-    return out
-
-
-def _launch_degrid(planes, iu0, iv0, uk, vk, weights,
-                   fast: bool = False) -> torch.Tensor:
-    """``tower_degrid_kernel`` on f32 ``[2K, N, N]`` planes -> f32
-    ``[2, V]`` (re, im)."""
-    from . import _build
-
-    _check_taps(iu0, iv0, uk, vk, weights)
-    total, num_layers = weights.shape
-    if planes.dtype != torch.float32 or planes.ndim != 3 \
-            or planes.shape[0] != 2 * num_layers \
-            or planes.shape[1] != planes.shape[2] \
-            or not planes.is_contiguous():
-        raise SdpInvalidArgumentError(
-            f"planes must be contiguous f32 [{2 * num_layers}, N, N]")
-    lib = _build.load()
-    out = torch.empty((2, total), dtype=torch.float32, device=uk.device)
-    with torch.cuda.device(uk.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sdp_torch_tower_degrid(
-            planes.data_ptr(), iu0.data_ptr(), iv0.data_ptr(),
-            uk.data_ptr(), vk.data_ptr(), weights.data_ptr(), total,
-            uk.shape[1], num_layers, planes.shape[-1], int(fast),
-            out.data_ptr(), stream)
-    _build.check(lib, err, "tower_degrid_kernel")
-    return out
-
-
-def _split_planes(layers: torch.Tensor) -> torch.Tensor:
-    """[K, N, N] complex -> contiguous f32 [2K, N, N] (re, then im)."""
-    return torch.cat([layers.real.to(torch.float32),
-                      layers.imag.to(torch.float32)]).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -330,6 +260,134 @@ degrid_plane.launches = 0
 # All-layer entry points (K16, K17)
 # ---------------------------------------------------------------------------
 
+class TaskTable(NamedTuple):
+    """The tasks of one all-layer call (built by :func:`task_table`).
+
+    ``rows``: per task, in slot order, ``(start, count, num_layers,
+    base)`` on the host: its slots ``[start, start + count)`` of the
+    stream and its planes ``[base, base + num_layers)`` of the stack.
+    ``table``: the rows as int32 [T, 4]; ``layer_map``: int32 [planes, 2],
+    the (row, layer) of each grid CTA, the largest tasks first; both on
+    the device the kernels run on. ``planes``: the stack's layer count.
+    """
+    rows: tuple
+    table: torch.Tensor
+    layer_map: torch.Tensor
+    planes: int
+
+
+def task_table(rows, device=None) -> TaskTable:
+    """A :class:`TaskTable` of ``rows`` ``(start, count, num_layers,
+    base)`` in slot order, its tensors on ``device``: the slot ranges must
+    not overlap, and the plane ranges must tile ``[0, sum num_layers)``."""
+    rows = tuple(tuple(int(x) for x in r) for r in rows)
+    if not rows or any(len(r) != 4 for r in rows):
+        raise SdpInvalidArgumentError(
+            "a task table needs (start, count, num_layers, base) rows")
+    end = 0
+    for start, count, num_layers, _ in rows:
+        if start < end or count < 0 or num_layers < 1:
+            raise SdpInvalidArgumentError(
+                f"task ({start}, {count}, {num_layers}): starts must "
+                f"ascend past the previous task's slots, counts be >= 0 "
+                f"and layer counts >= 1")
+        end = start + count
+    if end > 2 ** 31 - 1:
+        raise SdpInvalidArgumentError(f"{end} slots exceed int32")
+    planes = 0
+    for base, num_layers in sorted((r[3], r[2]) for r in rows):
+        if base != planes:
+            raise SdpInvalidArgumentError(
+                "the tasks' plane ranges must tile the stack")
+        planes += num_layers
+    order = sorted(range(len(rows)), key=lambda t: -rows[t][1])
+    layer_map = [(t, k) for t in order for k in range(rows[t][2])]
+    return TaskTable(
+        rows, torch.tensor(rows, dtype=torch.int32, device=device),
+        torch.tensor(layer_map, dtype=torch.int32, device=device), planes)
+
+
+def _check_tasks(tasks: TaskTable, weights) -> None:
+    total, w_cols = weights.shape
+    last = tasks.rows[-1]
+    if last[0] + last[1] > total or max(r[2] for r in tasks.rows) > w_cols:
+        raise SdpShapeError(
+            f"the task table needs {last[0] + last[1]} slots and "
+            f"{max(r[2] for r in tasks.rows)} weight columns; the taps have "
+            f"{total} and {w_cols}")
+
+
+# The grid kernel stages 32 slots' uk and vk rows for each of its 16 warps
+# in shared memory (227 KB): 64 (128 + 32 (2 S + 1)) bytes.
+_MAX_GRID_SUPPORT = 54
+
+
+def _launch_grid_tasks(vis_re, vis_im, iu0, iv0, uk, vk, weights,
+                       tasks, planes: int, size: int,
+                       fast: bool) -> torch.Tensor:
+    """``tower_grid_tasks_kernel`` -> complex64 ``[planes, size, size]``;
+    ``tasks`` None is one task over every slot."""
+    from . import _build
+
+    _check_taps(iu0, iv0, uk, vk, weights)
+    if uk.shape[1] > _MAX_GRID_SUPPORT:
+        raise SdpInvalidArgumentError(
+            f"the all-layer grid kernel takes a support of at most "
+            f"{_MAX_GRID_SUPPORT} (got {uk.shape[1]})")
+    total, w_cols = weights.shape
+    for name, t in (("vis_re", vis_re), ("vis_im", vis_im)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (total,) \
+                or not t.is_contiguous():
+            raise SdpInvalidArgumentError(
+                f"{name} must be contiguous f32 [{total}]")
+    if size <= 0:
+        raise SdpInvalidArgumentError(f"need a size > 0 (got {size})")
+    lib = _build.load()
+    out = torch.empty((planes, size, size), dtype=torch.complex64,
+                      device=uk.device)
+    with torch.cuda.device(uk.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sdp_torch_tower_grid_tasks(
+            vis_re.data_ptr(), vis_im.data_ptr(), iu0.data_ptr(),
+            iv0.data_ptr(), uk.data_ptr(), vk.data_ptr(), weights.data_ptr(),
+            None if tasks is None else tasks.table.data_ptr(),
+            None if tasks is None else tasks.layer_map.data_ptr(), planes,
+            total, uk.shape[1], w_cols, size, int(fast), out.data_ptr(),
+            stream)
+    _build.check(lib, err, "tower_grid_tasks_kernel")
+    return out
+
+
+def _launch_degrid_tasks(layers, iu0, iv0, uk, vk, weights, tasks,
+                         fast: bool) -> torch.Tensor:
+    """``tower_degrid_tasks_kernel`` on complex64 ``[planes, N, N]``
+    layers -> complex64 [V]; ``tasks`` None is one task over every
+    slot."""
+    from . import _build
+
+    _check_taps(iu0, iv0, uk, vk, weights)
+    total, w_cols = weights.shape
+    planes = w_cols if tasks is None else tasks.planes
+    if layers.dtype != torch.complex64 or layers.ndim != 3 \
+            or layers.shape[0] != planes \
+            or layers.shape[1] != layers.shape[2] \
+            or not layers.is_contiguous():
+        raise SdpInvalidArgumentError(
+            f"layers must be contiguous complex64 [{planes}, N, N]")
+    lib = _build.load()
+    out = torch.empty((total,), dtype=torch.complex64, device=uk.device)
+    with torch.cuda.device(uk.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sdp_torch_tower_degrid_tasks(
+            layers.data_ptr(), iu0.data_ptr(), iv0.data_ptr(), uk.data_ptr(),
+            vk.data_ptr(), weights.data_ptr(),
+            None if tasks is None else tasks.table.data_ptr(),
+            0 if tasks is None else len(tasks.rows), total, uk.shape[1],
+            w_cols, layers.shape[-1], int(fast), out.data_ptr(), stream)
+    _build.check(lib, err, "tower_degrid_tasks_kernel")
+    return out
+
+
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     """``x`` rounded to bf16 (nearest even), back in f32."""
     return x.to(torch.bfloat16).to(torch.float32)
@@ -362,7 +420,8 @@ def grid_all_layers(vis_re, vis_im, iu0, iv0, uk, vk, weights,
                     num_layers: int, size: int, support: int,
                     block_v: int = 1024, fast: bool = False) -> torch.Tensor:
     """All-layer gridding of flat taps into ``[K, size, size]``
-    complex64 (``weights`` [V, K]; ``fast``: the bf16 mode)."""
+    complex64 (``weights`` [V, K]; ``fast``: the bf16 mode): one task of
+    :func:`grid_all_layers_tasks`."""
     dev = _device(vis_re, vis_im, iu0, iv0, uk, vk, weights)
     if weights.shape[-1] != num_layers:
         raise SdpShapeError(
@@ -371,10 +430,10 @@ def grid_all_layers(vis_re, vis_im, iu0, iv0, uk, vk, weights,
         return grid_all_layers_reference(vis_re, vis_im, iu0, iv0, uk, vk,
                                          weights, num_layers, size, support,
                                          block_v, fast)
-    out = _launch_grid(vis_re, vis_im, iu0, iv0, uk, vk, weights, size,
-                       block_v, fast)
+    out = _launch_grid_tasks(vis_re, vis_im, iu0, iv0, uk, vk, weights,
+                             None, num_layers, size, fast)
     grid_all_layers.launches += 1
-    return torch.complex(out[:num_layers], out[num_layers:])
+    return out
 
 
 grid_all_layers.launches = 0
@@ -407,7 +466,8 @@ def degrid_all_layers_reference(layers, iu0, iv0, uk, vk, weights,
 def degrid_all_layers(layers, iu0, iv0, uk, vk, weights, support: int,
                       block_v: int = 1024, fast: bool = False) -> torch.Tensor:
     """All-layer degridding: ``[K, N, N]`` complex layers -> [V]
-    complex64 (``fast``: the bf16 mode)."""
+    complex64 (``fast``: the bf16 mode): one task of
+    :func:`degrid_all_layers_tasks`."""
     dev = _device(layers, iu0, iv0, uk, vk, weights)
     if weights.shape[-1] != layers.shape[0]:
         raise SdpShapeError(
@@ -416,15 +476,94 @@ def degrid_all_layers(layers, iu0, iv0, uk, vk, weights, support: int,
     if dev.type == "cpu":
         return degrid_all_layers_reference(layers, iu0, iv0, uk, vk,
                                            weights, support, block_v, fast)
-    out = _launch_degrid(_split_planes(layers), iu0, iv0, uk, vk, weights,
-                         fast)
+    out = _launch_degrid_tasks(_as(layers, torch.complex64), iu0, iv0, uk,
+                               vk, weights, None, fast)
     degrid_all_layers.launches += 1
-    return torch.complex(out[0], out[1])
+    return out
 
 
 degrid_all_layers.launches = 0
 
-_WRAPPERS = (grid_plane, degrid_plane, grid_all_layers, degrid_all_layers)
+
+def grid_all_layers_tasks_reference(vis_re, vis_im, iu0, iv0, uk, vk,
+                                    weights, tasks: TaskTable, size: int,
+                                    support: int,
+                                    fast: bool = False) -> torch.Tensor:
+    """Plain version of :func:`grid_all_layers_tasks`: each task's slots
+    through :func:`grid_all_layers_reference` into its planes."""
+    out = torch.zeros((tasks.planes, size, size), dtype=torch.complex64,
+                      device=uk.device)
+    for start, count, num_layers, base in tasks.rows:
+        sl = slice(start, start + count)
+        out[base:base + num_layers] = grid_all_layers_reference(
+            vis_re[sl], vis_im[sl], iu0[sl], iv0[sl], uk[sl], vk[sl],
+            weights[sl, :num_layers], num_layers, size, support, fast=fast)
+    return out
+
+
+def grid_all_layers_tasks(vis_re, vis_im, iu0, iv0, uk, vk, weights,
+                          tasks: TaskTable, size: int, support: int,
+                          fast: bool = False) -> torch.Tensor:
+    """All-layer gridding of a whole sorted stream of tasks (``weights``
+    [V, Kw], each task's layers its first columns) into one complex64
+    ``[tasks.planes, size, size]`` stack, in one launch (``fast``: the
+    bf16 mode)."""
+    dev = _device(vis_re, vis_im, iu0, iv0, uk, vk, weights, tasks.table,
+                  tasks.layer_map)
+    _check_tasks(tasks, weights)
+    if dev.type == "cpu":
+        return grid_all_layers_tasks_reference(
+            vis_re, vis_im, iu0, iv0, uk, vk, weights, tasks, size, support,
+            fast)
+    out = _launch_grid_tasks(vis_re, vis_im, iu0, iv0, uk, vk, weights,
+                             tasks, tasks.planes, size, fast)
+    grid_all_layers_tasks.launches += 1
+    return out
+
+
+grid_all_layers_tasks.launches = 0
+
+
+def degrid_all_layers_tasks_reference(layers, iu0, iv0, uk, vk, weights,
+                                      tasks: TaskTable, support: int,
+                                      fast: bool = False) -> torch.Tensor:
+    """Plain version of :func:`degrid_all_layers_tasks`: each task's slots
+    through :func:`degrid_all_layers_reference` from its planes."""
+    out = torch.zeros((iu0.shape[0],), dtype=torch.complex64,
+                      device=uk.device)
+    for start, count, num_layers, base in tasks.rows:
+        sl = slice(start, start + count)
+        out[sl] = degrid_all_layers_reference(
+            layers[base:base + num_layers], iu0[sl], iv0[sl], uk[sl],
+            vk[sl], weights[sl, :num_layers], support, fast=fast)
+    return out
+
+
+def degrid_all_layers_tasks(layers, iu0, iv0, uk, vk, weights,
+                            tasks: TaskTable, support: int,
+                            fast: bool = False) -> torch.Tensor:
+    """All-layer degridding of a whole sorted stream of tasks from the
+    complex64 ``[tasks.planes, N, N]`` stack -> [V] complex64 in slot
+    order (zero on slots no task holds), in one launch (``fast``: the bf16
+    mode)."""
+    dev = _device(layers, iu0, iv0, uk, vk, weights, tasks.table)
+    _check_tasks(tasks, weights)
+    if layers.shape[0] != tasks.planes:
+        raise SdpShapeError(f"{layers.shape[0]} layers for a table of "
+                            f"{tasks.planes} planes")
+    if dev.type == "cpu":
+        return degrid_all_layers_tasks_reference(
+            layers, iu0, iv0, uk, vk, weights, tasks, support, fast)
+    out = _launch_degrid_tasks(layers, iu0, iv0, uk, vk, weights, tasks,
+                               fast)
+    degrid_all_layers_tasks.launches += 1
+    return out
+
+
+degrid_all_layers_tasks.launches = 0
+
+_WRAPPERS = (grid_plane, degrid_plane, grid_all_layers, degrid_all_layers,
+             grid_all_layers_tasks, degrid_all_layers_tasks)
 
 
 def launch_counts() -> dict:

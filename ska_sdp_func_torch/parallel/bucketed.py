@@ -7,11 +7,18 @@ visibility through every (w-plane, sub-grid) task: O(tasks x V). Every
 tile (u, v, w) space), so a host bucket sort (:func:`plan_bucketed`,
 the same NumPy arithmetic as the JAX package, so its arrays are
 identical) makes each task's visibilities one contiguous slice, and a
-whole pass is O(V): per task one launch of the all-layer kernels
-(:func:`~..kernels.tower_tap.grid_all_layers`,
-:func:`~..kernels.tower_tap.degrid_all_layers`) over its own slice.
-This is the f32 fallback of the solver for geometries the packed path
-cannot express (a sub-grid that is not a multiple of 128, say).
+whole pass is O(V). The JAX package loops over the tasks, one all-layer
+kernel and one tower drain each; XLA compiles that loop away, but on the
+card each of its ~90 launches a task is a host call. So here one launch
+of the all-layer kernels (:func:`~..kernels.tower_tap.
+grid_all_layers_tasks`, :func:`~..kernels.tower_tap.
+degrid_all_layers_tasks`) takes the whole sorted stream, and the tower
+drain around it runs batched over the tasks: the FFTs over every layer
+at once, the w-pattern ladders per group of tasks with equal layer
+counts, and the sub-grids added into (or cut out of) the w-plane grids
+with one ``index_add_`` (one gather) on plan-constant indices. This is
+the f32 fallback of the solver for geometries the packed path cannot
+express (a sub-grid that is not a multiple of 128, say).
 
 Box membership is decided per (row, channel) in f64 on the host; the
 reference's row-level bounds rejection (sdp_gridder_wtower_uvw.cpp:
@@ -31,14 +38,11 @@ import torch
 
 from ..fourier_transforms.fft import fft_shifted, ifft_shifted, \
     ifft_shifted_norm
-from ..grid_data.gridder_utils import (
-    subgrid_add_static,
-    subgrid_cut_out_static,
-)
 from ..grid_data.kernels import eval_kernel_taps
 from ..grid_data.wtower import _round_half_away, _slab_weights, \
     _tap_coeffs_cached
-from ..kernels.tower_tap import degrid_all_layers, grid_all_layers
+from ..kernels.tower_tap import degrid_all_layers_tasks, \
+    grid_all_layers_tasks, task_table
 from ..utility.constants import C_0
 from ..utility.errors import SdpInvalidArgumentError
 from ..utility.tensors import host_uvw, resolve_device, to_device
@@ -198,25 +202,45 @@ def _stream_taps(bplan: BucketedPlan, terms, uvw_s, chan_s, valid_s,
     return iu0, iv0, uk, vk, weights
 
 
-def _task_taps(taps, task: BucketedTask):
-    """One task's slice of :func:`_stream_taps`' arrays (its weights
-    cut to its own layers)."""
-    sl = slice(task.start, task.start + task.size)
-    iu0, iv0, uk, vk, weights = taps
-    return (iu0[sl], iv0[sl], uk[sl], vk[sl],
-            weights[sl, :task.num_layers].contiguous())
+def _subgrid_index(plan: WStackPlan, tasks, plane_ids) -> np.ndarray:
+    """Host int64 [T, N, N]: for each of ``tasks`` (in order) the flat
+    index into a ``[len(plane_ids), G, G]`` stack of w-plane grids of each
+    cell of its sub-grid, with wrap-around: the cells
+    ``subgrid_add_static(grid, -iu E, -iv E, ...)`` adds into and
+    ``subgrid_cut_out_static(grid, iu E, iv E, N)`` cuts out (E the
+    effective sub-grid size), on the plane of the task's ``iw``."""
+    g, n, eff = plan.image_size, plan.subgrid_size, plan.eff_sg_size
+    plane_of = {iw: p for p, iw in enumerate(plane_ids)}
+    cells = np.arange(n)
+    out = np.empty((len(tasks), n, n), np.int64)
+    for i, t in enumerate(tasks):
+        rows = (g // 2 - n // 2 + t.iu * eff + cells) % g
+        cols = (g // 2 - n // 2 + t.iv * eff + cells) % g
+        out[i] = plane_of[t.iw] * g * g + rows[:, None] * g + cols[None, :]
+    return out
 
 
 @lru_cache(maxsize=4)
 def _device_constants(bplan: BucketedPlan, device: torch.device):
     """Per-plan constants on ``device`` (cached, as the JAX package's
-    traced constants are): the per-slot task terms of
-    :func:`_stream_taps`, and per task the w-pattern power ladders of
-    its tower drain (``w_pattern ** (first + Sw//2 - Sw + k)``) and fill
-    (``w_pattern ** -(first - Sw//2 + k)``), computed on the host in
-    complex128 as in the JAX package and kept as complex64."""
+    traced constants are).
+
+    ``terms``: the per-slot task terms of :func:`_stream_taps`.
+    ``groups``: the tasks by layer count K, each ``(K, first, last,
+    plane, grid_ladder, degrid_ladder)``: the group holds tasks ``first``
+    to ``last - 1`` of the group order, and their planes of the layer
+    stack run from ``plane`` in the same order, K each; the ladders are
+    [T_g, K, N, N] complex64, per task the w-pattern powers of its tower
+    drain (``w_pattern ** (first_w + Sw//2 - Sw + k)``) and fill
+    (``w_pattern ** -(first_w - Sw//2 + k)``), computed on the host in
+    complex128 as in the JAX package. ``tasks``: the
+    :class:`~..kernels.tower_tap.TaskTable` of the stream (task order),
+    its planes in group order. ``index``: the sub-grid cells of the tasks
+    in group order (:func:`_subgrid_index`), flat [T N N].
+    """
     plan = bplan.plan
-    sizes = [t.size for t in bplan.tasks]
+    tasks = bplan.tasks
+    sizes = [t.size for t in tasks]
 
     def per_slot(values, dtype):
         return torch.as_tensor(np.repeat(np.asarray(values, dtype), sizes),
@@ -224,28 +248,41 @@ def _device_constants(bplan: BucketedPlan, device: torch.device):
 
     terms = (
         per_slot([t.iu * plan.eff_sg_size / plan.theta
-                  for t in bplan.tasks], np.float64),
+                  for t in tasks], np.float64),
         per_slot([t.iv * plan.eff_sg_size / plan.theta
-                  for t in bplan.tasks], np.float64),
+                  for t in tasks], np.float64),
         per_slot([int(t.iw * plan.w_tower_height) * plan.w_step
-                  for t in bplan.tasks], np.float64),
-        per_slot([t.first_w_plane for t in bplan.tasks], np.int32),
-        per_slot([t.num_layers for t in bplan.tasks], np.int32))
+                  for t in tasks], np.float64),
+        per_slot([t.first_w_plane for t in tasks], np.int32),
+        per_slot([t.num_layers for t in tasks], np.int32))
     pattern = plan.kernel().w_pattern[None]
     sw = plan.w_support
-    grid_ladders, degrid_ladders = [], []
-    for task in bplan.tasks:
-        k = np.arange(task.num_layers)
-        exps = (task.first_w_plane + sw // 2 - sw + k).astype(np.float32)
-        grid_ladders.append(torch.as_tensor(
-            (pattern ** exps[:, None, None]).astype(np.complex64),
-            device=device))
-        exps = (task.first_w_plane - sw // 2 + k).astype(np.float32)
-        degrid_ladders.append(torch.as_tensor(
-            (pattern ** (-exps[:, None, None])).astype(np.complex64),
-            device=device))
-    return dict(terms=terms, grid_ladders=grid_ladders,
-                degrid_ladders=degrid_ladders)
+
+    def ladders(idx, sign, shift):
+        k = np.arange(tasks[idx[0]].num_layers)
+        exps = np.stack([tasks[i].first_w_plane + shift + k
+                         for i in idx]).astype(np.float32)
+        return torch.as_tensor(
+            (pattern[None] ** (sign * exps[:, :, None, None])).astype(
+                np.complex64), device=device)
+
+    order, groups, base, planes = [], [], {}, 0
+    for num_k in sorted({t.num_layers for t in tasks}):
+        idx = [i for i, t in enumerate(tasks) if t.num_layers == num_k]
+        first = len(order)
+        for i in idx:
+            base[i] = planes
+            planes += num_k
+        order += idx
+        groups.append((num_k, first, len(order), base[idx[0]],
+                       ladders(idx, 1, sw // 2 - sw),
+                       ladders(idx, -1, -(sw // 2))))
+    table = task_table([(t.start, t.size, t.num_layers, base[i])
+                        for i, t in enumerate(tasks)], device)
+    index = _subgrid_index(plan, [tasks[i] for i in order],
+                           bplan.w_plane_ids)
+    return dict(terms=terms, groups=groups, tasks=table,
+                index=torch.as_tensor(index.reshape(-1), device=device))
 
 
 def _sorted_inputs(bplan: BucketedPlan, uvw, sort_index, valid):
@@ -262,10 +299,11 @@ def _sorted_inputs(bplan: BucketedPlan, uvw, sort_index, valid):
 
 def grid_all_bucketed(bplan: BucketedPlan, vis, uvw, sort_index, valid,
                       image_dtype=torch.float32, device=None) -> torch.Tensor:
-    """Grid all visibilities on ``device``, one all-layer kernel launch
-    per task over its own slice: O(V) work. ``vis`` [rows, chan] and
-    ``uvw`` [rows, 3] (whose precision sets the geometry's); returns the
-    dirty image (real unless ``image_dtype`` is complex)."""
+    """Grid all visibilities on ``device``: one all-layer kernel launch
+    over every task's slots, then the batched tower drain: O(V) work.
+    ``vis`` [rows, chan] and ``uvw`` [rows, 3] (whose precision sets the
+    geometry's); returns the dirty image (real unless ``image_dtype`` is
+    complex)."""
     plan = bplan.plan
     kernel = plan.kernel()
     dev = resolve_device(device)
@@ -283,30 +321,32 @@ def grid_all_bucketed(bplan: BucketedPlan, vis, uvw, sort_index, valid,
     consts = _device_constants(bplan, dev)
     taps = _stream_taps(bplan, consts["terms"], uvw_s, chan_idx, valid,
                         freq0, dfreq)
-
+    acc = grid_all_layers_tasks(vis_re, vis_im, *taps, consts["tasks"], sgs,
+                                plan.support)
+    # Tower drain, batched: the iFFT of every layer, the w-pattern ladder
+    # and the sum over each task's layers (per group of equal layer
+    # count), the FFT of every sub-grid.
+    layers = ifft_shifted(acc)
+    subgrids = fft_shifted(torch.cat([
+        (layers[p0:p0 + (last - first) * num_k].reshape(
+            last - first, num_k, sgs, sgs) * ladder).sum(dim=1)
+        for num_k, first, last, p0, ladder, _ in consts["groups"]]))
+    # Every sub-grid into its w-plane grid at once (the adds of
+    # subgrid_add_static, wrap-around included), then per w-plane the
+    # iFFT and grid correction.
+    plane_ids = bplan.w_plane_ids
+    grids = torch.zeros((len(plane_ids), image_size, image_size),
+                        dtype=torch.complex64, device=dev)
+    torch.view_as_real(grids).reshape(-1, 2).index_add_(
+        0, consts["index"], torch.view_as_real(subgrids).reshape(-1, 2),
+        alpha=sg_factor)
+    grids = ifft_shifted_norm(grids)
     image = torch.zeros((image_size, image_size), dtype=torch.complex64,
                         device=dev)
-    per_plane_grid = {}
-    for task, ladder in zip(bplan.tasks, consts["grid_ladders"]):
-        sl = slice(task.start, task.start + task.size)
-        acc = grid_all_layers(vis_re[sl], vis_im[sl], *_task_taps(taps, task),
-                              task.num_layers, sgs, plan.support)
-        # Tower drain: batched iFFT and the w-pattern ladder.
-        subgrid = fft_shifted((ifft_shifted(acc) * ladder).sum(dim=0))
-        g = per_plane_grid.get(task.iw)
-        if g is None:
-            g = torch.zeros((image_size, image_size), dtype=torch.complex64,
-                            device=dev)
-            per_plane_grid[task.iw] = g
-        # In place on the driver's own plane grid (the offsets are plan
-        # constants): at most four slice adds.
-        subgrid_add_static(g, -task.iu * plan.eff_sg_size,
-                           -task.iv * plan.eff_sg_size, subgrid, sg_factor)
-
-    for iw, g in per_plane_grid.items():
-        g = kernel.grid_correct(ifft_shifted_norm(g), 0, 0,
-                                int(iw * plan.w_tower_height), device=dev)
-        image = image + g.to(image.dtype)
+    for g, iw in zip(grids, plane_ids):
+        image = image + kernel.grid_correct(
+            g, 0, 0, int(iw * plan.w_tower_height), device=dev).to(
+                image.dtype)
     if not image_dtype.is_complex:
         return image.real.to(image_dtype)
     return image.to(image_dtype)
@@ -315,10 +355,11 @@ def grid_all_bucketed(bplan: BucketedPlan, vis, uvw, sort_index, valid,
 def degrid_all_bucketed(bplan: BucketedPlan, image, uvw, sort_index, valid,
                         inverse_index, device=None) -> torch.Tensor:
     """Degrid an image into all [rows, chan] visibilities (complex64)
-    through the bucketed path on ``device``. ``inverse_index`` maps each
-    flattened (row, channel) output to its sorted position
-    (:func:`inverse_index_of`); entries the plan never assigned read a
-    slot that stays zero."""
+    through the bucketed path on ``device``: the batched tower fill, then
+    one all-layer kernel launch over every task's slots.
+    ``inverse_index`` maps each flattened (row, channel) output to its
+    sorted position (:func:`inverse_index_of`); entries the plan never
+    assigned read a slot that stays zero."""
     plan = bplan.plan
     kernel = plan.kernel()
     dev = resolve_device(device)
@@ -332,23 +373,23 @@ def degrid_all_bucketed(bplan: BucketedPlan, image, uvw, sort_index, valid,
     consts = _device_constants(bplan, dev)
     taps = _stream_taps(bplan, consts["terms"], uvw_s, chan_idx, valid,
                         freq0, dfreq)
-    # Per w-plane FFT'd full grid, shared by the plane's tasks.
-    plane_grids = {
-        iw: fft_shifted(kernel.degrid_correct(
-            image.to(torch.complex64), 0, 0, int(iw * plan.w_tower_height),
-            device=dev))
-        for iw in bplan.w_plane_ids}
-
-    out_sorted = torch.zeros((bplan.total + 1,), dtype=torch.complex64,
-                             device=dev)
-    for task, ladder in zip(bplan.tasks, consts["degrid_ladders"]):
-        subgrid = ifft_shifted_norm(subgrid_cut_out_static(
-            plane_grids[task.iw], task.iu * plan.eff_sg_size,
-            task.iv * plan.eff_sg_size, sgs)).to(torch.complex64)
-        layers = fft_shifted(subgrid[None] * ladder)
-        out_sorted[task.start:task.start + task.size] = degrid_all_layers(
-            layers, *_task_taps(taps, task), plan.support)
-
+    # Per w-plane FFT'd full grid, shared by the plane's tasks; every
+    # task's sub-grid cut out at once (subgrid_cut_out_static's cells).
+    grids = fft_shifted(torch.stack([
+        kernel.degrid_correct(image.to(torch.complex64), 0, 0,
+                              int(iw * plan.w_tower_height), device=dev)
+        for iw in bplan.w_plane_ids]))
+    subgrids = ifft_shifted_norm(
+        grids.reshape(-1)[consts["index"]].reshape(-1, sgs, sgs)).to(
+            torch.complex64)
+    # Tower fill, batched: each task's sub-grid times its ladder (per
+    # group of equal layer count), then the FFT of every layer.
+    layers = fft_shifted(torch.cat([
+        (subgrids[first:last, None] * ladder).reshape(-1, sgs, sgs)
+        for _, first, last, _, _, ladder in consts["groups"]]))
+    out_sorted = degrid_all_layers_tasks(layers, *taps, consts["tasks"],
+                                         plan.support)
+    out_sorted = torch.cat([out_sorted, out_sorted.new_zeros(1)])
     inverse_index = torch.as_tensor(inverse_index, device=dev)
     return out_sorted[inverse_index].reshape(uvw.shape[0], num_chan)
 

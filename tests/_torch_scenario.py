@@ -216,3 +216,71 @@ def plane_case(case: str, size: int, rows: int = 48, chans: int = 8,
     return (geom, rng.uniform(-1, 1, (ov + 1, support)).astype(np.float32),
             rng.uniform(0.1, 1, (ov + 1, w_support)).astype(np.float32),
             cplx(shape), cplx((w_support, size, size)))
+
+
+# Ragged task streams for the batched all-layer kernels (K16/K17 over
+# every task of a call): (slots, layers) per task in slot order, with
+# layer counts 6-10, a single 128-slot block, a task whose slots are all
+# padding (zero weights and visibilities), an empty task, a gap of
+# GAP_SLOTS slots no task holds before the last task and TAIL_SLOTS more
+# after it.
+TASK_SPECS = ((300, 6), (128, 10), (256, 8), (0, 7), (200, 7), (140, 6))
+PADDING_TASK = 2
+GAP_SLOTS, TAIL_SLOTS = 16, 40
+
+
+def task_stream(size: int, seed: int = 0, support: int = 8,
+                w_support: int = 4, specs=TASK_SPECS):
+    """(vre, vim [V] f32, iu0, iv0 [V] int32, uk, vk [V, S] f32, weights
+    [V, Kw] f32, rows) as NumPy: each slot weighted on a window of
+    ``w_support`` consecutive layers of its task (zero beyond the task's
+    layers; a tenth of the slots and the padding task all zero), cells in
+    range with a few at the clip edge N - S, and the task rows ``(start,
+    count, layers, base)`` with the plane bases in a random task order."""
+    rng = np.random.default_rng(seed)
+    kw = max(k for _, k in specs)
+    starts, pos = [], 0
+    for i, (count, _) in enumerate(specs):
+        if i == len(specs) - 1:
+            pos += GAP_SLOTS
+        starts.append(pos)
+        pos += count
+    total = pos + TAIL_SLOTS
+    top = size - support
+    iu0 = rng.integers(0, top + 1, total)
+    iv0 = rng.integers(0, top + 1, total)
+    iu0[rng.random(total) < 0.05] = top
+    iv0[rng.random(total) < 0.05] = top
+    weights = np.zeros((total, kw), np.float32)
+    vre = rng.standard_normal(total).astype(np.float32)
+    vim = rng.standard_normal(total).astype(np.float32)
+    for i, ((count, k), start) in enumerate(zip(specs, starts)):
+        sl = slice(start, start + count)
+        if i == PADDING_TASK:
+            vre[sl] = vim[sl] = 0.0
+            continue
+        j = rng.integers(0, k - w_support + 1, count)
+        for layer in range(w_support):
+            weights[start + np.arange(count), j + layer] = rng.uniform(
+                0.1, 1, count)
+        weights[sl][rng.random(count) < 0.1] = 0.0
+    bases, planes = {}, 0
+    for i in rng.permutation(len(specs)):
+        bases[i] = planes
+        planes += specs[i][1]
+    rows = tuple((s, c, k, bases[i])
+                 for i, ((c, k), s) in enumerate(zip(specs, starts)))
+    return (vre, vim, iu0.astype(np.int32), iv0.astype(np.int32),
+            rng.standard_normal((total, support)).astype(np.float32),
+            rng.standard_normal((total, support)).astype(np.float32),
+            weights, rows)
+
+
+def task_taps(taps, task):
+    """One bucketed task's slice of the fallback's stream taps ``(iu0, iv0,
+    uk, vk, weights)``, its weights cut to its own layers: the operands of
+    the one-task all-layer kernels."""
+    sl = slice(task.start, task.start + task.size)
+    iu0, iv0, uk, vk, weights = taps
+    return (iu0[sl], iv0[sl], uk[sl], vk[sl],
+            weights[sl, :task.num_layers].contiguous())

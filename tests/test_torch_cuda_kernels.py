@@ -22,7 +22,14 @@ both modes; the bf16 mode of K14-K17 meets its bf16 plain versions at
 kernels (K14/K15) also meet their plain versions on the compaction cases
 (``_torch_scenario.plane_case``) at N = 64 (the whole stack in shared
 memory) and N = 128 (one layer at a time), in both modes, each call
-counted once and made with no host sync. The host planners
+counted once and made with no host sync. K16/K17 over a whole ragged
+stream of tasks (``_torch_scenario.task_stream``) meet their plain
+versions at 1e-5 in both modes at N = 32, 64 and 192 (the grid kernel's
+global-atomic path) and supports 8, 12 and 20 (bf16 also against f32
+within each output's rounding bound), one launch each and no host sync,
+the empty and all-padding tasks' planes and the slots no task holds
+exactly zero; the bucketed fallback on the card launches each once a call
+and meets the CPU port at 1e-5, at supports 8, 12 and 20. The host planners
 and the solver take a uvw tensor on the card, and the msclean and FISTA
 solves on the card meet the CPU port at 1e-4 of max|model|. The
 experiments' kernels: the read probe (``read_probe``) and the tensor-core
@@ -37,9 +44,9 @@ import pytest
 import torch
 
 from _torch_scenario import C_0, DFREQ, FREQ0, FUSED, IMAGE_SIZE, \
-    NUM_CHAN, PARAMS, PLANE_CASES, WTOWER_PARAMS, es_scenario, \
-    fused_kernel_operands, make_inputs, plane_case, two_point_image, \
-    wtower_scenario
+    NUM_CHAN, PADDING_TASK, PARAMS, PLANE_CASES, TASK_SPECS, WTOWER_PARAMS, \
+    es_scenario, fused_kernel_operands, make_inputs, plane_case, \
+    task_stream, two_point_image, wtower_scenario
 from ska_sdp_func_torch import kernels
 from ska_sdp_func_torch.grid_data import GridderUvwEsFft, grid_correct_pswf
 from ska_sdp_func_torch.grid_data import wtower as tw
@@ -49,8 +56,9 @@ from ska_sdp_func_torch.kernels import packed_tap as tk
 from ska_sdp_func_torch.kernels import place as tp
 from ska_sdp_func_torch.kernels import tower_tap as tt
 from ska_sdp_func_torch.parallel import PackedGridder, StreamingDegridder, \
-    StreamingGridder, degrid_all_tasks, grid_all_tasks, plan_packed, \
-    plan_stream, plan_wstack, stream_tasks
+    StreamingGridder, degrid_all_bucketed, degrid_all_tasks, \
+    grid_all_bucketed, grid_all_tasks, inverse_index_of, plan_bucketed, \
+    plan_packed, plan_stream, plan_wstack, stream_tasks
 from ska_sdp_func_torch.utility.errors import SdpMemLocationError
 
 pytestmark = pytest.mark.cuda
@@ -271,6 +279,107 @@ def test_plane_kernels_on_compaction_cases(device, case, size, fast):
         else:
             assert _rel(got, want) <= 1e-5
     assert not bool(got_d[~geom[0]].any())
+
+
+# 192 takes the grid kernel's global-atomic path (a plane pair of 307 KB
+# does not fit in shared memory). Support 12 takes the grid kernel's
+# 16-tap body in one pass, 20 in two passes; both take the degrid
+# kernel's any-support body (tap rows read from memory).
+@pytest.mark.parametrize("fast", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("size", [32, 64, 192])
+@pytest.mark.parametrize("support", [8, 12, 20])
+def test_tower_task_kernels_match_plain(device, support, size, fast):
+    """K16/K17 over a ragged stream of tasks against their plain versions,
+    one launch each and no host sync; every plane and slot written."""
+    *arrays, rows = task_stream(size, seed=size, support=support)
+    vre, vim, iu0, iv0, uk, vk, w = (torch.as_tensor(a, device=device)
+                                     for a in arrays)
+    tasks = tt.task_table(rows, device)
+    rng = np.random.default_rng(size)
+    layers = torch.as_tensor(
+        (rng.standard_normal((tasks.planes, size, size))
+         + 1j * rng.standard_normal((tasks.planes, size, size))).astype(
+             np.complex64), device=device)
+    grid_args = (vre, vim, iu0, iv0, uk, vk, w, tasks, size, support)
+    degrid_args = (layers, iu0, iv0, uk, vk, w, tasks, support)
+    before = tt.launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got_g = tt.grid_all_layers_tasks(*grid_args, fast=fast)
+        got_d = tt.degrid_all_layers_tasks(*degrid_args, fast=fast)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = tt.launch_counts()
+    for name in ("grid_all_layers_tasks", "degrid_all_layers_tasks"):
+        assert after[name] == before[name] + 1
+    want_g = tt.grid_all_layers_tasks_reference(*grid_args, fast=fast)
+    want_d = tt.degrid_all_layers_tasks_reference(*degrid_args, fast=fast)
+    torch.cuda.synchronize()
+    assert _rel(got_g, want_g) <= 1e-5
+    assert _rel(got_d, want_d) <= 1e-5
+    held = torch.zeros(iu0.shape[0], dtype=torch.bool, device=device)
+    for start, count, _, _ in rows:
+        held[start:start + count] = True
+    assert not bool(got_d[~held].any())
+    for t in (PADDING_TASK, TASK_SPECS.index((0, 7))):
+        start, count, k, base = rows[t]
+        assert not bool(got_g[base:base + k].any())
+        assert not bool(got_d[start:start + count].any())
+    if fast:
+        # Against the f32 kernels, per output: within the rounding of its
+        # terms' bf16 operands, 2^-7 (1 + 2^-9) of the sum of |terms| (a
+        # cell of a sparse task sums few terms, so 4e-3 of max|output|,
+        # the envelope of random dense operands, does not hold there).
+        sums_g = tt.grid_all_layers_tasks_reference(
+            vre.abs(), vim.abs(), iu0, iv0, uk.abs(), vk.abs(), w.abs(),
+            tasks, size, support)
+        sums_d = tt.degrid_all_layers_tasks_reference(
+            torch.complex(layers.real.abs(), layers.imag.abs()), iu0, iv0,
+            uk.abs(), vk.abs(), w.abs(), tasks, support)
+        for got, f32, sums in (
+                (got_g, tt.grid_all_layers_tasks(*grid_args), sums_g),
+                (got_d, tt.degrid_all_layers_tasks(*degrid_args), sums_d)):
+            assert 0 < _rel(got, f32)
+            for part in (torch.real, torch.imag):
+                err = (part(got) - part(f32)).abs()
+                assert not bool((err > 2 ** -7 * (1 + 2 ** -9) * part(sums)
+                                 + 1e-6 * part(f32).abs().max()).any())
+
+
+# Supports 12 and 20 are geometries the packed path rejects (the
+# fallback's reason to exist).
+@pytest.mark.parametrize("support", [8, 12, 20])
+def test_bucketed_on_card_launches_task_kernels_once(device, support):
+    """The bucketed fallback on the card: one K16 launch a grid call and
+    one K17 launch a degrid call (and no other tower kernel), against the
+    CPU port at 1e-5 (the image taper-weighted)."""
+    uvw, vis = make_inputs()
+    plan = plan_wstack(uvw, FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE,
+                       **dict(PARAMS, subgrid_size=64, support=support))
+    bplan, sort_index, valid = plan_bucketed(plan, uvw, block_v=128)
+    inv = inverse_index_of(sort_index, valid, vis.size)
+    model = torch.as_tensor(two_point_image())
+    out = {}
+    for dev in ("cpu", device):
+        u, v = torch.as_tensor(uvw, device=dev), torch.as_tensor(vis,
+                                                                 device=dev)
+        tt.reset_launch_counts()
+        img = grid_all_bucketed(bplan, v, u, sort_index, valid, device=dev)
+        grid_counts = tt.launch_counts()
+        tt.reset_launch_counts()
+        pred = degrid_all_bucketed(bplan, model, u, sort_index, valid, inv,
+                                   device=dev)
+        out[str(dev)] = img.cpu(), pred.cpu(), grid_counts, \
+            tt.launch_counts()
+    (i0, p0, _, _), (i1, p1, gc, dc) = out["cpu"], out[str(device)]
+    assert gc == dict.fromkeys(gc, 0) | {"grid_all_layers_tasks": 1}
+    assert dc == dict.fromkeys(dc, 0) | {"degrid_all_layers_tasks": 1}
+    k = plan.kernel()
+    taper = 1.0 / grid_correct_pswf(
+        k.image_size, k.theta, k.w_step, k.shear_u, k.shear_v, k.support,
+        k.w_support, torch.ones(k.image_size, k.image_size))
+    assert _rel(i1 * taper, i0 * taper) <= 1e-5
+    assert _rel(p1, p0) <= 1e-5
 
 
 def test_wtower_c64_on_card_takes_fused_kernels(device):

@@ -23,6 +23,7 @@ pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from _torch_scenario import task_taps  # noqa: E402
 from ska_sdp_func_torch.grid_data.wtower import _slab_weights  # noqa: E402
 from ska_sdp_func_torch.kernels import sparse_tap as ts  # noqa: E402
 from ska_sdp_func_torch.kernels import tower_tap as tt  # noqa: E402
@@ -148,7 +149,7 @@ def test_sparse_on_fallback_taps_matches_dense():
             vre[sl], vim[sl], iu0[sl], iv0[sl], j[sl], uk[sl].float(),
             vk[sl].float(), wk[sl], task.num_layers, 32, SUPPORT,
             plan.w_support)
-        d = tbk._task_taps(dense, task)
+        d = task_taps(dense, task)
         want = tt.grid_all_layers(vre[sl], vim[sl], d[0], d[1],
                                   d[2].float(), d[3].float(),
                                   d[4].float(), task.num_layers, 32,
