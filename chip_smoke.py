@@ -2,19 +2,26 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    (cd CHECKOUT && python3 /path/to/chip_smoke.py --packed-times)
 
-Run from the repository root on a machine with a CUDA card. Phases, one
-line of output each (or a few), failing loudly on the first fault:
+Run from the repository root on a machine with a CUDA card. With
+``--packed-times`` it only times the packed path (K1/K2 in "high" and
+"bf16", ``grid_sorted``, ``degrid_sorted``, one major-cycle iteration) on
+the package of the working directory and prints one JSON line, so two
+checkouts compare on one card in turns. Phases, one line of output each
+(or a few), failing loudly on the first fault:
 
 1. toolchain: the card's name and power limit (nvidia-smi), torch, CUDA
    and nvcc versions;
 2. build: compiles the port's CUDA kernels from ``csrc/`` (one nvcc per
    source, in parallel; timed);
 3. kernels vs plain: each kernel against its plain PyTorch version on the
-   card: the packed kernels (K1, K2) and the fused kernels (K3, K4) in all
-   three precision modes, the placement kernel (K5) bit for bit, the
-   w-towers tap kernels (K14-K17; K16/K17 both over a whole fallback
-   stream of tasks, also at supports 12 and 20, and on one task), and
+   card: the packed kernels (K1, K2: "high" and "bf16" on the tensor
+   cores over the plan's bucket runs, "highest" on the CUDA cores) and
+   the fused kernels (K3, K4) in all three precision modes, the placement
+   kernel (K5) bit for bit, the w-towers tap kernels (K14-K17; K16/K17
+   both over a whole fallback stream of tasks, also at supports 12, 20
+   and 56, and on one task), and
    the non-packable streaming
    branch's tap preparation (K6, K7) and window fold (K9 + K10, also
    with NaN in every unvisited window) with K5, K8 and K11 at its shapes,
@@ -30,9 +37,11 @@ line of output each (or a few), failing loudly on the first fault:
       seed 1): ``plan_wstack`` -> ``plan_packed`` ->
       ``packed_gridder(device=cuda)``, ``grid_sorted``, ``degrid_sorted``
       of a unit point and two ``major_cycle_imager(bucketed=True)``
-      iterations; the kernel-path dirty image against the plain-path
-      image on the card, and a small point-source solve against the CPU
-      port;
+      iterations; the kernel-path dirty image and degrid against the
+      plain path on the card, and a small point-source solve against the
+      CPU port; then, in a window of its own, ``packed_gridder(fast=True)``
+      (bf16 K1/K2) ``grid_sorted`` and ``degrid_sorted`` against its plain
+      path (and, reported, against "high");
    b. the bucketed fallback (K16, K17) at the same data with 64^2
       sub-grids (a geometry the packed path cannot take):
       ``plan_wstack`` -> ``plan_bucketed``, ``grid_all_bucketed``,
@@ -128,7 +137,9 @@ line of output each (or a few), failing loudly on the first fault:
       window launches each variant once, then holds it against its plain
       version and times it;
 5. times: grid, degrid and one major-cycle iteration of the packed path
-   (and one msclean and one FISTA iteration beside the Hogbom one) and
+   (and one msclean and one FISTA iteration beside the Hogbom one; and
+   ``packed_times``: wall, host enqueue and device time, busy share and
+   device operations a call) and
    the fallback at the bench scenario (with its device operations per
    call and busy share by ``torch.profiler``), the task drivers' calls of
    4c with one task's calls split per plane by CUDA events (geometry,
@@ -137,10 +148,11 @@ line of output each (or a few), failing loudly on the first fault:
    packable ones with their stages, and the fast (bf16) ones beside the
    f32 ones, the fused and compact engines beside the band engine, the
    ES-FFT gridder beside the packed path, and each kernel beside its
-   plain version at the main paths' shapes (K12/K13 also beside K3/K4
-   on the same plan; K14/K15 also on an all-masked plane; K16/K17 over
-   window b's whole stream, also at supports 12 and 20, and on its
-   largest task alone).
+   plain version at the main paths' shapes (K1/K2 in "high" and "bf16",
+   with the product alone by ``torch.bmm`` beside them; K12/K13 also
+   beside K3/K4 on the same plan; K14/K15 also on an all-masked plane;
+   K16/K17 over window b's whole stream, also at supports 12, 20 and 56,
+   and on its largest task alone).
 
 The line before the last is a JSON object describing each kernel: its
 launches in its path's window, its largest absolute difference from its
@@ -161,8 +173,11 @@ TPU folds (K9, K10): it has a row for each; the bf16 modes of K6, K7, K8
 and K11 have rows of their own (``[bf16]``, window k's operands), bytes
 counted for the bf16 ``vk``; so do K20 and the bf16 modes of K14-K17
 (window m's and n's operands, which the bf16 modes read as f32 and
-round in registers). ``library_ms`` is null: no single PyTorch
-call computes any of these functions. The experiments' kernels (window p)
+round in registers). ``library_ms`` is null (no single PyTorch
+call computes any of these functions) but for K1/K2 and their ``[bf16]``
+rows (window a's fast run): the product alone, ``torch.bmm`` of the plain
+version's materialised operands (f32 with TF32 off, or bf16), labelled
+in ``library``. The experiments' kernels (window p)
 have a row for each TPU kernel site (P1, P2a-P2f): the numbers of its
 headline variant and a ``variants`` list with each variant's; their
 bounds divide tensor-core operations by the published dense peaks (TF32
@@ -209,7 +224,23 @@ MODES = {"highest": dict(precision="highest"),
          "high": dict(precision="high"),
          "bf16": dict(fast=True)}
 TOL = 1e-5           # relative to max|reference| (f32 reordering only)
-PACKED_SOURCE = "ska_sdp_func_torch/kernels/csrc/packed_tap.cu"
+# K1/K2's "high" and "bf16" modes, redesigned for the tensor cores.
+WGMMA_SOURCE = "ska_sdp_func_torch/kernels/csrc/packed_wgmma.cu"
+PACKED_REDESIGN = ("redesigned: one CTA an SM walks the plan's bucket runs "
+                   "(x 128-lane tiles); a producer warp streams 64-slot "
+                   "stages by TMA through a ring under mbarriers; two "
+                   "consumer warpgroups run bf16 wgmma (hi/lo split at "
+                   "'high'), chunk sums added on the CUDA cores; the grid "
+                   "flushes once a run with float4 atomics, the degrid "
+                   "keeps the run's window in shared memory")
+# K1/K2's yardstick: the product alone, torch.bmm of the plain version's
+# materialised operands, in f32 with TF32 off for "high" and in bf16 for
+# "bf16" (each row carries the other as library_f32_ms / library_bf16_ms);
+# the port never calls it.
+LIBRARY_NOTE = ("product only: torch.bmm of the plain version's operands "
+                "[NB, rows, block_v] @ [NB, block_v, lanes] (grid) or "
+                "[NB, rows, lanes] @ [NB, lanes, block_v] (degrid), f32 with "
+                "TF32 off ('high') or bf16 ('bf16')")
 TOWER_SOURCE = "ska_sdp_func_torch/kernels/csrc/tower_tap.cu"
 # K14/K15, redesigned for the card: active-entry compaction on the device,
 # then work for the active entries only.
@@ -247,9 +278,11 @@ TASK_REDESIGN = ("redesigned: one launch over every task of a fallback "
                  "call (a CTA per task plane in shared memory, a thread "
                  "per slot to degrid)")
 # Supports past 8 take the batched kernels' wider bodies (to grid, 12: 16
-# taps a row in one pass, 20: two passes; to degrid, tap rows read from
-# memory); checked and timed on window b's stream with random taps.
-WIDE_SUPPORTS = (12, 20)
+# taps a row in one pass, 20: two passes, 56: 13 passes with the tap rows
+# read from memory, past the 54 whose staged rows fill shared memory; to
+# degrid, tap rows read from memory); checked and timed on window b's
+# stream with random taps.
+WIDE_SUPPORTS = (12, 20, 56)
 # The ES-FFT gridder on the bench data, and its kernels.
 ES_EPSILON = 1e-5
 ES_LAYOUTS = {"3-D": True, "2-D": False}
@@ -476,7 +509,7 @@ def kernel_operands(torch, g, pplan, dev, seed):
 
 def check_kernels(torch, tk, PackedGridder, pplan, dev, label):
     """Each packed kernel against its plain version in every mode;
-    returns the "high" (default) mode's absolute errors."""
+    returns each mode's absolute errors."""
     out = {}
     for mode, kw in MODES.items():
         g = PackedGridder(pplan, device=dev, **kw)
@@ -499,8 +532,7 @@ def check_kernels(torch, tk, PackedGridder, pplan, dev, label):
         if not (e_grid <= TOL and e_degrid <= TOL):
             raise SystemExit(f"kernel disagrees with its plain version "
                              f"[{label}, {mode}]")
-        if mode == "high":
-            out = dict(grid=a_grid, degrid=a_degrid)
+        out[mode] = dict(grid=a_grid, degrid=a_degrid)
         del g
     return out
 
@@ -1188,6 +1220,147 @@ def fallback_times(torch, dev, tplan, bplan, sort_index, valid, inv, uvw,
         ms = cuda_ms(torch, fn, iters, warmup=1)
         d_us, _, d_ops = device_us(torch, fn, iters)
         out[what] = (ms, d_us, d_ops)
+    return out
+
+
+def packed_times(torch, dev):
+    """Window a's calls and kernels, timed, on the package that is
+    imported (so two checkouts compare on one card in turns, each run
+    from its own root with ``--packed-times``): K1/K2 in "high" and
+    "bf16" at the main path's operands (CUDA events, 20 calls, twice),
+    and ``grid_sorted``, ``degrid_sorted`` and one major-cycle iteration
+    (degrid, residual, grid, a 50-component Hogbom minor cycle): ms per
+    call by CUDA events (10, 10 and 5 calls after a warm-up), then device
+    time, busy share and device operations per call by ``torch.profiler``.
+    Only calls every version of the port has are made."""
+    from ska_sdp_func_torch.kernels import packed_tap as tk
+    from ska_sdp_func_torch.parallel import (
+        packed_gridder,
+        plan_packed,
+        plan_wstack,
+    )
+    from ska_sdp_func_torch.pipeline import major_cycle as mc
+
+    uvw, vis = bench_inputs()
+    plan = plan_wstack(uvw, C_0, C_0 / (100 * CHANS), CHANS, IMAGE, SUBGRID,
+                       THETA, W_STEP, support=8, w_support=4,
+                       w_tower_height=HEIGHT)
+    pplan = plan_packed(plan, uvw)
+    model = torch.zeros((IMAGE, IMAGE), dtype=torch.float32, device=dev)
+    model[300, 200] = 1.0
+    out = {"kernels": {}, "calls": {}}
+    for mode, kw in (("high", {}), ("bf16", dict(fast=True))):
+        g = packed_gridder(pplan, device=dev, **kw)
+        grid_args, degrid_args = kernel_operands(torch, g, pplan, dev, 12)
+        # The run table where the gridder has one (built once a plan).
+        call_kw = dict(block_v=pplan.block_v)
+        if getattr(g, "runs", None) is not None:
+            call_kw["runs"] = g.runs
+        for name, fn, args in (("grid_packed_stack", tk.grid_packed_stack,
+                                grid_args),
+                               ("degrid_stack", tk.degrid_stack,
+                                degrid_args)):
+            out["kernels"][f"{name}[{mode}]"] = [
+                cuda_ms(torch, lambda: fn(*args, **call_kw), 20)
+                for _ in range(2)]
+        del g, grid_args, degrid_args
+    g = packed_gridder(pplan, device=dev)
+    vre, vim = g.sort(vis)
+    psf = packed_gridder(plan_packed(mc.make_psf_plan(plan, uvw), uvw),
+                         device=dev).grid(np.ones((ROWS, CHANS), np.complex64))
+    peak = psf[IMAGE, IMAGE]
+    border = IMAGE // 16
+    psf = mc._norm_mask(psf, peak, 2 * border)
+    stop = torch.zeros((), device=dev)
+    state = {"model": torch.zeros((IMAGE, IMAGE), device=dev)}
+
+    def major_cycle():
+        p = g.degrid_sorted(state["model"])
+        rre, rim = mc._packed_residual(vre, vim, p, None)
+        dirty = mc._norm_mask(g.grid_sorted(rre, rim), peak, border)
+        delta, _ = mc._minor_cycle(dirty, psf, 0.1, stop, 50)
+        state["model"] = state["model"] + delta
+
+    for what, fn, iters in (
+            ("grid_sorted", lambda: g.grid_sorted(vre, vim), 10),
+            ("degrid_sorted", lambda: g.degrid_sorted(model), 10),
+            ("major cycle", major_cycle, 5)):
+        ms = cuda_ms(torch, fn, iters, warmup=1)
+        d_us, _, d_ops = device_us(torch, fn, iters)
+        out["calls"][what] = dict(
+            ms=ms, device_ms=d_us / 1e3 if d_us else None,
+            busy=d_us / 1e3 / ms if d_us else None, device_ops=d_ops,
+            host_ms=host_ms(torch, fn, iters))
+    return out
+
+
+def host_ms(torch, fn, iters: int) -> float:
+    """Host ms per call to enqueue ``fn`` (no synchronisation inside the
+    timed calls): where it nears the wall time, the host sets the pace."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return t
+
+
+def packed_times_main() -> int:
+    """``chip_smoke.py --packed-times``: :func:`packed_times` of the
+    package at the working directory (a checkout's root), one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.getcwd())
+    import ska_sdp_func_torch
+    from ska_sdp_func_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu = run(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    _build.load()
+    out = packed_times(torch, torch.device("cuda", 0))
+    say(json.dumps({"checkout": os.path.dirname(ska_sdp_func_torch.__file__),
+                    "gpu": gpu, **out}))
+    return 0
+
+
+def product_library_ms(torch, tk, grid_args, degrid_args, block_v):
+    """The K1/K2 rows' yardstick, the product alone: ms of one
+    ``torch.bmm`` of the plain versions' materialised operands (f32 with
+    TF32 off, then bf16), {name: (f32 ms, bf16 ms)}. The port never calls
+    it."""
+    t_idx, k_idx, g_idx, ubase, vband, (wk_t, vre, vim), _, num_layers, \
+        lanes, w_support = grid_args
+    stack, vband_t = degrid_args[0], degrid_args[5]
+    nb = ubase.shape[1] // block_v
+
+    def f32(band):
+        return (band[0].float() + band[1].float()
+                if isinstance(band, tuple) else band.float())
+
+    def blocks(x):                       # [R, V] -> [NB, R, block_v]
+        return x.reshape(x.shape[0], nb, block_v).permute(1, 0, 2)
+
+    wk = blocks(wk_t)
+    s_all = torch.cat([wk * vre.reshape(nb, 1, block_v),
+                       wk * vim.reshape(nb, 1, block_v)], dim=1)
+    u_all = (blocks(ubase)[:, None] * s_all[:, :, None]).reshape(
+        nb, -1, block_v).contiguous()
+    band = f32(vband).reshape(nb, block_v, lanes)
+    rows = tk._window_rows(t_idx, k_idx, g_idx, w_support, num_layers, lanes)
+    win = stack.reshape(-1, lanes)[rows.reshape(-1)].reshape(nb, -1, lanes)
+    band_t = blocks(f32(vband_t)).contiguous()
+    out = {}
+    for name, a, b in (("grid_packed_stack", u_all, band),
+                       ("degrid_stack", win, band_t)):
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        out[name] = (cuda_ms(torch, lambda: torch.bmm(a, b), 10),
+                     cuda_ms(torch, lambda: torch.bmm(a16, b16), 10))
     return out
 
 
@@ -2000,12 +2173,43 @@ def main() -> int:
         IMAGE, THETA, W_STEP, 0.0, 0.0, 8, 4,
         torch.ones((IMAGE, IMAGE), device=dev))
     e_img = rel_err(img * taper, img_plain * taper)
+    e_pred = rel_err(pred, tk.degrid_stack_reference(
+        g._model_stack(model), g.t_idx, g.k_idx, g.g_idx, g.ubase,
+        g.vband_t, g.wk_t, 4, block_v=pplan.block_v))
     say(f"# packed dirty image, kernel vs plain path: taper-weighted rel "
-        f"err {e_img:.3e} (tolerance {TOL:g}); degrid |vis| max "
-        f"{float(pred.abs().max()):.4g}; major-cycle peaks "
-        f"{res.peak_history}")
-    if not e_img <= TOL:
-        raise SystemExit("kernel-path image disagrees with the plain path")
+        f"err {e_img:.3e}, degrid rel err {e_pred:.3e} (tolerance "
+        f"{TOL:g}); degrid |vis| max {float(pred.abs().max()):.4g}; "
+        f"major-cycle peaks {res.peak_history}")
+    if not (e_img <= TOL and e_pred <= TOL):
+        raise SystemExit("kernel-path image or degrid disagrees with the "
+                         "plain path")
+    # The packed path's fast mode (bf16 K1/K2), once, in a window of its
+    # own: against its plain path on the card, and (reported) against the
+    # "high" image.
+    with launch_window(torch, tkern, "packed path, fast (bf16)",
+                       ("grid_packed_stack", "degrid_stack"),
+                       tower_names + stream_names) as fast_launches:
+        gf = packed_gridder(pplan, fast=True, device=dev)
+        img_f = gf.grid_sorted(vre, vim)
+        pred_f = gf.degrid_sorted(model)
+    finite(torch, (("bf16 dirty image", img_f), ("bf16 degrid", pred_f)))
+    img_fp = gf._image_from_stack(tk.grid_packed_stack_reference(
+        gf.t_idx, gf.k_idx, gf.g_idx, gf.ubase, gf.vband,
+        (gf.wk_t, vre, vim), len(pplan.tasks), pplan.num_layers, SUBGRID, 4,
+        block_v=pplan.block_v))
+    pred_fp = tk.degrid_stack_reference(
+        gf._model_stack(model), gf.t_idx, gf.k_idx, gf.g_idx, gf.ubase,
+        gf.vband_t, gf.wk_t, 4, block_v=pplan.block_v)
+    e_fimg = rel_err(img_f * taper, img_fp * taper)
+    e_fpred = rel_err(pred_f, pred_fp)
+    say(f"# packed path, fast (bf16), kernel vs plain path: taper-weighted "
+        f"image rel err {e_fimg:.3e}, degrid rel err {e_fpred:.3e} "
+        f"(tolerance {TOL:g}); against 'high': image "
+        f"{rel_err(img_f * taper, img * taper):.3e}, degrid "
+        f"{rel_err(pred_f, pred):.3e}")
+    if not (e_fimg <= TOL and e_fpred <= TOL):
+        raise SystemExit("the bf16 packed path disagrees with its plain path")
+    del gf, img_fp, pred_fp
     # A point source through the whole solver: card vs CPU port.
     img_pt = np.zeros((SMALL["image"], SMALL["image"]), np.float32)
     src = (SMALL["image"] // 2 + 12, SMALL["image"] // 2 - 9)
@@ -2458,8 +2662,23 @@ def main() -> int:
         f"published 3.35 TB/s)")
 
     # 5. times -----------------------------------------------------------
-    t_grid = cuda_ms(torch, lambda: g.grid_sorted(vre, vim), 10)
-    t_degrid = cuda_ms(torch, lambda: g.degrid_sorted(model), 10)
+    # The packed path's calls and K1/K2 (packed_times, as --packed-times
+    # runs it on any checkout).
+    pt = packed_times(torch, dev)
+    t_grid, t_degrid, t_mc = (pt["calls"][w]["ms"] for w in (
+        "grid_sorted", "degrid_sorted", "major cycle"))
+    say(f"# [{gpu}] packed: grid {num_vis / t_grid / 1e3:.2f} Mvis/s "
+        f"({t_grid:.3f} ms), degrid {num_vis / t_degrid / 1e3:.2f} Mvis/s "
+        f"({t_degrid:.3f} ms), major cycle {1e3 / t_mc:.3f} iters/s "
+        f"({t_mc:.3f} ms; minor cycle 50 components); K1/K2 (ms): "
+        + "; ".join(f"{k} {v[0]:.3f}/{v[1]:.3f}"
+                    for k, v in pt["kernels"].items())
+        + "; per call: " + "; ".join(
+            f"{k} host enqueue {v['host_ms']:.3f} ms, device "
+            + (f"{v['device_ms']:.3f} ms, busy {v['busy']:.1%}"
+               if v["device_ms"] else "time not measured")
+            + f", {v['device_ops']:.0f} device operations"
+            for k, v in pt["calls"].items()))
     psf_pplan = plan_packed(mc.make_psf_plan(plan, uvw), uvw)
     psf = packed_gridder(psf_pplan, device=dev).grid(
         np.ones((ROWS, CHANS), np.complex64))
@@ -2475,12 +2694,6 @@ def main() -> int:
         dirty = mc._norm_mask(g.grid_sorted(rre, rim), peak, border)
         delta, _ = mc._minor_cycle(dirty, psf, 0.1, stop, 50)
         state["model"] = state["model"] + delta
-
-    t_mc = cuda_ms(torch, mc_step, 5, warmup=1)
-    say(f"# [{gpu}] packed: grid {num_vis / t_grid / 1e3:.2f} Mvis/s "
-        f"({t_grid:.3f} ms), degrid {num_vis / t_degrid / 1e3:.2f} Mvis/s "
-        f"({t_degrid:.3f} ms), major cycle {1e3 / t_mc:.3f} iters/s "
-        f"({t_mc:.3f} ms; minor cycle 50 components)")
 
     # One msclean and one FISTA iteration beside it; turns: Hogbom,
     # msclean, FISTA, FISTA, msclean, Hogbom.
@@ -2702,13 +2915,28 @@ def main() -> int:
         return f"kernel {k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms, " \
             f"bound {times[name][2]:.4f} ms by {times[name][3]}"
 
-    for name, kern, ref, args in (
-            ("grid_packed_stack", tk.grid_packed_stack,
-             tk.grid_packed_stack_reference, grid_args),
-            ("degrid_stack", tk.degrid_stack, tk.degrid_stack_reference,
-             degrid_args)):
-        say(f"# [{gpu}] {name} at main-path shapes, 'high': " + time_kernel(
-            name, kern, ref, args, dict(block_v=bv), tap_ops(valid_p, 8, 4)))
+    # K1/K2 as the gridders call them (the plan's run table given), in
+    # both tensor-core modes; then the product alone by torch.bmm.
+    gfast = packed_gridder(pplan, fast=True, device=dev)
+    for tag, gx in (("", g), ("[bf16]", gfast)):
+        args2 = (grid_args, degrid_args) if gx is g else kernel_operands(
+            torch, gx, pplan, dev, 12)
+        for (name, kern, ref), args in zip(
+                (("grid_packed_stack", tk.grid_packed_stack,
+                  tk.grid_packed_stack_reference),
+                 ("degrid_stack", tk.degrid_stack,
+                  tk.degrid_stack_reference)), args2):
+            say(f"# [{gpu}] {name}{tag} at main-path shapes "
+                f"('{gx.precision}'): " + time_kernel(
+                    name + tag, kern, ref, args,
+                    dict(block_v=bv, runs=gx.runs), tap_ops(valid_p, 8, 4)))
+        del args2
+    del gfast
+    library = product_library_ms(torch, tk, grid_args, degrid_args, bv)
+    say(f"# [{gpu}] K1/K2 yardstick, the product alone (torch.bmm of the "
+        f"plain versions' operands, ms f32 / bf16): " + "; ".join(
+            f"{k} {f:.3f} / {b:.3f}" for k, (f, b) in library.items()))
+
     for name, _ in TOWER_KERNELS:
         args, kw = ops[name]
         # Each valid slot's S x S taps on its Sw layers (the plane kernels'
@@ -2906,13 +3134,25 @@ def main() -> int:
                  single_task_bound_ms=b)
         return r
 
+    def packed_row(name, tag, where, launched, err):
+        """K1/K2's rows: the tensor-core kernels, the product alone by
+        torch.bmm as their yardstick."""
+        r = row(name + tag, WGMMA_SOURCE, where, launched, err)
+        f32_ms, bf16_ms = library[name]
+        r.update(library_ms=bf16_ms if tag else f32_ms,
+                 library_f32_ms=f32_ms, library_bf16_ms=bf16_ms,
+                 library=LIBRARY_NOTE, redesigned=PACKED_REDESIGN)
+        return r
+
     kernels = [
-        row("grid_packed_stack", PACKED_SOURCE,
-            "ska_sdp_func_tpu/kernels/packed_tap.py:249",
-            launches["grid_packed_stack"], abs_err["grid"]),
-        row("degrid_stack", PACKED_SOURCE,
-            "ska_sdp_func_tpu/kernels/packed_tap.py:839",
-            launches["degrid_stack"], abs_err["degrid"]),
+        packed_row(name, tag, where, won[name], abs_err[mode][kind])
+        for tag, mode, won in (("", "high", launches),
+                               ("[bf16]", "bf16", fast_launches))
+        for name, kind, where in (
+            ("grid_packed_stack", "grid",
+             "ska_sdp_func_tpu/kernels/packed_tap.py:249"),
+            ("degrid_stack", "degrid",
+             "ska_sdp_func_tpu/kernels/packed_tap.py:839"))
     ] + [
         row(name, "ska_sdp_func_torch/kernels/" + src, where,
             st_launches[name], stream_err[name])
@@ -2965,4 +3205,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--packed-times"]:
+        sys.exit(packed_times_main())
     sys.exit(main())

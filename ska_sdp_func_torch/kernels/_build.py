@@ -108,12 +108,19 @@ def load() -> ctypes.CDLL:
                 p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
                 lib.sdp_torch_error_string.argtypes = [i]
                 lib.sdp_torch_error_string.restype = ctypes.c_char_p
-                lib.sdp_torch_grid_packed_stack.argtypes = [
-                    p, p, p, i, p, p, p, i, p, p, p, i64, i, i, i, i, p, p]
+                lib.sdp_torch_grid_packed_stack.argtypes = (
+                    [p] * 3 + [i] + [p] * 5 + [i64] + [i] * 4 + [p, p])
                 lib.sdp_torch_grid_packed_stack.restype = i
-                lib.sdp_torch_degrid_stack.argtypes = [
-                    p, p, p, p, i, p, p, p, i, p, i64, i, i, i, i, p, p]
+                lib.sdp_torch_degrid_stack.argtypes = (
+                    [p] * 4 + [i] + [p] * 3 + [i64] + [i] * 4 + [p, p])
                 lib.sdp_torch_degrid_stack.restype = i
+                lib.sdp_torch_grid_packed_runs.argtypes = (
+                    [p, i] + [p] * 6 + [i] + [p] * 3 + [i64] + [i] * 4
+                    + [p, p])
+                lib.sdp_torch_grid_packed_runs.restype = i
+                lib.sdp_torch_degrid_runs.argtypes = (
+                    [p, p, i] + [p] * 6 + [i, p, i64] + [i] * 4 + [p, p])
+                lib.sdp_torch_degrid_runs.restype = i
                 lib.sdp_torch_tower_grid_tasks.argtypes = (
                     [p] * 9 + [i, i64] + [i] * 4 + [p, p])
                 lib.sdp_torch_tower_grid_tasks.restype = i

@@ -1,12 +1,13 @@
-// Band-engine packed gridding / degridding kernels for Hopper (sm_90a).
+// Band-engine packed gridding / degridding kernels for Hopper (sm_90a):
+// the "highest" (f32) mode of K1 and K2.
 //
 // Replace the two Pallas TPU kernels of the packed whole-image path,
-// ska_sdp_func_tpu/kernels/packed_tap.py:
-//   - grid_packed_stack_pallas (_grid_stack_kernel_split[_high],
+// ska_sdp_func_tpu/kernels/packed_tap.py, at Precision.HIGHEST:
+//   - grid_packed_stack_pallas (_grid_stack_kernel_split,
 //     _stack_accumulate)  ->  packed_grid_stack_kernel
-//   - degrid_stack_pallas (_degrid_stack_kernel[_high],
-//     _window_from_stack, _degrid_math[_high], _degrid_tail)
-//                          ->  packed_degrid_stack_kernel
+//   - degrid_stack_pallas (_degrid_stack_kernel, _window_from_stack,
+//     _degrid_math, _degrid_tail)  ->  packed_degrid_stack_kernel
+// The "high" and "bf16" modes run on the tensor cores (packed_wgmma.cu).
 //
 // Layout (shared with the plain PyTorch versions in packed_tap.py): the
 // sorted visibility stream of `total` slots is cut into plan blocks of
@@ -21,35 +22,21 @@
 //   added into the task's stack at its window rows.
 // Degrid, per block: t_T[m, p] = sum_c window[m, c] * vband_t[c, p],
 //   re/im[p] = sum over the re/im half of ubase[r, p] * wk_t[j, p] * t_T.
+// f32 operands, products and sums.
 //
-// Precision modes, chosen by the operand types exactly as on the TPU:
-//   kF32  ("highest"): f32 operands, f32 products and sums;
-//   kHigh ("high"):    the stream operand comes pre-split as bf16 hi/lo,
-//                      the in-kernel operand is split here with the same
-//                      bit-level round-to-nearest-even; three products
-//                      hi*hi + hi*lo + lo*hi (lo*lo dropped), each exact
-//                      in f32, summed in f32 — the MXU's bf16-in /
-//                      f32-accumulate result up to summation order;
-//   kBf16 ("bf16", fast=True): bf16 stream operand, the in-kernel operand
-//                      rounded to bf16, f32 products and sums.
-//
-// What bounds it on an H100. Grid: 2 * 128 * 128 flops per slot per
-// product (~50 MFLOP per 512-slot block at "high", ~137 GFLOP per
-// 1M-visibility whole-image call) against ~600 B/slot of streamed bands;
-// against the H100 SXM's published 67 TFLOP/s of f32 FMA (700 W limit)
-// this is compute-bound on the CUDA cores. Degrid: the same flops
-// against 512 B/slot of vband_t.
-// This first design is the simple, correct one: one CTA of 256 threads
-// per (plan block, 128-wide output tile), a classic shared-memory-tiled
-// f32 FMA product with an 8x8 register tile per thread, contraction
-// staged 16 deep through shared memory. The grid's overlapping octets
-// and slabs of one task combine with f32 atomicAdd into the zeroed stack
-// (so the f32 sum order varies from run to run); the degrid's blocks are
-// independent and its re/im row sums are a shared-memory reduction. It
-// ignores the 8-of-128 band sparsity of vband (~16x fewer flops) and the
-// tensor cores (mma/wgmma on the bf16 halves); both are later work.
+// What bounds it on an H100. 2 * 128 * 128 flops per slot (~46 GFLOP per
+// 1M-visibility whole-image call) against ~1 KB/slot of streamed f32
+// bands; against the H100 SXM's published 67 TFLOP/s of f32 FMA (700 W
+// limit) this is compute-bound on the CUDA cores. The design is the
+// simple one: one CTA of 256 threads per (plan block, 128-wide output
+// tile), a shared-memory-tiled f32 FMA product with an 8x8 register tile
+// per thread, contraction staged 16 deep through shared memory. The
+// grid's overlapping octets and slabs of one task combine with f32
+// atomicAdd into the zeroed stack (so the f32 sum order varies from run
+// to run); the degrid's blocks are independent and its re/im row sums
+// are a shared-memory reduction. Its tensor-core form (three TF32
+// products) is later work.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -60,113 +47,45 @@ constexpr int kWinRows = 16;   // 8-aligned octet base + support (<= 8)
 constexpr int kTile = 128;     // output tile: 128 window rows x 128 cols
 constexpr int kChunk = 16;     // contraction depth staged per pass
 constexpr int kThreads = 256;  // 16 x 16 threads, 8 x 8 outputs each
+constexpr int kOperand = kChunk * kTile;
+// A and B chunk planes; the degrid epilogue reuses them for [2][16][kTile].
+constexpr int kSmemFloats = 2 * kOperand;
 
-enum Mode { kF32 = 0, kHigh = 1, kBf16 = 2 };
-
-// Upper half of the bit-level split (ska_sdp_func_tpu
-// kernels/packed_tap.py split_bf16): round the upper 16 bits to
-// nearest-even; the result is exactly representable in bf16.
-__device__ __forceinline__ float split_hi(float x) {
-  const uint32_t u = __float_as_uint(x);
-  return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Store one element of the in-kernel operand in its mode's form.
-template <int MODE>
-__device__ __forceinline__ void store_split(float* hi, float* lo, int i,
-                                            float x) {
-  if (MODE == kHigh) {
-    const float h = split_hi(x);
-    hi[i] = h;
-    lo[i] = round_bf16(x - h);
-  } else if (MODE == kBf16) {
-    hi[i] = round_bf16(x);
-  } else {
-    hi[i] = x;
-  }
-}
-
-// Load one element of the streamed operand (f32, or bf16 hi[/lo]).
-template <int MODE>
-__device__ __forceinline__ void load_stream(const void* s0, const void* s1,
-                                            int64_t idx, float* hi,
-                                            float* lo, int i) {
-  if (MODE == kF32) {
-    hi[i] = static_cast<const float*>(s0)[idx];
-  } else {
-    hi[i] = __bfloat162float(static_cast<const __nv_bfloat16*>(s0)[idx]);
-    if (MODE == kHigh) {
-      lo[i] = __bfloat162float(static_cast<const __nv_bfloat16*>(s1)[idx]);
-    }
-  }
-}
-
-// acc[i][j] += A[:, ty + 16 i] . B[:, tx + 16 j] over one staged chunk.
-// A and B are [kChunk][kTile] (hi) with optional lo planes after them.
-template <int MODE>
-__device__ __forceinline__ void mac_chunk(const float* a_hi,
-                                          const float* a_lo,
-                                          const float* b_hi,
-                                          const float* b_lo, int tx, int ty,
+// acc[i][j] += A[:, ty + 16 i] . B[:, tx + 16 j] over one staged chunk;
+// A and B are [kChunk][kTile].
+__device__ __forceinline__ void mac_chunk(const float* a, const float* b,
+                                          int tx, int ty,
                                           float (&acc)[8][8]) {
 #pragma unroll
   for (int kk = 0; kk < kChunk; ++kk) {
-    float a[8], b[8], al[8], bl[8];
+    float ar[8], br[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      a[i] = a_hi[kk * kTile + ty + 16 * i];
-      b[i] = b_hi[kk * kTile + tx + 16 * i];
-      if (MODE == kHigh) {
-        al[i] = a_lo[kk * kTile + ty + 16 * i];
-        bl[i] = b_lo[kk * kTile + tx + 16 * i];
-      }
+      ar[i] = a[kk * kTile + ty + 16 * i];
+      br[i] = b[kk * kTile + tx + 16 * i];
     }
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (MODE == kHigh) {
-          acc[i][j] = fmaf(al[i], b[j], acc[i][j]);
-          acc[i][j] = fmaf(a[i], bl[j], acc[i][j]);
-        }
-        acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
     }
   }
 }
 
-// Shared memory: A and B chunk planes (hi, plus lo at "high"); the
-// degrid epilogue reuses the same buffer for its [2][16][kTile] sums.
-template <int MODE>
-struct Smem {
-  static constexpr int kPlanes = MODE == kHigh ? 2 : 1;
-  static constexpr int kOperand = kPlanes * kChunk * kTile;
-  static constexpr int kFloats =
-      2 * kOperand > 2 * 16 * kTile ? 2 * kOperand : 2 * 16 * kTile;
-};
-
-template <int MODE>
 __global__ void __launch_bounds__(kThreads)
 packed_grid_stack_kernel(const int* __restrict__ t_idx,
                          const int* __restrict__ k_idx,
                          const int* __restrict__ g_idx,
                          const float* __restrict__ ubase,
-                         const void* __restrict__ vb0,
-                         const void* __restrict__ vb1,
+                         const float* __restrict__ vband,
                          const float* __restrict__ wk_t,
                          const float* __restrict__ vre,
                          const float* __restrict__ vim, int64_t total,
                          int block_v, int w_support, int lanes,
                          int num_layers, float* __restrict__ out) {
-  __shared__ __align__(16) float smem[Smem<MODE>::kFloats];
-  float* a_hi = smem;
-  float* a_lo = smem + kChunk * kTile;
-  float* b_hi = smem + Smem<MODE>::kOperand;
-  float* b_lo = b_hi + kChunk * kTile;
+  __shared__ __align__(16) float smem[kSmemFloats];
+  float* a_s = smem;
+  float* b_s = smem + kOperand;
 
   const int b = blockIdx.x;
   const int col0 = blockIdx.y * kTile;
@@ -185,7 +104,7 @@ packed_grid_stack_kernel(const int* __restrict__ t_idx,
 
   for (int c0 = 0; c0 < block_v; c0 += kChunk) {
     // A: the scale stack u_all[m, p], slot-fastest for coalescing.
-    for (int e = tid; e < kChunk * kTile; e += kThreads) {
+    for (int e = tid; e < kOperand; e += kThreads) {
       const int kk = e % kChunk;
       const int m = e / kChunk;
       float u = 0.0f;
@@ -197,22 +116,18 @@ packed_grid_stack_kernel(const int* __restrict__ t_idx,
         const float v = h ? vim[p] : vre[p];
         u = ubase[r * total + p] * (wk_t[j * total + p] * v);
       }
-      store_split<MODE>(a_hi, a_lo, kk * kTile + m, u);
+      a_s[kk * kTile + m] = u;
     }
     // B: the v-band rows of this chunk's slots, lane-fastest.
-    for (int e = tid; e < kChunk * kTile; e += kThreads) {
+    for (int e = tid; e < kOperand; e += kThreads) {
       const int n = e % kTile;
       const int kk = e / kTile;
-      if (c0 + kk < block_v) {
-        load_stream<MODE>(vb0, vb1, (p_begin + c0 + kk) * lanes + col0 + n,
-                          b_hi, b_lo, e);
-      } else {
-        b_hi[e] = 0.0f;
-        if (MODE == kHigh) b_lo[e] = 0.0f;
-      }
+      b_s[e] = c0 + kk < block_v
+                   ? vband[(p_begin + c0 + kk) * lanes + col0 + n]
+                   : 0.0f;
     }
     __syncthreads();
-    mac_chunk<MODE>(a_hi, a_lo, b_hi, b_lo, tx, ty, acc);
+    mac_chunk(a_s, b_s, tx, ty, acc);
     __syncthreads();
   }
 
@@ -236,23 +151,19 @@ packed_grid_stack_kernel(const int* __restrict__ t_idx,
   }
 }
 
-template <int MODE>
 __global__ void __launch_bounds__(kThreads)
 packed_degrid_stack_kernel(const float* __restrict__ stack,
                            const int* __restrict__ t_idx,
                            const int* __restrict__ k_idx,
                            const int* __restrict__ g_idx,
                            const float* __restrict__ ubase,
-                           const void* __restrict__ vbt0,
-                           const void* __restrict__ vbt1,
+                           const float* __restrict__ vband_t,
                            const float* __restrict__ wk_t, int64_t total,
                            int block_v, int w_support, int lanes,
                            int num_layers, float* __restrict__ out) {
-  __shared__ __align__(16) float smem[Smem<MODE>::kFloats];
-  float* a_hi = smem;
-  float* a_lo = smem + kChunk * kTile;
-  float* b_hi = smem + Smem<MODE>::kOperand;
-  float* b_lo = b_hi + kChunk * kTile;
+  __shared__ __align__(16) float smem[kSmemFloats];
+  float* a_s = smem;
+  float* b_s = smem + kOperand;
 
   const int b = blockIdx.x;
   const int s0 = blockIdx.y * kTile;  // first slot of this tile
@@ -276,7 +187,7 @@ packed_degrid_stack_kernel(const float* __restrict__ stack,
 
   for (int c0 = 0; c0 < lanes; c0 += kChunk) {
     // A: the bucket's window, gathered from the task's stack.
-    for (int e = tid; e < kChunk * kTile; e += kThreads) {
+    for (int e = tid; e < kOperand; e += kThreads) {
       const int kk = e % kChunk;
       const int m = e / kChunk;
       float x = 0.0f;
@@ -287,22 +198,17 @@ packed_degrid_stack_kernel(const float* __restrict__ stack,
         x = task[h * plane + ((k0 + j) * sub_pad + g8 + r) * lanes + c0 +
                  kk];
       }
-      store_split<MODE>(a_hi, a_lo, kk * kTile + m, x);
+      a_s[kk * kTile + m] = x;
     }
     // B: vband_t rows c0..c0+15 at this tile's slots, slot-fastest.
-    for (int e = tid; e < kChunk * kTile; e += kThreads) {
+    for (int e = tid; e < kOperand; e += kThreads) {
       const int n = e % kTile;
       const int kk = e / kTile;
-      if (s0 + n < block_v) {
-        load_stream<MODE>(vbt0, vbt1, (c0 + kk) * total + p_begin + s0 + n,
-                          b_hi, b_lo, e);
-      } else {
-        b_hi[e] = 0.0f;
-        if (MODE == kHigh) b_lo[e] = 0.0f;
-      }
+      b_s[e] = s0 + n < block_v ? vband_t[(c0 + kk) * total + p_begin + s0 + n]
+                                : 0.0f;
     }
     __syncthreads();
-    mac_chunk<MODE>(a_hi, a_lo, b_hi, b_lo, tx, ty, acc);
+    mac_chunk(a_s, b_s, tx, ty, acc);
     __syncthreads();
   }
 
@@ -358,64 +264,31 @@ const char* sdp_torch_error_string(int err) {
 // Returns the cudaError_t of the launch (0 on success).
 int sdp_torch_grid_packed_stack(const int* t_idx, const int* k_idx,
                                 const int* g_idx, int num_blocks,
-                                const float* ubase, const void* vb0,
-                                const void* vb1, int mode,
+                                const float* ubase, const float* vband,
                                 const float* wk_t, const float* vre,
                                 const float* vim, int64_t total,
                                 int block_v, int w_support, int lanes,
                                 int num_layers, float* out, void* stream) {
   const dim3 grid(num_blocks, lanes / kTile);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kF32:
-      packed_grid_stack_kernel<kF32><<<grid, kThreads, 0, s>>>(
-          t_idx, k_idx, g_idx, ubase, vb0, vb1, wk_t, vre, vim, total,
-          block_v, w_support, lanes, num_layers, out);
-      break;
-    case kHigh:
-      packed_grid_stack_kernel<kHigh><<<grid, kThreads, 0, s>>>(
-          t_idx, k_idx, g_idx, ubase, vb0, vb1, wk_t, vre, vim, total,
-          block_v, w_support, lanes, num_layers, out);
-      break;
-    case kBf16:
-      packed_grid_stack_kernel<kBf16><<<grid, kThreads, 0, s>>>(
-          t_idx, k_idx, g_idx, ubase, vb0, vb1, wk_t, vre, vim, total,
-          block_v, w_support, lanes, num_layers, out);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  packed_grid_stack_kernel<<<grid, kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      t_idx, k_idx, g_idx, ubase, vband, wk_t, vre, vim, total, block_v,
+      w_support, lanes, num_layers, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 int sdp_torch_degrid_stack(const float* stack, const int* t_idx,
                            const int* k_idx, const int* g_idx,
                            int num_blocks, const float* ubase,
-                           const void* vbt0, const void* vbt1, int mode,
-                           const float* wk_t, int64_t total, int block_v,
-                           int w_support, int lanes, int num_layers,
-                           float* out, void* stream) {
+                           const float* vband_t, const float* wk_t,
+                           int64_t total, int block_v, int w_support,
+                           int lanes, int num_layers, float* out,
+                           void* stream) {
   const dim3 grid(num_blocks, (block_v + kTile - 1) / kTile);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kF32:
-      packed_degrid_stack_kernel<kF32><<<grid, kThreads, 0, s>>>(
-          stack, t_idx, k_idx, g_idx, ubase, vbt0, vbt1, wk_t, total,
-          block_v, w_support, lanes, num_layers, out);
-      break;
-    case kHigh:
-      packed_degrid_stack_kernel<kHigh><<<grid, kThreads, 0, s>>>(
-          stack, t_idx, k_idx, g_idx, ubase, vbt0, vbt1, wk_t, total,
-          block_v, w_support, lanes, num_layers, out);
-      break;
-    case kBf16:
-      packed_degrid_stack_kernel<kBf16><<<grid, kThreads, 0, s>>>(
-          stack, t_idx, k_idx, g_idx, ubase, vbt0, vbt1, wk_t, total,
-          block_v, w_support, lanes, num_layers, out);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  packed_degrid_stack_kernel<<<grid, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      stack, t_idx, k_idx, g_idx, ubase, vband_t, wk_t, total, block_v,
+      w_support, lanes, num_layers, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -72,8 +72,11 @@
 // the chunk first and summing in registers is what keeps a slot from
 // waiting on its own loads and from paying an atomic a tap.) A lane holds
 // 2 taps of a slot up to support 8 and 8 up to 16; a wider support walks
-// the task's slots again for each further 256 taps, up to S = 54, where
-// the 16 warps' staged rows fill shared memory.
+// the task's slots again for each further 256 taps. Up to S = 54 the 16
+// warps' staged rows fit in shared memory; past it a body stages only
+// each slot's (s, cell) and reads its uk and vk rows from global memory
+// (L1) where they are used, as the degrid kernel's any-support body does,
+// so any support grids.
 //
 // Degrid design: one thread per slot of the whole stream. It finds its
 // slot's task by a binary search of the table's starts (broadcast loads of
@@ -143,9 +146,10 @@ __host__ __device__ __forceinline__ int padded_stride(int size) {
 }
 
 // Floats of one warp's staged chunk of 32 slots: each slot's (s_re, s_im,
-// u0, v0), then its uk and vk rows, 2S floats padded to an odd pitch.
-__host__ __device__ __forceinline__ int stage_floats(int support) {
-  return 32 * 4 + 32 * (2 * support + 1);
+// u0, v0), then (ROWS) its uk and vk rows, 2S floats padded to an odd pitch.
+__host__ __device__ __forceinline__ int stage_floats(int support,
+                                                     bool rows) {
+  return 32 * 4 + (rows ? 32 * (2 * support + 1) : 0);
 }
 
 struct TaskGridArgs {
@@ -169,7 +173,9 @@ struct TaskGridArgs {
 // pass over the task's slots takes 32 TPL taps of each: one pass up to
 // support MAXS, ceil(S^2 / 256) passes past 16. The MAXS = 16 body keeps
 // 32 more registers of sums and cells a lane: one CTA an SM, not two.
-template <bool SMEM, bool BF16, int MAXS>
+// ROWS stages the active slots' uk and vk rows in shared memory (supports
+// up to 54); without it the lanes read them from global memory (L1).
+template <bool SMEM, bool BF16, int MAXS, bool ROWS>
 __global__ void __launch_bounds__(kTaskGridThreads, MAXS <= 8 ? 2 : 1)
 tower_grid_tasks_kernel(const TaskGridArgs a) {
   constexpr int TPL = MAXS * MAXS / 32;
@@ -195,7 +201,8 @@ tower_grid_tasks_kernel(const TaskGridArgs a) {
   float* p_re = smem;
   float* p_im = smem + size * stride;
   float4* scal = reinterpret_cast<float4*>(
-      smem + (SMEM ? 2 * size * stride : 0) + warp * stage_floats(support));
+      smem + (SMEM ? 2 * size * stride : 0) +
+      warp * stage_floats(support, ROWS));
   float* stage = reinterpret_cast<float*>(scal + 32);
   float2* dst = a.out + static_cast<int64_t>(task.base + k) * size * size;
 
@@ -269,7 +276,7 @@ tower_grid_tasks_kernel(const TaskGridArgs a) {
                        : make_float4(0.0f, 0.0f, __int_as_float(-1), 0.0f);
       const int n =
           static_cast<int>(min(static_cast<int64_t>(32), end - chunk));
-      for (int e = lane; e < 32 * support; e += 32) {
+      for (int e = lane; ROWS && e < 32 * support; e += 32) {
         const int slot = e / support;
         const int j = e - slot * support;
         const bool on = slot < n && ((active >> slot) & 1u);
@@ -297,11 +304,17 @@ tower_grid_tasks_kernel(const TaskGridArgs a) {
             acc_im[i] = 0.0f;
           }
         }
-        const float* rows = stage + j * pitch;
+        // Unstaged rows: an inactive slot (or one past the task's end) is
+        // skipped, uniformly across the warp.
+        if (!ROWS && cu < 0) continue;
+        const float* u_row = ROWS ? stage + j * pitch
+                                  : a.uk + (chunk + j) * support;
+        const float* v_row = ROWS ? u_row + support
+                                  : a.vk + (chunk + j) * support;
 #pragma unroll
         for (int i = 0; i < TPL; ++i) {
-          const float ua = rows[tap_a[i]];
-          const float vb = rows[support + tap_b[i]];
+          const float ua = u_row[tap_a[i]];
+          const float vb = v_row[tap_b[i]];
           if (BF16) {
             // bf16 x bf16 is exact in f32: the product is the dot's term.
             const float vrb = round_bf16(vb);
@@ -438,30 +451,35 @@ tower_degrid_tasks_kernel(const float2* __restrict__ layers,
   out[v] = make_float2(re, im);
 }
 
-template <bool BF16, int MAXS>
+// Shared-memory bytes of the 16 warps' staging (ROWS: with tap rows).
+inline size_t grid_stage_bytes(int support, bool rows) {
+  return sizeof(float) * kTaskGridWarps * stage_floats(support, rows);
+}
+
+template <bool BF16, int MAXS, bool ROWS>
 cudaError_t launch_grid_tasks(const TaskGridArgs& a, int planes,
                               cudaStream_t s) {
-  const size_t stage =
-      sizeof(float) * kTaskGridWarps * stage_floats(a.support);
+  const size_t stage = grid_stage_bytes(a.support, ROWS);
   const size_t smem =
       sizeof(float) * 2 * a.size * padded_stride(a.size) + stage;
   if (stage > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
   if (smem <= static_cast<size_t>(kMaxSmem)) {
     const cudaError_t err = cudaFuncSetAttribute(
-        tower_grid_tasks_kernel<true, BF16, MAXS>,
+        tower_grid_tasks_kernel<true, BF16, MAXS, ROWS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    tower_grid_tasks_kernel<true, BF16, MAXS>
+    tower_grid_tasks_kernel<true, BF16, MAXS, ROWS>
         <<<planes, kTaskGridThreads, smem, s>>>(a);
   } else {
     cudaError_t err = cudaMemsetAsync(
         a.out, 0, sizeof(float2) * planes * a.size * a.size, s);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(tower_grid_tasks_kernel<false, BF16, MAXS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(stage));
+    err = cudaFuncSetAttribute(
+        tower_grid_tasks_kernel<false, BF16, MAXS, ROWS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(stage));
     if (err != cudaSuccess) return err;
-    tower_grid_tasks_kernel<false, BF16, MAXS>
+    tower_grid_tasks_kernel<false, BF16, MAXS, ROWS>
         <<<planes, kTaskGridThreads, stage, s>>>(a);
   }
   return cudaGetLastError();
@@ -470,8 +488,11 @@ cudaError_t launch_grid_tasks(const TaskGridArgs& a, int planes,
 template <bool BF16>
 cudaError_t launch_grid_tasks(const TaskGridArgs& a, int planes,
                               cudaStream_t s) {
-  return a.support <= 8 ? launch_grid_tasks<BF16, 8>(a, planes, s)
-                        : launch_grid_tasks<BF16, 16>(a, planes, s);
+  if (a.support <= 8) return launch_grid_tasks<BF16, 8, true>(a, planes, s);
+  if (grid_stage_bytes(a.support, true) <= static_cast<size_t>(kMaxSmem)) {
+    return launch_grid_tasks<BF16, 16, true>(a, planes, s);
+  }
+  return launch_grid_tasks<BF16, 16, false>(a, planes, s);
 }
 
 template <bool BF16, int MAXS>

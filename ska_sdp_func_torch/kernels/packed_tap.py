@@ -7,9 +7,12 @@ Counterpart of the main-path half of ska_sdp_func_tpu.kernels.packed_tap:
 - :func:`grid_packed_stack` replaces the Pallas kernel
   ``grid_packed_stack_pallas`` and :func:`degrid_stack` replaces
   ``degrid_stack_pallas``. On a CUDA tensor each launches its
-  hand-written kernel (``csrc/packed_tap.cu``, built by :mod:`._build`)
-  or raises; on a CPU tensor it runs its plain PyTorch version
-  (``*_reference``). Each counts its kernel launches in ``.launches``.
+  hand-written kernel (built by :mod:`._build`) or raises: "high" and
+  "bf16" on the tensor cores (``csrc/packed_wgmma.cu``, one CTA an SM
+  walking the plan's bucket runs, :func:`bucket_runs`), "highest" on the
+  CUDA cores (``csrc/packed_tap.cu``). On a CPU tensor it runs its plain
+  PyTorch version (``*_reference``). Each counts its kernel launches in
+  ``.launches``.
 
 Stream layout (see packed_tap.cu): the sorted stream of ``V`` slots is
 cut into blocks of ``block_v`` slots, block ``b`` belonging to bucket
@@ -81,6 +84,41 @@ def build_bands(u_off: torch.Tensor, iv0: torch.Tensor, uk: torch.Tensor,
     ubase.scatter_(0, u_off.to(torch.int64)[None, :] + s[:, None],
                    uk.to(torch.float32).T)
     return ubase, vband, vband.T.contiguous()
+
+
+def bucket_runs(t_idx: torch.Tensor, k_idx: torch.Tensor,
+                g_idx: torch.Tensor) -> torch.Tensor:
+    """The plan's bucket runs: int32 ``[R, 2]`` rows (first block, block
+    count), one per maximal sequence of consecutive blocks of one bucket
+    (t, k0, g), longest first (ties in block order). Every block lies in
+    exactly one run. Torch ops on the indices' device (one host sync)."""
+    nb = t_idx.shape[0]
+    dev = t_idx.device
+    if nb == 0:
+        return torch.zeros((0, 2), dtype=torch.int32, device=dev)
+    key = torch.stack([t_idx, k_idx, g_idx]).to(torch.int64)
+    starts = torch.ones(nb, dtype=torch.bool, device=dev)
+    starts[1:] = (key[:, 1:] != key[:, :-1]).any(dim=0)
+    first = torch.nonzero(starts).reshape(-1)
+    count = torch.diff(first, append=first.new_full((1,), nb))
+    order = torch.argsort(-count, stable=True)
+    return torch.stack([first[order], count[order]], dim=1).to(
+        torch.int32).contiguous()
+
+
+def _runs_for(runs, t_idx, k_idx, g_idx):
+    """The caller's run table (checked), or one built from the blocks."""
+    if runs is None:
+        return bucket_runs(t_idx, k_idx, g_idx)
+    if runs.ndim != 2 or runs.shape[1] != 2:
+        raise SdpShapeError(f"runs must be [R, 2], got {tuple(runs.shape)}")
+    _check(t_idx.device, [("runs", runs)], torch.int32)
+    return runs
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it on a 16-byte boundary (TMA's need)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _mode(band) -> str:
@@ -186,10 +224,12 @@ def _per_block(x: torch.Tensor, nb: int, block_v: int) -> torch.Tensor:
 def grid_packed_stack_reference(t_idx, k_idx, g_idx, ubase, vband, scales,
                                 num_tasks: int, num_layers: int,
                                 lanes: int, w_support: int,
-                                block_v: int = 128) -> torch.Tensor:
+                                block_v: int = 128,
+                                runs: torch.Tensor = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`grid_packed_stack`: gather the
     scale stack per block, one batched product with the block's bands,
-    ``index_add_`` into the flattened stack rows."""
+    ``index_add_`` into the flattened stack rows (it works per block, so
+    ``runs`` is taken and not needed)."""
     wk_t, vre, vim = scales
     mode = _mode(vband)
     total = ubase.shape[1]
@@ -211,14 +251,17 @@ def grid_packed_stack_reference(t_idx, k_idx, g_idx, ubase, vband, scales,
 
 def grid_packed_stack(t_idx, k_idx, g_idx, ubase, vband, scales,
                       num_tasks: int, num_layers: int, lanes: int,
-                      w_support: int, block_v: int = 128) -> torch.Tensor:
+                      w_support: int, block_v: int = 128,
+                      runs: torch.Tensor = None) -> torch.Tensor:
     """Band-stream packed gridding into per-task tower stacks.
 
     ``scales`` is ``(wk_t [Sw, V], vre [V], vim [V])`` f32; ``vband`` is
     [V, lanes] f32 / bf16 or a bf16 (hi, lo) pair. Returns the zero-based
     stack f32 ``[num_tasks, 2, num_layers * (lanes + 8), lanes]``
     (rows ``[lanes, lanes + 8)`` of each layer hold the last octet's
-    overhang and are cropped by the driver).
+    overhang and are cropped by the driver). ``runs``: the blocks'
+    :func:`bucket_runs`, built here when not given (the tensor-core
+    modes on the card use it; any block order is right).
     """
     wk_t, vre, vim = scales
     mode = _mode(vband)
@@ -239,14 +282,26 @@ def grid_packed_stack(t_idx, k_idx, g_idx, ubase, vband, scales,
     out = torch.zeros((num_tasks, 2, num_layers * (lanes + 8), lanes),
                       dtype=torch.float32, device=dev)
     parts = _parts(vband)
-    vb1 = parts[1].data_ptr() if mode == "high" else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sdp_torch_grid_packed_stack(
-            t_idx.data_ptr(), k_idx.data_ptr(), g_idx.data_ptr(), nb,
-            ubase.data_ptr(), parts[0].data_ptr(), vb1, _MODES[mode],
-            wk_t.data_ptr(), vre.data_ptr(), vim.data_ptr(), total,
-            block_v, w_support, lanes, num_layers, out.data_ptr(), stream)
+        if mode == "highest":
+            err = lib.sdp_torch_grid_packed_stack(
+                t_idx.data_ptr(), k_idx.data_ptr(), g_idx.data_ptr(), nb,
+                ubase.data_ptr(), vband.data_ptr(), wk_t.data_ptr(),
+                vre.data_ptr(), vim.data_ptr(), total, block_v, w_support,
+                lanes, num_layers, out.data_ptr(), stream)
+        else:
+            runs = _runs_for(runs, t_idx, k_idx, g_idx)
+            ubase, wk_t, vre, vim = (_aligned(x) for x in (ubase, wk_t, vre,
+                                                           vim))
+            parts = [_aligned(x) for x in parts]
+            err = lib.sdp_torch_grid_packed_runs(
+                runs.data_ptr(), runs.shape[0], t_idx.data_ptr(),
+                k_idx.data_ptr(), g_idx.data_ptr(), ubase.data_ptr(),
+                parts[0].data_ptr(), parts[-1].data_ptr(), _MODES[mode],
+                wk_t.data_ptr(), vre.data_ptr(), vim.data_ptr(), total,
+                block_v, w_support, lanes, num_layers, out.data_ptr(),
+                stream)
     _build.check(lib, err, "grid_packed_stack")
     grid_packed_stack.launches += 1
     return out
@@ -256,11 +311,12 @@ grid_packed_stack.launches = 0
 
 
 def degrid_stack_reference(stack, t_idx, k_idx, g_idx, ubase, vband_t,
-                           wk_t, w_support: int,
-                           block_v: int = 128) -> torch.Tensor:
+                           wk_t, w_support: int, block_v: int = 128,
+                           runs: torch.Tensor = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`degrid_stack`: advanced-index the
     windows, one batched product with the block's transposed bands, scale
-    by the u-tap x w-tap stack and sum each half's rows."""
+    by the u-tap x w-tap stack and sum each half's rows (per block:
+    ``runs`` is taken and not needed)."""
     mode = _mode(vband_t)
     num_tasks, _, ksp, lanes = stack.shape
     num_layers = ksp // (lanes + 8)
@@ -281,12 +337,14 @@ def degrid_stack_reference(stack, t_idx, k_idx, g_idx, ubase, vband_t,
 
 
 def degrid_stack(stack, t_idx, k_idx, g_idx, ubase, vband_t, wk_t,
-                 w_support: int, block_v: int = 128) -> torch.Tensor:
+                 w_support: int, block_v: int = 128,
+                 runs: torch.Tensor = None) -> torch.Tensor:
     """Band-stream degridding from per-task tower stacks.
 
     ``stack``: f32 [T, 2, K * (lanes + 8), lanes] (the layout
     :func:`grid_packed_stack` produces); ``vband_t``: [lanes, V] f32 /
     bf16 or a bf16 (hi, lo) pair. Returns complex64 [V] in sorted order.
+    ``runs`` as in :func:`grid_packed_stack`.
     """
     mode = _mode(vband_t)
     if stack.ndim != 4 or stack.shape[1] != 2:
@@ -308,16 +366,29 @@ def degrid_stack(stack, t_idx, k_idx, g_idx, ubase, vband_t, wk_t,
     from . import _build
 
     lib = _build.load()
-    out = torch.empty((2, total), dtype=torch.float32, device=dev)
     parts = _parts(vband_t)
-    vb1 = parts[1].data_ptr() if mode == "high" else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sdp_torch_degrid_stack(
-            stack.data_ptr(), t_idx.data_ptr(), k_idx.data_ptr(),
-            g_idx.data_ptr(), nb, ubase.data_ptr(), parts[0].data_ptr(),
-            vb1, _MODES[mode], wk_t.data_ptr(), total, block_v,
-            w_support, lanes, num_layers, out.data_ptr(), stream)
+        if mode == "highest":
+            out = torch.empty((2, total), dtype=torch.float32, device=dev)
+            err = lib.sdp_torch_degrid_stack(
+                stack.data_ptr(), t_idx.data_ptr(), k_idx.data_ptr(),
+                g_idx.data_ptr(), nb, ubase.data_ptr(), vband_t.data_ptr(),
+                wk_t.data_ptr(), total, block_v, w_support, lanes,
+                num_layers, out.data_ptr(), stream)
+        else:
+            runs = _runs_for(runs, t_idx, k_idx, g_idx)
+            # Lane tiles past the first add into the result.
+            out = (torch.zeros if lanes > _TILE else torch.empty)(
+                (2, total), dtype=torch.float32, device=dev)
+            stack, ubase, wk_t = (_aligned(x) for x in (stack, ubase, wk_t))
+            parts = [_aligned(x) for x in parts]
+            err = lib.sdp_torch_degrid_runs(
+                stack.data_ptr(), runs.data_ptr(), runs.shape[0],
+                t_idx.data_ptr(), k_idx.data_ptr(), g_idx.data_ptr(),
+                ubase.data_ptr(), parts[0].data_ptr(), parts[-1].data_ptr(),
+                _MODES[mode], wk_t.data_ptr(), total, block_v, w_support,
+                lanes, num_layers, out.data_ptr(), stream)
     _build.check(lib, err, "degrid_stack")
     degrid_stack.launches += 1
     return torch.complex(out[0], out[1])

@@ -317,11 +317,6 @@ def _check_tasks(tasks: TaskTable, weights) -> None:
             f"{total} and {w_cols}")
 
 
-# The grid kernel stages 32 slots' uk and vk rows for each of its 16 warps
-# in shared memory (227 KB): 64 (128 + 32 (2 S + 1)) bytes.
-_MAX_GRID_SUPPORT = 54
-
-
 def _launch_grid_tasks(vis_re, vis_im, iu0, iv0, uk, vk, weights,
                        tasks, planes: int, size: int,
                        fast: bool) -> torch.Tensor:
@@ -330,10 +325,6 @@ def _launch_grid_tasks(vis_re, vis_im, iu0, iv0, uk, vk, weights,
     from . import _build
 
     _check_taps(iu0, iv0, uk, vk, weights)
-    if uk.shape[1] > _MAX_GRID_SUPPORT:
-        raise SdpInvalidArgumentError(
-            f"the all-layer grid kernel takes a support of at most "
-            f"{_MAX_GRID_SUPPORT} (got {uk.shape[1]})")
     total, w_cols = weights.shape
     for name, t in (("vis_re", vis_re), ("vis_im", vis_im)):
         if t.dtype != torch.float32 or tuple(t.shape) != (total,) \

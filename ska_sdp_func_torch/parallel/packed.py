@@ -42,6 +42,7 @@ from ..grid_data.wtower import _tap_coeffs_cached
 from ..kernels import fused_tap
 from ..kernels.packed_tap import (
     WIN_ROWS,
+    bucket_runs,
     build_bands,
     degrid_stack,
     grid_packed_stack,
@@ -498,7 +499,7 @@ class PackedGridder(_TowerImaging):
         if self.engine == "compact" and self.precision == "high":
             self.precision = "highest"
         self.pa = self.pb = self.ubase = self.vband = self.vband_t = None
-        self.uk_t = self.vk_t = self.wk_t = None
+        self.uk_t = self.vk_t = self.wk_t = self.runs = None
         if self.engine == "compact":
             # The word pa and the taps, evaluated once on the device.
             pa, _ = fused_tap.pack_plan_words(
@@ -552,6 +553,8 @@ class PackedGridder(_TowerImaging):
             vband_t = vband_t.to(torch.bfloat16)
         self.vband, self.vband_t = vband, vband_t
         self.wk_t = wk.T.contiguous()                       # [Sw, V]
+        # K1/K2's work units: the plan's bucket runs, once per plan.
+        self.runs = bucket_runs(self.t_idx, self.k_idx, self.g_idx)
 
     # -- sorted-stream transforms ------------------------------------
 
@@ -593,7 +596,8 @@ class PackedGridder(_TowerImaging):
         return grid_packed_stack(
             self.t_idx, self.k_idx, self.g_idx, self.ubase, self.vband,
             (self.wk_t, vre, vim), len(pplan.tasks), pplan.num_layers,
-            plan.subgrid_size, plan.w_support, block_v=pplan.block_v)
+            plan.subgrid_size, plan.w_support, block_v=pplan.block_v,
+            runs=self.runs)
 
     def grid_sorted(self, vre: torch.Tensor,
                     vim: torch.Tensor) -> torch.Tensor:
@@ -626,7 +630,8 @@ class PackedGridder(_TowerImaging):
                 block_v=pplan.block_v, precision=self.precision)
         return degrid_stack(
             st, self.t_idx, self.k_idx, self.g_idx, self.ubase,
-            self.vband_t, self.wk_t, plan.w_support, block_v=pplan.block_v)
+            self.vband_t, self.wk_t, plan.w_support, block_v=pplan.block_v,
+            runs=self.runs)
 
     def degrid_sorted(self, image) -> torch.Tensor:
         """Real/complex image -> sorted-stream complex64 visibilities."""

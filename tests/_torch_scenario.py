@@ -284,3 +284,20 @@ def task_taps(taps, task):
     iu0, iv0, uk, vk, weights = taps
     return (iu0[sl], iv0[sl], uk[sl], vk[sl],
             weights[sl, :task.num_layers].contiguous())
+
+
+# bench.py's seeded main-path scenario (chip_smoke.py's window a): 512^2
+# image, 128^2 sub-grids, 16384 rows x 64 channels, seed 1.
+BENCH = dict(image=512, subgrid=128, theta=0.002, w_step=100.0, height=4.0,
+             rows=16384, chans=64, seed=1)
+
+
+def bench_uvw() -> np.ndarray:
+    """The bench scenario's uvw [rows, 3] f64 (its visibility draws
+    follow in the same generator and are not needed for a plan)."""
+    b = BENCH
+    rng = np.random.default_rng(b["seed"])
+    uvw = rng.uniform(-1, 1, (b["rows"], 3))
+    uvw[:, :2] *= 0.45 * b["image"] / 2 / b["theta"]
+    uvw[:, 2] *= 1.5 * b["w_step"] * b["height"]
+    return uvw

@@ -8,7 +8,13 @@ is absent, with::
 
 Tolerances: the grid stack at 1e-5 of max|stack| (f32 atomics reorder
 the sums); degridded visibilities at 1e-5 of max|vis| (same products,
-other summation order). The same holds for the w-towers tap kernels
+other summation order). K1/K2 ("high" and "bf16" on the tensor cores
+over bucket runs, "highest" on the CUDA cores) also meet their plain
+versions at w_support 1-4, block_v 96-1024 (96 and 200: not a multiple
+of the 64-slot stage), lanes 128 and 256, with runs of one block, of
+8-12 blocks and with the blocks shuffled, the run
+table given and built by the wrapper, one launch a call. The same holds
+for the w-towers tap kernels
 (``tower_tap``: grid_plane, degrid_plane, grid_all_layers,
 degrid_all_layers), the fused and compact kernels (``fused_tap``) and
 the ES-FFT band kernels (``band_tap``: K8 and K11 in f32 and bf16, the
@@ -25,7 +31,9 @@ memory) and N = 128 (one layer at a time), in both modes, each call
 counted once and made with no host sync. K16/K17 over a whole ragged
 stream of tasks (``_torch_scenario.task_stream``) meet their plain
 versions at 1e-5 in both modes at N = 32, 64 and 192 (the grid kernel's
-global-atomic path) and supports 8, 12 and 20 (bf16 also against f32
+global-atomic path) and supports 8, 12, 20, 56 and 72 (each at the sizes
+wider than it; past 54 the grid kernel reads its tap rows from memory;
+bf16 also against f32
 within each output's rounding bound), one launch each and no host sync,
 the empty and all-padding tasks' planes and the slots no task holds
 exactly zero; the bucketed fallback on the card launches each once a call
@@ -160,6 +168,97 @@ def test_wrappers_reject_mixed_devices(setup):
                              block_v=pplan.block_v)
 
 
+# -- K1/K2 over bucket runs (tensor cores for "high" and "bf16") -------------
+
+# (w_support, block_v, lanes, block order): runs of one block (each block's
+# bucket differs from its neighbours'), runs of 8-12 blocks, and such runs
+# with the blocks shuffled (any block order must grid right); block sizes
+# that are not a multiple of the kernels' 64-slot stage (a run's last
+# stage is masked).
+BAND_GEOMS = [(1, 128, 128, "ones"), (2, 256, 256, "long"),
+              (3, 512, 128, "long"), (4, 1024, 256, "ones"),
+              (4, 128, 128, "shuffled"), (3, 256, 256, "shuffled"),
+              (2, 512, 128, "ones"), (1, 1024, 256, "long"),
+              (4, 512, 128, "long"), (4, 96, 128, "long"),
+              (3, 200, 256, "ones")]
+
+
+def _band_operands(device, w_support, block_v, lanes, order, mode,
+                   seed=0, tasks=3, layers=6):
+    """Random K1/K2 operands on ``device``: per-block buckets in the given
+    order, bands built from random taps, a tenth of the slots padding."""
+    rng = np.random.default_rng(seed)
+    octets = lanes // 8
+    if order == "ones":
+        buckets = [int(rng.integers(0, 50))]
+        while len(buckets) < 24:
+            b = int(rng.integers(0, 50))
+            if b != buckets[-1]:
+                buckets.append(b)
+    else:
+        buckets = []
+        while len(buckets) < 40:
+            buckets += [int(rng.integers(0, 50))] * int(rng.integers(8, 13))
+        if order == "shuffled":
+            buckets = list(rng.permutation(buckets))
+    bb = np.asarray(buckets)
+    t = bb % tasks
+    k = (bb // tasks) % (layers - w_support + 1)
+    g = (bb * 7) % octets
+    total = len(bb) * block_v
+    as_dev = (lambda a, dt=torch.float32: torch.as_tensor(
+        np.ascontiguousarray(a), dtype=dt, device=device))
+    valid = rng.random(total) >= 0.1
+    ubase, vband, vband_t = tk.build_bands(
+        as_dev(rng.integers(0, 8, total), torch.int32),
+        as_dev(rng.integers(0, lanes - 7, total), torch.int32),
+        as_dev(rng.standard_normal((total, 8))),
+        as_dev(rng.standard_normal((total, 8))), lanes)
+    if mode == "high":
+        vband, vband_t = tk.split_bf16(vband), tk.split_bf16(vband_t)
+    elif mode == "bf16":
+        vband, vband_t = vband.to(torch.bfloat16), vband_t.to(torch.bfloat16)
+    wk_t = as_dev(rng.uniform(0.1, 1, (w_support, total)) * valid)
+    vre, vim = (as_dev(rng.standard_normal(total) * valid)
+                for _ in range(2))
+    stack = as_dev(rng.standard_normal(
+        (tasks, 2, layers * (lanes + 8), lanes)))
+    idx = [as_dev(x, torch.int32) for x in (t, k, g)]
+    grid_args = (*idx, ubase, vband, (wk_t, vre, vim), tasks, layers, lanes,
+                 w_support)
+    degrid_args = (stack, *idx, ubase, vband_t, wk_t, w_support)
+    return grid_args, degrid_args
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("geom", BAND_GEOMS,
+                         ids=["-".join(map(str, g)) for g in BAND_GEOMS])
+def test_band_kernels_over_runs_match_plain(device, geom, mode):
+    """K1/K2 at w_support 1-4, block_v 96-1024, lanes 128 and 256, runs
+    of one and of 8-12 blocks and shuffled blocks, against their plain
+    versions at 1e-5 of max, one launch a call, with the run table given
+    and built by the wrapper."""
+    w_support, block_v, lanes, order = geom
+    grid_args, degrid_args = _band_operands(device, w_support, block_v,
+                                            lanes, order, mode)
+    runs = tk.bucket_runs(*grid_args[:3])
+    if order == "long":
+        assert int(runs[:, 1].min()) >= 8
+    if order == "ones":
+        assert int(runs[:, 1].max()) == 1
+    want_g = tk.grid_packed_stack_reference(*grid_args, block_v=block_v)
+    want_d = tk.degrid_stack_reference(*degrid_args, block_v=block_v)
+    for given in (runs, None):
+        before = tk.launch_counts()
+        got_g = tk.grid_packed_stack(*grid_args, block_v=block_v, runs=given)
+        got_d = tk.degrid_stack(*degrid_args, block_v=block_v, runs=given)
+        torch.cuda.synchronize()
+        after = tk.launch_counts()
+        assert all(after[n] == before[n] + 1 for n in after)
+        assert _rel(got_g, want_g) <= 1e-5
+        assert _rel(got_d, want_d) <= 1e-5
+
+
 # -- w-towers tap kernels ----------------------------------------------------
 
 def _tower_operands(device, size, num_layers=7, total=5000, seed=0):
@@ -284,10 +383,16 @@ def test_plane_kernels_on_compaction_cases(device, case, size, fast):
 # 192 takes the grid kernel's global-atomic path (a plane pair of 307 KB
 # does not fit in shared memory). Support 12 takes the grid kernel's
 # 16-tap body in one pass, 20 in two passes; both take the degrid
-# kernel's any-support body (tap rows read from memory).
+# kernel's any-support body (tap rows read from memory). Supports 56 and
+# 72 (13 and 21 passes) take the grid kernel's body that reads its tap
+# rows from memory too: past 54 the staged rows do not fit in shared
+# memory. Each support runs at the sizes wider than it.
+TASK_GEOMS = [(s, n) for s in (8, 12, 20, 56, 72) for n in (32, 64, 192)
+              if n > s]
+
+
 @pytest.mark.parametrize("fast", [False, True], ids=["f32", "bf16"])
-@pytest.mark.parametrize("size", [32, 64, 192])
-@pytest.mark.parametrize("support", [8, 12, 20])
+@pytest.mark.parametrize("support,size", TASK_GEOMS)
 def test_tower_task_kernels_match_plain(device, support, size, fast):
     """K16/K17 over a ragged stream of tasks against their plain versions,
     one launch each and no host sync; every plane and slot written."""
