@@ -3,18 +3,23 @@
 
     python3 chip_smoke.py
     (cd CHECKOUT && python3 /path/to/chip_smoke.py --packed-times)
+    (cd CHECKOUT && python3 /path/to/chip_smoke.py --predict-times)
 
 Run from the repository root on a machine with a CUDA card. With
 ``--packed-times`` it only times the packed path (K1/K2 in "high" and
 "bf16", ``grid_sorted``, ``degrid_sorted``, one major-cycle iteration) on
 the package of the working directory and prints one JSON line, so two
-checkouts compare on one card in turns. Phases, one line of output each
-(or a few), failing loudly on the first fault:
+checkouts compare on one card in turns; ``--predict-times`` does the same
+for the three predicts (the stream, non-packable and ES-FFT degrids, by
+stage) and the window-gather kernels K4, K11, K13 and K19. Phases, one
+line of output each (or a few), failing loudly on the first fault:
 
 1. toolchain: the card's name and power limit (nvidia-smi), torch, CUDA
    and nvcc versions;
 2. build: compiles the port's CUDA kernels from ``csrc/`` (one nvcc per
-   source, in parallel; timed);
+   source, in parallel; timed), and prints the registers and spills
+   ptxas reports for each instance of the window-gather kernel (K4, K11,
+   K13, K19);
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card: the packed kernels (K1, K2: "high" and "bf16" on the tensor
    cores over the plan's bucket runs, "highest" on the CUDA cores) and
@@ -147,8 +152,11 @@ checkouts compare on one card in turns. Phases, one line of output each
    their plain paths, the non-packable ingest and predict beside the
    packable ones with their stages, and the fast (bf16) ones beside the
    f32 ones, the fused and compact engines beside the band engine, the
-   ES-FFT gridder beside the packed path, and each kernel beside its
-   plain version at the main paths' shapes (K1/K2 in "high" and "bf16",
+   ES-FFT gridder beside the packed path, the three predicts (stream,
+   non-packable in f32 and fast, ES-FFT 3-D degrid) by stage (plan, the
+   run table, K4, K7, K11, unsort, the rest), and each kernel beside its
+   plain version at the main paths' shapes (K11 also at window j's dense
+   stream) (K1/K2 in "high" and "bf16",
    with the product alone by ``torch.bmm`` beside them; K12/K13 also
    beside K3/K4 on the same plan; K14/K15 also on an all-masked plane;
    K16/K17 over window b's whole stream, also at supports 12, 20 and 56,
@@ -168,7 +176,11 @@ active entries' operands and the stack or result
 (``plane_bytes``). K16/K17's rows (redesigned: ``entry`` names the
 batched wrapper) carry the batched call at window b's stream, its
 launches in window b, and ``single_task_*`` for the one-task call on the
-largest task. One kernel replaces both
+largest task. K4, K11, K13 and K19 (redesigned: one template in
+``csrc/window_gather.cu``) carry ``redesigned``, their template
+``instance`` and its ``ptxas`` registers and spills; K11 has a row at
+window j's dense stream (``degrid_fused[dense stream]``) beside its
+ES-FFT one. One kernel replaces both
 TPU folds (K9, K10): it has a row for each; the bf16 modes of K6, K7, K8
 and K11 have rows of their own (``[bf16]``, window k's operands), bytes
 counted for the bf16 ``vk``; so do K20 and the bf16 modes of K14-K17
@@ -292,6 +304,22 @@ ES_KERNELS = (
     ("grid_packed", "ska_sdp_func_tpu/kernels/packed_tap.py:397"),
     ("degrid_fused", "ska_sdp_func_tpu/kernels/packed_tap.py:935"),
 )
+# K4, K11, K13 and K19, redesigned for the card: one kernel template,
+# window_gather_kernel<MODE, FORM>, over the plan's bucket runs.
+GATHER_SOURCE = "ska_sdp_func_torch/kernels/csrc/window_gather.cu"
+GATHER_REDESIGN = ("redesigned: one CTA a bucket run (or part of one), the "
+                   "run's window read into shared memory once by cp.async "
+                   "under mbarriers (the next unit's while this one is "
+                   "gathered; the ES window in groups of slabs), a warp a "
+                   "slot gathering its taps from there without bank "
+                   "conflicts")
+GATHER_FORMS = {0: "kStackWords", 1: "kStackTaps", 2: "kBandTaps",
+                3: "kBandWords"}
+GATHER_MODES = {0: "kF32", 1: "kHigh", 2: "kBf16"}
+# Each redesigned row's template instance (mode, form).
+GATHER_ROWS = {"degrid_fused2_stack": (0, 0), "degrid_compact": (0, 1),
+               "degrid_fused": (0, 2), "degrid_fused[dense stream]": (0, 2),
+               "degrid_fused[bf16]": (2, 2), "degrid_fused2": (0, 3)}
 # The packed engine="compact"'s kernels.
 FUSED_SOURCE = "ska_sdp_func_torch/kernels/csrc/fused_tap.cu"
 COMPACT_KERNELS = (
@@ -1043,7 +1071,9 @@ def word_operands(torch, sp, uvw, vis, model):
     of its model stack with each block's tile (plane ``task * K + slab``,
     octet ``g``, ``hv`` 0), as the JAX engine derives them
     (streaming.py:1090-1095). Returns (K18 arguments, K19 arguments,
-    keywords, valid slots)."""
+    keywords, valid slots, K19's own keywords: ``raw`` and, where the
+    package has the window-gather kernels, the run table built once as a
+    plan's would be)."""
     from ska_sdp_func_torch.parallel import streaming
 
     dev = uvw.device
@@ -1069,10 +1099,15 @@ def word_operands(torch, sp, uvw, vis, model):
               oversampling=sp.wplan.oversampling,
               w_oversampling=sp.wplan.w_oversampling, block_v=sp.block_v,
               nonempty=arrays["nonempty"])
-    return grid_args, degrid_args, kw, int(processed)
+    from ska_sdp_func_torch.kernels import packed_tap
+
+    degrid_kw = dict(raw=True)
+    if hasattr(packed_tap, "degrid_runs"):
+        degrid_kw["runs"] = packed_tap.degrid_runs(degrid_args[1:4])
+    return grid_args, degrid_args, kw, int(processed), degrid_kw
 
 
-def check_word_kernels(torch, grid_args, degrid_args, kw):
+def check_word_kernels(torch, grid_args, degrid_args, kw, degrid_kw):
     """K18 and K19 against their plain versions in the three modes, and
     at "highest" against K8/K11 fed the same taps (``cheb_taps`` of the
     words; w taps times ``valid``, visibilities and taps of empty blocks
@@ -1081,7 +1116,7 @@ def check_word_kernels(torch, grid_args, degrid_args, kw):
     from ska_sdp_func_torch.kernels import fused_tap as tf
 
     calls = (("grid_fused", grid_args, {}),
-             ("degrid_fused2", degrid_args, dict(raw=True)))
+             ("degrid_fused2", degrid_args, degrid_kw))
     errs, lines, out = {}, [], {}
     for name, args, extra in calls:
         for mode in MODES:
@@ -1329,6 +1364,125 @@ def packed_times_main() -> int:
     return 0
 
 
+def predict_times(torch, dev):
+    """The three predicts and the window-gather kernels, timed on the
+    package that is imported (two checkouts compare on one card in turns,
+    each run from its own root with ``--predict-times``): the stages of
+    :func:`predict_stages` on bench.py's dense stream (packable, and at
+    oversampling 65536 in f32 and fast) and of the ES-FFT 3-D degrid of
+    the bench data, then each kernel on its path's operands (CUDA events,
+    20 calls, twice): K4 and K11 (f32, bf16) at the dense stream, K11 at
+    the ES-FFT shapes, K4 and K13 of the packed engines at the bench
+    scenario ("highest"), and K19 on window f's words (with the kernels'
+    run table where the package has one). Only calls every version of
+    the port has are made."""
+    from ska_sdp_func_torch.grid_data import GridderUvwEsFft
+    from ska_sdp_func_torch.kernels import band_tap, fused_tap
+    from ska_sdp_func_torch.parallel import (
+        PackedGridder,
+        StreamingDegridder,
+        packed,
+        plan_packed,
+        plan_stream,
+        plan_wstack,
+        stream_tasks,
+    )
+
+    uvw_d, vis_d = stream_inputs()
+    uvw_dd = torch.as_tensor(uvw_d, device=dev)
+    vis_dd = torch.as_tensor(vis_d, device=dev)
+    model = torch.zeros((IMAGE, IMAGE), dtype=torch.float32, device=dev)
+    model[300, 200] = 1.0
+
+    def stream_plan(**kw):
+        wplan = plan_wstack(uvw_d, C_0, C_0 / (100 * STREAM_CHANS),
+                            STREAM_CHANS, IMAGE, SUBGRID, THETA, W_STEP,
+                            support=8, w_support=4, w_tower_height=HEIGHT,
+                            **kw)
+        return plan_stream(wplan, stream_tasks(wplan, uvw_d),
+                           chunk_rows=ROWS, block_v=STREAM_BLOCK_V,
+                           cap_factor=STREAM_CAP_FACTOR)
+
+    sp_d = stream_plan()
+    sp_j = stream_plan(oversampling=NP_OVERSAMPLING,
+                       w_oversampling=NP_W_OVERSAMPLING)
+    sds = [StreamingDegridder(sp, fast=fast, device=dev).set_model(model)
+           for sp, fast in ((sp_d, False), (sp_j, False), (sp_j, True))]
+    uvw, vis = bench_inputs()
+    freq = C_0 + np.arange(CHANS) * (C_0 / (100 * CHANS))
+    pix = THETA / IMAGE
+    es = GridderUvwEsFft(
+        uvw, freq, vis, np.ones(vis.shape, np.float32),
+        np.zeros((IMAGE, IMAGE), np.float32), pix, pix, ES_EPSILON,
+        *GridderUvwEsFft.get_w_range(uvw, freq), True, device=dev)
+    e_uvw, e_freq = (torch.as_tensor(x, device=dev) for x in (uvw, freq))
+    e_zeros = torch.zeros(vis.shape, dtype=torch.complex64, device=dev)
+    e_weight = torch.ones(vis.shape, device=dev)
+    stages, calls = predict_stages(
+        torch, *sds, lambda: es.ifft_degrid_uvw_es_fft(
+            e_uvw, e_freq, e_zeros, e_weight, model), uvw_dd)
+    kernels = {}
+
+    def twice(name, fn, args, kw):
+        kernels[name] = [cuda_ms(torch, lambda: fn(*args, **kw), 20)
+                         for _ in range(2)]
+
+    for name, fn, key in (
+            ("degrid_fused2_stack[dense stream]",
+             fused_tap.degrid_fused2_stack, "degrid_fused2_stack"),
+            ("degrid_fused[dense stream]", band_tap.degrid_fused,
+             "non-packable predict"),
+            ("degrid_fused[dense stream, bf16]", band_tap.degrid_fused,
+             "non-packable predict, fast"),
+            ("degrid_fused[ES-FFT 3-D]", band_tap.degrid_fused,
+             "es degrid")):
+        twice(name, fn, *calls[key])
+    del sds, calls, es
+    wplan = plan_wstack(uvw, C_0, C_0 / (100 * CHANS), CHANS, IMAGE, SUBGRID,
+                        THETA, W_STEP, support=8, w_support=4,
+                        w_tower_height=HEIGHT)
+    pplan = plan_packed(wplan, uvw)
+    for engine, name in (("fused", "degrid_fused2_stack"),
+                         ("compact", "degrid_compact")):
+        g = PackedGridder(pplan, precision="highest", engine=engine,
+                          device=dev)
+        rec = []
+        with recorded(packed, "fused_tap", (name,), rec):
+            g.degrid_sorted(model)
+        twice(f"{name}[packed bench]", getattr(fused_tap, name),
+              *rec[-1][1:])
+        del g, rec
+    _, w_args, w_kw, _, w_dkw = word_operands(torch, sp_d, uvw_dd, vis_dd,
+                                              model)
+    twice("degrid_fused2[dense stream]", band_tap.degrid_fused2, w_args,
+          dict(w_kw, **w_dkw))
+    return dict(stages=stages, kernels=kernels)
+
+
+def predict_times_main() -> int:
+    """``chip_smoke.py --predict-times``: :func:`predict_times` of the
+    package at the working directory (a checkout's root), one JSON
+    line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.getcwd())
+    import ska_sdp_func_torch
+    from ska_sdp_func_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu = run(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    _build.load()
+    out = predict_times(torch, torch.device("cuda", 0))
+    say(json.dumps({"checkout": os.path.dirname(ska_sdp_func_torch.__file__),
+                    "gpu": gpu, **out}))
+    return 0
+
+
 def product_library_ms(torch, tk, grid_args, degrid_args, block_v):
     """The K1/K2 rows' yardstick, the product alone: ms of one
     ``torch.bmm`` of the plain versions' materialised operands (f32 with
@@ -1544,6 +1698,150 @@ def np_stage_times(torch, sd, uvw, vis):
     raw = stage("K11", lambda: eng._degrid_windows(sd._st, a, bb, *taps))
     stage("unsort", lambda: eng._unsort(raw, dest))
     return out
+
+
+def gather_ptxas(log):
+    """{(mode, form): registers, spill stores and loads} of each
+    window_gather_kernel instance in nvcc's ``-Xptxas -v`` log."""
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"window_gather_kernelILi(\d)ELi(\d)E", line)
+        if m and "Compiling entry" in line:
+            key = (int(m[1]), int(m[2]))
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(key, {}).update(spill_stores=int(m[1]),
+                                           spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(key, {})["registers"] = int(m[1])
+            key = None
+    return out
+
+
+@contextlib.contextmanager
+def captured_calls(owner, attr, sink):
+    """``owner.attr``, a wrapper the module ``owner`` imported by name,
+    records each call's (arguments, keywords) into ``sink`` and launches
+    as usual (the wrapper and its counter untouched; for a wrapper called
+    through its module, see :func:`recorded`)."""
+    fn = getattr(owner, attr)
+
+    def call(*args, **kw):
+        sink.append((args, kw))
+        return fn(*args, **kw)
+
+    setattr(owner, attr, call)
+    try:
+        yield sink
+    finally:
+        setattr(owner, attr, fn)
+
+
+def gather_units(runs, block_v, w_support, width):
+    """The window-gather kernels' work in a call's run table: units (rows
+    of count > 0), most slots a unit, and MB of windows read (2 Sw slabs
+    of 16 rows x width f32 a unit; a window too wide for shared memory
+    whole is read again for each 1024 slots of a unit, which no unit of
+    these paths reaches); None where the call carries no table (a
+    checkout before the redesign)."""
+    if runs is None:
+        return None
+    slots = runs[:, 1][runs[:, 1] > 0].long() * block_v
+    return dict(units=int(slots.numel()), max_slots=int(slots.max()),
+                window_mb=slots.numel() * 2 * w_support * 16 * width * 4
+                / 1e6)
+
+
+def predict_stages(torch, sd_f, sd_j, sd_k, es_degrid, uvw):
+    """CUDA-event ms (10 calls each) of the three predicts and their
+    stages on the chunk ``uvw``: the packable stream predict ``sd_f``
+    (plan + K5 with the unsort map, the run table where the package
+    builds one, K4, the rest), the non-packable predicts ``sd_j`` (f32)
+    and ``sd_k`` (fast): plan + K5, K7, the K11 stage (its run table
+    included), unsort, and K11 alone on the stage's own operands; and the
+    ES-FFT 3-D degrid ``es_degrid()``: K11 alone and the rest. Each rest
+    is the whole call's time less its timed stages. Also returns the
+    kernels' captured calls, for their rows."""
+    from ska_sdp_func_torch.grid_data import es_fft_packed
+    from ska_sdp_func_torch.kernels import band_tap, fused_tap
+    from ska_sdp_func_torch.kernels import packed_tap
+    from ska_sdp_func_torch.parallel import streaming
+
+    table = getattr(packed_tap, "degrid_runs", None)
+    out, calls = {}, {}
+
+    def ms(fn):
+        return cuda_ms(torch, fn, 10, warmup=1)
+
+    eng = sd_f._engine
+    _, uvw32, mask = streaming._padded_chunk(sd_f.splan, uvw, uvw.device)
+    rec = []
+    with recorded(streaming, "fused_tap", ("degrid_fused2_stack",), rec):
+        sd_f.predict(uvw)
+    args, kw = calls["degrid_fused2_stack"] = rec[-1][1:]
+    bb = eng._plan_chunk(uvw32, mask)[2]
+    st = dict(call=ms(lambda: sd_f.predict(uvw)),
+              plan=ms(lambda: eng._plan_chunk(uvw32, mask)))
+    if table is not None:
+        st["run table"] = ms(lambda: table((bb,)))
+    st["K4"] = ms(lambda: fused_tap.degrid_fused2_stack(*args, **kw))
+    st["rest"] = st["call"] - sum(v for k, v in st.items() if k != "call")
+    st["units"] = gather_units(kw.get("runs"), kw["block_v"],
+                               kw["w_support"], args[0].shape[3])
+    out["stream predict"] = st
+    for name, sd in (("non-packable predict", sd_j),
+                     ("non-packable predict, fast", sd_k)):
+        eng = sd._engine
+        _, uvw32, mask = streaming._padded_chunk(sd.splan, uvw, uvw.device)
+        rec = []
+        with recorded(streaming, "band_tap", ("degrid_fused",), rec):
+            sd.predict(uvw)
+        args, kw = calls[name] = rec[-1][1:]
+        a, dest, bb, *_ = eng._plan_chunk(uvw32, mask)
+        taps = eng._prep_degrid(a)
+        raw = eng._degrid_windows(sd._st, a, bb, *taps)
+        st = dict(call=ms(lambda: sd.predict(uvw)),
+                  plan=ms(lambda: eng._plan_chunk(uvw32, mask)),
+                  K7=ms(lambda: eng._prep_degrid(a)),
+                  **{"K11 stage": ms(lambda: eng._degrid_windows(
+                      sd._st, a, bb, *taps))},
+                  unsort=ms(lambda: eng._unsort(raw, dest)))
+        st["rest"] = st["call"] - sum(v for k, v in st.items()
+                                      if k != "call")
+        st["K11 alone"] = ms(lambda: band_tap.degrid_fused(*args, **kw))
+        st["units"] = gather_units(kw.get("runs"), kw["block_v"], args[9],
+                                   args[10])
+        out[name] = st
+        del a, dest, bb, taps, raw
+    rec = []
+    with captured_calls(es_fft_packed, "degrid_fused", rec):
+        es_degrid()
+    args, kw = calls["es degrid"] = rec[-1]
+    st = dict(call=ms(es_degrid),
+              K11=ms(lambda: band_tap.degrid_fused(*args, **kw)))
+    st["rest"] = st["call"] - st["K11"]
+    st["units"] = gather_units(kw.get("runs"), kw["block_v"], args[9],
+                               args[10])
+    out["ES-FFT 3-D degrid"] = st
+    return out, calls
+
+
+def stage_text(stages):
+    """One line of :func:`predict_stages`' numbers."""
+    parts = []
+    for name, st in stages.items():
+        times = ", ".join(f"{k} {v:.3f}" for k, v in st.items()
+                          if k not in ("call", "units"))
+        u = st.get("units")
+        parts.append(f"{name} {st['call']:.3f} ms = {times}" + (
+            f" ({u['units']} work units of at most {u['max_slots']} slots, "
+            f"{u['window_mb']:.1f} MB of windows read)" if u else ""))
+    return "; ".join(parts)
 
 
 def compact_phase(torch, tkern, PackedGridder, pplan, dev, vre, vim, model,
@@ -2019,6 +2317,16 @@ def main() -> int:
     for line in _build.build_info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             say("#   ptxas" + line.split("ptxas", 1)[-1])
+    ptxas = gather_ptxas(_build.build_info["log"])
+    say("# ptxas, window_gather_kernel<MODE, FORM> (K4 kStackWords, K13 "
+        "kStackTaps, K11 kBandTaps, K19 kBandWords): " + "; ".join(
+            f"<{GATHER_MODES[m]}, {GATHER_FORMS[f]}> {v.get('registers')} "
+            f"registers, spills {v.get('spill_stores')} B stored / "
+            f"{v.get('spill_loads')} B loaded"
+            for (m, f), v in sorted(ptxas.items())))
+    if _build.build_info["log"] and \
+            len(ptxas) != len(GATHER_MODES) * len(GATHER_FORMS):
+        raise SystemExit("the build log lacks window_gather_kernel entries")
 
     # 3. kernels vs plain ----------------------------------------------
     uvw_s, vis_s = small_inputs()
@@ -2605,15 +2913,16 @@ def main() -> int:
     del j_img, j_pred, k_img, k_pred
 
     # 4l. K18 and K19, driven once on window f's operands ----------------
-    word_grid, word_degrid, word_kw, word_valid = word_operands(
+    word_grid, word_degrid, word_kw, word_valid, word_dkw = word_operands(
         torch, sp_d, uvw_dd, vis_dd, model)
     word_names = [n for n, _ in WORD_KERNELS]
     with launch_window(torch, tkern, "word-fed bucket-window kernels",
                        word_names, [n for n in tkern.launch_counts()
                                     if n not in word_names]) as w_launches:
         tkern.band_tap.grid_fused(*word_grid, **word_kw)
-        tkern.band_tap.degrid_fused2(*word_degrid, **word_kw, raw=True)
-    word_err = check_word_kernels(torch, word_grid, word_degrid, word_kw)
+        tkern.band_tap.degrid_fused2(*word_degrid, **word_kw, **word_dkw)
+    word_err = check_word_kernels(torch, word_grid, word_degrid, word_kw,
+                                  word_dkw)
 
     # 4m. K20, the sparse all-layer grid, on the fallback's largest task,
     # once in each mode ------------------------------------------------
@@ -2832,6 +3141,13 @@ def main() -> int:
         f"(10 steps each): " + "; ".join(fast_lines) + "; fast stages (ms, "
         f"CUDA events, 10 calls each): " + ", ".join(
             f"{k} {v:.3f}" for k, v in fast_stages.items()))
+    # The three predicts by stage (K4, K11 and their run tables), the ES
+    # degrid on window h's 3-D plan.
+    p_stages, _ = predict_stages(
+        torch, sd_t, sd_j, sd_k,
+        lambda: es["degrid"](es["plans"]["3-D"], model), uvw_dd)
+    say(f"# [{gpu}] predicts by stage (ms, CUDA events, 10 calls each; "
+        f"rest = the call less its stages): " + stage_text(p_stages))
     del sg_t, sd_t, sg_j, sd_j, sg_k, sd_k
     # The fused engine beside the band engine, "high"; turns: band,
     # fused, fused, band.
@@ -3037,6 +3353,12 @@ def main() -> int:
             name, getattr(band_tap, name),
             getattr(band_tap, name + "_reference"), args, kw,
             tap_ops(es_valid, 8, 8), p_iters=2, p_warmup=1))
+    # K11 at window j's dense stream (f32; its bf16 mode below).
+    args, kw = np_ops["degrid_fused"][0]
+    say(f"# [{gpu}] degrid_fused at the non-packable dense stream's shapes: "
+        + time_kernel("degrid_fused[dense stream]", band_tap.degrid_fused,
+                      band_tap.degrid_fused_reference, args, kw,
+                      tap_ops(np_valid, 8, 4), p_iters=2, p_warmup=1))
     # K6, K7 and the fold kernel on window j's operands (captured in 3).
     from ska_sdp_func_torch.kernels import fold, stream_prep
 
@@ -3079,8 +3401,7 @@ def main() -> int:
     # each slot's taps once (the kernels evaluate them per window plane,
     # K18, or per warp lane, K19).
     for name, args, extra in (("grid_fused", word_grid, {}),
-                              ("degrid_fused2", word_degrid,
-                               dict(raw=True))):
+                              ("degrid_fused2", word_degrid, word_dkw)):
         say(f"# [{gpu}] {name} at the dense stream's shapes, 'highest': "
             + time_kernel(name, getattr(band_tap, name),
                           getattr(band_tap, name + "_reference"), args,
@@ -3114,6 +3435,17 @@ def main() -> int:
                     bound_ms=b, bound_by=by, library_ms=None,
                     bound_ms_read_rate=read_rate_bound(
                         moved_bytes[name], b, by, read_rate))
+
+    def gather_row(r):
+        """K4, K11, K13 and K19's rows name their redesigned kernel, its
+        template instance and its ptxas registers and spills."""
+        key = GATHER_ROWS.get(r["name"])
+        if key is not None:
+            r.update(source=GATHER_SOURCE, redesigned=GATHER_REDESIGN,
+                     instance=f"window_gather_kernel<{GATHER_MODES[key[0]]}"
+                              f", {GATHER_FORMS[key[1]]}>",
+                     ptxas=ptxas.get(key))
+        return r
 
     def plane_row(r):
         """K14/K15's rows name their redesigned kernels' source."""
@@ -3178,6 +3510,9 @@ def main() -> int:
              name=f"fold_windows[{tpu_name}]")
         for tpu_name, where in FOLD_REPLACES
     ] + [
+        row("degrid_fused[dense stream]", GATHER_SOURCE, ES_KERNELS[1][1],
+            np_launches["degrid_fused"], np_err["degrid_fused"])
+    ] + [
         row(f"{name}[bf16]", source, where, k_launches[name], bf_err[name])
         for name, source, where in BF16_KERNELS
     ] + [
@@ -3197,6 +3532,7 @@ def main() -> int:
         exp_row(name, source, where, exp_sites[name][0], exp_sites[name][1],
                 headline, read_rate)
         for name, _, _, _, source, where, headline in EXPERIMENT_SITES]
+    kernels = [gather_row(r) for r in kernels]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3207,4 +3543,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--packed-times"]:
         sys.exit(packed_times_main())
+    if sys.argv[1:] == ["--predict-times"]:
+        sys.exit(predict_times_main())
     sys.exit(main())

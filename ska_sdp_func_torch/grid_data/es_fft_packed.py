@@ -36,7 +36,7 @@ import torch
 
 from ..fourier_transforms.fft import fft_shifted, ifft_shifted
 from ..kernels.band_tap import degrid_fused, grid_packed
-from ..kernels.packed_tap import WIN_ROWS
+from ..kernels.packed_tap import WIN_ROWS, degrid_runs
 from ..utility.constants import C_0
 
 _LANES = 256          # aligned 128-lane block + straddle
@@ -243,6 +243,9 @@ def attach(plan, ep: EsPackedPlan) -> EsPackedPlan:
         screens_grid=_build_screens(plan, -1.0),
         screens_degrid=_build_screens(plan, 1.0),
         correction=plan._correction(torch.float32))
+    d = ep.dev
+    # The degrid kernel's work units: the blocks' window runs, once.
+    d["runs"] = degrid_runs((d["k_idx"], d["g_idx"], d["hv_idx"]))
     return ep
 
 
@@ -330,7 +333,8 @@ def degrid_es_packed(plan, ep: EsPackedPlan, vis,
 
     out = degrid_fused(padded, d["k_idx"], d["g_idx"], d["hv_idx"],
                        d["u_off"], d["iv0"], d["uk"], d["vk"], d["kw_t"],
-                       ep.w_support, _LANES, block_v=ep.block_v)
+                       ep.w_support, _LANES, block_v=ep.block_v,
+                       runs=d["runs"])
     # Undo the w < 0 flip, unsort through the inverse permutation; dropped
     # entries read the appended zero slot.
     out = torch.where(d["flip"] < 0, out.conj(), out)

@@ -4,10 +4,11 @@ The sources under ``csrc/`` have a plain C interface. On first use each
 ``.cu`` file is compiled with ``nvcc`` for ``sm_90a`` into an object,
 all of them at once in parallel processes, and the objects are linked
 into one shared library ``sdp_kernels_<hash>.so`` in ``_build/`` beside
-this file (git-ignored), keyed by a hash of the sources and flags, and
-loaded with ctypes. Nothing is compiled when the module is imported:
-:func:`load` runs only from a wrapper that is about to launch a kernel
-on a CUDA tensor, so CPU-only hosts never need ``nvcc``.
+this file (git-ignored), keyed by a hash of the sources and flags (the
+compiler's output, ptxas's register counts included, kept beside it as
+``.log``), and loaded with ctypes. Nothing is compiled when the module
+is imported: :func:`load` runs only from a wrapper that is about to
+launch a kernel on a CUDA tensor, so CPU-only hosts never need ``nvcc``.
 """
 
 import ctypes
@@ -77,8 +78,13 @@ def _build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tag = h.hexdigest()[:16]
     so_path = os.path.join(BUILD_DIR, f"sdp_kernels_{tag}.so")
+    log_path = so_path[:-3] + ".log"
     if os.path.exists(so_path):
-        build_info.update(seconds=0.0, path=so_path)
+        log = ""
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                log = f.read()
+        build_info.update(seconds=0.0, log=log, path=so_path)
         return so_path
     nvcc = _nvcc()
     suffix = f"{tag}.{os.getpid()}"
@@ -90,6 +96,9 @@ def _build() -> str:
     log = _run_all([[nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
                     for src, obj in zip(cu, objs)])
     log += _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
+    with open(log_path + f".tmp{os.getpid()}", "w") as f:
+        f.write(log)
+    os.replace(log_path + f".tmp{os.getpid()}", log_path)
     os.replace(tmp, so_path)
     for obj in objs:
         os.remove(obj)
@@ -139,7 +148,8 @@ def load() -> ctypes.CDLL:
                     [p] * 13 + [i, f, f] + [i] * 7 + [p, p])
                 lib.sdp_torch_fused_grid_stack.restype = i
                 lib.sdp_torch_fused_degrid_stack.argtypes = (
-                    [p] * 12 + [i, f, f, i64] + [i] * 6 + [p, p])
+                    [p, p, i] + [p] * 11 + [i, f, f, i64] + [i] * 7
+                    + [p, p])
                 lib.sdp_torch_fused_degrid_stack.restype = i
                 lib.sdp_torch_band_grid.argtypes = [p] * 9 + [i] * 7 + [p, p]
                 lib.sdp_torch_band_grid.restype = i
@@ -147,11 +157,12 @@ def load() -> ctypes.CDLL:
                     [p] * 8 + [i, f, f] + [i] * 7 + [p, p])
                 lib.sdp_torch_band_grid_fused.restype = i
                 lib.sdp_torch_band_degrid.argtypes = (
-                    [p] * 9 + [i] * 3 + [i64] + [i] * 5 + [p, p])
+                    [p, p, i] + [p] * 8 + [i] * 3 + [i64] + [i] * 5
+                    + [p, p])
                 lib.sdp_torch_band_degrid.restype = i
                 lib.sdp_torch_band_degrid_fused.argtypes = (
-                    [p] * 9 + [i, f, f] + [i] * 3 + [i64] + [i] * 5
-                    + [p, p])
+                    [p, p, i] + [p] * 8 + [i, f, f] + [i] * 3 + [i64]
+                    + [i] * 5 + [p, p])
                 lib.sdp_torch_band_degrid_fused.restype = i
                 lib.sdp_torch_place_stream.argtypes = [
                     p, p, pp, pp, i, i64, i, i, p]

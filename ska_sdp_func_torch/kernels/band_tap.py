@@ -17,8 +17,10 @@ plan words:
   precision modes "highest", "high" and "bf16".
 
 On a CUDA tensor each launches its hand-written kernel
-(``csrc/band_tap.cu``, built by :mod:`._build`) or raises; on a CPU tensor
-it runs its plain PyTorch version (``*_reference``). Each counts its
+(``csrc/band_tap.cu`` to grid, ``csrc/window_gather.cu`` to degrid: one
+CTA a bucket run, the run's window read into shared memory once, over
+the blocks' run table ``runs``; built by :mod:`._build`) or raises; on a
+CPU tensor it runs its plain PyTorch version (``*_reference``). Each counts its
 kernel launches in ``.launches``. K8 and K11 run in full f32 (the Pallas
 kernels' "highest"), or in their bf16 mode when ``vk`` is bf16 (the
 streaming engine's fast mode, whose prep rounds the v taps once; JAX
@@ -56,9 +58,11 @@ import torch
 from .fused_tap import _MODES, _check_fused, _inv2, _slot_taps
 from .packed_tap import (
     WIN_ROWS,
+    _aligned,
     _check,
     _products,
     build_bands,
+    degrid_table,
     split_bf16,
 )
 from ..utility.errors import (
@@ -238,12 +242,13 @@ def _plane_dims(planes, lanes_win):
 def degrid_fused_reference(planes, p_idx, g_idx, hv_idx, u_off, iv0, uk, vk,
                            wk_t, w_support: int, lanes_win: int,
                            block_v: int = 128, raw: bool = False,
-                           precision: str = None) -> torch.Tensor:
+                           precision: str = None,
+                           runs=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`degrid_fused`: gather each chunk's
     windows, the Pallas kernel's window x transposed-band product in the
     mode's arithmetic (``precision``, by default the one ``vk``'s dtype
-    selects), scale by the u-tap x w-tap stack and sum each half's
-    rows."""
+    selects), scale by the u-tap x w-tap stack and sum each half's rows
+    (per block: ``runs`` is taken and not needed)."""
     if precision is None:
         precision = "bf16" if vk.dtype == torch.bfloat16 else "highest"
     total = uk.shape[0]
@@ -272,7 +277,7 @@ def degrid_fused_reference(planes, p_idx, g_idx, hv_idx, u_off, iv0, uk, vk,
 
 def degrid_fused(planes, p_idx, g_idx, hv_idx, u_off, iv0, uk, vk, wk_t,
                  w_support: int, lanes_win: int, block_v: int = 128,
-                 raw: bool = False) -> torch.Tensor:
+                 raw: bool = False, runs=None) -> torch.Tensor:
     """Degridding from a padded plane stack.
 
     ``planes`` f32 [2, P, rows_pad, lanes_pad] (re/im planes;
@@ -280,9 +285,12 @@ def degrid_fused(planes, p_idx, g_idx, hv_idx, u_off, iv0, uk, vk, wk_t,
     ``g_idx``, ``hv_idx`` [NB] int32: each block's first plane, u octet
     and 128-lane v block; its window is rows ``[8 g, 8 g + 16)`` and lanes
     ``[128 hv, 128 hv + lanes_win)`` of planes ``p_idx + j``. ``wk_t``
-    [Sw, V] f32 (zero on padding and invalid slots). Returns complex64
-    [V] in sorted order, or with ``raw`` the f32 ``[8, V]`` pair (row 0
-    re, row 1 im, the rest zero). A bf16 ``vk`` selects the bf16 mode.
+    [Sw, V] f32 (zero on padding and invalid slots). ``runs``: the
+    blocks' run table (:func:`.packed_tap.degrid_runs` of ``(p_idx,
+    g_idx, hv_idx)``, built here when not given; any block order is
+    right). Returns complex64 [V] in sorted order, or with ``raw`` the f32
+    ``[8, V]`` pair (row 0 re, row 1 im, the rest zero). A bf16 ``vk``
+    selects the bf16 mode.
     """
     num_planes, rows_pad, lanes_pad = _plane_dims(planes, lanes_win)
     dev, total, support, nb, mode = _check_taps(u_off, iv0, uk, vk, block_v,
@@ -299,15 +307,18 @@ def degrid_fused(planes, p_idx, g_idx, hv_idx, u_off, iv0, uk, vk, wk_t,
         from . import _build
 
         lib = _build.load()
+        runs = degrid_table(runs, (p_idx, g_idx, hv_idx))
+        planes = _aligned(planes)
         out = torch.zeros((8, total), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.sdp_torch_band_degrid(
-                planes.data_ptr(), p_idx.data_ptr(), g_idx.data_ptr(),
-                hv_idx.data_ptr(), u_off.data_ptr(), iv0.data_ptr(),
-                uk.data_ptr(), vk.data_ptr(), wk_t.data_ptr(), num_planes,
-                rows_pad, lanes_pad, total, block_v, support, w_support,
-                lanes_win, _MODES[mode], out.data_ptr(), stream)
+                planes.data_ptr(), runs.data_ptr(), runs.shape[0],
+                p_idx.data_ptr(), g_idx.data_ptr(), hv_idx.data_ptr(),
+                u_off.data_ptr(), iv0.data_ptr(), uk.data_ptr(),
+                vk.data_ptr(), wk_t.data_ptr(), num_planes, rows_pad,
+                lanes_pad, total, block_v, support, w_support, lanes_win,
+                _MODES[mode], out.data_ptr(), stream)
         _build.check(lib, err, "degrid_fused")
         degrid_fused.launches += 1
     if raw:
@@ -392,10 +403,11 @@ def degrid_fused2_reference(planes, p_idx, g_idx, hv_idx, pa, pb, uv_coeffs,
                             w_support: int, oversampling: int,
                             w_oversampling: int, block_v: int = 1024,
                             precision: str = "highest", nonempty=None,
-                            raw: bool = False) -> torch.Tensor:
+                            raw: bool = False, runs=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`degrid_fused2`: the words' taps
     (w taps times ``valid``) through K11's plain version in the mode's
-    arithmetic; the blocks ``nonempty`` marks 0 predict zero."""
+    arithmetic; the blocks ``nonempty`` marks 0 predict zero (``runs``
+    taken and not needed)."""
     iv0, u_off, valid, uk, vk, wk = _slot_taps(pa, pb, uv_coeffs, w_coeffs,
                                                oversampling, w_oversampling)
     wk_t = (wk * valid.to(torch.float32)[:, None]).T.contiguous()
@@ -411,17 +423,19 @@ def degrid_fused2(planes, p_idx, g_idx, hv_idx, pa, pb, uv_coeffs,
                   w_coeffs, lanes: int, support: int, w_support: int,
                   oversampling: int, w_oversampling: int,
                   block_v: int = 1024, precision: str = "highest",
-                  nonempty=None, raw: bool = False) -> torch.Tensor:
+                  nonempty=None, raw: bool = False,
+                  runs=None) -> torch.Tensor:
     """Fused degridding from a padded plane stack with the taps evaluated
     from the plan words (JAX ``degrid_fused2_pallas``, without its TPU
     ``sub_v``).
 
-    ``planes``, ``p_idx``, ``g_idx``, ``hv_idx`` as :func:`degrid_fused`,
-    ``lanes`` the window lane width; ``pa``/``pb`` [V] int32 plan words
-    (the ``valid`` bit of ``pb`` zeroes padding slots); fits, ``precision``
-    and ``nonempty`` as :func:`grid_fused` (0-marked blocks predict
-    zero). Returns complex64 [V] in sorted order, or with ``raw`` the f32
-    ``[8, V]`` pair (row 0 re, row 1 im, the rest zero).
+    ``planes``, ``p_idx``, ``g_idx``, ``hv_idx`` and ``runs`` as
+    :func:`degrid_fused`, ``lanes`` the window lane width; ``pa``/``pb``
+    [V] int32 plan words (the ``valid`` bit of ``pb`` zeroes padding
+    slots); fits, ``precision`` and ``nonempty`` as :func:`grid_fused`
+    (0-marked blocks predict zero). Returns complex64 [V] in sorted order,
+    or with ``raw`` the f32 ``[8, V]`` pair (row 0 re, row 1 im, the rest
+    zero).
     """
     num_planes, rows_pad, lanes_pad = _plane_dims(planes, lanes)
     dev, total, nb, ncoef = _check_fused(
@@ -438,12 +452,14 @@ def degrid_fused2(planes, p_idx, g_idx, hv_idx, pa, pb, uv_coeffs,
         from . import _build
 
         lib = _build.load()
+        runs = degrid_table(runs, (p_idx, g_idx, hv_idx))
+        planes = _aligned(planes)
         out = torch.zeros((8, total), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.sdp_torch_band_degrid_fused(
-                planes.data_ptr(), p_idx.data_ptr(), g_idx.data_ptr(),
-                hv_idx.data_ptr(),
+                planes.data_ptr(), runs.data_ptr(), runs.shape[0],
+                p_idx.data_ptr(), g_idx.data_ptr(), hv_idx.data_ptr(),
                 None if nonempty is None else nonempty.data_ptr(),
                 pa.data_ptr(), pb.data_ptr(), uv_coeffs.data_ptr(),
                 w_coeffs.data_ptr(), ncoef, _inv2(oversampling),

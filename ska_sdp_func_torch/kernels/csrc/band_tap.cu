@@ -1,15 +1,14 @@
-// Bucket-window band gridding and plane-stack degridding for Hopper
-// (sm_90a), from compact per-slot taps or from the two plan words.
+// Bucket-window band gridding for Hopper (sm_90a), from compact per-slot
+// taps or from the two plan words.
 //
-// Replace four Pallas TPU kernels of ska_sdp_func_tpu/kernels/:
+// Replace two Pallas TPU kernels of ska_sdp_func_tpu/kernels/:
 //   - packed_tap.py grid_packed_pallas (_grid_kernel, _grid_kernel_split,
 //     _grid_accumulate)                      -> band_grid_kernel<M, false>
-//   - packed_tap.py degrid_fused_pallas (_degrid_fused_kernel, _degrid_math,
-//     _degrid_tail)                          -> band_degrid_kernel<M, false>
 //   - fused_tap.py grid_fused_pallas (_grid_fused_kernel, _block_contrib,
 //     _prep_common)                          -> band_grid_kernel<M, true>
-//   - fused_tap.py degrid_fused2_pallas (_degrid_fused_kernel,
-//     _degrid_fused_core)                    -> band_degrid_kernel<M, true>
+// Their degrid twins (packed_tap.py degrid_fused_pallas, fused_tap.py
+// degrid_fused2_pallas: the degrid below) are window_gather.cu's
+// window_gather_kernel<M, kBandTaps> and <M, kBandWords>.
 //
 // Layout (shared with the plain PyTorch versions in band_tap.py): the
 // bucket-sorted stream of `total` slots is cut into plan blocks of
@@ -47,8 +46,8 @@
 // and visibilities in the fused grid), so the work is bound by
 // shared-memory atomics (grid) and gathers (degrid), not by flops or device
 // memory. A whole ES window (2 Sw 16 rows x 256 lanes f32, 256 KiB at
-// Sw = 8) does not fit one block's 227 KB of shared memory, so:
-// Grid: one CTA of 256 threads per (group of kGroup consecutive plan
+// Sw = 8) does not fit one block's 227 KB of shared memory, so the grid
+// takes one window plane a CTA: one CTA of 256 threads per (group of kGroup consecutive plan
 // blocks, window plane h Sw + j): a [16][lanes + 1] f32 window (16.4 KiB
 // at 256 lanes; the odd row stride spreads a warp's eight u rows over the
 // banks) takes the group's S x S products by shared atomics; whenever the
@@ -60,13 +59,6 @@
 // its one w tap) into shared memory, then the CTA scatters them as above;
 // each slot's taps are so evaluated once per window plane (2 Sw times),
 // and blocks that `nonempty` marks 0 are skipped.
-// Degrid: one warp per slot; lane l takes the (j, su) pairs l, l + 32, ...
-// of the Sw x S tap rows, gathers S cells of each half from the planes
-// (L2-resident: consecutive slots share a bucket's window), forms its
-// partial sums, and a shuffle reduction adds them. The fused form first
-// evaluates one tap per lane (vk on lanes [0, S), uk on [S, 2S), wk on
-// [2S, 2S + Sw)) and shuffles them to the lanes that use them, as
-// fused_tap.cu's degrid does; blocks that `nonempty` marks 0 write zeros.
 
 #include "taps.cuh"
 
@@ -249,137 +241,6 @@ band_grid_kernel(GridArgs a) {
   }
 }
 
-struct DegridArgs {
-  const float* planes;  // [2][P][rows_pad][lanes_pad]
-  const int* p_idx;
-  const int* g_idx;
-  const int* hv_idx;
-  const int* u_off;
-  const int* iv0;
-  const float* uk;
-  const void* vk;       // [total][S] f32, or bf16 in kBf16
-  const float* wk_t;    // [Sw][total]
-  WordTaps wt;
-  int num_planes, rows_pad, lanes_pad;
-  int64_t total;
-  int block_v, support, w_support, lanes_win;
-  float* out;           // rows 0 (re) and 1 (im) of [8][total]
-};
-
-template <int MODE, bool FUSED>
-__global__ void __launch_bounds__(kThreads)
-band_degrid_kernel(DegridArgs a) {
-  const int lane = threadIdx.x & 31;
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) +
-                    threadIdx.x / 32;
-  if (p >= a.total) return;  // uniform across the warp
-  const int S = a.support;
-  const int Sw = a.w_support;
-  const int b = static_cast<int>(p / a.block_v);
-  const int64_t plane_elems =
-      static_cast<int64_t>(a.rows_pad) * a.lanes_pad;
-  const int64_t half = static_cast<int64_t>(a.num_planes) * plane_elems;
-  float re = 0.0f;
-  float im = 0.0f;
-  if constexpr (FUSED) {
-    const WordTaps& wt = a.wt;
-    if (wt.nonempty != nullptr && wt.nonempty[b] == 0) {
-      if (lane == 0) {
-        a.out[p] = 0.0f;
-        a.out[a.total + p] = 0.0f;
-      }
-      return;
-    }
-    const int wa = wt.pa[p];
-    const int wb = wt.pb[p];
-    const int c0 = wa >> 20;
-    float tap = 0.0f;
-    if (lane < 2 * S + Sw) {
-      float t[kMaxCoef];
-      if (lane < S) {
-        cheb_basis(frac_x(wb & 32767, wt.inv2_ov), wt.ncoef, t);
-        tap = cheb_sum(wt.c_uv + lane, S, wt.ncoef, t);
-      } else if (lane < 2 * S) {
-        cheb_basis(frac_x((wb >> 15) & 32767, wt.inv2_ov), wt.ncoef, t);
-        tap = cheb_sum(wt.c_uv + lane - S, S, wt.ncoef, t);
-      } else {
-        cheb_basis(frac_x(wa & 131071, wt.inv2_wov), wt.ncoef, t);
-        tap = cheb_sum(wt.c_w + lane - 2 * S, Sw, wt.ncoef, t);
-      }
-    }
-    float vk[kMaxS];
-#pragma unroll
-    for (int sv = 0; sv < kMaxS; ++sv) {
-      vk[sv] = __shfl_sync(0xffffffffu, tap, sv < S ? sv : 0);
-    }
-    const int j = lane / S;
-    const int su = lane % S;
-    const bool active = lane < Sw * S;
-    const float uk = __shfl_sync(0xffffffffu, tap, S + su);
-    const float wk = __shfl_sync(0xffffffffu, tap, 2 * S + (active ? j : 0));
-    if (active) {
-      const float valid = static_cast<float>(wb >> 30);
-      const float uw = __fmul_rn(uk, __fmul_rn(wk, valid));
-      const float* cell =
-          a.planes + static_cast<int64_t>(a.p_idx[b] + j) * plane_elems +
-          static_cast<int64_t>(8 * a.g_idx[b] + ((wa >> 17) & 7) + su) *
-              a.lanes_pad +
-          128 * a.hv_idx[b] + c0;
-      float t0 = 0.0f;
-      float t1 = 0.0f;
-#pragma unroll
-      for (int sv = 0; sv < kMaxS; ++sv) {
-        if (sv < S && c0 + sv < a.lanes_win) {
-          t0 = __fadd_rn(t0, prod<MODE>(cell[sv], vk[sv]));
-          t1 = __fadd_rn(t1, prod<MODE>(cell[half + sv], vk[sv]));
-        }
-      }
-      re = __fmul_rn(uw, t0);
-      im = __fmul_rn(uw, t1);
-    }
-  } else {
-    const int c0 = a.iv0[p];
-    const float* base = a.planes +
-                        static_cast<int64_t>(a.p_idx[b]) * plane_elems +
-                        static_cast<int64_t>(8 * a.g_idx[b] + a.u_off[p]) *
-                            a.lanes_pad +
-                        128 * a.hv_idx[b] + c0;
-    float vk[kMaxS];
-#pragma unroll
-    for (int sv = 0; sv < kMaxS; ++sv) {
-      vk[sv] = (sv < S && c0 + sv < a.lanes_win)
-                   ? load_vk<MODE>(a.vk, p * S + sv)
-                   : 0.0f;
-    }
-    for (int idx = lane; idx < Sw * S; idx += 32) {
-      const int j = idx / S;
-      const int su = idx % S;
-      const float uw = __fmul_rn(a.uk[p * S + su], a.wk_t[j * a.total + p]);
-      const float* cell = base + j * plane_elems + su * a.lanes_pad;
-      float t0 = 0.0f;
-      float t1 = 0.0f;
-#pragma unroll
-      for (int sv = 0; sv < kMaxS; ++sv) {
-        if (sv < S && c0 + sv < a.lanes_win) {
-          t0 = __fadd_rn(t0, prod<MODE>(cell[sv], vk[sv]));
-          t1 = __fadd_rn(t1, prod<MODE>(cell[half + sv], vk[sv]));
-        }
-      }
-      re = __fadd_rn(re, __fmul_rn(uw, t0));
-      im = __fadd_rn(im, __fmul_rn(uw, t1));
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    re += __shfl_down_sync(0xffffffffu, re, off);
-    im += __shfl_down_sync(0xffffffffu, im, off);
-  }
-  if (lane == 0) {
-    a.out[p] = re;
-    a.out[a.total + p] = im;
-  }
-}
-
 template <int MODE, bool FUSED>
 cudaError_t launch_grid(const GridArgs& a, cudaStream_t s) {
   const size_t smem = grid_smem_bytes(a.lanes, FUSED);
@@ -389,15 +250,6 @@ cudaError_t launch_grid(const GridArgs& a, cudaStream_t s) {
   if (err != cudaSuccess) return err;
   const dim3 grid((a.num_blocks + kGroup - 1) / kGroup, 2 * a.w_support);
   band_grid_kernel<MODE, FUSED><<<grid, kThreads, smem, s>>>(a);
-  return cudaGetLastError();
-}
-
-template <int MODE, bool FUSED>
-cudaError_t launch_degrid(const DegridArgs& a, cudaStream_t s) {
-  constexpr int per_cta = kThreads / 32;
-  const unsigned ctas =
-      static_cast<unsigned>((a.total + per_cta - 1) / per_cta);
-  band_degrid_kernel<MODE, FUSED><<<ctas, kThreads, 0, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -472,63 +324,6 @@ int sdp_torch_band_grid_fused(const int* bucket_ids, const int* nonempty,
     case kF32: return static_cast<int>(launch_grid<kF32, true>(a, s));
     case kHigh: return static_cast<int>(launch_grid<kHigh, true>(a, s));
     case kBf16: return static_cast<int>(launch_grid<kBf16, true>(a, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// Band degrid (K11): `mode` kF32, or kBf16 with a bf16 vk.
-int sdp_torch_band_degrid(const float* planes, const int* p_idx,
-                          const int* g_idx, const int* hv_idx,
-                          const int* u_off, const int* iv0, const float* uk,
-                          const void* vk, const float* wk_t, int num_planes,
-                          int rows_pad, int lanes_pad, int64_t total,
-                          int block_v, int support, int w_support,
-                          int lanes_win, int mode, float* out,
-                          void* stream) {
-  if (!band_ok(block_v, support, w_support, false, 0) || num_planes <= 0 ||
-      rows_pad <= 0 || lanes_pad <= 0 || lanes_win <= 0 ||
-      (mode != kF32 && mode != kBf16)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (total <= 0) return 0;
-  const DegridArgs a{planes, p_idx, g_idx, hv_idx, u_off, iv0, uk, vk, wk_t,
-                     WordTaps{}, num_planes, rows_pad, lanes_pad, total,
-                     block_v, support, w_support, lanes_win, out};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(mode == kBf16 ? launch_degrid<kBf16, false>(a, s)
-                                        : launch_degrid<kF32, false>(a, s));
-}
-
-// Fused degrid (K19): taps from the words pa/pb (the valid bit of pb
-// masks the w taps); `mode` kF32, kHigh or kBf16; blocks whose `nonempty`
-// (may be null) is 0 write zeros.
-int sdp_torch_band_degrid_fused(const float* planes, const int* p_idx,
-                                const int* g_idx, const int* hv_idx,
-                                const int* nonempty, const int* pa,
-                                const int* pb, const float* c_uv,
-                                const float* c_w, int ncoef, float inv2_ov,
-                                float inv2_wov, int num_planes,
-                                int rows_pad, int lanes_pad, int64_t total,
-                                int block_v, int support, int w_support,
-                                int lanes_win, int mode, float* out,
-                                void* stream) {
-  if (!band_ok(block_v, support, w_support, true, ncoef) ||
-      num_planes <= 0 || rows_pad <= 0 || lanes_pad <= 0 ||
-      lanes_win <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (total <= 0) return 0;
-  const DegridArgs a{planes, p_idx, g_idx, hv_idx, nullptr, nullptr, nullptr,
-                     nullptr, nullptr,
-                     WordTaps{pa, pb, c_uv, c_w, nonempty, ncoef, inv2_ov,
-                              inv2_wov},
-                     num_planes, rows_pad, lanes_pad, total, block_v,
-                     support, w_support, lanes_win, out};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kF32: return static_cast<int>(launch_degrid<kF32, true>(a, s));
-    case kHigh: return static_cast<int>(launch_degrid<kHigh, true>(a, s));
-    case kBf16: return static_cast<int>(launch_degrid<kBf16, true>(a, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

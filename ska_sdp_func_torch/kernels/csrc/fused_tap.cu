@@ -1,19 +1,18 @@
-// Fused and compact packed gridding / degridding kernels for Hopper
-// (sm_90a): per-task stacks from a placed stream of slots whose taps are
-// either evaluated in the kernel from two bit-packed int32 plan words per
-// slot (fused), or pre-evaluated once per plan and read per slot beside
-// the word pa (compact).
+// Fused and compact packed gridding kernels for Hopper (sm_90a): per-task
+// stacks from a placed stream of slots whose taps are either evaluated in
+// the kernel from two bit-packed int32 plan words per slot (fused), or
+// pre-evaluated once per plan and read per slot beside the word pa
+// (compact).
 //
-// Replace the stack forms of the Pallas TPU kernels in
+// Replace the grid stack forms of the Pallas TPU kernels in
 // ska_sdp_func_tpu/kernels/fused_tap.py:
 //   - grid_fused_stack_pallas (_grid_stack_kernel, _block_contrib,
 //     _prep_common, _stack_accumulate)  -> fused_grid_stack_kernel<M, false>
-//   - degrid_fused2_stack_pallas (_degrid_fstack_kernel, _degrid_fused_core,
-//     _window_from_stack)             -> fused_degrid_stack_kernel<M, false>
 //   - grid_compact_pallas (_grid_compact_kernel)
 //                                     -> fused_grid_stack_kernel<M, true>
-//   - degrid_compact_pallas (_degrid_compact_kernel)
-//                                     -> fused_degrid_stack_kernel<M, true>
+// Their degrid twins (degrid_fused2_stack_pallas, degrid_compact_pallas:
+// the degrid below) are window_gather.cu's window_gather_kernel<M,
+// kStackWords> and <M, kStackTaps>.
 //
 // Layout (shared with the plain PyTorch versions in fused_tap.py): the
 // placed stream of `total` slots is cut into plan blocks of `block_v`
@@ -54,10 +53,6 @@
 // The compact kernels stream 92 B (grid) and 84 B (degrid) per slot where
 // the fused ones stream 16 B and evaluate a ~30-operation Chebyshev chain
 // per tap; their time beside the fused ones' on one plan prices that chain.
-// Degrid: one warp per slot; lanes 0..2S+Sw-1 each evaluate (or load) one
-// tap and shuffle them to the others; lane (j, su) gathers its S stack cells
-// (L1/L2-resident: consecutive slots share a bucket's window), forms its
-// partial sums, and a shuffle reduction adds the 2 * Sw * S partials.
 
 #include "taps.cuh"
 
@@ -206,108 +201,6 @@ fused_grid_stack_kernel(const int* __restrict__ t_idx,
   }
 }
 
-template <int MODE, bool COMPACT>
-__global__ void __launch_bounds__(kThreads)
-fused_degrid_stack_kernel(const float* __restrict__ stack,
-                          const int* __restrict__ t_idx,
-                          const int* __restrict__ k_idx,
-                          const int* __restrict__ g_idx,
-                          const int* __restrict__ nonempty,
-                          const int* __restrict__ pa,
-                          const int* __restrict__ pb,
-                          const float* __restrict__ c_uv,
-                          const float* __restrict__ c_w, CompactTaps ct,
-                          Geometry geo, int64_t total,
-                          float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) +
-                    threadIdx.x / 32;
-  if (p >= total) return;  // uniform across the warp
-  const int b = static_cast<int>(p / geo.block_v);
-  if (nonempty != nullptr && nonempty[b] == 0) {
-    if (lane == 0) {
-      out[p] = 0.0f;
-      out[total + p] = 0.0f;
-    }
-    return;
-  }
-  const int S = geo.support;
-  const int Sw = geo.w_support;
-  const int lanes = geo.lanes;
-  const int a = pa[p];
-  const int w = COMPACT ? (1 << 30) : pb[p];  // compact: valid = 1
-
-  // One tap per lane: vk on lanes [0, S), uk on [S, 2S), wk on
-  // [2S, 2S + Sw).
-  float tap = 0.0f;
-  if (COMPACT) {
-    if (lane < S) {
-      tap = ct.vk_t[lane * ct.total + p];
-    } else if (lane < 2 * S) {
-      tap = ct.uk_t[(lane - S) * ct.total + p];
-    } else if (lane < 2 * S + Sw) {
-      tap = ct.wk_t[(lane - 2 * S) * ct.total + p];
-    }
-  } else if (lane < 2 * S + Sw) {
-    float t[kMaxCoef];
-    if (lane < S) {
-      cheb_basis(frac_x(w & 32767, geo.inv2_ov), geo.ncoef, t);
-      tap = cheb_sum(c_uv + lane, S, geo.ncoef, t);
-    } else if (lane < 2 * S) {
-      cheb_basis(frac_x((w >> 15) & 32767, geo.inv2_ov), geo.ncoef, t);
-      tap = cheb_sum(c_uv + lane - S, S, geo.ncoef, t);
-    } else {
-      cheb_basis(frac_x(a & 131071, geo.inv2_wov), geo.ncoef, t);
-      tap = cheb_sum(c_w + lane - 2 * S, Sw, geo.ncoef, t);
-    }
-  }
-  float vk[kMaxS];
-#pragma unroll
-  for (int sv = 0; sv < kMaxS; ++sv) {
-    vk[sv] = __shfl_sync(0xffffffffu, tap, sv < S ? sv : 0);
-  }
-  const int j = lane / S;
-  const int su = lane % S;
-  const bool active = lane < Sw * S;
-  const float uk = __shfl_sync(0xffffffffu, tap, S + su);
-  const float wk = __shfl_sync(0xffffffffu, tap, 2 * S + (active ? j : 0));
-
-  float re = 0.0f;
-  float im = 0.0f;
-  if (active) {
-    const float valid = static_cast<float>(w >> 30);
-    const float uw = __fmul_rn(uk, __fmul_rn(wk, valid));
-    const int u_off = (a >> 17) & 7;
-    const int iv0 = a >> 20;
-    const int64_t sub_pad = lanes + 8;
-    const int64_t plane = static_cast<int64_t>(geo.num_layers) * sub_pad *
-                          lanes;
-    const float* cell =
-        stack + 2 * static_cast<int64_t>(t_idx[b]) * plane +
-        ((k_idx[b] + j) * sub_pad + 8 * g_idx[b] + u_off + su) * lanes + iv0;
-    float t0 = 0.0f;
-    float t1 = 0.0f;
-#pragma unroll
-    for (int sv = 0; sv < kMaxS; ++sv) {
-      if (sv < S && iv0 + sv < lanes) {
-        t0 = __fadd_rn(t0, prod<MODE>(cell[sv], vk[sv]));
-        t1 = __fadd_rn(t1, prod<MODE>(cell[plane + sv], vk[sv]));
-      }
-    }
-    re = __fmul_rn(uw, t0);
-    im = __fmul_rn(uw, t1);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    re += __shfl_down_sync(0xffffffffu, re, off);
-    im += __shfl_down_sync(0xffffffffu, im, off);
-  }
-  if (lane == 0) {
-    out[p] = re;
-    out[total + p] = im;
-  }
-}
-
 bool geometry_ok(const Geometry& geo, bool compact) {
   return geo.block_v > 0 && geo.support >= 1 && geo.support <= kMaxS &&
          geo.w_support >= 1 && geo.w_support <= kMaxSw &&
@@ -330,19 +223,6 @@ cudaError_t launch_grid(unsigned blocks, size_t smem, cudaStream_t s,
   fused_grid_stack_kernel<MODE, COMPACT><<<blocks, kThreads, smem, s>>>(
       t_idx, k_idx, g_idx, nonempty, pa, pb, vre, vim, c_uv, c_w, ct, geo,
       out);
-  return cudaGetLastError();
-}
-
-template <int MODE, bool COMPACT>
-cudaError_t launch_degrid(unsigned ctas, cudaStream_t s, const float* stack,
-                          const int* t_idx, const int* k_idx,
-                          const int* g_idx, const int* nonempty,
-                          const int* pa, const int* pb, const float* c_uv,
-                          const float* c_w, const CompactTaps& ct,
-                          const Geometry& geo, int64_t total, float* out) {
-  fused_degrid_stack_kernel<MODE, COMPACT><<<ctas, kThreads, 0, s>>>(
-      stack, t_idx, k_idx, g_idx, nonempty, pa, pb, c_uv, c_w, ct, geo,
-      total, out);
   return cudaGetLastError();
 }
 
@@ -397,48 +277,6 @@ int sdp_torch_fused_grid_stack(const int* t_idx, const int* k_idx,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef SDP_GRID
-  return static_cast<int>(err);
-}
-
-int sdp_torch_fused_degrid_stack(const float* stack, const int* t_idx,
-                                 const int* k_idx, const int* g_idx,
-                                 const int* nonempty, const int* pa,
-                                 const int* pb, const float* c_uv,
-                                 const float* c_w, const float* uk_t,
-                                 const float* vk_t, const float* wk_t,
-                                 int ncoef, float inv2_ov, float inv2_wov,
-                                 int64_t total, int block_v, int support,
-                                 int w_support, int lanes, int num_layers,
-                                 int mode, float* out, void* stream) {
-  const Geometry geo{block_v, support, w_support, lanes, num_layers, ncoef,
-                     inv2_ov, inv2_wov};
-  const bool compact = uk_t != nullptr;
-  if (!geometry_ok(geo, compact)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (total <= 0) return 0;
-  constexpr int per_cta = kThreads / 32;
-  const unsigned ctas = static_cast<unsigned>((total + per_cta - 1) / per_cta);
-  const CompactTaps ct{uk_t, vk_t, wk_t, total};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SDP_DEGRID(M, C)                                                     \
-  launch_degrid<M, C>(ctas, s, stack, t_idx, k_idx, g_idx, nonempty, pa, pb, \
-                      c_uv, c_w, ct, geo, total, out)
-  cudaError_t err;
-  switch (mode) {
-    case kF32:
-      err = compact ? SDP_DEGRID(kF32, true) : SDP_DEGRID(kF32, false);
-      break;
-    case kHigh:
-      err = compact ? SDP_DEGRID(kHigh, true) : SDP_DEGRID(kHigh, false);
-      break;
-    case kBf16:
-      err = compact ? SDP_DEGRID(kBf16, true) : SDP_DEGRID(kBf16, false);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef SDP_DEGRID
   return static_cast<int>(err);
 }
 

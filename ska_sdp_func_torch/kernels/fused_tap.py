@@ -15,9 +15,11 @@ streaming engine and the packed ``engine="fused"``/``"compact"`` run):
   evaluation :func:`cheb_taps` are torch (and NumPy) ops.
 
 On a CUDA tensor each kernel wrapper launches its hand-written kernel
-(``csrc/fused_tap.cu``) or raises; on a CPU tensor it runs its plain
-PyTorch version (``*_reference``). Each counts its kernel launches in
-``.launches``.
+(``csrc/fused_tap.cu`` to grid; ``csrc/window_gather.cu`` to degrid, one
+CTA a bucket run reading the run's window into shared memory once, over
+the blocks' run table ``runs``) or raises; on a CPU tensor it runs its
+plain PyTorch version (``*_reference``). Each counts its kernel launches
+in ``.launches``.
 
 Plan words (bit for bit the JAX layout):
 
@@ -46,7 +48,7 @@ drops them.
 import numpy as np
 import torch
 
-from .packed_tap import WIN_ROWS, _check, split_bf16
+from .packed_tap import WIN_ROWS, _aligned, _check, degrid_table, split_bf16
 from ..utility.errors import (
     SdpInvalidArgumentError,
     SdpMemLocationError,
@@ -269,8 +271,9 @@ def degrid_fused2_stack_reference(stack, t_idx, k_idx, g_idx, pa, pb,
                                   w_support: int, oversampling: int,
                                   w_oversampling: int, block_v: int = 1024,
                                   precision: str = "highest",
-                                  nonempty=None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`degrid_fused2_stack`."""
+                                  nonempty=None, runs=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`degrid_fused2_stack` (per slot:
+    ``runs`` is taken and not needed)."""
     return _degrid_reference(
         lambda p: _slot_taps(pa[p], pb[p], uv_coeffs, w_coeffs,
                              oversampling, w_oversampling),
@@ -280,9 +283,10 @@ def degrid_fused2_stack_reference(stack, t_idx, k_idx, g_idx, pa, pb,
 
 def degrid_compact_reference(stack, t_idx, k_idx, g_idx, pa, uk_t, vk_t,
                              wk_t, support: int, w_support: int,
-                             block_v: int = 512,
-                             precision: str = "highest") -> torch.Tensor:
-    """Plain PyTorch version of :func:`degrid_compact`."""
+                             block_v: int = 512, precision: str = "highest",
+                             runs=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`degrid_compact` (``runs`` taken and
+    not needed)."""
     return _degrid_reference(
         lambda p: _compact_taps(p, pa, uk_t, vk_t, wk_t), stack, t_idx,
         k_idx, g_idx, pa.shape[0], support, w_support, block_v, precision,
@@ -400,13 +404,15 @@ def degrid_fused2_stack(stack, t_idx, k_idx, g_idx, pa, pb, uv_coeffs,
                         w_coeffs, support: int, w_support: int,
                         oversampling: int, w_oversampling: int,
                         block_v: int = 1024, precision: str = "highest",
-                        nonempty=None) -> torch.Tensor:
+                        nonempty=None, runs=None) -> torch.Tensor:
     """Fused degridding from per-task tower stacks.
 
     ``stack``: f32 [T, 2, K * (lanes + 8), lanes] (the layout
     :func:`grid_fused_stack` produces); other operands as there (the
-    ``valid`` bit of ``pb`` zeroes padding slots). Returns complex64 [V]
-    in stream order; 0-marked blocks predict zero.
+    ``valid`` bit of ``pb`` zeroes padding slots). ``runs``: the blocks'
+    run table (:func:`.packed_tap.degrid_runs` of ``(t_idx, k_idx,
+    g_idx)``, built here when not given; any block order is right).
+    Returns complex64 [V] in stream order; 0-marked blocks predict zero.
     """
     if stack.ndim != 4 or stack.shape[1] != 2:
         raise SdpShapeError("stack must be [T, 2, K * (lanes + 8), lanes]")
@@ -427,18 +433,20 @@ def degrid_fused2_stack(stack, t_idx, k_idx, g_idx, pa, pb, uv_coeffs,
     from . import _build
 
     lib = _build.load()
+    runs = degrid_table(runs, (t_idx, k_idx, g_idx))
+    stack = _aligned(stack)
     out = torch.empty((2, total), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sdp_torch_fused_degrid_stack(
-            stack.data_ptr(), t_idx.data_ptr(), k_idx.data_ptr(),
-            g_idx.data_ptr(),
+            stack.data_ptr(), runs.data_ptr(), runs.shape[0],
+            t_idx.data_ptr(), k_idx.data_ptr(), g_idx.data_ptr(),
             None if nonempty is None else nonempty.data_ptr(),
             pa.data_ptr(), pb.data_ptr(), uv_coeffs.data_ptr(),
             w_coeffs.data_ptr(), None, None, None, ncoef,
             _inv2(oversampling), _inv2(w_oversampling), total, block_v,
-            support, w_support, lanes, num_layers, _MODES[precision],
-            out.data_ptr(), stream)
+            support, w_support, lanes, num_layers, stack.shape[0],
+            _MODES[precision], out.data_ptr(), stream)
     _build.check(lib, err, "degrid_fused2_stack")
     degrid_fused2_stack.launches += 1
     return torch.complex(out[0], out[1])
@@ -490,12 +498,13 @@ grid_compact.launches = 0
 
 def degrid_compact(stack, t_idx, k_idx, g_idx, pa, uk_t, vk_t, wk_t,
                    support: int, w_support: int, block_v: int = 512,
-                   precision: str = "highest") -> torch.Tensor:
+                   precision: str = "highest", runs=None) -> torch.Tensor:
     """Compact-tap degridding from per-task tower stacks.
 
     ``stack``: f32 [T, 2, K * (lanes + 8), lanes]; other operands as in
-    :func:`grid_compact` (``wk_t`` zero on padding and invalid slots).
-    Returns complex64 [V] in stream order.
+    :func:`grid_compact` (``wk_t`` zero on padding and invalid slots);
+    ``runs`` as in :func:`degrid_fused2_stack`. Returns complex64 [V] in
+    stream order.
     """
     if stack.ndim != 4 or stack.shape[1] != 2:
         raise SdpShapeError("stack must be [T, 2, K * (lanes + 8), lanes]")
@@ -514,14 +523,17 @@ def degrid_compact(stack, t_idx, k_idx, g_idx, pa, uk_t, vk_t, wk_t,
     from . import _build
 
     lib = _build.load()
+    runs = degrid_table(runs, (t_idx, k_idx, g_idx))
+    stack = _aligned(stack)
     out = torch.empty((2, total), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sdp_torch_fused_degrid_stack(
-            stack.data_ptr(), t_idx.data_ptr(), k_idx.data_ptr(),
-            g_idx.data_ptr(), None, pa.data_ptr(), None, None, None,
-            uk_t.data_ptr(), vk_t.data_ptr(), wk_t.data_ptr(), 0, 0.0, 0.0,
-            total, block_v, support, w_support, lanes, num_layers,
+            stack.data_ptr(), runs.data_ptr(), runs.shape[0],
+            t_idx.data_ptr(), k_idx.data_ptr(), g_idx.data_ptr(), None,
+            pa.data_ptr(), None, None, None, uk_t.data_ptr(),
+            vk_t.data_ptr(), wk_t.data_ptr(), 0, 0.0, 0.0, total, block_v,
+            support, w_support, lanes, num_layers, stack.shape[0],
             _MODES[precision], out.data_ptr(), stream)
     _build.check(lib, err, "degrid_compact")
     degrid_compact.launches += 1

@@ -4,6 +4,10 @@ Counterpart of the main-path half of ska_sdp_func_tpu.kernels.packed_tap:
 
 - :func:`split_bf16` and :func:`build_bands` are torch ops (XLA glue in
   the JAX package);
+- :func:`run_table` cuts the plan blocks into runs of one window (torch
+  ops of fixed shape, no host sync): :func:`bucket_runs` gives K1/K2's
+  maximal runs, :func:`degrid_runs` the window-gather degrid kernels'
+  (K4, K11, K13, K19) parts of :func:`unit_blocks` blocks;
 - :func:`grid_packed_stack` replaces the Pallas kernel
   ``grid_packed_stack_pallas`` and :func:`degrid_stack` replaces
   ``degrid_stack_pallas``. On a CUDA tensor each launches its
@@ -86,34 +90,86 @@ def build_bands(u_off: torch.Tensor, iv0: torch.Tensor, uk: torch.Tensor,
     return ubase, vband, vband.T.contiguous()
 
 
+def run_table(keys, max_blocks: int = 0) -> torch.Tensor:
+    """The run table of the plan blocks' window keys, without a host sync.
+
+    ``keys``: per-block int tensors [NB] on one device (the window of block
+    ``b`` is the tuple of ``keys[i][b]``). A run is a maximal sequence of
+    consecutive blocks with one key; with ``max_blocks`` > 0 each run is
+    cut into parts of ``max_blocks`` blocks from its start (the last part
+    shorter). Returns int32 ``[NB, 2]`` rows (first block, block count):
+    the runs (or parts), longest first, ties in block order, then rows
+    (0, 0) up to NB. Every block lies in exactly one row of count > 0.
+    Torch ops of fixed shape on the keys' device: the count of runs stays
+    there."""
+    nb = keys[0].shape[0]
+    dev = keys[0].device
+    if nb == 0:
+        return torch.zeros((0, 2), dtype=torch.int32, device=dev)
+    idx = torch.arange(nb, device=dev)
+    starts = idx == 0
+    for k in keys:
+        starts[1:] |= k[1:] != k[:-1]
+    if max_blocks > 0:
+        run0 = torch.cummax(torch.where(starts, idx, 0), dim=0).values
+        starts |= (idx - run0) % max_blocks == 0
+    first = torch.sort(torch.where(starts, idx, nb)).values
+    count = torch.diff(first, append=first.new_full((1,), nb))
+    order = torch.argsort(-count, stable=True)
+    first, count = first[order], count[order]
+    return torch.stack([torch.where(count > 0, first, 0), count], dim=1).to(
+        torch.int32).contiguous()
+
+
 def bucket_runs(t_idx: torch.Tensor, k_idx: torch.Tensor,
                 g_idx: torch.Tensor) -> torch.Tensor:
     """The plan's bucket runs: int32 ``[R, 2]`` rows (first block, block
     count), one per maximal sequence of consecutive blocks of one bucket
     (t, k0, g), longest first (ties in block order). Every block lies in
-    exactly one run. Torch ops on the indices' device (one host sync)."""
-    nb = t_idx.shape[0]
-    dev = t_idx.device
-    if nb == 0:
-        return torch.zeros((0, 2), dtype=torch.int32, device=dev)
-    key = torch.stack([t_idx, k_idx, g_idx]).to(torch.int64)
-    starts = torch.ones(nb, dtype=torch.bool, device=dev)
-    starts[1:] = (key[:, 1:] != key[:, :-1]).any(dim=0)
-    first = torch.nonzero(starts).reshape(-1)
-    count = torch.diff(first, append=first.new_full((1,), nb))
-    order = torch.argsort(-count, stable=True)
-    return torch.stack([first[order], count[order]], dim=1).to(
-        torch.int32).contiguous()
+    exactly one run. :func:`run_table` cut to its R runs (one host
+    sync)."""
+    table = run_table((t_idx, k_idx, g_idx))
+    return table[:int((table[:, 1] > 0).sum())].contiguous()
+
+
+def unit_blocks(num_blocks: int, device) -> int:
+    """Blocks of a run part for the window-gather degrid kernels (K4, K11,
+    K13, K19): about 16 parts for each of the card's SMs (132 on an H100
+    when ``device`` is not a CUDA device), so that the grid's static
+    stride over the longest-first table balances."""
+    dev = torch.device(device)
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 132)
+    return max(1, -(-num_blocks // (16 * sms)))
+
+
+def degrid_runs(keys) -> torch.Tensor:
+    """The run table of the window-gather degrid kernels: :func:`run_table`
+    of ``keys`` in parts of :func:`unit_blocks` (no host sync)."""
+    return run_table(keys, unit_blocks(keys[0].shape[0], keys[0].device))
+
+
+def _checked(runs, device):
+    if runs.ndim != 2 or runs.shape[1] != 2:
+        raise SdpShapeError(f"runs must be [R, 2], got {tuple(runs.shape)}")
+    _check(device, [("runs", runs)], torch.int32)
+    return runs
 
 
 def _runs_for(runs, t_idx, k_idx, g_idx):
     """The caller's run table (checked), or one built from the blocks."""
     if runs is None:
         return bucket_runs(t_idx, k_idx, g_idx)
-    if runs.ndim != 2 or runs.shape[1] != 2:
-        raise SdpShapeError(f"runs must be [R, 2], got {tuple(runs.shape)}")
-    _check(t_idx.device, [("runs", runs)], torch.int32)
-    return runs
+    return _checked(runs, t_idx.device)
+
+
+def degrid_table(runs, keys):
+    """The window-gather kernels' table: the caller's (checked; any run
+    table whose rows of count > 0 hold every block once), or
+    :func:`degrid_runs` of the block keys."""
+    if runs is None:
+        return degrid_runs(keys)
+    return _checked(runs, keys[0].device)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

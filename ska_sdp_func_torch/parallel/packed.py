@@ -44,6 +44,7 @@ from ..kernels.packed_tap import (
     WIN_ROWS,
     bucket_runs,
     build_bands,
+    degrid_runs,
     degrid_stack,
     grid_packed_stack,
     split_bf16,
@@ -500,6 +501,10 @@ class PackedGridder(_TowerImaging):
             self.precision = "highest"
         self.pa = self.pb = self.ubase = self.vband = self.vband_t = None
         self.uk_t = self.vk_t = self.wk_t = self.runs = None
+        if self.engine != "bands":
+            # K4/K13's work units, once per plan: the blocks' window runs
+            # in parts (the band engine's are K1/K2's maximal runs).
+            self.runs = degrid_runs((self.t_idx, self.k_idx, self.g_idx))
         if self.engine == "compact":
             # The word pa and the taps, evaluated once on the device.
             pa, _ = fused_tap.pack_plan_words(
@@ -621,13 +626,14 @@ class PackedGridder(_TowerImaging):
                 st, self.t_idx, self.k_idx, self.g_idx, self.pa, self.uk_t,
                 self.vk_t, self.wk_t, plan.support, plan.w_support,
                 block_v=pplan.block_v,
-                precision="bf16" if self.fast else "highest")
+                precision="bf16" if self.fast else "highest", runs=self.runs)
         if self.engine == "fused":
             return fused_tap.degrid_fused2_stack(
                 st, self.t_idx, self.k_idx, self.g_idx, self.pa, self.pb,
                 self.uv_coeffs, self.w_coeffs, plan.support, plan.w_support,
                 plan.oversampling, plan.w_oversampling,
-                block_v=pplan.block_v, precision=self.precision)
+                block_v=pplan.block_v, precision=self.precision,
+                runs=self.runs)
         return degrid_stack(
             st, self.t_idx, self.k_idx, self.g_idx, self.ubase,
             self.vband_t, self.wk_t, plan.w_support, block_v=pplan.block_v,

@@ -57,6 +57,7 @@ import torch
 
 from ..grid_data.wtower import _round_half_away, _tap_coeffs_cached
 from ..kernels import band_tap, fold, fused_tap, place, stream_prep
+from ..kernels.packed_tap import degrid_runs
 from ..utility.constants import C_0
 from ..utility.errors import SdpInvalidArgumentError, SdpRuntimeError
 from ..utility.tensors import host_uvw, resolve_device
@@ -461,12 +462,15 @@ class _StreamEngine(_TowerImaging):
 
     def _predict(self, st, arrays, block_bucket, dest):
         """Placed chunk and task-major model stack -> visibilities [R * C]
-        in entry order: K4, then the unsort (unplaced entries read the
-        zero slot ``cap``)."""
+        in entry order: K4 over the chunk's window runs (the blocks are
+        bucket-sorted: a run is a bucket's blocks; built on the device,
+        no host sync), then the unsort (unplaced entries read the zero
+        slot ``cap``)."""
         out = fused_tap.degrid_fused2_stack(
             st, *self._block_coords(block_bucket), arrays["packed_a"],
             arrays["packed_b"], self.uv_coeffs, self.w_coeffs,
-            nonempty=arrays["nonempty"], **self._kernel_dims())
+            nonempty=arrays["nonempty"], runs=degrid_runs((block_bucket,)),
+            **self._kernel_dims())
         return torch.cat([out, out.new_zeros(1)])[dest]
 
     # -- chunk steps ----------------------------------------------------
@@ -584,7 +588,8 @@ class _SplitStreamEngine(_StreamEngine):
     def _degrid_windows(self, st, arrays, block_bucket, uk, vk, wk_t):
         """K11: f32 [8, cap] sorted predictions (rows 0/1 re/im), gathered
         from plane ``task * K + slab``, rows of octet ``g`` (bf16 mode for
-        a bf16 ``vk``)."""
+        a bf16 ``vk``), over the chunk's window runs (a bucket's blocks,
+        no host sync)."""
         splan = self.splan
         plan = splan.wplan
         task, slab, octet = self._block_coords(block_bucket)
@@ -592,7 +597,7 @@ class _SplitStreamEngine(_StreamEngine):
             st, task * splan.num_layers + slab, octet,
             torch.zeros_like(octet), arrays["u_off"], arrays["iv0"], uk, vk,
             wk_t, plan.w_support, plan.subgrid_size, block_v=splan.block_v,
-            raw=True)
+            raw=True, runs=degrid_runs((block_bucket,)))
 
     @staticmethod
     def _unsort(raw, dest):

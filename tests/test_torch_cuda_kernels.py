@@ -44,7 +44,13 @@ experiments' kernels: the read probe (``read_probe``) and the tensor-core
 band products (``bucket_dot``, three TF32 passes or bf16, and its CUDA-core
 form) and overlap probe (``overlap``, every block's sum |acc| too) at
 1e-5 of max|plain|; the tap-preparation sweep (``prep_variants``) bit for
-bit.
+bit. The window-gather degrid kernels (K4, K13, K11, K19: one CTA a
+bucket run, each run's window read into shared memory once) also meet
+their plain versions at 1e-5 of max over S 1-8, Sw 1 to its maximum,
+windows of 64-4096 lanes (the ES-FFT's 8 x 256, larger than shared
+memory, included), block_v 64-1024, runs of one and of 8-12 blocks,
+shuffled blocks, one bucket and empty blocks, one launch a call and no
+host sync (``-k window_gather``).
 """
 
 import numpy as np
@@ -257,6 +263,175 @@ def test_band_kernels_over_runs_match_plain(device, geom, mode):
         assert all(after[n] == before[n] + 1 for n in after)
         assert _rel(got_g, want_g) <= 1e-5
         assert _rel(got_d, want_d) <= 1e-5
+
+
+# -- window-gather degrid kernels (K4, K13, K11, K19) over bucket runs --------
+
+# (form, S, Sw, width, block_v, order): widths 64-4096 (1024: one plane of
+# both halves a group, the units cut to 1024 slots; 2048: one slab a
+# group; 4096: a slab in two column tiles), block_v not a multiple of the
+# 32-slot tile, runs of one block and of 8-12, shuffled, one bucket;
+# "band_taps" 8 x 8 x 256 is the ES-FFT window (256 KiB, four groups of
+# two planes).
+GATHER_GEOMS = [
+    ("stack_words", 8, 4, 128, 1024, "long"),
+    ("stack_words", 8, 4, 128, 96, "ones"),
+    ("stack_words", 3, 2, 256, 200, "shuffled"),
+    ("stack_words", 1, 1, 64, 128, "single"),
+    ("stack_words", 5, 3, 1024, 72, "long"),
+    ("stack_taps", 8, 4, 128, 512, "long"),
+    ("stack_taps", 2, 4, 1024, 96, "shuffled"),
+    ("band_taps", 8, 8, 256, 128, "long"),
+    ("band_taps", 8, 4, 128, 1024, "long"),
+    ("band_taps", 4, 1, 128, 72, "ones"),
+    ("band_taps", 7, 6, 384, 200, "shuffled"),
+    ("band_taps", 8, 8, 256, 128, "single"),
+    ("band_taps", 8, 2, 2048, 128, "long"),
+    ("band_taps", 5, 1, 4096, 64, "shuffled"),
+    ("band_words", 8, 4, 128, 1024, "long"),
+    ("band_words", 6, 3, 256, 96, "shuffled"),
+    ("band_words", 2, 1, 128, 64, "ones"),
+]
+GATHER_OV, GATHER_WOV, GATHER_NCOEF = 16384, 16384, 10
+
+
+def _gather_keys(rng, order, num_keys):
+    """Block -> window key index in the given order."""
+    if order == "single":
+        return np.zeros(20, np.int64)
+    if order == "ones":
+        keys = [int(rng.integers(0, num_keys))]
+        while len(keys) < 30:
+            k = int(rng.integers(0, num_keys))
+            if k != keys[-1]:
+                keys.append(k)
+        return np.asarray(keys)
+    keys = []
+    while len(keys) < 40:
+        keys += [int(rng.integers(0, num_keys))] * int(rng.integers(8, 13))
+    keys = np.asarray(keys)
+    return rng.permutation(keys) if order == "shuffled" else keys
+
+
+def _gather_operands(device, form, support, w_support, width, block_v,
+                     order, seed=0):
+    """Random operands of one window-gather wrapper: (function, plain
+    version, arguments, keywords, block keys). Stack forms: 3 tasks of
+    Sw + 3 layers; plane forms: Sw + 4 planes of 72 rows, two 128-lane
+    blocks wider than the window. Slots at every lane of the window, some
+    past its edge (dropped), a tenth invalid; the word forms with a
+    fifth of the blocks empty."""
+    rng = np.random.default_rng(seed)
+    stack_form = form.startswith("stack")
+    if stack_form:
+        tasks, layers = 3, w_support + 3
+        keyspace = [(t, k, g) for t in range(tasks)
+                    for k in range(layers - w_support + 1)
+                    for g in range(width // 8)]
+    else:
+        planes_n, rows_pad, lanes_pad = w_support + 4, 72, width + 256
+        keyspace = [(p, g, hv) for p in range(planes_n - w_support + 1)
+                    for g in range(8) for hv in range(3)]
+    kidx = _gather_keys(rng, order, len(keyspace))
+    key = np.asarray([keyspace[i] for i in kidx], np.int32)
+    nb = key.shape[0]
+    total = nb * block_v
+    as_dev = (lambda a, dt=torch.float32: torch.as_tensor(
+        np.ascontiguousarray(a), dtype=dt, device=device))
+    iv0 = rng.integers(0, width, total)
+    iv0[::7] = width - 1 - rng.integers(0, support, total)[::7]
+    u_off = rng.integers(0, 8, total)
+    valid = rng.random(total) >= 0.1
+    idx = [as_dev(key[:, i], torch.int32) for i in range(3)]
+    if stack_form:
+        base = as_dev(rng.standard_normal(
+            (tasks, 2, layers * (width + 8), width)))
+    else:
+        base = as_dev(rng.standard_normal((2, planes_n, rows_pad,
+                                           lanes_pad)))
+    dims = dict(block_v=block_v)
+    if form.endswith("words"):
+        iv0 = np.minimum(iv0, 2047)
+        pa, pb = tf.pack_plan_words(
+            iv0, u_off, rng.integers(0, GATHER_WOV, total),
+            rng.integers(0, GATHER_OV, total),
+            rng.integers(0, GATHER_OV, total), valid)
+        nonempty = (rng.random(nb) >= 0.2).astype(np.int32)
+        coeffs = (as_dev(rng.standard_normal((GATHER_NCOEF, support)) * 0.3),
+                  as_dev(rng.standard_normal((GATHER_NCOEF, w_support))
+                         * 0.3))
+        dims.update(support=support, w_support=w_support,
+                    oversampling=GATHER_OV, w_oversampling=GATHER_WOV,
+                    nonempty=as_dev(nonempty, torch.int32))
+        words = (as_dev(pa, torch.int32), as_dev(pb, torch.int32))
+        if stack_form:
+            return (tf.degrid_fused2_stack, tf.degrid_fused2_stack_reference,
+                    (base, *idx, *words, *coeffs), dims, key)
+        return (tb.degrid_fused2, tb.degrid_fused2_reference,
+                (base, *idx, *words, *coeffs, width), dict(dims, raw=True),
+                key)
+    uk = rng.standard_normal((total, support))
+    vk = rng.standard_normal((total, support))
+    wk_t = as_dev(rng.uniform(0.1, 1, (w_support, total)) * valid)
+    if stack_form:
+        pa, _ = tf.pack_plan_words(iv0, u_off, 0, 0, 0, 1)
+        return (tf.degrid_compact, tf.degrid_compact_reference,
+                (base, *idx, as_dev(pa, torch.int32), as_dev(uk.T),
+                 as_dev(vk.T), wk_t, support, w_support), dims, key)
+    return (tb.degrid_fused, tb.degrid_fused_reference,
+            (base, *idx, as_dev(u_off, torch.int32),
+             as_dev(iv0, torch.int32), as_dev(uk), as_dev(vk), wk_t,
+             w_support, width), dict(dims, raw=True), key)
+
+
+def _gather_modes(form):
+    return ["highest", "bf16"] if form == "band_taps" else list(MODES)
+
+
+GATHER_CASES = [(g, m) for g in GATHER_GEOMS for m in _gather_modes(g[0])]
+
+
+@pytest.mark.parametrize("geom,mode", GATHER_CASES, ids=[
+    "-".join(map(str, g)) + f"-{m}" for g, m in GATHER_CASES])
+def test_window_gather_kernels_match_plain(device, geom, mode):
+    """K4 (``stack_words``), K13 (``stack_taps``), K11 (``band_taps``, f32
+    and bf16 ``vk``) and K19 (``band_words``) against their plain versions
+    at 1e-5 of max|output|: S 1-8, Sw 1 to its maximum, windows of 64-4096
+    lanes (the ES window of 8 x 256 included), block_v 64-1024, runs of
+    one and 8-12 blocks, shuffled and one bucket; empty blocks predict
+    exactly zero. One launch a call, with the run table given (maximal
+    runs, or the kernels' parts) or built by the wrapper, and no host
+    sync."""
+    form, support, w_support, width, block_v, order = geom
+    fn, ref, args, kw, key = _gather_operands(
+        device, form, support, w_support, width, block_v, order)
+    if form == "band_taps" and mode == "bf16":
+        args = (*args[:7], args[7].to(torch.bfloat16), *args[8:])
+    elif form != "band_taps":
+        kw = dict(kw, precision=mode)
+    want = ref(*args, **kw)
+    keys = args[1:4]
+    tables = [None, tk.bucket_runs(*keys), tk.degrid_runs(keys)]
+    if order == "ones":
+        assert int(tables[1][:, 1].max()) == 1
+    if order == "long":
+        assert int(tables[1][:, 1].min()) >= 8
+    for runs in tables:
+        before = fn.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = fn(*args, **kw, runs=runs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert _rel(got, want) <= 1e-5
+        if "nonempty" in kw:
+            empty = torch.repeat_interleave(kw["nonempty"] == 0, block_v)
+            got_e = got[..., empty] if got.ndim == 1 else got[:2, empty]
+            assert not bool(got_e.abs().max() > 0)
+        if got.ndim == 2:
+            assert not bool(got[2:].abs().max() > 0)
 
 
 # -- w-towers tap kernels ----------------------------------------------------
