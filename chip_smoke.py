@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     (cd CHECKOUT && python3 /path/to/chip_smoke.py --packed-times)
     (cd CHECKOUT && python3 /path/to/chip_smoke.py --predict-times)
+    (cd CHECKOUT && python3 /path/to/chip_smoke.py --ingest-times)
 
 Run from the repository root on a machine with a CUDA card. With
 ``--packed-times`` it only times the packed path (K1/K2 in "high" and
@@ -11,15 +12,22 @@ Run from the repository root on a machine with a CUDA card. With
 the package of the working directory and prints one JSON line, so two
 checkouts compare on one card in turns; ``--predict-times`` does the same
 for the three predicts (the stream, non-packable and ES-FFT degrids, by
-stage) and the window-gather kernels K4, K11, K13 and K19. Phases, one
-line of output each (or a few), failing loudly on the first fault:
+stage) and the window-gather kernels K4, K11, K13 and K19 (with a digest
+of each output, equal where two checkouts' results are bit-equal), and
+``--ingest-times`` for the ingests (the stream's ``accumulate``, the
+non-packable one in f32 and fast, the ES-FFT 3-D grid, by stage; the
+packed fused and compact ``grid_sorted``) and the window-scatter kernels
+K3, K8, K12 and K18. Phases, one line of output each (or a few), failing
+loudly on the first fault:
 
 1. toolchain: the card's name and power limit (nvidia-smi), torch, CUDA
    and nvcc versions;
 2. build: compiles the port's CUDA kernels from ``csrc/`` (one nvcc per
    source, in parallel; timed), and prints the registers and spills
    ptxas reports for each instance of the window-gather kernel (K4, K11,
-   K13, K19);
+   K13, K19) and of the window-scatter kernel (K3, K12, K8, K18), and
+   the shared-memory atomics and bulk reductions in each kernel's SASS
+   (``cuobjdump -sass``);
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card: the packed kernels (K1, K2: "high" and "bf16" on the tensor
    cores over the plan's bucket runs, "highest" on the CUDA cores) and
@@ -180,12 +188,15 @@ largest task. K4, K11, K13 and K19 (redesigned: one template in
 ``csrc/window_gather.cu``) carry ``redesigned``, their template
 ``instance`` and its ``ptxas`` registers and spills; K11 has a row at
 window j's dense stream (``degrid_fused[dense stream]``) beside its
-ES-FFT one. One kernel replaces both
-TPU folds (K9, K10): it has a row for each; the bf16 modes of K6, K7, K8
-and K11 have rows of their own (``[bf16]``, window k's operands), bytes
-counted for the bf16 ``vk``; so do K20 and the bf16 modes of K14-K17
-(window m's and n's operands, which the bf16 modes read as f32 and
-round in registers). ``library_ms`` is null (no single PyTorch
+ES-FFT one. K3, K8, K12 and K18 (redesigned: one template in
+``csrc/window_scatter.cu``) carry the same keys (``instance``:
+``window_scatter_kernel<...>``); K8 has a row at window j's dense stream
+(``grid_packed[dense stream]``) beside its ES-FFT one. One kernel
+replaces both TPU folds (K9, K10): it has a row for each; the bf16
+modes of K6, K7, K8 and K11 have rows of their own (``[bf16]``, window
+k's operands), bytes counted for the bf16 ``vk``; so do K20 and the bf16
+modes of K14-K17 (window m's and n's operands, which the bf16 modes read
+as f32 and round in registers). ``library_ms`` is null (no single PyTorch
 call computes any of these functions) but for K1/K2 and their ``[bf16]``
 rows (window a's fast run): the product alone, ``torch.bmm`` of the plain
 version's materialised operands (f32 with TF32 off, or bf16), labelled
@@ -265,9 +276,9 @@ STREAM_CHANS, STREAM_BLOCK_V, STREAM_CAP_FACTOR = 256, 1024, 1.4
 SHORT_ROWS = 12288
 # The streaming path's kernels: name, module, source, replaced TPU kernel.
 STREAM_KERNELS = (
-    ("grid_fused_stack", "fused_tap", "csrc/fused_tap.cu",
+    ("grid_fused_stack", "fused_tap", "csrc/window_scatter.cu",
      "ska_sdp_func_tpu/kernels/fused_tap.py:426"),
-    ("degrid_fused2_stack", "fused_tap", "csrc/fused_tap.cu",
+    ("degrid_fused2_stack", "fused_tap", "csrc/window_gather.cu",
      "ska_sdp_func_tpu/kernels/fused_tap.py:924"),
     ("place_stream", "place", "csrc/place.cu",
      "ska_sdp_func_tpu/kernels/place.py:92"),
@@ -299,7 +310,6 @@ WIDE_SUPPORTS = (12, 20, 56)
 ES_EPSILON = 1e-5
 ES_LAYOUTS = {"3-D": True, "2-D": False}
 ES_ORACLE_TOL = 5e-6    # complex64 path vs the f64 oracle, of max|oracle|
-BAND_SOURCE = "ska_sdp_func_torch/kernels/csrc/band_tap.cu"
 ES_KERNELS = (
     ("grid_packed", "ska_sdp_func_tpu/kernels/packed_tap.py:397"),
     ("degrid_fused", "ska_sdp_func_tpu/kernels/packed_tap.py:935"),
@@ -320,8 +330,22 @@ GATHER_MODES = {0: "kF32", 1: "kHigh", 2: "kBf16"}
 GATHER_ROWS = {"degrid_fused2_stack": (0, 0), "degrid_compact": (0, 1),
                "degrid_fused": (0, 2), "degrid_fused[dense stream]": (0, 2),
                "degrid_fused[bf16]": (2, 2), "degrid_fused2": (0, 3)}
+# K3, K8, K12 and K18, redesigned for the card: one kernel template,
+# window_scatter_kernel<MODE, FORM>, over the same run tables (the forms
+# and modes are numbered as the gather's).
+SCATTER_SOURCE = "ska_sdp_func_torch/kernels/csrc/window_scatter.cu"
+SCATTER_REDESIGN = ("redesigned: CTAs walk the run table, a bucket run (or "
+                    "part of one) a unit; 256 slots staged at a time "
+                    "(taps, scales, first cell; dead slots compacted "
+                    "out); each warp owns whole window planes in shared "
+                    "memory and adds a slot's cells with plain loads and "
+                    "stores, lane (q, sv) on 32 distinct banks; one bulk "
+                    "reduce-add (cp.reduce.async.bulk) a window row a unit; "
+                    "the ES window in groups of planes")
+SCATTER_ROWS = {"grid_fused_stack": (0, 0), "grid_compact": (0, 1),
+                "grid_packed": (0, 2), "grid_packed[dense stream]": (0, 2),
+                "grid_packed[bf16]": (2, 2), "grid_fused": (0, 3)}
 # The packed engine="compact"'s kernels.
-FUSED_SOURCE = "ska_sdp_func_torch/kernels/csrc/fused_tap.cu"
 COMPACT_KERNELS = (
     ("grid_compact", "ska_sdp_func_tpu/kernels/fused_tap.py:555"),
     ("degrid_compact", "ska_sdp_func_tpu/kernels/fused_tap.py:636"),
@@ -350,8 +374,9 @@ BF16_KERNELS = (
      "ska_sdp_func_tpu/kernels/packed_tap.py:524"),
     ("stream_prep_degrid", PREP_SOURCE,
      "ska_sdp_func_tpu/kernels/packed_tap.py:642"),
-    ("grid_packed", BAND_SOURCE, "ska_sdp_func_tpu/kernels/packed_tap.py:397"),
-    ("degrid_fused", BAND_SOURCE,
+    ("grid_packed", SCATTER_SOURCE,
+     "ska_sdp_func_tpu/kernels/packed_tap.py:397"),
+    ("degrid_fused", GATHER_SOURCE,
      "ska_sdp_func_tpu/kernels/packed_tap.py:935"),
 )
 FAST_TOL = 5e-3      # bf16 against f32, of peak (the JAX bf16 envelope)
@@ -1107,7 +1132,8 @@ def word_operands(torch, sp, uvw, vis, model):
     return grid_args, degrid_args, kw, int(processed), degrid_kw
 
 
-def check_word_kernels(torch, grid_args, degrid_args, kw, degrid_kw):
+def check_word_kernels(torch, grid_args, degrid_args, kw, degrid_kw,
+                       grid_kw):
     """K18 and K19 against their plain versions in the three modes, and
     at "highest" against K8/K11 fed the same taps (``cheb_taps`` of the
     words; w taps times ``valid``, visibilities and taps of empty blocks
@@ -1115,7 +1141,7 @@ def check_word_kernels(torch, grid_args, degrid_args, kw, degrid_kw):
     from ska_sdp_func_torch.kernels import band_tap as bt
     from ska_sdp_func_torch.kernels import fused_tap as tf
 
-    calls = (("grid_fused", grid_args, {}),
+    calls = (("grid_fused", grid_args, grid_kw),
              ("degrid_fused2", degrid_args, degrid_kw))
     errs, lines, out = {}, [], {}
     for name, args, extra in calls:
@@ -1364,6 +1390,19 @@ def packed_times_main() -> int:
     return 0
 
 
+def digest(out) -> str:
+    """The first 16 hex digits of the SHA-256 of a kernel's output bytes:
+    two checkouts whose kernel sums in a fixed order (the window-gather
+    degrids) give equal digests when their results are bit-equal."""
+    import hashlib
+
+    import torch
+
+    raw = torch.view_as_real(out) if out.is_complex() else out
+    return hashlib.sha256(raw.detach().contiguous().cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
 def predict_times(torch, dev):
     """The three predicts and the window-gather kernels, timed on the
     package that is imported (two checkouts compare on one card in turns,
@@ -1374,8 +1413,9 @@ def predict_times(torch, dev):
     20 calls, twice): K4 and K11 (f32, bf16) at the dense stream, K11 at
     the ES-FFT shapes, K4 and K13 of the packed engines at the bench
     scenario ("highest"), and K19 on window f's words (with the kernels'
-    run table where the package has one). Only calls every version of
-    the port has are made."""
+    run table where the package has one), with the digest of each
+    kernel's output (:func:`digest`). Only calls every version of the port
+    has are made."""
     from ska_sdp_func_torch.grid_data import GridderUvwEsFft
     from ska_sdp_func_torch.kernels import band_tap, fused_tap
     from ska_sdp_func_torch.parallel import (
@@ -1421,11 +1461,12 @@ def predict_times(torch, dev):
     stages, calls = predict_stages(
         torch, *sds, lambda: es.ifft_degrid_uvw_es_fft(
             e_uvw, e_freq, e_zeros, e_weight, model), uvw_dd)
-    kernels = {}
+    kernels, digests = {}, {}
 
     def twice(name, fn, args, kw):
         kernels[name] = [cuda_ms(torch, lambda: fn(*args, **kw), 20)
                          for _ in range(2)]
+        digests[name] = digest(fn(*args, **kw))
 
     for name, fn, key in (
             ("degrid_fused2_stack[dense stream]",
@@ -1456,7 +1497,7 @@ def predict_times(torch, dev):
                                               model)
     twice("degrid_fused2[dense stream]", band_tap.degrid_fused2, w_args,
           dict(w_kw, **w_dkw))
-    return dict(stages=stages, kernels=kernels)
+    return dict(stages=stages, kernels=kernels, digests=digests)
 
 
 def predict_times_main() -> int:
@@ -1478,6 +1519,234 @@ def predict_times_main() -> int:
                "--format=csv,noheader"]).splitlines()[0]
     _build.load()
     out = predict_times(torch, torch.device("cuda", 0))
+    say(json.dumps({"checkout": os.path.dirname(ska_sdp_func_torch.__file__),
+                    "gpu": gpu, **out}))
+    return 0
+
+
+def scatter_units(runs, block_v):
+    """The window-scatter kernels' work in a call's run table: units (rows
+    of count > 0) and most slots a unit; None where the call carries no
+    table (a checkout before the redesign)."""
+    if runs is None:
+        return None
+    slots = runs[:, 1][runs[:, 1] > 0].long() * block_v
+    return dict(units=int(slots.numel()), max_slots=int(slots.max()))
+
+
+def ingest_stages(torch, sg_f, sg_j, sg_k, es_plan, es, uvw, vis):
+    """CUDA-event ms (10 calls each) of the ingests and their stages on
+    the chunk ``uvw``/``vis``: the packable stream's ``accumulate``
+    ``sg_f`` (plan + K5, the run table where the package builds one, K3,
+    the drain), the non-packable ones ``sg_j`` (f32) and ``sg_k`` (fast):
+    plan + K5, K6, the K8 stage (its run table included), the fold, the
+    drain, and K8 alone on the stage's own operands; and the ES-FFT 3-D
+    grid ``es()`` of the plan ``es_plan``: K8 alone, the slab fold and the
+    rest (FFTs, screens, the sort). Each rest is the whole call's time less its timed stages. Also
+    returns the kernels' captured calls, for their rows."""
+    from ska_sdp_func_torch.grid_data import es_fft_packed
+    from ska_sdp_func_torch.kernels import band_tap, fused_tap, packed_tap
+    from ska_sdp_func_torch.parallel import streaming
+
+    out, calls = {}, {}
+    vre = vis.real.contiguous()
+    vim = vis.imag.contiguous()
+
+    def ms(fn):
+        return cuda_ms(torch, fn, 10, warmup=1)
+
+    def chunk(sg):
+        eng = sg._engine
+        _, uvw32, mask = streaming._padded_chunk(sg.splan, uvw, uvw.device)
+        return eng, lambda: eng._plan_chunk(uvw32, mask, vre, vim,
+                                            need_unsort=False)
+
+    def rest(st):
+        st["rest"] = st["call"] - sum(v for k, v in st.items()
+                                      if k != "call")
+
+    eng, plan = chunk(sg_f)
+    rec = []
+    with recorded(streaming, "fused_tap", ("grid_fused_stack",), rec):
+        sg_f.accumulate(uvw, vis)
+    args, kw = calls["stream ingest"] = rec[-1][1:]
+    _, _, bb, visited, *_ = plan()
+    tvis = visited.reshape(len(sg_f.splan.tasks), -1).any(dim=1)
+    stack = fused_tap.grid_fused_stack(*args, **kw)
+    st = dict(call=ms(lambda: sg_f.accumulate(uvw, vis)), plan=ms(plan))
+    if "runs" in kw:
+        st["run table"] = ms(lambda: packed_tap.degrid_runs((bb,)))
+    st["K3"] = ms(lambda: fused_tap.grid_fused_stack(*args, **kw))
+    st["drain"] = ms(lambda: eng._image_from_stack(stack, tvis))
+    rest(st)
+    st["units"] = scatter_units(kw.get("runs"), kw["block_v"])
+    out["stream ingest"] = st
+    del stack
+    for name, sg in (("non-packable ingest", sg_j),
+                     ("non-packable ingest, fast", sg_k)):
+        eng, plan = chunk(sg)
+        rec = []
+        with recorded(streaming, "band_tap", ("grid_packed",), rec):
+            sg.accumulate(uvw, vis)
+        args, kw = calls[name] = rec[-1][1:]
+        a, _, bb, visited, *_ = plan()
+        taps = eng._prep_grid(a)
+        wins = eng._grid_windows(a, bb, *taps)
+        layers = eng._fold_windows(wins, visited)
+        st = dict(call=ms(lambda: sg.accumulate(uvw, vis)), plan=ms(plan),
+                  K6=ms(lambda: eng._prep_grid(a)),
+                  **{"K8 stage": ms(lambda: eng._grid_windows(
+                      a, bb, *taps))},
+                  fold=ms(lambda: eng._fold_windows(wins, visited)),
+                  drain=ms(lambda: eng._drain(layers)))
+        rest(st)
+        st["K8 alone"] = ms(lambda: band_tap.grid_packed(*args, **kw))
+        st["units"] = scatter_units(kw.get("runs"), kw["block_v"])
+        out[name] = st
+        del a, bb, taps, wins, layers
+    rec = []
+    with captured_calls(es_fft_packed, "grid_packed", rec):
+        es()
+    calls["es grid"] = rec[-1]
+    ep = es_plan._packed
+    wins = [band_tap.grid_packed(*a, **k) for a, k in rec]
+    visited = ep.dev["visited"]
+    st = dict(call=ms(es),
+              K8=ms(lambda: [band_tap.grid_packed(*a, **k) for a, k in rec]),
+              fold=ms(lambda: [es_fft_packed._fold_slab(
+                  w, visited[s], ep.gu, ep.gv, ep.w_support, ep.rows_pad,
+                  ep.lanes_pad) for s, w in enumerate(wins)]))
+    rest(st)
+    st["units"] = scatter_units(rec[-1][1].get("runs"), ep.block_v)
+    out["ES-FFT 3-D grid"] = st
+    return out, calls
+
+
+def ingest_times(torch, dev):
+    """The ingests and the window-scatter kernels, timed on the package
+    that is imported (two checkouts compare on one card in turns, each run
+    from its own root with ``--ingest-times``): the stages of
+    :func:`ingest_stages` on bench.py's dense stream (packable, and at
+    oversampling 65536 in f32 and fast) and of the ES-FFT 3-D grid of the
+    bench data; the packed ``engine="compact"`` and ``engine="fused"``
+    ``grid_sorted`` at the bench scenario ("highest"); then each grid
+    kernel on its path's operands (CUDA events, 20 calls, twice): K3 at
+    the dense stream and the packed bench scenario, K8 (f32, bf16) at the
+    dense stream and at the ES-FFT shapes, K12 at the packed bench
+    scenario, and K18 on window f's words (with a run table built once,
+    as a plan's, where the package takes one). Only calls every version
+    of the port has are made."""
+    import inspect
+
+    from ska_sdp_func_torch.grid_data import GridderUvwEsFft
+    from ska_sdp_func_torch.kernels import band_tap, fused_tap, packed_tap
+    from ska_sdp_func_torch.parallel import (
+        PackedGridder,
+        StreamingGridder,
+        packed,
+        plan_packed,
+        plan_stream,
+        plan_wstack,
+        stream_tasks,
+    )
+
+    uvw_d, vis_d = stream_inputs()
+    uvw_dd = torch.as_tensor(uvw_d, device=dev)
+    vis_dd = torch.as_tensor(vis_d, device=dev)
+    model = torch.zeros((IMAGE, IMAGE), dtype=torch.float32, device=dev)
+    model[300, 200] = 1.0
+
+    def stream_plan(**kw):
+        wplan = plan_wstack(uvw_d, C_0, C_0 / (100 * STREAM_CHANS),
+                            STREAM_CHANS, IMAGE, SUBGRID, THETA, W_STEP,
+                            support=8, w_support=4, w_tower_height=HEIGHT,
+                            **kw)
+        return plan_stream(wplan, stream_tasks(wplan, uvw_d),
+                           chunk_rows=ROWS, block_v=STREAM_BLOCK_V,
+                           cap_factor=STREAM_CAP_FACTOR)
+
+    sp_d = stream_plan()
+    sp_j = stream_plan(oversampling=NP_OVERSAMPLING,
+                       w_oversampling=NP_W_OVERSAMPLING)
+    sgs = [StreamingGridder(sp, fast=fast, device=dev)
+           for sp, fast in ((sp_d, False), (sp_j, False), (sp_j, True))]
+    uvw, vis = bench_inputs()
+    freq = C_0 + np.arange(CHANS) * (C_0 / (100 * CHANS))
+    pix = THETA / IMAGE
+    es = GridderUvwEsFft(
+        uvw, freq, vis, np.ones(vis.shape, np.float32),
+        np.zeros((IMAGE, IMAGE), np.float32), pix, pix, ES_EPSILON,
+        *GridderUvwEsFft.get_w_range(uvw, freq), True, device=dev)
+    e_args = [torch.as_tensor(x, device=dev) for x in (uvw, freq, vis)]
+    e_weight = torch.ones(vis.shape, device=dev)
+    e_dirty = torch.zeros((IMAGE, IMAGE), device=dev)
+
+    def es_grid():
+        return es.grid_uvw_es_fft(*e_args, e_weight, e_dirty)
+
+    stages, calls = ingest_stages(torch, *sgs, es, es_grid, uvw_dd, vis_dd)
+    kernels = {}
+
+    def twice(name, fn, args, kw):
+        kernels[name] = [cuda_ms(torch, lambda: fn(*args, **kw), 20)
+                         for _ in range(2)]
+
+    for name, fn, key in (
+            ("grid_fused_stack[dense stream]", fused_tap.grid_fused_stack,
+             "stream ingest"),
+            ("grid_packed[dense stream]", band_tap.grid_packed,
+             "non-packable ingest"),
+            ("grid_packed[dense stream, bf16]", band_tap.grid_packed,
+             "non-packable ingest, fast"),
+            ("grid_packed[ES-FFT 3-D]", band_tap.grid_packed, "es grid")):
+        twice(name, fn, *calls[key])
+    del sgs, calls, es
+    wplan = plan_wstack(uvw, C_0, C_0 / (100 * CHANS), CHANS, IMAGE, SUBGRID,
+                        THETA, W_STEP, support=8, w_support=4,
+                        w_tower_height=HEIGHT)
+    pplan = plan_packed(wplan, uvw)
+    vis_b = torch.as_tensor(vis, device=dev)
+    for engine, name in (("fused", "grid_fused_stack"),
+                         ("compact", "grid_compact")):
+        g = PackedGridder(pplan, precision="highest", engine=engine,
+                          device=dev)
+        vre, vim = g.sort(vis_b)
+        rec = []
+        with recorded(packed, "fused_tap", (name,), rec):
+            g.grid_sorted(vre, vim)
+        stages[f"packed grid_sorted, engine={engine!r}"] = dict(
+            call=cuda_ms(torch, lambda: g.grid_sorted(vre, vim), 10,
+                         warmup=1))
+        twice(f"{name}[packed bench]", getattr(fused_tap, name),
+              *rec[-1][1:])
+        del g, rec
+    w_args, _, w_kw, _, _ = word_operands(torch, sp_d, uvw_dd, vis_dd,
+                                          model)
+    if "runs" in inspect.signature(band_tap.grid_fused).parameters:
+        w_kw = dict(w_kw, runs=packed_tap.degrid_runs((w_args[0],)))
+    twice("grid_fused[dense stream]", band_tap.grid_fused, w_args, w_kw)
+    return dict(stages=stages, kernels=kernels)
+
+
+def ingest_times_main() -> int:
+    """``chip_smoke.py --ingest-times``: :func:`ingest_times` of the
+    package at the working directory (a checkout's root), one JSON
+    line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.getcwd())
+    import ska_sdp_func_torch
+    from ska_sdp_func_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu = run(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    _build.load()
+    out = ingest_times(torch, torch.device("cuda", 0))
     say(json.dumps({"checkout": os.path.dirname(ska_sdp_func_torch.__file__),
                     "gpu": gpu, **out}))
     return 0
@@ -1700,12 +1969,12 @@ def np_stage_times(torch, sd, uvw, vis):
     return out
 
 
-def gather_ptxas(log):
-    """{(mode, form): registers, spill stores and loads} of each
-    window_gather_kernel instance in nvcc's ``-Xptxas -v`` log."""
+def window_ptxas(log, kernel="window_gather_kernel"):
+    """{(mode, form): registers, spill stores and loads} of each instance
+    of the window template ``kernel`` in nvcc's ``-Xptxas -v`` log."""
     out, key = {}, None
     for line in log.splitlines():
-        m = re.search(r"window_gather_kernelILi(\d)ELi(\d)E", line)
+        m = re.search(kernel + r"ILi(\d)ELi(\d)E", line)
         if m and "Compiling entry" in line:
             key = (int(m[1]), int(m[2]))
             continue
@@ -1720,6 +1989,32 @@ def gather_ptxas(log):
         if m:
             out.setdefault(key, {})["registers"] = int(m[1])
             key = None
+    return out
+
+
+def sass_atomics(path):
+    """{kernel: {instruction: count}} of the shared-memory atomics
+    (``ATOMS.*``: a CAS loop shows as ``ATOMS.CAST.SPIN``) and the bulk
+    reductions (``UBLKRED.*``) in the SASS of the kernel library at
+    ``path`` (``cuobjdump -sass``), by kernel name; None where the toolkit
+    has no cuobjdump."""
+    from ska_sdp_func_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out, kernel = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*?\d+([a-z_]+_kernel)", line)
+        if m:
+            kernel = m[1]
+            continue
+        m = re.search(r"\b((?:ATOMS|UBLKRED)(?:\.[A-Z0-9]+)*)", line)
+        if m and kernel:
+            counts = out.setdefault(kernel, {})
+            counts[m[1]] = counts.get(m[1], 0) + 1
     return out
 
 
@@ -2317,16 +2612,30 @@ def main() -> int:
     for line in _build.build_info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             say("#   ptxas" + line.split("ptxas", 1)[-1])
-    ptxas = gather_ptxas(_build.build_info["log"])
-    say("# ptxas, window_gather_kernel<MODE, FORM> (K4 kStackWords, K13 "
-        "kStackTaps, K11 kBandTaps, K19 kBandWords): " + "; ".join(
+    ptxas, scatter_ptxas = (window_ptxas(_build.build_info["log"], k)
+                            for k in ("window_gather_kernel",
+                                      "window_scatter_kernel"))
+    for kernel, found, names in (
+            ("window_gather_kernel", ptxas,
+             "K4 kStackWords, K13 kStackTaps, K11 kBandTaps, K19 "
+             "kBandWords"),
+            ("window_scatter_kernel", scatter_ptxas,
+             "K3 kStackWords, K12 kStackTaps, K8 kBandTaps, K18 "
+             "kBandWords")):
+        say(f"# ptxas, {kernel}<MODE, FORM> ({names}): " + "; ".join(
             f"<{GATHER_MODES[m]}, {GATHER_FORMS[f]}> {v.get('registers')} "
             f"registers, spills {v.get('spill_stores')} B stored / "
             f"{v.get('spill_loads')} B loaded"
-            for (m, f), v in sorted(ptxas.items())))
-    if _build.build_info["log"] and \
-            len(ptxas) != len(GATHER_MODES) * len(GATHER_FORMS):
-        raise SystemExit("the build log lacks window_gather_kernel entries")
+            for (m, f), v in sorted(found.items())))
+        if _build.build_info["log"] and \
+                len(found) != len(GATHER_MODES) * len(GATHER_FORMS):
+            raise SystemExit(f"the build log lacks {kernel} entries")
+    census = sass_atomics(_build.build_info["path"])
+    say("# SASS (cuobjdump -sass), shared-memory atomics and bulk "
+        "reductions by kernel: " + ("; ".join(
+            f"{k} " + ", ".join(f"{i} x{n}" for i, n in sorted(v.items()))
+            for k, v in sorted(census.items())) if census is not None
+            else "not measured (no cuobjdump)"))
 
     # 3. kernels vs plain ----------------------------------------------
     uvw_s, vis_s = small_inputs()
@@ -2915,14 +3224,17 @@ def main() -> int:
     # 4l. K18 and K19, driven once on window f's operands ----------------
     word_grid, word_degrid, word_kw, word_valid, word_dkw = word_operands(
         torch, sp_d, uvw_dd, vis_dd, model)
+    # K18's run table, built once as a plan's would be (K19's is in
+    # word_dkw).
+    word_gkw = dict(runs=tk.degrid_runs((word_grid[0],)))
     word_names = [n for n, _ in WORD_KERNELS]
     with launch_window(torch, tkern, "word-fed bucket-window kernels",
                        word_names, [n for n in tkern.launch_counts()
                                     if n not in word_names]) as w_launches:
-        tkern.band_tap.grid_fused(*word_grid, **word_kw)
+        tkern.band_tap.grid_fused(*word_grid, **word_kw, **word_gkw)
         tkern.band_tap.degrid_fused2(*word_degrid, **word_kw, **word_dkw)
     word_err = check_word_kernels(torch, word_grid, word_degrid, word_kw,
-                                  word_dkw)
+                                  word_dkw, word_gkw)
 
     # 4m. K20, the sparse all-layer grid, on the fallback's largest task,
     # once in each mode ------------------------------------------------
@@ -3353,12 +3665,13 @@ def main() -> int:
             name, getattr(band_tap, name),
             getattr(band_tap, name + "_reference"), args, kw,
             tap_ops(es_valid, 8, 8), p_iters=2, p_warmup=1))
-    # K11 at window j's dense stream (f32; its bf16 mode below).
-    args, kw = np_ops["degrid_fused"][0]
-    say(f"# [{gpu}] degrid_fused at the non-packable dense stream's shapes: "
-        + time_kernel("degrid_fused[dense stream]", band_tap.degrid_fused,
-                      band_tap.degrid_fused_reference, args, kw,
-                      tap_ops(np_valid, 8, 4), p_iters=2, p_warmup=1))
+    # K8 and K11 at window j's dense stream (f32; their bf16 modes below).
+    for name in ("grid_packed", "degrid_fused"):
+        args, kw = np_ops[name][0]
+        say(f"# [{gpu}] {name} at the non-packable dense stream's shapes: "
+            + time_kernel(f"{name}[dense stream]", getattr(band_tap, name),
+                          getattr(band_tap, name + "_reference"), args, kw,
+                          tap_ops(np_valid, 8, 4), p_iters=2, p_warmup=1))
     # K6, K7 and the fold kernel on window j's operands (captured in 3).
     from ska_sdp_func_torch.kernels import fold, stream_prep
 
@@ -3400,7 +3713,7 @@ def main() -> int:
     # K18 and K19 at "highest" on window f's operands; the bound counts
     # each slot's taps once (the kernels evaluate them per window plane,
     # K18, or per warp lane, K19).
-    for name, args, extra in (("grid_fused", word_grid, {}),
+    for name, args, extra in (("grid_fused", word_grid, word_gkw),
                               ("degrid_fused2", word_degrid, word_dkw)):
         say(f"# [{gpu}] {name} at the dense stream's shapes, 'highest': "
             + time_kernel(name, getattr(band_tap, name),
@@ -3436,15 +3749,21 @@ def main() -> int:
                     bound_ms_read_rate=read_rate_bound(
                         moved_bytes[name], b, by, read_rate))
 
-    def gather_row(r):
-        """K4, K11, K13 and K19's rows name their redesigned kernel, its
+    def window_row(r):
+        """The rows of the window kernels (K4, K11, K13, K19: the gather;
+        K3, K8, K12, K18: the scatter) name their redesigned kernel, its
         template instance and its ptxas registers and spills."""
-        key = GATHER_ROWS.get(r["name"])
-        if key is not None:
-            r.update(source=GATHER_SOURCE, redesigned=GATHER_REDESIGN,
-                     instance=f"window_gather_kernel<{GATHER_MODES[key[0]]}"
-                              f", {GATHER_FORMS[key[1]]}>",
-                     ptxas=ptxas.get(key))
+        for rows, source, note, kernel, found in (
+                (GATHER_ROWS, GATHER_SOURCE, GATHER_REDESIGN,
+                 "window_gather_kernel", ptxas),
+                (SCATTER_ROWS, SCATTER_SOURCE, SCATTER_REDESIGN,
+                 "window_scatter_kernel", scatter_ptxas)):
+            key = rows.get(r["name"])
+            if key is not None:
+                r.update(source=source, redesigned=note,
+                         instance=f"{kernel}<{GATHER_MODES[key[0]]}, "
+                                  f"{GATHER_FORMS[key[1]]}>",
+                         ptxas=found.get(key))
         return r
 
     def plane_row(r):
@@ -3495,10 +3814,12 @@ def main() -> int:
         else task_row(name, where)
         for name, where in TOWER_KERNELS
     ] + [
-        row(name, BAND_SOURCE, where, es["launches"][name], es["errs"][name])
+        row(name, SCATTER_SOURCE, where, es["launches"][name],
+            es["errs"][name])
         for name, where in ES_KERNELS
     ] + [
-        row(name, FUSED_SOURCE, where, cp["launches"][name], cp["errs"][name])
+        row(name, SCATTER_SOURCE, where, cp["launches"][name],
+            cp["errs"][name])
         for name, where in COMPACT_KERNELS
     ] + [
         row(name, PREP_SOURCE, where, np_launches[name], np_err[name])
@@ -3510,13 +3831,16 @@ def main() -> int:
              name=f"fold_windows[{tpu_name}]")
         for tpu_name, where in FOLD_REPLACES
     ] + [
-        row("degrid_fused[dense stream]", GATHER_SOURCE, ES_KERNELS[1][1],
-            np_launches["degrid_fused"], np_err["degrid_fused"])
+        row(f"{name}[dense stream]", source, where, np_launches[name],
+            np_err[name])
+        for (name, where), source in zip(ES_KERNELS, (SCATTER_SOURCE,
+                                                      GATHER_SOURCE))
     ] + [
         row(f"{name}[bf16]", source, where, k_launches[name], bf_err[name])
         for name, source, where in BF16_KERNELS
     ] + [
-        row(name, BAND_SOURCE, where, w_launches[name], word_err[name])
+        row(name, SCATTER_SOURCE, where, w_launches[name],
+            word_err[name])
         for name, where in WORD_KERNELS
     ] + [
         row(f"grid_all_layers_sparse{tag}", SPARSE_SOURCE, SPARSE_REPLACES,
@@ -3532,7 +3856,7 @@ def main() -> int:
         exp_row(name, source, where, exp_sites[name][0], exp_sites[name][1],
                 headline, read_rate)
         for name, _, _, _, source, where, headline in EXPERIMENT_SITES]
-    kernels = [gather_row(r) for r in kernels]
+    kernels = [window_row(r) for r in kernels]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3545,4 +3869,6 @@ if __name__ == "__main__":
         sys.exit(packed_times_main())
     if sys.argv[1:] == ["--predict-times"]:
         sys.exit(predict_times_main())
+    if sys.argv[1:] == ["--ingest-times"]:
+        sys.exit(ingest_times_main())
     sys.exit(main())

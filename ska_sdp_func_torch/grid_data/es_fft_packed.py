@@ -244,8 +244,11 @@ def attach(plan, ep: EsPackedPlan) -> EsPackedPlan:
         screens_degrid=_build_screens(plan, 1.0),
         correction=plan._correction(torch.float32))
     d = ep.dev
-    # The degrid kernel's work units: the blocks' window runs, once.
+    # The window kernels' work units, once: the blocks' window runs (the
+    # degrid's over every block, the grid's over each w-slab's blocks).
     d["runs"] = degrid_runs((d["k_idx"], d["g_idx"], d["hv_idx"]))
+    d["slab_runs"] = [degrid_runs((d["block_bucket"][b0:b1],))
+                      if b1 > b0 else None for b0, b1 in ep.slab_blocks]
     return ep
 
 
@@ -300,7 +303,7 @@ def grid_es_packed(plan, ep: EsPackedPlan, vis, weight,
             d["block_bucket"][b0:b1], d["u_off"][sl], d["iv0"][sl],
             d["uk"][sl], d["vk"][sl],
             (d["kw_t"][:, sl].contiguous(), vre[sl], vim[sl]),
-            ep.gu * ep.gv, _LANES, sw, block_v=bv)
+            ep.gu * ep.gv, _LANES, sw, block_v=bv, runs=d["slab_runs"][s])
         acc[:, s:s + sw] += _fold_slab(wins, d["visited"][s], ep.gu, ep.gv,
                                        sw, ep.rows_pad, ep.lanes_pad)
 

@@ -144,18 +144,21 @@ def load() -> ctypes.CDLL:
                         [p] * 8 + [i, p, i, i64] + [i] * 4 + [p, p, p])
                     getattr(lib, name).restype = i
                 f, pp = ctypes.c_float, ctypes.POINTER(ctypes.c_void_p)
-                lib.sdp_torch_fused_grid_stack.argtypes = (
-                    [p] * 13 + [i, f, f] + [i] * 7 + [p, p])
-                lib.sdp_torch_fused_grid_stack.restype = i
+                lib.sdp_torch_scatter_stack.argtypes = (
+                    [p, i] + [p] * 13 + [i, f, f, i64] + [i] * 6 + [p, p])
+                lib.sdp_torch_scatter_stack.restype = i
                 lib.sdp_torch_fused_degrid_stack.argtypes = (
                     [p, p, i] + [p] * 11 + [i, f, f, i64] + [i] * 7
                     + [p, p])
                 lib.sdp_torch_fused_degrid_stack.restype = i
-                lib.sdp_torch_band_grid.argtypes = [p] * 9 + [i] * 7 + [p, p]
-                lib.sdp_torch_band_grid.restype = i
-                lib.sdp_torch_band_grid_fused.argtypes = (
-                    [p] * 8 + [i, f, f] + [i] * 7 + [p, p])
-                lib.sdp_torch_band_grid_fused.restype = i
+                lib.sdp_torch_scatter_band.argtypes = (
+                    [p, i] + [p] * 9 + [i64] + [i] * 6 + [p, p])
+                lib.sdp_torch_scatter_band.restype = i
+                lib.sdp_torch_scatter_band_fused.argtypes = (
+                    [p, i] + [p] * 8 + [i, f, f, i64] + [i] * 6 + [p, p])
+                lib.sdp_torch_scatter_band_fused.restype = i
+                lib.sdp_torch_scatter_layout.argtypes = [i, i, p]
+                lib.sdp_torch_scatter_layout.restype = i
                 lib.sdp_torch_band_degrid.argtypes = (
                     [p, p, i] + [p] * 8 + [i] * 3 + [i64] + [i] * 5
                     + [p, p])

@@ -16,12 +16,15 @@ plan words:
   from the plan words ``pa``/``pb`` (:mod:`.fused_tap`), in the three
   precision modes "highest", "high" and "bf16".
 
-On a CUDA tensor each launches its hand-written kernel
-(``csrc/band_tap.cu`` to grid, ``csrc/window_gather.cu`` to degrid: one
-CTA a bucket run, the run's window read into shared memory once, over
-the blocks' run table ``runs``; built by :mod:`._build`) or raises; on a
-CPU tensor it runs its plain PyTorch version (``*_reference``). Each counts its
-kernel launches in ``.launches``. K8 and K11 run in full f32 (the Pallas
+On a CUDA tensor each launches its hand-written kernel over the blocks'
+run table ``runs`` (work units of one bucket window; built by
+:mod:`._build`) or raises: ``csrc/window_scatter.cu`` to grid (a unit's
+window held in shared memory, each plane owned by one warp, added to the
+bucket windows once by bulk reduce-adds), ``csrc/window_gather.cu`` to
+degrid (the unit's window read into shared memory once). On a CPU tensor
+it runs its plain PyTorch version (``*_reference``, which takes ``runs``
+and does not need it). Each counts its kernel launches in
+``.launches``. K8 and K11 run in full f32 (the Pallas
 kernels' "highest"), or in their bf16 mode when ``vk`` is bf16 (the
 streaming engine's fast mode, whose prep rounds the v taps once; JAX
 switches on the band's dtype the same way, packed_tap.py:135, :374):
@@ -62,6 +65,7 @@ from .packed_tap import (
     _check,
     _products,
     build_bands,
+    check_runs,
     degrid_table,
     split_bf16,
 )
@@ -129,13 +133,13 @@ def _scale_rows(scales, sl):
 
 def grid_packed_reference(bucket_ids, u_off, iv0, uk, vk, scales,
                           num_buckets: int, lanes: int, w_support: int,
-                          block_v: int = 128,
-                          precision: str = None) -> torch.Tensor:
+                          block_v: int = 128, precision: str = None,
+                          runs=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`grid_packed`: the bands of each
     chunk of blocks, the Pallas kernel's ``[2 Sw 16, B] @ [B, lanes]``
     product per block in the mode's arithmetic (``precision``, by default
     the one ``vk``'s dtype selects), ``index_add_`` into the bucket
-    windows."""
+    windows (per block: ``runs`` is taken and not needed)."""
     if precision is None:
         precision = "bf16" if vk.dtype == torch.bfloat16 else "highest"
     num_p = 2 * w_support
@@ -160,16 +164,19 @@ def grid_packed_reference(bucket_ids, u_off, iv0, uk, vk, scales,
 
 
 def grid_packed(bucket_ids, u_off, iv0, uk, vk, scales, num_buckets: int,
-                lanes: int, w_support: int,
-                block_v: int = 128) -> torch.Tensor:
+                lanes: int, w_support: int, block_v: int = 128,
+                runs=None) -> torch.Tensor:
     """Band gridding of a bucket-sorted stream into bucket windows.
 
     ``bucket_ids`` [NB] int32: block ``b`` (``block_v`` slots) belongs to
     bucket ``bucket_ids[b]``. ``scales``: the ``[2 Sw, V]`` f32 stack or
     the split form ``(wk_t [Sw, V], vre [V], vim [V])`` f32 (zero on
     padding and invalid slots). A bf16 ``vk`` selects the bf16 mode.
-    Returns the zero-based windows f32 ``[2 Sw, num_buckets, 16,
-    lanes]``; buckets no block visits stay zero.
+    ``runs``: the blocks' run table (:func:`.packed_tap.degrid_runs` of
+    ``(bucket_ids,)``, built here when not given; any run table whose rows
+    hold every block once is right). Returns the zero-based windows f32
+    ``[2 Sw, num_buckets, 16, lanes]``; buckets no block visits stay
+    zero.
     """
     dev, total, support, nb, mode = _check_taps(u_off, iv0, uk, vk, block_v,
                                                 w_support)
@@ -182,23 +189,28 @@ def grid_packed(bucket_ids, u_off, iv0, uk, vk, scales, num_buckets: int,
         _check(dev, [("vre", vre), ("vim", vim)], torch.float32, (total,))
     else:
         _check(dev, [("scales", scales)], torch.float32, (num_p, total))
+    runs = check_runs(runs, dev)
     if dev.type == "cpu":
         return grid_packed_reference(bucket_ids, u_off, iv0, uk, vk, scales,
                                      num_buckets, lanes, w_support, block_v)
+    if lanes % 8:
+        raise SdpInvalidArgumentError(
+            f"the CUDA kernels need lanes % 8 == 0 (got {lanes})")
     from . import _build
 
     lib = _build.load()
+    runs = degrid_table(runs, (bucket_ids,))
     out = torch.zeros((num_p, num_buckets, WIN_ROWS, lanes),
                       dtype=torch.float32, device=dev)
     ptrs = ((wk_t.data_ptr(), vre.data_ptr(), vim.data_ptr(), None) if split
             else (None, None, None, scales.data_ptr()))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sdp_torch_band_grid(
-            bucket_ids.data_ptr(), u_off.data_ptr(), iv0.data_ptr(),
-            uk.data_ptr(), vk.data_ptr(), *ptrs, nb, block_v, support,
-            w_support, lanes, num_buckets, _MODES[mode], out.data_ptr(),
-            stream)
+        err = lib.sdp_torch_scatter_band(
+            runs.data_ptr(), runs.shape[0], bucket_ids.data_ptr(),
+            u_off.data_ptr(), iv0.data_ptr(), uk.data_ptr(), vk.data_ptr(),
+            *ptrs, total, block_v, support, w_support, lanes, num_buckets,
+            _MODES[mode], out.data_ptr(), stream)
     _build.check(lib, err, "grid_packed")
     grid_packed.launches += 1
     return out
@@ -333,12 +345,12 @@ def grid_fused_reference(bucket_ids, pa, pb, vre, vim, uv_coeffs, w_coeffs,
                          num_buckets: int, lanes: int, support: int,
                          w_support: int, oversampling: int,
                          w_oversampling: int, block_v: int = 1024,
-                         precision: str = "highest",
-                         nonempty=None) -> torch.Tensor:
+                         precision: str = "highest", nonempty=None,
+                         runs=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`grid_fused`: the words' taps
     (:func:`.fused_tap._slot_taps`) through K8's plain version in the
     mode's arithmetic; the visibilities of the blocks ``nonempty`` marks 0
-    are left out."""
+    are left out (``runs`` taken and not needed)."""
     iv0, u_off, _, uk, vk, wk = _slot_taps(pa, pb, uv_coeffs, w_coeffs,
                                            oversampling, w_oversampling)
     if nonempty is not None:
@@ -352,7 +364,8 @@ def grid_fused_reference(bucket_ids, pa, pb, vre, vim, uv_coeffs, w_coeffs,
 def grid_fused(bucket_ids, pa, pb, vre, vim, uv_coeffs, w_coeffs,
                num_buckets: int, lanes: int, support: int, w_support: int,
                oversampling: int, w_oversampling: int, block_v: int = 1024,
-               precision: str = "highest", nonempty=None) -> torch.Tensor:
+               precision: str = "highest", nonempty=None,
+               runs=None) -> torch.Tensor:
     """Fused gridding of a bucket-sorted stream of plan words into bucket
     windows (JAX ``grid_fused_pallas``, whose ``sub_v`` and ``band_form``
     are TPU layout choices with the same function).
@@ -362,14 +375,16 @@ def grid_fused(bucket_ids, pa, pb, vre, vim, uv_coeffs, w_coeffs,
     [V] f32 (zero on padding and invalid slots); ``uv_coeffs`` [degree +
     1, S] and ``w_coeffs`` [degree + 1, Sw] f32 Chebyshev fits;
     ``precision`` "highest", "high" or "bf16"; ``nonempty`` optional [NB]
-    int32, 0-marked blocks are skipped. Returns the zero-based windows
-    f32 ``[2 Sw, num_buckets, 16, lanes]``; buckets no block visits stay
-    zero (JAX leaves them unwritten).
+    int32, 0-marked blocks are skipped; ``runs`` as :func:`grid_packed`.
+    Returns the zero-based windows f32 ``[2 Sw, num_buckets, 16,
+    lanes]``; buckets no block visits stay zero (JAX leaves them
+    unwritten).
     """
     dev, total, nb, ncoef = _check_fused(
         [("bucket_ids", bucket_ids)], pa, pb, uv_coeffs, w_coeffs, support,
         w_support, block_v, lanes, precision, nonempty)
     _check(dev, [("vre", vre), ("vim", vim)], torch.float32, (total,))
+    runs = check_runs(runs, dev)
     if dev.type == "cpu":
         return grid_fused_reference(
             bucket_ids, pa, pb, vre, vim, uv_coeffs, w_coeffs, num_buckets,
@@ -378,16 +393,17 @@ def grid_fused(bucket_ids, pa, pb, vre, vim, uv_coeffs, w_coeffs,
     from . import _build
 
     lib = _build.load()
+    runs = degrid_table(runs, (bucket_ids,))
     out = torch.zeros((2 * w_support, num_buckets, WIN_ROWS, lanes),
                       dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sdp_torch_band_grid_fused(
-            bucket_ids.data_ptr(),
+        err = lib.sdp_torch_scatter_band_fused(
+            runs.data_ptr(), runs.shape[0], bucket_ids.data_ptr(),
             None if nonempty is None else nonempty.data_ptr(),
             pa.data_ptr(), pb.data_ptr(), vre.data_ptr(), vim.data_ptr(),
             uv_coeffs.data_ptr(), w_coeffs.data_ptr(), ncoef,
-            _inv2(oversampling), _inv2(w_oversampling), nb, block_v,
+            _inv2(oversampling), _inv2(w_oversampling), total, block_v,
             support, w_support, lanes, num_buckets, _MODES[precision],
             out.data_ptr(), stream)
     _build.check(lib, err, "grid_fused")

@@ -23,8 +23,8 @@
 // each tap rounded once to nearest even, as the Pallas kernels store their
 // v-band in bf16 (packed_tap.py:521, :639); uk and the w scales stay f32.
 // The Pallas kernels also place the taps into dense bands (ubase [16, V],
-// vband [V, lanes], 1 KiB per slot); the port's band kernels (band_tap.cu)
-// read the compact taps, so no band is built here.
+// vband [V, lanes], 1 KiB per slot); the port's band kernels
+// (window_scatter.cu, window_gather.cu) read the compact taps, so no band is built here.
 //
 // What bounds it on an H100, and the design. A fused elementwise pass: 20 B
 // in and 96 B out per slot at S = 8, Sw = 4 grid (88 B degrid), against

@@ -12,8 +12,9 @@
 //     _degrid_math, _degrid_tail)                      -> kBandTaps
 //   - fused_tap.py:814 degrid_fused2_pallas (K19; _degrid_fused_kernel,
 //     _degrid_fused_core)                              -> kBandWords
-// (The first port ran them as one warp a slot over a flat grid, in
-// fused_tap.cu and band_tap.cu.)
+// (The first port ran them as one warp a slot over a flat grid.) The
+// Chebyshev chain stage, the row stride and the forms are window.cuh's,
+// shared with the grid forms in window_scatter.cu.
 //
 // What each slot computes, as the plain versions in fused_tap.py and
 // band_tap.py:
@@ -87,25 +88,17 @@
 // unrelated (row, column) pairs, ~3.5-way bank conflicts at random
 // offsets.
 
-#include "taps.cuh"
+#include "window.cuh"
 
 namespace {
 
-enum Form { kStackWords = 0, kStackTaps = 1, kBandTaps = 2, kBandWords = 3 };
-
 constexpr int kWarps = 8;                      // consumer warps
 constexpr int kThreads = 32 * (kWarps + 1);    // + the producer warp
-constexpr int kRows = 16;                      // rows of a slab
-constexpr int kMaxS = 8;
-constexpr int kMaxSw = 8;
-static_assert(kMaxS == kMaxSw, "the tap stage and fits share one width");
-constexpr int kMaxStackSw = 4;                 // the stack forms' limit
 constexpr int kTilesPerWarp = 4;               // a split window's tiles
 constexpr int kUnitCap = 32 * kWarps * kTilesPerWarp;
 constexpr int kTapPad = kMaxS + 1;             // staged tap row (banks)
 constexpr int kSlots = 4;                      // slots a warp gathers at once
 constexpr int kMaxBuffers = 2;
-constexpr int kMaxSmem = 227 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
 // One consumer warp's staged taps of a 32-slot tile.
@@ -156,10 +149,6 @@ struct Args {
 };
 
 // -- PTX wrappers ------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
@@ -238,82 +227,7 @@ __device__ __forceinline__ void for_units(const Args& a, F&& f) {
   }
 }
 
-// -- taps --------------------------------------------------------------------
-
-// The word forms' tap fits, copied into shared memory once a CTA: zero past
-// ncoef rows and past S / Sw columns (kMaxS == kMaxSw columns each).
-struct Fits {
-  float uv[kMaxCoef][kMaxS];
-  float w[kMaxCoef][kMaxSw];
-};
-
-// The next Chebyshev basis term: T_d = 2x T_{d-1} - T_{d-2} (taps.cuh's
-// cheb_basis, each operation rounded on its own, without the array);
-// (prev, cur) = (T_{d-2}, T_{d-1}) become (T_{d-1}, T_d).
-__device__ __forceinline__ float cheb_next(float two_x, float& prev,
-                                           float& cur) {
-  const float t = __fsub_rn(__fmul_rn(two_x, cur), prev);
-  prev = cur;
-  cur = t;
-  return t;
-}
-
-// A slot's taps from the words' three Chebyshev arguments: vk[s], uk[s]
-// (the uv fit) and wk[j] (the w fit) = sum_d c[d][.] T_d(x), each one
-// taps.cuh's cheb_sum of cheb_basis, every operation rounded on its own
-// in its order (so the taps equal the plain versions'). The 24 sums are
-// independent chains, and each coefficient row is loaded before the
-// previous one is used, so the shared-memory latency hides behind the
-// arithmetic.
-__device__ __forceinline__ void cheb_taps3(const Fits& f, int ncoef,
-                                           float xv, float xu, float xw,
-                                           float (&vk)[kMaxS],
-                                           float (&uk)[kMaxS],
-                                           float (&wk)[kMaxSw]) {
-  const float two_v = __fmul_rn(2.0f, xv);
-  const float two_u = __fmul_rn(2.0f, xu);
-  const float two_w = __fmul_rn(2.0f, xw);
-  float pv = 1.0f, pu = 1.0f, pw = 1.0f;   // T_{d-2}
-  float cv = xv, cu = xu, cwt = xw;        // T_{d-1}
-  float cuv[kMaxS];
-  float cw[kMaxSw];
-#pragma unroll
-  for (int s = 0; s < kMaxS; ++s) {
-    vk[s] = __fmul_rn(f.uv[0][s], 1.0f);
-    uk[s] = __fmul_rn(f.uv[0][s], 1.0f);
-    wk[s] = __fmul_rn(f.w[0][s], 1.0f);
-    cuv[s] = f.uv[1][s];
-    cw[s] = f.w[1][s];
-  }
-#pragma unroll
-  for (int d = 1; d < kMaxCoef; ++d) {
-    if (d >= ncoef) break;
-    const float tv = d == 1 ? xv : cheb_next(two_v, pv, cv);
-    const float tu = d == 1 ? xu : cheb_next(two_u, pu, cu);
-    const float tw = d == 1 ? xw : cheb_next(two_w, pw, cwt);
-    const int dn = d + 1 < kMaxCoef ? d + 1 : d;   // the last re-reads its row
-    float nuv[kMaxS];
-    float nw[kMaxSw];
-#pragma unroll
-    for (int s = 0; s < kMaxS; ++s) {
-      nuv[s] = f.uv[dn][s];
-      nw[s] = f.w[dn][s];
-    }
-#pragma unroll
-    for (int s = 0; s < kMaxS; ++s) {
-      vk[s] = __fadd_rn(vk[s], __fmul_rn(cuv[s], tv));
-      uk[s] = __fadd_rn(uk[s], __fmul_rn(cuv[s], tu));
-      wk[s] = __fadd_rn(wk[s], __fmul_rn(cw[s], tw));
-      cuv[s] = nuv[s];
-      cw[s] = nw[s];
-    }
-  }
-}
-
-template <int MODE>
-__device__ __forceinline__ float stage_v(float v) {
-  return MODE == kBf16 ? round_bf16(v) : v;
-}
+// -- taps (the chain stage is window.cuh's) ----------------------------------
 
 // Lane `lane` stages slot p's taps: every load first (fixed-width loops,
 // predicated), then the shared-memory stores.
@@ -336,9 +250,7 @@ __device__ __forceinline__ void stage_taps(const Args& a, const Fits& fits,
     const int wa = a.pa[p];
     const int wb = a.pb[p];
     const float valid = static_cast<float>(wb >> 30);
-    cheb_taps3(fits, a.ncoef, frac_x(wb & 32767, a.inv2_ov),
-               frac_x((wb >> 15) & 32767, a.inv2_ov),
-               frac_x(wa & 131071, a.inv2_wov), vk, uk, wk);
+    word_taps(fits, a.ncoef, a.inv2_ov, a.inv2_wov, wa, wb, vk, uk, wk);
 #pragma unroll
     for (int j = 0; j < kMaxSw; ++j) wk[j] = __fmul_rn(wk[j], valid);
     u_off = (wa >> 17) & 7;
@@ -438,13 +350,8 @@ window_gather_kernel(const Args a) {
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   if (FORM == kStackWords || FORM == kBandWords) {
-    for (int e = threadIdx.x; e < kMaxCoef * kMaxS; e += kThreads) {
-      const int d = e / kMaxS;
-      const int c = e % kMaxS;
-      fits->uv[d][c] =
-          d < a.ncoef && c < a.support ? a.c_uv[d * a.support + c] : 0.0f;
-      fits->w[d][c] = d < a.ncoef && c < Sw ? a.c_w[d * Sw + c] : 0.0f;
-    }
+    load_fits(fits, a.c_uv, a.c_w, a.ncoef, a.support, Sw, threadIdx.x,
+              kThreads);
   }
   __syncthreads();
 
@@ -674,7 +581,7 @@ void plan_ring(int width, int w_support, Plan* p) {
       32 * 32;
   p->tile_w = width < max_tile ? width : max_tile;
   p->ntiles = (width + p->tile_w - 1) / p->tile_w;
-  p->stride = (p->tile_w + 31) / 32 * 32 + 8;
+  p->stride = window_stride(p->tile_w);
   const size_t slab = sizeof(float) * kRows * p->stride;
   const int fit = static_cast<int>((kMaxSmem - fixed) / slab);
   const int sw = w_support;
@@ -741,16 +648,6 @@ int launch_mode(int mode, const Args& a, cudaStream_t s) {
     case kBf16: return launch<kBf16, FORM>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-bool common_ok(int num_runs, int64_t total, int block_v, int support,
-               int w_support, int max_sw) {
-  return num_runs >= 0 && total >= 0 && block_v > 0 && support >= 1 &&
-         support <= kMaxS && w_support >= 1 && w_support <= max_sw;
-}
-
-bool words_ok(int support, int w_support, int ncoef) {
-  return 2 * support + w_support <= 32 && ncoef >= 2 && ncoef <= kMaxCoef;
 }
 
 }  // namespace

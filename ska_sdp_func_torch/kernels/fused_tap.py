@@ -15,11 +15,13 @@ streaming engine and the packed ``engine="fused"``/``"compact"`` run):
   evaluation :func:`cheb_taps` are torch (and NumPy) ops.
 
 On a CUDA tensor each kernel wrapper launches its hand-written kernel
-(``csrc/fused_tap.cu`` to grid; ``csrc/window_gather.cu`` to degrid, one
-CTA a bucket run reading the run's window into shared memory once, over
-the blocks' run table ``runs``) or raises; on a CPU tensor it runs its
-plain PyTorch version (``*_reference``). Each counts its kernel launches
-in ``.launches``.
+over the blocks' run table ``runs`` (work units of one bucket window) or
+raises: ``csrc/window_scatter.cu`` to grid (a unit's window held in shared
+memory, each plane owned by one warp, added to the stack once by bulk
+reduce-adds), ``csrc/window_gather.cu`` to degrid (the unit's window read
+into shared memory once). On a CPU tensor it runs its plain PyTorch
+version (``*_reference``, which takes ``runs`` and does not need it).
+Each counts its kernel launches in ``.launches``.
 
 Plan words (bit for bit the JAX layout):
 
@@ -48,7 +50,14 @@ drops them.
 import numpy as np
 import torch
 
-from .packed_tap import WIN_ROWS, _aligned, _check, degrid_table, split_bf16
+from .packed_tap import (
+    WIN_ROWS,
+    _aligned,
+    _check,
+    check_runs,
+    degrid_table,
+    split_bf16,
+)
 from ..utility.errors import (
     SdpInvalidArgumentError,
     SdpMemLocationError,
@@ -218,8 +227,9 @@ def grid_fused_stack_reference(t_idx, k_idx, g_idx, pa, pb, vre, vim,
                                w_support: int, oversampling: int,
                                w_oversampling: int, block_v: int = 1024,
                                precision: str = "highest",
-                               nonempty=None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`grid_fused_stack`."""
+                               nonempty=None, runs=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`grid_fused_stack` (per slot:
+    ``runs`` is taken and not needed)."""
     return _grid_reference(
         lambda p: _slot_taps(pa[p], pb[p], uv_coeffs, w_coeffs,
                              oversampling, w_oversampling),
@@ -230,8 +240,10 @@ def grid_fused_stack_reference(t_idx, k_idx, g_idx, pa, pb, vre, vim,
 def grid_compact_reference(t_idx, k_idx, g_idx, pa, uk_t, vk_t, wk_t, vre,
                            vim, num_tasks: int, num_layers: int, lanes: int,
                            support: int, w_support: int, block_v: int = 1024,
-                           precision: str = "highest") -> torch.Tensor:
-    """Plain PyTorch version of :func:`grid_compact`."""
+                           precision: str = "highest",
+                           runs=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`grid_compact` (``runs`` taken and
+    not needed)."""
     return _grid_reference(
         lambda p: _compact_taps(p, pa, uk_t, vk_t, wk_t), t_idx, k_idx,
         g_idx, vre, vim, num_tasks, num_layers, lanes, support, w_support,
@@ -356,22 +368,26 @@ def grid_fused_stack(t_idx, k_idx, g_idx, pa, pb, vre, vim, uv_coeffs,
                      w_coeffs, num_tasks: int, num_layers: int, lanes: int,
                      support: int, w_support: int, oversampling: int,
                      w_oversampling: int, block_v: int = 1024,
-                     precision: str = "highest",
-                     nonempty=None) -> torch.Tensor:
+                     precision: str = "highest", nonempty=None,
+                     runs=None) -> torch.Tensor:
     """Fused gridding of the placed stream into per-task tower stacks.
 
     t_idx/k_idx/g_idx: [NB] int32 per-block (task, w-slab, u-octet);
     pa/pb: [V] int32 plan words; vre/vim: [V] f32 (zero on padding
     slots); uv_coeffs/w_coeffs: f32 Chebyshev fits on the same device;
     ``nonempty``: optional [NB] int32, 0-marked blocks are skipped.
-    Returns the zero-based stack f32 ``[num_tasks, 2, num_layers *
-    (lanes + 8), lanes]``; tasks no block visits stay zero.
+    ``runs``: the blocks' run table (:func:`.packed_tap.degrid_runs` of
+    ``(t_idx, k_idx, g_idx)``, built here when not given; any run table
+    whose rows hold every block once is right). Returns the zero-based
+    stack f32 ``[num_tasks, 2, num_layers * (lanes + 8), lanes]``; tasks
+    no block visits stay zero.
     """
     dev, total, nb, ncoef = _check_fused(
         [("t_idx", t_idx), ("k_idx", k_idx), ("g_idx", g_idx)], pa, pb,
         uv_coeffs, w_coeffs, support, w_support, block_v, lanes, precision,
         nonempty)
     _check(dev, [("vre", vre), ("vim", vim)], torch.float32, (total,))
+    runs = check_runs(runs, dev)
     if dev.type == "cpu":
         return grid_fused_stack_reference(
             t_idx, k_idx, g_idx, pa, pb, vre, vim, uv_coeffs, w_coeffs,
@@ -380,18 +396,20 @@ def grid_fused_stack(t_idx, k_idx, g_idx, pa, pb, vre, vim, uv_coeffs,
     from . import _build
 
     lib = _build.load()
+    runs = degrid_table(runs, (t_idx, k_idx, g_idx))
     out = torch.zeros((num_tasks, 2, num_layers * (lanes + 8), lanes),
                       dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sdp_torch_fused_grid_stack(
-            t_idx.data_ptr(), k_idx.data_ptr(), g_idx.data_ptr(),
+        err = lib.sdp_torch_scatter_stack(
+            runs.data_ptr(), runs.shape[0], t_idx.data_ptr(),
+            k_idx.data_ptr(), g_idx.data_ptr(),
             None if nonempty is None else nonempty.data_ptr(),
             pa.data_ptr(), pb.data_ptr(), vre.data_ptr(), vim.data_ptr(),
             uv_coeffs.data_ptr(), w_coeffs.data_ptr(), None, None, None,
-            ncoef, _inv2(oversampling), _inv2(w_oversampling), nb, block_v,
-            support, w_support, lanes, num_layers, _MODES[precision],
-            out.data_ptr(), stream)
+            ncoef, _inv2(oversampling), _inv2(w_oversampling), total,
+            block_v, support, w_support, lanes, num_layers,
+            _MODES[precision], out.data_ptr(), stream)
     _build.check(lib, err, "grid_fused_stack")
     grid_fused_stack.launches += 1
     return out
@@ -458,19 +476,21 @@ degrid_fused2_stack.launches = 0
 def grid_compact(t_idx, k_idx, g_idx, pa, uk_t, vk_t, wk_t, vre, vim,
                  num_tasks: int, num_layers: int, lanes: int, support: int,
                  w_support: int, block_v: int = 1024,
-                 precision: str = "highest") -> torch.Tensor:
+                 precision: str = "highest", runs=None) -> torch.Tensor:
     """Compact-tap gridding of the sorted stream into per-task stacks.
 
     t_idx/k_idx/g_idx: [NB] int32 per-block (task, w-slab, u-octet);
     ``pa`` [V] int32 plan words (``iv0``, ``u_off``); ``uk_t``/``vk_t``
     [S, V] and ``wk_t`` [Sw, V] f32 pre-evaluated taps; vre/vim [V] f32
-    (zero on padding slots). Returns the zero-based stack f32
-    ``[num_tasks, 2, num_layers * (lanes + 8), lanes]``.
+    (zero on padding slots); ``runs`` as in :func:`grid_fused_stack`.
+    Returns the zero-based stack f32 ``[num_tasks, 2, num_layers *
+    (lanes + 8), lanes]``.
     """
     dev, total, nb = _check_compact(t_idx, k_idx, g_idx, pa, uk_t, vk_t,
                                     wk_t, support, w_support, block_v, lanes,
                                     precision)
     _check(dev, [("vre", vre), ("vim", vim)], torch.float32, (total,))
+    runs = check_runs(runs, dev)
     if dev.type == "cpu":
         return grid_compact_reference(
             t_idx, k_idx, g_idx, pa, uk_t, vk_t, wk_t, vre, vim, num_tasks,
@@ -478,16 +498,18 @@ def grid_compact(t_idx, k_idx, g_idx, pa, uk_t, vk_t, wk_t, vre, vim,
     from . import _build
 
     lib = _build.load()
+    runs = degrid_table(runs, (t_idx, k_idx, g_idx))
     out = torch.zeros((num_tasks, 2, num_layers * (lanes + 8), lanes),
                       dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sdp_torch_fused_grid_stack(
-            t_idx.data_ptr(), k_idx.data_ptr(), g_idx.data_ptr(), None,
-            pa.data_ptr(), None, vre.data_ptr(), vim.data_ptr(), None, None,
-            uk_t.data_ptr(), vk_t.data_ptr(), wk_t.data_ptr(), 0, 0.0, 0.0,
-            nb, block_v, support, w_support, lanes, num_layers,
-            _MODES[precision], out.data_ptr(), stream)
+        err = lib.sdp_torch_scatter_stack(
+            runs.data_ptr(), runs.shape[0], t_idx.data_ptr(),
+            k_idx.data_ptr(), g_idx.data_ptr(), None, pa.data_ptr(), None,
+            vre.data_ptr(), vim.data_ptr(), None, None, uk_t.data_ptr(),
+            vk_t.data_ptr(), wk_t.data_ptr(), 0, 0.0, 0.0, total, block_v,
+            support, w_support, lanes, num_layers, _MODES[precision],
+            out.data_ptr(), stream)
     _build.check(lib, err, "grid_compact")
     grid_compact.launches += 1
     return out

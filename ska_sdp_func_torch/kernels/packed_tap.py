@@ -6,8 +6,10 @@ Counterpart of the main-path half of ska_sdp_func_tpu.kernels.packed_tap:
   the JAX package);
 - :func:`run_table` cuts the plan blocks into runs of one window (torch
   ops of fixed shape, no host sync): :func:`bucket_runs` gives K1/K2's
-  maximal runs, :func:`degrid_runs` the window-gather degrid kernels'
-  (K4, K11, K13, K19) parts of :func:`unit_blocks` blocks;
+  maximal runs, :func:`degrid_runs` the window kernels' parts of
+  :func:`unit_blocks` blocks (the window-gather degrid kernels K4, K11,
+  K13, K19 and the window-scatter grid kernels K3, K8, K12, K18, whose
+  shared-memory layout :func:`scatter_layout` mirrors);
 - :func:`grid_packed_stack` replaces the Pallas kernel
   ``grid_packed_stack_pallas`` and :func:`degrid_stack` replaces
   ``degrid_stack_pallas``. On a CUDA tensor each launches its
@@ -164,12 +166,74 @@ def _runs_for(runs, t_idx, k_idx, g_idx):
 
 
 def degrid_table(runs, keys):
-    """The window-gather kernels' table: the caller's (checked; any run
-    table whose rows of count > 0 hold every block once), or
-    :func:`degrid_runs` of the block keys."""
+    """The window kernels' table (the window-gather degrid and the
+    window-scatter grid kernels): the caller's (checked; any run table
+    whose rows of count > 0 hold every block once), or :func:`degrid_runs`
+    of the block keys."""
     if runs is None:
         return degrid_runs(keys)
     return _checked(runs, keys[0].device)
+
+
+def check_runs(runs, device):
+    """A caller's run table checked for shape ``[R, 2]``, int32 and
+    ``device`` (None passes): the window-scatter wrappers check it before
+    they choose the kernel or the plain version, so a malformed table
+    raises on the CPU too."""
+    return None if runs is None else _checked(runs, torch.device(device))
+
+
+# The window-scatter kernels' shared memory (csrc/window_scatter.cu): two
+# staged tiles of 128 slots (and one spare record) of 42 words each plus 4
+# warp counts, and the word forms' fits (16 x 8 x 2 f32), in bytes, beside
+# 227 KiB a block.
+_SCATTER_FIXED = 2 * (129 * 42 * 4 + 4 * 4) + 4 * 16 * 8 * 2
+_SMEM_MAX = 227 * 1024
+_TILE_LPAD = 8
+
+
+def _window_stride(width: int) -> int:
+    """window.cuh's shared row stride: 8 banks mod 32, 8 spare columns."""
+    return -(-width // 32) * 32 + 8
+
+
+def scatter_layout(w_support: int, lanes: int) -> dict:
+    """The window-scatter kernels' layout of a window of ``w_support``
+    w-planes, each a real and an imaginary plane of 16 rows of ``lanes``
+    columns, as ``plan_layout`` in ``csrc/window_scatter.cu`` chooses it:
+    every w-plane in shared memory when they fit beside the staged tiles,
+    else balanced groups of ``w_planes`` w-planes (``planes`` = 2
+    ``w_planes`` a group, ``plane_groups`` passes over a unit's slots); a
+    w-plane wider than shared memory in ``tiles`` column tiles of
+    ``tile_w`` columns with ``lpad`` spare columns on the left. The window
+    is held once (``window_buffers``; a consumer warp flushes its own
+    planes while the others work), the staged tile twice
+    (``tile_buffers``: the producer warps fill one while the consumers
+    read the other); ``smem``: the block's shared bytes (at most 227
+    KiB)."""
+    if not 1 <= w_support <= 8 or lanes <= 0:
+        raise SdpInvalidArgumentError(
+            f"w_support must be in [1, 8] and lanes > 0 (got {w_support}, "
+            f"{lanes})")
+    avail = _SMEM_MAX - _SCATTER_FIXED
+    pair_bytes = 2 * 4 * WIN_ROWS          # a column of both halves
+    lpad, tile_w, tiles = 0, lanes, 1
+    stride = _window_stride(lanes)
+    if pair_bytes * stride > avail:
+        lpad = _TILE_LPAD
+        max_w = (avail // pair_bytes - _window_stride(lpad)) // 32 * 32
+        tiles = -(-lanes // max_w)
+        tile_w = -(-(-(-lanes // tiles)) // 32) * 32
+        stride = _window_stride(lpad + tile_w)
+    fit = avail // (pair_bytes * stride)
+    jn = min(fit, w_support)
+    groups = -(-w_support // jn)
+    jn = -(-w_support // groups)
+    return dict(stride=stride, lpad=lpad, w_planes=jn, planes=2 * jn,
+                plane_groups=groups, tile_w=tile_w, tiles=tiles,
+                window_buffers=1, tile_buffers=2,
+                smem=_SCATTER_FIXED + pair_bytes * stride * jn,
+                fixed=_SCATTER_FIXED)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

@@ -502,8 +502,9 @@ class PackedGridder(_TowerImaging):
         self.pa = self.pb = self.ubase = self.vband = self.vband_t = None
         self.uk_t = self.vk_t = self.wk_t = self.runs = None
         if self.engine != "bands":
-            # K4/K13's work units, once per plan: the blocks' window runs
-            # in parts (the band engine's are K1/K2's maximal runs).
+            # The window kernels' work units (K3/K4, K12/K13), once per
+            # plan: the blocks' window runs in parts (the band engine's are
+            # K1/K2's maximal runs).
             self.runs = degrid_runs((self.t_idx, self.k_idx, self.g_idx))
         if self.engine == "compact":
             # The word pa and the taps, evaluated once on the device.
@@ -590,14 +591,15 @@ class PackedGridder(_TowerImaging):
                 self.vk_t, self.wk_t, vre, vim, len(pplan.tasks),
                 pplan.num_layers, plan.subgrid_size, plan.support,
                 plan.w_support, block_v=pplan.block_v,
-                precision=self.precision)
+                precision=self.precision, runs=self.runs)
         if self.engine == "fused":
             return fused_tap.grid_fused_stack(
                 self.t_idx, self.k_idx, self.g_idx, self.pa, self.pb, vre,
                 vim, self.uv_coeffs, self.w_coeffs, len(pplan.tasks),
                 pplan.num_layers, plan.subgrid_size, plan.support,
                 plan.w_support, plan.oversampling, plan.w_oversampling,
-                block_v=pplan.block_v, precision=self.precision)
+                block_v=pplan.block_v, precision=self.precision,
+                runs=self.runs)
         return grid_packed_stack(
             self.t_idx, self.k_idx, self.g_idx, self.ubase, self.vband,
             (self.wk_t, vre, vim), len(pplan.tasks), pplan.num_layers,

@@ -447,8 +447,10 @@ class _StreamEngine(_TowerImaging):
     # -- branch stages --------------------------------------------------
 
     def _chunk_image(self, arrays, block_bucket, visited):
-        """Placed chunk -> its dirty image: K3 tower stacks, then the drain
-        of the tasks a block visited (none of an overflowed chunk)."""
+        """Placed chunk -> its dirty image: K3 tower stacks over the chunk's
+        window runs (as the predict's: a bucket's blocks, built on the
+        device, no host sync), then the drain of the tasks a block visited
+        (none of an overflowed chunk)."""
         splan = self.splan
         num_tasks = len(splan.tasks)
         stack = fused_tap.grid_fused_stack(
@@ -456,7 +458,7 @@ class _StreamEngine(_TowerImaging):
             arrays["packed_b"], arrays["vre"], arrays["vim"],
             self.uv_coeffs, self.w_coeffs, num_tasks, splan.num_layers,
             splan.wplan.subgrid_size, nonempty=arrays["nonempty"],
-            **self._kernel_dims())
+            runs=degrid_runs((block_bucket,)), **self._kernel_dims())
         tvis = visited.reshape(num_tasks, -1).any(dim=1)
         return self._image_from_stack(stack, tvis)
 
@@ -546,13 +548,13 @@ class _SplitStreamEngine(_StreamEngine):
 
     def _grid_windows(self, arrays, block_bucket, uk, vk, scales):
         """K8: bucket windows [2 Sw, num_buckets, 16, G] (bf16 mode for a
-        bf16 ``vk``)."""
+        bf16 ``vk``), over the chunk's window runs (no host sync)."""
         splan = self.splan
         plan = splan.wplan
         return band_tap.grid_packed(
             block_bucket, arrays["u_off"], arrays["iv0"], uk, vk, scales,
             splan.num_buckets, plan.subgrid_size, plan.w_support,
-            block_v=splan.block_v)
+            block_v=splan.block_v, runs=degrid_runs((block_bucket,)))
 
     def _fold_windows(self, wins, visited):
         """The JAX driver's ``_fold_windows`` (packed.py:478-492): K9 and

@@ -50,7 +50,18 @@ their plain versions at 1e-5 of max over S 1-8, Sw 1 to its maximum,
 windows of 64-4096 lanes (the ES-FFT's 8 x 256, larger than shared
 memory, included), block_v 64-1024, runs of one and of 8-12 blocks,
 shuffled blocks, one bucket and empty blocks, one launch a call and no
-host sync (``-k window_gather``).
+host sync (``-k window_gather``). The window-scatter grid kernels (K3,
+K12, K8, K18: work units of the same run tables, each unit's window in
+shared memory, added once by bulk reduce-adds) meet their plain versions
+at 1e-5 of max in every mode over S 1-8, Sw 1, 2, 3, 4, 6 and 8, windows
+of 64-4096 lanes (8 x 256 in two groups of planes, 3072 and 4096 in
+column tiles), block_v 64-1024, with the run table built, of maximal
+runs, in parts, shuffled, and of one block a row (one window added by
+several CTAs), slots past the right edge, zero-visibility and empty
+blocks, one launch a call and no host sync (``-k window_scatter``); the
+layout mirror ``packed_tap.scatter_layout`` gives the kernel's own; the
+ingests through them return the CPU port's image at 1e-5
+taper-weighted.
 """
 
 import numpy as np
@@ -948,18 +959,29 @@ def compact(fused):
     return t
 
 
-@pytest.mark.parametrize("mode", ["highest", "bf16"])
+def _shuffled(runs, seed=2):
+    """A run table's rows in a random order (any order is right)."""
+    perm = torch.randperm(runs.shape[0], generator=torch.Generator(
+        ).manual_seed(seed)).to(runs.device)
+    return runs[perm].contiguous()
+
+
+@pytest.mark.parametrize("mode", list(MODES))
 def test_compact_grid_kernel_matches_plain(compact, mode):
+    """K12 (window_scatter_kernel<M, kStackTaps>) in each mode, with the
+    run table built by the wrapper and given in shuffled row order."""
     f, t = FUSED, compact
     args = tuple(t[k] for k in ("t", "k", "g", "pa", "uk_t", "vk_t", "wk_t",
                                 "vre", "vim")) + (
         f["tasks"], f["layers"], f["lanes"], f["support"], f["w_support"])
     kw = dict(block_v=f["block_v"], precision=mode)
-    before = tf.grid_compact.launches
-    got = tf.grid_compact(*args, **kw)
-    torch.cuda.synchronize()
-    assert tf.grid_compact.launches == before + 1
-    assert _rel(got, tf.grid_compact_reference(*args, **kw)) <= 1e-5
+    want = tf.grid_compact_reference(*args, **kw)
+    for runs in (None, _shuffled(tk.degrid_runs((t["t"], t["k"], t["g"])))):
+        before = tf.grid_compact.launches
+        got = tf.grid_compact(*args, **kw, runs=runs)
+        torch.cuda.synchronize()
+        assert tf.grid_compact.launches == before + 1
+        assert _rel(got, want) <= 1e-5
 
 
 @pytest.mark.parametrize("mode", ["highest", "bf16"])
@@ -1031,12 +1053,13 @@ def test_band_grid_kernel_matches_plain(es, ws, form):
               else torch.cat([dd["kw_t"] * vre, dd["kw_t"] * vim]))
     args = (dd["block_bucket"], dd["u_off"], dd["iv0"], dd["uk"], dd["vk"],
             scales, ep.num_slabs * ep.gu * ep.gv, 256, ep.w_support)
-    before = tb.grid_packed.launches
-    got = tb.grid_packed(*args, block_v=ep.block_v)
-    torch.cuda.synchronize()
-    assert tb.grid_packed.launches == before + 1
-    assert _rel(got, tb.grid_packed_reference(*args, block_v=ep.block_v)) \
-        <= 1e-5
+    want = tb.grid_packed_reference(*args, block_v=ep.block_v)
+    for runs in (None, _shuffled(tk.degrid_runs((dd["block_bucket"],)))):
+        before = tb.grid_packed.launches
+        got = tb.grid_packed(*args, block_v=ep.block_v, runs=runs)
+        torch.cuda.synchronize()
+        assert tb.grid_packed.launches == before + 1
+        assert _rel(got, want) <= 1e-5
 
 
 @pytest.mark.parametrize("n_vq", [1, 2])
@@ -1144,9 +1167,13 @@ def test_fused_window_kernels_match_plain(fused, mode):
                 oversampling=f["oversampling"],
                 w_oversampling=f["w_oversampling"], block_v=f["block_v"],
                 precision=mode, nonempty=t["nonempty"])
-    before = kernels.launch_counts()
     g_args = (bucket_ids, t["pa"], t["pb"], t["vre"], t["vim"], t["uv"],
               t["w"], num_buckets, f["lanes"])
+    # K18 with its run table given in shuffled row order, then built.
+    runs = _shuffled(tk.degrid_runs((bucket_ids,)))
+    assert _rel(tb.grid_fused(*g_args, **dims, runs=runs),
+                tb.grid_fused_reference(*g_args, **dims)) <= 1e-5
+    before = kernels.launch_counts()
     got = tb.grid_fused(*g_args, **dims)
     torch.cuda.synchronize()
     assert _rel(got, tb.grid_fused_reference(*g_args, **dims)) <= 1e-5
@@ -1178,6 +1205,225 @@ def test_fused_window_kernels_match_plain(fused, mode):
                            (wk_t * valid * occ).contiguous(), f["w_support"],
                            f["lanes"], block_v=f["block_v"], raw=True)
     assert _rel(pred, band) <= 1e-5
+
+
+# -- window-scatter grid kernels (K3, K12, K8, K18) ----------------------------
+
+# (form, S, Sw, width, block_v, order): Sw 1, 4 and 8 at 128 and 256
+# lanes (8 x 256: the ES-FFT window, two groups of 4 w-planes; 8 x 128: 8
+# w-planes, two a consumer warp), widths past the column-tile limit (3072,
+# 4096: one w-plane a group in column tiles), block_v not a multiple of
+# the 128-slot tile, runs of one and of 8-12 blocks, shuffled (a bucket
+# over non-adjacent runs), one bucket.
+SCATTER_GEOMS = [
+    ("stack_words", 8, 4, 128, 1024, "long"),
+    ("stack_words", 8, 4, 128, 96, "ones"),
+    ("stack_words", 3, 2, 256, 200, "shuffled"),
+    ("stack_words", 1, 1, 64, 128, "single"),
+    ("stack_taps", 8, 4, 128, 512, "long"),
+    ("stack_taps", 2, 4, 256, 96, "shuffled"),
+    ("band_taps", 8, 8, 256, 128, "long"),
+    ("band_taps", 8, 8, 128, 128, "shuffled"),
+    ("band_taps", 8, 4, 128, 1024, "long"),
+    ("band_taps", 4, 1, 128, 72, "ones"),
+    ("band_taps", 8, 1, 256, 128, "shuffled"),
+    ("band_taps", 7, 6, 384, 200, "shuffled"),
+    ("band_taps", 8, 8, 256, 128, "single"),
+    ("band_taps", 8, 2, 3072, 128, "long"),
+    ("band_taps", 5, 1, 4096, 64, "shuffled"),
+    ("band_words", 8, 4, 128, 1024, "long"),
+    ("band_words", 6, 3, 256, 96, "shuffled"),
+    ("band_words", 2, 1, 128, 64, "ones"),
+]
+SCATTER_BUCKETS = 24
+
+
+def _scatter_operands(device, form, support, w_support, width, block_v,
+                      order, seed=0):
+    """Random operands of one window-scatter wrapper: (function, plain
+    version, arguments, keywords, block keys). Stack forms: 3 tasks of
+    Sw + 3 layers; band forms: SCATTER_BUCKETS buckets. Slots at every
+    lane of the window, some past its right edge (dropped), a tenth
+    invalid (zero visibility or w taps), two blocks of zero visibilities;
+    the word forms with a fifth of the blocks empty; the band form's scale
+    stack for shuffled blocks, its split form otherwise."""
+    rng = np.random.default_rng(seed)
+    stack_form = form.startswith("stack")
+    if stack_form:
+        tasks, layers = 3, w_support + 3
+        keyspace = [(t, k, g) for t in range(tasks)
+                    for k in range(layers - w_support + 1)
+                    for g in range(width // 8)]
+    else:
+        keyspace = [(b,) for b in range(SCATTER_BUCKETS)]
+    kidx = _gather_keys(rng, order, len(keyspace))
+    key = np.asarray([keyspace[i] for i in kidx], np.int32)
+    nb = key.shape[0]
+    total = nb * block_v
+    as_dev = (lambda a, dt=torch.float32: torch.as_tensor(
+        np.ascontiguousarray(a), dtype=dt, device=device))
+    iv0 = rng.integers(0, width, total)
+    iv0[::7] = width - 1 - rng.integers(0, support, total)[::7]
+    u_off = rng.integers(0, min(8, 16 - support) + 1, total)
+    valid = rng.random(total) >= 0.1
+    vre, vim = (rng.standard_normal(total) * valid for _ in range(2))
+    for b in rng.choice(nb, size=2, replace=False):
+        vre[b * block_v:(b + 1) * block_v] = 0.0
+        vim[b * block_v:(b + 1) * block_v] = 0.0
+    idx = tuple(as_dev(key[:, i], torch.int32) for i in range(key.shape[1]))
+    vis = (as_dev(vre), as_dev(vim))
+    dims = dict(block_v=block_v)
+    if form.endswith("words"):
+        u_off = np.minimum(u_off, 7)
+        pa, pb = tf.pack_plan_words(
+            np.minimum(iv0, 2047), u_off, rng.integers(0, GATHER_WOV, total),
+            rng.integers(0, GATHER_OV, total),
+            rng.integers(0, GATHER_OV, total), valid)
+        nonempty = (rng.random(nb) >= 0.2).astype(np.int32)
+        coeffs = (as_dev(rng.standard_normal((GATHER_NCOEF, support)) * 0.3),
+                  as_dev(rng.standard_normal((GATHER_NCOEF, w_support))
+                         * 0.3))
+        dims.update(support=support, w_support=w_support,
+                    oversampling=GATHER_OV, w_oversampling=GATHER_WOV,
+                    nonempty=as_dev(nonempty, torch.int32))
+        words = (as_dev(pa, torch.int32), as_dev(pb, torch.int32))
+        if stack_form:
+            return (tf.grid_fused_stack, tf.grid_fused_stack_reference,
+                    (*idx, *words, *vis, *coeffs, tasks, layers, width),
+                    dims, idx)
+        return (tb.grid_fused, tb.grid_fused_reference,
+                (*idx, *words, *vis, *coeffs, SCATTER_BUCKETS, width), dims,
+                idx)
+    uk = rng.standard_normal((total, support))
+    vk = rng.standard_normal((total, support))
+    wk_t = rng.uniform(0.1, 1, (w_support, total)) * valid
+    if stack_form:
+        pa, _ = tf.pack_plan_words(iv0, u_off, 0, 0, 0, 1)
+        return (tf.grid_compact, tf.grid_compact_reference,
+                (*idx, as_dev(pa, torch.int32), as_dev(uk.T), as_dev(vk.T),
+                 as_dev(wk_t), *vis, tasks, layers, width, support,
+                 w_support), dims, idx)
+    if order == "shuffled":
+        scales = as_dev(np.concatenate([wk_t * vre, wk_t * vim]))
+    else:
+        scales = (as_dev(wk_t), *vis)
+    return (tb.grid_packed, tb.grid_packed_reference,
+            (*idx, as_dev(u_off, torch.int32), as_dev(iv0, torch.int32),
+             as_dev(uk), as_dev(vk), scales, SCATTER_BUCKETS, width,
+             w_support), dims, idx)
+
+
+SCATTER_CASES = [(g, m) for g in SCATTER_GEOMS for m in _gather_modes(g[0])]
+
+
+@pytest.mark.parametrize("geom,mode", SCATTER_CASES, ids=[
+    "-".join(map(str, g)) + f"-{m}" for g, m in SCATTER_CASES])
+def test_window_scatter_kernels_match_plain(device, geom, mode):
+    """K3 (``stack_words``), K12 (``stack_taps``), K8 (``band_taps``, f32
+    and bf16 ``vk``) and K18 (``band_words``) against their plain versions
+    at 1e-5 of max|output| in every mode (the bf16 modes round the same
+    factors as their plain versions), with the run table built by the
+    wrapper, of maximal runs, in the kernels' parts, in shuffled row order,
+    and of one block a row (a window added by several CTAs); one launch a
+    call, no host sync; buckets no block visits stay exactly zero."""
+    form, support, w_support, width, block_v, order = geom
+    fn, ref, args, kw, keys = _scatter_operands(
+        device, form, support, w_support, width, block_v, order)
+    if form == "band_taps" and mode == "bf16":
+        args = (*args[:4], args[4].to(torch.bfloat16), *args[5:])
+    elif form != "band_taps":
+        kw = dict(kw, precision=mode)
+    want = ref(*args, **kw)
+    assert want.abs().max() > 0
+    parts = tk.degrid_runs(keys)
+    perm = torch.randperm(parts.shape[0], generator=torch.Generator(
+        ).manual_seed(1)).to(parts.device)
+    tables = [None, tk.run_table(keys), parts, parts[perm].contiguous(),
+              tk.run_table(keys, 1)]
+    if order == "long":
+        assert int(tables[1][:, 1].max()) >= 8
+    for runs in tables:
+        before = fn.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = fn(*args, **kw, runs=runs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert got.shape == want.shape
+        assert _rel(got, want) <= 1e-5
+        if not form.startswith("stack"):
+            unvisited = torch.ones(SCATTER_BUCKETS, dtype=torch.bool,
+                                   device=got.device)
+            unvisited[keys[0].long()] = False
+            assert not bool(got[:, unvisited].abs().max() > 0)
+
+
+def test_scatter_layout_matches_kernel(device):
+    """packed_tap.scatter_layout, the Python mirror, gives the layout the
+    kernel's own plan_layout gives, over Sw 1-8 and lanes 8-4096."""
+    import ctypes
+
+    from ska_sdp_func_torch.kernels import _build
+
+    lib = _build.load()
+    buf = (ctypes.c_int64 * 8)()
+    for w_support in range(1, 9):
+        for lanes in range(8, 4097, 8):
+            assert lib.sdp_torch_scatter_layout(
+                w_support, lanes, ctypes.addressof(buf)) == 0
+            lay = tk.scatter_layout(w_support, lanes)
+            assert list(buf) == [lay[k] for k in (
+                "stride", "lpad", "w_planes", "plane_groups", "tile_w",
+                "tiles", "smem", "fixed")], (w_support, lanes)
+
+
+def _ingest_images(device, kind):
+    """The ingest ``kind`` on ``device``: its dirty image, the kernels it
+    launched, and the plan's taper."""
+    from ska_sdp_func_torch.parallel import packed_gridder
+
+    uvw, vis = make_inputs()
+    params = {**PARAMS, "oversampling": 65536} if kind.startswith("np") \
+        else PARAMS
+    plan = plan_wstack(uvw, FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE, **params)
+    kernels.reset_launch_counts()
+    if kind in ("fused", "compact"):
+        g = packed_gridder(plan_packed(plan, uvw, block_v=128), engine=kind,
+                           precision="highest", device=device)
+        img = g.grid(vis)
+    else:
+        rows = uvw.shape[0]
+        sp = plan_stream(plan, stream_tasks(plan, uvw), chunk_rows=rows,
+                         block_v=128, cap_slots=40960)
+        sg = StreamingGridder(sp, fast=kind == "np fast", device=device)
+        sg.accumulate(uvw, vis)
+        sg.accumulate(uvw[: rows // 2], vis[: rows // 2])
+        img = sg.finalize()
+    torch.cuda.synchronize()
+    k = plan.kernel()
+    taper = 1.0 / grid_correct_pswf(
+        k.image_size, k.theta, k.w_step, k.shear_u, k.shear_v, k.support,
+        k.w_support, torch.ones(k.image_size, k.image_size))
+    return img.cpu(), kernels.launch_counts(), taper
+
+
+@pytest.mark.parametrize("kind", ["stream", "np", "np fast", "fused",
+                                  "compact"])
+def test_ingests_on_card_match_cpu_image(device, kind):
+    """The ingests that grid through the window-scatter kernels (the
+    packable stream, K3; the non-packable one in f32 and fast, K8; the
+    packed fused and compact engines, K3 and K12), each bucket over
+    several blocks, return the CPU port's image (the plain versions) at
+    1e-5 taper-weighted."""
+    grid = {"stream": "grid_fused_stack", "np": "grid_packed",
+            "np fast": "grid_packed", "fused": "grid_fused_stack",
+            "compact": "grid_compact"}[kind]
+    i0, c0, taper = _ingest_images("cpu", kind)
+    i1, c1, _ = _ingest_images(device, kind)
+    assert set(c0.values()) == {0} and c1[grid] >= 1
+    assert _rel(i1 * taper, i0 * taper) <= 1e-5
 
 
 def test_planners_take_uvw_on_card(device):
