@@ -12,22 +12,24 @@ Run from the repository root on a machine with a CUDA card. With
 the package of the working directory and prints one JSON line, so two
 checkouts compare on one card in turns; ``--predict-times`` does the same
 for the three predicts (the stream, non-packable and ES-FFT degrids, by
-stage) and the window-gather kernels K4, K11, K13 and K19 (with a digest
-of each output, equal where two checkouts' results are bit-equal), and
-``--ingest-times`` for the ingests (the stream's ``accumulate``, the
-non-packable one in f32 and fast, the ES-FFT 3-D grid, by stage; the
-packed fused and compact ``grid_sorted``) and the window-scatter kernels
-K3, K8, K12 and K18. Phases, one line of output each (or a few), failing
-loudly on the first fault:
+stage), the window-gather kernels K4, K11, K13 and K19 and the tap
+preparation K7 (f32 and bf16; with a digest of each output, equal where
+two checkouts' results are bit-equal), and ``--ingest-times`` for the
+ingests (the stream's ``accumulate``, the non-packable one in f32 and
+fast, the ES-FFT 3-D grid, by stage; the packed fused and compact
+``grid_sorted``), the window-scatter kernels K3, K8, K12 and K18 and the
+tap preparation K6 (f32 and bf16, with its output digests). Phases, one
+line of output each (or a few), failing loudly on the first fault:
 
 1. toolchain: the card's name and power limit (nvidia-smi), torch, CUDA
    and nvcc versions;
 2. build: compiles the port's CUDA kernels from ``csrc/`` (one nvcc per
    source, in parallel; timed), and prints the registers and spills
    ptxas reports for each instance of the window-gather kernel (K4, K11,
-   K13, K19) and of the window-scatter kernel (K3, K12, K8, K18), and
-   the shared-memory atomics and bulk reductions in each kernel's SASS
-   (``cuobjdump -sass``);
+   K13, K19), of the window-scatter kernel (K3, K12, K8, K18) and of the
+   tap preparation's kernel (K6, K7: unrolled and generic, f32 and bf16),
+   and the shared-memory atomics and bulk reductions in each kernel's
+   SASS (``cuobjdump -sass``);
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card: the packed kernels (K1, K2: "high" and "bf16" on the tensor
    cores over the plan's bucket runs, "highest" on the CUDA cores) and
@@ -41,7 +43,8 @@ loudly on the first fault:
    f32 and bf16 (K6, K7 bit for bit), each on the small test scenario
    (the non-packable kernels on 64-slot blocks) and at the shapes of the
    main paths below (K3-K11 with the very arguments the streaming paths
-   pass them);
+   pass them); K6/K7 also through their generic instance (other fits on
+   window j's fields), bit for bit;
 4. main paths, each driven with the launch counters set to 0 just before
    it and read just after; each path must launch its own kernels and
    none of another path's:
@@ -191,7 +194,10 @@ window j's dense stream (``degrid_fused[dense stream]``) beside its
 ES-FFT one. K3, K8, K12 and K18 (redesigned: one template in
 ``csrc/window_scatter.cu``) carry the same keys (``instance``:
 ``window_scatter_kernel<...>``); K8 has a row at window j's dense stream
-(``grid_packed[dense stream]``) beside its ES-FFT one. One kernel
+(``grid_packed[dense stream]``) beside its ES-FFT one. K6 and K7
+(redesigned: one template in ``csrc/stream_prep.cu``) carry the same
+keys (``instance``: ``stream_prep_kernel<GRID, BF16, NCOEF, S>``, the
+instance window j's fits take). One kernel
 replaces both TPU folds (K9, K10): it has a row for each; the bf16
 modes of K6, K7, K8 and K11 have rows of their own (``[bf16]``, window
 k's operands), bytes counted for the bf16 ``vk``; so do K20 and the bf16
@@ -358,6 +364,19 @@ COMPACT_MODES = {"highest": dict(precision="highest"),
 # it also runs K5, K8 and K11.
 NP_OVERSAMPLING, NP_W_OVERSAMPLING = 65536, 16384
 PREP_SOURCE = "ska_sdp_func_torch/kernels/csrc/stream_prep.cu"
+# K6/K7, redesigned for the card: one kernel template,
+# stream_prep_kernel<GRID, BF16, NCOEF, S>, unrolled at the streaming
+# paths' fits (ncoef 12, S 8) and generic (0, 0) for the wrapper's range.
+PREP_REDESIGN = ("redesigned: persistent CTAs walk 256-slot tiles; a thread "
+                 "a (slot, tap) evaluates uk and vk, so a warp stores 4 "
+                 "slots' taps as one 128 B run; a thread a (slot, w tap) "
+                 "evaluates wk into shared memory and each scale row is "
+                 "written as one contiguous run; the unrolled instance "
+                 "holds its coefficient columns in registers and unrolls "
+                 "the chains")
+# The generic instance's fits in phase 3, on window j's fields: (S, Sw,
+# ncoef), random coefficients.
+PREP_GENERIC_FITS = ((8, 8, 16), (5, 4, 12), (8, 3, 12))
 FOLD_SOURCE = "ska_sdp_func_torch/kernels/csrc/fold.cu"
 PREP_KERNELS = (
     ("stream_prep_grid", "ska_sdp_func_tpu/kernels/packed_tap.py:524"),
@@ -1068,9 +1087,9 @@ def check_np_kernels(torch, StreamingGridder, StreamingDegridder, sp, uvw,
                 e = max(rel_err(a, b) for a, b in zip(got, want))
             finite(torch, [(f"{name}{tag}", a) for a in got])
             bits = all(torch.equal(a, b) for a, b in zip(got, want))
-            if fast and name.startswith("stream_prep") and not bits:
-                raise SystemExit(f"{name} [bf16] is not bit-equal to its "
-                                 f"plain version [{label}]")
+            if name.startswith("stream_prep") and not bits:
+                raise SystemExit(f"{name} is not bit-equal to its plain "
+                                 f"version [{label}]")
             lines.append(f"{name}{tag} {e:.3e}"
                          + (" (bit-equal)" if bits else ""))
             if not e <= TOL:
@@ -1087,6 +1106,42 @@ def check_np_kernels(torch, StreamingGridder, StreamingDegridder, sp, uvw,
         f"{int(captured['fold_windows'][0][0][1].sum())} visited buckets "
         f"of {sp.num_buckets})")
     return errs, captured, valid
+
+
+def check_prep_instances(torch, captured, label):
+    """K6 and K7 through both kernel instances, f32 and bf16, bit for bit
+    against their plain versions on the fields of ``captured`` (one
+    non-packable pass's calls, :func:`check_np_kernels`): the unrolled
+    instance on the pass's own fits, the generic one on the fits of
+    PREP_GENERIC_FITS (seeded random coefficients)."""
+    from ska_sdp_func_torch.kernels import stream_prep
+
+    rng = np.random.default_rng(14)
+    lines = []
+    for name in ("stream_prep_grid", "stream_prep_degrid"):
+        args, _ = captured[name][0]
+        head, (c_uv, c_w, ov, wov) = args[:-4], args[-4:]
+        fits = [(c_uv, c_w)] + [
+            tuple(torch.as_tensor(rng.standard_normal((n, k)),
+                                  dtype=torch.float32, device=c_uv.device)
+                  for k in (s_, sw)) for s_, sw, n in PREP_GENERIC_FITS]
+        for uv, w in fits:
+            for fast in (False, True):
+                call = (*head, uv, w, ov, wov)
+                got = getattr(stream_prep, name)(*call, fast=fast)
+                want = getattr(stream_prep, name + "_reference")(
+                    *call, fast=fast)
+                torch.cuda.synchronize()
+                inst = stream_prep.instance(name == "stream_prep_grid", fast,
+                                            *uv.shape, w.shape[1])
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise SystemExit(f"{name} ({inst}, Sw {w.shape[1]}) is "
+                                     f"not bit-equal to its plain version "
+                                     f"[{label}]")
+                lines.append(f"{inst} Sw {w.shape[1]}")
+                del got, want
+    say(f"# K6/K7 instances vs plain [{label}], each bit-equal: "
+        + ", ".join(lines))
 
 
 def word_operands(torch, sp, uvw, vis, model):
@@ -1391,16 +1446,21 @@ def packed_times_main() -> int:
 
 
 def digest(out) -> str:
-    """The first 16 hex digits of the SHA-256 of a kernel's output bytes:
-    two checkouts whose kernel sums in a fixed order (the window-gather
-    degrids) give equal digests when their results are bit-equal."""
+    """The first 16 hex digits of the SHA-256 of a kernel's output bytes
+    (a tuple's outputs in order): two checkouts whose kernel sums in a
+    fixed order (the window-gather degrids, the tap preparation) give
+    equal digests when their results are bit-equal."""
     import hashlib
 
     import torch
 
-    raw = torch.view_as_real(out) if out.is_complex() else out
-    return hashlib.sha256(raw.detach().contiguous().cpu().numpy().tobytes()
-                          ).hexdigest()[:16]
+    h = hashlib.sha256()
+    for t in out if isinstance(out, (tuple, list)) else (out,):
+        raw = torch.view_as_real(t) if t.is_complex() else t
+        if raw.dtype == torch.bfloat16:
+            raw = raw.view(torch.int16)
+        h.update(raw.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def predict_times(torch, dev):
@@ -1411,13 +1471,13 @@ def predict_times(torch, dev):
     oversampling 65536 in f32 and fast) and of the ES-FFT 3-D degrid of
     the bench data, then each kernel on its path's operands (CUDA events,
     20 calls, twice): K4 and K11 (f32, bf16) at the dense stream, K11 at
-    the ES-FFT shapes, K4 and K13 of the packed engines at the bench
-    scenario ("highest"), and K19 on window f's words (with the kernels'
-    run table where the package has one), with the digest of each
-    kernel's output (:func:`digest`). Only calls every version of the port
-    has are made."""
+    the ES-FFT shapes, K7 (f32, bf16) on window j's and k's operands, K4
+    and K13 of the packed engines at the bench scenario ("highest"), and
+    K19 on window f's words (with the kernels' run table where the package
+    has one), with the digest of each kernel's output (:func:`digest`).
+    Only calls every version of the port has are made."""
     from ska_sdp_func_torch.grid_data import GridderUvwEsFft
-    from ska_sdp_func_torch.kernels import band_tap, fused_tap
+    from ska_sdp_func_torch.kernels import band_tap, fused_tap, stream_prep
     from ska_sdp_func_torch.parallel import (
         PackedGridder,
         StreamingDegridder,
@@ -1476,7 +1536,12 @@ def predict_times(torch, dev):
             ("degrid_fused[dense stream, bf16]", band_tap.degrid_fused,
              "non-packable predict, fast"),
             ("degrid_fused[ES-FFT 3-D]", band_tap.degrid_fused,
-             "es degrid")):
+             "es degrid"),
+            ("stream_prep_degrid[dense stream]",
+             stream_prep.stream_prep_degrid, "non-packable predict K7"),
+            ("stream_prep_degrid[dense stream, bf16]",
+             stream_prep.stream_prep_degrid,
+             "non-packable predict, fast K7")):
         twice(name, fn, *calls[key])
     del sds, calls, es
     wplan = plan_wstack(uvw, C_0, C_0 / (100 * CHANS), CHANS, IMAGE, SUBGRID,
@@ -1540,10 +1605,12 @@ def ingest_stages(torch, sg_f, sg_j, sg_k, es_plan, es, uvw, vis):
     ``sg_f`` (plan + K5, the run table where the package builds one, K3,
     the drain), the non-packable ones ``sg_j`` (f32) and ``sg_k`` (fast):
     plan + K5, K6, the K8 stage (its run table included), the fold, the
-    drain, and K8 alone on the stage's own operands; and the ES-FFT 3-D
+    drain, K8 alone on the stage's own operands and the call three times
+    more (``call repeats``: the host-bound calls' spread); and the ES-FFT 3-D
     grid ``es()`` of the plan ``es_plan``: K8 alone, the slab fold and the
-    rest (FFTs, screens, the sort). Each rest is the whole call's time less its timed stages. Also
-    returns the kernels' captured calls, for their rows."""
+    rest (FFTs, screens, the sort). Each rest is the whole call's time
+    less its timed stages. Also returns the kernels' captured calls (K6's
+    under "<ingest> K6"), for their rows."""
     from ska_sdp_func_torch.grid_data import es_fft_packed
     from ska_sdp_func_torch.kernels import band_tap, fused_tap, packed_tap
     from ska_sdp_func_torch.parallel import streaming
@@ -1585,10 +1652,13 @@ def ingest_stages(torch, sg_f, sg_j, sg_k, es_plan, es, uvw, vis):
     for name, sg in (("non-packable ingest", sg_j),
                      ("non-packable ingest, fast", sg_k)):
         eng, plan = chunk(sg)
-        rec = []
-        with recorded(streaming, "band_tap", ("grid_packed",), rec):
+        rec, prep = [], []
+        with recorded(streaming, "band_tap", ("grid_packed",), rec), \
+                recorded(streaming, "stream_prep", ("stream_prep_grid",),
+                         prep):
             sg.accumulate(uvw, vis)
         args, kw = calls[name] = rec[-1][1:]
+        calls[name + " K6"] = prep[-1][1:]
         a, _, bb, visited, *_ = plan()
         taps = eng._prep_grid(a)
         wins = eng._grid_windows(a, bb, *taps)
@@ -1601,6 +1671,8 @@ def ingest_stages(torch, sg_f, sg_j, sg_k, es_plan, es, uvw, vis):
                   drain=ms(lambda: eng._drain(layers)))
         rest(st)
         st["K8 alone"] = ms(lambda: band_tap.grid_packed(*args, **kw))
+        st["call repeats"] = [ms(lambda: sg.accumulate(uvw, vis))
+                              for _ in range(3)]
         st["units"] = scatter_units(kw.get("runs"), kw["block_v"])
         out[name] = st
         del a, bb, taps, wins, layers
@@ -1632,14 +1704,16 @@ def ingest_times(torch, dev):
     ``grid_sorted`` at the bench scenario ("highest"); then each grid
     kernel on its path's operands (CUDA events, 20 calls, twice): K3 at
     the dense stream and the packed bench scenario, K8 (f32, bf16) at the
-    dense stream and at the ES-FFT shapes, K12 at the packed bench
-    scenario, and K18 on window f's words (with a run table built once,
-    as a plan's, where the package takes one). Only calls every version
-    of the port has are made."""
+    dense stream and at the ES-FFT shapes, K6 (f32, bf16) on window j's
+    and k's operands, with the digest of each K6 output (:func:`digest`),
+    K12 at the packed bench scenario, and K18 on window f's words (with a
+    run table built once, as a plan's, where the package takes one). Only
+    calls every version of the port has are made."""
     import inspect
 
     from ska_sdp_func_torch.grid_data import GridderUvwEsFft
     from ska_sdp_func_torch.kernels import band_tap, fused_tap, packed_tap
+    from ska_sdp_func_torch.kernels import stream_prep
     from ska_sdp_func_torch.parallel import (
         PackedGridder,
         StreamingGridder,
@@ -1685,11 +1759,19 @@ def ingest_times(torch, dev):
         return es.grid_uvw_es_fft(*e_args, e_weight, e_dirty)
 
     stages, calls = ingest_stages(torch, *sgs, es, es_grid, uvw_dd, vis_dd)
-    kernels = {}
+    kernels, digests = {}, {}
 
     def twice(name, fn, args, kw):
         kernels[name] = [cuda_ms(torch, lambda: fn(*args, **kw), 20)
                          for _ in range(2)]
+
+    for name, key in (("stream_prep_grid[dense stream]",
+                       "non-packable ingest K6"),
+                      ("stream_prep_grid[dense stream, bf16]",
+                       "non-packable ingest, fast K6")):
+        twice(name, stream_prep.stream_prep_grid, *calls[key])
+        digests[name] = digest(stream_prep.stream_prep_grid(
+            *calls[key][0], **calls[key][1]))
 
     for name, fn, key in (
             ("grid_fused_stack[dense stream]", fused_tap.grid_fused_stack,
@@ -1725,7 +1807,7 @@ def ingest_times(torch, dev):
     if "runs" in inspect.signature(band_tap.grid_fused).parameters:
         w_kw = dict(w_kw, runs=packed_tap.degrid_runs((w_args[0],)))
     twice("grid_fused[dense stream]", band_tap.grid_fused, w_args, w_kw)
-    return dict(stages=stages, kernels=kernels)
+    return dict(stages=stages, kernels=kernels, digests=digests)
 
 
 def ingest_times_main() -> int:
@@ -1969,14 +2051,17 @@ def np_stage_times(torch, sd, uvw, vis):
     return out
 
 
-def window_ptxas(log, kernel="window_gather_kernel"):
-    """{(mode, form): registers, spill stores and loads} of each instance
-    of the window template ``kernel`` in nvcc's ``-Xptxas -v`` log."""
+def window_ptxas(log, kernel="window_gather_kernel",
+                 pattern=r"ILi(\d)ELi(\d)E"):
+    """{template arguments: registers, spill stores and loads} of each
+    instance of the template ``kernel`` in nvcc's ``-Xptxas -v`` log, the
+    arguments the integer groups of ``pattern`` after its mangled name
+    (the window templates' (mode, form) by default)."""
     out, key = {}, None
     for line in log.splitlines():
-        m = re.search(kernel + r"ILi(\d)ELi(\d)E", line)
+        m = re.search(kernel + pattern, line)
         if m and "Compiling entry" in line:
-            key = (int(m[1]), int(m[2]))
+            key = tuple(int(g) for g in m.groups())
             continue
         if key is None:
             continue
@@ -2058,10 +2143,12 @@ def predict_stages(torch, sd_f, sd_j, sd_k, es_degrid, uvw):
     (plan + K5 with the unsort map, the run table where the package
     builds one, K4, the rest), the non-packable predicts ``sd_j`` (f32)
     and ``sd_k`` (fast): plan + K5, K7, the K11 stage (its run table
-    included), unsort, and K11 alone on the stage's own operands; and the
-    ES-FFT 3-D degrid ``es_degrid()``: K11 alone and the rest. Each rest
+    included), unsort, K11 alone on the stage's own operands and the call
+    three times more (``call repeats``); and the ES-FFT 3-D degrid
+    ``es_degrid()``: K11 alone and the rest. Each rest
     is the whole call's time less its timed stages. Also returns the
-    kernels' captured calls, for their rows."""
+    kernels' captured calls (K7's under "<predict> K7"), for their
+    rows."""
     from ska_sdp_func_torch.grid_data import es_fft_packed
     from ska_sdp_func_torch.kernels import band_tap, fused_tap
     from ska_sdp_func_torch.kernels import packed_tap
@@ -2093,10 +2180,13 @@ def predict_stages(torch, sd_f, sd_j, sd_k, es_degrid, uvw):
                      ("non-packable predict, fast", sd_k)):
         eng = sd._engine
         _, uvw32, mask = streaming._padded_chunk(sd.splan, uvw, uvw.device)
-        rec = []
-        with recorded(streaming, "band_tap", ("degrid_fused",), rec):
+        rec, prep = [], []
+        with recorded(streaming, "band_tap", ("degrid_fused",), rec), \
+                recorded(streaming, "stream_prep", ("stream_prep_degrid",),
+                         prep):
             sd.predict(uvw)
         args, kw = calls[name] = rec[-1][1:]
+        calls[name + " K7"] = prep[-1][1:]
         a, dest, bb, *_ = eng._plan_chunk(uvw32, mask)
         taps = eng._prep_degrid(a)
         raw = eng._degrid_windows(sd._st, a, bb, *taps)
@@ -2109,6 +2199,7 @@ def predict_stages(torch, sd_f, sd_j, sd_k, es_degrid, uvw):
         st["rest"] = st["call"] - sum(v for k, v in st.items()
                                       if k != "call")
         st["K11 alone"] = ms(lambda: band_tap.degrid_fused(*args, **kw))
+        st["call repeats"] = [ms(lambda: sd.predict(uvw)) for _ in range(3)]
         st["units"] = gather_units(kw.get("runs"), kw["block_v"], args[9],
                                    args[10])
         out[name] = st
@@ -2130,8 +2221,10 @@ def stage_text(stages):
     """One line of :func:`predict_stages`' numbers."""
     parts = []
     for name, st in stages.items():
-        times = ", ".join(f"{k} {v:.3f}" for k, v in st.items()
-                          if k not in ("call", "units"))
+        times = ", ".join(
+            f"{k} " + ("/".join(f"{x:.3f}" for x in v)
+                       if isinstance(v, list) else f"{v:.3f}")
+            for k, v in st.items() if k not in ("call", "units"))
         u = st.get("units")
         parts.append(f"{name} {st['call']:.3f} ms = {times}" + (
             f" ({u['units']} work units of at most {u['max_slots']} slots, "
@@ -2630,6 +2723,18 @@ def main() -> int:
         if _build.build_info["log"] and \
                 len(found) != len(GATHER_MODES) * len(GATHER_FORMS):
             raise SystemExit(f"the build log lacks {kernel} entries")
+    # (grid, bf16, ncoef, S) of each stream_prep_kernel instance.
+    prep_regs = window_ptxas(_build.build_info["log"], "stream_prep_kernel",
+                             r"ILb(\d)ELb(\d)ELi(\d+)ELi(\d+)E")
+    say("# ptxas, stream_prep_kernel<GRID, BF16, NCOEF, S> (K6 GRID true, "
+        "K7 false; unrolled 12, 8, generic 0, 0): " + "; ".join(
+            f"<{str(bool(g)).lower()}, {str(bool(b)).lower()}, {n}, {s_}> "
+            f"{v.get('registers')} "
+            f"registers, spills {v.get('spill_stores')} B stored / "
+            f"{v.get('spill_loads')} B loaded"
+            for (g, b, n, s_), v in sorted(prep_regs.items())))
+    if _build.build_info["log"] and len(prep_regs) != 8:
+        raise SystemExit("the build log lacks stream_prep_kernel entries")
     census = sass_atomics(_build.build_info["path"])
     say("# SASS (cuobjdump -sass), shared-memory atomics and bulk "
         "reductions by kernel: " + ("; ".join(
@@ -2753,6 +2858,8 @@ def main() -> int:
     np_err, np_ops, np_valid = check_np_kernels(
         torch, StreamingGridder, StreamingDegridder, sp_j, uvw_dd, vis_dd,
         model, "dense stream, non-packable")
+    # K6/K7's unrolled instance (the paths' fits) and generic instance.
+    check_prep_instances(torch, np_ops, "dense stream, non-packable")
     # Their bf16 modes (K6, K7 bit for bit): the small case, then window
     # k's operands.
     check_np_kernels(torch, StreamingGridder, StreamingDegridder, sp_s64,
@@ -3766,6 +3873,23 @@ def main() -> int:
                          ptxas=found.get(key))
         return r
 
+    def prep_row(r):
+        """K6/K7's rows (f32 and bf16) name their redesigned kernel, the
+        template instance the path's fits take and its ptxas registers
+        and spills."""
+        name, _, tag = r["name"].partition("[")
+        if name.startswith("stream_prep"):
+            grid, fast = name == "stream_prep_grid", tag == "bf16]"
+            uv, w = (bf_ops if fast else np_ops)[name][0][0][-4:-2]
+            ncoef_r, support_r = uv.shape
+            inst = stream_prep.instance(grid, fast, ncoef_r, support_r,
+                                        w.shape[1])
+            key = (int(grid), int(fast)) + (
+                (ncoef_r, support_r) if inst.endswith("12, 8>") else (0, 0))
+            r.update(redesigned=PREP_REDESIGN, instance=inst,
+                     ptxas=prep_regs.get(key))
+        return r
+
     def plane_row(r):
         """K14/K15's rows name their redesigned kernels' source."""
         if r["name"].split("[")[0].endswith("plane"):
@@ -3856,7 +3980,7 @@ def main() -> int:
         exp_row(name, source, where, exp_sites[name][0], exp_sites[name][1],
                 headline, read_rate)
         for name, _, _, _, source, where, headline in EXPERIMENT_SITES]
-    kernels = [window_row(r) for r in kernels]
+    kernels = [prep_row(window_row(r)) for r in kernels]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -173,6 +173,8 @@ def load() -> ctypes.CDLL:
                 lib.sdp_torch_stream_prep.argtypes = (
                     [p] * 8 + [i] * 3 + [f, f, i64] + [p] * 3 + [i, p])
                 lib.sdp_torch_stream_prep.restype = i
+                lib.sdp_torch_stream_prep_unrolled.argtypes = [i, i, i]
+                lib.sdp_torch_stream_prep_unrolled.restype = i
                 lib.sdp_torch_fold_windows.argtypes = [p, p] + [i] * 6 + [p, p]
                 lib.sdp_torch_fold_windows.restype = i
                 lib.sdp_torch_read_streams.argtypes = [pp, i, i, i, i, f, p, p]

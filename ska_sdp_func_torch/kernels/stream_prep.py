@@ -15,19 +15,31 @@ With ``fast`` (the streaming engine's bf16 mode) ``vk`` comes back as a
 ``torch.bfloat16`` [V, S] tensor: the same taps, each rounded once to
 nearest even, as the Pallas kernels store their v-band in bf16
 (packed_tap.py:521, :639); ``uk`` and the scales stay f32, as in JAX.
-The band kernels (:mod:`.band_tap`) take their bf16 mode from that dtype.
 
 The Pallas kernels place the taps into dense bands (``ubase`` [16, V],
 ``vband`` [V, lanes] or ``vband_t`` [lanes, V], 1 KiB per slot at 256
-lanes); the port's band kernels (:mod:`.band_tap`) take the compact taps
-instead, and :func:`.packed_tap.build_bands` turns ``(u_off, iv0, uk,
-vk)`` into exactly those bands.
+lanes). The port keeps them compact: its window kernels read them as
+they are, K8 (:func:`.band_tap.grid_packed`, ``csrc/window_scatter.cu``)
+and K11 (:func:`.band_tap.degrid_fused`, ``csrc/window_gather.cu``), each
+taking its bf16 mode from ``vk``'s dtype. (:func:`.packed_tap.build_bands`
+turns ``(u_off, iv0, uk, vk)`` into the Pallas kernels' bands, for the
+tests that hold the two packages' preparations against each other.)
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/stream_prep.cu``) or raises; on a CPU tensor it runs its plain
 PyTorch version (``*_reference``). Each counts its launches in
 ``.launches``. Both round every operation on its own, in the same order,
-so they evaluate identical taps.
+so they evaluate identical taps, bit for bit.
+
+The kernel is bound by its bytes (20 in and 96 out a slot at S 8, Sw 4)
+and by instruction issue; it is laid out for full-sector stores. A thread
+a (slot, tap) evaluates ``uk`` and ``vk``, so a warp stores 4 slots' taps
+as one 128 B run; a thread a (slot, w tap) evaluates ``wk`` into shared
+memory, and each scale row is written as one contiguous
+run of a 256-slot tile. Its unrolled instance (:func:`instance`) holds
+the coefficient columns in registers and unrolls the chains at the
+streaming paths' fits (ncoef 12, S 8, Sw a power of two); the generic
+instance takes the rest of the range (ncoef <= 16, S <= 8, Sw <= 8).
 """
 
 import numpy as np
@@ -67,6 +79,25 @@ def stream_prep_degrid_reference(u_frac, v_frac, w_row, valid_f, uv_coeffs,
     uk, vk, wk_t = _taps(u_frac, v_frac, w_row, uv_coeffs, w_coeffs,
                          oversampling, w_oversampling, fast)
     return uk, vk, wk_t * valid_f[None, :]
+
+
+# The fits (ncoef, S) the unrolled instance takes, with a w support that
+# is a power of two; the kernel's sdp_torch_stream_prep_unrolled answers
+# the same.
+_UNROLLED = ((12, 8),)
+
+
+def instance(grid: bool, fast: bool, ncoef: int, support: int,
+             w_support: int) -> str:
+    """The kernel template instance a launch on fits of ``ncoef`` rows,
+    ``support`` uv taps and ``w_support`` w taps takes:
+    ``stream_prep_kernel<GRID, BF16, 12, 8>`` (unrolled) or ``<GRID,
+    BF16, 0, 0>`` (generic)."""
+    pow2 = w_support & (w_support - 1) == 0
+    fits = (ncoef, support) if (ncoef, support) in _UNROLLED and pow2 \
+        else (0, 0)
+    return (f"stream_prep_kernel<{str(grid).lower()}, {str(fast).lower()}, "
+            f"{fits[0]}, {fits[1]}>")
 
 
 def _check_prep(u_frac, v_frac, w_row, extra, uv_coeffs, w_coeffs):

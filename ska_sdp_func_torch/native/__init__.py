@@ -1,11 +1,11 @@
 """Native C++/OpenMP host runtime for the port's planners, bound via ctypes.
 
-The port plans on the host exactly as the JAX package does, with the same
-C++ source: ``ska_sdp_func_tpu/native/src/host_runtime.cpp`` (task
-boxes, uvw bounds, the two-pass packed bucket planner and the plan
-digest). Compiling that file here, instead of importing
-:mod:`ska_sdp_func_tpu.native`, keeps the port free of any import from
-the JAX package while both packages produce byte-identical plans.
+The port plans on the host exactly as the JAX package does. Its C++
+source, ``src/host_runtime.cpp`` beside this file (task boxes, uvw
+bounds, the two-pass packed bucket planner and the plan digest), is the
+port's own copy of the JAX package's ``native/src/host_runtime.cpp``,
+byte for byte (a test holds the two equal), so both packages produce
+byte-identical plans while the port reads nothing of the JAX package.
 
 The library is built with ``g++ -O3 -fopenmp`` on first use into
 ``_build/`` beside this file, keyed by a hash of the source. A host
@@ -24,9 +24,8 @@ import numpy as np
 
 from ..utility.errors import SdpRuntimeError
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "ska_sdp_func_tpu", "native", "src",
-    "host_runtime.cpp")
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src",
+                    "host_runtime.cpp")
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "_build")
 _LOCK = threading.Lock()

@@ -19,8 +19,9 @@ for the w-towers tap kernels
 degrid_all_layers), the fused and compact kernels (``fused_tap``) and
 the ES-FFT band kernels (``band_tap``: K8 and K11 in f32 and bf16, the
 word-fed K18 and K19 in all three modes), the streaming tap preparation
-(``stream_prep``, f32 and bf16) and the window fold (``fold``) against
-their plain versions; the placement kernel (``place``) is a copy and
+(``stream_prep``, f32 and bf16: bit for bit, over ragged tiles, unaligned
+scale rows and both kernel instances, ``-k stream_prep``) and the window
+fold (``fold``) against their plain versions; the placement kernel (``place``) is a copy and
 compares bit for bit. The sparse all-layer grid (``sparse_tap``, K20)
 meets its plain version and the dense K16 on the same taps at 1e-5, in
 both modes; the bf16 mode of K14-K17 meets its bf16 plain versions at
@@ -934,6 +935,64 @@ def test_stream_prep_and_fold_kernels_match_plain(device, bv):
     for name, n in (("stream_prep_grid", 2), ("stream_prep_degrid", 2),
                     ("fold_windows", 1), ("grid_packed", 1)):
         assert after[name] == before[name] + n, name
+
+
+# Redesigned K6/K7 (a thread a (slot, tap), w taps and scale rows through
+# shared memory): totals that leave ragged 256-slot tiles and scale rows
+# that start unaligned (1, 31, 33, 4099, 24 x 1024), the unrolled instance
+# (ncoef 12, S 8, Sw 1, 2, 4, 8) and the generic one (S 1, 5, 8; Sw 1, 3,
+# 4, 8; ncoef 1, 12, 16) as (total, S, Sw, ncoef).
+PREP_CASES = [
+    (1, 8, 4, 12), (31, 8, 4, 12), (33, 8, 4, 12), (4099, 8, 4, 12),
+    (24 * 1024, 8, 4, 12), (4099, 8, 1, 12), (33, 8, 8, 12),
+    (4099, 8, 2, 12), (4099, 8, 3, 12),
+    (4099, 8, 4, 16), (1, 1, 1, 1), (31, 1, 8, 12), (4099, 5, 4, 12),
+    (33, 5, 1, 16), (24 * 1024, 5, 8, 16), (4099, 1, 4, 16),
+    (4099, 8, 8, 1),
+]
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("total,s_,sw,ncoef", PREP_CASES,
+                         ids=[f"V{v}-S{s}-Sw{w}-n{n}"
+                              for v, s, w, n in PREP_CASES])
+def test_stream_prep_kernels_bit_equal(device, total, s_, sw, ncoef, fast):
+    """K6 and K7 against their plain versions on the card, bit for bit
+    (the same operations in the same order, each rounded on its own),
+    through the instance the fits select (``stream_prep.instance``,
+    checked against the kernel's own choice); one launch a call."""
+    from ska_sdp_func_torch.kernels import _build
+    from ska_sdp_func_torch.kernels import stream_prep as tsp
+
+    rng = np.random.default_rng(total * 7 + s_ * 3 + sw + ncoef)
+    ov, wov = 65536, 16384
+    valid = rng.random(total) < 0.9
+
+    def put(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    fields = [put(np.where(valid, rng.integers(0, top + 1, total), 0),
+                  torch.int32) for top in (ov, ov, wov)]
+    vre, vim = (put(np.where(valid, rng.standard_normal(total), 0),
+                    torch.float32) for _ in range(2))
+    uv = put(rng.standard_normal((ncoef, s_)), torch.float32)
+    w = put(rng.standard_normal((ncoef, sw)), torch.float32)
+    unrolled = _build.load().sdp_torch_stream_prep_unrolled(ncoef, s_, sw)
+    assert tsp.instance(True, fast, ncoef, s_, sw).endswith(
+        "12, 8>" if unrolled else "0, 0>")
+    for prep, extra in ((tsp.stream_prep_grid, (vre, vim)),
+                        (tsp.stream_prep_degrid,
+                         (put(valid, torch.float32),))):
+        before = prep.launches
+        got = prep(*fields, *extra, uv, w, ov, wov, fast=fast)
+        torch.cuda.synchronize()
+        assert prep.launches == before + 1
+        want = getattr(tsp, prep.__name__ + "_reference")(
+            *fields, *extra, uv, w, ov, wov, fast=fast)
+        assert got[1].dtype == (torch.bfloat16 if fast else torch.float32)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and torch.equal(a, b), prep.__name__
 
 
 # -- compact kernels (K12, K13) and the compact engine -------------------------

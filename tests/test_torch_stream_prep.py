@@ -29,6 +29,7 @@ from ska_sdp_func_torch.utility.errors import (  # noqa: E402
     SdpShapeError,
 )
 from ska_sdp_func_tpu.kernels.packed_tap import (  # noqa: E402
+    _clenshaw_rows,
     stream_prep_degrid_pallas,
     stream_prep_grid_pallas,
 )
@@ -178,3 +179,58 @@ def test_stream_prep_fast_matches_jax(ov, lanes, direction):
     taps = j_exact != 0
     assert (same & taps).sum() >= 0.5 * taps.sum()
     np.testing.assert_array_equal(p_fast[same], j_fast[same])
+
+
+# The kernel's whole range, ragged totals: (total, S, Sw, ncoef).
+RANGE_CASES = [(1, 1, 1, 1), (31, 1, 8, 12), (33, 5, 4, 12),
+               (4099, 8, 4, 12), (4099, 5, 1, 16), (300, 8, 8, 16)]
+
+
+@pytest.mark.parametrize("total,s_,sw,ncoef", RANGE_CASES)
+def test_stream_prep_over_the_kernel_range_matches_jax(total, s_, sw, ncoef):
+    """The plain versions, which the kernel's two instances must equal bit
+    for bit on the card, over the range the wrapper takes (S <= 8, Sw <=
+    8, ncoef <= 16) against the JAX kernels' Clenshaw rows on seeded random
+    fits, at 1e-6 of max (XLA may contract a multiply-add)."""
+    rng = np.random.default_rng(total + 10 * s_ + sw + ncoef)
+    ov, wov = 65536, 16384
+    rows = [rng.integers(0, top + 1, total).astype(np.int32)
+            for top in (ov, ov, wov)]
+    vre, vim, valid = (rng.standard_normal(total).astype(np.float32)
+                       for _ in range(3))
+    valid = (valid > -1.0).astype(np.float32)
+    c_uv = rng.standard_normal((ncoef, s_)).astype(np.float32)
+    c_w = rng.standard_normal((ncoef, sw)).astype(np.float32)
+
+    def j_taps(row, c, over):
+        x = np.float32(2.0 / over) * jnp.asarray(row, jnp.float32) - 1.0
+        return np.asarray(_clenshaw_rows(x, jnp.asarray(c)))   # [n, total]
+
+    uk_j, vk_j = (j_taps(r, c_uv, ov).T for r in rows[:2])
+    wk_j = j_taps(rows[2], c_w, wov)
+    t = [torch.as_tensor(r) for r in rows]
+    tc = (torch.as_tensor(c_uv), torch.as_tensor(c_w), ov, wov)
+    uk, vk, scales = sp.stream_prep_grid(*t, torch.as_tensor(vre),
+                                         torch.as_tensor(vim), *tc)
+    _close(uk, uk_j)
+    _close(vk, vk_j)
+    _close(scales, np.concatenate([wk_j * vre, wk_j * vim]))
+    uk_d, vk_d, wk_t = sp.stream_prep_degrid(*t, torch.as_tensor(valid),
+                                             *tc, fast=True)
+    assert torch.equal(uk_d, uk) and torch.equal(vk_d,
+                                                 vk.to(torch.bfloat16))
+    _close(wk_t, wk_j * valid)
+
+
+@pytest.mark.parametrize("grid,fast,ncoef,s_,sw,want", [
+    (True, False, 12, 8, 4, "stream_prep_kernel<true, false, 12, 8>"),
+    (False, True, 12, 8, 8, "stream_prep_kernel<false, true, 12, 8>"),
+    (True, True, 16, 8, 4, "stream_prep_kernel<true, true, 0, 0>"),
+    (False, False, 12, 5, 4, "stream_prep_kernel<false, false, 0, 0>"),
+    (True, False, 12, 8, 3, "stream_prep_kernel<true, false, 0, 0>"),
+])
+def test_stream_prep_instance(grid, fast, ncoef, s_, sw, want):
+    """The instance a launch takes: unrolled at the streaming paths' fits
+    (degree 11, support 8, a w support that is a power of two), generic
+    elsewhere."""
+    assert sp.instance(grid, fast, ncoef, s_, sw) == want
