@@ -5,11 +5,13 @@
     (cd CHECKOUT && python3 /path/to/chip_smoke.py --packed-times)
     (cd CHECKOUT && python3 /path/to/chip_smoke.py --predict-times)
     (cd CHECKOUT && python3 /path/to/chip_smoke.py --ingest-times)
+    (cd CHECKOUT && python3 /path/to/chip_smoke.py --experiment-times)
 
 Run from the repository root on a machine with a CUDA card. With
 ``--packed-times`` it only times the packed path (K1/K2 in "high" and
-"bf16", ``grid_sorted``, ``degrid_sorted``, one major-cycle iteration) on
-the package of the working directory and prints one JSON line, so two
+"bf16", ``grid_sorted``, ``degrid_sorted``, one major-cycle iteration;
+with K1/K2's output digests and a digest of their machine code) on the
+package of the working directory and prints one JSON line, so two
 checkouts compare on one card in turns; ``--predict-times`` does the same
 for the three predicts (the stream, non-packable and ES-FFT degrids, by
 stage), the window-gather kernels K4, K11, K13 and K19 and the tap
@@ -18,8 +20,13 @@ two checkouts' results are bit-equal), and ``--ingest-times`` for the
 ingests (the stream's ``accumulate``, the non-packable one in f32 and
 fast, the ES-FFT 3-D grid, by stage; the packed fused and compact
 ``grid_sorted``), the window-scatter kernels K3, K8, K12 and K18 and the
-tap preparation K6 (f32 and bf16, with its output digests). Phases, one
-line of output each (or a few), failing loudly on the first fault:
+tap preparation K6 (f32 and bf16, with its output digests), and
+``--experiment-times`` for the experiments' kernels P2c-P2e (every
+``bucket_dot`` variant, beside ``torch.bmm`` in f32 and bf16, and
+``grid_parity`` at slots 1, 2 and 4) and P1 (``read_streams`` at 6 streams
+and 1, beside ATen's block sums), one JSON line a kernel with each
+output's digest. Phases, one line of output each (or a few), failing
+loudly on the first fault:
 
 1. toolchain: the card's name and power limit (nvidia-smi), torch, CUDA
    and nvcc versions;
@@ -28,6 +35,8 @@ line of output each (or a few), failing loudly on the first fault:
    ptxas reports for each instance of the window-gather kernel (K4, K11,
    K13, K19), of the window-scatter kernel (K3, K12, K8, K18) and of the
    tap preparation's kernel (K6, K7: unrolled and generic, f32 and bf16),
+   of the experiments' band products (P2c-P2e, ``bucket_dot_kernel``) and
+   read probe (P1, ``read_streams_kernel``),
    and the shared-memory atomics and bulk reductions in each kernel's
    SASS (``cuobjdump -sass``);
 3. kernels vs plain: each kernel against its plain PyTorch version on the
@@ -211,8 +220,9 @@ have a row for each TPU kernel site (P1, P2a-P2f): the numbers of its
 headline variant and a ``variants`` list with each variant's; their
 bounds divide tensor-core operations by the published dense peaks (TF32
 495 TFLOP/s, three passes for an f32 product; bf16 989 TFLOP/s), and P1's
-and exp_dot's lhs_stream rows carry ``library_ms`` (ATen's block sums;
-``torch.bmm`` with TF32 off). Every kernel row also carries
+and exp_dot's lhs_stream and npair rows carry ``library_ms`` (ATen's block
+sums; ``torch.bmm`` with TF32 off, on npair's even and odd blocks made
+contiguous beforehand). Every kernel row also carries
 ``bound_ms_read_rate``: its bound with the bytes over P1's measured read
 rate. The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero and prints no result. It
@@ -220,6 +230,7 @@ imports nothing of jax.
 """
 
 import contextlib
+import functools
 import json
 import os
 import re
@@ -454,6 +465,33 @@ EXPERIMENT_SITES = (
 # The wrappers only window p may launch.
 EXPERIMENT_KERNELS = ("read_streams", "prep_variant", "bucket_dot",
                       "grid_parity", "overlap")
+# P1 and P2c-P2e, redesigned for the card: the template and the instance
+# of each site's headline variant.
+DOT_REDESIGN = ("redesigned: one CTA an SM takes the bucket runs (a unit a "
+                "whole run, all 128 columns) longest first from a shared "
+                "counter; a producer thread streams 64-slot stages by TMA "
+                "through a ring under mbarriers; two consumer warpgroups "
+                "own 64 of U's rows each: TF32 x 3 as out^T = V^T U^T (A = "
+                "vband from registers split hi/lo, B = U^T hi/lo planes in "
+                "shared memory, wgmma m64n64k8), bf16 as U V (wgmma "
+                "m64n128k16); each stage summed fresh, added on the CUDA "
+                "cores; slots and npair as passes over the run; stored once "
+                "a pass, no atomics; unvisited buckets zeroed by the "
+                "producer warpgroup's other warps")
+PROBE_REDESIGN = ("redesigned: a thread keeps at least 4 float4 loads in "
+                  "flight at any stream count (4 rows a step at one "
+                  "stream, 2 at two or three), the adds in the one-row "
+                  "order")
+EXPERIMENT_REDESIGN = {
+    "read_streams[P1]": (PROBE_REDESIGN, "read_streams_kernel", (1, 8)),
+    "bucket_dot[P2c exp_dot _call]": (DOT_REDESIGN, "bucket_dot_kernel",
+                                      (0, 0, 1, 1, 0)),
+    "bucket_dot[P2d exp_dot _call_npair]": (DOT_REDESIGN,
+                                            "bucket_dot_kernel",
+                                            (0, 0, 2, 1, 1)),
+    "grid_parity[P2e exp_parity]": (DOT_REDESIGN, "bucket_dot_kernel",
+                                    (0, 0, 1, 1, 0)),
+}
 
 
 def say(msg: str) -> None:
@@ -1348,7 +1386,11 @@ def packed_times(torch, dev):
     (degrid, residual, grid, a 50-component Hogbom minor cycle): ms per
     call by CUDA events (10, 10 and 5 calls after a warm-up), then device
     time, busy share and device operations per call by ``torch.profiler``.
-    Only calls every version of the port has are made."""
+    Also the digests of two calls' outputs of each K1/K2 call (the grid
+    adds each run's window by atomics, so its bits may move from call to
+    call) and of K1/K2's machine code (:func:`sass_digests`). Only calls
+    every version of the port has are made."""
+    from ska_sdp_func_torch.kernels import _build
     from ska_sdp_func_torch.kernels import packed_tap as tk
     from ska_sdp_func_torch.parallel import (
         packed_gridder,
@@ -1364,7 +1406,9 @@ def packed_times(torch, dev):
     pplan = plan_packed(plan, uvw)
     model = torch.zeros((IMAGE, IMAGE), dtype=torch.float32, device=dev)
     model[300, 200] = 1.0
-    out = {"kernels": {}, "calls": {}}
+    out = {"kernels": {}, "digests": {}, "calls": {},
+           "sass": sass_digests(_build.build_info["path"],
+                                ("grid_runs_kernel", "degrid_runs_kernel"))}
     for mode, kw in (("high", {}), ("bf16", dict(fast=True))):
         g = packed_gridder(pplan, device=dev, **kw)
         grid_args, degrid_args = kernel_operands(torch, g, pplan, dev, 12)
@@ -1379,6 +1423,8 @@ def packed_times(torch, dev):
             out["kernels"][f"{name}[{mode}]"] = [
                 cuda_ms(torch, lambda: fn(*args, **call_kw), 20)
                 for _ in range(2)]
+            out["digests"][f"{name}[{mode}]"] = [
+                digest(fn(*args, **call_kw)) for _ in range(2)]
         del g, grid_args, degrid_args
     g = packed_gridder(pplan, device=dev)
     vre, vim = g.sort(vis)
@@ -1420,29 +1466,6 @@ def host_ms(torch, fn, iters: int) -> float:
     t = (time.perf_counter() - t0) * 1e3 / iters
     torch.cuda.synchronize()
     return t
-
-
-def packed_times_main() -> int:
-    """``chip_smoke.py --packed-times``: :func:`packed_times` of the
-    package at the working directory (a checkout's root), one JSON line."""
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.getcwd())
-    import ska_sdp_func_torch
-    from ska_sdp_func_torch.kernels import _build
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    gpu = run(["nvidia-smi", "--query-gpu=name,power.limit",
-               "--format=csv,noheader"]).splitlines()[0]
-    _build.load()
-    out = packed_times(torch, torch.device("cuda", 0))
-    say(json.dumps({"checkout": os.path.dirname(ska_sdp_func_torch.__file__),
-                    "gpu": gpu, **out}))
-    return 0
 
 
 def digest(out) -> str:
@@ -1563,30 +1586,6 @@ def predict_times(torch, dev):
     twice("degrid_fused2[dense stream]", band_tap.degrid_fused2, w_args,
           dict(w_kw, **w_dkw))
     return dict(stages=stages, kernels=kernels, digests=digests)
-
-
-def predict_times_main() -> int:
-    """``chip_smoke.py --predict-times``: :func:`predict_times` of the
-    package at the working directory (a checkout's root), one JSON
-    line."""
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.getcwd())
-    import ska_sdp_func_torch
-    from ska_sdp_func_torch.kernels import _build
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    gpu = run(["nvidia-smi", "--query-gpu=name,power.limit",
-               "--format=csv,noheader"]).splitlines()[0]
-    _build.load()
-    out = predict_times(torch, torch.device("cuda", 0))
-    say(json.dumps({"checkout": os.path.dirname(ska_sdp_func_torch.__file__),
-                    "gpu": gpu, **out}))
-    return 0
 
 
 def scatter_units(runs, block_v):
@@ -1810,28 +1809,76 @@ def ingest_times(torch, dev):
     return dict(stages=stages, kernels=kernels, digests=digests)
 
 
-def ingest_times_main() -> int:
-    """``chip_smoke.py --ingest-times``: :func:`ingest_times` of the
-    package at the working directory (a checkout's root), one JSON
-    line."""
-    import torch
+def experiment_times(torch, dev):
+    """The experiments' kernels P2c-P2e and P1, timed on the package that
+    is imported (two checkouts compare on one card in turns, each run from
+    its own root with ``--experiment-times``), at each experiment's scale:
+    every ``bucket_dot`` variant at exp_dot's; ``grid_parity`` at slots 1,
+    2 and 4 at exp_parity's; ``read_streams`` at 6 streams and at 1 at
+    rooflines', with ATen's block sums and the wrapper's host ms a call
+    (where it nears the kernel's time, the host sets the pace). ms by CUDA
+    events over 10 calls (after 2), twice, and a digest of each output
+    (the first call's).
+    Calls only what every version of the port has (the drivers'
+    ``operands``, the wrappers), with the drivers' run tables where they
+    build them; ``torch.bmm``'s time in both dtypes (exp_dot's
+    ``library_ms``: lhs_stream's and npair's operands, the product only)
+    where the checkout's driver has it: it does not depend on the
+    checkout. Returns one record a kernel."""
+    from ska_sdp_func_torch.experiments import exp_dot, exp_parity, rooflines
+    from ska_sdp_func_torch.kernels import bucket_dot as bd
+    from ska_sdp_func_torch.kernels import read_probe
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.getcwd())
-    import ska_sdp_func_torch
-    from ska_sdp_func_torch.kernels import _build
+    def twice(fn):
+        return [cuda_ms(torch, fn, 10) for _ in range(2)]
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    gpu = run(["nvidia-smi", "--query-gpu=name,power.limit",
-               "--format=csv,noheader"]).splitlines()[0]
-    _build.load()
-    out = ingest_times(torch, torch.device("cuda", 0))
-    say(json.dumps({"checkout": os.path.dirname(ska_sdp_func_torch.__file__),
-                    "gpu": gpu, **out}))
-    return 0
+    def timed(fn):
+        out = fn()
+        return dict(ms=twice(fn), digest=digest(out))
+
+    records = []
+    ops = exp_dot.operands(dev)
+    nbk, bv = ops["num_buckets"], ops["block_v"]
+    dot = {}
+    for variant, (form, _) in exp_dot.VARIANTS.items():
+        _, ins = exp_dot.inputs(ops, variant)
+        kw = {}
+        if "runs" in ops:
+            kw["runs"] = ops["pair_runs" if form == "npair" else "runs"]
+        dot[variant] = timed(lambda: bd.bucket_dot(
+            form, ops["ids"], ins, nbk, bv, **kw))
+    library = {v: [exp_dot.library_ms(ops, v) for _ in range(2)]
+               for v in ("lhs_stream", "lhs_stream_bf16", "npair",
+                         "npair_bf16")
+               if hasattr(exp_dot, "library_ms")}
+    records.append(dict(kernel="bucket_dot[P2c, P2d]", variants=dot,
+                        library=library))
+    del ops
+    torch.cuda.empty_cache()
+
+    ops = exp_parity.operands(dev)
+    kw = {"runs": ops["runs"]} if "runs" in ops else {}
+    records.append(dict(kernel="grid_parity[P2e]", variants={
+        f"slots{s_}": timed(lambda: bd.grid_parity(
+            *exp_parity.args(ops), slots=s_, **kw))
+        for s_ in (1, 2, 4)}))
+    del ops
+    torch.cuda.empty_cache()
+
+    ops = rooflines.operands(dev)
+    br, bc = ops["block_rows"], ops["block_cols"]
+    probe, library = {}, {}
+    for name, xs in (("6 streams", ops["xs"]), ("1 stream", ops["xs"][:1])):
+        probe[name] = timed(
+            lambda: read_probe.read_streams(xs, 1.0, br, bc)[1])
+        probe[name]["host_ms"] = host_ms(
+            torch, lambda: read_probe.read_streams(xs, 1.0, br, bc), 50)
+        rows = xs[0].shape[0]
+        library[name] = twice(
+            lambda: [x.view(rows // br, br, -1).sum(1) for x in xs])
+    records.append(dict(kernel="read_streams[P1]", variants=probe,
+                        library=library))
+    return records
 
 
 def product_library_ms(torch, tk, grid_args, degrid_args, block_v):
@@ -2077,19 +2124,51 @@ def window_ptxas(log, kernel="window_gather_kernel",
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def sass_of(path):
+    """``cuobjdump -sass`` of the kernel library at ``path``; None where
+    the toolkit has no cuobjdump."""
+    from ska_sdp_func_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    return subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+
+
+def sass_digests(path, names):
+    """{mangled function: first 16 hex digits of the SHA-256 of its SASS
+    instruction lines} for the functions of the kernel library at ``path``
+    whose names hold one of ``names``: equal digests, equal machine code;
+    None where the toolkit has no cuobjdump."""
+    import hashlib
+
+    sass = sass_of(path)
+    if sass is None:
+        return None
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m[1] if any(n in m[1] for n in names) else None
+            if name:
+                out[name] = hashlib.sha256()
+            continue
+        if name and "/*" in line:
+            out[name].update(line.strip().encode())
+    return {k: h.hexdigest()[:16] for k, h in sorted(out.items())}
+
+
 def sass_atomics(path):
     """{kernel: {instruction: count}} of the shared-memory atomics
     (``ATOMS.*``: a CAS loop shows as ``ATOMS.CAST.SPIN``) and the bulk
     reductions (``UBLKRED.*``) in the SASS of the kernel library at
     ``path`` (``cuobjdump -sass``), by kernel name; None where the toolkit
     has no cuobjdump."""
-    from ska_sdp_func_torch.kernels import _build
-
-    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    if not os.path.isfile(tool):
+    sass = sass_of(path)
+    if sass is None:
         return None
-    sass = subprocess.run([tool, "-sass", path], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
     out, kernel = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : \S*?\d+([a-z_]+_kernel)", line)
@@ -2735,6 +2814,24 @@ def main() -> int:
             for (g, b, n, s_), v in sorted(prep_regs.items())))
     if _build.build_info["log"] and len(prep_regs) != 8:
         raise SystemExit("the build log lacks stream_prep_kernel entries")
+    # (compute, source, passes, ksplit, side) of each bucket_dot_kernel
+    # instance and (unroll, streams) of each read_streams_kernel one.
+    exp_ptxas = {}
+    for kernel, pattern, names, count in (
+            ("bucket_dot_kernel", r"ILi(\d)ELi(\d)ELi(\d)ELi(\d)ELb(\d)E",
+             "<COMPUTE, ASRC, PASSES, KSPLIT, SIDE> (P2c-P2e; TF32X3 0, "
+             "BF16 1; build 0, stream 1)", 12),
+            ("read_streams_kernel", r"ILi(\d)ELi(\d)E",
+             "<UNROLL, NMAX> (P1)", 3)):
+        found = exp_ptxas[kernel] = window_ptxas(_build.build_info["log"],
+                                                 kernel, pattern)
+        say(f"# ptxas, {kernel}{names}: " + "; ".join(
+            f"<{', '.join(map(str, k))}> {v.get('registers')} registers, "
+            f"spills {v.get('spill_stores')} B stored / "
+            f"{v.get('spill_loads')} B loaded"
+            for k, v in sorted(found.items())))
+        if _build.build_info["log"] and len(found) != count:
+            raise SystemExit(f"the build log lacks {kernel} entries")
     census = sass_atomics(_build.build_info["path"])
     say("# SASS (cuobjdump -sass), shared-memory atomics and bulk "
         "reductions by kernel: " + ("; ".join(
@@ -3980,6 +4077,12 @@ def main() -> int:
         exp_row(name, source, where, exp_sites[name][0], exp_sites[name][1],
                 headline, read_rate)
         for name, _, _, _, source, where, headline in EXPERIMENT_SITES]
+    for r in kernels:
+        if r["name"] in EXPERIMENT_REDESIGN:
+            note, kernel, key = EXPERIMENT_REDESIGN[r["name"]]
+            r.update(redesigned=note,
+                     instance=f"{kernel}<{', '.join(map(str, key))}>",
+                     ptxas=exp_ptxas[kernel].get(key))
     kernels = [prep_row(window_row(r)) for r in kernels]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
@@ -3988,11 +4091,38 @@ def main() -> int:
     return 0
 
 
+def times_main(times) -> int:
+    """``chip_smoke.py --packed-times`` (and the other timing modes):
+    ``times`` of the package at the working directory (a checkout's root),
+    one JSON line (or one a record, for a list)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.getcwd())
+    import ska_sdp_func_torch
+    from ska_sdp_func_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu = run(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    _build.load()
+    head = {"checkout": os.path.dirname(ska_sdp_func_torch.__file__),
+            "gpu": gpu}
+    out = times(torch, torch.device("cuda", 0))
+    for record in out if isinstance(out, list) else [out]:
+        say(json.dumps({**head, **record}))
+    return 0
+
+
+TIMES = {"--packed-times": packed_times, "--predict-times": predict_times,
+         "--ingest-times": ingest_times,
+         "--experiment-times": experiment_times}
+
+
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--packed-times"]:
-        sys.exit(packed_times_main())
-    if sys.argv[1:] == ["--predict-times"]:
-        sys.exit(predict_times_main())
-    if sys.argv[1:] == ["--ingest-times"]:
-        sys.exit(ingest_times_main())
+    if len(sys.argv) == 2 and sys.argv[1] in TIMES:
+        sys.exit(times_main(TIMES[sys.argv[1]]))
     sys.exit(main())

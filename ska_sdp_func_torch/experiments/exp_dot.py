@@ -10,10 +10,12 @@ f32 and bf16 where it has both) and ``prod_simt``, prod with f32 FMAs on
 the CUDA cores as K1 and K8 compute today. Every variant is held against
 its plain version at 1e-5 of max (bf16 against the bf16 plain version;
 and against f32 prod at exp_dot's 5e-2), npair with its halves folded
-against prod. On the card each is timed by CUDA events, the inputs chained
-from the outputs, and ``torch.bmm`` on lhs_stream's operands, viewed as
-[buckets, 128, 8 B] @ [buckets, 8 B, 128], is the library's time (TF32
-off for f32).
+against prod. The tensor-core forms walk the bucket runs of
+:func:`..kernels.bucket_dot.dot_runs`, built once here. On the card each
+is timed by CUDA events, the inputs chained from the outputs, and
+``torch.bmm`` is the library's time (TF32 off for f32): on lhs_stream's
+operands, viewed as [buckets, 128, 8 B] @ [buckets, 8 B, 128], and on
+npair's, the even and odd blocks apart, made contiguous beforehand.
 
     python -m ska_sdp_func_torch.experiments.exp_dot [--check]
 """
@@ -57,7 +59,8 @@ def operands(device="cuda", check: bool = False) -> dict:
     uall = (ubase[None] * scales[:, None]).reshape(128, total)
     return dict(ids=ids, ubase=ubase, vband=vband, scales=scales, uall=uall,
                 uall16=uall.bfloat16(), vband16=vband.bfloat16(),
-                block_v=block_v, num_buckets=nb // per)
+                block_v=block_v, num_buckets=nb // per,
+                runs=bd.dot_runs(ids), pair_runs=bd.dot_runs(ids, pair=True))
 
 
 def inputs(ops, variant: str):
@@ -69,14 +72,21 @@ def inputs(ops, variant: str):
     return form, (ops["ubase"], vband, ops["scales"])
 
 
+def runs(ops, form):
+    """The run table the tensor-core kernels walk (built once)."""
+    return ops["pair_runs"] if form == "npair" else ops["runs"]
+
+
+def call(ops, variant):
+    """One launch of ``variant``."""
+    form, ins = inputs(ops, variant)
+    return bd.bucket_dot(form, ops["ids"], ins, ops["num_buckets"],
+                         ops["block_v"], runs=runs(ops, form))
+
+
 def launch(ops, variants=None) -> dict:
     """One launch a variant (of ``variants``, by default all)."""
-    outs = {}
-    for variant in variants or VARIANTS:
-        form, ins = inputs(ops, variant)
-        outs[variant] = bd.bucket_dot(form, ops["ids"], ins,
-                                      ops["num_buckets"], ops["block_v"])
-    return outs
+    return {variant: call(ops, variant) for variant in variants or VARIANTS}
 
 
 def _bound(variant, ins, out):
@@ -97,16 +107,33 @@ def _bound(variant, ins, out):
     return bound(moved, ops, TF32_OPS_S, passes=3)
 
 
-def _library(ops, variant):
-    """``torch.bmm`` on lhs_stream's operands, one product a bucket."""
-    _, (uall, vband) = inputs(ops, variant)
-    nbk = ops["num_buckets"]
-    a = uall.view(128, nbk, -1).permute(1, 0, 2)
-    b = vband.view(nbk, -1, 128)
+def library_operands(ops, variant):
+    """``torch.bmm``'s operands for ``variant``'s function: lhs_stream's,
+    one product a bucket, ``[buckets, 128, 8 B] @ [buckets, 8 B, 128]``
+    (the stored layout viewed); npair's, one a (bucket, block parity), the
+    even and the odd blocks of each bucket side by side along K, made
+    contiguous here."""
+    form, bf16 = VARIANTS[variant]
+    uall = ops["uall16"] if bf16 else ops["uall"]
+    vband = ops["vband16"] if bf16 else ops["vband"]
+    nbk, bv = ops["num_buckets"], ops["block_v"]
+    if form != "npair":
+        return uall.view(128, nbk, -1).permute(1, 0, 2), vband.view(
+            nbk, -1, 128)
+    a = uall.view(128, nbk, -1, 2, bv).permute(1, 3, 0, 2, 4)
+    b = vband.view(nbk, -1, 2, bv, 128).permute(0, 2, 1, 3, 4)
+    return (a.reshape(2 * nbk, 128, -1).contiguous(),
+            b.reshape(2 * nbk, -1, 128).contiguous())
+
+
+def library_ms(ops, variant, iters: int = 10):
+    """One ``torch.bmm`` computing ``variant``'s function (the product
+    only; TF32 off for f32)."""
+    a, b = library_operands(ops, variant)
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return chained_ms(lambda: torch.bmm(a, b), lambda out: None, 10)
+        return chained_ms(lambda: torch.bmm(a, b), lambda out: None, iters)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
 
@@ -115,7 +142,7 @@ def measure(ops, outs) -> list:
     """Each launched variant against its plain version (and bf16 against
     f32 prod, npair folded against prod); on the card, its time (10
     chained calls), the plain version's, and the library's for
-    lhs_stream."""
+    lhs_stream and npair."""
     form, ins = inputs(ops, "prod")
     base = bd.bucket_dot_reference(form, ops["ids"], ins, ops["num_buckets"],
                                    ops["block_v"])
@@ -144,15 +171,13 @@ def measure(ops, outs) -> list:
             def feed(out):
                 fed.view(-1)[:1].add_((out.view(-1)[:1] * 0).to(fed.dtype))
 
-            call = lambda: bd.bucket_dot(  # noqa: E731
-                form, ops["ids"], ins, ops["num_buckets"], ops["block_v"])
-            row["ms"] = chained_ms(call, feed, 10)
+            row["ms"] = chained_ms(lambda: call(ops, variant), feed, 10)
             row["plain_ms"] = chained_ms(lambda: bd.bucket_dot_reference(
                 form, ops["ids"], ins, ops["num_buckets"], ops["block_v"]),
                 feed, 2, warmup=1)
             row["tflop_s"] = 2 * 128 * 128 * ins[1].shape[0] / row["ms"] / 1e9
-            if form == "lhs_stream":
-                row["library_ms"] = _library(ops, variant)
+            if form in ("lhs_stream", "npair"):
+                row["library_ms"] = library_ms(ops, variant)
         rows.append(row)
     return rows
 

@@ -65,7 +65,7 @@ def operands(device="cuda", check: bool = False) -> dict:
                 num_buckets=pplan.num_buckets, lanes=plan.subgrid_size,
                 w_support=plan.w_support, block_v=pplan.block_v,
                 visited=torch.as_tensor(pplan.arrays["visited"], device=dev),
-                num_vis=vis.size)
+                num_vis=vis.size, runs=bd.dot_runs(ids))
 
 
 def args(ops):
@@ -74,9 +74,14 @@ def args(ops):
             ops["block_v"])
 
 
+def call(ops, slots):
+    """One launch at ``slots``, over the run table built once."""
+    return bd.grid_parity(*args(ops), slots=slots, runs=ops["runs"])
+
+
 def launch(ops) -> dict:
     """One launch a slot count."""
-    return {f"slots{s}": bd.grid_parity(*args(ops), slots=s) for s in SLOTS}
+    return {f"slots{s}": call(ops, s) for s in SLOTS}
 
 
 def measure(ops, outs) -> list:
@@ -106,8 +111,7 @@ def measure(ops, outs) -> list:
             def feed(out):
                 fed.view(-1)[:1].add_(out.view(-1)[:1] * 0)
 
-            row["ms"] = chained_ms(lambda: bd.grid_parity(*args(ops),
-                                                          slots=s), feed, 10)
+            row["ms"] = chained_ms(lambda: call(ops, s), feed, 10)
             row["plain_ms"] = chained_ms(lambda: bd.grid_parity_reference(
                 *args(ops), slots=s), feed, 2, warmup=1)
             row["mvis_s"] = ops["num_vis"] / row["ms"] / 1e3

@@ -177,13 +177,15 @@ def load() -> ctypes.CDLL:
                 lib.sdp_torch_stream_prep_unrolled.restype = i
                 lib.sdp_torch_fold_windows.argtypes = [p, p] + [i] * 6 + [p, p]
                 lib.sdp_torch_fold_windows.restype = i
-                lib.sdp_torch_read_streams.argtypes = [pp, i, i, i, i, f, p, p]
+                lib.sdp_torch_read_streams.argtypes = (
+                    [pp] + [i] * 5 + [f, p, p, p])
                 lib.sdp_torch_read_streams.restype = i
                 lib.sdp_torch_prep_variant.argtypes = (
                     [i] + [p] * 9 + [i, f, f, i64] + [p] * 4)
                 lib.sdp_torch_prep_variant.restype = i
                 lib.sdp_torch_bucket_dot.argtypes = (
-                    [i] + [p] * 5 + [i64, i, i, p, i64, i64, i64, p])
+                    [i, p, p, i, p, i] + [p] * 4
+                    + [i64, i, i, p, i64, i64, i64, p])
                 lib.sdp_torch_bucket_dot.restype = i
                 lib.sdp_torch_overlap.argtypes = [i, p, p, p, i, i, i, i, p, p,
                                                   p]

@@ -27,14 +27,21 @@ TPU's ``Precision.HIGHEST``; ``prod_simt`` and ``nodot`` take f32 only.
 
 On a CUDA tensor each wrapper launches the kernel or raises; on a CPU
 tensor it runs its plain version (``*_reference``, true f32 products).
-Both count their kernel launches in ``.launches``.
+Both count their kernel launches in ``.launches``. The tensor-core forms
+walk the bucket runs of :func:`dot_runs` (one persistent CTA an SM, a
+unit a whole run): pass ``runs=`` to build the table once; without it
+each call builds it on the device (no host sync). The plain versions and
+the CUDA-core forms (``prod_simt``, ``nodot``) ignore it. The tensor-core
+kernel zeroes the buckets no block visits itself (a small kernel before it
+flags the visited ones), so their output is not filled first.
 """
 
 import torch
 
 from ..utility.errors import SdpDataTypeError, SdpInvalidArgumentError, \
     SdpMemLocationError, SdpShapeError
-from .packed_tap import WIN_ROWS, _check, _full_f32_matmul
+from .packed_tap import WIN_ROWS, _check, _full_f32_matmul, \
+    check_runs, run_table
 
 NUM_P = 8
 M = NUM_P * WIN_ROWS              # 128 rows of U
@@ -49,7 +56,21 @@ _CODES = {("prod", False): 0, ("prod", True): 1, ("prod_simt", False): 2,
           ("npair", False): 9, ("npair", True): 10, ("nodot", False): 11,
           ("slots1", False): 0, ("slots2", False): 12,
           ("slots4", False): 13}
+_CORE_CODES = (2, 11)  # the CUDA-core forms: no run table
 _REF_BLOCKS = 256      # blocks per step of the plain versions
+
+
+def dot_runs(bucket_ids, pair: bool = False) -> torch.Tensor:
+    """The tensor-core kernels' work units: :func:`run_table` of the
+    blocks' buckets, int32 ``[NB, 2]`` rows (first block, block count),
+    longest first, then (0, 0) rows; torch ops of fixed shape on the ids'
+    device, no host sync. ``pair`` (npair): runs of block pairs, block
+    ``b`` keyed by ``bucket_ids[b & ~1]``, over the even count of blocks."""
+    ids = bucket_ids
+    if pair:
+        nb = ids.shape[0] - ids.shape[0] % 2
+        ids = ids[torch.arange(nb, device=ids.device) & ~1]
+    return run_table((ids,))
 
 
 def _contribs(form, ins, lo, hi, block_v, bf16):
@@ -160,7 +181,11 @@ def _check_ins(form, bucket_ids, ins, block_v):
     return ins, dev, total, bf16
 
 
-def _launch(code, bucket_ids, ins, form, total, nb, block_v, out, strides):
+def _launch(code, bucket_ids, runs, ins, form, total, nb, block_v, shape,
+            num_buckets, strides):
+    """The output of one launch: the tensor-core forms write every bucket
+    (those no block visits as zero), the CUDA-core forms the visited ones
+    of a zeroed output."""
     from . import _build
 
     lib = _build.load()
@@ -170,32 +195,48 @@ def _launch(code, bucket_ids, ins, form, total, nb, block_v, out, strides):
     else:
         ubase, vband, scales = ins
         uall = None
+    dev = vband.device
+    if code in _CORE_CODES:
+        runs = work = None
+        out = torch.zeros(shape, dtype=torch.float32, device=dev)
+    else:
+        if runs is None:
+            runs = dot_runs(bucket_ids, pair=form == "npair")
+        # The kernel's scratch: its unit counter and a flag a visited
+        # bucket, set on the device before it runs.
+        work = torch.empty(1 + num_buckets, dtype=torch.int32, device=dev)
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    with torch.cuda.device(out.device):
+    with torch.cuda.device(dev):
         err = lib.sdp_torch_bucket_dot(
-            code, bucket_ids.data_ptr(), ptr(ubase), ptr(scales), ptr(uall),
-            vband.data_ptr(), total, nb, block_v, out.data_ptr(), *strides,
+            code, bucket_ids.data_ptr(), ptr(runs),
+            0 if runs is None else runs.shape[0], ptr(work), num_buckets,
+            ptr(ubase), ptr(scales), ptr(uall), vband.data_ptr(), total, nb,
+            block_v, out.data_ptr(), *strides,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "bucket_dot")
+    return out
 
 
-def bucket_dot(form: str, bucket_ids, ins, num_buckets: int, block_v: int):
+def bucket_dot(form: str, bucket_ids, ins, num_buckets: int, block_v: int,
+               runs=None):
     """exp_dot's per-bucket sums of ``form``: ``ins`` is ``(ubase [16, V],
     vband [V, 128], scales [8, V])`` (``lhs_stream``: ``(uall [128, V],
     vband)``), f32, or bf16 ``vband`` (and ``uall``) for the bf16 mode;
-    ``bucket_ids`` [V / block_v] int32. Returns ``[num_buckets * 128,
-    128]`` f32 (``npair``: 256 columns)."""
+    ``bucket_ids`` [V / block_v] int32; ``runs`` :func:`dot_runs` of the
+    ids (``npair``: with ``pair=True``), or None. Returns
+    ``[num_buckets * 128, 128]`` f32 (``npair``: 256 columns)."""
     ins, dev, total, bf16 = _check_ins(form, bucket_ids, ins, block_v)
+    runs = check_runs(runs, dev)
     if dev.type == "cpu":
         return bucket_dot_reference(form, bucket_ids, ins, num_buckets,
                                     block_v)
     cols = 2 * LANES if form == "npair" else LANES
     nb = total // block_v
-    out = torch.zeros((num_buckets * M, cols), dtype=torch.float32,
-                      device=dev)
-    _launch(_CODES[(form, bf16)], bucket_ids, ins, form, total,
-            nb - nb % 2 if form == "npair" else nb, block_v, out,
-            (WIN_ROWS * cols, cols, M * cols))
+    out = _launch(_CODES[(form, bf16)], bucket_ids, runs, ins, form, total,
+                  nb - nb % 2 if form == "npair" else nb, block_v,
+                  (num_buckets * M, cols), num_buckets,
+                  (WIN_ROWS * cols, cols, M * cols))
     bucket_dot.launches += 1
     return out
 
@@ -204,11 +245,13 @@ bucket_dot.launches = 0
 
 
 def grid_parity(bucket_ids, ubase, vband, scales, num_buckets: int,
-                lanes: int, w_support: int, block_v: int, slots: int):
+                lanes: int, w_support: int, block_v: int, slots: int,
+                runs=None):
     """exp_parity's dense-band grid (``grid_packed_pallas``'s function)
     with ``slots`` (1, 2 or 4) split accumulators: ``[2 Sw, num_buckets,
     16, lanes]`` f32 from ``ubase [16, V]``, ``vband [V, lanes]`` and
-    ``scales [2 Sw, V]`` f32 (lanes 128, Sw 4)."""
+    ``scales [2 Sw, V]`` f32 (lanes 128, Sw 4); ``runs`` :func:`dot_runs`
+    of the ids, or None."""
     if slots not in (1, 2, 4):
         raise SdpInvalidArgumentError("slots must be 1, 2 or 4")
     if lanes != LANES or 2 * w_support != NUM_P:
@@ -218,15 +261,15 @@ def grid_parity(bucket_ids, ubase, vband, scales, num_buckets: int,
         raise SdpDataTypeError("grid_parity takes an f32 vband")
     ins, dev, total, _ = _check_ins("prod", bucket_ids,
                                     (ubase, vband, scales), block_v)
+    runs = check_runs(runs, dev)
     if dev.type == "cpu":
         return grid_parity_reference(bucket_ids, ubase, vband, scales,
                                      num_buckets, lanes, w_support, block_v,
                                      slots)
-    out = torch.zeros((NUM_P, num_buckets, WIN_ROWS, lanes),
-                      dtype=torch.float32, device=dev)
-    _launch(_CODES[(f"slots{slots}", False)], bucket_ids, ins, "prod", total,
-            total // block_v, block_v, out,
-            (num_buckets * WIN_ROWS * lanes, lanes, WIN_ROWS * lanes))
+    out = _launch(_CODES[(f"slots{slots}", False)], bucket_ids, runs, ins,
+                  "prod", total, total // block_v, block_v,
+                  (NUM_P, num_buckets, WIN_ROWS, lanes), num_buckets,
+                  (num_buckets * WIN_ROWS * lanes, lanes, WIN_ROWS * lanes))
     grid_parity.launches += 1
     return out
 

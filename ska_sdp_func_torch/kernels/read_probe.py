@@ -11,17 +11,24 @@ for ``r < 8``, ``l < 128`` (``[8 R / br, 128 C / bc]``), and the sums of
 every column it was made from, ``sums[i, c]`` ``[R / br, C]``. The TPU
 output reads only the first 128 of each block's ``bc`` columns; the CUDA
 kernel (``csrc/read_probe.cu``) sums every column, so that each byte it
-counts is read, and the wrapper slices the output from the sums.
+counts is read, and writes the output from the sums beside them. Its
+wrapper does no more than check, allocate and launch: at one stream the
+kernel takes ~0.05 ms, less than the host time of a few more torch
+operations.
 
 On a CUDA tensor :func:`read_streams` launches the kernel or raises; on a
 CPU tensor it runs :func:`read_streams_reference`. It counts its kernel
 launches in ``.launches``.
 """
 
+import contextlib
+import ctypes
+
 import torch
 
 from ..utility.errors import SdpInvalidArgumentError, SdpMemLocationError, \
     SdpShapeError
+from . import _build
 from .packed_tap import _check
 
 _MAX_STREAMS = 8      # csrc/read_probe.cu kMaxStreams
@@ -73,21 +80,24 @@ def read_streams(xs, scale: float, block_rows: int, block_cols: int):
     if cols % _COLS:
         raise SdpInvalidArgumentError(
             f"the CUDA kernel needs C % {_COLS} == 0 (got {cols})")
-    import ctypes
-
-    from . import _build
-
     lib = _build.load()
-    sums = torch.empty((rows // block_rows, cols), dtype=torch.float32,
-                       device=dev)
+    gi = rows // block_rows
+    sums = torch.empty((gi, cols), dtype=torch.float32, device=dev)
+    out = torch.empty((8 * gi, _COLS * (cols // block_cols)),
+                      dtype=torch.float32, device=dev)
     ptrs = (ctypes.c_void_p * len(xs))(*(x.data_ptr() for x in xs))
-    with torch.cuda.device(dev):
+    # Launch on the streams' card, switching to it only when it is not the
+    # current one: at one stream the kernel takes ~0.05 ms, and the host
+    # time of each call counts against it.
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
         err = lib.sdp_torch_read_streams(
-            ptrs, len(xs), rows, cols, block_rows, float(scale),
-            sums.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            ptrs, len(xs), rows, cols, block_rows, block_cols, float(scale),
+            sums.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "read_streams")
     read_streams.launches += 1
-    return _tpu_layout(sums, block_cols), sums
+    return out, sums
 
 
 read_streams.launches = 0

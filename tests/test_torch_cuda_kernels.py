@@ -45,8 +45,16 @@ experiments' kernels: the read probe (``read_probe``) and the tensor-core
 band products (``bucket_dot``, three TF32 passes or bf16, and its CUDA-core
 form) and overlap probe (``overlap``, every block's sum |acc| too) at
 1e-5 of max|plain|; the tap-preparation sweep (``prep_variants``) bit for
-bit. The window-gather degrid kernels (K4, K13, K11, K19: one CTA a
-bucket run, each run's window read into shared memory once) also meet
+bit. The band products' tensor-core forms (every variant code: one CTA an
+SM over the bucket runs, a TMA ring, wgmma) also over runs of 1, 2, 3 and
+9 blocks at block_v 128, 256 and 1024 (runs longer than the ring, and runs
+of fewer stages than it holds), with unvisited buckets left zero, an odd
+block count for npair, slots 1, 2 and 4 (passes with no block among
+them), the table passed and built by the wrapper; the read probe at one
+to six streams with row blocks that leave a part step (``-k "bucket_dot
+or grid_parity or read_probe"``). The window-gather degrid kernels (K4,
+K13, K11, K19: one CTA a bucket run, each run's window read into shared
+memory once) also meet
 their plain versions at 1e-5 of max over S 1-8, Sw 1 to its maximum,
 windows of 64-4096 lanes (the ES-FFT's 8 x 256, larger than shared
 memory, included), block_v 64-1024, runs of one and of 8-12 blocks,
@@ -1740,6 +1748,98 @@ def test_grid_parity_kernel_matches_plain(device, slots):
     assert bd.grid_parity.launches == before + 1
     assert _rel(got, want) <= 1e-5
     assert not got[:, [1, 3, 4, 6]].any()
+
+
+# Runs of 3, 1, 9 and 2 blocks; buckets 1, 4 and 6 unvisited; 15 blocks
+# (npair takes 14, its pairs keyed by the even block's bucket). At
+# block_v 1024 the 9-block run is 144 stages of 64 slots, longer than the
+# ring; at 128 a 1-block run is 2 stages, fewer than the ring holds.
+DOT_IDS = (0, 0, 0, 2, 3, 3, 3, 3, 3, 3, 3, 3, 3, 5, 5)
+DOT_BUCKETS = 7
+DOT_FORMS = [(form, bf16) for form in ("prod", "lhs_stream", "ksplit2",
+                                       "ksplit4", "npair")
+             for bf16 in (False, True)]
+
+
+def _ragged_dot(device, block_v, seed):
+    _, ubase, vband, scales, uall = _dot_operands(device, block_v,
+                                                  len(DOT_IDS), 1, seed)
+    ids = torch.tensor(DOT_IDS, dtype=torch.int32, device=device)
+    return ids, ubase, vband, scales, uall
+
+
+@pytest.mark.parametrize("block_v", [128, 256, 1024])
+@pytest.mark.parametrize("form,bf16", DOT_FORMS, ids=[
+    f"{f}-{'bf16' if b else 'f32'}" for f, b in DOT_FORMS])
+def test_bucket_dot_tensor_cores_over_ragged_runs(device, form, bf16,
+                                                  block_v):
+    """Every tensor-core form over ragged runs at 1e-5 of max|plain| (bf16
+    against the bf16 plain version); buckets no block visits stay zero;
+    a table built once (as the experiment drivers build it) and the
+    wrapper's own give the same bits (stores in a fixed order, no
+    atomics); one launch a call."""
+    from ska_sdp_func_torch.kernels import bucket_dot as bd
+
+    ids, ubase, vband, scales, uall = _ragged_dot(device, block_v, block_v)
+    if bf16:
+        vband, uall = vband.bfloat16(), uall.bfloat16()
+    ins = (uall, vband) if form == "lhs_stream" else (ubase, vband, scales)
+    runs = bd.dot_runs(ids, pair=form == "npair")
+    before = bd.bucket_dot.launches
+    got = bd.bucket_dot(form, ids, ins, DOT_BUCKETS, block_v, runs=runs)
+    again = bd.bucket_dot(form, ids, ins, DOT_BUCKETS, block_v)
+    want = bd.bucket_dot_reference(form, ids, ins, DOT_BUCKETS, block_v)
+    torch.cuda.synchronize()
+    assert bd.bucket_dot.launches == before + 2
+    assert _rel(got, want) <= 1e-5, (form, bf16, block_v)
+    assert torch.equal(got, again)
+    keys = DOT_IDS[:len(DOT_IDS) // 2 * 2:2] if form == "npair" else DOT_IDS
+    unvisited = sorted(set(range(DOT_BUCKETS)) - set(keys))
+    assert not got.view(DOT_BUCKETS, 128, -1)[unvisited].any()
+
+
+@pytest.mark.parametrize("block_v", [128, 256, 1024])
+@pytest.mark.parametrize("slots", [1, 2, 4])
+def test_grid_parity_over_ragged_runs(device, slots, block_v):
+    """exp_parity's split accumulators over ragged runs at 1e-5 of
+    max|plain|; at slots 4 the 1-block run's blocks fall in its last pass
+    only (the earlier passes hold no block), which adds to the zeroed
+    output; unvisited buckets stay zero."""
+    from ska_sdp_func_torch.kernels import bucket_dot as bd
+
+    ids, ubase, vband, scales, _ = _ragged_dot(device, block_v, 7 + slots)
+    args = (ids, ubase, vband, scales, DOT_BUCKETS, 128, 4, block_v, slots)
+    before = bd.grid_parity.launches
+    got = bd.grid_parity(*args, runs=bd.dot_runs(ids))
+    want = bd.grid_parity_reference(*args)
+    torch.cuda.synchronize()
+    assert bd.grid_parity.launches == before + 1
+    assert _rel(got, want) <= 1e-5
+    assert not got[:, [1, 4, 6]].any()
+
+
+@pytest.mark.parametrize("n,shape,br,bc", [
+    (1, (312, 1024), 104, 1024),     # 64-row steps and a part step
+    (1, (48, 512), 24, 256),         # no whole step
+    (2, (120, 512), 40, 512),
+    (3, (80, 256), 40, 128),
+    (6, (64, 2048), 16, 512)])
+def test_read_probe_row_steps_match_plain(device, n, shape, br, bc):
+    """The read probe's row steps (4 rows a thread at one stream, 2 at two
+    or three, 1 from four up) with row blocks that are no multiple of a
+    step: the sums at 1e-5 of max|plain|, one launch."""
+    from ska_sdp_func_torch.kernels import read_probe as rp
+
+    rng = np.random.default_rng(n)
+    xs = [torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                          device=device) for _ in range(n)]
+    before = rp.read_streams.launches
+    out, sums = rp.read_streams(xs, 1.5, br, bc)
+    want_out, want_sums = rp.read_streams_reference(xs, 1.5, br, bc)
+    torch.cuda.synchronize()
+    assert rp.read_streams.launches == before + 1
+    assert _rel(sums, want_sums) <= 1e-5
+    assert _rel(out, want_out) <= 1e-5
 
 
 @pytest.mark.parametrize("variant", ["dot", "vpu", "both", "both2"])
