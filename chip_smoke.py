@@ -35,10 +35,11 @@ loudly on the first fault:
    ptxas reports for each instance of the window-gather kernel (K4, K11,
    K13, K19), of the window-scatter kernel (K3, K12, K8, K18) and of the
    tap preparation's kernel (K6, K7: unrolled and generic, f32 and bf16),
-   of the experiments' band products (P2c-P2e, ``bucket_dot_kernel``) and
-   read probe (P1, ``read_streams_kernel``),
-   and the shared-memory atomics and bulk reductions in each kernel's
-   SASS (``cuobjdump -sass``);
+   of the experiments' band products (P2c-P2e, ``bucket_dot_kernel``),
+   read probe (P1, ``read_streams_kernel``) and build/product probe (P2b,
+   ``overlap_kernel``) and of the window fold (``fold_windows_kernel``),
+   with the SASS digests of the last two, and the shared-memory atomics
+   and bulk reductions in each kernel's SASS (``cuobjdump -sass``);
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card: the packed kernels (K1, K2: "high" and "bf16" on the tensor
    cores over the plan's bucket runs, "highest" on the CUDA cores) and
@@ -49,11 +50,11 @@ loudly on the first fault:
    the non-packable streaming
    branch's tap preparation (K6, K7) and window fold (K9 + K10, also
    with NaN in every unvisited window) with K5, K8 and K11 at its shapes,
-   f32 and bf16 (K6, K7 bit for bit), each on the small test scenario
-   (the non-packable kernels on 64-slot blocks) and at the shapes of the
-   main paths below (K3-K11 with the very arguments the streaming paths
-   pass them); K6/K7 also through their generic instance (other fits on
-   window j's fields), bit for bit;
+   f32 and bf16 (K6, K7 and the fold bit for bit), each on the small
+   test scenario (the non-packable kernels on 64-slot blocks) and at the
+   shapes of the main paths below (K3-K11 with the very arguments the
+   streaming paths pass them); K6/K7 also through their generic instance
+   (other fits on window j's fields), bit for bit;
 4. main paths, each driven with the launch counters set to 0 just before
    it and read just after; each path must launch its own kernels and
    none of another path's:
@@ -158,9 +159,10 @@ loudly on the first fault:
       tensor-core products for f32, bf16, and ``prod_simt`` on the CUDA
       cores; each at 1e-5 of its plain version, bf16 also at 5e-2 of f32
       prod), exp_parity (``grid_parity`` at slots 1, 2, 4) and
-      exp_overlap (``overlap``, each block's sum |acc| included); each
-      window launches each variant once, then holds it against its plain
-      version and times it;
+      exp_overlap (``overlap``, each block's sum |acc| included, and the
+      overlap fraction of ``both`` and ``both2``); each window launches
+      each variant once, then holds it against its plain version and
+      times it;
 5. times: grid, degrid and one major-cycle iteration of the packed path
    (and one msclean and one FISTA iteration beside the Hogbom one; and
    ``packed_times``: wall, host enqueue and device time, busy share and
@@ -207,7 +209,9 @@ ES-FFT one. K3, K8, K12 and K18 (redesigned: one template in
 (redesigned: one template in ``csrc/stream_prep.cu``) carry the same
 keys (``instance``: ``stream_prep_kernel<GRID, BF16, NCOEF, S>``, the
 instance window j's fits take). One kernel
-replaces both TPU folds (K9, K10): it has a row for each; the bf16
+replaces both TPU folds (K9, K10): it has a row for each (redesigned:
+``instance`` ``fold_windows_kernel<4>``, as are P1, P2b-P2e's rows with
+their templates); the bf16
 modes of K6, K7, K8 and K11 have rows of their own (``[bf16]``, window
 k's operands), bytes counted for the bf16 ``vk``; so do K20 and the bf16
 modes of K14-K17 (window m's and n's operands, which the bf16 modes read
@@ -482,8 +486,30 @@ PROBE_REDESIGN = ("redesigned: a thread keeps at least 4 float4 loads in "
                   "flight at any stream count (4 rows a step at one "
                   "stream, 2 at two or three), the adds in the one-row "
                   "order")
+OVERLAP_REDESIGN = ("redesigned: one CTA an SM walks the blocks in 64-slot "
+                    "stages; a thread a (slot, tap) builds U^T's TF32 hi/lo "
+                    "planes (K-major, 128-byte swizzle, conflict-free rows) "
+                    "and V's compact record, its slots' Clenshaw chains in "
+                    "lockstep; two consumer warpgroups own 64 lanes each: "
+                    "out^T = V^T U^T, A expanded from the record into "
+                    "registers, wgmma m64n128k8 x 3 a k-step, each stage "
+                    "summed fresh and added on the CUDA cores; dot, vpu, "
+                    "both: builder warps (two warpgroups, one for dot) fill "
+                    "a 3-stage ring under mbarriers; both2: each warpgroup "
+                    "builds the next stage while its products run")
+# K9/K10, redesigned: the instance window j takes (L 128, aligned).
+FOLD_REDESIGN = ("redesigned: a CTA an (octet, layer, task) from the launch "
+                 "grid, its visited flags read once into shared memory and "
+                 "tested uniformly (unvisited windows cost no load), float4 "
+                 "rows with a plane group's loads issued before its adds, "
+                 "re/im written as two 16-byte stores")
 EXPERIMENT_REDESIGN = {
     "read_streams[P1]": (PROBE_REDESIGN, "read_streams_kernel", (1, 8)),
+    "overlap[P2b exp_overlap]": (OVERLAP_REDESIGN, "overlap_kernel", (2,)),
+    "fold_windows[fold_groups]": (FOLD_REDESIGN, "fold_windows_kernel",
+                                  (4,)),
+    "fold_windows[fold_layers]": (FOLD_REDESIGN, "fold_windows_kernel",
+                                  (4,)),
     "bucket_dot[P2c exp_dot _call]": (DOT_REDESIGN, "bucket_dot_kernel",
                                       (0, 0, 1, 1, 0)),
     "bucket_dot[P2d exp_dot _call_npair]": (DOT_REDESIGN,
@@ -1125,7 +1151,8 @@ def check_np_kernels(torch, StreamingGridder, StreamingDegridder, sp, uvw,
                 e = max(rel_err(a, b) for a, b in zip(got, want))
             finite(torch, [(f"{name}{tag}", a) for a in got])
             bits = all(torch.equal(a, b) for a, b in zip(got, want))
-            if name.startswith("stream_prep") and not bits:
+            if (name.startswith("stream_prep") or name == "fold_windows") \
+                    and not bits:
                 raise SystemExit(f"{name} is not bit-equal to its plain "
                                  f"version [{label}]")
             lines.append(f"{name}{tag} {e:.3e}"
@@ -1608,8 +1635,11 @@ def ingest_stages(torch, sg_f, sg_j, sg_k, es_plan, es, uvw, vis):
     more (``call repeats``: the host-bound calls' spread); and the ES-FFT 3-D
     grid ``es()`` of the plan ``es_plan``: K8 alone, the slab fold and the
     rest (FFTs, screens, the sort). Each rest is the whole call's time
-    less its timed stages. Also returns the kernels' captured calls (K6's
-    under "<ingest> K6"), for their rows."""
+    less its timed stages. The non-packable ingests also give the digest
+    of the fold of seeded windows with NaN where unvisited (``fold
+    digest``: equal where two checkouts' folds agree bit for bit). Also
+    returns the kernels' captured calls (K6's under "<ingest> K6"), for
+    their rows."""
     from ska_sdp_func_torch.grid_data import es_fft_packed
     from ska_sdp_func_torch.kernels import band_tap, fused_tap, packed_tap
     from ska_sdp_func_torch.parallel import streaming
@@ -1669,6 +1699,13 @@ def ingest_stages(torch, sg_f, sg_j, sg_k, es_plan, es, uvw, vis):
                   fold=ms(lambda: eng._fold_windows(wins, visited)),
                   drain=ms(lambda: eng._drain(layers)))
         rest(st)
+        # The fold of seeded windows (NaN where unvisited): its bits do not
+        # hang on K8's sum order, so two checkouts' digests compare.
+        gen = torch.Generator(device=wins.device).manual_seed(16)
+        seeded = torch.randn(wins.shape, generator=gen, device=wins.device)
+        seeded[:, ~visited] = float("nan")
+        st["fold digest"] = digest(eng._fold_windows(seeded, visited))
+        del seeded
         st["K8 alone"] = ms(lambda: band_tap.grid_packed(*args, **kw))
         st["call repeats"] = [ms(lambda: sg.accumulate(uvw, vis))
                               for _ in range(3)]
@@ -1810,23 +1847,29 @@ def ingest_times(torch, dev):
 
 
 def experiment_times(torch, dev):
-    """The experiments' kernels P2c-P2e and P1, timed on the package that
+    """The experiments' kernels P2b-P2e and P1, timed on the package that
     is imported (two checkouts compare on one card in turns, each run from
     its own root with ``--experiment-times``), at each experiment's scale:
     every ``bucket_dot`` variant at exp_dot's; ``grid_parity`` at slots 1,
     2 and 4 at exp_parity's; ``read_streams`` at 6 streams and at 1 at
     rooflines', with ATen's block sums and the wrapper's host ms a call
-    (where it nears the kernel's time, the host sets the pace). ms by CUDA
-    events over 10 calls (after 2), twice, and a digest of each output
-    (the first call's).
+    (where it nears the kernel's time, the host sets the pace); the four
+    ``overlap`` variants at exp_overlap's, with the overlap fraction of
+    ``both`` and of ``both2`` each round. ms by CUDA events over 10 calls
+    (after 2), twice, and a digest of each output (the first call's).
+    Last, the SASS digests of K1/K2's, bucket_dot's, P1's, P2b's and the
+    fold's kernels (equal digests: equal machine code).
     Calls only what every version of the port has (the drivers'
     ``operands``, the wrappers), with the drivers' run tables where they
     build them; ``torch.bmm``'s time in both dtypes (exp_dot's
     ``library_ms``: lhs_stream's and npair's operands, the product only)
     where the checkout's driver has it: it does not depend on the
     checkout. Returns one record a kernel."""
-    from ska_sdp_func_torch.experiments import exp_dot, exp_parity, rooflines
+    from ska_sdp_func_torch.experiments import exp_dot, exp_overlap, \
+        exp_parity, rooflines
+    from ska_sdp_func_torch.kernels import _build
     from ska_sdp_func_torch.kernels import bucket_dot as bd
+    from ska_sdp_func_torch.kernels import overlap as ov
     from ska_sdp_func_torch.kernels import read_probe
 
     def twice(fn):
@@ -1878,6 +1921,28 @@ def experiment_times(torch, dev):
             lambda: [x.view(rows // br, br, -1).sum(1) for x in xs])
     records.append(dict(kernel="read_streams[P1]", variants=probe,
                         library=library))
+    del ops
+    torch.cuda.empty_cache()
+
+    ops = exp_overlap.operands(dev)
+    variants = {v: timed(lambda v=v: ov.overlap(
+        v, ops["pa"], ops["pb"], ops["c"], exp_overlap.BLOCK,
+        exp_overlap.SUB)) for v in ov.VARIANTS}
+    fraction = {}
+    for form in ("both", "both2"):
+        fraction[form] = []
+        for i in range(2):
+            t = {v: r["ms"][i] for v, r in variants.items()}
+            both = t["vpu"] + t["dot"]
+            fraction[form].append((both - t[form]) / max(
+                both - max(t["vpu"], t["dot"]), 1e-9))
+    records.append(dict(kernel="overlap[P2b]", variants=variants,
+                        overlap_fraction=fraction))
+    del ops
+    records.append(dict(kernel="sass", digests=sass_digests(
+        _build.build_info["path"],
+        ("grid_runs_kernel", "degrid_runs_kernel", "bucket_dot_kernel",
+         "read_streams_kernel", "overlap_kernel", "fold_windows_kernel"))))
     return records
 
 
@@ -2691,8 +2756,9 @@ def experiments_phase(torch, tkern, gpu):
                   f"{r['rel_err']:.2e})" for r in result))
         if drv_name == "exp_overlap":
             say(f"# [{gpu}] exp_overlap: overlap fraction "
-                f"{drv.overlap_fraction(result):.3f} (1: the build hides "
-                f"under the products; 0: they serialise)")
+                f"{drv.overlap_fraction(result):.3f} (both), "
+                f"{drv.overlap_fraction(result, 'both2'):.3f} (both2) (1: "
+                f"the build hides under the products; 0: they serialise)")
     del ops
     torch.cuda.empty_cache()
     return sites
@@ -2782,7 +2848,8 @@ def main() -> int:
         f"(nvcc {_build.build_info['seconds']:.1f} s) -> "
         f"{os.path.relpath(_build.build_info['path'])}")
     for line in _build.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line \
+                or "wgmma" in line:
             say("#   ptxas" + line.split("ptxas", 1)[-1])
     ptxas, scatter_ptxas = (window_ptxas(_build.build_info["log"], k)
                             for k in ("window_gather_kernel",
@@ -2832,6 +2899,23 @@ def main() -> int:
             for k, v in sorted(found.items())))
         if _build.build_info["log"] and len(found) != count:
             raise SystemExit(f"the build log lacks {kernel} entries")
+    # overlap_kernel<VARIANT> (P2b) and fold_windows_kernel<VEC> (K9 +
+    # K10): registers, spills and a digest of each instance's SASS.
+    for kernel, names, count in (
+            ("overlap_kernel", "<VARIANT> (P2b; 0 dot, 1 vpu, 2 both, "
+             "3 both2)", 4),
+            ("fold_windows_kernel", "<VEC> (K9 + K10; 4 float4 rows, 1 "
+             "single lanes)", 2)):
+        found = exp_ptxas[kernel] = window_ptxas(_build.build_info["log"],
+                                                 kernel, r"ILi(\d)E")
+        say(f"# ptxas, {kernel}{names}: " + "; ".join(
+            f"<{k[0]}> {v.get('registers')} registers, spills "
+            f"{v.get('spill_stores')} B stored / {v.get('spill_loads')} B "
+            f"loaded" for k, v in sorted(found.items())))
+        if _build.build_info["log"] and len(found) != count:
+            raise SystemExit(f"the build log lacks {kernel} entries")
+    say("# SASS digests (cuobjdump -sass): " + json.dumps(sass_digests(
+        _build.build_info["path"], ("overlap_kernel", "fold_windows_kernel"))))
     census = sass_atomics(_build.build_info["path"])
     say("# SASS (cuobjdump -sass), shared-memory atomics and bulk "
         "reductions by kernel: " + ("; ".join(

@@ -96,12 +96,13 @@ def measure(ops, outs) -> list:
     return rows
 
 
-def overlap_fraction(rows) -> float:
-    """(t(vpu) + t(dot) - t(both)) / (t(vpu) + t(dot) - max): 1 when the
-    build and the product overlap fully, 0 when they serialise."""
+def overlap_fraction(rows, form: str = "both") -> float:
+    """(t(vpu) + t(dot) - t(form)) / (t(vpu) + t(dot) - max): 1 when the
+    build and the product overlap fully, 0 when they serialise (``form``
+    "both", the warp-specialised kernel, or "both2", the pipelined one)."""
     t = {r["variant"]: r["ms"] for r in rows}
     s = t["vpu"] + t["dot"]
-    return (s - t["both"]) / max(s - max(t["vpu"], t["dot"]), 1e-9)
+    return (s - t[form]) / max(s - max(t["vpu"], t["dot"]), 1e-9)
 
 
 def run(device="cuda", check: bool = False) -> dict:
@@ -111,6 +112,7 @@ def run(device="cuda", check: bool = False) -> dict:
                   rows=rows)
     if "ms" in rows[0]:
         result["overlap_fraction"] = overlap_fraction(rows)
+        result["overlap_fraction_both2"] = overlap_fraction(rows, "both2")
     return result
 
 

@@ -176,12 +176,6 @@ __device__ __forceinline__ void group_sync(int g) {
   asm volatile("bar.sync %0, 128;" ::"r"(1 + g) : "memory");
 }
 
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t y;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
-  return y;
-}
-
 // x = hi + lo + O(2^-22 |x|): hi = TF32(x), lo = TF32(x - hi), both with
 // their low 13 bits zero (the tensor cores read no more).
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,

@@ -1,7 +1,7 @@
 // Device helpers shared by the kernels that evaluate Chebyshev kernel taps
 // or take their products in one of the three precision modes
 // (window.cuh, window_gather.cu, window_scatter.cu, stream_prep.cu,
-// prep_variants.cu, overlap.cu).
+// prep_variants.cu).
 //
 // Modes: kF32 the f32 product a * b ("highest"); kHigh the bf16 hi/lo
 // halves hi*hi + (hi*lo + lo*hi), each product exact in f32 (the TPU's

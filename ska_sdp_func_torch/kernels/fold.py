@@ -14,7 +14,8 @@ and of the JAX driver that composes them (ska_sdp_func_tpu.parallel.packed
 - :func:`fold_windows` does both and returns complex64 ``[T, K, 8 O, L]``.
 
 On a CUDA tensor :func:`fold_windows` launches one hand-written gather
-kernel (``csrc/fold.cu``) that does both folds in one pass, with no
+kernel (``csrc/fold.cu``: a CTA an (octet, layer, task), its visited flags
+read once, float4 rows) that does both folds in one pass, with no
 intermediate and no atomics, or raises; on a CPU tensor it runs the two
 plain versions composed. It counts its launches in ``.launches``. Both
 add in the Pallas kernels' order, so they agree bit for bit. A window

@@ -20,9 +20,13 @@ one-hot placement) makes its column of U and row of V. :data:`VARIANTS`:
 shows that every block's work was done (the output alone depends on the
 last block only).
 
-On a CUDA tensor :func:`overlap` launches the kernel (``csrc/overlap.cu``,
-tensor-core products as three TF32 passes) or raises; on a CPU tensor it
-runs :func:`overlap_reference` (true f32 products). It counts its kernel
+On a CUDA tensor :func:`overlap` launches the kernel (``csrc/overlap.cu``:
+one CTA an SM over the blocks, 64-slot stages (32 where ``block`` is no
+multiple of 64), tensor-core products as three TF32 passes of ``wgmma``;
+``dot``, ``vpu`` and ``both`` with a builder warpgroup filling a ring
+beside two consumer warpgroups, ``both2`` with each warpgroup building
+the next stage while its products run) or raises; on a CPU tensor it runs
+:func:`overlap_reference` (true f32 products). It counts its kernel
 launches in ``.launches``.
 """
 
@@ -35,7 +39,7 @@ from .packed_tap import _check, _full_f32_matmul
 VARIANTS = ("dot", "vpu", "both", "both2")
 SUPPORT = 8
 LANES = 128
-_TILE = 32            # csrc/overlap.cu kKT
+_TILE = 32            # the smallest stage of csrc/overlap.cu
 _MAX_COEFFS = 16
 _REF_BLOCKS = 256     # blocks per step of the plain version
 

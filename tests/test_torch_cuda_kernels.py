@@ -45,7 +45,13 @@ experiments' kernels: the read probe (``read_probe``) and the tensor-core
 band products (``bucket_dot``, three TF32 passes or bf16, and its CUDA-core
 form) and overlap probe (``overlap``, every block's sum |acc| too) at
 1e-5 of max|plain|; the tap-preparation sweep (``prep_variants``) bit for
-bit. The band products' tensor-core forms (every variant code: one CTA an
+bit. The overlap probe's redesign (one CTA an SM, 64- or 32-slot stages,
+wgmma) also over 1, 131, 133 and 529 blocks, blocks of 32, 96, 1024 and
+2048 slots and fits of 2, 12 and 16 coefficients, each block's sum too,
+vpu's acc bit for bit (``-k overlap``); the window fold's (a CTA an octet,
+layer and task) bit for bit at L 1-130, Sw 1-8, one slab, one octet, none,
+some and all buckets visited, NaN in the unvisited windows, and with
+windows off a 16-byte boundary (``-k fold``). The band products' tensor-core forms (every variant code: one CTA an
 SM over the bucket runs, a TMA ring, wgmma) also over runs of 1, 2, 3 and
 9 blocks at block_v 128, 256 and 1024 (runs longer than the ring, and runs
 of fewer stages than it holds), with unvisited buckets left zero, an odd
@@ -1861,3 +1867,102 @@ def test_overlap_kernel_matches_plain(device, variant):
     assert sums.shape == (4,)
     assert _rel(out, want_out) <= 1e-5
     assert _rel(sums, want_sums) <= 1e-5
+
+
+# Redesigned P2b (one CTA an SM over the blocks, 64-slot stages, or 32
+# where a block is no multiple of 64; wgmma TF32 x 3): every variant over
+# grids that leave the last wave of blocks part full on a 132-SM card (1,
+# 131, 133 and 529 blocks), blocks of 32 slots (a chunk a stage), 96 (three
+# 32-slot stages, three chunks), 128 (two chunks a 64-slot stage) and 2048,
+# and fits of 2, 12 and 16 coefficients: (num_blocks, block, sub, ncoef).
+OVERLAP_CASES = [
+    (1, 1024, 512, 12), (131, 1024, 512, 12), (133, 1024, 512, 12),
+    (529, 1024, 512, 12), (133, 32, 32, 12), (131, 32, 32, 16),
+    (133, 96, 32, 2), (133, 128, 32, 12), (133, 2048, 512, 2),
+    (7, 2048, 512, 16), (133, 1024, 512, 16)]
+
+
+@pytest.mark.parametrize("case", OVERLAP_CASES, ids=str)
+@pytest.mark.parametrize("variant", ["dot", "vpu", "both", "both2"])
+def test_overlap_kernel_over_grids(device, variant, case):
+    """The last block's acc and every block's sum |acc| at 1e-5 of
+    max|plain|, one launch a call; vpu's acc (f32 products and adds in the
+    plain version's order) bit for bit."""
+    from ska_sdp_func_torch.kernels import overlap as ov
+
+    num_blocks, block, sub, ncoef = case
+    rng = np.random.default_rng(num_blocks + block + ncoef)
+    pa, pb = (torch.as_tensor(
+        rng.integers(0, 2 ** 22, num_blocks * block, np.int32),
+        device=device) for _ in range(2))
+    c = torch.as_tensor(rng.standard_normal((ncoef, 8)), dtype=torch.float32,
+                        device=device)
+    before = ov.overlap.launches
+    out, sums = ov.overlap(variant, pa, pb, c, block, sub)
+    want_out, want_sums = ov.overlap_reference(variant, pa, pb, c, block,
+                                               sub)
+    torch.cuda.synchronize()
+    assert ov.overlap.launches == before + 1
+    assert sums.shape == (num_blocks,)
+    assert _rel(out, want_out) <= 1e-5
+    assert _rel(sums, want_sums) <= 1e-5
+    assert float((sums - want_sums).abs().div(want_sums).max()) <= 1e-5
+    if variant == "vpu":
+        assert torch.equal(out, want_out)
+
+
+# Redesigned K9/K10 (a CTA an (octet, layer, task), its flags read once,
+# float4 rows where L % 4 == 0 and single lanes elsewhere): bit for bit
+# against the plain version with NaN in every unvisited window, at L 1, 3,
+# 60, 64, 128 and 130, Sw 1-8, one slab, one octet, and none, some and all
+# buckets visited: (tasks, slabs, octets, w_support, lanes, visited share).
+FOLD_CASES = [
+    (3, 8, 16, 4, 128, 0.2), (2, 3, 4, 2, 1, 0.5), (2, 3, 4, 3, 3, 0.5),
+    (3, 5, 6, 5, 60, 0.5), (2, 4, 5, 6, 64, 0.5), (2, 2, 3, 8, 130, 0.5),
+    (4, 1, 3, 4, 128, 0.5), (3, 4, 1, 4, 128, 0.5), (2, 6, 4, 1, 64, 0.5),
+    (2, 3, 4, 7, 128, 0.5), (3, 8, 16, 4, 128, 0.0),
+    (3, 8, 16, 4, 128, 1.0)]
+
+
+def _fold_case(device, case, offset=0):
+    tasks, slabs, octets, sw, lanes, share = case
+    rng = np.random.default_rng(tasks + 10 * slabs + 100 * sw + lanes)
+    nb = tasks * slabs * octets
+    visited = rng.random(nb) < share
+    wins = rng.standard_normal((2 * sw, nb, 16, lanes)).astype(np.float32)
+    wins[:, ~visited] = np.nan
+    # offset > 0: the windows start offset floats into their buffer.
+    buf = torch.empty(wins.size + offset, dtype=torch.float32, device=device)
+    w = buf[offset:].view(wins.shape)
+    w.copy_(torch.as_tensor(wins))
+    return (w, torch.as_tensor(visited, device=device), tasks, slabs, octets,
+            sw, slabs + sw - 1)
+
+
+@pytest.mark.parametrize("case", FOLD_CASES, ids=str)
+def test_fold_kernel_bit_equal(device, case):
+    """One launch a call, equal to the plain version bit for bit."""
+    from ska_sdp_func_torch.kernels import fold
+
+    args = _fold_case(device, case)
+    before = fold.fold_windows.launches
+    got = fold.fold_windows(*args)
+    want = fold.fold_windows_reference(*args)
+    torch.cuda.synchronize()
+    assert fold.fold_windows.launches == before + 1
+    assert bool(torch.isfinite(torch.view_as_real(got)).all())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("offset", [1, 2])
+def test_fold_kernel_unaligned_windows(device, offset):
+    """Windows that start off a 16-byte boundary take the single-lane
+    path at L 128: still bit for bit."""
+    from ska_sdp_func_torch.kernels import fold
+
+    args = _fold_case(device, (3, 4, 5, 4, 128, 0.5), offset)
+    assert args[0].data_ptr() % 16
+    got = fold.fold_windows(*args)
+    want = fold.fold_windows_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

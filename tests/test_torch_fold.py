@@ -90,6 +90,31 @@ def test_fold_windows_matches_jax(geom):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+# The card tests' edge geometries (tests/test_torch_cuda_kernels.py
+# FOLD_CASES): L 1, 3, 60, 130, Sw 1 and 8, one slab, one octet, none and
+# all buckets visited; (tasks, slabs, octets, w_support, lanes, share).
+EDGES = [(2, 1, 3, 4, 3, 0.5), (2, 3, 1, 2, 60, 0.5), (1, 2, 2, 8, 130, 0.5),
+         (2, 3, 4, 1, 1, 0.5), (2, 3, 4, 2, 64, 0.0), (2, 3, 4, 2, 64, 1.0)]
+
+
+@pytest.mark.parametrize("edge", EDGES, ids=str)
+def test_fold_windows_edges_match_jax(edge):
+    tasks, slabs, octets, sw, lanes, share = edge
+    rng = np.random.default_rng(12)
+    nb = tasks * slabs * octets
+    visited = rng.random(nb) < share
+    wins = rng.standard_normal((2 * sw, nb, 16, lanes)).astype(np.float32)
+    wins[:, ~visited] = np.nan
+    layers = slabs + sw - 1
+    want = np.asarray(j_fold_windows(
+        jnp.asarray(wins), jnp.asarray(visited), tasks, slabs, octets, sw,
+        layers, True))
+    got = fold.fold_windows(torch.as_tensor(wins), torch.as_tensor(visited),
+                            tasks, slabs, octets, sw, layers)
+    assert np.isfinite(want).all()
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_fold_windows_rejects_bad_inputs():
     tasks, slabs, octets, sw, lanes = GEOMS[1]
     wins, visited = (torch.as_tensor(a) for a in _windows(*GEOMS[1]))

@@ -30,10 +30,10 @@ HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def clenshaw(x, c):
-    """exp_overlap.py:57-62."""
+    """exp_overlap.py:57-62 (degree DEG there; the fit's own here)."""
     b1 = jnp.zeros((SUPPORT,) + x.shape[-1:], jnp.float32)
     b2 = jnp.zeros_like(b1)
-    for k in range(DEG, 0, -1):
+    for k in range(c.shape[0] - 1, 0, -1):
         b1, b2 = c[k][:, None] + 2.0 * x * b1 - b2, b1
     return c[0][:, None] + x * b1 - b2
 
@@ -62,22 +62,22 @@ def build(pa, pb, c):
     return u_all, vb
 
 
-def kernel_jnp(variant, pa, pb, c):
+def kernel_jnp(variant, pa, pb, c, block=BLOCK, sub=SUB):
     """exp_overlap.py:85-123 for each block: (the last block's acc, sum
     |acc| of every block)."""
     sums = []
-    for b in range(pa.shape[0] // BLOCK):
+    for b in range(pa.shape[0] // block):
         acc = jnp.zeros((LANES, LANES), jnp.float32)
-        chunks = [(pa[b * BLOCK + i * SUB:b * BLOCK + (i + 1) * SUB],
-                   pb[b * BLOCK + i * SUB:b * BLOCK + (i + 1) * SUB])
-                  for i in range(BLOCK // SUB)]
+        chunks = [(pa[b * block + i * sub:b * block + (i + 1) * sub],
+                   pb[b * block + i * sub:b * block + (i + 1) * sub])
+                  for i in range(block // sub)]
         for ca, cb in chunks:
             if variant == "dot":
                 u_all = jnp.broadcast_to(
-                    ca.astype(jnp.float32).reshape(1, SUB)
-                    * jnp.float32(1e-9), (LANES, SUB))
-                vb = jnp.broadcast_to(cb.astype(jnp.float32).reshape(SUB, 1)
-                                      * jnp.float32(1e-9), (SUB, LANES))
+                    ca.astype(jnp.float32).reshape(1, sub)
+                    * jnp.float32(1e-9), (LANES, sub))
+                vb = jnp.broadcast_to(cb.astype(jnp.float32).reshape(sub, 1)
+                                      * jnp.float32(1e-9), (sub, LANES))
                 acc = acc + jnp.dot(u_all, vb, precision=HIGHEST,
                                     preferred_element_type=jnp.float32)
             elif variant == "vpu":
@@ -110,6 +110,34 @@ def test_overlap_matches_jnp(variant):
                            torch.as_tensor(c), BLOCK, SUB)
     assert ov.overlap.launches == before
     assert sums.shape == (TOTAL // BLOCK,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=TOL * np.abs(want).max())
+    np.testing.assert_allclose(sums.numpy(), want_sums, rtol=TOL)
+
+
+# The card tests' other shapes (tests/test_torch_cuda_kernels.py
+# OVERLAP_CASES): blocks of 32 (a chunk a 32-slot stage), 96 (three stages
+# and chunks), 128 (two chunks a 64-slot stage) and 2048 slots, one block,
+# fits of 2 and 16 coefficients; (num_blocks, block, sub, ncoef).
+SHAPES = [(1, 1024, 512, 12), (3, 32, 32, 12), (3, 96, 32, 2),
+          (3, 128, 32, 12), (2, 2048, 512, 2), (2, 1024, 512, 16)]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("variant", ov.VARIANTS)
+def test_overlap_shapes_match_jnp(variant, shape):
+    """The plain version, which the card holds the kernel to at these
+    shapes, against the transcription."""
+    num_blocks, block, sub, ncoef = shape
+    rng = np.random.default_rng(num_blocks + block + ncoef)
+    pa, pb = (rng.integers(0, 2 ** 22, num_blocks * block, np.int32)
+              for _ in range(2))
+    c = rng.standard_normal((ncoef, SUPPORT)).astype(np.float32)
+    want, want_sums = kernel_jnp(variant, jnp.asarray(pa), jnp.asarray(pb),
+                                 jnp.asarray(c), block, sub)
+    got, sums = ov.overlap(variant, torch.as_tensor(pa), torch.as_tensor(pb),
+                           torch.as_tensor(c), block, sub)
+    assert sums.shape == (num_blocks,)
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=TOL * np.abs(want).max())
     np.testing.assert_allclose(sums.numpy(), want_sums, rtol=TOL)
