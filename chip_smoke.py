@@ -6,6 +6,7 @@
     (cd CHECKOUT && python3 /path/to/chip_smoke.py --predict-times)
     (cd CHECKOUT && python3 /path/to/chip_smoke.py --ingest-times)
     (cd CHECKOUT && python3 /path/to/chip_smoke.py --experiment-times)
+    (cd CHECKOUT && python3 /path/to/chip_smoke.py --sparse-place-times)
 
 Run from the repository root on a machine with a CUDA card. With
 ``--packed-times`` it only times the packed path (K1/K2 in "high" and
@@ -25,7 +26,9 @@ tap preparation K6 (f32 and bf16, with its output digests), and
 ``bucket_dot`` variant, beside ``torch.bmm`` in f32 and bf16, and
 ``grid_parity`` at slots 1, 2 and 4) and P1 (``read_streams`` at 6 streams
 and 1, beside ATen's block sums), one JSON line a kernel with each
-output's digest. Phases, one line of output each (or a few), failing
+output's digest, and ``--sparse-place-times`` for K20 and K5 (wall, host
+and device time, device operations a call and output digests; the
+dense stream's plan + K5 stages with their placed arrays' digests). Phases, one line of output each (or a few), failing
 loudly on the first fault:
 
 1. toolchain: the card's name and power limit (nvidia-smi), torch, CUDA
@@ -132,7 +135,10 @@ loudly on the first fault:
       entry point runs: once in each mode on the fallback's largest task
       in the sparse form the bucketed driver makes before it densifies the
       w taps, each in a window of its own; then against its plain version
-      and against K16 fed ``_slab_weights`` of the same taps;
+      and against K16 fed ``_slab_weights`` of the same taps; then its
+      calls' wall time, device time and device operations a call
+      (``torch.profiler``), failing if a call makes more than one device
+      operation or two calls differ in a bit;
    n. the bf16 mode of K14-K17: once each on window c's plane and the
       fallback's largest task, against the bf16 plain versions and the
       f32 kernels (within JAX's 4e-3 envelope); then window d's sub-grid
@@ -211,7 +217,9 @@ keys (``instance``: ``stream_prep_kernel<GRID, BF16, NCOEF, S>``, the
 instance window j's fits take). One kernel
 replaces both TPU folds (K9, K10): it has a row for each (redesigned:
 ``instance`` ``fold_windows_kernel<4>``, as are P1, P2b-P2e's rows with
-their templates); the bf16
+their templates, and K20's and K5's with P2f, which also carry
+``device_ms`` and ``device_ops``, a call's device time and operations by
+``torch.profiler``); the bf16
 modes of K6, K7, K8 and K11 have rows of their own (``[bf16]``, window
 k's operands), bytes counted for the bf16 ``vk``; so do K20 and the bf16
 modes of K14-K17 (window m's and n's operands, which the bf16 modes read
@@ -420,8 +428,26 @@ WORD_KERNELS = (
     ("degrid_fused2", "ska_sdp_func_tpu/kernels/fused_tap.py:814"),
 )
 # Window m: the sparse all-layer grid (K20), on the fallback's largest task.
-SPARSE_SOURCE = TOWER_SOURCE
+SPARSE_SOURCE = "ska_sdp_func_torch/kernels/csrc/sparse_tap.cu"
 SPARSE_REPLACES = "ska_sdp_func_tpu/kernels/sparse_tap.py:80"
+SPARSE_REDESIGN = ("redesigned: one launch writes the complex64 output "
+                   "whole; a cluster of CTAs (8 at the largest task) owns a "
+                   "tile (4 rows, the width that fits, 9 layers), each "
+                   "CTA's 8 warps a share of the slots by chunks of 32: "
+                   "hits appended to a ring in shared memory, up to 32 "
+                   "hits' records staged and waited for, lane (layer, "
+                   "column) summing a run of hits on one cell in registers "
+                   "into the warp's private copy of the tile; the copies "
+                   "added in warp order, then the cluster's in rank order "
+                   "through distributed shared memory: no atomics, two "
+                   "calls give equal bits")
+# K5 (and P2f on it), redesigned: persistent CTAs, 16-byte vectors.
+PLACE_SOURCE = "ska_sdp_func_torch/kernels/csrc/place.cu"
+PLACE_REDESIGN = ("redesigned: persistent CTAs (8 an SM) walk the output "
+                  "as 16-byte vectors of 4 slots of one block, every "
+                  "payload's 4-byte source loads of a vector in flight "
+                  "before its 16-byte stores; word by word where "
+                  "bv % 4 != 0")
 # Window n: the bf16 mode of K14-K17 against the f32 kernels, within JAX's
 # stated envelope of the single-pass bf16 dot (wtower.py:685). The
 # sub-grid gridder's outputs are held at CHAIN_TOL instead: its tap sums
@@ -510,6 +536,8 @@ EXPERIMENT_REDESIGN = {
                                   (4,)),
     "fold_windows[fold_layers]": (FOLD_REDESIGN, "fold_windows_kernel",
                                   (4,)),
+    "place_stream[P2f exp_place_dma]": (PLACE_REDESIGN, "place_stream_kernel",
+                                        (1,)),
     "bucket_dot[P2c exp_dot _call]": (DOT_REDESIGN, "bucket_dot_kernel",
                                       (0, 0, 1, 1, 0)),
     "bucket_dot[P2d exp_dot _call_npair]": (DOT_REDESIGN,
@@ -1846,6 +1874,124 @@ def ingest_times(torch, dev):
     return dict(stages=stages, kernels=kernels, digests=digests)
 
 
+def sparse_place_times(torch, dev):
+    """K20 and K5, timed on the package that is imported (two checkouts
+    compare on one card in turns, each run from its own root with
+    ``--sparse-place-times``): K20 in both modes on window m's operands
+    (the fallback's largest task) and on random taps of the same count at
+    N = 256; K5 at exp_place_dma's scale (P2f: 4 payloads) and on the
+    dense stream's grid-plan call (window f's payloads, captured from one
+    ``accumulate``). Each: wall ms a call by CUDA events (20 calls,
+    twice), host ms to enqueue a call (:func:`host_ms`), device ms and
+    device operations a call by ``torch.profiler`` (20 calls), the digest of its output (:func:`digest`) and whether two
+    calls give equal bits; P2f also as exp_place_dma measures it (its
+    chained wall ms, the NumPy oracle checked). Then the dense stream's
+    plan stage (plan + K5) of the ingest and of the predict: ms (CUDA
+    events, 10 calls, twice) and the digest of its placed arrays. Only
+    calls every version of the port has are made."""
+    from ska_sdp_func_torch.experiments import exp_place_dma
+    from ska_sdp_func_torch.kernels import place
+    from ska_sdp_func_torch.kernels import sparse_tap as ts
+    from ska_sdp_func_torch.parallel import (
+        StreamingDegridder,
+        StreamingGridder,
+        plan_bucketed,
+        plan_stream,
+        plan_wstack,
+        stream_tasks,
+        streaming,
+    )
+
+    out = {}
+
+    def measure(name, fn):
+        wall = [cuda_ms(torch, fn, 20) for _ in range(2)]
+        d_us, names, ops = device_us(torch, fn)
+        first = digest(fn())
+        out[name] = dict(ms=wall, host_ms=host_ms(torch, fn, 20),
+                         device_ms=d_us and d_us / 1e3, device_ops=ops,
+                         device_kernels=names, digest=first,
+                         repeat_equal=first == digest(fn()))
+
+    uvw, vis = bench_inputs()
+    uvw_dev = torch.as_tensor(uvw, device=dev)
+    tplan = plan_wstack(uvw, C_0, C_0 / (100 * CHANS), CHANS, IMAGE,
+                        TOWER_SUBGRID, THETA, W_STEP, support=8, w_support=4,
+                        w_tower_height=HEIGHT)
+    bplan, sort_index, valid = plan_bucketed(tplan, uvw)
+    ops, _, _, _ = tower_operands(
+        torch, dev, tplan, uvw_dev, torch.as_tensor(vis, device=dev), bplan,
+        sort_index, valid, 22)
+    sp_args, _, _ = sparse_operands(torch, dev, tplan, uvw_dev, bplan,
+                                    sort_index, valid,
+                                    ops["grid_all_layers"])
+    del ops
+    rng = np.random.default_rng(17)
+    total, num_layers, wide = sp_args[0].shape[0], sp_args[8], 256
+
+    def put(a, dtype):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    wide_args = (put(rng.standard_normal(total), torch.float32),
+                 put(rng.standard_normal(total), torch.float32),
+                 put(rng.integers(0, wide - 7, total), torch.int32),
+                 put(rng.integers(0, wide - 7, total), torch.int32),
+                 put(rng.integers(0, num_layers - 3, total), torch.int32),
+                 put(rng.standard_normal((total, 8)), torch.float32),
+                 put(rng.standard_normal((total, 8)), torch.float32),
+                 put(rng.uniform(0.1, 1, (total, 4)), torch.float32),
+                 num_layers, wide, 8, 4)
+    for tag, fast in (("", False), ("[bf16]", True)):
+        for where, args in (("largest task", sp_args),
+                            (f"N {wide}", wide_args)):
+            measure(f"grid_all_layers_sparse{tag}[{where}]",
+                    lambda a=args, f=fast: ts.grid_all_layers_sparse(
+                        *a, fast=f))
+    del sp_args, wide_args
+
+    p2f = exp_place_dma.operands("cuda")
+    uvw_d, vis_d = stream_inputs()
+    uvw_dd = torch.as_tensor(uvw_d, device=dev)
+    vis_dd = torch.as_tensor(vis_d, device=dev)
+    wplan = plan_wstack(uvw_d, C_0, C_0 / (100 * STREAM_CHANS),
+                        STREAM_CHANS, IMAGE, SUBGRID, THETA, W_STEP,
+                        support=8, w_support=4, w_tower_height=HEIGHT)
+    sp = plan_stream(wplan, stream_tasks(wplan, uvw_d), chunk_rows=ROWS,
+                     block_v=STREAM_BLOCK_V, cap_factor=STREAM_CAP_FACTOR)
+    sg = StreamingGridder(sp, device=dev)
+    rec = []
+    with recorded(streaming, "place", ("place_stream",), rec):
+        sg.accumulate(uvw_dd, vis_dd)
+    k5_args, k5_kw = rec[-1][1:]
+    measure("place_stream[P2f]", lambda: place.place_stream(
+        p2f["src0"], p2f["vcnt"], p2f["payloads"], p2f["bv"], p2f["cap"]))
+    row = exp_place_dma.measure(p2f, exp_place_dma.launch(p2f))[0]
+    out["P2f exp_place_dma"] = {k: row.get(k) for k in (
+        "ms", "plain_ms", "sort_ms", "bound_ms", "bytes")}
+    measure("place_stream[dense stream]",
+            lambda: place.place_stream(*k5_args, **k5_kw))
+    del p2f
+
+    model = torch.zeros((IMAGE, IMAGE), dtype=torch.float32, device=dev)
+    model[300, 200] = 1.0
+    sd = StreamingDegridder(sp, device=dev).set_model(model)
+    _, uvw32, mask = streaming._padded_chunk(sp, uvw_dd, dev)
+    vre, vim = vis_dd.real.contiguous(), vis_dd.imag.contiguous()
+    for name, eng, kw in (
+            ("ingest plan + K5", sg._engine,
+             dict(vre=vre, vim=vim, need_unsort=False)),
+            ("predict plan + K5", sd._engine, {})):
+        def plan(eng=eng, kw=kw):
+            return eng._plan_chunk(uvw32, mask, **kw)
+
+        arrays = plan()[0]
+        out[name] = dict(
+            ms=[cuda_ms(torch, plan, 10, warmup=1) for _ in range(2)],
+            digest=digest(tuple(arrays[k] for k in sorted(arrays)
+                                if torch.is_tensor(arrays[k]))))
+    return out
+
+
 def experiment_times(torch, dev):
     """The experiments' kernels P2b-P2e and P1, timed on the package that
     is imported (two checkouts compare on one card in turns, each run from
@@ -2515,6 +2661,41 @@ def check_sparse_kernel(torch, ts, tt, args, weights):
     return errs
 
 
+def sparse_calls(torch, ts, args):
+    """K20's calls in both modes on window m's operands: wall ms a call by
+    CUDA events (20 calls, twice), device ms and device operations a call
+    by ``torch.profiler`` (20 calls), and whether two calls give equal
+    bits; fails if a call makes more than one device operation, if the
+    trace holds no device time, or if two calls differ."""
+    out, lines = {}, []
+    for tag, fast in (("", False), ("[bf16]", True)):
+        def call(fast=fast):
+            return ts.grid_all_layers_sparse(*args, fast=fast)
+
+        wall = [cuda_ms(torch, call, 20) for _ in range(2)]
+        d_us, names, ops = device_us(torch, call)
+        same = digest(call()) == digest(call())
+        out[tag] = dict(wall_ms=wall, device_ms=d_us and d_us / 1e3,
+                        device_ops=ops, device_kernels=names,
+                        repeat_equal=same)
+        lines.append(
+            f"grid_all_layers_sparse{tag} {wall[0]:.4f}/{wall[1]:.4f} ms "
+            f"wall, device " + (f"{d_us / 1e3:.4f} ms in {ops:g} operations "
+                                f"({', '.join(names)})" if d_us
+                                else "not measured (no device time in the "
+                                "trace)")
+            + f", two calls {'bit-equal' if same else 'DIFFER'}")
+    say("# sparse all-layer grid (K20) calls (CUDA events 20 calls twice; "
+        "torch.profiler 20 calls): " + "; ".join(lines))
+    bad = [tag or "f32" for tag, r in out.items()
+           if not r["device_ms"] or r["device_ops"] > 1
+           or not r["repeat_equal"]]
+    if bad:
+        raise SystemExit(f"K20 {bad}: more than one device operation a "
+                         f"call, no device time, or two calls differ")
+    return out
+
+
 def check_tower_fast(torch, tt, ops):
     """K14-K17 with ``fast=True`` against their bf16 plain versions (at
     TOL) and their f32 kernels (within TOWER_FAST_TOL, not equal);
@@ -2753,7 +2934,10 @@ def experiments_phase(torch, tkern, gpu):
         say(f"# [{gpu}] {name} ({time.perf_counter() - t0:.1f} s): " + "; "
             .join(f"{r['variant']} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}"
                   f", bound {r['bound_ms']:.4f} by {r['bound_by']}, rel err "
-                  f"{r['rel_err']:.2e})" for r in result))
+                  f"{r['rel_err']:.2e}" + (
+                      f"; device {r['device_ms']:.4f} ms in "
+                      f"{r['device_ops']:g} operations a call"
+                      if r.get("device_ms") else "") + ")" for r in result))
         if drv_name == "exp_overlap":
             say(f"# [{gpu}] exp_overlap: overlap fraction "
                 f"{drv.overlap_fraction(result):.3f} (both), "
@@ -2901,21 +3085,27 @@ def main() -> int:
             raise SystemExit(f"the build log lacks {kernel} entries")
     # overlap_kernel<VARIANT> (P2b) and fold_windows_kernel<VEC> (K9 +
     # K10): registers, spills and a digest of each instance's SASS.
-    for kernel, names, count in (
+    for kernel, names, count, pattern in (
             ("overlap_kernel", "<VARIANT> (P2b; 0 dot, 1 vpu, 2 both, "
-             "3 both2)", 4),
+             "3 both2)", 4, r"ILi(\d)E"),
             ("fold_windows_kernel", "<VEC> (K9 + K10; 4 float4 rows, 1 "
-             "single lanes)", 2)):
+             "single lanes)", 2, r"ILi(\d)E"),
+            ("sparse_grid_kernel", "<BF16> (K20)", 2, r"ILb(\d)E"),
+            ("place_stream_kernel", "<VEC> (K5, P2f; 1 16-byte vectors, 0 "
+             "word by word)", 2, r"ILb(\d)E")):
         found = exp_ptxas[kernel] = window_ptxas(_build.build_info["log"],
-                                                 kernel, r"ILi(\d)E")
+                                                 kernel, pattern)
         say(f"# ptxas, {kernel}{names}: " + "; ".join(
-            f"<{k[0]}> {v.get('registers')} registers, spills "
+            f"<{', '.join(map(str, k))}> {v.get('registers')} registers, "
+            f"spills "
             f"{v.get('spill_stores')} B stored / {v.get('spill_loads')} B "
             f"loaded" for k, v in sorted(found.items())))
         if _build.build_info["log"] and len(found) != count:
             raise SystemExit(f"the build log lacks {kernel} entries")
     say("# SASS digests (cuobjdump -sass): " + json.dumps(sass_digests(
-        _build.build_info["path"], ("overlap_kernel", "fold_windows_kernel"))))
+        _build.build_info["path"], ("overlap_kernel", "fold_windows_kernel",
+                                    "sparse_grid_kernel",
+                                    "place_stream_kernel"))))
     census = sass_atomics(_build.build_info["path"])
     say("# SASS (cuobjdump -sass), shared-memory atomics and bulk "
         "reductions by kernel: " + ("; ".join(
@@ -3538,6 +3728,7 @@ def main() -> int:
             ts.grid_all_layers_sparse(*sp_args, fast=fast)
         m_launches[tag] = cnt["grid_all_layers_sparse"]
     sparse_err = check_sparse_kernel(torch, ts, tt, sp_args, sp_weights)
+    sparse_dev = sparse_calls(torch, ts, sp_args)
 
     # 4n. the bf16 mode of K14-K17: once each on the main paths' operands
     # (window c's plane, the fallback's largest task), then the sub-grid
@@ -3944,6 +4135,16 @@ def main() -> int:
                 name, getattr(stream_mods[mod], name),
                 getattr(stream_mods[mod], name + "_reference"), args, kw,
                 n_ops, p_iters=2, p_warmup=1))
+    k5_args, k5_kw = stream_ops["place_stream"][0]
+    d_us, d_names, d_ops = device_us(
+        torch, lambda: place.place_stream(*k5_args, **k5_kw))
+    place_dev = dict(device_ms=d_us and d_us / 1e3, device_ops=d_ops)
+    say(f"# [{gpu}] place_stream at the dense stream's shapes ("
+        f"{len(k5_args[2])} payloads, {k5_args[0].shape[0]} blocks of "
+        f"{k5_args[3]}): device time per call (torch.profiler, 20 calls) "
+        + (f"{d_us / 1e3:.4f} ms in {d_ops:g} operations "
+           f"({', '.join(d_names)})" if d_us
+           else "not measured (no device time in the trace)"))
     from ska_sdp_func_torch.kernels import band_tap
 
     es_valid = int(es["plans"]["3-D"]._packed.arrays["valid"].sum())
@@ -4148,8 +4349,12 @@ def main() -> int:
             word_err[name])
         for name, where in WORD_KERNELS
     ] + [
-        row(f"grid_all_layers_sparse{tag}", SPARSE_SOURCE, SPARSE_REPLACES,
-            m_launches[tag], sparse_err[tag]) for tag in ("", "[bf16]")
+        dict(row(f"grid_all_layers_sparse{tag}", SPARSE_SOURCE,
+                 SPARSE_REPLACES, m_launches[tag], sparse_err[tag]),
+             redesigned=SPARSE_REDESIGN,
+             instance=f"sparse_grid_kernel<{str(bool(tag)).lower()}>",
+             ptxas=exp_ptxas["sparse_grid_kernel"].get((int(bool(tag)),)),
+             **sparse_dev[tag]) for tag in ("", "[bf16]")
     ] + [
         # K16/K17 reach the mode through the sub-grid gridder's switch
         # (window n's second run); K14/K15 through their wrappers only.
@@ -4167,6 +4372,12 @@ def main() -> int:
             r.update(redesigned=note,
                      instance=f"{kernel}<{', '.join(map(str, key))}>",
                      ptxas=exp_ptxas[kernel].get(key))
+    for r in kernels:
+        if r["name"] == "place_stream":
+            r.update(source=PLACE_SOURCE, redesigned=PLACE_REDESIGN,
+                     instance="place_stream_kernel<true>",
+                     ptxas=exp_ptxas["place_stream_kernel"].get((1,)),
+                     **place_dev)
     kernels = [prep_row(window_row(r)) for r in kernels]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
@@ -4203,7 +4414,8 @@ def times_main(times) -> int:
 
 TIMES = {"--packed-times": packed_times, "--predict-times": predict_times,
          "--ingest-times": ingest_times,
-         "--experiment-times": experiment_times}
+         "--experiment-times": experiment_times,
+         "--sparse-place-times": sparse_place_times}
 
 
 if __name__ == "__main__":

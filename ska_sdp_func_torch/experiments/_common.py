@@ -47,6 +47,30 @@ def chained_ms(fn, feed, iters: int, warmup: int = 2):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20):
+    """(device ms a call, device operations a call, kernel names) of
+    ``fn`` by ``torch.profiler`` over ``iters`` calls after one warm-up:
+    the card's own kernels, memsets and copies, summed over the calls and
+    divided by ``iters``; (None, 0, []) where the trace holds no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in rows) / iters / 1e3
+    count = sum(e.count for e in rows) / iters
+    return (total or None), count, sorted(e.key for e in rows)
+
+
 def bound(nbytes: float, ops: float = 0.0, ops_per_s: float = F32_OPS_S,
           passes: int = 1):
     """(ms, "bytes" or "operations"): the larger of ``nbytes`` over the

@@ -10,6 +10,8 @@ payloads (2 int32, 2 f32), ``src0``/``vcnt`` from the bucket tables. It is
 held bit for bit against the experiment's NumPy oracle and timed beside
 the placement it was written against: one sort of the N + cap keys with
 the 4 zero-padded payloads gathered by the sort's order (``sort_ms``).
+On the card it also reports K5's device time and device operations a
+call (``device_ms``, ``device_ops``, by ``torch.profiler``).
 
     python -m ska_sdp_func_torch.experiments.exp_place_dma [--check]
 """
@@ -19,7 +21,7 @@ import torch
 
 from ..kernels import place
 from ..utility.tensors import resolve_device
-from ._common import bound, card_name, chained_ms, main
+from ._common import bound, card_name, chained_ms, device_ms, main
 
 NAME = "exp_place_dma"
 # (N, cap, bv, buckets): the experiment's scale, and its check scale.
@@ -133,6 +135,8 @@ def measure(ops, outs) -> list:
             src0, vcnt, pays, bv, cap), feed, 5)
         row["sort_ms"] = chained_ms(lambda: _sort_place(
             ops["keys"], pays, n, cap), feed, 5)
+        row["device_ms"], row["device_ops"], _ = device_ms(
+            lambda: place.place_stream(src0, vcnt, pays, bv, cap))
     return [row]
 
 

@@ -133,9 +133,9 @@ def load() -> ctypes.CDLL:
                 lib.sdp_torch_tower_grid_tasks.argtypes = (
                     [p] * 9 + [i, i64] + [i] * 4 + [p, p])
                 lib.sdp_torch_tower_grid_tasks.restype = i
-                lib.sdp_torch_tower_grid_sparse.argtypes = (
-                    [p] * 8 + [i64] + [i] * 6 + [p, p])
-                lib.sdp_torch_tower_grid_sparse.restype = i
+                lib.sdp_torch_sparse_grid.argtypes = (
+                    [p] * 8 + [i64] + [i] * 5 + [p, p])
+                lib.sdp_torch_sparse_grid.restype = i
                 lib.sdp_torch_tower_degrid_tasks.argtypes = (
                     [p] * 7 + [i, i64] + [i] * 4 + [p, p])
                 lib.sdp_torch_tower_degrid_tasks.restype = i

@@ -2,7 +2,8 @@
 // (packed_wgmma.cu: K1/K2; bucket_dot.cu: P2c-P2e; overlap.cu: P2b):
 // mbarriers, TMA tile copies and their tensor maps, wgmma shared-memory
 // descriptors and the wgmma shapes the kernels issue, register budgets per
-// warpgroup, the TF32 rounding.
+// warpgroup, the TF32 rounding; and the SM count that sizes the
+// persistent grids (also place.cu: K5; sparse_tap.cu: K20).
 
 #pragma once
 
@@ -359,15 +360,25 @@ bool make_map(CUtensorMap* m, const void* base, bool bf16, uint64_t inner,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// One CTA an SM, at most one a unit.
-int grid_size(int units) {
+// The current device's SM count, asked once a process and device (0 on
+// an error).
+int sm_count() {
+  static int sms[64] = {};
   int dev = 0;
-  int sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess) {
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < 64 && sms[dev]) return sms[dev];
+  int count = 0;
+  if (cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess) {
     return 0;
   }
+  if (dev < 64) sms[dev] = count;
+  return count;
+}
+
+// One CTA an SM, at most one a unit.
+int grid_size(int units) {
+  const int sms = sm_count();
   return units < sms ? units : sms;
 }
 

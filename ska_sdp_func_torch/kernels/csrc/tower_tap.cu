@@ -2,18 +2,15 @@
 //
 // Replace the Pallas TPU kernels grid_all_layers_pallas (K16) and
 // degrid_all_layers_pallas (K17) of ska_sdp_func_tpu/kernels/pallas_tap.py
-// (their shared bodies _grid_kernel / _degrid_kernel), and the sparse
-// all-layer grid _sparse_grid_kernel (K20) of kernels/sparse_tap.py:
+// (their shared bodies _grid_kernel / _degrid_kernel):
 //   - K16 -> tower_grid_tasks_kernel
 //   - K17 -> tower_degrid_tasks_kernel
-//   - K20 -> sparse_grid_kernel
+// (the sparse all-layer grid K20 is sparse_tap.cu's).
 //
 // Inputs are flat per-slot taps (shared with the plain PyTorch versions in
-// tower_tap.py and sparse_tap.py): iu0/iv0 [V] int32 sub-grid cells,
-// uk/vk [V, S] f32 kernel taps, and the w-kernel value of each slot on
-// each layer: dense, weights [V, Kw] f32 (zero outside its Sw layers); or,
-// for K20, k0 [V] int32 first layer (clipped to [0, K - Sw]) and wk [V, Sw]
-// f32, so that layer k takes wk[v, k - k0] when 0 <= k - k0 < Sw.
+// tower_tap.py): iu0/iv0 [V] int32 sub-grid cells, uk/vk [V, S] f32 kernel
+// taps, and the w-kernel value of each slot on each layer, weights [V, Kw]
+// f32 (zero outside its Sw layers).
 //
 // K16/K17 take a whole sorted stream of tasks at once. A task table int32
 // [T, 4] holds, per task and in slot order, (start, count, K_t, base): its
@@ -90,14 +87,6 @@
 // stream is written (zero where no task holds it), in slot order. (A
 // thread a slot, rather than a warp, keeps all of a slot's gathers in
 // flight at once and needs no reduction across lanes.)
-//
-// K20 (sparse_grid_kernel, a simple form; no entry point runs it): one
-// CTA of 256 threads per (block of block_v slots, output plane h*K + k)
-// over an f32 [2K, N, N] stack; a CTA skips a plane that no slot of
-// its block touches, zeroes the box its slots' taps cover in a
-// shared-memory plane, adds every tap with shared-memory atomics and
-// flushes the box's non-zero cells with global atomics (N > 156: global
-// atomics throughout).
 
 #include <cuda_runtime.h>
 
@@ -108,12 +97,11 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kNoCell = INT32_MIN;         // a staged slot with no weight
 constexpr int kTaskGridThreads = 512;     // 16 warps
 constexpr int kTaskGridWarps = kTaskGridThreads / 32;
 constexpr int kDegridThreads = 256;       // one slot a thread
 constexpr int kMaxSmem = 232448;          // 227 KB, opt-in
-constexpr int kSparseThreads = 256;
-constexpr int kMaxSparseSmemPlane = 96 * 1024;
 
 struct TaskRow {
   int start;
@@ -266,14 +254,16 @@ tower_grid_tasks_kernel(const TaskGridArgs a) {
       const unsigned active = __ballot_sync(kFull, wt != 0.0f);
       if (active == 0) continue;               // uniform across the warp
       // Stage the chunk (its rows contiguous: coalesced loads, all in flight
-      // at once): each slot's s and cell (an inactive slot's u0 = -1, "no
-      // move"), and the uk and vk rows of the active slots (zero for the
-      // others, which then add exact zeros).
+      // at once): each slot's s and cell (an inactive slot's u0 =
+      // kNoCell, "no move"; a cell may lie off the plane, u0 < 0), and the
+      // uk and vk rows of the active slots (zero for the others, which then
+      // add exact zeros).
       __syncwarp();
       scal[lane] = wt != 0.0f
                        ? make_float4(wt * vr, wt * vi, __int_as_float(u0),
                                      __int_as_float(v0))
-                       : make_float4(0.0f, 0.0f, __int_as_float(-1), 0.0f);
+                       : make_float4(0.0f, 0.0f, __int_as_float(kNoCell),
+                                     0.0f);
       const int n =
           static_cast<int>(min(static_cast<int64_t>(32), end - chunk));
       for (int e = lane; ROWS && e < 32 * support; e += 32) {
@@ -293,7 +283,8 @@ tower_grid_tasks_kernel(const TaskGridArgs a) {
         const float4 q = scal[j];
         const int cu = __float_as_int(q.z);
         const int cv = __float_as_int(q.w);
-        if (cu >= 0 && (!held || cu != at_u || cv != at_v)) {  // uniform
+        if (cu != kNoCell &&                                   // uniform
+            (!held || cu != at_u || cv != at_v)) {
           if (held) flush();
           held = true;
           at_u = cu;
@@ -306,7 +297,7 @@ tower_grid_tasks_kernel(const TaskGridArgs a) {
         }
         // Unstaged rows: an inactive slot (or one past the task's end) is
         // skipped, uniformly across the warp.
-        if (!ROWS && cu < 0) continue;
+        if (!ROWS && cu == kNoCell) continue;
         const float* u_row = ROWS ? stage + j * pitch
                                   : a.uk + (chunk + j) * support;
         const float* v_row = ROWS ? u_row + support
@@ -525,149 +516,6 @@ cudaError_t launch_degrid_tasks(const float2* l, const int* iu0,
   return cudaGetLastError();
 }
 
-// -- K20 -------------------------------------------------------------------
-
-struct SparseGridArgs {
-  const float* vre;
-  const float* vim;
-  const int* iu0;
-  const int* iv0;
-  const int* k0;      // [V] first layer
-  const float* uk;
-  const float* vk;
-  const float* wk;    // [V, Sw]
-  int64_t total;
-  int support;
-  int w_support;
-  int num_layers;
-  int size;
-  int block_v;
-  float* out;         // f32 [2K, N, N]: re layers, then im
-};
-
-// The w-kernel value of slot v on layer k.
-__device__ __forceinline__ float layer_weight(const SparseGridArgs& a,
-                                              int64_t v, int k) {
-  const int first = min(max(a.k0[v], 0), a.num_layers - a.w_support);
-  const int l = k - first;
-  return l >= 0 && l < a.w_support ? a.wk[v * a.w_support + l] : 0.0f;
-}
-
-template <bool SMEM, bool BF16>
-__global__ void __launch_bounds__(kSparseThreads)
-sparse_grid_kernel(const SparseGridArgs a) {
-  extern __shared__ float splane[];  // [size * size] when SMEM
-  __shared__ int box[4];             // u_min, u_max, v_min, v_max
-
-  const int size = a.size;
-  const int support = a.support;
-  const int p = blockIdx.y;          // output plane h * K + k
-  const int k = p % a.num_layers;
-  const float* vals = p < a.num_layers ? a.vre : a.vim;
-  const int64_t v_begin = static_cast<int64_t>(blockIdx.x) * a.block_v;
-  const int64_t v_end =
-      v_begin + a.block_v < a.total ? v_begin + a.block_v : a.total;
-  const int count = static_cast<int>(v_end - v_begin);
-  const int tid = threadIdx.x;
-  float* dst = a.out + static_cast<int64_t>(p) * size * size;
-
-  if (tid == 0) {
-    box[0] = size;
-    box[1] = -1;
-    box[2] = size;
-    box[3] = -1;
-  }
-  __syncthreads();
-
-  // Pass 1: is any slot active for this plane; tap bounding box.
-  int active = 0;
-  int u_min = size, u_max = -1, v_min = size, v_max = -1;
-  for (int i = tid; i < count; i += kSparseThreads) {
-    const int64_t v = v_begin + i;
-    if (layer_weight(a, v, k) * vals[v] != 0.0f) {
-      active = 1;
-      u_min = min(u_min, a.iu0[v]);
-      u_max = max(u_max, a.iu0[v]);
-      v_min = min(v_min, a.iv0[v]);
-      v_max = max(v_max, a.iv0[v]);
-    }
-  }
-  if (!__syncthreads_or(active)) return;
-
-  int r0 = 0, r1 = size, c0 = 0, c1 = size;
-  if (SMEM) {
-    if (active) {
-      atomicMin(&box[0], u_min);
-      atomicMax(&box[1], u_max);
-      atomicMin(&box[2], v_min);
-      atomicMax(&box[3], v_max);
-    }
-    __syncthreads();
-    r0 = max(box[0], 0);
-    r1 = min(box[1] + support, size);
-    c0 = max(box[2], 0);
-    c1 = min(box[3] + support, size);
-    const int width = c1 - c0;
-    for (int i = tid; i < (r1 - r0) * width; i += kSparseThreads) {
-      splane[(r0 + i / width) * size + c0 + i % width] = 0.0f;
-    }
-    __syncthreads();
-  }
-
-  // Pass 2: S x S taps of every active slot.
-  const int taps = support * support;
-  for (int i = tid; i < count * taps; i += kSparseThreads) {
-    const int64_t v = v_begin + i / taps;
-    const float s = layer_weight(a, v, k) * vals[v];
-    if (s == 0.0f) continue;
-    const int t = i % taps;
-    const int ia = t / support;
-    const int ib = t % support;
-    const int u = a.iu0[v] + ia;
-    const int w = a.iv0[v] + ib;
-    if (u < 0 || u >= size || w < 0 || w >= size) continue;
-    const float uk = a.uk[v * support + ia];
-    const float vk = a.vk[v * support + ib];
-    const float val = BF16 ? __fmul_rn(round_bf16(__fmul_rn(uk, s)),
-                                       round_bf16(vk))
-                           : (uk * s) * vk;
-    if (SMEM) {
-      atomicAdd(&splane[u * size + w], val);
-    } else {
-      atomicAdd(&dst[u * size + w], val);
-    }
-  }
-
-  // Pass 3: flush the box into the output plane.
-  if (SMEM) {
-    __syncthreads();
-    const int width = c1 - c0;
-    for (int i = tid; i < (r1 - r0) * width; i += kSparseThreads) {
-      const int cell = (r0 + i / width) * size + c0 + i % width;
-      const float x = splane[cell];
-      if (x != 0.0f) atomicAdd(&dst[cell], x);
-    }
-  }
-}
-
-template <bool BF16>
-cudaError_t launch_sparse(const SparseGridArgs& a, cudaStream_t s) {
-  const dim3 grid(static_cast<unsigned>((a.total + a.block_v - 1) /
-                                        a.block_v),
-                  2 * a.num_layers);
-  const size_t smem = sizeof(float) * a.size * a.size;
-  if (smem <= static_cast<size_t>(kMaxSparseSmemPlane)) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sparse_grid_kernel<true, BF16>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    sparse_grid_kernel<true, BF16><<<grid, kSparseThreads, smem, s>>>(a);
-  } else {
-    sparse_grid_kernel<false, BF16><<<grid, kSparseThreads, 0, s>>>(a);
-  }
-  return cudaGetLastError();
-}
-
 bool bad_task_args(int64_t total, int support, int w_cols, int size,
                    const int* table) {
   return support < 1 || w_cols < 1 || size < 1 ||
@@ -731,28 +579,6 @@ int sdp_torch_tower_degrid_tasks(const float* layers, const int* iu0,
            : launch_degrid_tasks<false>(l, iu0, iv0, uk, vk, weights, table,
                                         num_tasks, total, support, w_cols,
                                         size, o, s));
-}
-
-// K20: sparse w taps k0 [V], wk [V, Sw] into f32 [2K, N, N] (zeroed by the
-// caller).
-int sdp_torch_tower_grid_sparse(const float* vre, const float* vim,
-                                const int* iu0, const int* iv0,
-                                const int* k0, const float* uk,
-                                const float* vk, const float* wk,
-                                int64_t total, int support, int w_support,
-                                int num_layers, int size, int block_v,
-                                int bf16, float* out, void* stream) {
-  const SparseGridArgs a{vre, vim, iu0, iv0, k0, uk, vk, wk, total,
-                         support, w_support, num_layers, size, block_v, out};
-  if (total <= 0) return 0;
-  if (support < 1 || num_layers < 1 || size < 1 || block_v < 1 ||
-      2 * num_layers > 65535 || w_support < 1 || w_support > num_layers ||
-      static_cast<int64_t>(block_v) * support * support > INT32_MAX) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(bf16 ? launch_sparse<true>(a, s)
-                               : launch_sparse<false>(a, s));
 }
 
 }  // extern "C"

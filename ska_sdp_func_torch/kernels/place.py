@@ -10,10 +10,13 @@ starting at ``src0[i]`` and zero-fills the rest::
 ``src0`` may be anything where ``vcnt[i] <= 0`` (filler blocks, an
 overflowed plan); reads past the end of the payload give 0, as the JAX
 kernel's zero padding does. The JAX kernel's 1024-element alignment and
-its rotates are Mosaic constraints; on CUDA this is a coalesced copy
-(``csrc/place.cu``). On a CUDA tensor :func:`place_stream` launches the
-kernel or raises; on a CPU tensor it runs :func:`place_stream_reference`.
-It counts its kernel launches in ``.launches``.
+its rotates are Mosaic constraints; on CUDA this is one launch of a
+persistent copy kernel (``csrc/place.cu``) for up to 8 payloads, written
+as 16-byte vectors from 4-byte source loads at any ``src0`` (word by
+word where ``bv % 4 != 0``). On a CUDA tensor :func:`place_stream`
+launches the kernel or raises; on a CPU tensor it runs
+:func:`place_stream_reference`. It counts its kernel launches in
+``.launches``.
 """
 
 import torch

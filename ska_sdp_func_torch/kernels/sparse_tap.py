@@ -8,12 +8,16 @@ layer ``k0`` [V] and its ``Sw`` w taps ``wk`` [V, Sw] in place of a dense
 layer ``k0 + l``, cell ``(iu0 + a, iv0 + b)``. ``k0`` is clipped to ``[0,
 K - Sw]``, as the Pallas wrapper clips it; entries with zero ``wk`` add
 nothing. Here :func:`grid_all_layers_sparse` launches
-``sparse_grid_kernel`` (``csrc/tower_tap.cu``, built by :mod:`._build`):
-one CTA per (block of ``block_v`` visibilities, output plane), which
-reads the sparse form directly: plane ``k`` of a visibility takes ``wk[v,
-k - k0[v]]`` inside its window and 0 outside, so a CTA skips a plane no
-visibility of its block touches and accumulates the bounding box of its
-taps, and no ``[V, K]`` array is made.
+``sparse_grid_kernel`` (``csrc/sparse_tap.cu``, built by :mod:`._build`)
+once a call, and it writes the complex64 ``[K, N, N]`` output whole: a
+cluster of CTAs owns each tile of rows, columns and layers, its warps
+sharing the slots and adding runs of slots on one cell into private
+copies of the tile without atomics, and the tile is written once as the
+copies' sum in a fixed order, so two calls give equal bits. Any N, any
+K up to 65535 and any S and Sw run in the same kernel. It reads the sparse form
+directly (plane ``k`` of a visibility takes ``wk[v, k - k0[v]]`` inside
+its window and nothing outside); no ``[V, K]`` array is made and
+``block_v`` is unused.
 
 Taps outside the ``[N, N]`` sub-grid are dropped, as K16 drops them. The
 Pallas kernel writes rows ``iu0 + a`` past its padded plane into the next
@@ -40,10 +44,8 @@ def _check_window(num_layers: int, w_support: int) -> None:
 
 
 def _launch_sparse(vis_re, vis_im, iu0, iv0, k0, uk, vk, wk,
-                   num_layers: int, size: int, block_v: int,
-                   fast: bool) -> torch.Tensor:
-    """``sparse_grid_kernel`` -> f32 ``[2K, size, size]`` (re layers,
-    then im layers)."""
+                   num_layers: int, size: int, fast: bool) -> torch.Tensor:
+    """``sparse_grid_kernel`` -> complex64 ``[K, size, size]``."""
     from . import _build
 
     _check_taps(iu0, iv0, uk, vk, wk)
@@ -55,19 +57,18 @@ def _launch_sparse(vis_re, vis_im, iu0, iv0, k0, uk, vk, wk,
                 or not t.is_contiguous():
             raise SdpInvalidArgumentError(
                 f"{name} must be contiguous {dtype} [{total}]")
-    if size <= 0 or size % 2 or block_v <= 0:
-        raise SdpInvalidArgumentError(
-            f"need an even size and block_v > 0 (got {size}, {block_v})")
+    if size <= 0:
+        raise SdpInvalidArgumentError(f"need a positive size (got {size})")
     lib = _build.load()
-    out = torch.zeros((2 * num_layers, size, size), dtype=torch.float32,
+    out = torch.empty((num_layers, size, size), dtype=torch.complex64,
                       device=uk.device)
     with torch.cuda.device(uk.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sdp_torch_tower_grid_sparse(
+        err = lib.sdp_torch_sparse_grid(
             vis_re.data_ptr(), vis_im.data_ptr(), iu0.data_ptr(),
             iv0.data_ptr(), k0.data_ptr(), uk.data_ptr(), vk.data_ptr(),
             wk.data_ptr(), total, uk.shape[1], w_support, num_layers, size,
-            block_v, int(fast), out.data_ptr(), stream)
+            int(fast), out.data_ptr(), stream)
     _build.check(lib, err, "sparse_grid_kernel")
     return out
 
@@ -108,9 +109,9 @@ def grid_all_layers_sparse(vis_re, vis_im, iu0, iv0, k0, uk, vk, wk,
             vis_re, vis_im, iu0, iv0, k0, uk, vk, wk, num_layers, size,
             support, w_support, block_v, fast)
     out = _launch_sparse(vis_re, vis_im, iu0, iv0, k0, uk, vk, wk,
-                         num_layers, size, block_v, fast)
+                         num_layers, size, fast)
     grid_all_layers_sparse.launches += 1
-    return torch.complex(out[:num_layers], out[num_layers:])
+    return out
 
 
 grid_all_layers_sparse.launches = 0

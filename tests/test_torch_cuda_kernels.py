@@ -88,6 +88,7 @@ from _torch_scenario import C_0, DFREQ, FREQ0, FUSED, IMAGE_SIZE, \
     es_scenario, fused_kernel_operands, make_inputs, plane_case, \
     task_stream, two_point_image, wtower_scenario
 from ska_sdp_func_torch import kernels
+from ska_sdp_func_torch.experiments._common import device_ms
 from ska_sdp_func_torch.grid_data import GridderUvwEsFft, grid_correct_pswf
 from ska_sdp_func_torch.grid_data import wtower as tw
 from ska_sdp_func_torch.kernels import band_tap as tb
@@ -797,7 +798,7 @@ def test_fused_degrid_kernel_matches_plain(fused, mode):
     assert not bool(got[empty].abs().max() > 0)
 
 
-@pytest.mark.parametrize("bv", [64, 128, 1024])
+@pytest.mark.parametrize("bv", [64, 100, 128, 512, 1024])
 def test_place_kernel_matches_plain(device, bv):
     rng = np.random.default_rng(bv)
     n, nblocks = 20000, 40
@@ -818,6 +819,47 @@ def test_place_kernel_matches_plain(device, bv):
     torch.cuda.synchronize()
     assert tp.place_stream.launches == before + 2
     for g, w in zip(got, tp.place_stream_reference(*args)):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+# (case, bv, payloads): src0 at every residue mod 4 with blocks past the
+# end and filler blocks; payload views at element offsets 1-3; 8 payloads
+# in one launch, 9 in two; bv off the 16-byte vector.
+PLACE_CASES = [("residues", 512, 4), ("views", 128, 4),
+               ("8 payloads", 64, 8), ("9 payloads", 1024, 9),
+               ("views", 100, 3)]
+
+
+@pytest.mark.parametrize("case,bv,count", PLACE_CASES,
+                         ids=[f"{c[0].replace(' ', '')}-{c[1]}"
+                              for c in PLACE_CASES])
+def test_place_kernel_cases(device, case, bv, count):
+    """K5 bit-equal to its plain version, one launch per 8 payloads."""
+    rng = np.random.default_rng(bv + count)
+    n, nblocks = 30011, 53
+    src0 = rng.integers(-5, n + 5, nblocks)
+    src0 = src0 - src0 % 4 + np.arange(nblocks) % 4
+    vcnt = rng.integers(-2, bv + 1, nblocks)
+    vcnt[1::5] = bv
+    src0[-2:], vcnt[-2:] = (n - 7, n - bv // 2), bv     # past the end
+    src0[3], vcnt[3] = -3, bv                           # before the start
+    whole = [torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, n + 3,
+                                          dtype=np.int64).astype(np.int32),
+                             device=device) if j % 2 == 0
+             else torch.as_tensor(rng.standard_normal(n + 3),
+                                  dtype=torch.float32, device=device)
+             for j in range(count)]
+    off = [1 + j % 3 if case == "views" else 0 for j in range(count)]
+    ops = [w[o:o + n] for w, o in zip(whole, off)]
+    args = (torch.as_tensor(src0, dtype=torch.int32, device=device),
+            torch.as_tensor(vcnt, dtype=torch.int32, device=device), ops,
+            bv, bv * nblocks)
+    before = tp.place_stream.launches
+    got = tp.place_stream(*args)
+    torch.cuda.synchronize()
+    assert tp.place_stream.launches == before + (count + 7) // 8
+    for g, w, o in zip(got, tp.place_stream_reference(*args), ops):
+        assert g.dtype == o.dtype and tuple(g.shape) == (bv * nblocks,)
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
@@ -1567,6 +1609,111 @@ def test_sparse_grid_kernel_matches_plain_and_dense(device, size):
         assert ts.launch_counts()["grid_all_layers_sparse"] == before + 1
         assert _rel(got, want) <= 1e-5
         assert _rel(got, dense) <= 1e-5
+
+
+# (case, layers, w_support): Sw = K; one 512-slot block with every w tap 0
+# (first layers anywhere); taps off every edge of the sub-grid.
+SPARSE_CASES = [("window", 7, 4), ("Sw = K", 4, 4), ("zero block", 9, 4),
+                ("edges", 6, 3)]
+
+
+def _sparse_case(device, seed, total, support, num_layers, w_support,
+                 size, edges=False, zero_block=False):
+    """K20's operands: ``total`` random slots (rows and columns off every
+    edge where ``edges``), a tenth of their w taps 0, first layers a few
+    past either end of the window's range (``zero_block``: slots 512-1023
+    with every w tap 0 and first layers anywhere)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = (-support + 1, size) if edges else (0, max(size - support, 0) + 1)
+
+    def put(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    k0 = rng.integers(-2, num_layers - w_support + 3, total)
+    wk = rng.uniform(0.1, 1, (total, w_support))
+    wk[rng.random(total) < 0.1] = 0.0
+    if zero_block:
+        wk[512:1024] = 0.0
+        k0[512:1024] = rng.integers(-40, 40, 512)
+    return (put(rng.standard_normal(total), torch.float32),
+            put(rng.standard_normal(total), torch.float32),
+            put(rng.integers(lo, hi, total), torch.int32),
+            put(rng.integers(lo, hi, total), torch.int32),
+            put(k0, torch.int32),
+            put(rng.standard_normal((total, support)), torch.float32),
+            put(rng.standard_normal((total, support)), torch.float32),
+            put(wk, torch.float32), num_layers, size, support, w_support)
+
+
+def _check_sparse_kernel(args, fast):
+    """K20 at 1e-5 of max against its plain version and against K16 on
+    ``_slab_weights`` of the same taps; one launch and one device
+    operation a call (no zero fill, no interleave pass), two calls
+    bit-equal."""
+    from ska_sdp_func_torch.kernels import sparse_tap as ts
+
+    num_layers, size, support, w_support = args[8:]
+    before = ts.launch_counts()["grid_all_layers_sparse"]
+    got = ts.grid_all_layers_sparse(*args, fast=fast)
+    again = ts.grid_all_layers_sparse(*args, fast=fast)
+    want = ts.grid_all_layers_sparse_reference(*args, fast=fast)
+    keep = args[7].ne(0).any(dim=1)
+    first = args[4].clamp(0, num_layers - w_support)
+    dense = tt.grid_all_layers(*args[:4], *args[5:7], tw._slab_weights(
+        args[7], first, keep, num_layers), num_layers, size, support,
+        fast=fast)
+    torch.cuda.synchronize()
+    assert ts.launch_counts()["grid_all_layers_sparse"] == before + 2
+    assert got.dtype == torch.complex64
+    assert tuple(got.shape) == (num_layers, size, size)
+    assert torch.equal(torch.view_as_real(got), torch.view_as_real(again))
+    assert _rel(got, want) <= 1e-5
+    assert _rel(got, dense) <= 1e-5
+    _, ops, names = device_ms(lambda: ts.grid_all_layers_sparse(
+        *args, fast=fast), iters=5)
+    assert 0 < ops <= 1
+    assert all("sparse_grid_kernel" in n for n in names)
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("size", [32, 64, 128, 256])
+@pytest.mark.parametrize("case,num_layers,w_support", SPARSE_CASES,
+                         ids=[c[0].replace(" ", "") for c in SPARSE_CASES])
+def test_sparse_grid_kernel_cases(device, case, num_layers, w_support,
+                                  size, fast):
+    """K20 on the cases above at N 32-256 (:func:`_check_sparse_kernel`)."""
+    _check_sparse_kernel(_sparse_case(
+        device, size + num_layers, 3000, 8, num_layers, w_support, size,
+        edges=case == "edges", zero_block=case == "zero block"), fast)
+
+
+# (case, support, w_support, layers, size): two passes over the S x Sw
+# pairs; K past 255; planes wider than one CTA's tile (column tiles); an
+# odd N with S x Sw = 25; the smallest shape.
+SPARSE_RANGE = [("S 16", 16, 3, 5, 64), ("K 300", 6, 2, 300, 32),
+                ("N 1024", 8, 4, 9, 1024), ("N 63", 5, 5, 5, 63),
+                ("N 2", 1, 1, 2, 2)]
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case,support,w_support,num_layers,size",
+                         SPARSE_RANGE,
+                         ids=[c[0].replace(" ", "") for c in SPARSE_RANGE])
+def test_sparse_grid_kernel_range(device, case, support, w_support,
+                                  num_layers, size, fast):
+    """K20 across its range of shapes (:func:`_check_sparse_kernel`), and
+    a call with no slots writes zeros."""
+    from ska_sdp_func_torch.kernels import sparse_tap as ts
+
+    args = _sparse_case(device, size + num_layers, 3000, support,
+                        num_layers, w_support, size, edges=True)
+    _check_sparse_kernel(args, fast)
+    none = tuple(a[:0] if torch.is_tensor(a) else a for a in args)
+    got = ts.grid_all_layers_sparse(*none, fast=fast)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (num_layers, size, size)
+    assert not bool(got.abs().max() > 0)
 
 
 @pytest.mark.parametrize("size", [32, 64, 128, 256])

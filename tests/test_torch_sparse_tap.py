@@ -38,18 +38,22 @@ from ska_sdp_func_tpu.kernels import sparse_tap as js  # noqa: E402
 SUPPORT, W_SUPPORT = 8, 4
 
 
-def _sparse(rng, total, size, num_layers, spread=0):
+def _sparse(rng, total, size, num_layers, spread=0, w_support=W_SUPPORT,
+            edges="cols"):
     """Sparse taps: cells inside the sub-grid by rows, columns a few
-    past either edge; first layers in range (``spread`` > 0: also up to
-    ``spread`` outside it, which the clip brings back); a tenth of the
-    visibilities masked (zero w taps, any first layer)."""
-    iu0 = rng.integers(0, size - SUPPORT + 1, total).astype(np.int32)
+    past either edge (``edges="both"``: rows too); first layers in range
+    (``spread`` > 0: also up to ``spread`` outside it, which the clip
+    brings back); a tenth of the visibilities masked (zero w taps, any
+    first layer)."""
+    lo, hi = (-SUPPORT + 1, size) if edges == "both" else \
+        (0, size - SUPPORT + 1)
+    iu0 = rng.integers(lo, hi, total).astype(np.int32)
     iv0 = rng.integers(-3, size - 2, total).astype(np.int32)
     uk = rng.standard_normal((total, SUPPORT)).astype(np.float32)
     vk = rng.standard_normal((total, SUPPORT)).astype(np.float32)
-    k0 = rng.integers(-spread, num_layers - W_SUPPORT + 1 + spread,
+    k0 = rng.integers(-spread, num_layers - w_support + 1 + spread,
                       total).astype(np.int32)
-    wk = rng.uniform(0.1, 1, (total, W_SUPPORT)).astype(np.float32)
+    wk = rng.uniform(0.1, 1, (total, w_support)).astype(np.float32)
     masked = rng.random(total) < 0.1
     wk[masked] = 0.0
     k0[masked] = rng.integers(-50, 50, int(masked.sum()))
@@ -64,20 +68,45 @@ def _close(got, want, tol):
     assert np.abs(got - want).max() <= tol * np.abs(want).max()
 
 
-@pytest.mark.parametrize("size, num_layers, total", [(32, 6, 64),
-                                                     (64, 9, 56)])
-def test_sparse_plain_matches_pallas(size, num_layers, total):
+# (size, layers, slots, w_support, case): "zero block", one 8-slot block
+# whose every w tap is 0 (its first layers garbage); "off edge", columns
+# off both edges of the sub-grid (and, at N = 32, every slot's first
+# column at -7 or N - 1, one tap inside); Sw = K; N = 128 and 256.
+SPARSE_CASES = [(32, 6, 64, 4, ""), (64, 9, 56, 4, ""),
+                (32, 4, 48, 4, "Sw = K"), (32, 6, 40, 4, "zero block"),
+                (32, 5, 40, 4, "off edge"), (128, 5, 40, 4, ""),
+                (256, 4, 24, 4, "")]
+
+
+@pytest.mark.parametrize("size, num_layers, total, w_support, case",
+                         SPARSE_CASES, ids=[f"N{c[0]}-K{c[1]}-{c[4]}"
+                                            for c in SPARSE_CASES])
+def test_sparse_plain_matches_pallas(size, num_layers, total, w_support,
+                                     case):
     rng = np.random.default_rng(size + num_layers)
-    ops = _sparse(rng, total, size, num_layers)
+    ops = _sparse(rng, total, size, num_layers, w_support=w_support)
+    if case == "zero block":
+        ops[7][8:16] = 0.0
+        ops[4][8:16] = rng.integers(-9, 9 + num_layers, 8)
+    if case == "off edge":
+        ops[3][:] = np.where(rng.random(total) < 0.5, -SUPPORT + 1,
+                             size - 1)
     want = js.grid_all_layers_sparse(
         *(jnp.asarray(a) for a in ops), num_layers, size, SUPPORT,
-        W_SUPPORT, block_v=8, interpret=True)
+        w_support, block_v=8, interpret=True)
     got = ts.grid_all_layers_sparse(
         *(torch.as_tensor(a) for a in ops), num_layers, size, SUPPORT,
-        W_SUPPORT, block_v=8)
+        w_support, block_v=8)
     assert got.dtype == torch.complex64
     assert tuple(got.shape) == (num_layers, size, size)
     _close(got.numpy(), want, 1e-6)
+    if case == "zero block":
+        # The zero block alone adds nothing: the other slots give the same.
+        keep = np.r_[0:8, 16:total]
+        rest = ts.grid_all_layers_sparse(
+            *(torch.as_tensor(np.ascontiguousarray(a[keep])) for a in ops),
+            num_layers, size, SUPPORT, w_support, block_v=8)
+        _close(got.numpy(), rest.numpy(), 1e-6)
 
 
 def test_sparse_plain_clips_first_layer_like_pallas():
@@ -102,14 +131,18 @@ def test_sparse_plain_clips_first_layer_like_pallas():
     assert torch.equal(got, clipped)
 
 
+@pytest.mark.parametrize("edges", ["cols", "both"])
 @pytest.mark.parametrize("fast", [False, True])
-def test_sparse_plain_matches_dense_plain(fast):
+def test_sparse_plain_matches_dense_plain(fast, edges):
     """K20's plain version equals K16's on ``_slab_weights`` of the same
-    taps, in both modes."""
+    taps, in both modes; with ``edges="both"`` rows fall off the top and
+    bottom of the sub-grid too (the Pallas kernel runs those rows into
+    the neighbouring layer, so this holds against K16 only)."""
     rng = np.random.default_rng(11)
     size, num_layers = 32, 7
     vre, vim, iu0, iv0, k0, uk, vk, wk = (
-        torch.as_tensor(a) for a in _sparse(rng, 3000, size, num_layers))
+        torch.as_tensor(a) for a in _sparse(rng, 3000, size, num_layers,
+                                            edges=edges))
     keep = (wk != 0).any(dim=1)
     weights = _slab_weights(wk, k0, keep, num_layers)
     got = ts.grid_all_layers_sparse(vre, vim, iu0, iv0, k0, uk, vk, wk,
@@ -155,6 +188,20 @@ def test_sparse_on_fallback_taps_matches_dense():
                                   d[4].float(), task.num_layers, 32,
                                   SUPPORT)
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_sparse_wrapper_gives_complex_layers(fast):
+    """Both modes return the complex64 ``[K, N, N]`` stack, the plain
+    version's own."""
+    rng = np.random.default_rng(3)
+    ops = [torch.as_tensor(a) for a in _sparse(rng, 70, 64, 5)]
+    got = ts.grid_all_layers_sparse(*ops, 5, 64, SUPPORT, W_SUPPORT,
+                                    fast=fast)
+    assert got.dtype == torch.complex64 and tuple(got.shape) == (5, 64, 64)
+    want = ts.grid_all_layers_sparse_reference(*ops, 5, 64, SUPPORT,
+                                               W_SUPPORT, fast=fast)
+    assert torch.equal(got, want)
 
 
 def test_sparse_wrapper_checks_and_counts():
