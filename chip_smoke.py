@@ -7,6 +7,7 @@
     (cd CHECKOUT && python3 /path/to/chip_smoke.py --ingest-times)
     (cd CHECKOUT && python3 /path/to/chip_smoke.py --experiment-times)
     (cd CHECKOUT && python3 /path/to/chip_smoke.py --sparse-place-times)
+    python3 chip_smoke.py --trace-age
 
 Run from the repository root on a machine with a CUDA card. With
 ``--packed-times`` it only times the packed path (K1/K2 in "high" and
@@ -28,8 +29,11 @@ tap preparation K6 (f32 and bf16, with its output digests), and
 and 1, beside ATen's block sums), one JSON line a kernel with each
 output's digest, and ``--sparse-place-times`` for K20 and K5 (wall, host
 and device time, device operations a call and output digests; the
-dense stream's plan + K5 stages with their placed arrays' digests). Phases, one line of output each (or a few), failing
-loudly on the first fault:
+dense stream's plan + K5 stages with their placed arrays' digests), and
+``--trace-age`` profiles K5 every 30 s of idle card for 5 minutes, once
+as one profile without a lead and once until whole (one JSON line each
+time: the profiler's lost records as the process ages). Phases, one line
+of output each (or a few), failing loudly on the first fault:
 
 1. toolchain: the card's name and power limit (nvidia-smi), torch, CUDA
    and nvcc versions;
@@ -169,6 +173,25 @@ loudly on the first fault:
       overlap fraction of ``both`` and ``both2``); each window launches
       each variant once, then holds it against its plain version and
       times it;
+   q. the ingest -> weights -> solve path (K16, K17) at the bench data's
+      width: the bench rows as 64 times x 256 baselines, 64 channels, 4
+      pols (4,194,304 complex64 samples; pol 0 the ``dft`` of the bench
+      sky's three points, pols 1-3 plus seeded noise; broadband RFI at 8
+      (time >= 4, baseline) pairs, one narrowband channel over 8 times), a
+      256-element station within 38 m: ``station_beam_power`` towards the
+      phase centre a channel (the ``beam_gain``), ``ingest_to_solver``,
+      ``dipole`` + ``aperture_array`` over 256^2 directions,
+      ``get_uv_range`` + ``briggs_weights`` (robust 0.5, 512^2 grid) and
+      ``optimised_indexed_weighting`` (32^2 tiles, support 8) on the
+      flagged weights, then ``major_cycle_imager(bucketed=True,
+      weights=Briggs x ingest)``, two major cycles on window b's plan; each
+      stage's ms by CUDA events; the flags against the port's CPU run
+      (differences only within 1e-4 of a threshold, counted), every
+      injected RFI sample flagged and under 5 % flagged, weights and beams
+      against the CPU run at 1e-5, the tiled indices equal, the solve
+      against the plain tower kernels at 1e-5 (taper-weighted) and the
+      sources' fluxes within 0.1 (a tenth of the brightest); the window
+      launches K16/K17 only;
 5. times: grid, degrid and one major-cycle iteration of the packed path
    (and one msclean and one FISTA iteration beside the Hogbom one; and
    ``packed_times``: wall, host enqueue and device time, busy share and
@@ -188,7 +211,11 @@ loudly on the first fault:
    with the product alone by ``torch.bmm`` beside them; K12/K13 also
    beside K3/K4 on the same plan; K14/K15 also on an all-masked plane;
    K16/K17 over window b's whole stream, also at supports 12, 20 and 56,
-   and on its largest task alone).
+   and on its largest task alone); a check of the device-time trace (K5,
+   one kernel a call: single profiles without an idle lead and profiles
+   taken until no device record is lost, in turns) and a count of the
+   run's profiles that lost records or count operations that are not
+   whole.
 
 The line before the last is a JSON object describing each kernel: its
 launches in its path's window, its largest absolute difference from its
@@ -203,9 +230,9 @@ K14/K15 (redesigned: their rows carry ``redesigned``) the mask, their
 active entries' operands and the stack or result
 (``plane_bytes``). K16/K17's rows (redesigned: ``entry`` names the
 batched wrapper) carry the batched call at window b's stream, its
-launches in window b, and ``single_task_*`` for the one-task call on the
-largest task. K4, K11, K13 and K19 (redesigned: one template in
-``csrc/window_gather.cu``) carry ``redesigned``, their template
+launches in window b, ``launches_window_q`` theirs in window q, and
+``single_task_*`` for the one-task call on the largest task. K4, K11,
+K13 and K19 (redesigned: one template in ``csrc/window_gather.cu``) carry ``redesigned``, their template
 ``instance`` and its ``ptxas`` registers and spills; K11 has a row at
 window j's dense stream (``degrid_fused[dense stream]``) beside its
 ES-FFT one. K3, K8, K12 and K18 (redesigned: one template in
@@ -1354,22 +1381,58 @@ def launch_window(torch, tkern, label, need, idle=()):
                          f"launched off their path {stray}")
 
 
-def device_us(torch, fn, iters: int = 20):
+# Every device_us profile: (label, idle lead, operations a call, device
+# records lost), for the run's summary.
+TRACES = []
+# torch.profiler keeps only the device records whose times, converted to
+# the host's clock, fall inside its window, and the conversion drifts as
+# the process ages (PERF.md §7): in one process idle between profiles the
+# first of 20 K5 calls went missing at 77 s, all 20 by 318 s. A profile
+# whose launches lack device records is taken again with an idle lead of
+# host time before the first call, growing 4x from TRACE_LEAD up to
+# TRACE_LEAD_MAX (as experiments._common.device_ms; kept here too, since
+# the timing modes also run older checkouts' packages).
+TRACE_LEAD, TRACE_LEAD_MAX = 0.005, 0.32
+LAUNCH_APIS = ("Launch", "Memcpy", "Memset")
+
+
+def lost_records(prof, DeviceType) -> int:
+    """Launches (runtime calls that make a device record: kernels,
+    copies, fills) in a profile whose device record is missing."""
+    raw = list(prof.profiler.kineto_results.events())
+    done = {e.correlation_id() for e in raw
+            if e.device_type() == DeviceType.CUDA}
+    return sum(1 for e in raw if e.device_type() == DeviceType.CPU
+               and any(k in e.name() for k in LAUNCH_APIS)
+               and e.correlation_id() not in done)
+
+
+def device_us(torch, fn, iters: int = 20, label=None, whole=True):
     """(microseconds of device work per call, kernel names, device
     operations per call) by ``torch.profiler`` over ``iters`` calls after
     one warm-up: the device's own kernels, memsets and copies (not the
     host calls that launched them, which carry the same time); (None, [],
-    0) where the trace holds no device time."""
+    0) where the trace holds no device time. With ``whole`` a profile that
+    lost device records is taken again with a longer idle lead (see
+    TRACE_LEAD); without, one profile, no lead. The sum over the calls is
+    the same either way."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    lead = TRACE_LEAD if whole else 0.0
+    while True:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(lead)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        lost = lost_records(prof, DeviceType)
+        if not (whole and lost) or lead >= TRACE_LEAD_MAX:
+            break
+        lead *= 4
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
@@ -1380,7 +1443,61 @@ def device_us(torch, fn, iters: int = 20):
         words = [w for w in re.findall(r"([A-Za-z_]\w*)\s*[<(]", e.key)
                  if w not in ("void", "anonymous")]
         names.add(words[0] if words else e.key.strip()[:40])
+    TRACES.append((label or "+".join(sorted(names))[:60], lead, count,
+                   lost))
     return (total or None), sorted(names), count
+
+
+def trace_check(torch, fn, label, rounds: int = 10):
+    """The device-time trace of a one-kernel call, late in the long run:
+    ``rounds`` single profiles without a lead and ``rounds`` taken until
+    whole, in turns; the operations a call each counted."""
+    counts = {"one profile, no lead": [], "until whole": []}
+    for _ in range(rounds):
+        for key, whole in (("one profile, no lead", False),
+                           ("until whole", True)):
+            counts[key].append(device_us(torch, fn, whole=whole,
+                                         label=f"{label}, {key}")[2])
+    return counts
+
+
+def trace_age(torch, dev):
+    """``--trace-age``: K5 (P2f's operands, one kernel a call) profiled
+    every 30 s of idle card for 5 minutes in one process, each time once
+    as a single profile without a lead and once until whole: the age, the
+    operations a call and records lost of each, and the lead taken."""
+    from ska_sdp_func_torch.experiments import exp_place_dma
+    from ska_sdp_func_torch.kernels import place
+
+    p = exp_place_dma.operands(dev)
+
+    def fn():
+        return place.place_stream(p["src0"], p["vcnt"], p["payloads"],
+                                  p["bv"], p["cap"])
+
+    out, t0 = [], time.perf_counter()
+    while True:
+        age = time.perf_counter() - t0
+        rec = {"age_s": round(age, 1)}
+        for key, whole in (("one_profile", False), ("until_whole", True)):
+            device_us(torch, fn, whole=whole)
+            _, lead, ops, lost = TRACES[-1]
+            rec[key] = dict(ops=ops, lost=lost, lead_s=lead)
+        out.append(rec)
+        if age > 300:
+            return out
+        time.sleep(30)
+
+
+def trace_summary() -> str:
+    """One line: the run's device_us profiles, those with records lost and
+    those whose operations a call are not whole, with the lead taken."""
+    bad = [t for t in TRACES if t[3] or abs(t[2] - round(t[2])) > 1e-9]
+    leads = sorted({t[1] for t in TRACES})
+    return (f"{len(TRACES)} profiles (idle leads taken: {leads} s), "
+            f"{len(TRACES) - len(bad)} whole with no record lost; the rest: "
+            + (", ".join(f"{n} (lead {p:g} s) {c:g} a call, {lost} lost"
+                         for n, p, c, lost in bad) or "none"))
 
 
 def fallback_times(torch, dev, tplan, bplan, sort_index, valid, inv, uvw,
@@ -2972,6 +3089,259 @@ def read_rate_bound(moved, bound_ms, bound_by, read_rate):
                bound_ms if bound_by == "operations" else 0.0)
 
 
+# Window q: the ingest -> weights -> solve path at the bench data's width.
+# The bench rows as 64 times x 256 baselines, 64 channels, 4 pols; a
+# 256-element station within a 38 m radius.
+Q_TIMES, Q_BASELINES, Q_POLS = 64, 256, 4
+Q_ELEMENTS, Q_RADIUS = 256, 38.0
+Q_BEAM_SIDE = 256                 # the beam map's directions per axis
+Q_TILE, Q_SUPPORT = 32, 8         # optimised_indexed_weighting
+Q_ROBUST = 0.5
+Q_NEAR = 1e-4                     # a z-score this close (relative) to its
+                                  # threshold may flag differently
+Q_SOURCES = (((300, 200), 1.0), ((180, 330), 0.7), ((260, 120), 0.5))
+
+
+def ingest_inputs(uvw):
+    """Window q's host inputs, seeded: pol 0 the DFT prediction of the
+    bench sky's three points on the bench rows (noise-free data, so CLEAN
+    meets no near-ties; see window b), pols 1-3 the same plus noise;
+    broadband RFI at 8 (time >= 4, baseline) pairs and one narrowband
+    channel over 8 times; unit weights; a 256-element station steered
+    just off the phase centre."""
+    rng = np.random.default_rng(18)
+    shape = (Q_TIMES, Q_BASELINES, CHANS, Q_POLS)
+    noise = 0.1 * (rng.standard_normal((*shape[:3], Q_POLS - 1))
+                   + 1j * rng.standard_normal((*shape[:3], Q_POLS - 1)))
+    bb_t = rng.integers(4, Q_TIMES, 8)
+    bb_b = rng.choice(Q_BASELINES, 8, replace=False)
+    nb = (int(rng.integers(4, Q_TIMES - 8)), int(rng.integers(Q_BASELINES)),
+          int(rng.integers(CHANS)))
+    r = Q_RADIUS * np.sqrt(rng.uniform(0, 1, Q_ELEMENTS))
+    a = rng.uniform(0, 2 * np.pi, Q_ELEMENTS)
+    ex, ey = (r * np.cos(a)).astype(np.float32), \
+        (r * np.sin(a)).astype(np.float32)
+    ez = np.zeros(Q_ELEMENTS, np.float32)
+    k_mid = 2 * np.pi * (C_0 + C_0 / (100 * CHANS) * CHANS / 2) / C_0
+    steer = (0.004, -0.002)
+    w = np.exp(-1j * k_mid * (ex * steer[0] + ey * steer[1]))
+    sky = np.zeros((IMAGE, IMAGE))
+    for (px, py), flux in Q_SOURCES:
+        sky[px, py] = flux
+    return dict(uvw4=uvw.reshape(Q_TIMES, Q_BASELINES, 3), noise=noise,
+                bb=(bb_t, bb_b), nb=nb, sky=sky,
+                freqs=C_0 + C_0 / (100 * CHANS) * np.arange(CHANS),
+                station=(ex, ey, ez, w.astype(np.complex64)))
+
+
+def ingest_chain(torch, q, vis4d, w4d, dev, timed=False):
+    """Window q's stages on ``dev`` through the port's entry points:
+    {stage: output}, with ``"ms"`` {stage: CUDA-event ms} if ``timed``.
+    Briggs and the tiled weighting take ``clean_w`` (the flagged weights)
+    from ``q`` where given (the card's, so a CPU run is held on the same
+    input), else from this run's ingest."""
+    from ska_sdp_func_torch.pipeline import ingest_flag_and_weight, \
+        ingest_to_solver, station_beam_power
+    from ska_sdp_func_torch.station_beam import aperture_array, dipole
+    from ska_sdp_func_torch.visibility import briggs_weights, \
+        get_uv_range, optimised_indexed_weighting
+
+    ex, ey, ez, w = q["station"]
+    out, marks = {}, []
+
+    def stage(name, fn):
+        if timed:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+        out[name] = fn()
+
+    def gain():
+        centre = np.array([[0.0, 0.0, 1.0]], np.float32)
+        g = torch.stack([station_beam_power(ex, ey, ez, w, centre, f,
+                                            device=dev)[0]
+                         for f in q["freqs"]])
+        return g[None, None, :].expand(Q_TIMES, Q_BASELINES, CHANS)
+
+    def beam_map():
+        side = np.linspace(-0.5, 0.5, Q_BEAM_SIDE, dtype=np.float32)
+        l, m = (a.reshape(-1) for a in np.meshgrid(side, side,
+                                                   indexing="ij"))
+        n = np.sqrt(1 - l * l - m * m)
+        f_mid = float(q["freqs"][CHANS // 2])
+        element = dipole(np.arccos(n), np.arctan2(m, l), f_mid, 0.5, 1, 0,
+                         np.zeros(l.size, np.complex64), device=dev)
+        return aperture_array(
+            2 * np.pi * f_mid / C_0, w, ex, ey, ez, l, m, n,
+            element_beam_index=np.zeros(Q_ELEMENTS, np.int32),
+            element_beam=element[None, :], device=dev)
+
+    stage("beam gain", gain)
+    stage("flag", lambda: ingest_flag_and_weight(vis4d, w4d, device=dev))
+    stage("ingest", lambda: ingest_to_solver(vis4d, w4d, out["beam gain"],
+                                             device=dev))
+    stage("beam map", beam_map)
+    clean_w = q.get("clean_w", out["flag"][1])
+    max_uv = get_uv_range(q["uvw4"], q["freqs"])
+    stage("Briggs", lambda: briggs_weights(q["uvw4"], q["freqs"], max_uv,
+                                           Q_ROBUST, clean_w, IMAGE,
+                                           device=dev))
+    stage("tiled weighting", lambda: optimised_indexed_weighting(
+        q["uvw4"], q["freqs"], vis4d, clean_w, Q_ROBUST, IMAGE,
+        THETA / IMAGE, Q_SUPPORT, Q_TILE, Q_TILE, device=dev))
+    if timed:
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        end.synchronize()
+        marks.append(("", end))
+        out["ms"] = {a[0]: a[1].elapsed_time(b[1])
+                     for a, b in zip(marks, marks[1:])}
+    return out
+
+
+def near_threshold(torch, planes, thr=3.5):
+    """Samples [T, B, C, P] whose CPU z-score, in any of the flagger's
+    three methods (default thresholds, window 0), lies within Q_NEAR
+    (relative) of its threshold: where the card's last-bit differences
+    may flag otherwise."""
+    from ska_sdp_func_torch.visibility import flagger
+
+    _, z = flagger._flag_planes(planes, 0.5, thr, thr, thr, 1, 0, 10,
+                                scores=True)
+
+    def near(x):
+        return ((x.abs() - thr).abs() <= Q_NEAR * thr)
+
+    out = near(z["z_mag"]) | near(z["z_med"])[..., None]
+    var = near(z["z_var"])
+    out[..., 1:, :] |= var
+    out[..., :-1, :] |= var
+    return out.permute(2, 0, 3, 1)
+
+
+def ingest_phase(torch, tkern, bk, tt, dev, gpu, tplan, uvw, taper):
+    """Window q: ingest -> weights -> solve at the bench data's width (see
+    the docstring, 4q). Returns {"launches": ..., "ms": {stage: ms}}."""
+    from ska_sdp_func_torch.grid_data import dft, image_to_flmn
+    from ska_sdp_func_torch.pipeline import major_cycle_imager
+
+    q = ingest_inputs(uvw)
+    cpu = torch.device("cpu")
+    task_names = [n for n, _ in TASK_KERNELS]
+    idle = sorted(set(tkern.launch_counts()) - set(task_names))
+    flux, lmn = image_to_flmn(q["sky"], THETA)
+    with launch_window(torch, tkern, "ingest -> weights -> solve",
+                       task_names, idle) as launches:
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        pol0 = dft(uvw, flux.astype(np.complex128), lmn, freq0_hz=C_0,
+                   dfreq_hz=C_0 / (100 * CHANS), num_chan=CHANS, device=dev)
+        t1.record()
+        vis4d = pol0.to(torch.complex64).reshape(
+            Q_TIMES, Q_BASELINES, CHANS, 1).repeat(1, 1, 1, Q_POLS)
+        vis4d[..., 1:] += torch.as_tensor(q["noise"], device=dev).to(
+            torch.complex64)
+        bb_t, bb_b = q["bb"]
+        for t, b in zip(bb_t, bb_b):
+            vis4d[t, b] += 40.0 + 30.0j
+        nb_t, nb_b, nb_c = q["nb"]
+        vis4d[nb_t:nb_t + 8, nb_b, nb_c] += 60.0
+        w4d = torch.ones(vis4d.shape, dtype=torch.float32, device=dev)
+        ingest_chain(torch, q, vis4d, w4d, dev)           # warm-up
+        card = ingest_chain(torch, q, vis4d, w4d, dev, timed=True)
+        card["ms"]["simulate (dft)"] = t0.elapsed_time(t1)
+        vis_flat, w_flat, frac = card["ingest"]
+        bw = card["Briggs"][1][..., 0].reshape(ROWS, CHANS)
+        weights = bw * w_flat
+        s0 = torch.cuda.Event(enable_timing=True)
+        s1 = torch.cuda.Event(enable_timing=True)
+        s0.record()
+        res = major_cycle_imager(tplan, vis_flat, uvw, n_major=2,
+                                 bucketed=True, weights=weights, device=dev)
+        s1.record()
+        s1.synchronize()
+        card["ms"]["solve"] = s0.elapsed_time(s1)
+    ms = card["ms"]
+    say(f"# [{gpu}] window q stages (CUDA events, ms, one call each after "
+        f"a warm-up; the solve cold): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in ms.items()))
+
+    # The same inputs through the port on the CPU; Briggs and the tiled
+    # weighting on the card's flagged weights.
+    flags, clean_w, _ = card["flag"]
+    q_cpu = dict(q, clean_w=clean_w.cpu())
+    t_cpu = time.perf_counter()
+    host = ingest_chain(torch, q_cpu, vis4d.cpu(), w4d.cpu(), cpu)
+    t_cpu = time.perf_counter() - t_cpu
+    h_flags = host["flag"][0]
+    near = near_threshold(torch, vis4d.cpu().abs().permute(1, 3, 0, 2))
+    differ = flags.cpu() != h_flags
+    say(f"# window q flags: {int(flags.sum())} flagged, fraction "
+        f"{frac:.5f}; card vs CPU: {int(differ.sum())} samples differ, "
+        f"{int((differ & near).sum())} of them within {Q_NEAR:g} of a "
+        f"threshold ({int(near.sum())} such samples); CPU chain "
+        f"{t_cpu:.1f} s")
+    if bool((differ & ~near).any()):
+        raise SystemExit("window q: the card's flags differ from the CPU "
+                         "run away from a threshold")
+    f_cpu = flags.cpu()
+    rfi = [bool(f_cpu[t, b].all()) for t, b in zip(bb_t, bb_b)]
+    rfi.append(bool(f_cpu[nb_t:nb_t + 8, nb_b, nb_c].all()))
+    if not all(rfi) or not frac < 0.05:
+        raise SystemExit(f"window q: injected RFI flagged {rfi}, flagged "
+                         f"fraction {frac:.4f} (limit 0.05)")
+
+    def rel(a, b, mask=None):
+        a, b = a.cpu(), b.cpu()
+        if mask is not None:
+            a, b = a[mask], b[mask]
+        ok = ~torch.isnan(b)
+        if not torch.equal(torch.isnan(a), ~ok):
+            return float("inf")
+        return float((a[ok] - b[ok]).abs().max() / b[ok].abs().max())
+
+    same = ~differ[..., 0].reshape(ROWS, CHANS)
+    errs = {
+        "ingest weights": rel(w_flat, host["ingest"][1], same),
+        "beam gain": rel(card["beam gain"], host["beam gain"]),
+        "beam map": rel(card["beam map"], host["beam map"]),
+        "Briggs grid": rel(card["Briggs"][0], host["Briggs"][0]),
+        "Briggs weights": rel(card["Briggs"][1], host["Briggs"][1]),
+        "tiled weights": rel(card["tiled weighting"][1],
+                             host["tiled weighting"][1]),
+    }
+    same_idx = torch.equal(card["tiled weighting"][0].cpu(),
+                           host["tiled weighting"][0])
+    say("# window q, card vs CPU (rel err of max): " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tolerance 1e-5); tiled indices equal: {same_idx} "
+        f"({card['tiled weighting'][0].numel()} records)")
+    if not (all(v <= 1e-5 for v in errs.values()) and same_idx):
+        raise SystemExit("window q: weights or beams disagree with the "
+                         "CPU run")
+
+    # The solve against the same solve on the plain tower kernels.
+    with plain_tower_kernels(bk, tt):
+        plain = major_cycle_imager(tplan, vis_flat, uvw, n_major=2,
+                                   bucketed=True, weights=weights,
+                                   device=dev)
+    finite(torch, (("window q model", res.model),
+                   ("window q residual", res.residual)))
+    e_solve = solve_err(res, plain, taper)
+    fluxes = [float(res.model[px - 2:px + 3, py - 2:py + 3].sum())
+              for (px, py), _ in Q_SOURCES]
+    say(f"# window q solve (two major cycles, Briggs x beam weights), "
+        f"kernel vs plain path: model, taper-weighted residual rel err "
+        f"{e_solve:.3e} (tolerance {TOL:g}); fluxes {fluxes} (true "
+        f"{[f for _, f in Q_SOURCES]}), peaks {res.peak_history}")
+    if not (e_solve <= TOL and all(abs(f - t) < 0.1 for f, (_, t)
+                                   in zip(fluxes, Q_SOURCES))):
+        raise SystemExit("window q: the weighted solve disagrees with the "
+                         "plain path or misses the sources' fluxes")
+    return dict(launches=dict(launches), ms=ms)
+
+
 def main() -> int:
     import torch
 
@@ -3761,6 +4131,11 @@ def main() -> int:
         f"{read_rate / 1e9:.1f} GB/s ({read_rate / HBM_BYTES_S:.3f} of the "
         f"published 3.35 TB/s)")
 
+    # 4q. ingest -> weights -> solve at the bench data's width ----------
+    t0 = time.perf_counter()
+    q_out = ingest_phase(torch, tkern, bk, tt, dev, gpu, tplan, uvw, taper)
+    say(f"# window q: {time.perf_counter() - t0:.1f} s")
+
     # 5. times -----------------------------------------------------------
     # The packed path's calls and K1/K2 (packed_times, as --packed-times
     # runs it on any checkout).
@@ -4138,6 +4513,11 @@ def main() -> int:
     k5_args, k5_kw = stream_ops["place_stream"][0]
     d_us, d_names, d_ops = device_us(
         torch, lambda: place.place_stream(*k5_args, **k5_kw))
+    k5_trace = trace_check(
+        torch, lambda: place.place_stream(*k5_args, **k5_kw), "K5")
+    say("# device-time trace check, K5 (one kernel a call), 10 profiles of "
+        "20 calls each way in turns, operations a call: " + "; ".join(
+            f"{k}: {c}" for k, c in k5_trace.items()))
     place_dev = dict(device_ms=d_us and d_us / 1e3, device_ops=d_ops)
     say(f"# [{gpu}] place_stream at the dense stream's shapes ("
         f"{len(k5_args[2])} payloads, {k5_args[0].shape[0]} blocks of "
@@ -4288,7 +4668,8 @@ def main() -> int:
         k, p, b, _ = times[name]
         r.update(name=name, entry=batched, redesigned=TASK_REDESIGN,
                  single_task_ms=k, single_task_plain_ms=p,
-                 single_task_bound_ms=b)
+                 single_task_bound_ms=b,
+                 launches_window_q=q_out["launches"][batched])
         return r
 
     def packed_row(name, tag, where, launched, err):
@@ -4379,6 +4760,7 @@ def main() -> int:
                      ptxas=exp_ptxas["place_stream_kernel"].get((1,)),
                      **place_dev)
     kernels = [prep_row(window_row(r)) for r in kernels]
+    say("# device-time traces: " + trace_summary())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4415,7 +4797,8 @@ def times_main(times) -> int:
 TIMES = {"--packed-times": packed_times, "--predict-times": predict_times,
          "--ingest-times": ingest_times,
          "--experiment-times": experiment_times,
-         "--sparse-place-times": sparse_place_times}
+         "--sparse-place-times": sparse_place_times,
+         "--trace-age": trace_age}
 
 
 if __name__ == "__main__":

@@ -8,8 +8,9 @@ NumPy (plus the shared C++ host runtime, :mod:`.native`), and every
 Pallas kernel on the ported path is a hand-written CUDA kernel
 (:mod:`.kernels`).
 
-Ported so far (the packed whole-image path and the per-task w-towers
-path, on one device):
+Ported so far (on one device: the packed whole-image path, the per-task
+and bucketed w-towers paths, streaming, ES-FFT, the solvers, and the
+ingest in front of them):
 
 - :mod:`.parallel` — ``plan_wstack``, ``plan_packed``, ``packed_gridder``
   and :class:`~.parallel.packed.PackedGridder`; the task drivers
@@ -17,12 +18,18 @@ path, on one device):
   ``plan_bucketed``, ``grid_all_bucketed``, ``degrid_all_bucketed``
 - :mod:`.grid_data` — the sub-grid gridder ``GridderWtowerUVW`` and the
   whole-image drivers ``wstack_wtower_{grid,degrid}_all``
-- :mod:`.pipeline` — ``major_cycle_imager`` (``bucketed=False`` and
-  ``True``; Hogbom or multi-scale minor cycles), ``fista_imager``,
-  ``dirty_and_psf`` and solver checkpointing
+- :mod:`.pipeline` — the ingest (``ingest_to_solver``,
+  ``ingest_flag_and_weight``, ``station_beam_power``),
+  ``major_cycle_imager`` (``bucketed=False`` and ``True``; Hogbom or
+  multi-scale minor cycles), ``fista_imager``, ``dirty_and_psf`` and
+  solver checkpointing
+- :mod:`.visibility` — DFT predict, phase rotation, the FluctuFlagger,
+  uniform / Briggs / tiled Briggs weights, uv tiling
+- :mod:`.station_beam` — aperture-array and element (dipole, HARP) beams
 - :mod:`.clean` — Hogbom and multi-scale (Cornwell) CLEAN
-- :mod:`.fourier_transforms`, :mod:`.numeric_functions`,
-  :mod:`.utility` — the helpers those paths use
+- :mod:`.fourier_transforms` (planned and shifted FFTs, the PSWF),
+  :mod:`.numeric_functions`, :mod:`.utility` (with the data-model
+  checks and ``SkyCoord``) — the helpers those paths use
 
 The package imports ``torch`` and never ``jax``.
 """
@@ -36,7 +43,9 @@ __all__ = [
     "numeric_functions",
     "parallel",
     "pipeline",
+    "station_beam",
     "utility",
+    "visibility",
 ]
 
 

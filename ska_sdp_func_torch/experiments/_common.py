@@ -6,6 +6,7 @@ the plain versions and reports no time.
 
 import argparse
 import json
+import time
 
 import torch
 
@@ -47,22 +48,50 @@ def chained_ms(fn, feed, iters: int, warmup: int = 2):
     return start.elapsed_time(end) / iters
 
 
+# torch.profiler keeps only the device records whose times, converted to
+# the host's clock, fall inside its window, and the conversion drifts as
+# the process ages: late in a long process it drops the first calls'
+# kernels. A profile whose launches lack device records is taken again
+# with an idle lead of host time before the first call, growing 4x from
+# TRACE_LEAD up to TRACE_LEAD_MAX.
+TRACE_LEAD, TRACE_LEAD_MAX = 0.005, 0.32
+_LAUNCH_APIS = ("Launch", "Memcpy", "Memset")
+
+
+def _lost_records(prof, DeviceType) -> int:
+    """Launches in a profile (kernels, copies, fills) whose device record
+    is missing."""
+    raw = list(prof.profiler.kineto_results.events())
+    done = {e.correlation_id() for e in raw
+            if e.device_type() == DeviceType.CUDA}
+    return sum(1 for e in raw if e.device_type() == DeviceType.CPU
+               and any(k in e.name() for k in _LAUNCH_APIS)
+               and e.correlation_id() not in done)
+
+
 def device_ms(fn, iters: int = 20):
     """(device ms a call, device operations a call, kernel names) of
     ``fn`` by ``torch.profiler`` over ``iters`` calls after one warm-up:
     the card's own kernels, memsets and copies, summed over the calls and
     divided by ``iters``; (None, 0, []) where the trace holds no device
-    time."""
+    time. A profile that lost device records is taken again with a longer
+    idle lead (TRACE_LEAD)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    lead = TRACE_LEAD
+    while True:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(lead)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        if not _lost_records(prof, DeviceType) or lead >= TRACE_LEAD_MAX:
+            break
+        lead *= 4
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]

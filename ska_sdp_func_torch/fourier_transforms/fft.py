@@ -8,16 +8,20 @@ reference's conventions (sdp_fft.h:119-128, sdp_fft.cpp:640-666):
 - the fftshift is multiplicative: a (-1)^(i+j) checkerboard before and
   after the transform (exact, and for even sizes equal to
   ``fftshift(fft(ifftshift(x)))``).
+
+:class:`Fft` is the planned form (`sdp_Fft`, sdp_fft.h:22-66): on one
+backend the plan is the transform's rank, direction and template shape.
 """
 
 import torch
 
-from ..utility.errors import SdpDataTypeError
+from ..utility.data_model import is_complex
+from ..utility.errors import SdpDataTypeError, SdpInvalidArgumentError
 from ..utility.tensors import as_tensors
 
 
-def _check_complex(data: torch.Tensor) -> None:
-    if not data.is_complex():
+def _check_complex(data) -> None:
+    if not is_complex(data.dtype):
         raise SdpDataTypeError(f"FFT input must be complex; got {data.dtype}")
 
 
@@ -41,6 +45,57 @@ def fft_phase(data: torch.Tensor) -> torch.Tensor:
     real_dtype = data.real.dtype
     sign = 1.0 - 2.0 * (parity % 2).to(real_dtype)
     return data * sign
+
+
+def fft_norm(data, device=None) -> torch.Tensor:
+    """Divide by the product of the final two dimensions (the last one
+    for 1-D data; sdp_fft_norm). Input as :func:`fft_shifted`."""
+    _check_complex(data)
+    (data,) = as_tensors(data, device=device)
+    num = data.shape[-1] * (data.shape[-2] if data.ndim >= 2 else 1)
+    return data / num
+
+
+class Fft:
+    """Planned batched C2C FFT over the last ``num_dims_fft`` dimensions.
+
+    Mirrors `sdp_Fft` (sdp_fft.h:22-66): made from a template array, a
+    transform rank and a direction; ``exec`` applies the (unnormalised)
+    transform to data of the template's shape, ``exec_shift`` wraps it in
+    the multiplicative shift and an optional normalisation
+    (sdp_fft.h:99-117). Data given as NumPy goes to ``device`` (None: the
+    CUDA card); a tensor stays where it is.
+    """
+
+    def __init__(self, template, num_dims_fft: int, forward: bool = True,
+                 device=None):
+        _check_complex(template)
+        if not 1 <= num_dims_fft <= template.ndim:
+            raise SdpInvalidArgumentError(
+                f"num_dims_fft must be in [1, {template.ndim}]; "
+                f"got {num_dims_fft}")
+        self.num_dims_fft = int(num_dims_fft)
+        self.forward = bool(forward)
+        self.shape = tuple(template.shape)
+        self.dtype = template.dtype
+        self.device = device
+
+    def exec(self, data) -> torch.Tensor:
+        _check_complex(data)
+        if tuple(data.shape) != self.shape:
+            raise SdpInvalidArgumentError(
+                f"data shape {tuple(data.shape)} does not match the "
+                f"plan template {self.shape}")
+        (data,) = as_tensors(data, device=self.device)
+        return _fft_nd(data, self.num_dims_fft, self.forward)
+
+    def exec_shift(self, data, norm: bool = False) -> torch.Tensor:
+        (data,) = as_tensors(data, device=self.device)
+        out = fft_phase(self.exec(fft_phase(data)))
+        return fft_norm(out) if norm else out
+
+    def __call__(self, data) -> torch.Tensor:
+        return self.exec(data)
 
 
 def fft_shifted(data, num_dims_fft: int = 2, device=None) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Gridding helpers and drivers: kernel tables, grid correction, channel
-clamping, sub-grid placement, the w-towers gridder, the w-stacking
+clamping, sub-grid placement, array algebra, image <-> component lists,
+the direct Fourier transforms, the w-towers gridder, the w-stacking
 whole-image drivers and the ES-FFT gridder."""
 
 from .clamp_channels import (
@@ -15,11 +16,22 @@ from .grid_correct import (
     w_screen_stack,
 )
 from .gridder_utils import (
+    accumulate_scaled_arrays,
+    count_nonzero_pixels,
+    determine_w_step,
+    dft,
+    idft,
+    image_lmn,
+    image_to_flmn,
+    residual,
+    rms_diff,
+    scale_inv_array,
     shift_subgrids,
     subgrid_add,
     subgrid_add_static,
     subgrid_cut_out,
     subgrid_cut_out_static,
+    sum_diff,
     uvw_bounds_all,
 )
 from .kernels import (
@@ -36,23 +48,34 @@ from .wtower import GridderWtowerUVW
 __all__ = [
     "GridderUvwEsFft",
     "GridderWtowerUVW",
+    "accumulate_scaled_arrays",
     "calculate_params_from_epsilon",
     "clamp_channels_inline",
     "clamp_channels_single",
     "clamp_channels_uv",
+    "count_nonzero_pixels",
+    "determine_w_step",
+    "dft",
     "eval_kernel_taps",
     "grid_correct_pswf",
     "grid_correct_w_stack",
+    "idft",
+    "image_lmn",
+    "image_to_flmn",
     "kernel_tap_coeffs",
     "lm_to_n",
     "make_kernel",
     "make_pswf_kernel",
     "make_w_pattern",
+    "residual",
+    "rms_diff",
+    "scale_inv_array",
     "shift_subgrids",
     "subgrid_add",
     "subgrid_add_static",
     "subgrid_cut_out",
     "subgrid_cut_out_static",
+    "sum_diff",
     "uvw_bounds_all",
     "w_screen_stack",
     "wstack_wtower_degrid_all",

@@ -32,6 +32,7 @@ exp_parity's per-bucket band products on the tensor cores;
 
 from . import band_tap, bucket_dot, fold, fused_tap, overlap, packed_tap, \
     place, prep_variants, read_probe, sparse_tap, stream_prep, tower_tap
+from .dense_tap import degrid_plane_dense, grid_plane_dense
 from .packed_tap import (
     build_bands,
     degrid_stack,
@@ -63,10 +64,12 @@ __all__ = [
     "band_tap",
     "bucket_dot",
     "build_bands",
+    "degrid_plane_dense",
     "degrid_stack",
     "degrid_stack_reference",
     "fold",
     "fused_tap",
+    "grid_plane_dense",
     "grid_packed_stack",
     "grid_packed_stack_reference",
     "launch_counts",

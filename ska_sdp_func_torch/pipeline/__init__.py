@@ -1,5 +1,6 @@
-"""Imaging pipeline: the major-cycle CLEAN solver (Hogbom or multi-scale
-minor cycles), the FISTA solver and solver checkpointing."""
+"""Imaging pipeline: the visibility ingest (RFI flagging, imaging and
+primary-beam weights), the major-cycle CLEAN solver (Hogbom or
+multi-scale minor cycles), the FISTA solver and solver checkpointing."""
 
 from .checkpoint import (
     SolverCheckpointer,
@@ -9,6 +10,12 @@ from .checkpoint import (
     save_state,
 )
 from .fista import FistaResult, fista_imager
+from .ingest import (
+    ingest_flag_and_weight,
+    ingest_flag_and_weight_sharded,
+    ingest_to_solver,
+    station_beam_power,
+)
 from .major_cycle import (
     ImagingResult,
     dirty_and_psf,
@@ -22,10 +29,14 @@ __all__ = [
     "SolverCheckpointer",
     "dirty_and_psf",
     "fista_imager",
+    "ingest_flag_and_weight",
+    "ingest_flag_and_weight_sharded",
+    "ingest_to_solver",
     "load_result",
     "load_state",
     "major_cycle_imager",
     "make_psf_plan",
     "save_result",
     "save_state",
+    "station_beam_power",
 ]

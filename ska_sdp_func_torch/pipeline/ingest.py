@@ -1,0 +1,96 @@
+"""Visibility ingest: RFI flagging and imaging weights.
+
+Counterpart of ska_sdp_func_tpu.pipeline.ingest (BASELINE.md config #4:
+RFI flagging and the station-beam DFT in the visibility ingest path):
+the FluctuFlagger over the canonical [time, baseline, chan, pol] stream,
+the imaging weights of flagged samples zeroed, optionally divided by the
+station-beam power in the target direction, and the flat
+[rows, chan] visibilities and weights the solver takes. Everything runs
+on ``device`` (None: the CUDA card); the inputs move there.
+"""
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from ..station_beam.station import aperture_array
+from ..utility.tensors import on_device
+from ..visibility.flagger import flagger_dynamic_threshold
+
+
+def ingest_flag_and_weight(vis4d, weights4d, alpha: float = 0.5,
+                           threshold_magnitudes: float = 3.5,
+                           threshold_variations: float = 3.5,
+                           threshold_broadband: float = 3.5,
+                           sampling_step: int = 1, window: int = 0,
+                           window_median_history: int = 10,
+                           device=None) -> Tuple[torch.Tensor, torch.Tensor,
+                                                 torch.Tensor]:
+    """Flag RFI and zero the affected weights.
+
+    vis4d / weights4d: canonical [time, baseline, chan, pol]. Returns
+    (flags4d int32, weights4d with the flagged samples zeroed, the
+    flagged fraction as a 0-d f32 tensor).
+    """
+    vis4d, weights4d = on_device(vis4d, weights4d, device=device)
+    flags = flagger_dynamic_threshold(
+        vis4d, alpha=alpha, threshold_magnitudes=threshold_magnitudes,
+        threshold_variations=threshold_variations,
+        threshold_broadband=threshold_broadband,
+        sampling_step=sampling_step, window=window,
+        window_median_history=window_median_history,
+        device=vis4d.device)
+    clean_w = torch.where(flags == 0, weights4d,
+                          torch.zeros((), dtype=weights4d.dtype,
+                                      device=weights4d.device))
+    return flags, clean_w, flags.to(torch.float32).mean()
+
+
+def ingest_to_solver(vis4d, weights4d, beam_gain=None, device=None,
+                     **flagger_kwargs) -> Tuple[torch.Tensor, torch.Tensor,
+                                                float]:
+    """Full ingest: flag -> weight -> (optional beam normalisation) ->
+    flatten to the solver's [rows, chan] layout (pol 0).
+
+    ``beam_gain``: a [time, baseline, chan] power gain in the imaging
+    direction (e.g. a product of |aperture_array beam|^2); the weights are
+    divided by it where it is positive, zeroed elsewhere (primary-beam
+    weighting). Returns (vis [rows, chan], weights [rows, chan], flagged
+    fraction).
+    """
+    vis4d, weights4d, beam_gain = on_device(vis4d, weights4d, beam_gain,
+                                            device=device)
+    _, w, frac = ingest_flag_and_weight(vis4d, weights4d,
+                                        device=vis4d.device,
+                                        **flagger_kwargs)
+    t, b, c, _ = vis4d.shape
+    vis = vis4d[..., 0].reshape(t * b, c)
+    wgt = w[..., 0].reshape(t * b, c)
+    if beam_gain is not None:
+        g = beam_gain.reshape(t * b, c)
+        wgt = torch.where(g > 0, wgt / g.to(wgt.dtype),
+                          torch.zeros((), dtype=wgt.dtype,
+                                      device=wgt.device))
+    return vis, wgt, float(frac)
+
+
+def ingest_flag_and_weight_sharded(vis4d, weights4d, mesh,
+                                   **flagger_kwargs):
+    """The baseline-sharded ingest: not ported yet."""
+    raise NotImplementedError(
+        "multi-device ingest is not ported yet: ROADMAP Queue 1 item 15")
+
+
+def station_beam_power(element_x, element_y, element_z, weights,
+                       pointing_lmn, freq_hz: float,
+                       device=None) -> torch.Tensor:
+    """|station beam|^2 towards (l, m, n) directions ``[points, 3]``: the
+    gain for primary-beam weighting (the aperture_array DFT,
+    station_beam/sdp_station.h:121-140)."""
+    (lmn,) = on_device(pointing_lmn, device=device)
+    beam = aperture_array(
+        2.0 * math.pi * freq_hz / 299792458.0, weights, element_x,
+        element_y, element_z, lmn[:, 0], lmn[:, 1], lmn[:, 2],
+        device=lmn.device)
+    return beam.abs() ** 2

@@ -1,8 +1,16 @@
-"""Errors and constants shared by the port's modules, SKA-format logging
-(:mod:`.logging`), the named timer tree (:mod:`.timers`) and trace
-capture (:mod:`.profiling`)."""
+"""Errors and constants shared by the port's modules, the data-model
+checks (:mod:`.data_model`), the sky coordinate (:mod:`.sky_coord`),
+SKA-format logging (:mod:`.logging`), the named timer tree
+(:mod:`.timers`) and trace capture (:mod:`.profiling`)."""
 
 from .constants import C_0
+from .data_model import (
+    check_uvw,
+    check_vis,
+    check_weights,
+    get_uvw_metadata,
+    get_vis_metadata,
+)
 from .errors import (
     CError,
     SdpDataTypeError,
@@ -21,6 +29,7 @@ from .logging import (
     log_warning,
 )
 from .profiling import annotate, trace
+from .sky_coord import SkyCoord
 from .timers import Timer, Timers, TimerType
 
 __all__ = [
@@ -32,11 +41,17 @@ __all__ = [
     "SdpMemLocationError",
     "SdpRuntimeError",
     "SdpShapeError",
+    "SkyCoord",
     "Timer",
     "TimerType",
     "Timers",
     "annotate",
+    "check_uvw",
+    "check_vis",
+    "check_weights",
     "get_logger",
+    "get_uvw_metadata",
+    "get_vis_metadata",
     "log_critical",
     "log_debug",
     "log_error",

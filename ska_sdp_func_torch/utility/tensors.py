@@ -40,3 +40,28 @@ def host_uvw(uvw) -> np.ndarray:
     if isinstance(uvw, torch.Tensor):
         uvw = uvw.detach().cpu().numpy()
     return np.ascontiguousarray(uvw, dtype=np.float64)
+
+
+def on_device(*xs, device=None):
+    """Caller data as tensors on ``device`` (None: the CUDA card,
+    :func:`resolve_device`), where the port's entry points take it:
+    tensors move (no copy when already there), NumPy arrays and sequences
+    are copied, and ``None`` stays ``None``. Returns a tuple."""
+    dev = resolve_device(device)
+    return tuple(None if x is None else to_device(x, dev) for x in xs)
+
+
+def divide(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``x / value`` as an elementwise division on every device, as JAX
+    divides outside ``jit``. (CUDA divides by a host scalar by multiplying
+    with its reciprocal, which can move a ``floor`` or ``round`` by one
+    against the CPU.)"""
+    return x / torch.tensor(value, dtype=x.dtype, device=x.device)
+
+
+def times_inverse(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``x * (1 / value)``, the inverse rounded to ``x``'s dtype: what XLA
+    makes of a division by a constant inside ``jit``, the same on every
+    device."""
+    one = torch.tensor(1.0, dtype=x.dtype)
+    return x * (one / torch.tensor(value, dtype=x.dtype))

@@ -36,6 +36,9 @@ MODULES = [
     "ska_sdp_func_torch.fourier_transforms",
     "ska_sdp_func_torch.fourier_transforms.fft",
     "ska_sdp_func_torch.fourier_transforms.pswf",
+    "ska_sdp_func_torch.station_beam",
+    "ska_sdp_func_torch.station_beam.element",
+    "ska_sdp_func_torch.station_beam.station",
     "ska_sdp_func_torch.grid_data",
     "ska_sdp_func_torch.grid_data.es_fft",
     "ska_sdp_func_torch.grid_data.es_fft_packed",
@@ -71,14 +74,24 @@ MODULES = [
     "ska_sdp_func_torch.pipeline",
     "ska_sdp_func_torch.pipeline.checkpoint",
     "ska_sdp_func_torch.pipeline.fista",
+    "ska_sdp_func_torch.pipeline.ingest",
     "ska_sdp_func_torch.pipeline.major_cycle",
     "ska_sdp_func_torch.utility",
     "ska_sdp_func_torch.utility.constants",
+    "ska_sdp_func_torch.utility.data_model",
     "ska_sdp_func_torch.utility.errors",
     "ska_sdp_func_torch.utility.logging",
     "ska_sdp_func_torch.utility.profiling",
+    "ska_sdp_func_torch.utility.sky_coord",
     "ska_sdp_func_torch.utility.tensors",
     "ska_sdp_func_torch.utility.timers",
+    "ska_sdp_func_torch.visibility",
+    "ska_sdp_func_torch.visibility.dft",
+    "ska_sdp_func_torch.visibility.flagger",
+    "ska_sdp_func_torch.visibility.opt_weighting",
+    "ska_sdp_func_torch.visibility.phase_rotate",
+    "ska_sdp_func_torch.visibility.tiled_functions",
+    "ska_sdp_func_torch.visibility.weighting",
 ]
 
 

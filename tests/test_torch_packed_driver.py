@@ -221,7 +221,9 @@ def test_fused_engine_matches_jax(scenario, prec):
     "degrid_all_bucketed", "w_screen_stack", "fft_shifted",
     "fft_convolution", "subgrid_add", "grid_correct_pswf", "hogbom_clean",
     "ms_clean_cornwell", "fista_imager", "dirty_and_psf", "grid_all_packed",
-    "degrid_all_packed", "load_state"])
+    "degrid_all_packed", "load_state", "flagger_dynamic_threshold",
+    "briggs_weights", "bucket_sort", "aperture_array", "ingest_to_solver",
+    "dft"])
 def test_entry_points_default_to_the_card(scenario, entry, tmp_path):
     """Without ``device`` every entry point runs on the CUDA card, never
     the CPU, even for NumPy or CPU-tensor inputs: on a host with no card
@@ -303,6 +305,34 @@ def test_entry_points_default_to_the_card(scenario, entry, tmp_path):
         "degrid_all_packed": lambda: tpacked.degrid_all_packed(s["tpp"],
                                                                img),
     }
+    # The ingest path's entry points on NumPy input.
+    from ska_sdp_func_torch.grid_data import dft
+    from ska_sdp_func_torch.pipeline import ingest_to_solver
+    from ska_sdp_func_torch.station_beam import aperture_array
+    from ska_sdp_func_torch.visibility import (
+        briggs_weights,
+        bucket_sort,
+        flagger_dynamic_threshold,
+    )
+
+    vis4d = np.ones((4, 3, 8, 1), np.complex64)
+    w4d = np.ones((4, 3, 8, 1), np.float32)
+    uvw3 = np.zeros((4, 3, 3))
+    freqs = np.full(8, FREQ0)
+    elems = np.zeros(4)
+    calls.update({
+        "flagger_dynamic_threshold": lambda: flagger_dynamic_threshold(
+            vis4d),
+        "briggs_weights": lambda: briggs_weights(uvw3, freqs, 1.0, 0.5,
+                                                 w4d, 8),
+        "bucket_sort": lambda: bucket_sort(uvw3, freqs, vis4d, w4d, 64, 16,
+                                           16, 1e-4, 3),
+        "aperture_array": lambda: aperture_array(
+            1.0, np.ones(4, np.complex64), elems, elems, elems,
+            np.zeros(2), np.zeros(2)),
+        "ingest_to_solver": lambda: ingest_to_solver(vis4d, w4d),
+        "dft": lambda: dft(uvw[:4], np.ones(1), np.zeros((1, 3))),
+    })
     path = str(tmp_path / "state.npz")
     save_state(path, img, img, 1)
     calls["load_state"] = lambda: load_state(path)
