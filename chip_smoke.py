@@ -8,6 +8,7 @@
     (cd CHECKOUT && python3 /path/to/chip_smoke.py --experiment-times)
     (cd CHECKOUT && python3 /path/to/chip_smoke.py --sparse-place-times)
     python3 chip_smoke.py --trace-age
+    python3 chip_smoke.py --window-r
 
 Run from the repository root on a machine with a CUDA card. With
 ``--packed-times`` it only times the packed path (K1/K2 in "high" and
@@ -32,7 +33,9 @@ and device time, device operations a call and output digests; the
 dense stream's plan + K5 stages with their placed arrays' digests), and
 ``--trace-age`` profiles K5 every 30 s of idle card for 5 minutes, once
 as one profile without a lead and once until whole (one JSON line each
-time: the profiler's lost records as the process ages). Phases, one line
+time: the profiler's lost records as the process ages), and
+``--window-r`` runs window r (below) alone after the build, on the
+bench plans (one JSON line of its stages' numbers). Phases, one line
 of output each (or a few), failing loudly on the first fault:
 
 1. toolchain: the card's name and power limit (nvidia-smi), torch, CUDA
@@ -192,6 +195,31 @@ of output each (or a few), failing loudly on the first fault:
       against the plain tower kernels at 1e-5 (taper-weighted) and the
       sources' fluxes within 0.1 (a tenth of the brightest); the window
       launches K16/K17 only;
+   r. SwiFTly, the reference-API gridders and the first multi-GPU layer,
+      each sub-window in launch windows of its own: (r1) SwiFTly at the
+      reference's 16k configuration (tests/test_swiftly_bench.py:25-27:
+      W 13.5625, N 16384, yN 4096, xM 1024, xA 896, yB 3328): each 1-D
+      primitive timed, then the whole 2-D pass in complex128, 5^2 facets
+      of 24 seeded point sources into all 19^2 subgrids (each keeping
+      the cells it owns) and back into every facet, by stage and wall
+      time with its peak memory; sampled subgrids and facets held
+      against the port's CPU run (1e-10 of max), and against the
+      analytic DFT and the true facets within the CPU run's envelope; no
+      kernel; (r2) ``SwiftlyDistributed`` (1-D and 2-D, both directions)
+      and ``wstack_{grid,degrid}_all_sharded`` (K14/K15, the first
+      R2_ROWS bench rows) under a one-rank NCCL group met through a file
+      store, against the single-device calls (1e-12 complex128, 1e-5
+      complex64); (r3) on window b's largest task (its rows, their
+      channel ranges in its box, its offsets) and a 64^2 sub-grid image
+      of two points, the complex64 ``GridderWtowerUVW`` (one-task K17
+      degrid, K16 grid) against the complex128 ``GridderDirect`` at 5e-4
+      of peak, and the direct gridder's adjoint at rtol 1e-10; (r4)
+      ``degrid_uvw_custom`` of window q's 64 x 256 x 64 x 4-pol data from
+      a seeded [64, 4, 512, 512, 4] complex64 grid, timed with its peak
+      memory, its first two times against the CPU run at 1e-5; (r5)
+      ``determine_max_w_tower_height`` at the bench gridder, equal to the
+      CPU run's, on the plain complex128 path (no kernel); each stage's
+      time on a line with the card's name and power limit;
 5. times: grid, degrid and one major-cycle iteration of the packed path
    (and one msclean and one FISTA iteration beside the Hogbom one; and
    ``packed_times``: wall, host enqueue and device time, busy share and
@@ -230,7 +258,8 @@ K14/K15 (redesigned: their rows carry ``redesigned``) the mask, their
 active entries' operands and the stack or result
 (``plane_bytes``). K16/K17's rows (redesigned: ``entry`` names the
 batched wrapper) carry the batched call at window b's stream, its
-launches in window b, ``launches_window_q`` theirs in window q, and
+launches in window b, ``launches_window_q`` theirs in window q,
+``launches_window_r`` theirs in window r (as K14/K15's rows carry), and
 ``single_task_*`` for the one-task call on the largest task. K4, K11,
 K13 and K19 (redesigned: one template in ``csrc/window_gather.cu``) carry ``redesigned``, their template
 ``instance`` and its ``ptxas`` registers and spills; K11 has a row at
@@ -3342,6 +3371,746 @@ def ingest_phase(torch, tkern, bk, tt, dev, gpu, tplan, uvw, taper):
     return dict(launches=dict(launches), ms=ms)
 
 
+# Window r: SwiFTly at the reference's 16k configuration, the
+# distributed layer under a one-rank NCCL group, the direct gridder as
+# the sub-grid gridder's oracle, the custom degridder and the w-tower
+# height search.
+# r1: tests/test_swiftly_bench.py:25-27 ("16k[1]-n4k-1k"): 5 x 5 facets
+# of 3328^2 at offsets 3328 (i - 2) and 19 x 19 subgrids of 896^2 at
+# offsets 896 (j - 9) cover the 16384^2 image; each subgrid keeps the
+# cells it owns (the nearest subgrid centre), so the subgrids sum to the
+# whole grid once. The facets hold SW_SOURCES seeded point sources.
+SW_N, SW_YN, SW_XM, SW_W = 16384, 4096, 1024, 13.5625
+SW_XA, SW_YB = 896, 3328
+SW_SOURCES = 24
+# The subgrids (j0, j1) and facets (i0, i1) held against the CPU run and
+# the analytic DFT (corners, the centre and an edge).
+SW_SUBGRID_SAMPLES = ((0, 0), (9, 9), (18, 4))
+SW_FACET_SAMPLES = ((2, 2), (0, 4))
+SW_CPU_TOL = 1e-10        # card vs CPU, of max|CPU|
+# r2: the sharded w-stacking drivers (task drivers, K14/K15) take the
+# first R2_ROWS bench rows.
+R2_ROWS = 1024
+# r3: a 64^2 sub-grid image of two points (tests/test_gridders_misc.py:
+# 31-33's), the direct gridder's oracle bound and adjoint tolerance.
+R3_POINTS = (((64 // 3, 64 // 4), 1.0), ((2 * 64 // 3, 64 // 2), 0.7))
+R3_ORACLE_TOL, R3_ADJOINT_RTOL = 5e-4, 1e-10
+# r5: the w-tower height search at the bench gridder.
+R5_HEIGHT = dict(image_size=IMAGE, subgrid_size=TOWER_SUBGRID, theta=THETA,
+                 w_step=W_STEP, support=8, w_support=4, fov=0.001)
+
+
+def swiftly_layout(n, xa, yb):
+    """Facet and subgrid offsets that cover an n^2 image, and each
+    subgrid's mask of the cells it owns along one axis ``[ns, xa]``."""
+    nf, ns = -(-n // yb), -(-n // xa)
+    facets = [yb * (i - nf // 2) for i in range(nf)]
+    subgrids = [xa * (j - ns // 2) for j in range(ns)]
+    u = np.asarray(subgrids)[:, None] - xa // 2 + np.arange(xa)[None, :]
+    wrapped = (u + n // 2) % n - n // 2
+    owner = np.floor(wrapped / xa + 0.5).astype(np.int64) + ns // 2
+    return facets, subgrids, owner == np.arange(ns)[:, None]
+
+
+def swiftly_sources(n, yb, facet_offsets, count, seed=19):
+    """Seeded point sources ``(amplitude, x0, x1)`` and each one's facet
+    (i0, i1) and pixel (p0, p1) there."""
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(-n // 2, n // 2, (count, 2))
+    amp = rng.uniform(0.5, 1.5, count)
+    half = len(facet_offsets) // 2
+    facet = np.floor(pos / yb + 0.5).astype(np.int64) + half
+    pix = (pos - np.asarray(facet_offsets)[facet] + yb // 2) % n
+    return amp, pos, facet, pix
+
+
+def swiftly_facets(torch, dev, n, yb, facet_offsets, sources,
+                   window=False):
+    """The facets ``[nf, nf, yb, yb]`` (complex128): each source in the
+    facet that owns it (the input), or with ``window`` in every facet
+    whose window holds it (what the facets' overlaps give back)."""
+    amp, pos, facet, pix = sources
+    nf = len(facet_offsets)
+    if window:
+        offs = np.asarray(facet_offsets)
+        p = (pos[:, None, :] - offs[None, :, None] + yb // 2) % n
+        k, i0, i1 = np.nonzero((p[:, :, None, 0] < yb)
+                               & (p[:, None, :, 1] < yb))
+        amp = amp[k]
+        facet = np.stack([i0, i1], axis=1)
+        pix = np.stack([p[k, i0, 0], p[k, i1, 1]], axis=1)
+    facets = torch.zeros((nf, nf, yb, yb), dtype=torch.complex128,
+                         device=dev)
+    idx = tuple(torch.as_tensor(a, device=dev) for a in (
+        facet[:, 0], facet[:, 1], pix[:, 0], pix[:, 1]))
+    facets.index_put_(idx, torch.as_tensor(amp, dtype=torch.complex128,
+                                           device=dev), accumulate=True)
+    return facets
+
+
+def swiftly_analytic(n, xa, subgrid_offsets, sources, j0, j1):
+    """The exact DFT of the sources on subgrid (j0, j1)'s xa^2 window."""
+    amp, pos, _, _ = sources
+
+    def phases(off, x):
+        u = off - xa // 2 + np.arange(xa)
+        return np.exp(2j * np.pi * ((u[None, :] * x[:, None]) % n) / n)
+
+    p0 = phases(subgrid_offsets[j0], pos[:, 0]) * (amp / n / n)[:, None]
+    return p0.T @ phases(subgrid_offsets[j1], pos[:, 1])
+
+
+def swiftly_prepare(torch, sw, facets, facet_offsets):
+    """Every facet prepared along both axes ``[nf, nf, yN, yN]``: the last
+    axis batched over the facets of one column offset, then axis 0 over
+    those of one row offset."""
+    nf, yn, yb = len(facet_offsets), sw.yN_size, facets.shape[-1]
+    half = torch.empty((nf, nf, yb, yn), dtype=facets.dtype,
+                       device=facets.device)
+    for i1, off in enumerate(facet_offsets):
+        half[:, i1] = sw.prepare_facet(facets[:, i1], off)
+    prep = torch.empty((nf, nf, yn, yn), dtype=facets.dtype,
+                       device=facets.device)
+    for i0, off in enumerate(facet_offsets):
+        prep[i0] = sw.prepare_facet(half[i0].transpose(-1, -2),
+                                    off).transpose(-1, -2)
+    return prep
+
+
+def swiftly_forward(torch, sw, prep, facet_offsets, subgrid_offsets, xa,
+                    wanted):
+    """Subgrids ``{(j0, j1): [xa, xa]}`` for ``wanted`` {j0: [j1, ...]}:
+    per subgrid row, one extraction over every facet along axis 0, one a
+    column along axis 1, the facets' contributions added (batched over the
+    row's subgrids), each subgrid finished and its central xa window
+    kept."""
+    xm = sw.xM_size
+    lo = xm // 2 - xa // 2
+    out = {}
+    for j0, cols in wanted.items():
+        c0 = sw.extract_from_facet(prep.transpose(-1, -2),
+                                   subgrid_offsets[j0]).transpose(-1, -2)
+        contrib = torch.stack([sw.extract_from_facet(c0, subgrid_offsets[j1])
+                               for j1 in cols])
+        acc = torch.zeros((len(cols), xm, xm), dtype=prep.dtype,
+                          device=prep.device)
+        for i0, f0 in enumerate(facet_offsets):
+            for i1, f1 in enumerate(facet_offsets):
+                acc = sw.add_to_subgrid_2d(contrib[:, i0, i1], acc, f0, f1)
+        for k, j1 in enumerate(cols):
+            out[j0, j1] = sw.finish_subgrid_inplace_2d(
+                acc[k], subgrid_offsets[j0],
+                subgrid_offsets[j1])[lo:lo + xa, lo:lo + xa]
+    return out
+
+
+def swiftly_reverse(torch, sw, subgrids, masks, facet_offsets,
+                    subgrid_offsets, yb, wanted):
+    """Facets ``{(i0, i1): [yb, yb]}`` for the ``wanted`` list from every
+    subgrid ``subgrids[j0, j1]`` ([xa, xa], each keeping its own cells by
+    ``masks``): per subgrid row, each subgrid padded to xM and prepared,
+    the wanted facets' contributions extracted (batched over the row),
+    added along axis 1 a subgrid at a time, then along axis 0 once a
+    row; each facet finished along both axes."""
+    xm, yn, m = sw.xM_size, sw.yN_size, sw.xM_yN_size
+    ns = len(subgrid_offsets)
+    xa = masks.shape[-1]
+    lo = xm // 2 - xa // 2
+    dev, dtype = sw.device, torch.complex128
+    masks = torch.as_tensor(masks, device=dev)
+    acc = torch.zeros((len(wanted), yn, yn), dtype=dtype, device=dev)
+    for j0 in range(ns):
+        preps = torch.empty((ns, xm, xm), dtype=dtype, device=dev)
+        for j1 in range(ns):
+            padded = torch.zeros((xm, xm), dtype=dtype, device=dev)
+            padded[lo:lo + xa, lo:lo + xa] = subgrids[j0, j1].to(dev) * (
+                masks[j0][:, None] & masks[j1][None, :])
+            preps[j1] = sw.prepare_subgrid_inplace_2d(
+                padded, subgrid_offsets[j0], subgrid_offsets[j1])
+        contrib = torch.stack([sw.extract_from_subgrid_2d(
+            preps, facet_offsets[i0], facet_offsets[i1])
+            for i0, i1 in wanted])
+        rows = torch.zeros((len(wanted), m, yn), dtype=dtype, device=dev)
+        for j1 in range(ns):
+            rows = sw.add_to_facet(contrib[:, j1], rows, subgrid_offsets[j1])
+        acc = sw.add_to_facet(rows.transpose(-1, -2), acc.transpose(-1, -2),
+                              subgrid_offsets[j0]).transpose(-1, -2)
+    out = {}
+    for k, (i0, i1) in enumerate(wanted):
+        f = sw.finish_facet(acc[k], yb, facet_offsets[i1])
+        out[i0, i1] = sw.finish_facet(f.transpose(-1, -2), yb,
+                                      facet_offsets[i0]).transpose(-1, -2)
+    return out
+
+
+def swiftly_pass(torch, sw, facets, layout, xa, yb):
+    """The whole 2-D pass: every facet into every subgrid
+    ``[ns, ns, xa, xa]``, then every subgrid (its own cells) back into
+    every facet ``[nf, nf, yb, yb]``."""
+    facet_offsets, subgrid_offsets, masks = layout
+    ns, nf = len(subgrid_offsets), len(facet_offsets)
+    prep = swiftly_prepare(torch, sw, facets, facet_offsets)
+    fwd = swiftly_forward(torch, sw, prep, facet_offsets, subgrid_offsets,
+                          xa, {j0: list(range(ns)) for j0 in range(ns)})
+    del prep
+    subgrids = torch.stack([torch.stack([fwd.pop((j0, j1))
+                                         for j1 in range(ns)])
+                            for j0 in range(ns)])
+    facet_list = [(i0, i1) for i0 in range(nf) for i1 in range(nf)]
+    back = swiftly_reverse(torch, sw, subgrids, masks, facet_offsets,
+                           subgrid_offsets, yb, facet_list)
+    return subgrids, torch.stack([torch.stack([back[i0, i1]
+                                               for i1 in range(nf)])
+                                  for i0 in range(nf)])
+
+
+def swiftly_primitive_ms(torch, sw, dev):
+    """Each 1-D primitive's ms at the plan's sizes (CUDA events, 5 calls
+    after warm-up; test_swiftly_bench.py's sequence)."""
+    rng = np.random.default_rng(0)
+
+    def rnd(size):
+        return torch.as_tensor(rng.standard_normal(size)
+                               + 1j * rng.standard_normal(size), device=dev)
+
+    facet, sg = rnd(SW_YB), rnd(sw.xM_size)
+    prep = sw.prepare_facet(facet, 0)
+    contrib = sw.extract_from_facet(prep, 0)
+    acc = sw.add_to_subgrid(contrib, torch.zeros_like(sg), 0)
+    prep_sg = sw.prepare_subgrid_inplace(sg, 0)
+    fac_contrib = sw.extract_from_subgrid(prep_sg, 0)
+    pf = sw.add_to_facet(fac_contrib, torch.zeros_like(prep), 0)
+    calls = {
+        "prepare_facet": lambda: sw.prepare_facet(facet, 0),
+        "extract_from_facet": lambda: sw.extract_from_facet(prep, 0),
+        "add_to_subgrid": lambda: sw.add_to_subgrid(
+            contrib, torch.zeros_like(sg), 0),
+        "finish_subgrid": lambda: sw.finish_subgrid(acc, SW_XA, 0),
+        "prepare_subgrid_inplace": lambda: sw.prepare_subgrid_inplace(
+            sg, 0),
+        "extract_from_subgrid": lambda: sw.extract_from_subgrid(prep_sg, 0),
+        "add_to_facet": lambda: sw.add_to_facet(
+            fac_contrib, torch.zeros_like(prep), 0),
+        "finish_facet": lambda: sw.finish_facet(pf, SW_YB, 0),
+    }
+    return {k: cuda_ms(torch, f, 5) for k, f in calls.items()}
+
+
+def swiftly_phase(torch, tkern, dev, gpu):
+    """r1: the 16k SwiFTly pass on the card (complex128), held against the
+    port's CPU run and the analytic DFT. Returns (plan, facets, layout,
+    stage ms)."""
+    from ska_sdp_func_torch.fourier_transforms import Swiftly
+
+    cpu = torch.device("cpu")
+    layout = swiftly_layout(SW_N, SW_XA, SW_YB)
+    facet_offsets, subgrid_offsets, masks = layout
+    sources = swiftly_sources(SW_N, SW_YB, facet_offsets, SW_SOURCES)
+    sw = Swiftly(SW_N, SW_YN, SW_XM, SW_W, device=dev)
+    prim = swiftly_primitive_ms(torch, sw, dev)
+    say(f"# [{gpu}] window r1 SwiFTly primitives at N {SW_N}, yN {SW_YN}, "
+        f"xM {SW_XM}, xA {SW_XA}, yB {SW_YB} (1-D, complex128, CUDA events,"
+        f" ms a call): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                    prim.items()))
+    facets = swiftly_facets(torch, dev, SW_N, SW_YB, facet_offsets,
+                            sources)
+    ms = {}
+    with launch_window(torch, tkern, "window r1 (SwiFTly, 16k)", [],
+                       tkern.launch_counts()):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        subgrids, back = swiftly_pass(torch, sw, facets, layout, SW_XA,
+                                      SW_YB)
+        torch.cuda.synchronize()
+        ms["pass wall"] = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        # The stages alone, CUDA events, a second time.
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        prep = swiftly_prepare(torch, sw, facets, facet_offsets)
+        ev[1].record()
+        ns = len(subgrid_offsets)
+        swiftly_forward(torch, sw, prep, facet_offsets, subgrid_offsets,
+                        SW_XA, {j0: list(range(ns)) for j0 in range(ns)})
+        ev[2].record()
+        del prep
+        swiftly_reverse(torch, sw, subgrids, masks, facet_offsets,
+                        subgrid_offsets, SW_YB,
+                        [(i0, i1) for i0 in range(len(facet_offsets))
+                         for i1 in range(len(facet_offsets))])
+        ev[3].record()
+        ev[3].synchronize()
+        ms.update({"prepare facets": ev[0].elapsed_time(ev[1]),
+                   "facets -> subgrids": ev[1].elapsed_time(ev[2]),
+                   "subgrids -> facets": ev[2].elapsed_time(ev[3])})
+    finite(torch, (("r1 subgrids", subgrids), ("r1 facets", back)))
+    nf = len(facet_offsets)
+    say(f"# [{gpu}] window r1 2-D pass ({nf}^2 facets -> {ns}^2 subgrids "
+        f"-> facets, {SW_SOURCES} point sources, complex128): " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in ms.items())
+        + f"; peak {peak / 2**30:.2f} GiB above the "
+        f"{base / 2**30:.2f} GiB held before")
+
+    # The port on the CPU: the sampled subgrids from the same facets, the
+    # sampled facets back from the card's subgrids.
+    t_cpu = time.perf_counter()
+    sw_cpu = Swiftly(SW_N, SW_YN, SW_XM, SW_W, device=cpu)
+    wanted = {}
+    for j0, j1 in SW_SUBGRID_SAMPLES:
+        wanted.setdefault(j0, []).append(j1)
+    prep = swiftly_prepare(torch, sw_cpu, facets.cpu(), facet_offsets)
+    cpu_sub = swiftly_forward(torch, sw_cpu, prep, facet_offsets,
+                              subgrid_offsets, SW_XA, wanted)
+    del prep
+    cpu_back = swiftly_reverse(torch, sw_cpu, subgrids.cpu(), masks,
+                               facet_offsets, subgrid_offsets, SW_YB,
+                               list(SW_FACET_SAMPLES))
+    t_cpu = time.perf_counter() - t_cpu
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    sub_cpu = max(rel(subgrids[j].cpu(), cpu_sub[j])
+                  for j in SW_SUBGRID_SAMPLES)
+    exact = {j: torch.as_tensor(swiftly_analytic(SW_N, SW_XA,
+                                                 subgrid_offsets, sources,
+                                                 *j))
+             for j in SW_SUBGRID_SAMPLES}
+    env_cpu = max(rel(cpu_sub[j], exact[j]) for j in SW_SUBGRID_SAMPLES)
+    env_card = max(rel(subgrids[j].cpu(), exact[j])
+                   for j in SW_SUBGRID_SAMPLES)
+    # What the overlapping facets give back: every source in every facet
+    # whose window holds it.
+    truth = swiftly_facets(torch, dev, SW_N, SW_YB, facet_offsets, sources,
+                           window=True)
+    peak_truth = float(truth.abs().max())
+    rt_cpu = max(float((cpu_back[i] - truth[i].cpu()).abs().max())
+                 for i in SW_FACET_SAMPLES) / peak_truth
+    rt_card_s = max(float((back[i] - truth[i]).abs().max())
+                    for i in SW_FACET_SAMPLES) / peak_truth
+    rt_card = float((back - truth).abs().max()) / peak_truth
+    del truth
+    # Of the brightest source: a facet may hold none, and then only the
+    # pass's rounding.
+    back_cpu = max(float((back[i].cpu() - cpu_back[i]).abs().max())
+                   for i in SW_FACET_SAMPLES) / peak_truth
+    say(f"# window r1 checks: sampled subgrids {SW_SUBGRID_SAMPLES} card vs "
+        f"CPU {sub_cpu:.3e} (tolerance {SW_CPU_TOL:g}); vs the analytic "
+        f"DFT, of max: CPU {env_cpu:.3e}, card {env_card:.3e}; round trip "
+        f"of facets {SW_FACET_SAMPLES}, of the brightest source: card vs "
+        f"CPU {back_cpu:.3e}; vs the "
+        f"true facets, of max: CPU {rt_cpu:.3e}, card {rt_card_s:.3e} "
+        f"(all {nf}^2 facets {rt_card:.3e}, bound 10x the CPU's); CPU run "
+        f"{t_cpu:.1f} s")
+    if not (sub_cpu <= SW_CPU_TOL and back_cpu <= SW_CPU_TOL
+            and env_card <= env_cpu + SW_CPU_TOL
+            and rt_card_s <= rt_cpu + SW_CPU_TOL
+            and rt_card <= 10 * rt_cpu):
+        raise SystemExit("window r1: the 16k SwiFTly pass disagrees with "
+                         "the CPU run or leaves the CPU run's envelope")
+    return sw, facets, layout, dict(ms, **{"peak GiB": peak / 2**30})
+
+
+def dist_phase(torch, tkern, dev, gpu, sw, facets, layout, uvw, vis,
+               taper):
+    """r2: distributed SwiFTly and the sharded w-stacking drivers under a
+    one-rank NCCL group (a file store), each against its single-device
+    calls."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ska_sdp_func_torch.parallel import (
+        SwiftlyDistributed,
+        degrid_all_tasks,
+        gather_rows,
+        grid_all_tasks,
+        local_rows,
+        make_mesh,
+        pad_rows_arrays,
+        plan_wstack,
+        wstack_degrid_all_sharded,
+        wstack_grid_all_sharded,
+    )
+
+    facet_offsets, subgrid_offsets, _ = layout
+    store = tempfile.mkdtemp(prefix="chip_smoke_r2_")
+    errs, ms = {}, {}
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    try:
+        mesh = make_mesh(1, device=dev, rank=0, timeout=120.0,
+                         init_method="file://" + os.path.join(store, "pg"))
+        dsw = SwiftlyDistributed(sw, mesh)
+        # The centre facet's right neighbour into the subgrid two right of
+        # the centre one.
+        i0, j0 = len(facet_offsets) // 2, len(subgrid_offsets) // 2
+        f0, f1 = facet_offsets[i0], facet_offsets[i0 + 1]
+        s0, s1 = subgrid_offsets[j0], subgrid_offsets[j0 + 2]
+        xm, lo = sw.xM_size, sw.xM_size // 2 - SW_XA // 2
+        with launch_window(torch, tkern, "window r2 (distributed SwiFTly)",
+                           [], tkern.launch_counts()):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(25)
+            facet = torch.randn((SW_YB, SW_YB), dtype=torch.complex128,
+                                device=dev, generator=gen)
+            t0 = time.perf_counter()
+            got = dsw.facets_to_subgrids_2d(facet[None], [(f0, f1)],
+                                            [(s0, s1)], SW_XA)
+            torch.cuda.synchronize()
+            ms["facets_to_subgrids_2d"] = (time.perf_counter() - t0) * 1e3
+            p = sw.prepare_facet(facet, f1)
+            p = sw.prepare_facet(p.transpose(-1, -2), f0).transpose(-1, -2)
+            c = sw.extract_from_facet(p, s1)
+            c = sw.extract_from_facet(c.transpose(-1, -2),
+                                      s0).transpose(-1, -2)
+            acc = sw.add_to_subgrid_2d(
+                c, torch.zeros((xm, xm), dtype=c.dtype, device=dev), f0, f1)
+            want = sw.finish_subgrid_inplace_2d(acc, s0, s1)[
+                lo:lo + SW_XA, lo:lo + SW_XA]
+            errs["SwiFTly facets -> subgrids 2-D"] = rel(got[0], want)
+            sg = torch.zeros((xm, xm), dtype=torch.complex128, device=dev)
+            sg[lo:lo + SW_XA, lo:lo + SW_XA] = want
+            t0 = time.perf_counter()
+            got = dsw.subgrids_to_facets_2d(sg[None], [(s0, s1)],
+                                            [(f0, f1)], SW_YB)
+            torch.cuda.synchronize()
+            ms["subgrids_to_facets_2d"] = (time.perf_counter() - t0) * 1e3
+            q = sw.extract_from_subgrid_2d(
+                sw.prepare_subgrid_inplace_2d(sg, s0, s1), f0, f1)
+            m, yn = sw.xM_yN_size, sw.yN_size
+            rows = sw.add_to_facet(q, torch.zeros((m, yn), dtype=q.dtype,
+                                                  device=dev), s1)
+            acc = sw.add_to_facet(rows.transpose(-1, -2),
+                                  torch.zeros((yn, yn), dtype=q.dtype,
+                                              device=dev).transpose(-1, -2),
+                                  s0).transpose(-1, -2)
+            want = sw.finish_facet(acc, SW_YB, f1)
+            want = sw.finish_facet(want.transpose(-1, -2), SW_YB,
+                                   f0).transpose(-1, -2)
+            errs["SwiFTly subgrids -> facets 2-D"] = rel(got[0], want)
+            line = facet[7]
+            got = dsw.facets_to_subgrids(line[None], [f1], [s1], SW_XA)
+            want = sw.finish_subgrid(sw.add_to_subgrid(
+                sw.extract_from_facet(sw.prepare_facet(line, f1), s1),
+                torch.zeros(xm, dtype=line.dtype, device=dev), f1),
+                SW_XA, s1)
+            errs["SwiFTly facets -> subgrids 1-D"] = rel(got[0], want)
+            sg1 = sg[xm // 2]
+            got = dsw.subgrids_to_facets(sg1[None], [s1], [f1], SW_YB)
+            want = sw.finish_facet(sw.add_to_facet(sw.extract_from_subgrid(
+                sw.prepare_subgrid_inplace(sg1, s1), f1),
+                torch.zeros(sw.yN_size, dtype=sg1.dtype, device=dev), s1),
+                SW_YB, f1)
+            errs["SwiFTly subgrids -> facets 1-D"] = rel(got[0], want)
+
+        plan = plan_wstack(uvw[:R2_ROWS], C_0, C_0 / (100 * CHANS), CHANS,
+                           IMAGE, TOWER_SUBGRID, THETA, W_STEP, support=8,
+                           w_support=4, w_tower_height=HEIGHT)
+        kern = plan.kernel()
+        uvw_t = torch.as_tensor(uvw[:R2_ROWS], device=dev)
+        vis_t = torch.as_tensor(vis[:R2_ROWS], device=dev)
+        st = torch.zeros(R2_ROWS, dtype=torch.int32, device=dev)
+        en = torch.full((R2_ROWS,), CHANS, dtype=torch.int32, device=dev)
+        model = torch.zeros((IMAGE, IMAGE), dtype=torch.complex64,
+                            device=dev)
+        model[300, 200] = 1.0
+        plane_names = ["grid_plane", "degrid_plane"]
+        with launch_window(torch, tkern, "window r2 (sharded w-stacking)",
+                           plane_names, [n for n in tkern.launch_counts()
+                                         if n not in plane_names]
+                           ) as launches:
+            u_l, v_l, s_l, e_l = local_rows(mesh, *pad_rows_arrays(
+                uvw_t, vis_t, st, en, 1))
+            t0 = time.perf_counter()
+            img = wstack_grid_all_sharded(plan, v_l, u_l, mesh,
+                                          start_chs=s_l, end_chs=e_l)
+            torch.cuda.synchronize()
+            ms["wstack_grid_all_sharded"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            pred = gather_rows(wstack_degrid_all_sharded(
+                plan, model, u_l, mesh, vis_dtype=torch.complex64,
+                start_chs=s_l, end_chs=e_l), mesh, R2_ROWS)
+            torch.cuda.synchronize()
+            ms["wstack_degrid_all_sharded"] = \
+                (time.perf_counter() - t0) * 1e3
+            img1 = grid_all_tasks(plan, kern, vis_t, uvw_t, st, en,
+                                  device=dev)
+            pred1 = degrid_all_tasks(plan, kern, model, uvw_t, st, en,
+                                     torch.complex64, device=dev)
+        errs["sharded grid (taper-weighted)"] = rel(img * taper,
+                                                    img1 * taper)
+        errs["sharded degrid"] = rel(pred, pred1)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    say(f"# [{gpu}] window r2 (NCCL, world size 1, file store) ms: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
+    say("# window r2, distributed vs single-device calls (rel err of max): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tolerance 1e-12 complex128, {TOL:g} complex64; sharded "
+        f"drivers on the first {R2_ROWS} bench rows)")
+    if not (all(v <= 1e-12 for k, v in errs.items() if "SwiFTly" in k)
+            and all(v <= TOL for k, v in errs.items() if "sharded" in k)):
+        raise SystemExit("window r2: a distributed call disagrees with its "
+                         "single-device call")
+    return dict(launches=dict(launches), ms=ms)
+
+
+def direct_task(torch, dev, tplan, bplan, valid, uvw):
+    """r3's data: the rows of window b's largest task (the most valid
+    visibilities) with the channel ranges its box clamps them to, and its
+    sub-grid offsets."""
+    from ska_sdp_func_torch.parallel import wstack as pw
+
+    k = max(range(len(bplan.tasks)), key=lambda i: int(
+        valid[bplan.tasks[i].start:bplan.tasks[i].start
+              + bplan.tasks[i].size].sum()))
+    task = tplan.tasks[k]
+    uvw_dev = torch.as_tensor(uvw, device=dev)
+    n = uvw_dev.shape[0]
+    s_w, e_w = pw.clamp_channels_single(
+        uvw_dev, 2, tplan.freq0_hz, tplan.dfreq_hz,
+        torch.zeros(n, dtype=torch.int32, device=dev),
+        torch.full((n,), tplan.num_chan, dtype=torch.int32, device=dev),
+        *pw._wslab_bounds(tplan, task.iw))
+    s_uv, e_uv = pw.clamp_channels_uv(uvw_dev, tplan.freq0_hz,
+                                      tplan.dfreq_hz, s_w, e_w,
+                                      *pw._box_bounds(tplan, task))
+    rows = torch.nonzero(e_uv > s_uv).squeeze(1)
+    return (uvw_dev[rows], s_uv[rows], e_uv[rows],
+            pw._task_offsets(tplan, task), bplan.tasks[k])
+
+
+def direct_oracle(torch, dev, uvw_t, st, en, off, num_chan, f0, df, size):
+    """r3's calls on ``dev``: a ``size``^2 sub-grid image of the two
+    R3_POINTS, corrected by each gridder, degridded by the complex64
+    w-towers gridder (one-task K17) and the complex128 direct gridder;
+    the direct degrid's visibilities (in their channel ranges) gridded by
+    both (one-task K16) and corrected. Returns the outputs, the channel
+    mask and the direct gridder."""
+    from ska_sdp_func_torch.grid_data import GridderDirect, GridderWtowerUVW
+
+    wt = GridderWtowerUVW(size, size, THETA, W_STEP, 0.0, 0.0, 8, 16384, 4,
+                          16384)
+    direct = GridderDirect(size, size, THETA, W_STEP, 0.0, 0.0, 8)
+    image = np.zeros((size, size), complex)
+    for (px, py), a in R3_POINTS:
+        image[px * size // 64, py * size // 64] = a
+    n = uvw_t.shape[0]
+    c64 = torch.complex64
+    vis_w = wt.degrid_subgrid(
+        wt.degrid_correct(image, device=dev).to(c64), off, num_chan, f0, df,
+        uvw_t, st, en, vis=torch.zeros((n, num_chan), dtype=c64,
+                                       device=dev), device=dev)
+    vis_d = direct.degrid_subgrid(direct.degrid_correct(image, device=dev),
+                                  off, num_chan, f0, df, uvw_t, st, en,
+                                  device=dev)
+    chan = torch.arange(num_chan, device=dev)
+    mask = (chan[None, :] >= st[:, None]) & (chan[None, :] < en[:, None])
+    vis_in = torch.where(mask, vis_d, torch.zeros((), dtype=vis_d.dtype,
+                                                  device=dev))
+    grid_w = wt.grid_subgrid(
+        vis_in.to(c64), uvw_t, st, en, num_chan, f0, df,
+        torch.zeros((size, size), dtype=c64, device=dev), off, device=dev)
+    grid_d = direct.grid_subgrid(
+        vis_in, uvw_t, st, en, num_chan, f0, df,
+        torch.zeros((size, size), dtype=torch.complex128, device=dev), off,
+        device=dev)
+    return dict(vis_w=vis_w, vis_d=vis_d, grid_w=grid_w, grid_d=grid_d,
+                mask=mask, direct=direct)
+
+
+def direct_adjoint(torch, dev, direct, uvw_t, st, en, off, num_chan, f0,
+                   df, seed=23):
+    """<v, A x> and <A^T v, x> for the direct gridder A on a seeded random
+    image x and visibilities v (complex128)."""
+    rng = np.random.default_rng(seed)
+    size = direct.subgrid_size
+    x = torch.as_tensor(rng.standard_normal((size, size)), device=dev)
+    n = uvw_t.shape[0]
+    v = torch.as_tensor(rng.standard_normal((n, num_chan))
+                        + 1j * rng.standard_normal((n, num_chan)),
+                        device=dev)
+    ax = direct.degrid_subgrid(x.to(torch.complex128), off, num_chan, f0,
+                               df, uvw_t, st, en, device=dev)
+    atv = direct.grid_subgrid(v, uvw_t, st, en, num_chan, f0, df,
+                              torch.zeros((size, size),
+                                          dtype=torch.complex128,
+                                          device=dev), off, device=dev)
+    return (complex(torch.vdot(v.reshape(-1), ax.reshape(-1))),
+            complex(torch.vdot(atv.reshape(-1),
+                               x.to(torch.complex128).reshape(-1))))
+
+
+def direct_phase(torch, tkern, dev, gpu, tplan, bplan, valid, uvw):
+    """r3: the direct gridder as the sub-grid gridder's oracle on window
+    b's largest task. Returns its launches and ms."""
+    uvw_t, st, en, off, btask = direct_task(torch, dev, tplan, bplan, valid,
+                                            uvw)
+    f0, df = tplan.freq0_hz, tplan.dfreq_hz
+    names = ["grid_all_layers", "degrid_all_layers"]
+    ms = {}
+    with launch_window(torch, tkern, "window r3 (direct oracle)", names,
+                       [n for n in tkern.launch_counts()
+                        if n not in names]) as launches:
+        t0 = time.perf_counter()
+        o = direct_oracle(torch, dev, uvw_t, st, en, off, CHANS, f0, df,
+                          TOWER_SUBGRID)
+        torch.cuda.synchronize()
+        ms["oracle calls"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        lhs, rhs = direct_adjoint(torch, dev, o["direct"], uvw_t, st, en,
+                                  off, CHANS, f0, df)
+        ms["direct adjoint pair"] = (time.perf_counter() - t0) * 1e3
+    m = o["mask"]
+    vis_d = o["vis_d"][m]
+    e_deg = float((o["vis_w"][m].to(vis_d.dtype) - vis_d).abs().max()
+                  / vis_d.abs().max())
+    g_d = o["grid_d"]
+    e_grid = float((o["grid_w"].to(g_d.dtype) - g_d).abs().max()
+                   / g_d.abs().max())
+    e_adj = abs(lhs - rhs) / abs(lhs)
+    say(f"# [{gpu}] window r3 (window b's largest task: {uvw_t.shape[0]} "
+        f"rows, {int(m.sum())} visibilities in its channel ranges, "
+        f"{int(valid[btask.start:btask.start + btask.size].sum())} in the "
+        f"bucketed task; offsets {off}; 64^2 sub-grid) ms: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
+    say(f"# window r3: complex64 w-towers (one-task K17, K16) vs the "
+        f"complex128 direct gridder, of peak: degrid {e_deg:.3e}, grid "
+        f"{e_grid:.3e} (tolerance {R3_ORACLE_TOL:g}); direct adjoint "
+        f"<v, Ax> {lhs:.6e} vs <A^T v, x> {rhs:.6e}: rel {e_adj:.3e} "
+        f"(rtol {R3_ADJOINT_RTOL:g})")
+    if not (e_deg <= R3_ORACLE_TOL and e_grid <= R3_ORACLE_TOL
+            and e_adj <= R3_ADJOINT_RTOL):
+        raise SystemExit("window r3: the w-towers gridder misses the direct "
+                         "oracle, or the direct gridder its adjoint")
+    return dict(launches=dict(launches), ms=ms)
+
+
+# r4: window q's data (64 times x 256 baselines, 64 channels, 4 pols)
+# from a seeded [64, 4, 512, 512, 4] complex64 grid, the port's PSWF
+# tables as the custom kernels (their first R4_OVERSAMPLING rows).
+R4_W_PLANES, R4_OVERSAMPLING, R4_CPU_TIMES = 4, 16384, 2
+
+
+def custom_phase(torch, tkern, dev, gpu, uvw):
+    """r4: degrid_uvw_custom on the card, its first times against the
+    port's CPU run."""
+    from ska_sdp_func_torch.grid_data import (
+        degrid_uvw_custom,
+        make_pswf_kernel,
+    )
+
+    uvw4 = uvw.reshape(Q_TIMES, Q_BASELINES, 3)
+    uv_k = make_pswf_kernel(8, 8, R4_OVERSAMPLING)[:R4_OVERSAMPLING]
+    w_k = make_pswf_kernel(R4_W_PLANES, R4_W_PLANES,
+                           R4_OVERSAMPLING)[:R4_OVERSAMPLING]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    grid = torch.randn((CHANS, R4_W_PLANES, IMAGE, IMAGE, Q_POLS),
+                       dtype=torch.complex64, device=dev, generator=gen)
+    args = (uv_k, w_k, THETA, W_STEP, C_0, C_0 / (100 * CHANS))
+    with launch_window(torch, tkern, "window r4 (custom degrid)", [],
+                       tkern.launch_counts()):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = degrid_uvw_custom(grid, uvw4, *args, device=dev)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = cuda_ms(torch, lambda: degrid_uvw_custom(grid, uvw4, *args,
+                                                      device=dev), 3, 1)
+    finite(torch, (("r4 visibilities", got),))
+    t_cpu = time.perf_counter()
+    want = degrid_uvw_custom(grid.cpu(), uvw4[:R4_CPU_TIMES], *args,
+                             device="cpu")
+    t_cpu = time.perf_counter() - t_cpu
+    err = rel_err(got[:R4_CPU_TIMES].cpu(), want)
+    zero = float((got == 0).all(dim=-1).float().mean())
+    say(f"# [{gpu}] window r4 degrid_uvw_custom ({tuple(got.shape)} from a "
+        f"{tuple(grid.shape)} complex64 grid, {grid.numel() * 8 / 2**30:.2f}"
+        f" GiB): {ms:.2f} ms a call (CUDA events), peak {peak / 2**30:.2f} "
+        f"GiB above the inputs; off-grid share {zero:.4f}; first "
+        f"{R4_CPU_TIMES} times vs the CPU run {err:.3e} of max (tolerance "
+        f"{TOL:g}; CPU {t_cpu:.1f} s)")
+    if tuple(got.shape) != (Q_TIMES, Q_BASELINES, CHANS, Q_POLS) \
+            or not err <= TOL:
+        raise SystemExit("window r4: the custom degrid disagrees with the "
+                         "CPU run")
+    return dict(ms=ms, peak_gib=peak / 2**30)
+
+
+def height_phase(torch, tkern, dev, gpu):
+    """r5: the w-tower height search at the bench gridder, card against
+    CPU (complex128 throughout: the sub-grid gridder's plain path)."""
+    from ska_sdp_func_torch.grid_data import determine_max_w_tower_height
+
+    with launch_window(torch, tkern, "window r5 (w-tower height)", [],
+                       tkern.launch_counts()):
+        t0 = time.perf_counter()
+        height = determine_max_w_tower_height(**R5_HEIGHT, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = determine_max_w_tower_height(**R5_HEIGHT, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    say(f"# [{gpu}] window r5 determine_max_w_tower_height({R5_HEIGHT}): "
+        f"{height} on the card in {wall:.2f} s wall, {host} on the CPU in "
+        f"{t_cpu:.2f} s; the complex128 image takes the sub-grid gridder's "
+        f"plain path (no kernel launched)")
+    if height != host:
+        raise SystemExit("window r5: the card's tower height differs from "
+                         "the CPU run's")
+    return dict(wall_s=wall, height=height)
+
+
+def window_r(torch, tkern, dev, gpu, tplan, bplan, valid, uvw, vis, taper):
+    """Window r (see the docstring, 4r). Returns {"launches": counts
+    summed over r2 and r3, "ms": each stage's numbers}."""
+    sw, facets, layout, r1 = swiftly_phase(torch, tkern, dev, gpu)
+    r2 = dist_phase(torch, tkern, dev, gpu, sw, facets, layout, uvw, vis,
+                    taper)
+    del facets
+    torch.cuda.empty_cache()
+    r3 = direct_phase(torch, tkern, dev, gpu, tplan, bplan, valid, uvw)
+    r4 = custom_phase(torch, tkern, dev, gpu, uvw)
+    r5 = height_phase(torch, tkern, dev, gpu)
+    launches = {}
+    for part in (r2, r3):
+        for k, v in part["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return dict(launches=launches,
+                ms=dict(r1=r1, r2=r2["ms"], r3=r3["ms"], r4=r4, r5=r5))
+
+
+def window_r_times(torch, dev):
+    """``chip_smoke.py --window-r``: window r alone on the bench plans."""
+    from ska_sdp_func_torch import kernels as tkern
+    from ska_sdp_func_torch.grid_data import grid_correct_pswf
+    from ska_sdp_func_torch.parallel import plan_bucketed, plan_wstack
+
+    gpu = run(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    uvw, vis = bench_inputs()
+    tplan = plan_wstack(uvw, C_0, C_0 / (100 * CHANS), CHANS, IMAGE,
+                        TOWER_SUBGRID, THETA, W_STEP, support=8, w_support=4,
+                        w_tower_height=HEIGHT)
+    bplan, _, valid = plan_bucketed(tplan, uvw)
+    taper = 1.0 / grid_correct_pswf(IMAGE, THETA, W_STEP, 0.0, 0.0, 8, 4,
+                                    torch.ones((IMAGE, IMAGE), device=dev))
+    t0 = time.perf_counter()
+    out = window_r(torch, tkern, dev, gpu, tplan, bplan, valid, uvw, vis,
+                   taper)
+    return dict(window_r=out["ms"], launches=out["launches"],
+                seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
 
@@ -4136,6 +4905,14 @@ def main() -> int:
     q_out = ingest_phase(torch, tkern, bk, tt, dev, gpu, tplan, uvw, taper)
     say(f"# window q: {time.perf_counter() - t0:.1f} s")
 
+    # 4r. SwiFTly at the reference's 16k configuration, the distributed
+    # layer under a one-rank NCCL group, the direct oracle, the custom
+    # degridder and the w-tower height search ---------------------------
+    t0 = time.perf_counter()
+    r_out = window_r(torch, tkern, dev, gpu, tplan, bplan, valid, uvw, vis,
+                     taper)
+    say(f"# window r: {time.perf_counter() - t0:.1f} s")
+
     # 5. times -----------------------------------------------------------
     # The packed path's calls and K1/K2 (packed_times, as --packed-times
     # runs it on any checkout).
@@ -4760,6 +5537,11 @@ def main() -> int:
                      ptxas=exp_ptxas["place_stream_kernel"].get((1,)),
                      **place_dev)
     kernels = [prep_row(window_row(r)) for r in kernels]
+    for r in kernels:
+        # K14-K17's launches in window r (r2's sharded drivers, r3's
+        # one-task sub-grid gridder).
+        if r["name"] in dict(TOWER_KERNELS):
+            r["launches_window_r"] = r_out["launches"][r["name"]]
     say("# device-time traces: " + trace_summary())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
@@ -4798,7 +5580,7 @@ TIMES = {"--packed-times": packed_times, "--predict-times": predict_times,
          "--ingest-times": ingest_times,
          "--experiment-times": experiment_times,
          "--sparse-place-times": sparse_place_times,
-         "--trace-age": trace_age}
+         "--trace-age": trace_age, "--window-r": window_r_times}
 
 
 if __name__ == "__main__":

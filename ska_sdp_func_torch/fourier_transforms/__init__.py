@@ -1,5 +1,5 @@
-"""Batched FFTs (planned and shifted), FFT size padding and the PSWF
-(host sampler and device Legendre evaluation)."""
+"""Batched FFTs (planned and shifted), FFT size padding, the PSWF
+(host sampler and device Legendre evaluation) and SwiFTly."""
 
 from .fft import (
     Fft,
@@ -31,4 +31,14 @@ __all__ = [
     "pswf_coefficients",
     "pswf_evaluate",
     "pswf_evaluate_host",
+    # lazy (PEP 562) export resolves in __getattr__ below
+    "Swiftly",
 ]
+
+
+def __getattr__(name):
+    if name == "Swiftly":
+        from .swiftly import Swiftly
+
+        return Swiftly
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

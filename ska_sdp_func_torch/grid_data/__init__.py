@@ -1,7 +1,8 @@
 """Gridding helpers and drivers: kernel tables, grid correction, channel
 clamping, sub-grid placement, array algebra, image <-> component lists,
 the direct Fourier transforms, the w-towers gridder, the w-stacking
-whole-image drivers and the ES-FFT gridder."""
+whole-image drivers, the ES-FFT gridder, and (lazily) the direct
+gridder, the custom degridder and the w-tower height search."""
 
 from .clamp_channels import (
     clamp_channels_inline,
@@ -46,6 +47,12 @@ from .wstack import wstack_wtower_degrid_all, wstack_wtower_grid_all
 from .wtower import GridderWtowerUVW
 
 __all__ = [
+    # lazy (PEP 562) exports resolve in __getattr__ below
+    "GridderDirect",
+    "degrid_uvw_custom",
+    "determine_max_w_tower_height",
+    "find_max_w_tower_height",
+    "worst_case_image",
     "GridderUvwEsFft",
     "GridderWtowerUVW",
     "accumulate_scaled_arrays",
@@ -81,3 +88,20 @@ __all__ = [
     "wstack_wtower_degrid_all",
     "wstack_wtower_grid_all",
 ]
+
+
+_LAZY = {
+    "GridderDirect": ".direct",
+    "degrid_uvw_custom": ".custom",
+    "determine_max_w_tower_height": ".wtower_height",
+    "find_max_w_tower_height": ".wtower_height",
+    "worst_case_image": ".wtower_height",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name], __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -330,6 +330,24 @@ def _offsets_and_active(uvws, start_chs, end_chs, subgrid_offset_u,
     return dtype, offsets, active
 
 
+# The direct transforms materialise a [rows, channels, components] phase
+# and phasor. They take rows in chunks of at most _DFT_CHUNK elements:
+# 2^24 elements hold the complex128 phasor in 256 MiB, and its f64 phase,
+# cosine and sine in as much again, so a chunk needs about 0.8 GiB. At the
+# bench task's width (a 64^2 sub-grid's 4096 pixels x 64 channels) that is
+# 64 rows a chunk: few enough launches that the card stays busy, far
+# below the gigabytes a whole task's rows would take at once.
+_DFT_CHUNK = 1 << 24
+
+
+def _row_chunks(num_rows: int, per_row: int):
+    """Row slices of at most ``_DFT_CHUNK`` elements (at least one row,
+    and one empty slice for no rows)."""
+    step = max(1, _DFT_CHUNK // max(1, per_row))
+    for start in range(0, max(num_rows, 1), step):
+        yield slice(start, start + step)
+
+
 def _uvw_scaled(uvws, offsets, freq0_hz, dfreq_hz, num_chan, dtype):
     """``uvw[r, k] * inv_wave[c] - offsets[k]``, ``[rows, chan, 3]``."""
     chan = torch.arange(num_chan, dtype=dtype, device=uvws.device)
@@ -367,12 +385,17 @@ def dft(uvws, flux, lmn, start_chs=None, end_chs=None,
         uvws, start_chs, end_chs, subgrid_offset_u, subgrid_offset_v,
         subgrid_offset_w, theta, w_step,
         torch.promote_types(uvws.dtype, torch.float32))
-    uvw_scaled = _uvw_scaled(uvws, offsets, freq0_hz, dfreq_hz,
-                             int(num_chan), dtype)
-    phase = -2.0 * math.pi * torch.einsum("rck,sk->rcs", uvw_scaled,
-                                          lmn.to(dtype))
-    phasor = torch.complex(torch.cos(phase), torch.sin(phase))
-    contribution = (phasor @ flux.to(phasor.dtype)) * active[:, None]
+    lmn = lmn.to(dtype)
+    parts = []
+    for rows in _row_chunks(uvws.shape[0], int(num_chan) * lmn.shape[0]):
+        uvw_scaled = _uvw_scaled(uvws[rows], offsets, freq0_hz, dfreq_hz,
+                                 int(num_chan), dtype)
+        phase = -2.0 * math.pi * torch.einsum("rck,sk->rcs", uvw_scaled,
+                                              lmn)
+        phasor = torch.complex(torch.cos(phase), torch.sin(phase))
+        parts.append((phasor @ flux.to(phasor.dtype))
+                     * active[rows, None])
+    contribution = torch.cat(parts) if len(parts) > 1 else parts[0]
     if vis is not None:
         return vis + contribution.to(vis.dtype)
     return contribution
@@ -401,15 +424,18 @@ def idft(uvws, vis, lmn, start_chs=None, end_chs=None, image_taper_1d=None,
     dtype, offsets, active = _offsets_and_active(
         uvws, start_chs, end_chs, subgrid_offset_u, subgrid_offset_v,
         subgrid_offset_w, theta, w_step, vis.dtype)
-    uvw_scaled = _uvw_scaled(uvws, offsets, freq0_hz, dfreq_hz,
-                             vis.shape[1], dtype)
-    phase = 2.0 * math.pi * torch.einsum("sk,rck->src", lmn.to(dtype),
-                                         uvw_scaled)
-    phasor = torch.complex(torch.cos(phase), torch.sin(phase))
     masked_vis = vis * active[:, None]
-    flat = torch.einsum("src,rc->s", phasor,
-                        masked_vis.to(torch.promote_types(phasor.dtype,
-                                                          vis.dtype)))
+    lmn = lmn.to(dtype)
+    flat = None
+    for rows in _row_chunks(uvws.shape[0], vis.shape[1] * lmn.shape[0]):
+        uvw_scaled = _uvw_scaled(uvws[rows], offsets, freq0_hz, dfreq_hz,
+                                 vis.shape[1], dtype)
+        phase = 2.0 * math.pi * torch.einsum("sk,rck->src", lmn,
+                                             uvw_scaled)
+        phasor = torch.complex(torch.cos(phase), torch.sin(phase))
+        part = torch.einsum("src,rc->s", phasor, masked_vis[rows].to(
+            torch.promote_types(phasor.dtype, vis.dtype)))
+        flat = part if flat is None else flat + part
     result = flat.reshape(image_shape)
     if image_taper_1d is not None:
         result = result * image_taper_1d[:, None] * image_taper_1d[None, :]

@@ -3,8 +3,9 @@
 This system has no learned weights: the state both packages must share
 is the plan (sort order, taps, task layout). :func:`from_jax_plan` turns
 a ``ska_sdp_func_tpu`` ``WStackPlan`` or ``PackedPlan`` into the port's,
-:func:`from_jax_stream_plan` a ``StreamPlan`` and :func:`from_jax_es_plan`
-a ``GridderUvwEsFft``, by reading dataclass fields, task tuples, scalars
+:func:`from_jax_stream_plan` a ``StreamPlan``, :func:`from_jax_es_plan`
+a ``GridderUvwEsFft`` and :func:`from_jax_swiftly` a ``Swiftly``, by
+reading dataclass fields, task tuples, scalars
 and the NumPy ``arrays``/``consts`` by attribute, so they need no jax
 import and both packages compute on identical plans. Images and models
 are plain arrays: NumPy in, tensors out.
@@ -12,6 +13,7 @@ are plain arrays: NumPy in, tensors out.
 
 from dataclasses import fields
 
+from ..fourier_transforms.swiftly import Swiftly
 from ..grid_data.es_fft import GridderUvwEsFft
 from ..grid_data.es_fft_packed import EsPackedPlan, attach
 from ..utility.tensors import resolve_device
@@ -69,4 +71,14 @@ def from_jax_es_plan(jplan, device=None) -> GridderUvwEsFft:
     if jp is not None:
         ep = _copy(EsPackedPlan, jp, arrays=dict(jp.arrays), dev=None)
         plan._packed = attach(plan, ep)
+    return plan
+
+
+def from_jax_swiftly(sw, device=None) -> Swiftly:
+    """Port of a JAX ``Swiftly`` plan on ``device`` (``None``: the CUDA
+    card): its geometry, and its ``Fn`` / ``Fb`` tables copied as they
+    are."""
+    plan = Swiftly(sw.image_size, sw.yN_size, sw.xM_size, sw.W,
+                   device=device)
+    plan._set_tables(sw.Fn, sw.Fb)
     return plan

@@ -14,7 +14,12 @@ reference sdp_grid_wstack_wtower.cpp:24-165, 310-330):
    drivers run on ``device`` (``None``: the CUDA card; CPU runs pass
    ``device="cpu"``) and move their inputs there.
 
-The mesh-sharded wrappers are not ported yet (ROADMAP Queue 1 item 15).
+3. **Shard** (:func:`wstack_grid_all_sharded`,
+   :func:`wstack_degrid_all_sharded`): each rank of a process mesh
+   (:func:`.mesh.make_mesh`) runs the task drivers on its own block of
+   rows; the grid sums the ranks' images with one ``all_reduce``, the
+   degrid needs no collective and returns the rank's rows
+   (:func:`.mesh.gather_rows` puts them back in order).
 """
 
 import math
@@ -23,6 +28,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import native
 from ..fourier_transforms.fft import fft_shifted, ifft_shifted_norm
@@ -40,6 +46,7 @@ from ..grid_data.wtower import (
     _grid_all_planes,
 )
 from ..utility.tensors import host_uvw, resolve_device, to_device
+from .mesh import ROW_AXIS, mesh_device
 
 _KERNEL_CACHE: dict = {}
 
@@ -271,3 +278,71 @@ def degrid_all_tasks(plan: WStackPlan, kernel: GridderWtowerUVW, image, uvw,
                 plan.support, plan.oversampling, plan.w_support,
                 plan.w_oversampling, plan.subgrid_size, 0, uvw.shape[0])
     return vis
+
+
+# ---------------------------------------------------------------------------
+# Mesh-sharded drivers
+# ---------------------------------------------------------------------------
+
+def _local_channels(plan: WStackPlan, num_rows: int, start_chs, end_chs,
+                    device):
+    """A rank's channel ranges: the caller's, or every channel."""
+    if start_chs is None:
+        start_chs = torch.zeros((num_rows,), dtype=torch.int32,
+                                device=device)
+    if end_chs is None:
+        end_chs = torch.full((num_rows,), plan.num_chan, dtype=torch.int32,
+                             device=device)
+    return start_chs, end_chs
+
+
+def wstack_grid_all_sharded(plan: WStackPlan, vis, uvw, mesh,
+                            kernel: GridderWtowerUVW = None,
+                            axis_name: str = ROW_AXIS, image_dtype=None,
+                            start_chs=None,
+                            end_chs=None) -> torch.Tensor:
+    """Grid the mesh's visibilities into one image, on every rank.
+
+    ``vis`` ``[rows, num_chan]`` and ``uvw`` ``[rows, 3]`` are this rank's
+    block of rows (the rank's :func:`.mesh.local_rows` of the arrays
+    :func:`.mesh.pad_rows_arrays` padded), with its channel ranges
+    (``None``: every channel; pad rows have ``end_ch = 0``). Each rank
+    grids its rows through the static task list on its device
+    (:func:`.mesh.mesh_device`) and one ``all_reduce`` sums the images:
+    the single-device :func:`grid_all_tasks` over all rows, up to the
+    order of the sum. Returns the image as ``image_dtype`` (``None``:
+    ``vis``'s dtype; a real dtype takes the real part)."""
+    if kernel is None:
+        kernel = plan.kernel()
+    dev = mesh_device(mesh)
+    vis, uvw = to_device(vis, dev), to_device(uvw, dev)
+    start_chs, end_chs = _local_channels(plan, uvw.shape[0], start_chs,
+                                         end_chs, dev)
+    image = grid_all_tasks(plan, kernel, vis, uvw, start_chs, end_chs,
+                           device=dev)
+    dist.all_reduce(torch.view_as_real(image),
+                    group=mesh.get_group(axis_name))
+    image_dtype = vis.dtype if image_dtype is None else image_dtype
+    if not image_dtype.is_complex:
+        image = image.real
+    return image.to(image_dtype)
+
+
+def wstack_degrid_all_sharded(plan: WStackPlan, image, uvw, mesh,
+                              kernel: GridderWtowerUVW = None,
+                              axis_name: str = ROW_AXIS,
+                              vis_dtype=torch.complex128, start_chs=None,
+                              end_chs=None) -> torch.Tensor:
+    """Degrid a replicated image into this rank's visibilities
+    ``[rows, num_chan]``: ``uvw`` and the channel ranges as in
+    :func:`wstack_grid_all_sharded`. The forward operator is
+    row-separable, so no collective runs; :func:`.mesh.gather_rows`
+    collects the ranks' rows in order."""
+    if kernel is None:
+        kernel = plan.kernel()
+    dev = mesh_device(mesh)
+    uvw = to_device(uvw, dev)
+    start_chs, end_chs = _local_channels(plan, uvw.shape[0], start_chs,
+                                         end_chs, dev)
+    return degrid_all_tasks(plan, kernel, image, uvw, start_chs, end_chs,
+                            vis_dtype, device=dev)

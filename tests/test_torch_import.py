@@ -36,10 +36,13 @@ MODULES = [
     "ska_sdp_func_torch.fourier_transforms",
     "ska_sdp_func_torch.fourier_transforms.fft",
     "ska_sdp_func_torch.fourier_transforms.pswf",
+    "ska_sdp_func_torch.fourier_transforms.swiftly",
     "ska_sdp_func_torch.station_beam",
     "ska_sdp_func_torch.station_beam.element",
     "ska_sdp_func_torch.station_beam.station",
     "ska_sdp_func_torch.grid_data",
+    "ska_sdp_func_torch.grid_data.custom",
+    "ska_sdp_func_torch.grid_data.direct",
     "ska_sdp_func_torch.grid_data.es_fft",
     "ska_sdp_func_torch.grid_data.es_fft_packed",
     "ska_sdp_func_torch.grid_data.es_params",
@@ -47,6 +50,7 @@ MODULES = [
     "ska_sdp_func_torch.grid_data.gridder_utils",
     "ska_sdp_func_torch.grid_data.kernels",
     "ska_sdp_func_torch.grid_data.wtower",
+    "ska_sdp_func_torch.grid_data.wtower_height",
     "ska_sdp_func_torch.kernels",
     "ska_sdp_func_torch.kernels._build",
     "ska_sdp_func_torch.kernels.band_tap",
@@ -68,8 +72,10 @@ MODULES = [
     "ska_sdp_func_torch.parallel",
     "ska_sdp_func_torch.parallel.bucketed",
     "ska_sdp_func_torch.parallel.convert",
+    "ska_sdp_func_torch.parallel.mesh",
     "ska_sdp_func_torch.parallel.packed",
     "ska_sdp_func_torch.parallel.streaming",
+    "ska_sdp_func_torch.parallel.swiftly_dist",
     "ska_sdp_func_torch.parallel.wstack",
     "ska_sdp_func_torch.pipeline",
     "ska_sdp_func_torch.pipeline.checkpoint",

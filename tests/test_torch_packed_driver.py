@@ -223,7 +223,8 @@ def test_fused_engine_matches_jax(scenario, prec):
     "ms_clean_cornwell", "fista_imager", "dirty_and_psf", "grid_all_packed",
     "degrid_all_packed", "load_state", "flagger_dynamic_threshold",
     "briggs_weights", "bucket_sort", "aperture_array", "ingest_to_solver",
-    "dft"])
+    "dft", "Swiftly", "GridderDirect", "degrid_uvw_custom",
+    "determine_max_w_tower_height"])
 def test_entry_points_default_to_the_card(scenario, entry, tmp_path):
     """Without ``device`` every entry point runs on the CUDA card, never
     the CPU, even for NumPy or CPU-tensor inputs: on a host with no card
@@ -332,6 +333,26 @@ def test_entry_points_default_to_the_card(scenario, entry, tmp_path):
             np.zeros(2), np.zeros(2)),
         "ingest_to_solver": lambda: ingest_to_solver(vis4d, w4d),
         "dft": lambda: dft(uvw[:4], np.ones(1), np.zeros((1, 3))),
+    })
+    # SwiFTly and the reference-API gridders of the port's last slice.
+    from ska_sdp_func_torch.fourier_transforms import Swiftly
+    from ska_sdp_func_torch.grid_data import (
+        GridderDirect,
+        degrid_uvw_custom,
+        determine_max_w_tower_height,
+    )
+
+    direct = GridderDirect(IMAGE_SIZE, PARAMS["subgrid_size"],
+                           PARAMS["theta"], PARAMS["w_step"], 0.0, 0.0, 8)
+    calls.update({
+        "Swiftly": lambda: Swiftly(1024, 512, 256, 13.5625),
+        "GridderDirect": lambda: direct.degrid_subgrid(
+            sub, (0, 0, 0), NUM_CHAN, FREQ0, DFREQ, uvw, st, en),
+        "degrid_uvw_custom": lambda: degrid_uvw_custom(
+            np.zeros((1, 2, 16, 16, 1), np.complex64), uvw3,
+            np.ones((4, 4)), np.ones((4, 2)), 0.01, 100.0, FREQ0, 0.0),
+        "determine_max_w_tower_height": lambda: determine_max_w_tower_height(
+            64, 32, 0.002, 100.0, fov=0.001),
     })
     path = str(tmp_path / "state.npz")
     save_state(path, img, img, 1)

@@ -99,6 +99,23 @@ def test_from_jax_plan_round_trip(plans):
     assert from_jax_plan(plans["jax"]) == plans["torch"]
 
 
+def test_from_jax_swiftly_round_trip():
+    """A JAX SwiFTly plan carried across: the geometry, and Fn / Fb bit
+    for bit, on the device asked for."""
+    from ska_sdp_func_torch.parallel import from_jax_swiftly
+    from ska_sdp_func_tpu.fourier_transforms import Swiftly
+
+    for geometry in ((1024, 512, 256, 13.5625), (2048, 1024, 512, 12.0)):
+        jsw = Swiftly(*geometry)
+        conv = from_jax_swiftly(jsw, device="cpu")
+        assert (conv.image_size, conv.yN_size, conv.xM_size, conv.W) \
+            == geometry
+        assert conv.get_contribution_size() == jsw.get_contribution_size()
+        np.testing.assert_array_equal(conv.Fn.numpy(), np.asarray(jsw.Fn))
+        np.testing.assert_array_equal(conv.Fb.numpy(), np.asarray(jsw.Fb))
+        assert conv.Fn.device.type == "cpu"
+
+
 def test_plan_packed_rejects_unsupported_geometry(plans):
     bad = t_plan_wstack(plans["uvw"], FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE,
                         **{**PARAMS, "subgrid_size": 96})
