@@ -9,6 +9,7 @@
     (cd CHECKOUT && python3 /path/to/chip_smoke.py --sparse-place-times)
     python3 chip_smoke.py --trace-age
     python3 chip_smoke.py --window-r
+    python3 chip_smoke.py --window-s
 
 Run from the repository root on a machine with a CUDA card. With
 ``--packed-times`` it only times the packed path (K1/K2 in "high" and
@@ -35,7 +36,8 @@ dense stream's plan + K5 stages with their placed arrays' digests), and
 as one profile without a lead and once until whole (one JSON line each
 time: the profiler's lost records as the process ages), and
 ``--window-r`` runs window r (below) alone after the build, on the
-bench plans (one JSON line of its stages' numbers). Phases, one line
+bench plans (one JSON line of its stages' numbers), and ``--window-s``
+window s the same way. Phases, one line
 of output each (or a few), failing loudly on the first fault:
 
 1. toolchain: the card's name and power limit (nvidia-smi), torch, CUDA
@@ -220,6 +222,35 @@ of output each (or a few), failing loudly on the first fault:
       ``determine_max_w_tower_height`` at the bench gridder, equal to the
       CPU run's, on the plain complex128 path (no kernel); each stage's
       time on a line with the card's name and power limit;
+   s. the sharded drivers (ROADMAP item 15b), in two parts: (s1) under a
+      one-rank NCCL group met through a file store, every sharded entry
+      point at the bench scenario, each in a launch window of its own and
+      against its single-device call on the card: the packed gridder's
+      ``grid_sorted_sharded`` / ``degrid_sorted_sharded`` /
+      ``degrid_sharded`` in "high", "bf16" and "highest" (K1/K2) and the
+      fused (K3/K4) and compact (K12/K13) engines, window b's
+      ``grid_all_bucketed_sharded`` (K16), the streaming step and predict
+      with ``mesh=`` on windows f's and j's plans (both branches),
+      ``ingest_flag_and_weight_sharded`` on window q's width, one
+      ``major_cycle_imager(bucketed=True, mesh=)`` iteration with a
+      ``SolverCheckpointer`` (its barrier), two ``fista_imager(mesh=)``
+      iterations and a ``bucketed=False`` solve on the unit point's first
+      REF_ROWS rows (K14/K15), and the dense stream planned at cap /
+      S_SHARDS, whose overflowed chunk must void (zero image, counters
+      [0, 0, 1]) and make ``finalize`` raise; the first all_reduce and
+      each call timed (the second of two; each solver on one device and
+      sharded in turn, twice); (s2) the shards of S_SHARDS ranks in one
+      process without a collective: the plan padded for them (at the first
+      block size whose blocks they do not divide), each rank's
+      sub-plan gridder in every packed mode, its K1/K2 (K3/K4, K12/K13)
+      against their plain versions on its own slots, and the window s
+      streaming plans at S_SHARDS times their capacity, each shard's
+      K5-K11 through its chunk block at cap / S_SHARDS against the plain
+      versions (and which shards overflow at the streams' own cap /
+      S_SHARDS, which one must, and at larger cap factors,
+      S_CAP_FACTORS); the shards' planes summed on the card against the
+      one-device image (S_SHARD_TOL, taper-weighted), their predictions
+      against the one-device predictions; each shard's K1/K2 timed;
 5. times: grid, degrid and one major-cycle iteration of the packed path
    (and one msclean and one FISTA iteration beside the Hogbom one; and
    ``packed_times``: wall, host enqueue and device time, busy share and
@@ -260,7 +291,10 @@ active entries' operands and the stack or result
 batched wrapper) carry the batched call at window b's stream, its
 launches in window b, ``launches_window_q`` theirs in window q,
 ``launches_window_r`` theirs in window r (as K14/K15's rows carry), and
-``single_task_*`` for the one-task call on the largest task. K4, K11,
+``single_task_*`` for the one-task call on the largest task. Every row
+carries ``launches_window_s``: its wrapper's launches in window s1 (all
+modes of the wrapper together, K16/K17's batched wrapper; 0 where window
+s does not run it, and on the experiments' rows). K4, K11,
 K13 and K19 (redesigned: one template in ``csrc/window_gather.cu``) carry ``redesigned``, their template
 ``instance`` and its ``ptxas`` registers and spills; K11 has a row at
 window j's dense stream (``degrid_fused[dense stream]``) beside its
@@ -300,6 +334,7 @@ imports nothing of jax.
 import contextlib
 import functools
 import json
+import math
 import os
 import re
 import subprocess
@@ -708,6 +743,13 @@ def stream_inputs():
     return uvw, vis
 
 
+def slot_tensors(g):
+    """A packed gridder's per-slot tensors: its ``slots`` (older
+    checkouts, which the timing modes also run, keep them on the
+    gridder)."""
+    return getattr(g, "slots", g)
+
+
 def kernel_operands(torch, g, pplan, dev, seed):
     """Seeded stream and stack operands at the plan's shapes."""
     rng = np.random.default_rng(seed)
@@ -719,11 +761,12 @@ def kernel_operands(torch, g, pplan, dev, seed):
     stack = torch.as_tensor(rng.standard_normal(
         (len(pplan.tasks), 2, pplan.num_layers * (g_p + 8), g_p)),
         dtype=torch.float32, device=dev)
-    grid_args = (g.t_idx, g.k_idx, g.g_idx, g.ubase, g.vband,
-                 (g.wk_t, vre, vim), len(pplan.tasks), pplan.num_layers,
+    sl = slot_tensors(g)
+    grid_args = (sl.t_idx, sl.k_idx, sl.g_idx, sl.ubase, sl.vband,
+                 (sl.wk_t, vre, vim), len(pplan.tasks), pplan.num_layers,
                  g_p, pplan.wplan.w_support)
-    degrid_args = (stack, g.t_idx, g.k_idx, g.g_idx, g.ubase, g.vband_t,
-                   g.wk_t, pplan.wplan.w_support)
+    degrid_args = (stack, sl.t_idx, sl.k_idx, sl.g_idx, sl.ubase,
+                   sl.vband_t, sl.wk_t, pplan.wplan.w_support)
     return grid_args, degrid_args
 
 
@@ -1615,8 +1658,8 @@ def packed_times(torch, dev):
         grid_args, degrid_args = kernel_operands(torch, g, pplan, dev, 12)
         # The run table where the gridder has one (built once a plan).
         call_kw = dict(block_v=pplan.block_v)
-        if getattr(g, "runs", None) is not None:
-            call_kw["runs"] = g.runs
+        if getattr(slot_tensors(g), "runs", None) is not None:
+            call_kw["runs"] = slot_tensors(g).runs
         for name, fn, args in (("grid_packed_stack", tk.grid_packed_stack,
                                 grid_args),
                                ("degrid_stack", tk.degrid_stack,
@@ -4111,6 +4154,529 @@ def window_r_times(torch, dev):
                 seconds=time.perf_counter() - t0)
 
 
+# -- window s: the sharded drivers (item 15b) --------------------------------
+
+# s2's rank count, and the packed modes both parts drive: tag ->
+# packed_gridder's options (engine, precision, fast; "bf16" is the bf16
+# bands of fast=True), and each engine's two kernels.
+S_SHARDS = 4
+S_PACKED = {"high": ("bands", "high", False), "bf16": ("bands", "bf16", True),
+            "highest": ("bands", "highest", False),
+            "fused": ("fused", "highest", False),
+            "compact": ("compact", "highest", False)}
+S_PACKED_KERNELS = {"bands": ("grid_packed_stack", "degrid_stack"),
+                    "fused": ("grid_fused_stack", "degrid_fused2_stack"),
+                    "compact": ("grid_compact", "degrid_compact")}
+# s2's capacity factors: the streams' own first (cap / n a shard overflows).
+S_CAP_FACTORS = (STREAM_CAP_FACTOR, 2.0, 2.8, 4.0, 5.6)
+S_SHARD_TOL = 1e-4   # the ranks' summed planes vs one device, taper-weighted
+
+
+def packed_swaps(engine):
+    """The plain-version swaps of a packed engine's two kernels (the
+    gridder calls K1/K2 by the names packed.py imports, K3/K4 and K12/K13
+    through ``fused_tap``)."""
+    from ska_sdp_func_torch.kernels import fused_tap
+    from ska_sdp_func_torch.kernels import packed_tap as tk
+    from ska_sdp_func_torch.parallel import packed as tpacked
+
+    if engine == "bands":
+        return [(tpacked, n, tk) for n in S_PACKED_KERNELS[engine]]
+    return [(fused_tap, n, fused_tap) for n in S_PACKED_KERNELS[engine]]
+
+
+def sharded_phase(torch, tkern, dev, gpu, plan, pplan, uvw, vis, model,
+                  bplan, sort_index, valid, streams, taper):
+    """s1: every sharded entry point under a one-rank NCCL group (a file
+    store), each against its single-device call. ``streams``: {branch:
+    (stream plan, uvw, vis)} on the card."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ska_sdp_func_torch.parallel import (
+        StreamingDegridder,
+        StreamingGridder,
+        grid_all_bucketed,
+        grid_all_bucketed_sharded,
+        make_mesh,
+        packed_gridder,
+        plan_stream,
+        plan_wstack,
+    )
+    from ska_sdp_func_torch.parallel import packed as tpacked
+    from ska_sdp_func_torch.pipeline import (
+        SolverCheckpointer,
+        fista_imager,
+        ingest_flag_and_weight,
+        ingest_flag_and_weight_sharded,
+        major_cycle_imager,
+    )
+    from ska_sdp_func_torch.utility.errors import SdpRuntimeError
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_s1_")
+    errs, ms, launches = {}, {}, {}
+    everything = list(tkern.launch_counts())
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    @contextlib.contextmanager
+    def window(label, need):
+        with launch_window(torch, tkern, f"window s1 ({label})", need,
+                           [n for n in everything if n not in need]) as c:
+            yield
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+
+    try:
+        mesh = timed("group start", lambda: make_mesh(
+            1, device=dev, rank=0, timeout=120.0,
+            init_method="file://" + os.path.join(store, "pg")))
+        probe = torch.ones(4, device=dev)
+        timed("first all_reduce", lambda: dist.all_reduce(
+            probe, group=mesh.get_group("rows")))
+        timed("second all_reduce", lambda: dist.all_reduce(
+            probe, group=mesh.get_group("rows")))
+        for tag, (engine, precision, fast) in S_PACKED.items():
+            g = packed_gridder(pplan, engine=engine, precision=precision,
+                               fast=fast, device=dev)
+            # Each call twice, the second timed (the first builds the
+            # shard's, or the gridder's, device tensors).
+            with window(f"packed {tag}", S_PACKED_KERNELS[engine]):
+                vre, vim = g.sort_sharded(vis, mesh)
+                for _ in range(2):
+                    img = timed(f"grid_sorted_sharded {tag}",
+                                lambda: g.grid_sorted_sharded(vre, vim,
+                                                              mesh))
+                    pred = timed(f"degrid_sorted_sharded {tag}",
+                                 lambda: g.degrid_sorted_sharded(model,
+                                                                 mesh))
+                nat = g.degrid_sharded(model, mesh)
+            vre, vim = g.sort(vis)
+            for _ in range(2):
+                img1 = timed(f"grid_sorted {tag}",
+                             lambda: g.grid_sorted(vre, vim))
+                pred1 = timed(f"degrid_sorted {tag}",
+                              lambda: g.degrid_sorted(model))
+            finite(torch, ((f"s1 {tag} image", img), (f"s1 {tag} vis",
+                                                      pred)))
+            errs[f"packed {tag} grid (taper-weighted)"] = rel_err(
+                img * taper, img1 * taper)
+            errs[f"packed {tag} degrid"] = rel_err(pred, pred1)
+            errs[f"packed {tag} degrid natural"] = rel_err(nat,
+                                                           g.unsort(pred1))
+            del g, img, pred, nat, img1, pred1, vre, vim
+            tpacked._GRIDDER_CACHE.clear()
+            torch.cuda.empty_cache()
+
+        uvw_dev = torch.as_tensor(uvw, device=dev)
+        vis_dev = torch.as_tensor(vis, device=dev)
+        # The single-device call first, then each call's second run timed
+        # (the first builds the per-plan constants).
+        for _ in range(2):
+            img1 = timed("grid_all_bucketed", lambda: grid_all_bucketed(
+                bplan, vis_dev, uvw_dev, sort_index, valid, device=dev))
+        with window("bucketed", ["grid_all_layers_tasks"]):
+            for _ in range(2):
+                img = timed("grid_all_bucketed_sharded", lambda:
+                            grid_all_bucketed_sharded(bplan, vis_dev,
+                                                      uvw_dev, sort_index,
+                                                      valid, mesh))
+        errs["bucketed grid (taper-weighted)"] = rel_err(img * taper,
+                                                         img1 * taper)
+
+        for branch, (sp, uvw_d, vis_d) in streams.items():
+            need = (("grid_fused_stack", "degrid_fused2_stack",
+                     "place_stream") if branch == "packable"
+                    else tuple(np_modules()))
+            out = {}
+            for m in (None, mesh):
+                def stream():
+                    sg = StreamingGridder(sp, mesh=m, device=dev)
+                    sg.accumulate(uvw_d, vis_d)
+                    sg.accumulate(uvw_d[:SHORT_ROWS], vis_d[:SHORT_ROWS])
+                    s_img = sg.finalize()
+                    sd = StreamingDegridder(sp, mesh=m,
+                                            device=dev).set_model(model)
+                    s_pred = sd.predict(uvw_d)
+                    sd.check()
+                    return s_img, s_pred, [int(x) for x in sg.counters()]
+                name = f"stream {branch}" + (" sharded" if m else "")
+                if m is None:
+                    out[m] = [timed(name, stream) for _ in range(2)][-1]
+                else:
+                    with window(f"streaming {branch}", need):
+                        out[m] = [timed(name, stream) for _ in range(2)][-1]
+            (s_img, s_pred, s_cnt), (s_img1, s_pred1, s_cnt1) = \
+                out[mesh], out[None]
+            if s_cnt != s_cnt1 or s_cnt[1:] != [0, 0]:
+                raise SystemExit(f"window s1: stream {branch} counters "
+                                 f"{s_cnt} vs {s_cnt1}")
+            errs[f"stream {branch} image (taper-weighted)"] = rel_err(
+                s_img * taper, s_img1 * taper)
+            errs[f"stream {branch} predict"] = rel_err(s_pred, s_pred1)
+            del out, s_img, s_pred, s_img1, s_pred1
+            torch.cuda.empty_cache()
+        # An overflowed chunk through the entry points: the dense stream
+        # planned at an S_SHARDS-rank shard's capacity of its own plan
+        # (cap / S_SHARDS, where s2 finds shards overflowing), the whole
+        # chunk on the one rank. The overflow passes the group's MAX
+        # reduction, voids the chunk (zero image, nothing processed) and
+        # finalize raises.
+        sp, uvw_d, vis_d = streams["packable"]
+        quantum = sp.block_v * 1024 // math.gcd(sp.block_v, 1024)
+        sp_q = plan_stream(sp.wplan, [(t.iw, t.iu, t.iv) for t in sp.tasks],
+                           chunk_rows=sp.chunk_rows, block_v=sp.block_v,
+                           cap_slots=sp.cap // S_SHARDS // quantum * quantum)
+        with window("streaming void", ("place_stream", "grid_fused_stack")):
+            sg = StreamingGridder(sp_q, mesh=mesh, device=dev)
+            sg.accumulate(uvw_d, vis_d)
+        v_img = sg.finalize(check=False)
+        v_cnt = [int(x) for x in sg.counters()]
+        try:
+            sg.finalize()
+            raised = False
+        except SdpRuntimeError:
+            raised = True
+        say(f"# window s1: the dense stream at {sp_q.cap} slots (cap / "
+            f"{S_SHARDS} of its plan's {sp.cap}): counters {v_cnt}, image "
+            f"max |x| {float(v_img.abs().max()):g}, finalize raised "
+            f"{raised}")
+        if v_cnt != [0, 0, 1] or bool(v_img.any()) or not raised:
+            raise SystemExit("window s1: an overflowed chunk was not voided")
+        del sg, v_img
+
+        rng = np.random.default_rng(26)
+        shape = (Q_TIMES, Q_BASELINES, CHANS, Q_POLS)
+        vis4d = (rng.standard_normal(shape) + 1j * rng.standard_normal(
+            shape)).astype(np.complex64)
+        vis4d[5, 17, :, 0] += 200.0
+        w4d = np.ones(shape, np.float32)
+        with window("ingest", []):
+            flags, wgt, frac = timed(
+                "ingest_flag_and_weight_sharded",
+                lambda: ingest_flag_and_weight_sharded(vis4d, w4d, mesh))
+        flags1, wgt1, frac1 = timed("ingest_flag_and_weight", lambda:
+                                    ingest_flag_and_weight(vis4d, w4d,
+                                                           device=dev))
+        if not (torch.equal(flags, flags1) and torch.equal(wgt, wgt1)
+                and float(frac) == float(frac1) and float(frac) > 0):
+            raise SystemExit("window s1: the sharded ingest differs")
+
+        # The solvers on a unit point's visibilities (a clear peak: the
+        # ranks' and the one device's minor cycles take the same
+        # components).
+        def solver_pair(name, need, run_it):
+            """A solver on one device and sharded, in turn, twice: the
+            second run of each timed (the first builds the plans'
+            gridders), so both are timed warm."""
+            out = {}
+            for _ in range(2):
+                for m in (None, mesh):
+                    label = name + (" sharded" if m is not None else "")
+                    if m is None:
+                        out[m] = timed(label, lambda: run_it(m))
+                    else:
+                        with window(name, need):
+                            out[m] = timed(label, lambda: run_it(m))
+            return out
+
+        vis_pt = packed_gridder(pplan, device=dev).degrid(model)
+        ck_dirs = iter(os.path.join(store, f"ckpt{i}") for i in range(2))
+
+        def major_cycle(m):
+            # The sharded runs save through the checkpointer, each into a
+            # directory of its own (a step saved earlier would resume).
+            kw = dict(checkpointer=SolverCheckpointer(
+                next(ck_dirs), device=dev)) if m is not None else {}
+            return major_cycle_imager(plan, vis_pt, uvw, n_major=1,
+                                      bucketed=True, cycle_limit=50,
+                                      mesh=m, device=dev, **kw)
+
+        res = solver_pair("major cycle", S_PACKED_KERNELS["bands"],
+                          major_cycle)
+        errs["major cycle model"] = rel_err(res[mesh].model,
+                                            res[None].model)
+        fres = solver_pair(
+            "FISTA 2 iterations", S_PACKED_KERNELS["bands"],
+            lambda m: fista_imager(plan, vis_pt, uvw, n_iter=2, mesh=m,
+                                   device=dev))
+        errs["FISTA model"] = rel_err(fres[mesh].model, fres[None].model)
+        errs["FISTA residual norms"] = float(np.max(np.abs(
+            np.asarray(fres[mesh].residual_norm)
+            - np.asarray(fres[None].residual_norm)))
+            / fres[None].residual_norm[0])
+        # The task drivers (K14, K15) through the solver on the unit
+        # point's first REF_ROWS rows (their plane loop is host-bound).
+        plan_r = plan_wstack(uvw[:REF_ROWS], C_0, C_0 / (100 * CHANS),
+                             CHANS, IMAGE, TOWER_SUBGRID, THETA, W_STEP,
+                             support=8, w_support=4, w_tower_height=HEIGHT)
+        vis_r = vis_pt[:REF_ROWS].clone()
+        del res, fres, vis_pt
+        tpacked._GRIDDER_CACHE.clear()
+        res = solver_pair(
+            "task-driver solve", ["grid_plane", "degrid_plane"],
+            lambda m: major_cycle_imager(plan_r, vis_r, uvw[:REF_ROWS],
+                                         n_major=1, cycle_limit=20, mesh=m,
+                                         device=dev))
+        errs["task-driver solve model"] = rel_err(res[mesh].model,
+                                                  res[None].model)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    say(f"# [{gpu}] window s1 (NCCL, world size 1, file store) ms: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
+    say("# window s1, sharded vs single-device calls (rel err of max): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tolerance {TOL:g}; the solvers' models {SOLVE_TOL:g})")
+    bad = [k for k, v in errs.items()
+           if not v <= (SOLVE_TOL if "model" in k or "norms" in k else TOL)]
+    if bad:
+        raise SystemExit(f"window s1: sharded calls disagree: {bad}")
+    return dict(launches=launches, ms=ms, errs=errs)
+
+
+def shards_phase(torch, tkern, dev, gpu, plan, pplan, uvw, vis, model,
+                 streams, taper):
+    """s2: the ranks' shards at n = S_SHARDS in one process, no
+    collective: each shard's packed kernels (every engine and mode) and
+    streaming kernels (both branches, at cap / n) against their plain
+    versions on its own operands, and the shards' summed planes (and
+    concatenated predictions) against the one-device call."""
+    from ska_sdp_func_torch.kernels import fused_tap, place
+    from ska_sdp_func_torch.parallel import PackedGridder, plan_packed, \
+        plan_stream
+    from ska_sdp_func_torch.parallel import packed as tpacked
+    from ska_sdp_func_torch.parallel import streaming as tstream
+
+    n = S_SHARDS
+    t0 = time.perf_counter()
+    # The first block size whose blocks the ranks do not divide, so the
+    # last shard holds pad blocks (the auto-selected one first).
+    for block_v in (pplan.block_v, 256, 1024, 128):
+        unpadded = plan_packed(plan, uvw, block_v=block_v).num_blocks
+        if unpadded % n:
+            break
+    pplan_n = plan_packed(plan, uvw, block_v=block_v, pad_blocks_to=n)
+    per_task = pplan_n.num_slabs * pplan_n.num_octets
+    bb = pplan_n.arrays["block_bucket"].astype(np.int64) // per_task
+    bps = pplan_n.num_blocks // n
+    straddled = sum(int(bb[r * bps - 1] == bb[r * bps]) for r in range(1, n))
+    say(f"# window s2: the plan padded for {n} ranks (block_v {block_v}): "
+        f"{pplan_n.num_blocks} blocks ({pplan_n.num_blocks - unpadded}"
+        f" pad), {bps} a rank; {straddled} of {n - 1} rank boundaries "
+        f"split a task ({time.perf_counter() - t0:.2f} s host)")
+    errs, ms, shard_ms = {}, {}, {}
+    for tag, (engine, precision, fast) in S_PACKED.items():
+        g = PackedGridder(pplan_n, engine=engine, precision=precision,
+                          fast=fast, device=dev)
+        planes, preds = None, []
+        k_grid, k_degrid = S_PACKED_KERNELS[engine]
+        for r in range(n):
+            sh = g._shard(n, r)
+            vre, vim = sh.sort(vis)
+            stack = sh._stage_kernel(vre, vim)
+            st = sh._model_stack(model)
+            pred = sh._dstage_kernel(st)
+            with plain_kernels(packed_swaps(engine)):
+                stack_p = sh._stage_kernel(vre, vim)
+                pred_p = sh._dstage_kernel(st)
+            errs[f"{k_grid}[{tag}] shard {r}"] = rel_err(stack, stack_p)
+            errs[f"{k_degrid}[{tag}] shard {r}"] = rel_err(pred, pred_p)
+            if tag in ("high", "bf16"):
+                shard_ms[f"{tag} shard {r}"] = (
+                    cuda_ms(torch, lambda: sh._stage_kernel(vre, vim), 5),
+                    cuda_ms(torch, lambda: sh._dstage_kernel(st), 5))
+            part = sh._stack_to_planes(stack, sh.slots.task_visited)
+            planes = part if planes is None else planes + part
+            preds.append(pred)
+            del stack, stack_p, pred_p, st, vre, vim, part
+            torch.cuda.empty_cache()
+        img = g._planes_to_image(planes)
+        img1 = g.grid_sorted(*g.sort(vis))
+        errs[f"packed {tag}: sum of {n} shards vs one device "
+             "(taper-weighted)"] = rel_err(img * taper, img1 * taper)
+        errs[f"packed {tag}: {n} shards' predictions vs one device"] = \
+            rel_err(torch.cat(preds), g.degrid_sorted(model))
+        del g, planes, preds, img, img1
+        tpacked._GRIDDER_CACHE.clear()
+        torch.cuda.empty_cache()
+
+    overflows = {}
+    for branch, (sp, uvw_d, vis_d) in streams.items():
+        boxes = np.asarray([(t.iw, t.iu, t.iv) for t in sp.tasks])
+        # A capacity each of the n shards can take: the whole chunk's
+        # capacity a shard (a shard's padded buckets never outgrow the
+        # chunk's; cap / n overflows at this cell, below), rounded to a
+        # multiple of n times the plan's quantum (block_v and the prep
+        # granule).
+        quantum = n * sp.block_v * 1024 // math.gcd(sp.block_v, 1024)
+        cap_n = -(-n * sp.cap // quantum) * quantum
+        sp_n = plan_stream(sp.wplan, boxes, chunk_rows=sp.chunk_rows,
+                           block_v=sp.block_v, cap_slots=cap_n)
+        eng = tstream._stream_engine(sp_n, False, dev)
+        cap_s = sp_n.cap // n
+        shard = dict(cap=cap_s, num_blocks=cap_s // sp_n.block_v)
+        rows = sp_n.chunk_rows // n
+        row_blocks = [tstream._padded_chunk(
+            sp_n, uvw_d[r * rows:(r + 1) * rows], dev, rows)[1:]
+            for r in range(n)]
+
+        # The plan's own capacity at the stream's cap_factor (rounded up
+        # to a multiple of n x the quantum, as the sharded planner asks),
+        # cap / n a shard, and larger factors: which shards overflow. At
+        # the plan's own cap / n one must (a rank's chunk voids on every
+        # rank: the MAX reduction, held on the card in s1 and at 2 and 4
+        # ranks in the CPU tests); the first factor no shard overflows is
+        # the capacity a shard needs here.
+        chunk = sp.chunk_rows * sp.wplan.num_chan
+        for f in S_CAP_FACTORS:
+            c = -(-math.ceil(chunk * f) // quantum) * quantum // n
+            overflows[f"{branch} x{f:g}"] = [
+                bool(eng._plan_chunk(uvw32, mask, need_unsort=False, cap=c,
+                                     num_blocks=c // sp.block_v)[-1])
+                for uvw32, mask in row_blocks]
+        if not any(overflows[f"{branch} x{S_CAP_FACTORS[0]:g}"]):
+            raise SystemExit(f"window s2: stream {branch}: no shard "
+                             "overflows cap / n (the void pass is vacuous)")
+        swaps = ([(m, k, m) for k, m in np_modules().items()]
+                 if branch == "split" else
+                 [(fused_tap, k, fused_tap)
+                  for k in ("grid_fused_stack", "degrid_fused2_stack")]
+                 + [(place, "place_stream", place)])
+        st = eng._model_stack(model)
+        planes = None
+        for r, (uvw32, mask) in enumerate(row_blocks):
+            blk = vis_d[r * rows:(r + 1) * rows]
+            vre = torch.zeros((rows, blk.shape[1]), dtype=torch.float32,
+                              device=dev)
+            vim = torch.zeros_like(vre)
+            vre[:blk.shape[0]], vim[:blk.shape[0]] = blk.real, blk.imag
+
+            def grid_side():
+                a, _, bb_r, vis_r, _, _, over = eng._plan_chunk(
+                    uvw32, mask, vre, vim, need_unsort=False, **shard)
+                return a, eng._chunk_planes(a, bb_r, vis_r), over
+
+            def predict_side():
+                a, dest, bb_r, _, _, _, over = eng._plan_chunk(
+                    uvw32, mask, **shard)
+                return a, eng._predict(st, a, bb_r, dest), over
+
+            a_g, part, over = grid_side()
+            a_d, out, over_d = predict_side()
+            if bool(over) or bool(over_d):
+                raise SystemExit(f"window s2: stream {branch} shard {r} "
+                                 f"overflows {cap_s} slots")
+            with plain_kernels(swaps):
+                a_gp, part_p, _ = grid_side()
+                a_dp, out_p, _ = predict_side()
+            for k in a_g:
+                if not torch.equal(a_g[k], a_gp[k]):
+                    raise SystemExit(f"window s2: stream {branch} shard {r}"
+                                     f": place_stream's {k} differs")
+            errs[f"stream {branch} grid shard {r}"] = rel_err(part, part_p)
+            errs[f"stream {branch} predict shard {r}"] = rel_err(out, out_p)
+            planes = part if planes is None else planes + part
+            del a_g, a_gp, a_d, a_dp, part_p, out, out_p
+        img = eng._planes_to_image(planes)
+        sg = tstream.StreamingGridder(sp_n, device=dev)
+        sg.accumulate(uvw_d, vis_d)
+        errs[f"stream {branch}: sum of {n} shards vs one device "
+             "(taper-weighted)"] = rel_err(img * taper, sg.finalize() * taper)
+        del eng, st, planes, img, sg, row_blocks
+        torch.cuda.empty_cache()
+    say(f"# window s2, the streams' shards (n = {n}) that overflow cap / n "
+        "at each cap_factor: " + ", ".join(
+            f"{k} {[r for r, o in enumerate(v) if o]}"
+            for k, v in overflows.items()))
+    say(f"# [{gpu}] window s2, each shard's K1/K2 ms at n = {n} (grid / "
+        "degrid): " + ", ".join(f"{k} {a:.3f}/{b:.3f}"
+                                for k, (a, b) in shard_ms.items()))
+    say("# window s2, shard kernels vs plain and shards vs one device (rel "
+        "err of max): " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tolerance {TOL:g}; sums {S_SHARD_TOL:g})")
+    bad = [k for k, v in errs.items()
+           if not v <= (S_SHARD_TOL if "one device" in k else TOL)]
+    if bad:
+        raise SystemExit(f"window s2: shards disagree: {bad}")
+    return dict(ms=shard_ms, errs=errs, overflows=overflows)
+
+
+def window_s(torch, tkern, dev, gpu, plan, pplan, uvw, vis, model, bplan,
+             sort_index, valid, streams, taper):
+    """Window s (see the docstring, 4s). Returns {"launches": s1's counts,
+    "ms": each stage's numbers}."""
+    t0 = time.perf_counter()
+    s1 = sharded_phase(torch, tkern, dev, gpu, plan, pplan, uvw, vis, model,
+                       bplan, sort_index, valid, streams, taper)
+    t1 = time.perf_counter()
+    s2 = shards_phase(torch, tkern, dev, gpu, plan, pplan, uvw, vis, model,
+                      streams, taper)
+    say(f"# window s: s1 {t1 - t0:.1f} s, s2 {time.perf_counter() - t1:.1f}"
+        " s")
+    return dict(launches=s1["launches"], ms=dict(s1=s1["ms"], s2=s2["ms"]),
+                overflows=s2["overflows"])
+
+
+def window_s_inputs(torch, dev):
+    """Window s's inputs on the bench plans (window a's packed plan,
+    window b's fallback plan, windows f's and j's stream plans), for
+    ``--window-s``."""
+    from ska_sdp_func_torch.grid_data import grid_correct_pswf
+    from ska_sdp_func_torch.parallel import plan_bucketed, plan_packed, \
+        plan_stream, plan_wstack, stream_tasks
+
+    uvw, vis = bench_inputs()
+    plan = plan_wstack(uvw, C_0, C_0 / (100 * CHANS), CHANS, IMAGE, SUBGRID,
+                       THETA, W_STEP, support=8, w_support=4,
+                       w_tower_height=HEIGHT)
+    tplan = plan_wstack(uvw, C_0, C_0 / (100 * CHANS), CHANS, IMAGE,
+                        TOWER_SUBGRID, THETA, W_STEP, support=8, w_support=4,
+                        w_tower_height=HEIGHT)
+    bplan, sort_index, valid = plan_bucketed(tplan, uvw)
+    uvw_d, vis_d = stream_inputs()
+    streams = {}
+    for branch, ov in (("packable", 16384), ("split", NP_OVERSAMPLING)):
+        wp = plan_wstack(uvw_d, C_0, C_0 / (100 * STREAM_CHANS), STREAM_CHANS,
+                         IMAGE, SUBGRID, THETA, W_STEP, support=8,
+                         oversampling=ov, w_support=4,
+                         w_oversampling=(16384 if branch == "packable"
+                                         else NP_W_OVERSAMPLING),
+                         w_tower_height=HEIGHT)
+        sp = plan_stream(wp, stream_tasks(wp, uvw_d), chunk_rows=ROWS,
+                         block_v=STREAM_BLOCK_V, cap_factor=STREAM_CAP_FACTOR)
+        streams[branch] = (sp, torch.as_tensor(uvw_d, device=dev),
+                           torch.as_tensor(vis_d, device=dev))
+    model = torch.zeros((IMAGE, IMAGE), dtype=torch.float32, device=dev)
+    model[300, 200] = 1.0
+    taper = 1.0 / grid_correct_pswf(IMAGE, THETA, W_STEP, 0.0, 0.0, 8, 4,
+                                    torch.ones((IMAGE, IMAGE), device=dev))
+    return dict(plan=plan, pplan=plan_packed(plan, uvw), uvw=uvw, vis=vis,
+                model=model, bplan=bplan, sort_index=sort_index,
+                valid=valid, streams=streams, taper=taper)
+
+
+def window_s_times(torch, dev):
+    """``chip_smoke.py --window-s``: window s alone on the bench plans."""
+    from ska_sdp_func_torch import kernels as tkern
+
+    gpu = run(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    t0 = time.perf_counter()
+    out = window_s(torch, tkern, dev, gpu, **window_s_inputs(torch, dev))
+    return dict(window_s=out["ms"], launches=out["launches"],
+                overflows=out["overflows"], seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
 
@@ -4398,9 +4964,10 @@ def main() -> int:
         raise SystemExit("packed-path outputs have the wrong shape")
     # Kernel path vs plain path on the card, taper-weighted (the
     # 1/PSWF-corrected border is ill-conditioned).
+    sl = g.slots
     stack = tk.grid_packed_stack_reference(
-        g.t_idx, g.k_idx, g.g_idx, g.ubase, g.vband, (g.wk_t, vre, vim),
-        len(pplan.tasks), pplan.num_layers, SUBGRID, 4,
+        sl.t_idx, sl.k_idx, sl.g_idx, sl.ubase, sl.vband,
+        (sl.wk_t, vre, vim), len(pplan.tasks), pplan.num_layers, SUBGRID, 4,
         block_v=pplan.block_v)
     img_plain = g._image_from_stack(stack)
     taper = 1.0 / grid_correct_pswf(
@@ -4408,8 +4975,8 @@ def main() -> int:
         torch.ones((IMAGE, IMAGE), device=dev))
     e_img = rel_err(img * taper, img_plain * taper)
     e_pred = rel_err(pred, tk.degrid_stack_reference(
-        g._model_stack(model), g.t_idx, g.k_idx, g.g_idx, g.ubase,
-        g.vband_t, g.wk_t, 4, block_v=pplan.block_v))
+        g._model_stack(model), sl.t_idx, sl.k_idx, sl.g_idx, sl.ubase,
+        sl.vband_t, sl.wk_t, 4, block_v=pplan.block_v))
     say(f"# packed dirty image, kernel vs plain path: taper-weighted rel "
         f"err {e_img:.3e}, degrid rel err {e_pred:.3e} (tolerance "
         f"{TOL:g}); degrid |vis| max {float(pred.abs().max()):.4g}; "
@@ -4427,13 +4994,14 @@ def main() -> int:
         img_f = gf.grid_sorted(vre, vim)
         pred_f = gf.degrid_sorted(model)
     finite(torch, (("bf16 dirty image", img_f), ("bf16 degrid", pred_f)))
+    sf = gf.slots
     img_fp = gf._image_from_stack(tk.grid_packed_stack_reference(
-        gf.t_idx, gf.k_idx, gf.g_idx, gf.ubase, gf.vband,
-        (gf.wk_t, vre, vim), len(pplan.tasks), pplan.num_layers, SUBGRID, 4,
+        sf.t_idx, sf.k_idx, sf.g_idx, sf.ubase, sf.vband,
+        (sf.wk_t, vre, vim), len(pplan.tasks), pplan.num_layers, SUBGRID, 4,
         block_v=pplan.block_v))
     pred_fp = tk.degrid_stack_reference(
-        gf._model_stack(model), gf.t_idx, gf.k_idx, gf.g_idx, gf.ubase,
-        gf.vband_t, gf.wk_t, 4, block_v=pplan.block_v)
+        gf._model_stack(model), sf.t_idx, sf.k_idx, sf.g_idx, sf.ubase,
+        sf.vband_t, sf.wk_t, 4, block_v=pplan.block_v)
     e_fimg = rel_err(img_f * taper, img_fp * taper)
     e_fpred = rel_err(pred_f, pred_fp)
     say(f"# packed path, fast (bf16), kernel vs plain path: taper-weighted "
@@ -4913,6 +5481,15 @@ def main() -> int:
                      taper)
     say(f"# window r: {time.perf_counter() - t0:.1f} s")
 
+    # 4s. the sharded drivers: every sharded entry point under a one-rank
+    # NCCL group, then the shards of n = S_SHARDS ranks in one process --
+    t0 = time.perf_counter()
+    s_out = window_s(torch, tkern, dev, gpu, plan, pplan, uvw, vis, model,
+                     bplan, sort_index, valid,
+                     {"packable": (sp_d, uvw_dd, vis_dd),
+                      "split": (sp_j, uvw_dd, vis_dd)}, taper)
+    say(f"# window s: {time.perf_counter() - t0:.1f} s")
+
     # 5. times -----------------------------------------------------------
     # The packed path's calls and K1/K2 (packed_times, as --packed-times
     # runs it on any checkout).
@@ -5188,7 +5765,8 @@ def main() -> int:
             say(f"# [{gpu}] {name}{tag} at main-path shapes "
                 f"('{gx.precision}'): " + time_kernel(
                     name + tag, kern, ref, args,
-                    dict(block_v=bv, runs=gx.runs), tap_ops(valid_p, 8, 4)))
+                    dict(block_v=bv, runs=gx.slots.runs),
+                    tap_ops(valid_p, 8, 4)))
         del args2
     del gfast
     library = product_library_ms(torch, tk, grid_args, degrid_args, bv)
@@ -5542,6 +6120,11 @@ def main() -> int:
         # one-task sub-grid gridder).
         if r["name"] in dict(TOWER_KERNELS):
             r["launches_window_r"] = r_out["launches"][r["name"]]
+        # Every kernel's launches in window s1 (the sharded entry points;
+        # a wrapper's count covers all its modes; K16/K17's rows count
+        # their batched wrapper, the experiments' rows none).
+        r["launches_window_s"] = 0 if "[P" in r["name"] else \
+            s_out["launches"].get(r.get("entry", r["name"]).split("[")[0], 0)
     say("# device-time traces: " + trace_summary())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
@@ -5580,7 +6163,8 @@ TIMES = {"--packed-times": packed_times, "--predict-times": predict_times,
          "--ingest-times": ingest_times,
          "--experiment-times": experiment_times,
          "--sparse-place-times": sparse_place_times,
-         "--trace-age": trace_age, "--window-r": window_r_times}
+         "--trace-age": trace_age, "--window-r": window_r_times,
+         "--window-s": window_s_times}
 
 
 if __name__ == "__main__":

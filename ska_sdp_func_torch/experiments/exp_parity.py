@@ -58,10 +58,11 @@ def operands(device="cuda", check: bool = False) -> dict:
     pplan = plan_packed(plan, uvw, block_v=BLOCK_V)
     g = PackedGridder(pplan, precision="highest", device=dev)
     vre, vim = g.sort(vis)
-    scales = torch.cat([g.wk_t * vre[None, :], g.wk_t * vim[None, :]])
+    sl = g.slots
+    scales = torch.cat([sl.wk_t * vre[None, :], sl.wk_t * vim[None, :]])
     ids = torch.as_tensor(pplan.arrays["block_bucket"], dtype=torch.int32,
                           device=dev)
-    return dict(ids=ids, ubase=g.ubase, vband=g.vband, scales=scales,
+    return dict(ids=ids, ubase=sl.ubase, vband=sl.vband, scales=scales,
                 num_buckets=pplan.num_buckets, lanes=plan.subgrid_size,
                 w_support=plan.w_support, block_v=pplan.block_v,
                 visited=torch.as_tensor(pplan.arrays["visited"], device=dev),

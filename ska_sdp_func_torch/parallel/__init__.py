@@ -1,15 +1,17 @@
 """Plans and whole-image drivers: the w-stacking task plan and task
 drivers, the bucketed per-task drivers, the packed ingest plan and
 :class:`~.packed.PackedGridder`, the device-planned streaming gridder
-and degridder, and the first multi-process layer on
-``torch.distributed``: process meshes (:mod:`.mesh`), distributed
-SwiFTly and the sharded w-stacking drivers."""
+and degridder, and the multi-process layer on ``torch.distributed``:
+process meshes (:mod:`.mesh`), distributed SwiFTly, and the sharded
+w-stacking, packed, bucketed and streaming drivers (each rank passes
+and gets back its own block)."""
 
 from .bucketed import (
     BucketedPlan,
     BucketedTask,
     degrid_all_bucketed,
     grid_all_bucketed,
+    grid_all_bucketed_sharded,
     inverse_index_of,
     plan_bucketed,
     task_id_stream,
@@ -34,7 +36,9 @@ from .packed import (
     PackedPlan,
     PackedTask,
     degrid_all_packed,
+    degrid_all_packed_sharded,
     grid_all_packed,
+    grid_all_packed_sharded,
     packed_geometry_ok,
     packed_gridder,
     plan_packed,
@@ -72,6 +76,7 @@ __all__ = [
     "WStackTask",
     "degrid_all_bucketed",
     "degrid_all_packed",
+    "degrid_all_packed_sharded",
     "degrid_all_tasks",
     "from_jax_es_plan",
     "from_jax_plan",
@@ -79,7 +84,9 @@ __all__ = [
     "from_jax_swiftly",
     "gather_rows",
     "grid_all_bucketed",
+    "grid_all_bucketed_sharded",
     "grid_all_packed",
+    "grid_all_packed_sharded",
     "grid_all_tasks",
     "inverse_index_of",
     "local_rows",

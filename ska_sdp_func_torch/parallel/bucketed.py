@@ -25,8 +25,10 @@ reference's row-level bounds rejection (sdp_gridder_wtower_uvw.cpp:
 112-121) is replaced by the guarantee that a box plus the kernel
 support fits inside the sub-grid. The drivers run on ``device``
 (``None``: the CUDA card; CPU runs pass ``device="cpu"``) and move their
-inputs there. The mesh-sharded driver is not ported yet (ROADMAP Queue
-1 item 15).
+inputs there. :func:`grid_all_bucketed_sharded` splits the sorted stream
+into one contiguous chunk a rank of a process mesh: each rank grids its
+chunk in one launch and drains every task's tower, and one
+``all_reduce`` sums the w-plane grids before the image stages.
 """
 
 from dataclasses import dataclass
@@ -35,6 +37,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..fourier_transforms.fft import fft_shifted, ifft_shifted, \
     ifft_shifted_norm
@@ -46,6 +49,7 @@ from ..kernels.tower_tap import degrid_all_layers_tasks, \
 from ..utility.constants import C_0
 from ..utility.errors import SdpInvalidArgumentError
 from ..utility.tensors import host_uvw, resolve_device, to_device
+from .mesh import ROW_AXIS, mesh_axis, mesh_device
 from .wstack import WStackPlan
 
 
@@ -223,9 +227,17 @@ def _subgrid_index(plan: WStackPlan, tasks, plane_ids) -> np.ndarray:
 @lru_cache(maxsize=4)
 def _device_constants(bplan: BucketedPlan, device: torch.device):
     """Per-plan constants on ``device`` (cached, as the JAX package's
-    traced constants are).
+    traced constants are): ``terms``, the per-slot task terms of
+    :func:`_stream_taps` (:func:`_slot_terms` of the whole stream), and
+    :func:`_task_constants`."""
+    return dict(terms=_slot_terms(bplan, device, 0, bplan.total),
+                **_task_constants(bplan, device))
 
-    ``terms``: the per-slot task terms of :func:`_stream_taps`.
+
+@lru_cache(maxsize=4)
+def _task_constants(bplan: BucketedPlan, device: torch.device):
+    """The per-task constants on ``device`` (cached).
+
     ``groups``: the tasks by layer count K, each ``(K, first, last,
     plane, grid_ladder, degrid_ladder)``: the group holds tasks ``first``
     to ``last - 1`` of the group order, and their planes of the layer
@@ -240,21 +252,6 @@ def _device_constants(bplan: BucketedPlan, device: torch.device):
     """
     plan = bplan.plan
     tasks = bplan.tasks
-    sizes = [t.size for t in tasks]
-
-    def per_slot(values, dtype):
-        return torch.as_tensor(np.repeat(np.asarray(values, dtype), sizes),
-                               device=device)
-
-    terms = (
-        per_slot([t.iu * plan.eff_sg_size / plan.theta
-                  for t in tasks], np.float64),
-        per_slot([t.iv * plan.eff_sg_size / plan.theta
-                  for t in tasks], np.float64),
-        per_slot([int(t.iw * plan.w_tower_height) * plan.w_step
-                  for t in tasks], np.float64),
-        per_slot([t.first_w_plane for t in tasks], np.int32),
-        per_slot([t.num_layers for t in tasks], np.int32))
     pattern = plan.kernel().w_pattern[None]
     sw = plan.w_support
 
@@ -281,8 +278,37 @@ def _device_constants(bplan: BucketedPlan, device: torch.device):
                         for i, t in enumerate(tasks)], device)
     index = _subgrid_index(plan, [tasks[i] for i in order],
                            bplan.w_plane_ids)
-    return dict(terms=terms, groups=groups, tasks=table,
+    return dict(groups=groups, tasks=table,
                 index=torch.as_tensor(index.reshape(-1), device=device))
+
+
+@lru_cache(maxsize=4)
+def _slot_terms(bplan: BucketedPlan, device: torch.device, lo: int,
+                hi: int):
+    """The task terms of :func:`_stream_taps` for the sorted slots
+    ``[lo, hi)``: per slot ``off_u / theta``, ``off_v / theta``,
+    ``off_w * w_step`` (f64), the task's first w-plane and layer count
+    (int32); padding past the stream's end takes zeros."""
+    plan = bplan.plan
+    tasks = bplan.tasks
+    sizes = [max(0, min(t.start + t.size, hi) - max(t.start, lo))
+             for t in tasks]
+    tail = max(0, hi - max(lo, bplan.total))
+
+    def per_slot(values, dtype):
+        return torch.as_tensor(np.concatenate([
+            np.repeat(np.asarray(values, dtype), sizes),
+            np.zeros(tail, dtype)]), device=device)
+
+    return (
+        per_slot([t.iu * plan.eff_sg_size / plan.theta
+                  for t in tasks], np.float64),
+        per_slot([t.iv * plan.eff_sg_size / plan.theta
+                  for t in tasks], np.float64),
+        per_slot([int(t.iw * plan.w_tower_height) * plan.w_step
+                  for t in tasks], np.float64),
+        per_slot([t.first_w_plane for t in tasks], np.int32),
+        per_slot([t.num_layers for t in tasks], np.int32))
 
 
 def _sorted_inputs(bplan: BucketedPlan, uvw, sort_index, valid):
@@ -305,14 +331,8 @@ def grid_all_bucketed(bplan: BucketedPlan, vis, uvw, sort_index, valid,
     geometry's); returns the dirty image (real unless ``image_dtype`` is
     complex)."""
     plan = bplan.plan
-    kernel = plan.kernel()
     dev = resolve_device(device)
     vis, uvw = to_device(vis, dev), to_device(uvw, dev)
-    sgs = plan.subgrid_size
-    image_size = plan.image_size
-    sg_factor = (image_size / sgs) ** 2
-    freq0, dfreq = plan.freq0_hz, (plan.dfreq_hz or 10.0)
-
     uvw_s, chan_idx, sort_index, valid = _sorted_inputs(bplan, uvw,
                                                         sort_index, valid)
     vis_s = vis.reshape(-1)[sort_index]
@@ -320,36 +340,112 @@ def grid_all_bucketed(bplan: BucketedPlan, vis, uvw, sort_index, valid,
     vis_im = torch.where(valid, vis_s.imag, 0.0).to(torch.float32)
     consts = _device_constants(bplan, dev)
     taps = _stream_taps(bplan, consts["terms"], uvw_s, chan_idx, valid,
-                        freq0, dfreq)
-    acc = grid_all_layers_tasks(vis_re, vis_im, *taps, consts["tasks"], sgs,
-                                plan.support)
-    # Tower drain, batched: the iFFT of every layer, the w-pattern ladder
-    # and the sum over each task's layers (per group of equal layer
-    # count), the FFT of every sub-grid.
+                        plan.freq0_hz, plan.dfreq_hz or 10.0)
+    acc = grid_all_layers_tasks(vis_re, vis_im, *taps, consts["tasks"],
+                                plan.subgrid_size, plan.support)
+    return _grids_to_image(bplan, _drain_to_grids(bplan, consts, acc),
+                           image_dtype)
+
+
+def _drain_to_grids(bplan: BucketedPlan, consts, acc) -> torch.Tensor:
+    """The batched tower drain of the all-layer stack ``acc`` -> the
+    w-plane grids [P, N, N] complex64: the iFFT of every layer, the
+    w-pattern ladder and the sum over each task's layers (per group of
+    equal layer count), the FFT of every sub-grid, and every sub-grid
+    added into its w-plane grid at once (the adds of subgrid_add_static,
+    wrap-around included)."""
+    plan = bplan.plan
+    sgs, image_size = plan.subgrid_size, plan.image_size
     layers = ifft_shifted(acc)
     subgrids = fft_shifted(torch.cat([
         (layers[p0:p0 + (last - first) * num_k].reshape(
             last - first, num_k, sgs, sgs) * ladder).sum(dim=1)
         for num_k, first, last, p0, ladder, _ in consts["groups"]]))
-    # Every sub-grid into its w-plane grid at once (the adds of
-    # subgrid_add_static, wrap-around included), then per w-plane the
-    # iFFT and grid correction.
-    plane_ids = bplan.w_plane_ids
-    grids = torch.zeros((len(plane_ids), image_size, image_size),
-                        dtype=torch.complex64, device=dev)
+    grids = torch.zeros((len(bplan.w_plane_ids), image_size, image_size),
+                        dtype=torch.complex64, device=acc.device)
     torch.view_as_real(grids).reshape(-1, 2).index_add_(
         0, consts["index"], torch.view_as_real(subgrids).reshape(-1, 2),
-        alpha=sg_factor)
+        alpha=(image_size / sgs) ** 2)
+    return grids
+
+
+def _grids_to_image(bplan: BucketedPlan, grids, image_dtype):
+    """Per w-plane the iFFT and grid correction, summed into the dirty
+    image (real unless ``image_dtype`` is complex)."""
+    plan = bplan.plan
+    kernel = plan.kernel()
+    dev = grids.device
     grids = ifft_shifted_norm(grids)
-    image = torch.zeros((image_size, image_size), dtype=torch.complex64,
-                        device=dev)
-    for g, iw in zip(grids, plane_ids):
+    image = torch.zeros((plan.image_size, plan.image_size),
+                        dtype=torch.complex64, device=dev)
+    for g, iw in zip(grids, bplan.w_plane_ids):
         image = image + kernel.grid_correct(
             g, 0, 0, int(iw * plan.w_tower_height), device=dev).to(
                 image.dtype)
     if not image_dtype.is_complex:
         return image.real.to(image_dtype)
     return image.to(image_dtype)
+
+
+def grid_all_bucketed_sharded(bplan: BucketedPlan, vis, uvw, sort_index,
+                              valid, mesh, axis_name: str = ROW_AXIS,
+                              image_dtype=torch.float32,
+                              device=None) -> torch.Tensor:
+    """Mesh-sharded bucketed gridding (JAX bucketed.py:336-419) on
+    ``device`` (``None``: the mesh's, :func:`.mesh.mesh_device`): the
+    sorted stream, padded to a multiple of ``n * 1024`` slots (n the size
+    of the mesh's ``axis_name``), splits into one contiguous chunk a rank.
+    Each rank gathers only its chunk's slots from the whole ``vis``
+    [rows, chan] and ``uvw`` [rows, 3], grids them in one launch over
+    every task (each task's slots clipped to the chunk; a task outside it
+    counts none) and drains every task's tower; one ``all_reduce`` sums
+    the w-plane grids, and every rank returns the same image."""
+    plan = bplan.plan
+    n, rank, group = mesh_axis(mesh, axis_name)
+    dev = mesh_device(mesh) if device is None else resolve_device(device)
+    vis, uvw = to_device(vis, dev), to_device(uvw, dev)
+    per = -(-bplan.total // (n * 1024)) * 1024
+    lo, hi = rank * per, (rank + 1) * per
+    sort_index = _host(sort_index)[lo:hi]
+    valid = _host(valid)[lo:hi]
+    pad = per - sort_index.shape[0]
+    if pad:
+        sort_index = np.concatenate([sort_index, np.zeros(pad, np.int64)])
+        valid = np.concatenate([valid, np.zeros(pad, bool)])
+    uvw_s, chan_idx, sort_index, valid = _sorted_inputs(bplan, uvw,
+                                                        sort_index, valid)
+    vis_s = vis.reshape(-1)[sort_index]
+    vis_re = torch.where(valid, vis_s.real, 0.0).to(torch.float32)
+    vis_im = torch.where(valid, vis_s.imag, 0.0).to(torch.float32)
+    consts = _task_constants(bplan, dev)
+    taps = _stream_taps(bplan, _slot_terms(bplan, dev, lo, hi), uvw_s,
+                        chan_idx, valid, plan.freq0_hz,
+                        plan.dfreq_hz or 10.0)
+    acc = grid_all_layers_tasks(vis_re, vis_im, *taps,
+                                _chunk_table(bplan, lo, hi, dev),
+                                plan.subgrid_size, plan.support)
+    grids = _drain_to_grids(bplan, consts, acc)
+    dist.all_reduce(torch.view_as_real(grids), group=group)
+    return _grids_to_image(bplan, grids, image_dtype)
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+@lru_cache(maxsize=8)
+def _chunk_table(bplan: BucketedPlan, lo: int, hi: int, device):
+    """The :class:`~..kernels.tower_tap.TaskTable` of the sorted slots
+    ``[lo, hi)``: every task, its slots clipped to the chunk and counted
+    from ``lo`` (none for a task outside it), its planes where
+    :func:`_task_constants`' table has them."""
+    full = _task_constants(bplan, device)["tasks"].rows
+    rows = []
+    for start, count, num_layers, base in full:
+        a = min(max(start, lo), hi)
+        b = max(min(start + count, hi), a)
+        rows.append((a - lo, b - a, num_layers, base))
+    return task_table(rows, device)
 
 
 def degrid_all_bucketed(bplan: BucketedPlan, image, uvw, sort_index, valid,

@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from ..utility.errors import SdpInvalidArgumentError
 from ..utility.tensors import as_tensors, resolve_device
 
 ROW_AXIS = "rows"
@@ -77,6 +78,18 @@ def row_sharding(mesh, axis_name: str = ROW_AXIS):
     return [Shard(0)]
 
 
+def mesh_axis(mesh, axis_name: str = ROW_AXIS):
+    """(size, this rank's index, process group) of the mesh's
+    ``axis_name`` dimension: the rows shard over that dimension alone,
+    and the mesh's other dimensions see the same rows."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis_name not in names:
+        raise SdpInvalidArgumentError(
+            f"mesh has no axis {axis_name!r} (axes: {names})")
+    return (mesh.size(names.index(axis_name)),
+            mesh.get_local_rank(axis_name), mesh.get_group(axis_name))
+
+
 def mesh_device(mesh) -> torch.device:
     """The device a rank of ``mesh`` computes on (its current card, for a
     CUDA mesh)."""
@@ -125,8 +138,7 @@ def local_rows(mesh, *arrays, axis_name: str = ROW_AXIS):
     mesh's size, as :func:`pad_rows_arrays` makes them): the rows of
     ``Shard(0)`` on this rank. ``None`` stays ``None``. Returns a
     tuple."""
-    size = mesh.size(mesh.mesh_dim_names.index(axis_name))
-    rank = mesh.get_local_rank(axis_name)
+    size, rank, _ = mesh_axis(mesh, axis_name)
     out = []
     for x in arrays:
         if x is None:

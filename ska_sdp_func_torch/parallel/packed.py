@@ -16,18 +16,26 @@ Counterpart of ska_sdp_func_tpu.parallel.packed (packed.py:76-1001):
 
 The band engine (K1/K2), ``engine="fused"`` (K3/K4: taps evaluated in
 the kernel from two packed words per slot) and ``engine="compact"``
-(K12/K13) are ported; the mesh-sharded drivers and the stage-timing
-reports are not yet (ROADMAP Queue 1 items 15 and 8). The stages around
-the stack kernels (:class:`_TowerImaging`) are shared with the streaming
-engine (:mod:`.streaming`).
+(K12/K13) run on one device or block-sharded over a process mesh
+(JAX packed.py:1160-1512): the plan's blocks split contiguously over the
+ranks (:func:`shard_plan`; build the plan with ``pad_blocks_to`` the
+rank count), each rank runs the single-device gridder of its own
+sub-plan, and one ``all_reduce`` sums the w-plane grids before the
+image stages. The stage-timing reports are not ported (ROADMAP Queue 1
+item 8). The stages around the stack kernels (:class:`_TowerImaging`)
+are shared with the streaming engine (:mod:`.streaming`).
 """
 
+import dataclasses
+import functools
 import math
+import types
 from dataclasses import dataclass, field
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import native
 from ..fourier_transforms.fft import fft_shifted, ifft_shifted, \
@@ -51,6 +59,7 @@ from ..kernels.packed_tap import (
 )
 from ..utility.errors import SdpInvalidArgumentError
 from ..utility.tensors import host_uvw, resolve_device, to_device
+from .mesh import ROW_AXIS, gather_rows, mesh_axis, mesh_device
 from .wstack import WStackPlan
 
 
@@ -88,6 +97,18 @@ class PackedPlan:
     @property
     def w_plane_ids(self):
         return tuple(sorted({t.iw for t in self.tasks}))
+
+
+@dataclass(frozen=True)
+class _ShardPlan(PackedPlan):
+    """A rank's sub-plan (:func:`shard_plan`): it keeps the whole plan's
+    w-planes, so the ranks' planes line up for their sum."""
+
+    plane_ids: Tuple[int, ...] = ()
+
+    @property
+    def w_plane_ids(self):
+        return self.plane_ids
 
 
 # Block-size auto-selection: minimise padded slots plus a per-block cost
@@ -237,6 +258,46 @@ def plan_packed(wplan: WStackPlan, uvw, block_v=None,
         num_buckets=num_buckets, digest=digest, arrays=arrays)
 
 
+@functools.lru_cache(maxsize=8)
+def shard_plan(pplan: PackedPlan, num_shards: int, rank: int) -> PackedPlan:
+    """Rank ``rank``'s sub-plan of ``num_shards`` (host, JAX packed.py:
+    1185-1253): its contiguous range of ``num_blocks / num_shards``
+    blocks, contiguous copies of those blocks' slots of every per-slot
+    array, the tasks its blocks touch and the block -> bucket map
+    re-based to the first of them. Blocks are bucket-sorted task-major,
+    so a shard's blocks touch one contiguous task range; a task split
+    between two shards is in both sub-plans, and the sum over the ranks
+    adds its halves. The sub-plan keeps the whole plan's w-planes.
+    Cached: a rank's drivers ask for it on every call."""
+    nb = pplan.num_blocks
+    if nb % num_shards:
+        raise SdpInvalidArgumentError(
+            f"num_blocks ({nb}) not divisible by {num_shards} devices — "
+            f"build the plan with pad_blocks_to={num_shards}")
+    if not 0 <= rank < num_shards:
+        raise SdpInvalidArgumentError(
+            f"rank {rank} outside [0, {num_shards})")
+    bps = nb // num_shards
+    per_task = pplan.num_slabs * pplan.num_octets
+    bb = pplan.arrays["block_bucket"][rank * bps:(rank + 1) * bps].astype(
+        np.int64)
+    t0, t1 = int(bb[0] // per_task), int(bb[-1] // per_task)
+    lo, hi = rank * bps * pplan.block_v, (rank + 1) * bps * pplan.block_v
+    arrays = {name: np.ascontiguousarray(a[lo:hi])
+              for name, a in pplan.arrays.items()
+              if name not in ("block_bucket", "visited")}
+    arrays["block_bucket"] = (bb - t0 * per_task).astype(np.int32)
+    arrays["visited"] = pplan.arrays["visited"][
+        t0 * per_task:(t1 + 1) * per_task].copy()
+    whole = {f.name: getattr(pplan, f.name)
+             for f in dataclasses.fields(PackedPlan)}
+    return _ShardPlan(**{
+        **whole, "tasks": pplan.tasks[t0:t1 + 1], "total": hi - lo,
+        "num_blocks": bps, "num_buckets": (t1 - t0 + 1) * per_task,
+        "digest": f"{pplan.digest}/{rank}of{num_shards}", "arrays": arrays,
+        "plane_ids": pplan.w_plane_ids})
+
+
 # ---------------------------------------------------------------------------
 # Device driver
 # ---------------------------------------------------------------------------
@@ -358,6 +419,8 @@ class _TowerImaging:
         return fft_shifted(subgrids)
 
     def _stage_planes(self, subgrids):
+        """Task sub-grids -> per-w-plane uv grids [P, N, N] (before the
+        image stages, where a sharded driver sums the ranks' planes)."""
         pplan = self.pplan
         plan = pplan.wplan
         n = plan.image_size
@@ -369,7 +432,7 @@ class _TowerImaging:
             subgrid_add_static(
                 planes[pos[task.iw]], -task.iu * plan.eff_sg_size,
                 -task.iv * plan.eff_sg_size, subgrids[t], sg_factor)
-        return self._planes_to_image(planes)
+        return planes
 
     def _planes_to_image(self, planes):
         return _planes_to_image(planes, self.screens_grid, self.correction)
@@ -393,16 +456,21 @@ class _TowerImaging:
         st = torch.nn.functional.pad(st, (0, 0, 0, 8))
         return st.reshape(layers.shape[0], 2, pplan.num_layers * (g + 8), g)
 
-    def _image_from_stack(self, stack, visited=None):
-        """The grid stages after the kernel: stack -> layers -> drain ->
-        per-plane adds -> corrected image. ``visited`` ([T] bool) zeroes
-        the layers of tasks no block visited."""
+    def _stack_to_planes(self, stack, visited=None):
+        """The grid stages after the kernel up to the w-plane grids: stack
+        -> layers -> drain -> per-plane adds. ``visited`` ([T] bool)
+        zeroes the layers of tasks no block visited."""
         layers = self._stack_to_layers(stack)
         if visited is not None:
             layers = torch.where(visited[:, None, None, None], layers, 0)
         subgrids = self._stage_drain(layers, self.ladder_grid,
                                      self.pref_grid)
         return self._stage_planes(subgrids)
+
+    def _image_from_stack(self, stack, visited=None):
+        """The grid stages after the kernel: :meth:`_stack_to_planes`,
+        then the corrected image."""
+        return self._planes_to_image(self._stack_to_planes(stack, visited))
 
     # -- degrid ---------------------------------------------------------
 
@@ -471,27 +539,6 @@ class PackedGridder(_TowerImaging):
                 initial=0) >= 2 ** 31:
             raise SdpInvalidArgumentError(
                 "packed stream too large for int32 indexing")
-        dev = self.device
-
-        def put(a, dtype=None):
-            return torch.as_tensor(np.ascontiguousarray(a),
-                                   dtype=dtype).to(dev)
-
-        self.sort_index = put(arrays["sort_index"], torch.int64)
-        self.valid = put(arrays["valid"])
-        self.inv_index = put(inverse_index_of(
-            arrays["sort_index"], arrays["valid"],
-            pplan.num_rows * plan.num_chan))
-        # Per-block (task, w-slab, u-octet) for the stack kernels.
-        bb = arrays["block_bucket"].astype(np.int64)
-        self.g_idx = put(bb % pplan.num_octets, torch.int32)
-        self.k_idx = put((bb // pplan.num_octets) % pplan.num_slabs,
-                         torch.int32)
-        self.t_idx = put(bb // (pplan.num_octets * pplan.num_slabs),
-                         torch.int32)
-
-        uv_c = _tap_coeffs_cached(plan.support, plan.oversampling)
-        w_c = _tap_coeffs_cached(plan.w_support, plan.w_oversampling)
         packable = fused_tap.fused_geometry_ok(
             plan.subgrid_size, plan.support, plan.oversampling,
             plan.w_oversampling)
@@ -499,25 +546,75 @@ class PackedGridder(_TowerImaging):
             and packable else "bands"
         if self.engine == "compact" and self.precision == "high":
             self.precision = "highest"
-        self.pa = self.pb = self.ubase = self.vband = self.vband_t = None
-        self.uk_t = self.vk_t = self.wk_t = self.runs = None
+        # The imaging constants (image-sized, and the tasks'
+        # prefactors) now; the per-slot device tensors on first use
+        # (:attr:`slots`): a gridder that only drives its mesh shards
+        # holds none of them, only its shards' own.
+        self._init_imaging()
+
+    @functools.cached_property
+    def inv_index(self):
+        pplan = self.pplan
+        return torch.as_tensor(inverse_index_of(
+            pplan.arrays["sort_index"], pplan.arrays["valid"],
+            pplan.num_rows * pplan.wplan.num_chan)).to(self.device)
+
+    @functools.cached_property
+    def slots(self) -> types.SimpleNamespace:
+        """The per-slot device tensors, built on first use: the sort
+        (``sort_index``, ``valid``), the per-block (task, w-slab,
+        u-octet) (``t_idx``, ``k_idx``, ``g_idx``) and the tasks they
+        visit, and the engine's slot streams and run table (``pa``,
+        ``pb``, ``ubase``, ``vband``, ``vband_t``, ``uk_t``, ``vk_t``,
+        ``wk_t``, ``runs``, ``uv_coeffs``, ``w_coeffs``; None where the
+        engine has none)."""
+        pplan = self.pplan
+        plan = pplan.wplan
+        arrays = pplan.arrays
+        dev = self.device
+        s = types.SimpleNamespace()
+
+        def put(a, dtype=None):
+            return torch.as_tensor(np.ascontiguousarray(a),
+                                   dtype=dtype).to(dev)
+
+        s.sort_index = put(arrays["sort_index"], torch.int64)
+        s.valid = put(arrays["valid"])
+        # Per-block (task, w-slab, u-octet) for the stack kernels.
+        bb = arrays["block_bucket"].astype(np.int64)
+        s.g_idx = put(bb % pplan.num_octets, torch.int32)
+        s.k_idx = put((bb // pplan.num_octets) % pplan.num_slabs,
+                      torch.int32)
+        task = bb // (pplan.num_octets * pplan.num_slabs)
+        s.t_idx = put(task, torch.int32)
+        # The tasks a block visits (all of a whole plan's; a shard's
+        # sub-plan masks the others' stacks, JAX packed.py:1325-1327).
+        visited = np.zeros(len(pplan.tasks), bool)
+        visited[task] = True
+        s.task_visited = put(visited)
+
+        uv_c = _tap_coeffs_cached(plan.support, plan.oversampling)
+        w_c = _tap_coeffs_cached(plan.w_support, plan.w_oversampling)
+        s.pa = s.pb = s.ubase = s.vband = s.vband_t = None
+        s.uk_t = s.vk_t = s.wk_t = s.runs = None
+        s.uv_coeffs = s.w_coeffs = None
         if self.engine != "bands":
             # The window kernels' work units (K3/K4, K12/K13), once per
             # plan: the blocks' window runs in parts (the band engine's are
             # K1/K2's maximal runs).
-            self.runs = degrid_runs((self.t_idx, self.k_idx, self.g_idx))
+            s.runs = degrid_runs((s.t_idx, s.k_idx, s.g_idx))
         if self.engine == "compact":
             # The word pa and the taps, evaluated once on the device.
             pa, _ = fused_tap.pack_plan_words(
                 arrays["iv0"], arrays["u_off"], arrays["w_row"],
                 arrays["u_frac"], arrays["v_frac"], arrays["valid"])
-            self.pa = put(pa)
-            self.uk_t = eval_kernel_taps(put(arrays["u_frac"]), uv_c,
-                                         plan.oversampling).T.contiguous()
-            self.vk_t = eval_kernel_taps(put(arrays["v_frac"]), uv_c,
-                                         plan.oversampling).T.contiguous()
-            self.wk_t = torch.where(
-                self.valid[:, None],
+            s.pa = put(pa)
+            s.uk_t = eval_kernel_taps(put(arrays["u_frac"]), uv_c,
+                                      plan.oversampling).T.contiguous()
+            s.vk_t = eval_kernel_taps(put(arrays["v_frac"]), uv_c,
+                                      plan.oversampling).T.contiguous()
+            s.wk_t = torch.where(
+                s.valid[:, None],
                 eval_kernel_taps(put(arrays["w_row"]), w_c,
                                  plan.w_oversampling), 0.0).T.contiguous()
         elif self.engine == "fused":
@@ -525,14 +622,14 @@ class PackedGridder(_TowerImaging):
             pa, pb = fused_tap.pack_plan_words(
                 arrays["iv0"], arrays["u_off"], arrays["w_row"],
                 arrays["u_frac"], arrays["v_frac"], arrays["valid"])
-            self.pa, self.pb = put(pa), put(pb)
-            self.uv_coeffs = put(uv_c, torch.float32)
-            self.w_coeffs = put(w_c, torch.float32)
+            s.pa, s.pb = put(pa), put(pb)
+            s.uv_coeffs = put(uv_c, torch.float32)
+            s.w_coeffs = put(w_c, torch.float32)
         else:
-            self._init_bands(arrays, put, uv_c, w_c)
-        self._init_imaging()
+            self._init_bands(s, arrays, put, uv_c, w_c)
+        return s
 
-    def _init_bands(self, arrays, put, uv_c, w_c):
+    def _init_bands(self, s, arrays, put, uv_c, w_c):
         """Taps evaluated on the device from the plan's integer kernel
         rows (Chebyshev fits, ~1e-13 of the f64 tables), then placed into
         the bands once per plan."""
@@ -542,10 +639,10 @@ class PackedGridder(_TowerImaging):
         vk = eval_kernel_taps(put(arrays["v_frac"]), uv_c,
                               plan.oversampling)
         wk = torch.where(
-            self.valid[:, None],
+            s.valid[:, None],
             eval_kernel_taps(put(arrays["w_row"]), w_c,
                              plan.w_oversampling), 0.0)
-        self.ubase, vband, vband_t = build_bands(
+        s.ubase, vband, vband_t = build_bands(
             put(arrays["u_off"]), put(arrays["iv0"]), uk, vk,
             plan.subgrid_size)
         del uk, vk
@@ -557,20 +654,21 @@ class PackedGridder(_TowerImaging):
         elif self.fast:
             vband = vband.to(torch.bfloat16)
             vband_t = vband_t.to(torch.bfloat16)
-        self.vband, self.vband_t = vband, vband_t
-        self.wk_t = wk.T.contiguous()                       # [Sw, V]
+        s.vband, s.vband_t = vband, vband_t
+        s.wk_t = wk.T.contiguous()                          # [Sw, V]
         # K1/K2's work units: the plan's bucket runs, once per plan.
-        self.runs = bucket_runs(self.t_idx, self.k_idx, self.g_idx)
+        s.runs = bucket_runs(s.t_idx, s.k_idx, s.g_idx)
 
     # -- sorted-stream transforms ------------------------------------
 
     def sort(self, vis):
         """[rows, chan] visibilities -> sorted-stream (re, im) f32."""
-        vis_s = to_device(vis, self.device).reshape(-1)[self.sort_index]
+        s = self.slots
+        vis_s = to_device(vis, self.device).reshape(-1)[s.sort_index]
         if not vis_s.is_complex():
             vis_s = vis_s.to(torch.complex64)
-        vre = torch.where(self.valid, vis_s.real, 0.0).to(torch.float32)
-        vim = torch.where(self.valid, vis_s.imag, 0.0).to(torch.float32)
+        vre = torch.where(s.valid, vis_s.real, 0.0).to(torch.float32)
+        vim = torch.where(s.valid, vis_s.imag, 0.0).to(torch.float32)
         return vre, vim
 
     def unsort(self, vis_sorted: torch.Tensor) -> torch.Tensor:
@@ -583,28 +681,29 @@ class PackedGridder(_TowerImaging):
     # -- grid ----------------------------------------------------------
 
     def _stage_kernel(self, vre, vim):
+        s = self.slots
         pplan = self.pplan
         plan = pplan.wplan
         if self.engine == "compact":
             return fused_tap.grid_compact(
-                self.t_idx, self.k_idx, self.g_idx, self.pa, self.uk_t,
-                self.vk_t, self.wk_t, vre, vim, len(pplan.tasks),
+                s.t_idx, s.k_idx, s.g_idx, s.pa, s.uk_t,
+                s.vk_t, s.wk_t, vre, vim, len(pplan.tasks),
                 pplan.num_layers, plan.subgrid_size, plan.support,
                 plan.w_support, block_v=pplan.block_v,
-                precision=self.precision, runs=self.runs)
+                precision=self.precision, runs=s.runs)
         if self.engine == "fused":
             return fused_tap.grid_fused_stack(
-                self.t_idx, self.k_idx, self.g_idx, self.pa, self.pb, vre,
-                vim, self.uv_coeffs, self.w_coeffs, len(pplan.tasks),
+                s.t_idx, s.k_idx, s.g_idx, s.pa, s.pb, vre,
+                vim, s.uv_coeffs, s.w_coeffs, len(pplan.tasks),
                 pplan.num_layers, plan.subgrid_size, plan.support,
                 plan.w_support, plan.oversampling, plan.w_oversampling,
                 block_v=pplan.block_v, precision=self.precision,
-                runs=self.runs)
+                runs=s.runs)
         return grid_packed_stack(
-            self.t_idx, self.k_idx, self.g_idx, self.ubase, self.vband,
-            (self.wk_t, vre, vim), len(pplan.tasks), pplan.num_layers,
+            s.t_idx, s.k_idx, s.g_idx, s.ubase, s.vband,
+            (s.wk_t, vre, vim), len(pplan.tasks), pplan.num_layers,
             plan.subgrid_size, plan.w_support, block_v=pplan.block_v,
-            runs=self.runs)
+            runs=s.runs)
 
     def grid_sorted(self, vre: torch.Tensor,
                     vim: torch.Tensor) -> torch.Tensor:
@@ -621,25 +720,26 @@ class PackedGridder(_TowerImaging):
     # -- degrid ---------------------------------------------------------
 
     def _dstage_kernel(self, st):
+        s = self.slots
         pplan = self.pplan
         plan = pplan.wplan
         if self.engine == "compact":
             return fused_tap.degrid_compact(
-                st, self.t_idx, self.k_idx, self.g_idx, self.pa, self.uk_t,
-                self.vk_t, self.wk_t, plan.support, plan.w_support,
+                st, s.t_idx, s.k_idx, s.g_idx, s.pa, s.uk_t,
+                s.vk_t, s.wk_t, plan.support, plan.w_support,
                 block_v=pplan.block_v,
-                precision="bf16" if self.fast else "highest", runs=self.runs)
+                precision="bf16" if self.fast else "highest", runs=s.runs)
         if self.engine == "fused":
             return fused_tap.degrid_fused2_stack(
-                st, self.t_idx, self.k_idx, self.g_idx, self.pa, self.pb,
-                self.uv_coeffs, self.w_coeffs, plan.support, plan.w_support,
+                st, s.t_idx, s.k_idx, s.g_idx, s.pa, s.pb,
+                s.uv_coeffs, s.w_coeffs, plan.support, plan.w_support,
                 plan.oversampling, plan.w_oversampling,
                 block_v=pplan.block_v, precision=self.precision,
-                runs=self.runs)
+                runs=s.runs)
         return degrid_stack(
-            st, self.t_idx, self.k_idx, self.g_idx, self.ubase,
-            self.vband_t, self.wk_t, plan.w_support, block_v=pplan.block_v,
-            runs=self.runs)
+            st, s.t_idx, s.k_idx, s.g_idx, s.ubase,
+            s.vband_t, s.wk_t, plan.w_support, block_v=pplan.block_v,
+            runs=s.runs)
 
     def degrid_sorted(self, image) -> torch.Tensor:
         """Real/complex image -> sorted-stream complex64 visibilities."""
@@ -650,6 +750,86 @@ class PackedGridder(_TowerImaging):
         """Image -> [rows, chan] complex64 visibilities."""
         return self.unsort(self.degrid_sorted(image))
 
+
+    # -- mesh-sharded drivers (JAX packed.py:1160-1473) -----------------
+    #
+    # Each rank passes and gets back its own block of the sorted stream
+    # (``num_blocks / n`` blocks of ``block_v`` slots, n the size of the
+    # mesh's ``axis_name``), runs this gridder's engine on its shard's
+    # sub-plan (:func:`shard_plan`) on its own device, and the grid sums
+    # the ranks' w-plane grids with one ``all_reduce`` before the image
+    # stages, so every rank returns the same bits.
+
+    def _shard(self, num_shards: int, rank: int) -> "PackedGridder":
+        """The gridder of rank ``rank``'s sub-plan of ``num_shards``
+        (from :func:`packed_gridder`'s cache): this gridder's engine and
+        precision on its device, holding only that rank's slots."""
+        return packed_gridder(shard_plan(self.pplan, num_shards, rank),
+                              fast=self.fast, precision=self.precision,
+                              engine=self.engine, device=self.device)
+
+    def _mesh_shard(self, mesh, axis_name):
+        n, rank, group = mesh_axis(mesh, axis_name)
+        return self._shard(n, rank), group
+
+    def sort_sharded(self, vis, mesh, axis_name: str = ROW_AXIS):
+        """[rows, chan] visibilities (the whole array) -> this rank's
+        block of the sorted stream (re, im) f32."""
+        return self._mesh_shard(mesh, axis_name)[0].sort(vis)
+
+    def grid_sorted_sharded(self, vre: torch.Tensor, vim: torch.Tensor,
+                            mesh, axis_name: str = ROW_AXIS) -> torch.Tensor:
+        """This rank's block of the sorted stream (re, im) f32 -> the real
+        dirty image of the whole stream, on every rank."""
+        shard, group = self._mesh_shard(mesh, axis_name)
+        planes = shard._stack_to_planes(shard._stage_kernel(vre, vim),
+                                        shard.slots.task_visited)
+        dist.all_reduce(torch.view_as_real(planes), group=group)
+        return shard._planes_to_image(planes)
+
+    def grid_sharded(self, vis, mesh,
+                     axis_name: str = ROW_AXIS) -> torch.Tensor:
+        """[rows, chan] visibilities (the whole array) -> the real dirty
+        image, on every rank; each rank grids its own block."""
+        vre, vim = self.sort_sharded(vis, mesh, axis_name)
+        return self.grid_sorted_sharded(vre, vim, mesh, axis_name)
+
+    def degrid_sorted_sharded(self, image, mesh,
+                              axis_name: str = ROW_AXIS) -> torch.Tensor:
+        """The replicated image -> this rank's block of the sorted-stream
+        complex64 visibilities (no collective)."""
+        shard, _ = self._mesh_shard(mesh, axis_name)
+        return shard.degrid_sorted(image)
+
+    def degrid_sharded(self, image, mesh,
+                       axis_name: str = ROW_AXIS) -> torch.Tensor:
+        """The replicated image -> [rows, chan] complex64 visibilities, on
+        every rank: the ranks' blocks, gathered in rank order, unsorted."""
+        local = self.degrid_sorted_sharded(image, mesh, axis_name)
+        return self.unsort(gather_rows(local, mesh, axis_name=axis_name))
+
+class _MeshDrivers:
+    """A gridder's mesh-sharded drivers under the single-device names
+    (``sort``, ``grid``, ``grid_sorted``, ``degrid_sorted``), so code
+    written against one device runs each rank's block unchanged."""
+
+    def __init__(self, gridder: PackedGridder, mesh,
+                 axis_name: str = ROW_AXIS):
+        self.gridder, self.mesh, self.axis_name = gridder, mesh, axis_name
+
+    def sort(self, vis):
+        return self.gridder.sort_sharded(vis, self.mesh, self.axis_name)
+
+    def grid(self, vis):
+        return self.gridder.grid_sharded(vis, self.mesh, self.axis_name)
+
+    def grid_sorted(self, vre, vim):
+        return self.gridder.grid_sorted_sharded(vre, vim, self.mesh,
+                                                self.axis_name)
+
+    def degrid_sorted(self, image):
+        return self.gridder.degrid_sorted_sharded(image, self.mesh,
+                                                  self.axis_name)
 
 # ---------------------------------------------------------------------------
 # Functional API (JAX parallel/packed.py:1480-1496)
@@ -670,3 +850,27 @@ def degrid_all_packed(pplan: PackedPlan, image, fast: bool = False,
     visibilities."""
     return packed_gridder(pplan, fast, precision=precision,
                           device=device).degrid(image)
+
+
+def grid_all_packed_sharded(pplan: PackedPlan, vis, mesh,
+                            axis_name: str = ROW_AXIS, fast: bool = False,
+                            device=None) -> torch.Tensor:
+    """Mesh-sharded packed gridding (blocks sharded, w-plane grids summed
+    over the ranks) on ``device`` (``None``: the mesh's,
+    :func:`.mesh.mesh_device`). ``vis`` is the whole [rows, chan] array;
+    every rank returns the image. The plan must be built with
+    ``pad_blocks_to`` the size of the mesh's ``axis_name``."""
+    device = mesh_device(mesh) if device is None else device
+    return packed_gridder(pplan, fast, device=device).grid_sharded(
+        vis, mesh, axis_name)
+
+
+def degrid_all_packed_sharded(pplan: PackedPlan, image, mesh,
+                              axis_name: str = ROW_AXIS, fast: bool = False,
+                              device=None) -> torch.Tensor:
+    """Mesh-sharded packed degridding of the replicated image: each rank
+    degrids its blocks, and every rank returns the [rows, chan]
+    complex64 visibilities."""
+    device = mesh_device(mesh) if device is None else device
+    return packed_gridder(pplan, fast, device=device).degrid_sharded(
+        image, mesh, axis_name)

@@ -2,7 +2,7 @@
 device.
 
 Counterpart of ska_sdp_func_tpu.parallel.streaming (streaming.py:103-1348)
-on one device:
+on one device, or row-sharded over a process mesh (``mesh=``):
 
 1. **Static stream geometry** (host, once per observation):
    :func:`stream_tasks` finds the task boxes from uvw metadata in f32
@@ -38,6 +38,10 @@ on one device:
    stay on the device; :meth:`StreamingGridder.finalize` reads them once.
    A chunk whose bucket padding exceeds the capacity contributes nothing
    and is counted as voided; finalize then raises.
+5. **Mesh**: each rank plans and grids (or predicts) its own block of
+   each chunk's rows at ``cap / n`` slots; the overflow is reduced over
+   the ranks before the placement (a chunk voids on all of them), the
+   w-plane grids and the counters are summed.
 
 The TPU plan carried every payload through its sorts because TPU
 gathers are slow; on the card one sort and gathers do the same.
@@ -54,6 +58,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..grid_data.wtower import _round_half_away, _tap_coeffs_cached
 from ..kernels import band_tap, fold, fused_tap, place, stream_prep
@@ -61,6 +66,7 @@ from ..kernels.packed_tap import degrid_runs
 from ..utility.constants import C_0
 from ..utility.errors import SdpInvalidArgumentError, SdpRuntimeError
 from ..utility.tensors import host_uvw, resolve_device
+from .mesh import ROW_AXIS, mesh_axis, mesh_device
 from .packed import (
     PackedTask,
     _TowerImaging,
@@ -319,9 +325,14 @@ class _StreamEngine(_TowerImaging):
         return vcnt, dict(nonempty=(vcnt > 0).to(torch.int32))
 
     def _plan_chunk(self, uvw, row_mask, vre=None, vim=None,
-                    need_unsort: bool = True):
+                    need_unsort: bool = True, cap: Optional[int] = None,
+                    num_blocks: Optional[int] = None, group=None):
         """Per-chunk device plan (uvw [R, 3] f32, row_mask [R] bool,
-        optional vre/vim [R, C] f32), the JAX engine's ``_plan_chunk``.
+        optional vre/vim [R, C] f32), the JAX engine's ``_plan_chunk``, at
+        ``cap`` slots in ``num_blocks`` blocks (``None``: the plan's). With
+        a process ``group`` the overflow is the ranks' (a MAX
+        ``all_reduce`` before the placement), so a chunk voids on every
+        rank together.
 
         Returns (arrays, dest_by_orig, block_bucket, visited, processed,
         dropped, overflow): ``arrays`` holds the placed ``fields``, the
@@ -331,7 +342,9 @@ class _StreamEngine(_TowerImaging):
         """
         splan = self.splan
         plan = splan.wplan
-        cap, bv, nb = splan.cap, splan.block_v, splan.num_buckets
+        cap = splan.cap if cap is None else cap
+        num_blocks = splan.num_blocks if num_blocks is None else num_blocks
+        bv, nb = splan.block_v, splan.num_buckets
         dev = uvw.device
         i32 = torch.int32
         ov, sgs, support = plan.oversampling, plan.subgrid_size, plan.support
@@ -400,9 +413,13 @@ class _StreamEngine(_TowerImaging):
         pad_off = torch.zeros(nb + 1, dtype=torch.int64, device=dev)
         pad_off[1:] = torch.cumsum((counts + bv - 1) // bv * bv, dim=0)
         overflow = pad_off[-1] > cap
+        if group is not None:
+            over = overflow.to(i32)
+            dist.all_reduce(over, op=dist.ReduceOp.MAX, group=group)
+            overflow = over > 0
 
         # Block side: block -> bucket, first sorted entry, valid count.
-        slots = torch.arange(splan.num_blocks, device=dev) * bv
+        slots = torch.arange(num_blocks, device=dev) * bv
         block_bucket = torch.searchsorted(pad_off[1:], slots,
                                           right=True).clamp(0, nb - 1)
         off_in_b = slots - pad_off[block_bucket]
@@ -446,11 +463,11 @@ class _StreamEngine(_TowerImaging):
 
     # -- branch stages --------------------------------------------------
 
-    def _chunk_image(self, arrays, block_bucket, visited):
-        """Placed chunk -> its dirty image: K3 tower stacks over the chunk's
-        window runs (as the predict's: a bucket's blocks, built on the
-        device, no host sync), then the drain of the tasks a block visited
-        (none of an overflowed chunk)."""
+    def _chunk_planes(self, arrays, block_bucket, visited):
+        """Placed chunk -> its w-plane grids: K3 tower stacks over the
+        chunk's window runs (as the predict's: a bucket's blocks, built on
+        the device, no host sync), then the drain of the tasks a block
+        visited (none of an overflowed chunk)."""
         splan = self.splan
         num_tasks = len(splan.tasks)
         stack = fused_tap.grid_fused_stack(
@@ -460,7 +477,7 @@ class _StreamEngine(_TowerImaging):
             splan.wplan.subgrid_size, nonempty=arrays["nonempty"],
             runs=degrid_runs((block_bucket,)), **self._kernel_dims())
         tvis = visited.reshape(num_tasks, -1).any(dim=1)
-        return self._image_from_stack(stack, tvis)
+        return self._stack_to_planes(stack, tvis)
 
     def _predict(self, st, arrays, block_bucket, dest):
         """Placed chunk and task-major model stack -> visibilities [R * C]
@@ -477,13 +494,22 @@ class _StreamEngine(_TowerImaging):
 
     # -- chunk steps ----------------------------------------------------
 
-    def step(self, image, counters, uvw, row_mask, vre, vim):
+    def step(self, image, counters, uvw, row_mask, vre, vim, shard=None):
         """Grid one padded chunk: returns the new image and counters
-        (processed, dropped, voided)."""
+        (processed, dropped, voided). ``shard`` ``(cap, num_blocks,
+        group)`` (JAX streaming.py:914-978): the chunk is this rank's
+        block, planned at the shard's capacity; the overflow, the w-plane
+        grids and the counters are the sums over the ranks of ``group``."""
+        cap, num_blocks, group = shard or (None, None, None)
         (arrays, _, bb, visited, processed, dropped,
          overflow) = self._plan_chunk(uvw, row_mask, vre, vim,
-                                      need_unsort=False)
-        chunk_img = self._chunk_image(arrays, bb, visited)
+                                      need_unsort=False, cap=cap,
+                                      num_blocks=num_blocks, group=group)
+        planes = self._chunk_planes(arrays, bb, visited)
+        if group is not None:
+            dist.all_reduce(torch.view_as_real(planes), group=group)
+            processed, dropped = _sum_counts(group, processed, dropped)
+        chunk_img = self._planes_to_image(planes)
         # An overflow voids the whole chunk, never a truncated image.
         gain = (~overflow).to(torch.float32)
         p_acc, d_acc, v_acc = counters
@@ -491,11 +517,18 @@ class _StreamEngine(_TowerImaging):
             p_acc + processed, d_acc + torch.where(overflow, 0, dropped),
             v_acc + overflow.to(torch.int32))
 
-    def dstep(self, counters, uvw, row_mask, st):
+    def dstep(self, counters, uvw, row_mask, st, shard=None):
         """Predict one padded chunk from the model stack ``st``: returns
-        the visibilities [R, C] and the counters."""
+        the visibilities [R, C] and the counters. ``shard`` as in
+        :meth:`step` (JAX streaming.py:980-1030): the rank's rows predict
+        without a collective on the data; only the overflow and the
+        counters are reduced."""
+        cap, num_blocks, group = shard or (None, None, None)
         (arrays, dest, bb, _, processed, dropped,
-         overflow) = self._plan_chunk(uvw, row_mask)
+         overflow) = self._plan_chunk(uvw, row_mask, cap=cap,
+                                      num_blocks=num_blocks, group=group)
+        if group is not None:
+            processed, dropped = _sum_counts(group, processed, dropped)
         vis = self._predict(st, arrays, bb, dest).reshape(
             uvw.shape[0], self.splan.wplan.num_chan)
         vis = torch.where(overflow, 0, vis)
@@ -566,15 +599,19 @@ class _SplitStreamEngine(_StreamEngine):
                                  splan.num_slabs, splan.num_octets,
                                  splan.wplan.w_support, splan.num_layers)
 
-    def _drain(self, layers):
-        """Tower layers -> the chunk's dirty image."""
+    def _drain_planes(self, layers):
+        """Tower layers -> the chunk's w-plane grids."""
         return self._stage_planes(self._stage_drain(
             layers, self.ladder_grid, self.pref_grid))
 
-    def _chunk_image(self, arrays, block_bucket, visited):
+    def _drain(self, layers):
+        """Tower layers -> the chunk's dirty image."""
+        return self._planes_to_image(self._drain_planes(layers))
+
+    def _chunk_planes(self, arrays, block_bucket, visited):
         wins = self._grid_windows(arrays, block_bucket,
                                   *self._prep_grid(arrays))
-        return self._drain(self._fold_windows(wins, visited))
+        return self._drain_planes(self._fold_windows(wins, visited))
 
     # -- predict stages -------------------------------------------------
 
@@ -620,38 +657,78 @@ def _zero_counters(device):
                  for _ in range(3))
 
 
-def _padded_chunk(splan: StreamPlan, uvw, device):
+def _sum_counts(group, processed, dropped):
+    """(processed, dropped) summed over the ranks of ``group``."""
+    counts = torch.stack([processed, dropped])
+    dist.all_reduce(counts, group=group)
+    return counts[0], counts[1]
+
+
+def _sum_expected(expected: int, shard, device) -> int:
+    """The visibilities the ranks of the shard's group were given."""
+    if shard is None:
+        return expected
+    total = torch.tensor(expected, dtype=torch.int64, device=device)
+    dist.all_reduce(total, group=shard[2])
+    return int(total)
+
+
+def _stream_shard(splan: StreamPlan, mesh, axis_name: str):
+    """(rows of a chunk block, the steps' ``shard`` argument) for a
+    ``mesh`` (``None``: one device, the whole chunk). The rows shard over
+    the mesh's ``axis_name`` alone; each shard plans at ``cap / n`` slots
+    (JAX streaming.py:926-956)."""
+    if mesh is None:
+        return splan.chunk_rows, None
+    n, _, group = mesh_axis(mesh, axis_name)
+    if splan.chunk_rows % n or splan.cap % (n * splan.block_v) \
+            or (splan.cap // n) % _PREP_G:
+        raise SdpInvalidArgumentError(
+            f"chunk_rows ({splan.chunk_rows}) must divide by the "
+            f"row-shard count ({n}) and cap ({splan.cap}) by "
+            f"n*block_v with a per-shard cap that is a multiple "
+            f"of the prep granule ({_PREP_G}); adjust cap_slots")
+    cap_s = splan.cap // n
+    return splan.chunk_rows // n, (cap_s, cap_s // splan.block_v, group)
+
+
+def _padded_chunk(splan: StreamPlan, uvw, device,
+                  chunk_rows: Optional[int] = None):
     """uvw [R, 3] (NumPy or tensor) -> (rows, uvw [chunk_rows, 3] f32,
-    row_mask [chunk_rows]) on ``device``, zero-padded and masked."""
+    row_mask [chunk_rows]) on ``device``, zero-padded and masked
+    (``chunk_rows`` None: the plan's)."""
+    if chunk_rows is None:
+        chunk_rows = splan.chunk_rows
     uvw = torch.as_tensor(uvw)
     if uvw.ndim != 2 or uvw.shape[1] != 3:
         raise SdpInvalidArgumentError(
             f"uvw must be [rows, 3], got {tuple(uvw.shape)}")
     rows = uvw.shape[0]
-    if rows > splan.chunk_rows:
+    if rows > chunk_rows:
         raise SdpInvalidArgumentError(
-            f"chunk has {rows} rows > chunk_rows={splan.chunk_rows}")
-    uvw32 = torch.zeros((splan.chunk_rows, 3), dtype=torch.float32,
+            f"chunk has {rows} rows > chunk_rows={chunk_rows}")
+    uvw32 = torch.zeros((chunk_rows, 3), dtype=torch.float32,
                         device=device)
     uvw32[:rows] = uvw.to(device)
-    row_mask = torch.zeros(splan.chunk_rows, dtype=torch.bool,
-                           device=device)
+    row_mask = torch.zeros(chunk_rows, dtype=torch.bool, device=device)
     row_mask[:rows] = True
     return rows, uvw32, row_mask
-
-
-def _check_single_device(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded streaming is not ported yet (ROADMAP Queue 1 "
-            "item 15)")
 
 
 class StreamingGridder:
     """Accumulates a dirty image over visibility chunks, planning on the
     device (module docstring). Engines are shared across instances of the
-    same (plan, fast, device). ``device=None`` is the CUDA card; CPU runs
-    pass ``device="cpu"``.
+    same (plan, fast, device). ``device=None`` is the CUDA card (on a
+    mesh, the mesh's: :func:`.mesh.mesh_device`); CPU runs pass
+    ``device="cpu"``.
+
+    With ``mesh=`` the chunk's rows shard over the mesh's ``axis_name``
+    (n ranks; ``chunk_rows`` and ``cap`` must divide by n, JAX
+    streaming.py:914-978): each rank passes :meth:`accumulate` its own
+    block of each chunk, the chunk's rows ``[r B, (r + 1) B)`` with ``B =
+    chunk_rows / n`` (fewer, or none, in a short chunk), planned at
+    ``cap / n`` slots; the w-plane grids and the counters are summed
+    over the ranks, and every rank holds the same image.
 
     >>> sg = StreamingGridder(plan_stream(wplan, stream_tasks(wplan,
     ...                                   uvw_meta), chunk_rows=4096),
@@ -662,10 +739,12 @@ class StreamingGridder:
     """
 
     def __init__(self, splan: StreamPlan, fast: bool = False, mesh=None,
-                 device=None):
-        _check_single_device(mesh)
+                 axis_name: str = ROW_AXIS, device=None):
+        self._rows, self._shard = _stream_shard(splan, mesh, axis_name)
         self.splan = splan
         self.fast = bool(fast)
+        if device is None and mesh is not None:
+            device = mesh_device(mesh)
         self.device = resolve_device(device)
         self._engine = _stream_engine(splan, self.fast, self.device)
         n = splan.wplan.image_size
@@ -678,13 +757,14 @@ class StreamingGridder:
 
     def accumulate(self, uvw, vis, weights=None):
         """Grid one chunk: uvw [R, 3], vis [R, num_chan] complex
-        (R <= chunk_rows; short chunks are padded and masked); optional
-        weights [R, num_chan] scale the visibilities."""
+        (R <= chunk_rows, or the rank's block on a mesh; short chunks are
+        padded and masked); optional weights [R, num_chan] scale the
+        visibilities."""
         if self._finalized is not None:
             raise SdpRuntimeError("stream already finalized")
-        splan = self.splan
-        num_chan = splan.wplan.num_chan
-        rows, uvw32, row_mask = _padded_chunk(splan, uvw, self.device)
+        num_chan = self.splan.wplan.num_chan
+        rows, uvw32, row_mask = _padded_chunk(self.splan, uvw, self.device,
+                                              self._rows)
         vis = torch.as_tensor(vis)
         if vis.ndim != 2 or vis.shape[0] != rows \
                 or vis.shape[1] != num_chan:
@@ -699,12 +779,13 @@ class StreamingGridder:
         if weights is not None:
             wgt = torch.as_tensor(weights).to(self.device, torch.float32)
             vre, vim = vre * wgt, vim * wgt
-        pad = splan.chunk_rows - rows
+        pad = self._rows - rows
         if pad:
             zeros = vre.new_zeros((pad, num_chan))
             vre, vim = torch.cat([vre, zeros]), torch.cat([vim, zeros])
         self._image, self._counters = self._engine.step(
-            self._image, self._counters, uvw32, row_mask, vre, vim)
+            self._image, self._counters, uvw32, row_mask, vre, vim,
+            self._shard)
         self._expected += rows * num_chan
 
     @property
@@ -713,16 +794,20 @@ class StreamingGridder:
         return self._image
 
     def counters(self):
-        """(processed, dropped, voided_chunks) device scalars."""
+        """(processed, dropped, voided_chunks) device scalars (over every
+        rank on a mesh)."""
         return self._counters
 
     def finalize(self, check: bool = True) -> torch.Tensor:
         """Return the accumulated image; with ``check`` (default),
         enforce the processed-visibility invariant
-        (sdp_grid_wstack_wtower.cpp:442-448) with one host readback."""
+        (sdp_grid_wstack_wtower.cpp:442-448) with one host readback (and,
+        on a mesh, one sum of the ranks' visibility counts)."""
         if self._finalized is None:
             self._finalized = self._image
         if check:
+            expected = _sum_expected(self._expected, self._shard,
+                                     self.device)
             processed, dropped, voided = (int(x) for x in self._counters)
             if voided:
                 raise SdpRuntimeError(
@@ -732,11 +817,10 @@ class StreamingGridder:
             # Nothing dropped and nothing voided imply processed ==
             # expected; the cross-check only applies while the int32
             # device counter cannot have wrapped.
-            if dropped or (self._expected < 2 ** 31
-                           and processed != self._expected):
+            if dropped or (expected < 2 ** 31 and processed != expected):
                 raise SdpRuntimeError(
                     f"stream processed {processed} of "
-                    f"{self._expected} visibilities ({dropped} "
+                    f"{expected} visibilities ({dropped} "
                     "outside the task set / tower ranges)")
         return self._finalized
 
@@ -746,13 +830,18 @@ class StreamingDegridder:
     planning on the device: the predict half of a streaming selfcal
     loop. The model's stack is built once per :meth:`set_model`.
     Visibilities outside the task set predict zero and are counted;
-    :meth:`check` raises on them."""
+    :meth:`check` raises on them. ``mesh=`` shards the chunk's rows as
+    :class:`StreamingGridder`'s does: each rank passes :meth:`predict` its
+    block of the chunk and gets back its rows' visibilities (JAX
+    streaming.py:980-1030)."""
 
     def __init__(self, splan: StreamPlan, fast: bool = False, mesh=None,
-                 device=None):
-        _check_single_device(mesh)
+                 axis_name: str = ROW_AXIS, device=None):
+        self._rows, self._shard = _stream_shard(splan, mesh, axis_name)
         self.splan = splan
         self.fast = bool(fast)
+        if device is None and mesh is not None:
+            device = mesh_device(mesh)
         self.device = resolve_device(device)
         self._engine = _stream_engine(splan, self.fast, self.device)
         self._st = None
@@ -771,31 +860,34 @@ class StreamingDegridder:
 
     def predict(self, uvw) -> torch.Tensor:
         """uvw [R, 3] -> predicted visibilities [R, num_chan] complex64
-        (R <= chunk_rows; short chunks padded and masked)."""
+        (R <= chunk_rows, or the rank's block on a mesh; short chunks
+        padded and masked)."""
         if self._st is None:
             raise SdpRuntimeError("call set_model(image) first")
-        rows, uvw32, row_mask = _padded_chunk(self.splan, uvw, self.device)
+        rows, uvw32, row_mask = _padded_chunk(self.splan, uvw, self.device,
+                                              self._rows)
         vis, self._counters = self._engine.dstep(
-            self._counters, uvw32, row_mask, self._st)
+            self._counters, uvw32, row_mask, self._st, self._shard)
         self._expected += rows * self.splan.wplan.num_chan
         return vis[:rows]
 
     def counters(self):
-        """(processed, dropped, voided_chunks) device scalars."""
+        """(processed, dropped, voided_chunks) device scalars (over every
+        rank on a mesh)."""
         return self._counters
 
     def check(self):
         """Raise if any visibility predicted zero because it fell outside
         the task set or the capacity (one host readback)."""
+        expected = _sum_expected(self._expected, self._shard, self.device)
         processed, dropped, voided = (int(x) for x in self._counters)
         if voided:
             raise SdpRuntimeError(
                 f"{voided} predict chunk(s) exceeded the padded "
                 f"stream capacity ({self.splan.cap} slots) and "
                 "returned zeros; raise cap_factor or shrink chunks")
-        if dropped or (self._expected < 2 ** 31
-                       and processed != self._expected):
+        if dropped or (expected < 2 ** 31 and processed != expected):
             raise SdpRuntimeError(
-                f"predicted {processed} of {self._expected} "
+                f"predicted {processed} of {expected} "
                 f"visibilities ({dropped} outside the task set / "
                 "tower ranges returned zeros)")

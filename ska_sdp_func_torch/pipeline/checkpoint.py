@@ -12,9 +12,10 @@ persisted after each major cycle and read back on a restart. Two forms:
   do the same for a finished :class:`~.major_cycle.ImagingResult`.
 - :class:`SolverCheckpointer`: a directory of one such ``.npz`` per step
   with ``max_to_keep`` retention. The JAX package wraps orbax here
-  (JAX-only); this is the single-process equivalent with the same
-  methods. Sharded multi-process writes wait for the multi-device port
-  (ROADMAP Queue 1 item 15).
+  (JAX-only); this is the equivalent with the same methods. The solver's
+  model and residual are replicated images, so in a process group (a
+  mesh-sharded solve) rank 0 alone writes and prunes, every rank waits
+  for the write, and every rank restores onto its own device.
 
 Tensors come back on the caller's ``device`` (``None``: the CUDA card).
 """
@@ -26,6 +27,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..utility.tensors import resolve_device
 from .major_cycle import ImagingResult
@@ -98,6 +100,12 @@ class SolverCheckpointer:
     :meth:`close` have nothing to flush. :meth:`restore` puts the images
     on the device and in the dtype of ``template``'s tensors, else on
     ``device`` (``None``: the CUDA card).
+
+    With a ``torch.distributed`` process group started, every rank calls
+    :meth:`save` with the same (replicated) state: rank 0 writes the step
+    and prunes the old ones, and :meth:`save` ends in a barrier, so no
+    rank reads a step before it is whole. The directory must be one that
+    every rank sees.
     """
 
     _NAME = re.compile(r"^step_(\d+)\.npz$")
@@ -122,11 +130,15 @@ class SolverCheckpointer:
 
     def save(self, step: int, model, residual, peak_history=None,
              meta: Optional[dict] = None) -> None:
-        save_state(self._path(step), model, residual, int(step),
-                   peak_history, meta)
-        steps = self.steps()
-        for old in steps[:max(len(steps) - self.max_to_keep, 0)]:
-            os.remove(self._path(old))
+        group = dist.is_available() and dist.is_initialized()
+        if not group or dist.get_rank() == 0:
+            save_state(self._path(step), model, residual, int(step),
+                       peak_history, meta)
+            steps = self.steps()
+            for old in steps[:max(len(steps) - self.max_to_keep, 0)]:
+                os.remove(self._path(old))
+        if group:
+            dist.barrier()
 
     def restore(self, step: Optional[int] = None, template=None):
         """Restore ``(model, residual, cycle, peak_history, meta)`` of

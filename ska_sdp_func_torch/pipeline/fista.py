@@ -15,6 +15,13 @@ The step size is 1/L with L = ||M A^T A M|| estimated by power iteration
 through the same operators (M: the CLEAN-window border mask). The power
 iteration starts from ``np.random.default_rng(seed)``, as the JAX
 package's does, so both packages start from the same vector.
+
+With ``mesh`` (JAX fista.py:79-108) every rank passes the whole ``vis``
+and ``uvw``, holds its block of the sorted stream (the plan padded to a
+multiple of the rank count) and runs the block-sharded operators
+(:meth:`~..parallel.packed.PackedGridder.grid_sorted_sharded`, whose
+images are summed over the ranks); the residual norm is summed over the
+ranks too, so every rank returns the same model.
 """
 
 from dataclasses import dataclass
@@ -22,11 +29,13 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..parallel.packed import packed_gridder, plan_packed
+from ..parallel.mesh import mesh_axis
+from ..parallel.packed import _MeshDrivers, packed_gridder, plan_packed
 from ..parallel.wstack import WStackPlan
-from ..utility.tensors import host_uvw, resolve_device, to_device
-from .major_cycle import _mask_border, _no_mesh, _packed_residual
+from ..utility.tensors import host_uvw, to_device
+from .major_cycle import _mask_border, _packed_residual, _solver_device
 
 
 @dataclass
@@ -41,17 +50,22 @@ def _soft_threshold(x: torch.Tensor, lam) -> torch.Tensor:
     return torch.sign(x) * torch.clamp_min(x.abs() - lam, 0.0)
 
 
-def _norm(*xs) -> torch.Tensor:
-    """sqrt(sum of squares) over the tensors, on their device."""
-    return torch.sqrt(sum((x * x).sum() for x in xs))
+def _norm(*xs, group=None) -> torch.Tensor:
+    """sqrt(sum of squares) over the tensors, on their device; with a
+    process ``group``, over every rank's tensors."""
+    squares = sum((x * x).sum() for x in xs)
+    if group is not None:
+        dist.all_reduce(squares, group=group)
+    return torch.sqrt(squares)
 
 
 def _operator_norm(gridder, mask: torch.Tensor, image_size: int,
                    n_iter: int = 8, seed: int = 0) -> float:
-    """||M A^T A M|| by power iteration through the packed operators (M
-    = the CLEAN-window border mask: the 1/PSWF grid corrections diverge in
-    the border ring, so the solve, like CLEAN's minor cycle, runs in the
-    windowed interior)."""
+    """||M A^T A M|| by power iteration through the packed operators
+    (``gridder.grid_sorted`` / ``degrid_sorted``; M = the CLEAN-window
+    border mask: the 1/PSWF grid corrections diverge in the border ring,
+    so the solve, like CLEAN's minor cycle, runs in the windowed
+    interior)."""
     rng = np.random.default_rng(seed)
     x = mask * torch.as_tensor(rng.standard_normal((image_size, image_size)),
                                dtype=torch.float32, device=mask.device)
@@ -70,7 +84,8 @@ def fista_imager(plan: WStackPlan, vis, uvw, n_iter: int = 50,
                  border: Optional[int] = None, mesh=None,
                  device=None) -> FistaResult:
     """Run the FISTA sparse solve through the packed operators on
-    ``device`` (``None``: the CUDA card; CPU runs pass ``device="cpu"``).
+    ``device`` (``None``: the CUDA card, or the mesh's; CPU runs pass
+    ``device="cpu"``).
 
     ``lam_frac``: the L1 weight as a fraction of the peak of the
     (normalised) dirty image, the peak-relative scaling CLEAN thresholds
@@ -79,11 +94,15 @@ def fista_imager(plan: WStackPlan, vis, uvw, n_iter: int = 50,
     corrections are well conditioned. ``vis``/``weights`` [rows, chan]
     and ``uvw`` [rows, 3] are NumPy arrays or tensors on any device.
     """
-    _no_mesh(mesh)
     uvw = host_uvw(uvw)
-    vis = to_device(vis, resolve_device(device))
+    vis = to_device(vis, _solver_device(mesh, device))
     dev = vis.device
-    g = packed_gridder(plan_packed(plan, uvw), device=dev)
+    if mesh is None:
+        g, group = packed_gridder(plan_packed(plan, uvw), device=dev), None
+    else:
+        n, _, group = mesh_axis(mesh)
+        g = _MeshDrivers(packed_gridder(
+            plan_packed(plan, uvw, pad_blocks_to=n), device=dev), mesh)
     w_sorted = None
     if weights is not None:
         w = to_device(weights, dev).to(vis.dtype)
@@ -113,7 +132,7 @@ def fista_imager(plan: WStackPlan, vis, uvw, n_iter: int = 50,
     for _ in range(int(n_iter)):
         x, y, t, res_re, res_im = _fista_step(g, grid, vre, vim, w_sorted,
                                               step, thresh, x, y, t)
-        history.append(float(_norm(res_re, res_im)))
+        history.append(float(_norm(res_re, res_im, group=group)))
     return FistaResult(model=x, residual_norm=history)
 
 

@@ -13,7 +13,9 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import ROW_AXIS, mesh_axis, mesh_device
 from ..station_beam.station import aperture_array
 from ..utility.tensors import on_device
 from ..visibility.flagger import flagger_dynamic_threshold
@@ -76,10 +78,40 @@ def ingest_to_solver(vis4d, weights4d, beam_gain=None, device=None,
 
 
 def ingest_flag_and_weight_sharded(vis4d, weights4d, mesh,
-                                   **flagger_kwargs):
-    """The baseline-sharded ingest: not ported yet."""
-    raise NotImplementedError(
-        "multi-device ingest is not ported yet: ROADMAP Queue 1 item 15")
+                                   axis_name: str = ROW_AXIS, device=None,
+                                   **flagger_kwargs
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """Mesh-sharded ingest (JAX ingest.py:77-119): the baselines shard
+    over the mesh's ``axis_name`` (n ranks), on ``device`` (``None``: the
+    mesh's, :func:`~..parallel.mesh.mesh_device`).
+
+    The flagger's statistics are per (baseline, channel, pol) sample
+    stream, so each rank flags its own block of baselines of the whole
+    ``vis4d`` / ``weights4d`` [time, baseline, chan, pol] through
+    :func:`ingest_flag_and_weight`, and only the flagged count is summed
+    over the ranks. The baselines are padded to a multiple of n (zero
+    visibilities and weights). Returns the rank's block of (flags4d,
+    weights4d) [time, padded baselines / n, chan, pol], pad baselines
+    included, and the flagged fraction of the whole stream on every rank;
+    ``gather_rows`` of the blocks moved to axis 0 (``x.transpose(0, 1)``)
+    gives the whole, in rank order.
+    """
+    n, rank, group = mesh_axis(mesh, axis_name)
+    dev = mesh_device(mesh) if device is None else device
+    t, b, c, p = vis4d.shape
+    block = -(-b // n)
+    lo, hi = min(rank * block, b), min((rank + 1) * block, b)
+    vis, wgt = on_device(vis4d[:, lo:hi], weights4d[:, lo:hi], device=dev)
+    pad = block - (hi - lo)
+    if pad:
+        vis = torch.cat([vis, vis.new_zeros((t, pad, c, p))], dim=1)
+        wgt = torch.cat([wgt, wgt.new_zeros((t, pad, c, p))], dim=1)
+    flags, clean_w, _ = ingest_flag_and_weight(vis, wgt, device=dev,
+                                               **flagger_kwargs)
+    flagged = flags.to(torch.float32).sum()
+    dist.all_reduce(flagged, group=group)
+    return flags, clean_w, flagged / float(t * b * c * p)
 
 
 def station_beam_power(element_x, element_y, element_z, weights,

@@ -28,9 +28,16 @@ The minor cycle is Hogbom (:mod:`..clean.hogbom`) or, with
 ``clean_algorithm="msclean"``, multi-scale CLEAN over ``scale_list``
 (:func:`_make_msclean_minor`). ``checkpoint_path`` / ``checkpointer``
 persist the solver state after every major cycle and resume from it
-(:mod:`.checkpoint`). The one branch that is not ported, ``mesh``,
-raises ``NotImplementedError`` naming its ROADMAP item; it is not
-silently rerouted.
+(:mod:`.checkpoint`).
+
+With ``mesh`` (a process mesh, one rank a card) every rank takes the
+whole ``vis`` and ``uvw`` (the host planners need all of uvw) and works
+on its own block: the task drivers on its block of rows
+(:func:`~..parallel.wstack.wstack_grid_all_sharded`), the packed path on
+its block of the sorted stream (the plans padded to a multiple of the
+rank count; :meth:`~..parallel.packed.PackedGridder.grid_sorted_sharded`).
+The grids are summed over the ranks, so every rank holds the same image
+bits, takes the same minor-cycle decisions and returns the same result.
 """
 
 import os
@@ -54,12 +61,15 @@ from ..parallel.bucketed import (
     inverse_index_of,
     plan_bucketed,
 )
-from ..parallel.packed import packed_gridder, plan_packed
+from ..parallel.mesh import local_rows, mesh_axis, mesh_device, pad_rows
+from ..parallel.packed import _MeshDrivers, packed_gridder, plan_packed
 from ..parallel.wstack import (
     WStackPlan,
     degrid_all_tasks,
     grid_all_tasks,
     plan_wstack,
+    wstack_degrid_all_sharded,
+    wstack_grid_all_sharded,
 )
 from ..utility.errors import SdpInvalidArgumentError
 from ..utility.logging import log_info
@@ -96,18 +106,59 @@ def _channel_ranges(plan: WStackPlan, uvw: torch.Tensor):
                        device=uvw.device))
 
 
-def _grid(plan: WStackPlan, vis: torch.Tensor,
-          uvw: torch.Tensor) -> torch.Tensor:
-    """Task-driver dirty image (real part, vis's real precision)."""
+def _grid(plan: WStackPlan, vis: torch.Tensor, uvw: torch.Tensor,
+          shard=None) -> torch.Tensor:
+    """Task-driver dirty image (real part, vis's real precision).
+    ``shard`` ``(mesh, start_chs, end_chs)``: ``vis`` and ``uvw`` are the
+    rank's block of rows (:func:`_row_block`), and the image is the sum
+    over the ranks."""
+    if shard is not None:
+        mesh, start_chs, end_chs = shard
+        return wstack_grid_all_sharded(
+            plan, vis, uvw, mesh, image_dtype=vis.real.dtype,
+            start_chs=start_chs, end_chs=end_chs)
     return grid_all_tasks(plan, plan.kernel(), vis, uvw,
                           *_channel_ranges(plan, uvw), device=vis.device).real
 
 
 def _degrid(plan: WStackPlan, image: torch.Tensor, uvw: torch.Tensor,
-            vis_dtype) -> torch.Tensor:
+            vis_dtype, shard=None) -> torch.Tensor:
+    """Task-driver prediction of ``uvw``'s rows (``shard`` as in
+    :func:`_grid`: the rank's block)."""
+    if shard is not None:
+        mesh, start_chs, end_chs = shard
+        return wstack_degrid_all_sharded(
+            plan, image, uvw, mesh, vis_dtype=vis_dtype,
+            start_chs=start_chs, end_chs=end_chs)
     return degrid_all_tasks(plan, plan.kernel(), image, uvw,
                             *_channel_ranges(plan, uvw), vis_dtype,
                             device=image.device)
+
+
+def _row_block(plan: WStackPlan, mesh, uvw: torch.Tensor, *arrays):
+    """The task drivers' shard of a mesh (JAX major_cycle.py:139-160):
+    ``(shard, uvw, *arrays)`` with the rows of ``uvw`` and of each [rows,
+    ...] array (``None`` stays ``None``) padded to a multiple of the rank
+    count and cut to this rank's block; ``shard`` is :func:`_grid`'s
+    argument, whose channel ranges select nothing on the pad rows."""
+    pad = pad_rows(uvw.shape[0], mesh_axis(mesh)[0])[1]
+
+    def padded(x):
+        if x is None or not pad:
+            return x
+        return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+
+    uvw, start_chs, end_chs, *blocks = local_rows(mesh, *(
+        padded(x) for x in (uvw, *_channel_ranges(plan, uvw), *arrays)))
+    return ((mesh, start_chs, end_chs), uvw, *blocks)
+
+
+def _solver_device(mesh, device) -> torch.device:
+    """Where a solve runs: ``device``, else the mesh's card, else the
+    CUDA card."""
+    if device is None and mesh is not None:
+        return mesh_device(mesh)
+    return resolve_device(device)
 
 
 def _stop_level(dirty, threshold, mgain):
@@ -145,31 +196,28 @@ def _restore(model, cbeam, residual_img):
     return convolved.real.to(model.dtype) + residual_img
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device solves are not ported yet: ROADMAP Queue 1 "
-            "item 15")
-
-
 def dirty_and_psf(plan: WStackPlan, vis, uvw, mesh=None,
                   psf_plan: Optional[WStackPlan] = None,
                   border: Optional[int] = None,
                   device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Grid the dirty image (N) and the PSF (2N) with the task drivers on
-    ``device`` (``None``: the CUDA card), both normalised so the PSF peak
-    is 1 (flux units), with a border margin (default size // 16) zeroed
-    on both: the CLEAN window."""
-    _no_mesh(mesh)
+    ``device`` (``None``: the CUDA card, or the mesh's), both normalised so
+    the PSF peak is 1 (flux units), with a border margin (default size //
+    16) zeroed on both: the CLEAN window. With ``mesh`` each rank grids
+    its block of the rows of the whole ``vis`` and ``uvw``, and every rank
+    returns the summed images."""
     uvw = host_uvw(uvw)
     if psf_plan is None:
         psf_plan = make_psf_plan(plan, uvw)
     if border is None:
         border = plan.image_size // 16
-    vis = to_device(vis, resolve_device(device))
+    vis = to_device(vis, _solver_device(mesh, device))
     uvw_dev = torch.as_tensor(uvw, device=vis.device)
-    dirty = _grid(plan, vis, uvw_dev)
-    psf = _grid(psf_plan, torch.ones_like(vis), uvw_dev)
+    shard = None
+    if mesh is not None:
+        shard, uvw_dev, vis = _row_block(plan, mesh, uvw_dev, vis)
+    dirty = _grid(plan, vis, uvw_dev, shard)
+    psf = _grid(psf_plan, torch.ones_like(vis), uvw_dev, shard)
     peak = psf[psf.shape[0] // 2, psf.shape[1] // 2]
     return _norm_mask(dirty, peak, border), _norm_mask(psf, peak, 2 * border)
 
@@ -221,7 +269,7 @@ def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
                        bucketed: bool = False, fast: bool = False,
                        verbosity: int = 0, device=None) -> ImagingResult:
     """Run the major/minor-cycle imaging solve on ``device`` (``None``:
-    the CUDA card; CPU runs pass ``device="cpu"``).
+    the CUDA card, or the mesh's; CPU runs pass ``device="cpu"``).
 
     ``vis`` [rows, chan] complex and ``weights`` [rows, chan] are NumPy
     arrays or tensors; ``uvw`` [rows, 3] is NumPy or a tensor on any
@@ -241,8 +289,11 @@ def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
     (the reference driver's report_timing,
     sdp_grid_wstack_wtower.cpp:169-213), timed with CUDA events on a
     CUDA device.
+    ``mesh``: every rank of the process mesh passes the whole ``vis``,
+    ``uvw`` and ``weights`` and gets the same result (module docstring);
+    ``bucketed=True`` on a mesh needs a geometry the packed path can
+    express.
     """
-    _no_mesh(mesh)
     if clean_algorithm not in ("hogbom", "msclean"):
         raise ValueError(f"unknown clean_algorithm {clean_algorithm!r}")
     if checkpoint_path is not None and checkpointer is not None:
@@ -251,7 +302,7 @@ def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
 
     image_size = plan.image_size
     uvw = host_uvw(uvw)
-    vis = to_device(vis, resolve_device(device))
+    vis = to_device(vis, _solver_device(mesh, device))
     dev = vis.device
     rdtype = vis.real.dtype
     timers = (Timers("major_cycle_imager", TimerType.DEVICE, device=dev)
@@ -264,13 +315,19 @@ def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
     packed = bucket = None
     if bucketed:
         # The packed ingest where the geometry allows it; otherwise the
-        # bucketed per-task fallback.
+        # bucketed per-task fallback (one device only). On a mesh the
+        # block stream pads to a multiple of the rank count.
+        pad_to = 1 if mesh is None else mesh_axis(mesh)[0]
         try:
-            packed = (packed_gridder(plan_packed(plan, uvw), fast=fast,
-                                     device=dev),
-                      packed_gridder(plan_packed(psf_plan, uvw), fast=fast,
-                                     device=dev))
+            packed = tuple(
+                packed_gridder(plan_packed(p, uvw, pad_blocks_to=pad_to),
+                               fast=fast, device=dev)
+                for p in (plan, psf_plan))
         except SdpInvalidArgumentError:
+            if mesh is not None:
+                raise ValueError(
+                    "bucketed=True with mesh requires a packed-compatible "
+                    "geometry (subgrid_size % 128 == 0, support <= 8)")
             bplan, sort_index, valid = plan_bucketed(plan, uvw)
             psf_bplan, psf_sort, psf_valid = plan_bucketed(psf_plan, uvw)
             bucket = dict(
@@ -278,6 +335,11 @@ def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
                 inv=inverse_index_of(sort_index, valid, vis.numel()),
                 psf_bplan=psf_bplan, psf_sort=psf_sort, psf_valid=psf_valid)
     uvw_dev = torch.as_tensor(uvw, device=dev)
+    shard = None
+    if mesh is not None and packed is None:
+        shard, uvw_dev, vis, weights = _row_block(
+            plan, mesh, uvw_dev, vis,
+            None if weights is None else to_device(weights, dev))
 
     psf_vis = None
     if weights is None:
@@ -292,6 +354,10 @@ def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
         timers.pop_push("psf grid + sort")
     if packed is not None:
         gri, psf_gri = packed
+        if mesh is not None:
+            # Each rank's block of the sorted stream; the residuals stay
+            # there.
+            gri, psf_gri = (_MeshDrivers(g, mesh) for g in packed)
         psf = psf_gri.grid(psf_vis_grid)
         vre, vim = gri.sort(vis)
         w_sorted = None if psf_vis is None else gri.sort(psf_vis)[0]
@@ -300,7 +366,7 @@ def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
                                 bucket["psf_sort"], bucket["psf_valid"],
                                 device=dev)
     else:
-        psf = _grid(psf_plan, psf_vis_grid, uvw_dev)
+        psf = _grid(psf_plan, psf_vis_grid, uvw_dev, shard)
     peak = psf[image_size, image_size]  # centre of the 2N PSF
     psf = _norm_mask(psf, peak, 2 * border)
     if timers:
@@ -349,7 +415,7 @@ def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
                     bucket["bplan"], model, uvw_dev, bucket["sort"],
                     bucket["valid"], bucket["inv"], device=dev).to(vis.dtype)
             else:
-                pred = _degrid(plan, model, uvw_dev, vis.dtype)
+                pred = _degrid(plan, model, uvw_dev, vis.dtype, shard)
             if psf_vis is not None:
                 # dirty = A^T W (V - A model): weight the prediction too.
                 pred = pred * psf_vis
@@ -361,7 +427,7 @@ def major_cycle_imager(plan: WStackPlan, vis, uvw, n_major: int = 3,
                                         bucket["sort"], bucket["valid"],
                                         device=dev)
             else:
-                raw = _grid(plan, res_vis, uvw_dev)
+                raw = _grid(plan, res_vis, uvw_dev, shard)
         dirty = _norm_mask(raw, peak, border)
         if timers:
             timers.pop_push("minor cycle")

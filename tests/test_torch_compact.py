@@ -167,7 +167,7 @@ def test_compact_engine_matches_jax_and_bands(scenario, direction):
                                precision="highest", device="cpu")
     tb = tpacked.PackedGridder(s["tpp"], engine="bands",
                                precision="highest", device="cpu")
-    assert jc._compact and tc.engine == "compact" and tc.vband is None
+    assert jc._compact and tc.engine == "compact" and tc.slots.vband is None
     want = np.asarray(_outputs(jc, dict(s, model=jnp.asarray(s["model"]),
                                         vis=jnp.asarray(s["vis"])),
                                direction))

@@ -142,7 +142,7 @@ def setup(device):
 @pytest.mark.parametrize("mode", list(MODES))
 def test_grid_kernel_matches_plain(setup, mode):
     s = setup
-    g, pplan = s["gs"][mode], s["pplan"]
+    g, pplan = s["gs"][mode].slots, s["pplan"]
     args = (g.t_idx, g.k_idx, g.g_idx, g.ubase, g.vband,
             (g.wk_t, s["vre"], s["vim"]), len(pplan.tasks),
             pplan.num_layers, 128, 4)
@@ -158,7 +158,7 @@ def test_grid_kernel_matches_plain(setup, mode):
 @pytest.mark.parametrize("mode", list(MODES))
 def test_degrid_kernel_matches_plain(setup, mode):
     s = setup
-    g, pplan = s["gs"][mode], s["pplan"]
+    g, pplan = s["gs"][mode].slots, s["pplan"]
     args = (s["stack"], g.t_idx, g.k_idx, g.g_idx, g.ubase, g.vband_t,
             g.wk_t, 4)
     before = tk.degrid_stack.launches
@@ -193,7 +193,7 @@ def test_whole_image_matches_cpu(setup, mode):
 
 def test_wrappers_reject_mixed_devices(setup):
     s = setup
-    g, pplan = s["gs"]["highest"], s["pplan"]
+    g, pplan = s["gs"]["highest"].slots, s["pplan"]
     with pytest.raises(SdpMemLocationError):
         tk.grid_packed_stack(g.t_idx.cpu(), g.k_idx, g.g_idx, g.ubase,
                              g.vband, (g.wk_t, s["vre"], s["vim"]),

@@ -203,23 +203,24 @@ def test_packed_engines_build_degrid_runs_once(engine):
     plan = plan_wstack(uvw, FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE, **PARAMS)
     pplan = plan_packed(plan, uvw, block_v=128)
     g = PackedGridder(pplan, engine=engine, device="cpu")
-    keys = (g.t_idx.numpy(), g.k_idx.numpy(), g.g_idx.numpy())
+    sl = g.slots
+    keys = (sl.t_idx.numpy(), sl.k_idx.numpy(), sl.g_idx.numpy())
     np.testing.assert_array_equal(
-        g.runs.numpy(),
+        sl.runs.numpy(),
         table_numpy(keys, tk.unit_blocks(pplan.num_blocks, "cpu")))
-    check_table(g.runs.numpy(), keys,
+    check_table(sl.runs.numpy(), keys,
                 tk.unit_blocks(pplan.num_blocks, "cpu"))
     st = g._model_stack(torch.as_tensor(two_point_image()))
     want = g._dstage_kernel(st)
     if engine == "fused":
         got = tf.degrid_fused2_stack_reference(
-            st, g.t_idx, g.k_idx, g.g_idx, g.pa, g.pb, g.uv_coeffs,
-            g.w_coeffs, 8, 4, plan.oversampling, plan.w_oversampling,
-            block_v=128, precision=g.precision, runs=g.runs)
+            st, sl.t_idx, sl.k_idx, sl.g_idx, sl.pa, sl.pb, sl.uv_coeffs,
+            sl.w_coeffs, 8, 4, plan.oversampling, plan.w_oversampling,
+            block_v=128, precision=g.precision, runs=sl.runs)
     else:
         got = tf.degrid_compact_reference(
-            st, g.t_idx, g.k_idx, g.g_idx, g.pa, g.uk_t, g.vk_t, g.wk_t, 8,
-            4, block_v=128, runs=g.runs)
+            st, sl.t_idx, sl.k_idx, sl.g_idx, sl.pa, sl.uk_t, sl.vk_t,
+            sl.wk_t, 8, 4, block_v=128, runs=sl.runs)
     assert torch.equal(got, want)
 
 

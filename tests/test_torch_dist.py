@@ -18,9 +18,6 @@ drivers against grid_all_tasks / degrid_all_tasks over all rows at atol
 reordered sums there) and atol 1e-12 (tests/test_parallel.py:69-108).
 """
 
-import multiprocessing
-import time
-
 import numpy as np
 import pytest
 
@@ -66,32 +63,10 @@ def group(tmp_path_factory):
 
 
 def _spawn(out, world):
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=workers.run,
-                         args=(rank, world, str(out / "store"), str(out),
-                               JOBS[world]), daemon=True)
-             for rank in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + GROUP_LIMIT
-    for p in procs:
-        p.join(max(0.0, deadline - time.monotonic()))
-    hung = [r for r, p in enumerate(procs) if p.is_alive()]
-    for p in procs:
-        if p.is_alive():
-            p.terminate()
-            p.join(5)
-            if p.is_alive():
-                p.kill()
-                p.join(5)
-    errors = [(out / f"rank{r}.err").read_text() for r in range(world)
-              if (out / f"rank{r}.err").exists()]
-    codes = [p.exitcode for p in procs]
-    if hung or errors or any(codes):
-        pytest.fail(f"world {world}: ranks {hung} still running after "
-                    f"{GROUP_LIMIT} s, exit codes {codes}\n"
-                    + "\n".join(errors))
-    return [dict(np.load(out / f"rank{r}.npz")) for r in range(world)]
+    try:
+        return workers.spawn(out, world, JOBS[world], GROUP_LIMIT)
+    except RuntimeError as err:
+        pytest.fail(str(err))
 
 
 def _stack(results, key):

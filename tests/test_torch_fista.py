@@ -16,6 +16,7 @@ pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
+from _torch_dist_workers import AxisMesh  # noqa: E402
 
 from _torch_scenario import DFREQ, FREQ0, IMAGE_SIZE, NUM_CHAN, PARAMS, \
     make_inputs, two_point_image  # noqa: E402
@@ -24,6 +25,9 @@ from ska_sdp_func_torch.parallel import plan_wstack as t_plan_wstack  # noqa
 from ska_sdp_func_torch.pipeline import fista as tf  # noqa: E402
 from ska_sdp_func_torch.pipeline import fista_imager  # noqa: E402
 from ska_sdp_func_torch.pipeline.major_cycle import _mask_border  # noqa
+from ska_sdp_func_torch.utility.errors import (  # noqa: E402
+    SdpInvalidArgumentError,
+)
 from ska_sdp_func_tpu.parallel import plan_wstack as j_plan_wstack  # noqa
 from ska_sdp_func_tpu.parallel.packed import (  # noqa: E402
     packed_gridder as j_gridder,
@@ -84,6 +88,19 @@ def test_fista_matches_jax(scene, weighted):
 
 
 def test_fista_mesh_raises(scene):
-    with pytest.raises(NotImplementedError, match="item 15"):
+    """The block-sharded operators FISTA runs on a mesh split the plan's
+    blocks evenly over the ranks: a plan not padded for the mesh raises
+    JAX's SdpInvalidArgumentError (packed.py:1174-1183), and a mesh
+    without the rows axis raises before any collective."""
+    pplan = plan_packed(scene["tplan"], scene["uvw"])
+    size = next(k for k in range(2, 64) if pplan.num_blocks % k)
+    g = packed_gridder(pplan, device="cpu")
+    vre, vim = g.sort(scene["vis"])
+    with pytest.raises(SdpInvalidArgumentError,
+                       match=f"pad_blocks_to={size}"):
+        g.grid_sorted_sharded(vre, vim, AxisMesh(size))
+    with pytest.raises(SdpInvalidArgumentError, match="not divisible"):
+        g.degrid_sorted_sharded(two_point_image(), AxisMesh(size))
+    with pytest.raises(SdpInvalidArgumentError, match="no axis 'rows'"):
         fista_imager(scene["tplan"], scene["vis"], scene["uvw"], n_iter=1,
-                     mesh=object(), device="cpu")
+                     mesh=AxisMesh(2, axis_name="cols"), device="cpu")

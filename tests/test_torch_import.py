@@ -176,3 +176,42 @@ def test_chip_smoke_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "exit 1"
     assert "no CUDA device" in proc.stderr
+
+
+def test_sharded_entry_points_import_no_jax(tmp_path):
+    """The sharded entry points (ROADMAP Queue 1 item 15b) import and run
+    without the JAX package: a one-rank gloo group grids and degrids
+    through the block-sharded packed drivers."""
+    store = str(tmp_path / "store")
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import torch.distributed as dist\n"
+        "from ska_sdp_func_torch.parallel import (\n"
+        "    StreamingDegridder, StreamingGridder,\n"
+        "    degrid_all_packed_sharded, grid_all_bucketed_sharded,\n"
+        "    grid_all_packed_sharded, make_mesh, plan_packed, plan_wstack)\n"
+        "from ska_sdp_func_torch.pipeline import (\n"
+        "    SolverCheckpointer, dirty_and_psf, fista_imager,\n"
+        "    ingest_flag_and_weight_sharded, major_cycle_imager)\n"
+        "rng = np.random.default_rng(1)\n"
+        "uvw = rng.uniform(-1, 1, (64, 3)) * [30000.0, 30000.0, 200.0]\n"
+        "vis = (rng.standard_normal((64, 2))\n"
+        "       + 1j * rng.standard_normal((64, 2))).astype(np.complex64)\n"
+        "p = plan_wstack(uvw, 3e8, 3e6, 2, 256, 128, 0.002, 50.0)\n"
+        "pp = plan_packed(p, uvw)\n"
+        f"mesh = make_mesh(1, device='cpu', rank=0,\n"
+        f"                 init_method='file://' + {store!r})\n"
+        "img = grid_all_packed_sharded(pp, vis, mesh, device='cpu')\n"
+        "pred = degrid_all_packed_sharded(pp, img, mesh, device='cpu')\n"
+        "dist.destroy_process_group()\n"
+        "assert tuple(img.shape) == (256, 256)\n"
+        "assert tuple(pred.shape) == (64, 2)\n"
+        f"{CHECK}"
+        "print('ok')\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

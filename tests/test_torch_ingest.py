@@ -19,6 +19,7 @@ pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
+from _torch_dist_workers import AxisMesh  # noqa: E402
 
 from test_torch_major_cycle import _solve_pair  # noqa: E402
 
@@ -26,6 +27,9 @@ from ska_sdp_func_torch import grid_data as tg  # noqa: E402
 from ska_sdp_func_torch import pipeline as tp  # noqa: E402
 from ska_sdp_func_torch import visibility as tv  # noqa: E402
 from ska_sdp_func_torch.parallel import plan_wstack as t_plan  # noqa: E402
+from ska_sdp_func_torch.utility.errors import (  # noqa: E402
+    SdpInvalidArgumentError,
+)
 from ska_sdp_func_tpu import grid_data as jg  # noqa: E402
 from ska_sdp_func_tpu import visibility as jv  # noqa: E402
 from ska_sdp_func_tpu.parallel import plan_wstack as j_plan  # noqa: E402
@@ -102,10 +106,39 @@ def test_station_beam_power_matches_jax():
         assert np.abs(got - want).max() <= tol * np.abs(want).max()
 
 
-def test_sharded_ingest_is_item_15():
+def test_sharded_ingest_is_item_15(tmp_path):
+    """The baseline-sharded ingest (ROADMAP Queue 1 item 15; JAX
+    ingest.py:77-119) in a one-rank gloo group of this process: the
+    rank's block is the whole stream, flags and weights equal the
+    single-device ingest's and JAX's sharded ingest on the 8-device mesh,
+    the fraction at rtol 1e-6 (tests/test_pipeline.py:375-400). The
+    group ends with the test. Several ranks: test_torch_sharded_stream.py.
+    A mesh without the rows axis raises before any collective."""
+    import torch.distributed as dist
+
+    from ska_sdp_func_torch.parallel import make_mesh
+    from ska_sdp_func_tpu.parallel import make_mesh as j_make_mesh
+
     vis, w = _rfi_stream()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tp.ingest_flag_and_weight_sharded(vis, w, mesh=object())
+    with pytest.raises(SdpInvalidArgumentError, match="no axis 'rows'"):
+        tp.ingest_flag_and_weight_sharded(vis, w, AxisMesh(2, "cols"))
+    j_flags, j_w, j_frac = ji.ingest_flag_and_weight_sharded(
+        jnp.asarray(vis), jnp.asarray(w), j_make_mesh(8))
+    flags0, w0, frac0 = tp.ingest_flag_and_weight(vis, w, device=CPU)
+    mesh = make_mesh(1, device="cpu", rank=0,
+                     init_method="file://" + str(tmp_path / "store"),
+                     timeout=60.0)
+    try:
+        flags, wgt, frac = tp.ingest_flag_and_weight_sharded(
+            vis, w, mesh, device=CPU)
+    finally:
+        dist.destroy_process_group()
+    for got, want in ((flags, np.asarray(j_flags)), (wgt, np.asarray(j_w)),
+                      (flags, flags0.numpy()), (wgt, w0.numpy())):
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert float(frac) > 0
+    np.testing.assert_allclose(float(frac), float(j_frac), rtol=1e-6)
+    np.testing.assert_allclose(float(frac), float(frac0), rtol=1e-6)
 
 
 def test_ingest_weights_solve_slice_matches_jax():

@@ -18,6 +18,7 @@ pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
+from _torch_dist_workers import AxisMesh  # noqa: E402
 
 from _torch_scenario import DFREQ, FREQ0, IMAGE_SIZE, NUM_CHAN, PARAMS, \
     make_inputs, taper  # noqa: E402
@@ -135,13 +136,18 @@ def test_major_cycle_weights_match_jax():
         <= 1e-4 * np.abs(j_model).max()
 
 
-@pytest.mark.parametrize("kwargs, item", [
-    (dict(bucketed=True, mesh=object()), "item 15"),
-])
+@pytest.mark.parametrize("kwargs, item", [pytest.param(
+    dict(bucketed=True, mesh=AxisMesh(2)), "packed-compatible",
+    id="kwargs0-item 15")])
 def test_unported_branches_raise(kwargs, item):
+    """``bucketed=True`` on a mesh runs the block-sharded packed path
+    only (ROADMAP Queue 1 item 15): a geometry the packed path cannot
+    express (a 64^2 sub-grid) raises JAX's ValueError
+    (major_cycle.py:333-336), before any collective."""
     uvw, vis = make_inputs()
-    tplan = t_plan_wstack(uvw, FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE, **PARAMS)
-    with pytest.raises(NotImplementedError, match=item):
+    tplan = t_plan_wstack(uvw, FREQ0, DFREQ, NUM_CHAN, IMAGE_SIZE,
+                          **{**PARAMS, "subgrid_size": 64})
+    with pytest.raises(ValueError, match=item):
         tmc.major_cycle_imager(tplan, vis, uvw, device="cpu", **kwargs)
 
 

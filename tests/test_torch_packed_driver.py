@@ -173,7 +173,7 @@ def test_unported_engines_raise(scenario, engine):
     s = scenario
     jg = j_gridder(s["jpp"], engine=engine)
     tg = tpacked.PackedGridder(s["tpp"], engine=engine, device="cpu")
-    assert jg._compact and tg.engine == engine and tg.vband is None
+    assert jg._compact and tg.engine == engine and tg.slots.vband is None
     assert tg.precision == jg.precision == "highest"
     vre, vim = jg.sort(jnp.asarray(s["vis"]))
     j_img = np.asarray(jg.grid_sorted(vre, vim))
@@ -197,7 +197,7 @@ def test_fused_engine_matches_jax(scenario, prec):
     jg = j_gridder(s["jpp"], precision=prec, engine="fused")
     tg = tpacked.PackedGridder(s["tpp"], precision=prec, engine="fused",
                                device="cpu")
-    assert jg._fused and tg.engine == "fused" and tg.vband is None
+    assert jg._fused and tg.engine == "fused" and tg.slots.vband is None
     vre, vim = jg.sort(jnp.asarray(s["vis"]))
     j_img = np.asarray(jg.grid_sorted(vre, vim))
     t_img = tg.grid_sorted(*tg.sort(s["vis"])).numpy()
@@ -208,8 +208,8 @@ def test_fused_engine_matches_jax(scenario, prec):
     np.testing.assert_allclose(t_vis, j_vis,
                                atol=1e-5 * np.abs(j_vis).max())
     # The plan words are the JAX engine's, bit for bit.
-    np.testing.assert_array_equal(tg.pa.numpy(), np.asarray(jg.pa))
-    np.testing.assert_array_equal(tg.pb.numpy(), np.asarray(jg.pb))
+    np.testing.assert_array_equal(tg.slots.pa.numpy(), np.asarray(jg.pa))
+    np.testing.assert_array_equal(tg.slots.pb.numpy(), np.asarray(jg.pb))
 
 
 @pytest.mark.parametrize("entry", [
@@ -224,11 +224,16 @@ def test_fused_engine_matches_jax(scenario, prec):
     "degrid_all_packed", "load_state", "flagger_dynamic_threshold",
     "briggs_weights", "bucket_sort", "aperture_array", "ingest_to_solver",
     "dft", "Swiftly", "GridderDirect", "degrid_uvw_custom",
-    "determine_max_w_tower_height"])
+    "determine_max_w_tower_height", "grid_all_packed_sharded",
+    "degrid_all_packed_sharded", "grid_all_bucketed_sharded",
+    "StreamingGridder(mesh)", "StreamingDegridder(mesh)",
+    "ingest_flag_and_weight_sharded", "major_cycle_imager(mesh)",
+    "fista_imager(mesh)", "dirty_and_psf(mesh)"])
 def test_entry_points_default_to_the_card(scenario, entry, tmp_path):
     """Without ``device`` every entry point runs on the CUDA card, never
     the CPU, even for NumPy or CPU-tensor inputs: on a host with no card
-    it raises at its first tensor move."""
+    it raises at its first tensor move. The mesh-sharded entry points run
+    on the mesh's device: a CUDA mesh's card."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default works")
     from ska_sdp_func_torch.clean import hogbom_clean, ms_clean_cornwell
@@ -361,5 +366,30 @@ def test_entry_points_default_to_the_card(scenario, entry, tmp_path):
         sp = tstream.plan_stream(tplan, tstream.stream_tasks(tplan, s["uvw"]),
                                  chunk_rows=64, block_v=128, cap_slots=20480)
         calls[name] = (lambda cls: lambda: cls(sp))(getattr(tstream, name))
+    from _torch_dist_workers import AxisMesh
+    from ska_sdp_func_torch.pipeline import ingest_flag_and_weight_sharded
+
+    mesh = AxisMesh(1, device_type="cuda")
+    pp1 = tpacked.plan_packed(tplan, uvw, block_v=128)
+    calls.update({
+        "grid_all_packed_sharded": lambda: tpacked.grid_all_packed_sharded(
+            pp1, vis, mesh),
+        "degrid_all_packed_sharded":
+            lambda: tpacked.degrid_all_packed_sharded(pp1, img, mesh),
+        "grid_all_bucketed_sharded": lambda: bucketed(
+            tb.grid_all_bucketed_sharded, vis, mesh),
+        "StreamingGridder(mesh)": lambda: tstream.StreamingGridder(
+            sp, mesh=mesh),
+        "StreamingDegridder(mesh)": lambda: tstream.StreamingDegridder(
+            sp, mesh=mesh),
+        "ingest_flag_and_weight_sharded":
+            lambda: ingest_flag_and_weight_sharded(vis4d, w4d, mesh),
+        "major_cycle_imager(mesh)": lambda: tmc.major_cycle_imager(
+            tplan, s["vis"], uvw, bucketed=True, mesh=mesh),
+        "fista_imager(mesh)": lambda: fista_imager(
+            tplan, s["vis"], uvw, n_iter=1, mesh=mesh),
+        "dirty_and_psf(mesh)": lambda: tmc.dirty_and_psf(
+            tplan, s["vis"], uvw, mesh=mesh),
+    })
     with pytest.raises((RuntimeError, AssertionError)):
         calls[entry]()

@@ -144,7 +144,7 @@ def test_gridder_runs_and_cpu_wrappers(mode):
     bit for bit."""
     pplan = _test_plan()
     kw = dict(fast=True) if mode == "bf16" else dict(precision=mode)
-    gr = PackedGridder(pplan, device="cpu", **kw)
+    gr = PackedGridder(pplan, device="cpu", **kw).slots
     t, k, g = _indices(pplan)
     np.testing.assert_array_equal(gr.runs.numpy(), runs_numpy(t, k, g))
     rng = np.random.default_rng(3)

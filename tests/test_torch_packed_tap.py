@@ -105,7 +105,7 @@ def test_build_bands_exact():
 
 @pytest.mark.parametrize("mode", MODES)
 def test_gridder_band_operands_match_mode(gridders, mode):
-    g = gridders["gs"][mode]
+    g = gridders["gs"][mode].slots
     if mode == "high":
         assert isinstance(g.vband, tuple)
         assert g.vband[0].dtype == g.vband[1].dtype == torch.bfloat16
@@ -117,7 +117,7 @@ def test_gridder_band_operands_match_mode(gridders, mode):
 @pytest.mark.parametrize("mode", MODES)
 def test_grid_reference_matches_pallas(gridders, mode):
     s = gridders
-    g, pplan = s["gs"][mode], s["pplan"]
+    g, pplan = s["gs"][mode].slots, s["pplan"]
     args = (len(pplan.tasks), pplan.num_layers, 128, 4)
     got = tk.grid_packed_stack_reference(
         g.t_idx, g.k_idx, g.g_idx, g.ubase, g.vband,
@@ -140,7 +140,7 @@ def test_grid_reference_matches_pallas(gridders, mode):
 @pytest.mark.parametrize("mode", MODES)
 def test_degrid_reference_matches_pallas(gridders, mode):
     s = gridders
-    g, pplan = s["gs"][mode], s["pplan"]
+    g, pplan = s["gs"][mode].slots, s["pplan"]
     got = tk.degrid_stack_reference(
         s["stack"], g.t_idx, g.k_idx, g.g_idx, g.ubase, g.vband_t, g.wk_t,
         4, block_v=pplan.block_v)
@@ -164,7 +164,7 @@ def test_wrappers_reject_bad_operands(gridders):
     )
 
     s = gridders
-    g, pplan = s["gs"]["highest"], s["pplan"]
+    g, pplan = s["gs"]["highest"].slots, s["pplan"]
     args = (len(pplan.tasks), pplan.num_layers, 128, 4)
     with pytest.raises(SdpDataTypeError):
         tk.grid_packed_stack(

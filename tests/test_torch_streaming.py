@@ -23,6 +23,7 @@ pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
+from _torch_dist_workers import AxisMesh  # noqa: E402
 
 from _torch_scenario import DFREQ, FREQ0, IMAGE_SIZE, NUM_CHAN, PARAMS, \
     make_inputs, taper  # noqa: E402
@@ -334,20 +335,27 @@ def test_box_membership_fma_hull():
 
 @pytest.mark.parametrize("case", ["mesh", "oversampling", "block_v"])
 def test_unported_options_raise(scenario, case):
-    """What the port does not run raises, naming its ROADMAP item:
-    ``mesh=`` (item 15). ``fast=True`` on a non-packable plan (an
-    oversampling beyond the plan words, or a block_v that is not a
-    multiple of 128) builds the non-packable engine in its bf16 mode
-    (held against JAX in tests/test_torch_streaming_fast.py); without
-    ``fast`` those plans take the same branch in f32 (the
-    ``non_packable`` tests below)."""
+    """``mesh=`` (ROADMAP Queue 1 item 15) shards the chunk's rows: a
+    ``chunk_rows`` that does not divide by the rank count (3), or a
+    capacity whose shards are not multiples of the prep granule (8 ranks
+    of 20480 slots), raises JAX's SdpInvalidArgumentError
+    (streaming.py:944-950) in both classes, as does a mesh without the
+    named axis. ``fast=True`` on a non-packable plan (an oversampling
+    beyond the plan words, or a block_v that is not a multiple of 128)
+    builds the non-packable engine in its bf16 mode (held against JAX in
+    tests/test_torch_streaming_fast.py); without ``fast`` those plans
+    take the same branch in f32 (the ``non_packable`` tests below)."""
     s = scenario
     if case == "mesh":
-        with pytest.raises(NotImplementedError, match="item 15"):
-            StreamingGridder(s["sp"], mesh=object(), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 15"):
-            StreamingDegridder(s["sp"], mesh=object(),
-                               device="cpu")
+        for cls in (StreamingGridder, StreamingDegridder):
+            for mesh in (AxisMesh(3), AxisMesh(8)):
+                with pytest.raises(SdpInvalidArgumentError,
+                                   match="row-shard count"):
+                    cls(s["sp"], mesh=mesh, device="cpu")
+            with pytest.raises(SdpInvalidArgumentError, match="no axis"):
+                cls(s["sp"], mesh=AxisMesh(4), axis_name="cols",
+                    device="cpu")
+            cls(s["sp"], mesh=AxisMesh(4), device="cpu")
         return
     plan = s["plan"]
     if case == "oversampling":
