@@ -10,6 +10,7 @@
     python3 chip_smoke.py --trace-age
     python3 chip_smoke.py --window-r
     python3 chip_smoke.py --window-s
+    python3 chip_smoke.py --window-t
 
 Run from the repository root on a machine with a CUDA card. With
 ``--packed-times`` it only times the packed path (K1/K2 in "high" and
@@ -37,7 +38,7 @@ as one profile without a lead and once until whole (one JSON line each
 time: the profiler's lost records as the process ages), and
 ``--window-r`` runs window r (below) alone after the build, on the
 bench plans (one JSON line of its stages' numbers), and ``--window-s``
-window s the same way. Phases, one line
+and ``--window-t`` windows s and t the same way. Phases, one line
 of output each (or a few), failing loudly on the first fault:
 
 1. toolchain: the card's name and power limit (nvidia-smi), torch, CUDA
@@ -251,6 +252,22 @@ of output each (or a few), failing loudly on the first fault:
       S_CAP_FACTORS); the shards' planes summed on the card against the
       one-device image (S_SHARD_TOL, taper-weighted), their predictions
       against the one-device predictions; each shard's K1/K2 timed;
+   t. the last public names and the Quick-start demos, in three parts:
+      (t1) ``PackedGridder.report_timing`` and ``report_timing_degrid``
+      (T_ITERS passes) on the bench plan in the band engine's "high" and
+      ``fast=True`` modes and the fused and compact engines, each mode in
+      a launch window of its own: JAX's stage names, each stage >= 0, the
+      stages of each pass against its own first-to-last event time
+      (T_STAGE_TOL), the composed stages' image and prediction against
+      ``grid_sorted`` / ``degrid_sorted`` (TOL; the image taper-weighted),
+      the device ms beside PERF.md section 5's, one JSON line of stage ms a
+      mode; (t2) each demo of ``ska_sdp_func_torch.examples`` (``run()``
+      at its own size, ``imaging_demo`` on a one-rank NCCL group of its
+      own) in a launch window that must launch its path's kernels
+      (T_DEMO_KERNELS), held to the oracle it returns; (t3)
+      ``native.sort_rows_by_w`` on the bench uvw against NumPy's stable
+      argsort, ``prefix_sum`` against the cumulative sum, and
+      ``packed_plan_arrays`` against the bench plan's arrays and digest;
 5. times: grid, degrid and one major-cycle iteration of the packed path
    (and one msclean and one FISTA iteration beside the Hogbom one; and
    ``packed_times``: wall, host enqueue and device time, busy share and
@@ -294,7 +311,8 @@ launches in window b, ``launches_window_q`` theirs in window q,
 ``single_task_*`` for the one-task call on the largest task. Every row
 carries ``launches_window_s``: its wrapper's launches in window s1 (all
 modes of the wrapper together, K16/K17's batched wrapper; 0 where window
-s does not run it, and on the experiments' rows). K4, K11,
+s does not run it, and on the experiments' rows), and
+``launches_window_t``, the same in windows t1 and t2. K4, K11,
 K13 and K19 (redesigned: one template in ``csrc/window_gather.cu``) carry ``redesigned``, their template
 ``instance`` and its ``ptxas`` registers and spills; K11 has a row at
 window j's dense stream (``degrid_fused[dense stream]``) beside its
@@ -4677,6 +4695,249 @@ def window_s_times(torch, dev):
                 overflows=out["overflows"], seconds=time.perf_counter() - t0)
 
 
+# -- window t: the stage-timing reports, the demos, the native helpers -------
+
+# t1's packed modes (packed_gridder's options) and iterations a report.
+T_MODES = {"high": dict(), "fast": dict(fast=True),
+           "fused": dict(engine="fused"), "compact": dict(engine="compact")}
+T_ITERS = 10
+T_STAGE_TOL = 0.01   # the stages' sum against the pass's own events
+# PERF.md section 5's device ms of one grid_sorted / degrid_sorted ("high",
+# the bench scenario, by torch.profiler; PR 11).
+T_PERF_DEVICE_MS = {"grid": 1.42, "degrid": 1.27}
+# t2: each demo and the wrappers its path must launch.
+T_DEMO_KERNELS = {
+    "packed_imaging_demo": ("grid_packed_stack", "degrid_stack"),
+    "streaming_ingest_demo": ("place_stream", "grid_fused_stack",
+                              "degrid_fused2_stack"),
+    "full_pipeline_demo": ("grid_all_layers_tasks",
+                           "degrid_all_layers_tasks"),
+    "subgrid_gridding": ("grid_all_layers", "degrid_all_layers"),
+    "imaging_demo": ("grid_plane", "degrid_plane"),
+}
+
+
+def stage_timing_phase(torch, tkern, dev, gpu, pplan, vis, model, taper,
+                       launches):
+    """t1: ``report_timing`` and ``report_timing_degrid`` (T_ITERS passes)
+    on the bench plan in each T_MODES mode, in a launch window a mode: JAX's
+    stage names, each stage >= 0; then the stages of T_ITERS passes against
+    each pass's own first-to-last event time (T_STAGE_TOL), and the
+    composed stages' image and prediction against ``grid_sorted`` /
+    ``degrid_sorted`` (TOL, the image taper-weighted). Returns {mode:
+    numbers}."""
+    from ska_sdp_func_torch.parallel import packed_gridder
+    from ska_sdp_func_torch.parallel import packed as tpacked
+
+    out = {}
+    for tag, kw in T_MODES.items():
+        g = packed_gridder(pplan, device=dev, **kw)
+        vre, vim = g.sort(vis)
+        printed = []
+        with launch_window(torch, tkern, f"window t1 ({tag})",
+                           S_PACKED_KERNELS[g.engine]) as counts:
+            grid = g.report_timing(vre, vim, iters=T_ITERS,
+                                   print_fn=printed.append)
+            degrid = g.report_timing_degrid(model, iters=T_ITERS,
+                                            print_fn=printed.append)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        if tuple(grid) != tpacked.GRID_STAGES \
+                or tuple(degrid) != tpacked.DEGRID_STAGES:
+            raise SystemExit(f"window t1 ({tag}): stage names {list(grid)} "
+                             f"{list(degrid)} are not JAX's")
+        if min(list(grid.values()) + list(degrid.values())) < 0:
+            raise SystemExit(f"window t1 ({tag}): a stage < 0")
+        for line in printed:
+            for row in line.splitlines():
+                say(f"#   t1 {tag}: {row}")
+        g_s, g_pass, image = tpacked._stage_times(
+            g._grid_stages(), (vre, vim), T_ITERS, dev)
+        d_s, d_pass, pred = tpacked._stage_times(
+            g._degrid_stages(), model, T_ITERS, dev)
+        sums = {w: float(np.max(np.abs(st.sum(1) - ps) / ps))
+                for w, st, ps in (("grid", g_s, g_pass),
+                                  ("degrid", d_s, d_pass))}
+        errs = {"image": rel_err(image * taper,
+                                 g.grid_sorted(vre, vim) * taper),
+                "prediction": rel_err(pred, g.degrid_sorted(model))}
+        out[tag] = dict(
+            engine=g.engine, precision=g.precision,
+            grid_ms={k: v * 1e3 for k, v in grid.items()},
+            degrid_ms={k: v * 1e3 for k, v in degrid.items()},
+            grid_sum_ms=sum(grid.values()) * 1e3,
+            degrid_sum_ms=sum(degrid.values()) * 1e3,
+            grid_pass_ms=float(g_pass.mean() * 1e3),
+            degrid_pass_ms=float(d_pass.mean() * 1e3),
+            stage_sum_vs_pass=sums, errs=errs,
+            launches={k: v for k, v in counts.items() if v})
+        say(f"# [{gpu}] window t1 ({tag}): device ms of a pass, grid "
+            f"{out[tag]['grid_sum_ms']:.3f} (PERF.md 5: "
+            f"{T_PERF_DEVICE_MS['grid']}), degrid "
+            f"{out[tag]['degrid_sum_ms']:.3f} ("
+            f"{T_PERF_DEVICE_MS['degrid']}); stages vs pass "
+            + ", ".join(f"{k} {v:.2e}" for k, v in sums.items())
+            + f" (tolerance {T_STAGE_TOL:g}); composed vs grid_sorted / "
+            "degrid_sorted " + ", ".join(f"{k} {v:.2e}"
+                                         for k, v in errs.items())
+            + f" (tolerance {TOL:g})")
+        if max(sums.values()) > T_STAGE_TOL or max(errs.values()) > TOL:
+            raise SystemExit(f"window t1 ({tag}): stages {sums}, composed "
+                             f"{errs}")
+    say(json.dumps({"window_t1_stage_ms": {
+        tag: dict(grid=v["grid_ms"], degrid=v["degrid_ms"])
+        for tag, v in out.items()}, "gpu": gpu}))
+    return out
+
+
+def demos_phase(torch, tkern, dev, gpu, launches):
+    """t2: each Quick-start demo's ``run()`` on the card at its own size,
+    in a launch window of its own that must launch its path's kernels
+    (T_DEMO_KERNELS), held to the oracle it prints; ``imaging_demo`` on a
+    one-rank NCCL group of its own. Returns {demo: numbers}."""
+    import importlib
+    import tempfile
+
+    import torch.distributed as dist
+
+    out = {}
+    for name, need in T_DEMO_KERNELS.items():
+        demo = importlib.import_module(f"ska_sdp_func_torch.examples.{name}")
+        kw = {}
+        if name == "imaging_demo":
+            kw["result_path"] = os.path.join(
+                tempfile.mkdtemp(prefix="chip_smoke_t2_"), "result.npz")
+        t0 = time.perf_counter()
+        with launch_window(torch, tkern, f"window t2 ({name})",
+                           need) as counts:
+            r = demo.run(device=dev, **kw)
+        seconds = time.perf_counter() - t0
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        if dist.is_initialized():
+            raise SystemExit(f"window t2 ({name}) left a process group")
+        if "result_path" in kw:
+            os.remove(kw["result_path"])
+            os.rmdir(os.path.dirname(kw["result_path"]))
+        checks = r["oracle"]["checks"]
+        out[name] = dict(seconds=seconds, oracle=checks,
+                         launches={k: v for k, v in counts.items() if v})
+        if name == "packed_imaging_demo":
+            out[name]["stage_ms"] = {k: v * 1e3
+                                     for k, v in r["stages"].items()}
+        say(f"# [{gpu}] window t2 ({name}): {seconds:.1f} s; " + "; ".join(
+            f"{c['what']} {c['value']:.3e} (limit {c['limit']:g})"
+            for c in checks))
+        if not r["oracle"]["ok"]:
+            raise SystemExit(f"window t2 ({name}): oracle failed {checks}")
+    return out
+
+
+def native_phase(uvw, plan):
+    """t3: the native helpers on the bench uvw: ``sort_rows_by_w`` against
+    ``np.argsort(w, kind="stable")``, ``prefix_sum`` against the cumulative
+    sum, and ``packed_plan_arrays`` (called with the arguments
+    ``plan_packed`` hands it) against the plan's arrays and digest."""
+    from ska_sdp_func_torch import native
+    from ska_sdp_func_torch.parallel import packed as tpacked
+
+    perm = native.sort_rows_by_w(uvw)
+    if not np.array_equal(perm, np.argsort(uvw[:, 2], kind="stable")):
+        raise SystemExit("window t3: sort_rows_by_w is not the stable sort")
+    counts = np.random.default_rng(3).integers(0, 1 << 20, 1 << 16)
+    want = np.concatenate([[0], np.cumsum(counts)])
+    if not np.array_equal(native.prefix_sum(counts), want):
+        raise SystemExit("window t3: prefix_sum is not the cumulative sum")
+    calls = []
+    real = native.packed_plan_arrays
+
+    def capture(*args):
+        calls.append(args)
+        return real(*args)
+
+    native.packed_plan_arrays = capture
+    try:
+        pplan = tpacked.plan_packed(plan, uvw)
+    finally:
+        native.packed_plan_arrays = real
+    if len(calls) != 1:
+        raise SystemExit(f"window t3: plan_packed made {len(calls)} "
+                         "packed_plan_arrays calls")
+    arrays = real(*calls[0])
+    block_v, padded = arrays["block_v"], arrays["padded"]
+    nonzero = np.nonzero(padded)[0]
+    derived = dict(block_bucket=np.repeat(nonzero, padded[nonzero]
+                                          // block_v).astype(np.int32),
+                   visited=arrays["counts"] > 0)
+    names = ("sort_index", "valid", "u_off", "iv0", "u_frac", "v_frac",
+             "w_row", "block_bucket", "visited")
+    differ = [k for k in ("sort_index", "valid", "u_off", "iv0", "uk", "vk",
+                          "wk", "u_frac", "v_frac", "w_row")
+              if not np.array_equal(arrays[k], pplan.arrays[k])]
+    differ += [k for k, v in derived.items()
+               if not np.array_equal(v, pplan.arrays[k])]
+    tasks = np.frombuffer("".join(repr(t) for t in pplan.tasks).encode(),
+                          np.uint8)
+    digest = native.hash_arrays([{**arrays, **derived}[n] for n in names]
+                                + [tasks])
+    say(f"# window t3: sort_rows_by_w and prefix_sum exact; "
+        f"packed_plan_arrays {len(arrays['sort_index'])} slots, block_v "
+        f"{block_v}, differing arrays {differ}, digest {digest} (plan "
+        f"{pplan.digest})")
+    if differ or digest != pplan.digest or arrays["total"] != pplan.total:
+        raise SystemExit("window t3: packed_plan_arrays disagrees with "
+                         "plan_packed")
+    return dict(slots=int(arrays["total"]), block_v=int(block_v),
+                digest=digest)
+
+
+def window_t(torch, tkern, dev, gpu, plan, pplan, uvw, vis, model, taper):
+    """Window t (see the docstring, 4t). Returns {"launches": t1's and t2's
+    counts, "ms": each part's numbers}."""
+    launches = {}
+    t0 = time.perf_counter()
+    t1 = stage_timing_phase(torch, tkern, dev, gpu, pplan, vis, model,
+                            taper, launches)
+    t_1 = time.perf_counter()
+    t2 = demos_phase(torch, tkern, dev, gpu, launches)
+    t_2 = time.perf_counter()
+    t3 = native_phase(uvw, plan)
+    t_3 = time.perf_counter()
+    say(f"# window t: t1 {t_1 - t0:.1f} s, t2 {t_2 - t_1:.1f} s, t3 "
+        f"{t_3 - t_2:.1f} s")
+    return dict(launches=launches, ms=dict(t1=t1, t2=t2, t3=t3),
+                seconds=t_3 - t0)
+
+
+def window_t_inputs(torch, dev):
+    """Window t's inputs on the bench plan (window a's), for
+    ``--window-t``."""
+    from ska_sdp_func_torch.grid_data import grid_correct_pswf
+    from ska_sdp_func_torch.parallel import plan_packed, plan_wstack
+
+    uvw, vis = bench_inputs()
+    plan = plan_wstack(uvw, C_0, C_0 / (100 * CHANS), CHANS, IMAGE, SUBGRID,
+                       THETA, W_STEP, support=8, w_support=4,
+                       w_tower_height=HEIGHT)
+    model = torch.zeros((IMAGE, IMAGE), dtype=torch.float32, device=dev)
+    model[300, 200] = 1.0
+    taper = 1.0 / grid_correct_pswf(IMAGE, THETA, W_STEP, 0.0, 0.0, 8, 4,
+                                    torch.ones((IMAGE, IMAGE), device=dev))
+    return dict(plan=plan, pplan=plan_packed(plan, uvw), uvw=uvw, vis=vis,
+                model=model, taper=taper)
+
+
+def window_t_times(torch, dev):
+    """``chip_smoke.py --window-t``: window t alone on the bench plan."""
+    from ska_sdp_func_torch import kernels as tkern
+
+    gpu = run(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    out = window_t(torch, tkern, dev, gpu, **window_t_inputs(torch, dev))
+    return dict(window_t=out["ms"], launches=out["launches"],
+                seconds=out["seconds"])
+
+
 def main() -> int:
     import torch
 
@@ -5490,6 +5751,12 @@ def main() -> int:
                       "split": (sp_j, uvw_dd, vis_dd)}, taper)
     say(f"# window s: {time.perf_counter() - t0:.1f} s")
 
+    # 4t. the stage-timing reports at the bench scenario, the Quick-start
+    # demos at their own sizes, the native helpers -----------------------
+    t_out = window_t(torch, tkern, dev, gpu, plan, pplan, uvw, vis, model,
+                     taper)
+    say(f"# window t: {t_out['seconds']:.1f} s")
+
     # 5. times -----------------------------------------------------------
     # The packed path's calls and K1/K2 (packed_times, as --packed-times
     # runs it on any checkout).
@@ -6125,6 +6392,9 @@ def main() -> int:
         # their batched wrapper, the experiments' rows none).
         r["launches_window_s"] = 0 if "[P" in r["name"] else \
             s_out["launches"].get(r.get("entry", r["name"]).split("[")[0], 0)
+        # And in window t (t1's reports, t2's demos), counted the same way.
+        r["launches_window_t"] = 0 if "[P" in r["name"] else \
+            t_out["launches"].get(r.get("entry", r["name"]).split("[")[0], 0)
     say("# device-time traces: " + trace_summary())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
@@ -6164,7 +6434,7 @@ TIMES = {"--packed-times": packed_times, "--predict-times": predict_times,
          "--experiment-times": experiment_times,
          "--sparse-place-times": sparse_place_times,
          "--trace-age": trace_age, "--window-r": window_r_times,
-         "--window-s": window_s_times}
+         "--window-s": window_s_times, "--window-t": window_t_times}
 
 
 if __name__ == "__main__":

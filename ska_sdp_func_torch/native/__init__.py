@@ -2,7 +2,8 @@
 
 The port plans on the host exactly as the JAX package does. Its C++
 source, ``src/host_runtime.cpp`` beside this file (task boxes, uvw
-bounds, the two-pass packed bucket planner and the plan digest), is the
+bounds, the two-pass packed bucket planner, the plan digest, the rows'
+sort by w and the prefix sum), is the
 port's own copy of the JAX package's ``native/src/host_runtime.cpp``,
 byte for byte (a test holds the two equal), so both packages produce
 byte-identical plans while the port reads nothing of the JAX package.
@@ -92,6 +93,10 @@ def _build_and_load() -> ctypes.CDLL:
     lib.sdp_tpu_packed_tasks.restype = _i64
     lib.sdp_tpu_hash64.argtypes = [_p_u8, _i64, ctypes.c_uint64]
     lib.sdp_tpu_hash64.restype = ctypes.c_uint64
+    lib.sdp_tpu_sort_rows_by_w.argtypes = [_p_dbl, _i64, _p_i64]
+    lib.sdp_tpu_sort_rows_by_w.restype = None
+    lib.sdp_tpu_prefix_sum.argtypes = [_p_i64, _i64, _p_i64]
+    lib.sdp_tpu_prefix_sum.restype = None
     return lib
 
 
@@ -102,6 +107,12 @@ def _get_lib() -> ctypes.CDLL:
             if _LIB is None:
                 _LIB = _build_and_load()
     return _LIB
+
+
+def available() -> bool:
+    """True once the host runtime is built and loaded. There is no
+    NumPy fallback: a failed build raises :class:`SdpRuntimeError`."""
+    return _get_lib() is not None
 
 
 def uvw_bounds(uvw, freq0_hz: float, dfreq_hz: float, start_chs,
@@ -169,26 +180,37 @@ def packed_tasks(uvw, freq0_hz: float, dfreq_hz: float, num_chan: int,
     return task_id, boxes, wmin[:n].copy(), wmax[:n].copy()
 
 
-def packed_buckets(uvw, freq0_hz, dfreq_hz, num_chan, eff_sg_dist, theta,
-                   w_step, height, ov, w_ov, sgs, support, w_support,
-                   task_id, first_t, off_w_t, num_planes_t, num_slabs,
-                   num_octets):
-    """First planner pass: per-visibility bucket ids and bucket counts.
-
-    Raises on the processed-vis invariant
-    (sdp_grid_wstack_wtower.cpp:442-448).
+def packed_plan_arrays(uvw, freq0_hz, dfreq_hz, num_chan, eff_sg_dist,
+                       theta, w_step, height, ov, w_ov, sgs, support,
+                       w_support, task_id, first_t, off_w_t,
+                       num_planes_t, num_slabs, num_octets, block_v,
+                       uv_table, w_table):
+    """The two-pass packed-ingest planner (JAX native/__init__.py:234):
+    per-visibility bucket ids and bucket counts, the padding of each
+    bucket to ``block_v`` (``None``: chosen by
+    ``parallel.packed._auto_block_v``), then the stable placement of every
+    visibility into its padded slot with the tap-table fills. Returns the
+    padded sorted-stream arrays (``sort_index``, ``valid``, ``u_off``,
+    ``iv0``, ``uk``, ``vk``, ``wk``, ``u_frac``, ``v_frac``, ``w_row``)
+    with the bucket ``counts``, their ``padded`` sizes, the stream's
+    ``total`` and ``block_v``. Raises :class:`SdpRuntimeError` on the
+    processed-visibility invariant (sdp_grid_wstack_wtower.cpp:442-448).
     """
+    lib = _get_lib()
     uvw = np.ascontiguousarray(uvw, np.float64)
     task_id = np.ascontiguousarray(task_id, np.int64)
     first_t = np.ascontiguousarray(first_t, np.int64)
     off_w_t = np.ascontiguousarray(off_w_t, np.int64)
     num_planes_t = np.ascontiguousarray(num_planes_t, np.int64)
+    uv_table = np.ascontiguousarray(uv_table, np.float64)
+    w_table = np.ascontiguousarray(w_table, np.float64)
     num_rows = uvw.shape[0]
     num_vis = num_rows * num_chan
     num_buckets = int(first_t.shape[0]) * num_slabs * num_octets
+
     bucket = np.empty(num_vis, np.int64)
     counts = np.empty(num_buckets, np.int64)
-    bad = _get_lib().sdp_tpu_packed_buckets(
+    bad = lib.sdp_tpu_packed_buckets(
         uvw, num_rows, freq0_hz, dfreq_hz, num_chan,
         eff_sg_dist, theta, w_step, height,
         ov, w_ov, sgs, support, w_support,
@@ -198,20 +220,13 @@ def packed_buckets(uvw, freq0_hz, dfreq_hz, num_chan, eff_sg_dist, theta,
         raise SdpRuntimeError(
             f"packed plan: {int(bad)} of {num_vis} visibilities fall "
             "outside their task's w-tower range")
-    return bucket, counts
 
+    if block_v is None:
+        from ..parallel.packed import _auto_block_v
 
-def packed_fill(uvw, freq0_hz, dfreq_hz, num_chan, eff_sg_dist, theta,
-                w_step, height, ov, w_ov, sgs, support, w_support,
-                task_id, first_t, off_w_t, bucket, pad_off, uv_table,
-                w_table):
-    """Second planner pass: stable placement of every visibility into
-    its padded bucket slot plus the tap-table fills. Returns the padded
-    sorted-stream arrays."""
-    uvw = np.ascontiguousarray(uvw, np.float64)
-    uv_table = np.ascontiguousarray(uv_table, np.float64)
-    w_table = np.ascontiguousarray(w_table, np.float64)
-    num_buckets = pad_off.shape[0] - 1
+        block_v = _auto_block_v(counts)
+    padded = -(-counts // block_v) * block_v            # 0 stays 0
+    pad_off = prefix_sum(padded)
     total = int(pad_off[-1])
     # np.empty: the fill writes every valid slot and zeroes pad tails.
     out = dict(sort_index=np.empty(total, np.int64),
@@ -224,19 +239,36 @@ def packed_fill(uvw, freq0_hz, dfreq_hz, num_chan, eff_sg_dist, theta,
                u_frac=np.empty(total, np.int32),
                v_frac=np.empty(total, np.int32),
                w_row=np.empty(total, np.int32))
-    _get_lib().sdp_tpu_packed_fill(
-        uvw, uvw.shape[0], freq0_hz, dfreq_hz, num_chan,
+    lib.sdp_tpu_packed_fill(
+        uvw, num_rows, freq0_hz, dfreq_hz, num_chan,
         eff_sg_dist, theta, w_step, height,
         ov, w_ov, sgs, support, w_support,
-        np.ascontiguousarray(task_id, np.int64),
-        np.ascontiguousarray(first_t, np.int64),
-        np.ascontiguousarray(off_w_t, np.int64),
-        bucket, np.ascontiguousarray(pad_off, np.int64), num_buckets,
+        task_id, first_t, off_w_t,
+        bucket, pad_off, num_buckets,
         uv_table, w_table,
         out["sort_index"], out["valid"], out["u_off"], out["iv0"],
         out["uk"], out["vk"], out["wk"],
         out["u_frac"], out["v_frac"], out["w_row"])
     out["valid"] = out["valid"].astype(bool)
+    out.update(counts=counts, padded=padded, total=total, block_v=block_v)
+    return out
+
+
+def sort_rows_by_w(uvw) -> np.ndarray:
+    """Stable argsort of the rows by w (int64): the host bucket sort that
+    gives the device kernels w-locality."""
+    uvw = np.ascontiguousarray(uvw, np.float64)
+    perm = np.empty(uvw.shape[0], np.int64)
+    _get_lib().sdp_tpu_sort_rows_by_w(uvw, uvw.shape[0], perm)
+    return perm
+
+
+def prefix_sum(counts) -> np.ndarray:
+    """Exclusive prefix sum with the total appended (int64, length
+    n + 1)."""
+    counts = np.ascontiguousarray(counts, np.int64).reshape(-1)
+    out = np.empty(counts.size + 1, np.int64)
+    _get_lib().sdp_tpu_prefix_sum(counts, counts.size, out)
     return out
 
 
@@ -253,10 +285,12 @@ def hash_arrays(arrays) -> str:
 
 
 __all__ = [
+    "available",
     "hash_arrays",
-    "packed_buckets",
-    "packed_fill",
+    "packed_plan_arrays",
     "packed_tasks",
     "plan_wstack_boxes",
+    "prefix_sum",
+    "sort_rows_by_w",
     "uvw_bounds",
 ]

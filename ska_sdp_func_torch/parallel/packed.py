@@ -21,14 +21,17 @@ the kernel from two packed words per slot) and ``engine="compact"``
 ranks (:func:`shard_plan`; build the plan with ``pad_blocks_to`` the
 rank count), each rank runs the single-device gridder of its own
 sub-plan, and one ``all_reduce`` sums the w-plane grids before the
-image stages. The stage-timing reports are not ported (ROADMAP Queue 1
-item 8). The stages around the stack kernels (:class:`_TowerImaging`)
-are shared with the streaming engine (:mod:`.streaming`).
+image stages. :meth:`PackedGridder.report_timing` and
+:meth:`~PackedGridder.report_timing_degrid` report one pass by JAX's
+stages, timed inside the pass (:func:`_stage_times`). The stages around
+the stack kernels (:class:`_TowerImaging`) are shared with the streaming
+engine (:mod:`.streaming`).
 """
 
 import dataclasses
 import functools
 import math
+import time
 import types
 from dataclasses import dataclass, field
 from typing import Dict, Tuple
@@ -57,8 +60,9 @@ from ..kernels.packed_tap import (
     grid_packed_stack,
     split_bf16,
 )
-from ..utility.errors import SdpInvalidArgumentError
+from ..utility.errors import SdpInvalidArgumentError, SdpRuntimeError
 from ..utility.tensors import host_uvw, resolve_device, to_device
+from ..utility.timers import Timers, TimerType
 from .mesh import ROW_AXIS, gather_rows, mesh_axis, mesh_device
 from .wstack import WStackPlan
 
@@ -202,20 +206,12 @@ def plan_packed(wplan: WStackPlan, uvw, block_v=None,
     num_buckets = num_tasks * num_slabs * num_octets
     kernel = wplan.kernel()
 
-    bucket, counts = native.packed_buckets(
+    arrays = native.packed_plan_arrays(
         uvw, freq0, dfreq, num_chan, d, theta, w_step, height, ov, w_ov,
         sgs, support, w_support, task_id, first_t, off_w_t, num_planes_t,
-        num_slabs, num_octets)
-    if block_v is None:
-        block_v = _auto_block_v(counts)
-    padded = -(-counts // block_v) * block_v            # 0 stays 0
-    pad_off = np.zeros(num_buckets + 1, np.int64)
-    np.cumsum(padded, out=pad_off[1:])
-    total = int(pad_off[-1])
-    arrays = native.packed_fill(
-        uvw, freq0, dfreq, num_chan, d, theta, w_step, height, ov, w_ov,
-        sgs, support, w_support, task_id, first_t, off_w_t, bucket,
-        pad_off, kernel.uv_kernel, kernel.w_kernel)
+        num_slabs, num_octets, block_v, kernel.uv_kernel, kernel.w_kernel)
+    counts, padded = arrays.pop("counts"), arrays.pop("padded")
+    total, block_v = arrays.pop("total"), arrays.pop("block_v")
     num_blocks = total // block_v
 
     nonzero = np.nonzero(padded)[0]
@@ -296,6 +292,101 @@ def shard_plan(pplan: PackedPlan, num_shards: int, rank: int) -> PackedPlan:
         "num_blocks": bps, "num_buckets": (t1 - t0 + 1) * per_task,
         "digest": f"{pplan.digest}/{rank}of{num_shards}", "arrays": arrays,
         "plane_ids": pplan.w_plane_ids})
+
+
+# ---------------------------------------------------------------------------
+# Stage timing
+# ---------------------------------------------------------------------------
+
+# The stages of the timing reports: JAX's names, in JAX's order (JAX
+# packed.py:1053-1054, :1128-1129).
+GRID_STAGES = ("stack kernel", "stack -> layers", "ifft + w ladder + fft",
+               "subgrid adds + correction")
+DEGRID_STAGES = ("plane FFTs + screens", "cut-outs + ladder + layer fft",
+                 "fused degrid kernel")
+# The spin that holds the stream before a timed pass covers this many
+# times the host's enqueue of one pass, and doubles at most this often.
+_SPIN_MARGIN = 2.0
+_SPIN_DOUBLINGS = 8
+
+
+def _stage_times(stages, x, iters: int, device):
+    """Time one pass through ``stages`` (each a function of the previous
+    one's output, the first of ``x``): one warm-up pass, then ``iters``
+    timed ones. Returns (seconds of each stage ``[iters, len(stages)]``,
+    seconds of each whole pass ``[iters]``, the last pass's output).
+
+    On a CUDA device the stages are device time: a ``torch.cuda.Event``
+    before the first stage and one after each. The passes are host-bound
+    (launch gaps between short kernels), so each is enqueued behind a
+    spin (``torch.cuda._sleep``) of twice the host's measured enqueue time
+    of one pass: the whole pass is queued before the card reaches its
+    first event, and the events bracket device work only. A pass whose
+    first event has fired by the end of its enqueue is taken again behind
+    a spin twice as long; a stage that waits for the card so defeats
+    every spin, and raises. Either way the stages add up to the pass by
+    construction. On the CPU the same structure reads the host clock."""
+    if iters < 1:
+        raise SdpInvalidArgumentError(f"iters must be >= 1 (got {iters})")
+
+    def one_pass(mark):
+        out = x
+        mark(0)
+        for i, stage in enumerate(stages):
+            out = stage(out)
+            mark(i + 1)
+        return out
+
+    def ignore(_):
+        pass
+
+    out = one_pass(ignore)                                  # warm-up
+    if device.type != "cuda":
+        clocks = np.zeros((iters, len(stages) + 1))
+        for row in clocks:
+            def mark(i, row=row):
+                row[i] = time.perf_counter()
+            out = one_pass(mark)
+        return np.diff(clocks, axis=1), clocks[:, -1] - clocks[:, 0], out
+
+    with torch.cuda.device(device):
+        # The host's enqueue of one pass, and the spin's cycles a second.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_pass(ignore)
+        enqueue = time.perf_counter() - t0
+        torch.cuda._sleep(1000)
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        begin.record()
+        torch.cuda._sleep(1 << 20)
+        end.record()
+        end.synchronize()
+        spin = int(_SPIN_MARGIN * enqueue * (1 << 20) * 1e3
+                   / begin.elapsed_time(end)) + 1
+        passes = []
+        for _ in range(iters):
+            for _attempt in range(_SPIN_DOUBLINGS + 1):
+                events = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(len(stages) + 1)]
+                torch.cuda.synchronize()
+                torch.cuda._sleep(spin)
+                out = one_pass(lambda i: events[i].record())
+                if not events[0].query():
+                    break
+                spin *= 2
+            else:
+                raise SdpRuntimeError(
+                    "stage timing: the pass's first event fired before "
+                    "its last stage was enqueued behind a spin of "
+                    f"{spin // 2} cycles: a stage waits for the card")
+            passes.append(events)
+        torch.cuda.synchronize()
+    stage_s = np.asarray([[a.elapsed_time(b) / 1e3
+                           for a, b in zip(ev, ev[1:])] for ev in passes])
+    pass_s = np.asarray([ev[0].elapsed_time(ev[-1]) / 1e3 for ev in passes])
+    return stage_s.reshape(iters, len(stages)), pass_s, out
 
 
 # ---------------------------------------------------------------------------
@@ -749,6 +840,78 @@ class PackedGridder(_TowerImaging):
     def degrid(self, image) -> torch.Tensor:
         """Image -> [rows, chan] complex64 visibilities."""
         return self.unsort(self.degrid_sorted(image))
+
+    # -- stage timing reports (JAX packed.py:1005-1158) -----------------
+
+    def _grid_stages(self):
+        """:data:`GRID_STAGES` as functions of the previous stage's
+        output, the first of ``(vre, vim)``: what :meth:`grid_sorted`
+        runs."""
+        return (lambda v: self._stage_kernel(*v),
+                self._stack_to_layers,
+                lambda layers: self._stage_drain(layers, self.ladder_grid,
+                                                 self.pref_grid),
+                lambda subgrids: self._planes_to_image(
+                    self._stage_planes(subgrids)))
+
+    def _degrid_stages(self):
+        """:data:`DEGRID_STAGES` as functions, the first of the image on
+        the device: what :meth:`degrid_sorted` runs."""
+        return (self._dstage_planes,
+                lambda planes: self._dstage_layers(
+                    planes, self.ladder_degrid, self.pref_degrid),
+                self._dstage_kernel)
+
+    def _report(self, what, names, seconds, print_fn):
+        clock = "device" if self.device.type == "cuda" else "host"
+        timers = Timers(f"{what} (packed) {clock} time / call",
+                        TimerType.DEVICE, device=self.device)
+        for name, sec in zip(names, seconds):
+            timers.record(name, sec)
+        root = timers._root.timer
+        root.reset()
+        root._elapsed = float(np.sum(seconds))
+        if print_fn is not None:
+            pplan = self.pplan
+            plan = pplan.wplan
+            print_fn(
+                f"# image {plan.image_size}^2, subgrid "
+                f"{plan.subgrid_size}, {len(pplan.tasks)} tasks, "
+                f"{len(pplan.w_plane_ids)} w-planes, "
+                f"{pplan.num_layers} tower layers, {pplan.total} stream "
+                f"slots ({pplan.num_blocks} blocks), w_step "
+                f"{plan.w_step}, tower height {plan.w_tower_height}")
+        timers.report(print_fn)
+        return dict(zip(names, (float(sec) for sec in seconds)))
+
+    def report_timing(self, vre, vim, iters: int = 10,
+                      print_fn=print) -> Dict[str, float]:
+        """Per-stage report of one grid pass (the reference's per-run
+        report, sdp_grid_wstack_wtower.cpp:169-213): the seconds of each
+        of :data:`GRID_STAGES`, each the mean over ``iters`` passes after
+        a warm-up, recorded into a :class:`Timers` tree whose root is
+        their sum, printed after a line of the plan's geometry, and
+        returned as a dict. The stages run what :meth:`grid_sorted` runs.
+        On a CUDA device they are device time, taken by CUDA events
+        inside each pass behind a spin that covers the host's enqueue
+        (:func:`_stage_times`); on the CPU, host time. Unlike JAX's report
+        (differences of separately timed prefixes), the stages add up to
+        the pass."""
+        v = (to_device(vre, self.device), to_device(vim, self.device))
+        stage_s, _, _ = _stage_times(self._grid_stages(), v, iters,
+                                     self.device)
+        return self._report("grid_all", GRID_STAGES, stage_s.mean(0),
+                            print_fn)
+
+    def report_timing_degrid(self, image, iters: int = 10,
+                             print_fn=print) -> Dict[str, float]:
+        """The mirror of :meth:`report_timing` for one degrid pass
+        (:data:`DEGRID_STAGES`, what :meth:`degrid_sorted` runs)."""
+        stage_s, _, _ = _stage_times(self._degrid_stages(),
+                                     to_device(image, self.device), iters,
+                                     self.device)
+        return self._report("degrid_all", DEGRID_STAGES, stage_s.mean(0),
+                            print_fn)
 
 
     # -- mesh-sharded drivers (JAX packed.py:1160-1473) -----------------

@@ -284,6 +284,16 @@ def degrid_all_tasks(plan: WStackPlan, kernel: GridderWtowerUVW, image, uvw,
 # Mesh-sharded drivers
 # ---------------------------------------------------------------------------
 
+def kernel_geometry_key(kernel: GridderWtowerUVW) -> tuple:
+    """The values that define a gridder kernel plan (JAX wstack.py:309),
+    as a cache key: a cache keyed on ``id(kernel)`` can hand a new
+    kernel whose id was recycled the tables of a collected one."""
+    return (kernel.image_size, kernel.subgrid_size, kernel.theta,
+            kernel.w_step, kernel.shear_u, kernel.shear_v,
+            kernel.support, kernel.oversampling, kernel.w_support,
+            kernel.w_oversampling)
+
+
 def _local_channels(plan: WStackPlan, num_rows: int, start_chs, end_chs,
                     device):
     """A rank's channel ranges: the caller's, or every channel."""

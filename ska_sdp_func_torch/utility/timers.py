@@ -57,6 +57,15 @@ class Timer:
             self._elapsed += time.perf_counter() - self._start
             self._start = None
 
+    def reset(self) -> None:
+        """Back to zero and stopped: the accumulated seconds, and a CUDA
+        timer's pending start event and recorded intervals, are
+        dropped."""
+        self._elapsed = 0.0
+        self._start = None
+        self._event = None
+        self._intervals = []
+
     def elapsed(self) -> float:
         total = self._elapsed
         if self.cuda:
@@ -102,12 +111,17 @@ class Timers:
         """Kept for the JAX API: the CUDA events are ordered on the
         stream with the work they bracket, so nothing needs blocking."""
 
-    def push(self, name: str) -> "Timers":
+    def _child(self, name: str) -> _TimerNode:
+        """The current node's child ``name``, made on first use."""
         parent = self._stack[-1]
         node = parent.children.get(name)
         if node is None:
             node = _TimerNode(name, self._new_timer())
             parent.children[name] = node
+        return node
+
+    def push(self, name: str) -> "Timers":
+        node = self._child(name)
         node.timer.start()
         self._stack.append(node)
         return self
@@ -121,6 +135,25 @@ class Timers:
     def pop_push(self, name: str) -> "Timers":
         self.pop()
         return self.push(name)
+
+    def record(self, name: str, seconds: float) -> None:
+        """Add seconds measured elsewhere (stage times a driver took
+        itself) under the child ``name`` of the current node, as the JAX
+        package's ``Timers.record`` does; on a CUDA-event timer they add
+        to its events' intervals."""
+        self._child(name).timer._elapsed += float(seconds)
+
+    def section(self, name: str) -> "Timers":
+        """``with timers.section("fft"): ...`` pushes ``name`` and pops it
+        on leaving the block."""
+        return self.push(name)
+
+    def __enter__(self) -> "Timers":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.pop()
+        return False
 
     def report(self, print_fn=print) -> str:
         total = self._root.timer.elapsed()

@@ -23,6 +23,12 @@ CHECK = (
 MODULES = [
     "ska_sdp_func_torch",
     "ska_sdp_func_torch.clean",
+    "ska_sdp_func_torch.examples",
+    "ska_sdp_func_torch.examples.full_pipeline_demo",
+    "ska_sdp_func_torch.examples.imaging_demo",
+    "ska_sdp_func_torch.examples.packed_imaging_demo",
+    "ska_sdp_func_torch.examples.streaming_ingest_demo",
+    "ska_sdp_func_torch.examples.subgrid_gridding",
     "ska_sdp_func_torch.experiments",
     "ska_sdp_func_torch.experiments._common",
     "ska_sdp_func_torch.experiments.exp_dot",
