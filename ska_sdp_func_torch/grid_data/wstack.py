@@ -139,7 +139,7 @@ def wstack_wtower_degrid_all(image, freq0_hz: float, dfreq_hz: float, uvw,
     num_rows, num_chan = vis.shape
     image_size = image.shape[0]
 
-    timers = Timers("Degridding")
+    timers = Timers("Degridding") if verbosity > 0 else None
     kernel = GridderWtowerUVW(image_size, subgrid_size, theta, w_step,
                               shear_u, shear_v, support, oversampling,
                               w_support, w_oversampling)
@@ -167,15 +167,19 @@ def wstack_wtower_degrid_all(image, freq0_hz: float, dfreq_hz: float, uvw,
             continue
 
         # Image correction / w-stacking, then FFT to the full grid.
-        timers.push("Degrid correct")
+        if timers:
+            timers.push("Degrid correct")
         grid = kernel.degrid_correct(image.to(vis.dtype), 0, 0,
                                      int(iw * w_tower_height), device=device)
-        timers.pop_push("FFT(grid)")
+        if timers:
+            timers.pop_push("FFT(grid)")
         grid = fft_shifted(grid)
-        timers.pop()
+        if timers:
+            timers.pop()
 
         vis_count_check = 0
-        timers.push("Process sub-grid stack")
+        if timers:
+            timers.push("Process sub-grid stack")
         for iu in range(min_iu, max_iu + 1):
             for iv in range(min_iv, max_iv + 1):
                 min_u = iu * eff_sg_dist - eff_sg_dist / 2
@@ -196,12 +200,13 @@ def wstack_wtower_degrid_all(image, freq0_hz: float, dfreq_hz: float, uvw,
                               int(iw * w_tower_height)),
                     num_chan, freq0_hz, dfreq_hz, uvw, s_uv, e_uv, vis,
                     device=device)
-        timers.pop()
+        if timers:
+            timers.pop()
         if vis_count_check != num_vis:
             raise SdpRuntimeError(
                 f"Processed {vis_count_check} but expected {num_vis} "
                 f"visibilities")
-    if verbosity > 0:
+    if timers:
         timers.report(log_info)
     return vis
 
@@ -241,7 +246,7 @@ def wstack_wtower_grid_all(vis, freq0_hz: float, dfreq_hz: float, uvw,
     num_rows, num_chan = vis.shape
     image_size = image.shape[0]
 
-    timers = Timers("Gridding")
+    timers = Timers("Gridding") if verbosity > 0 else None
     kernel = GridderWtowerUVW(image_size, subgrid_size, theta, w_step,
                               shear_u, shear_v, support, oversampling,
                               w_support, w_oversampling)
@@ -272,7 +277,8 @@ def wstack_wtower_grid_all(vis, freq0_hz: float, dfreq_hz: float, uvw,
                            device=device)
 
         vis_count_check = 0
-        timers.push("Process sub-grid stack")
+        if timers:
+            timers.push("Process sub-grid stack")
         for iu in range(min_iu, max_iu + 1):
             for iv in range(min_iv, max_iv + 1):
                 min_u = iu * eff_sg_dist - eff_sg_dist / 2
@@ -295,23 +301,27 @@ def wstack_wtower_grid_all(vis, freq0_hz: float, dfreq_hz: float, uvw,
                 grid = subgrid_add(grid, -iu * eff_sg_size,
                                    -iv * eff_sg_size, fft_shifted(subgrid),
                                    sg_factor)
-        timers.pop()
+        if timers:
+            timers.pop()
         if vis_count_check != num_vis:
             raise SdpRuntimeError(
                 f"Processed {vis_count_check} but expected {num_vis} "
                 f"visibilities")
 
         # image += grid_correct(ifft(grid), 0, 0, iw * w_tower_height)
-        timers.push("FFT(grid)")
+        if timers:
+            timers.push("FFT(grid)")
         grid = ifft_shifted_norm(grid)
-        timers.pop_push("Grid correct")
+        if timers:
+            timers.pop_push("Grid correct")
         grid = kernel.grid_correct(grid, 0, 0, int(iw * w_tower_height),
                                    device=device)
-        timers.pop()
+        if timers:
+            timers.pop()
         if image.is_complex():
             image = image + grid.to(image.dtype)
         else:
             image = image + grid.real.to(image.dtype)
-    if verbosity > 0:
+    if timers:
         timers.report(log_info)
     return image

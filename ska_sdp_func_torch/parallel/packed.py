@@ -61,6 +61,7 @@ from ..kernels.packed_tap import (
     split_bf16,
 )
 from ..utility.errors import SdpInvalidArgumentError, SdpRuntimeError
+from ..utility.profiling import annotate, annotated
 from ..utility.tensors import host_uvw, resolve_device, to_device
 from ..utility.timers import Timers, TimerType
 from .mesh import ROW_AXIS, gather_rows, mesh_axis, mesh_device
@@ -154,6 +155,7 @@ def inverse_index_of(sort_index: np.ndarray, valid: np.ndarray,
     return inv
 
 
+@annotated("plan.packed")
 def plan_packed(wplan: WStackPlan, uvw, block_v=None,
                 pad_blocks_to: int = 1) -> PackedPlan:
     """Build the packed ingest plan on the host (f64).
@@ -504,11 +506,13 @@ class _TowerImaging:
 
     # -- grid ----------------------------------------------------------
 
+    @annotated("tower.ladder")
     def _stage_drain(self, layers, ladder, pref):
         layers = ifft_shifted(layers)
         subgrids = torch.einsum("tkuv,kuv->tuv", layers, ladder) * pref
         return fft_shifted(subgrids)
 
+    @annotated("tower.planes")
     def _stage_planes(self, subgrids):
         """Task sub-grids -> per-w-plane uv grids [P, N, N] (before the
         image stages, where a sharded driver sums the ranks' planes)."""
@@ -525,9 +529,11 @@ class _TowerImaging:
                 -task.iv * plan.eff_sg_size, subgrids[t], sg_factor)
         return planes
 
+    @annotated("tower.image")
     def _planes_to_image(self, planes):
         return _planes_to_image(planes, self.screens_grid, self.correction)
 
+    @annotated("tower.layers")
     def _stack_to_layers(self, stack):
         """[T, 2, K*(G+8), G] stack -> [T, K, G, G] complex layers (the
         8-row octet overhang cropped)."""
@@ -565,11 +571,13 @@ class _TowerImaging:
 
     # -- degrid ---------------------------------------------------------
 
+    @annotated("tower.dplanes")
     def _dstage_planes(self, image):
         """Real image -> per-w-plane degrid-corrected uv grids [P, N, N]."""
         return _image_to_plane_stack(image, self.screens_degrid,
                                      self.correction)
 
+    @annotated("tower.dlayers")
     def _dstage_layers(self, plane_stack, ladder, pref):
         pplan = self.pplan
         plan = pplan.wplan
@@ -589,6 +597,12 @@ class _TowerImaging:
         planes = self._dstage_planes(image)
         return self._dstage_layers(planes, self.ladder_degrid,
                                    self.pref_degrid)
+
+
+def _packed_vis(gridder, *_):
+    """The visibilities a packed grid takes or a degrid gives (the
+    driver spans' count)."""
+    return gridder.pplan.num_rows * gridder.pplan.wplan.num_chan
 
 
 class PackedGridder(_TowerImaging):
@@ -641,7 +655,8 @@ class PackedGridder(_TowerImaging):
         # prefactors) now; the per-slot device tensors on first use
         # (:attr:`slots`): a gridder that only drives its mesh shards
         # holds none of them, only its shards' own.
-        self._init_imaging()
+        with annotate("packed.build"):
+            self._init_imaging()
 
     @functools.cached_property
     def inv_index(self):
@@ -651,6 +666,7 @@ class PackedGridder(_TowerImaging):
             pplan.num_rows * pplan.wplan.num_chan)).to(self.device)
 
     @functools.cached_property
+    @annotated("packed.build")
     def slots(self) -> types.SimpleNamespace:
         """The per-slot device tensors, built on first use: the sort
         (``sort_index``, ``valid``), the per-block (task, w-slab,
@@ -752,6 +768,7 @@ class PackedGridder(_TowerImaging):
 
     # -- sorted-stream transforms ------------------------------------
 
+    @annotated("packed.sort")
     def sort(self, vis):
         """[rows, chan] visibilities -> sorted-stream (re, im) f32."""
         s = self.slots
@@ -771,6 +788,7 @@ class PackedGridder(_TowerImaging):
 
     # -- grid ----------------------------------------------------------
 
+    @annotated("packed.grid_kernel")
     def _stage_kernel(self, vre, vim):
         s = self.slots
         pplan = self.pplan
@@ -796,6 +814,7 @@ class PackedGridder(_TowerImaging):
             plan.subgrid_size, plan.w_support, block_v=pplan.block_v,
             runs=s.runs)
 
+    @annotated("packed.grid_sorted", vis=_packed_vis)
     def grid_sorted(self, vre: torch.Tensor,
                     vim: torch.Tensor) -> torch.Tensor:
         """Sorted-stream (re, im) f32 -> real dirty image (f32). Every
@@ -810,6 +829,7 @@ class PackedGridder(_TowerImaging):
 
     # -- degrid ---------------------------------------------------------
 
+    @annotated("packed.degrid_kernel")
     def _dstage_kernel(self, st):
         s = self.slots
         pplan = self.pplan
@@ -832,6 +852,7 @@ class PackedGridder(_TowerImaging):
             s.vband_t, s.wk_t, plan.w_support, block_v=pplan.block_v,
             runs=s.runs)
 
+    @annotated("packed.degrid_sorted", vis=_packed_vis)
     def degrid_sorted(self, image) -> torch.Tensor:
         """Real/complex image -> sorted-stream complex64 visibilities."""
         return self._dstage_kernel(

@@ -65,6 +65,7 @@ from ..kernels import band_tap, fold, fused_tap, place, stream_prep
 from ..kernels.packed_tap import degrid_runs
 from ..utility.constants import C_0
 from ..utility.errors import SdpInvalidArgumentError, SdpRuntimeError
+from ..utility.profiling import annotate, annotated
 from ..utility.tensors import host_uvw, resolve_device
 from .mesh import ROW_AXIS, mesh_axis, mesh_device
 from .packed import (
@@ -80,6 +81,7 @@ _ETA = 1e-5   # tower-range guard, mirrors plan_packed / plan_wstack
 _PREP_G = 1024
 
 
+@annotated("plan.stream_tasks")
 def stream_tasks(wplan: WStackPlan, uvw) -> np.ndarray:
     """Pre-scan uvw metadata for the occupied task boxes (host).
 
@@ -151,6 +153,7 @@ class StreamPlan:
         return self.cap // self.block_v
 
 
+@annotated("plan.stream")
 def plan_stream(wplan: WStackPlan, boxes, chunk_rows: int,
                 block_v: int = 256, cap_factor: float = 1.5,
                 cap_slots: Optional[int] = None) -> StreamPlan:
@@ -281,6 +284,7 @@ class _StreamEngine(_TowerImaging):
     # The placed plan fields, in the order of :meth:`_plan_fields`.
     fields = ("packed_a", "packed_b")
 
+    @annotated("stream.engine")
     def __init__(self, splan: StreamPlan, fast: bool, device: torch.device):
         plan = splan.wplan
         self.splan = self.pplan = splan
@@ -324,6 +328,7 @@ class _StreamEngine(_TowerImaging):
         ones (an overflowed chunk's result is discarded by the step)."""
         return vcnt, dict(nonempty=(vcnt > 0).to(torch.int32))
 
+    @annotated("stream.plan")
     def _plan_chunk(self, uvw, row_mask, vre=None, vim=None,
                     need_unsort: bool = True, cap: Optional[int] = None,
                     num_blocks: Optional[int] = None, group=None):
@@ -470,15 +475,17 @@ class _StreamEngine(_TowerImaging):
         visited (none of an overflowed chunk)."""
         splan = self.splan
         num_tasks = len(splan.tasks)
-        stack = fused_tap.grid_fused_stack(
-            *self._block_coords(block_bucket), arrays["packed_a"],
-            arrays["packed_b"], arrays["vre"], arrays["vim"],
-            self.uv_coeffs, self.w_coeffs, num_tasks, splan.num_layers,
-            splan.wplan.subgrid_size, nonempty=arrays["nonempty"],
-            runs=degrid_runs((block_bucket,)), **self._kernel_dims())
+        with annotate("stream.grid"):
+            stack = fused_tap.grid_fused_stack(
+                *self._block_coords(block_bucket), arrays["packed_a"],
+                arrays["packed_b"], arrays["vre"], arrays["vim"],
+                self.uv_coeffs, self.w_coeffs, num_tasks, splan.num_layers,
+                splan.wplan.subgrid_size, nonempty=arrays["nonempty"],
+                runs=degrid_runs((block_bucket,)), **self._kernel_dims())
         tvis = visited.reshape(num_tasks, -1).any(dim=1)
         return self._stack_to_planes(stack, tvis)
 
+    @annotated("stream.degrid")
     def _predict(self, st, arrays, block_bucket, dest):
         """Placed chunk and task-major model stack -> visibilities [R * C]
         in entry order: K4 over the chunk's window runs (the blocks are
@@ -609,9 +616,11 @@ class _SplitStreamEngine(_StreamEngine):
         return self._planes_to_image(self._drain_planes(layers))
 
     def _chunk_planes(self, arrays, block_bucket, visited):
-        wins = self._grid_windows(arrays, block_bucket,
-                                  *self._prep_grid(arrays))
-        return self._drain_planes(self._fold_windows(wins, visited))
+        with annotate("stream.grid"):
+            wins = self._grid_windows(arrays, block_bucket,
+                                      *self._prep_grid(arrays))
+            layers = self._fold_windows(wins, visited)
+        return self._drain_planes(layers)
 
     # -- predict stages -------------------------------------------------
 
@@ -646,6 +655,7 @@ class _SplitStreamEngine(_StreamEngine):
         rows = torch.cat([raw[:2], raw.new_zeros((2, 1))], dim=1)[:, dest]
         return torch.complex(rows[0], rows[1])
 
+    @annotated("stream.degrid")
     def _predict(self, st, arrays, block_bucket, dest):
         raw = self._degrid_windows(st, arrays, block_bucket,
                                    *self._prep_degrid(arrays))
@@ -715,6 +725,12 @@ def _padded_chunk(splan: StreamPlan, uvw, device,
     return rows, uvw32, row_mask
 
 
+def _chunk_vis(driver, uvw, *_, **__):
+    """The visibilities of a chunk of ``uvw`` rows (the driver spans'
+    count)."""
+    return len(uvw) * driver.splan.wplan.num_chan
+
+
 class StreamingGridder:
     """Accumulates a dirty image over visibility chunks, planning on the
     device (module docstring). Engines are shared across instances of the
@@ -755,6 +771,7 @@ class StreamingGridder:
         self._expected = 0                         # host-side
         self._finalized = None
 
+    @annotated("stream.accumulate", vis=_chunk_vis)
     def accumulate(self, uvw, vis, weights=None):
         """Grid one chunk: uvw [R, 3], vis [R, num_chan] complex
         (R <= chunk_rows, or the rank's block on a mesh; short chunks are
@@ -798,6 +815,7 @@ class StreamingGridder:
         rank on a mesh)."""
         return self._counters
 
+    @annotated("stream.finalize")
     def finalize(self, check: bool = True) -> torch.Tensor:
         """Return the accumulated image; with ``check`` (default),
         enforce the processed-visibility invariant
@@ -848,6 +866,7 @@ class StreamingDegridder:
         self._counters = _zero_counters(self.device)
         self._expected = 0
 
+    @annotated("stream.set_model")
     def set_model(self, image):
         """Set (or replace) the model image; returns self."""
         n = self.splan.wplan.image_size
@@ -858,6 +877,7 @@ class StreamingDegridder:
         self._st = self._engine._model_stack(image.to(self.device))
         return self
 
+    @annotated("stream.predict", vis=_chunk_vis)
     def predict(self, uvw) -> torch.Tensor:
         """uvw [R, 3] -> predicted visibilities [R, num_chan] complex64
         (R <= chunk_rows, or the rank's block on a mesh; short chunks
@@ -876,6 +896,7 @@ class StreamingDegridder:
         rank on a mesh)."""
         return self._counters
 
+    @annotated("stream.check")
     def check(self):
         """Raise if any visibility predicted zero because it fell outside
         the task set or the capacity (one host readback)."""

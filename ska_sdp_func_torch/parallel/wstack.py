@@ -45,6 +45,7 @@ from ..grid_data.wtower import (
     _degrid_all_planes,
     _grid_all_planes,
 )
+from ..utility.profiling import annotated
 from ..utility.tensors import host_uvw, resolve_device, to_device
 from .mesh import ROW_AXIS, mesh_device
 
@@ -108,6 +109,7 @@ class WStackPlan:
         return kern
 
 
+@annotated("plan.wstack")
 def plan_wstack(uvw, freq0_hz: float, dfreq_hz: float, num_chan: int,
                 image_size: int, subgrid_size: int, theta: float,
                 w_step: float, shear_u: float = 0.0, shear_v: float = 0.0,

@@ -28,7 +28,7 @@ from .logging import (
     log_info,
     log_warning,
 )
-from .profiling import annotate, trace
+from .profiling import annotate, annotated, spans, trace
 from .sky_coord import SkyCoord
 from .timers import Timer, Timers, TimerType
 
@@ -46,6 +46,7 @@ __all__ = [
     "TimerType",
     "Timers",
     "annotate",
+    "annotated",
     "check_uvw",
     "check_vis",
     "check_weights",
@@ -57,5 +58,6 @@ __all__ = [
     "log_error",
     "log_info",
     "log_warning",
+    "spans",
     "trace",
 ]
