@@ -37,11 +37,16 @@
 // cores (2.05 ms on the f32 CUDA cores, the first design's wall). The
 // degrid moves the same. So the design feeds the tensor cores at the
 // memory's rate:
-//   - work units are (bucket run, 128-lane tile), where a run is a maximal
-//     sequence of consecutive plan blocks of one bucket (a table of
-//     (first block, count) rows, longest first); a persistent grid of one
-//     CTA an SM walks the units with a stride of the grid;
-//   - a producer warp streams each run through a ring of stages, 64 slots
+//   - work units are (run part, 128-lane tile), where a part is a sequence
+//     of consecutive plan blocks of one bucket (a table of (first block,
+//     count) rows, longest first); a persistent grid of one CTA an SM
+//     walks the units with a stride of the grid. The caller cuts each
+//     maximal run into parts of a sixteenth of an SM's share of the blocks
+//     (at least a floor of slots; packed_tap.band_runs), so that a dense
+//     uv core's long runs spread over every SM instead of one CTA walking
+//     a run alone; the kernels take any table whose rows hold every block
+//     once;
+//   - a producer warp streams each part through a ring of stages, 64 slots
 //     a stage: TMA tiles of the bf16 band planes (128-byte swizzle, the
 //     layout wgmma reads) and of ubase, wk_t (and vre, vim), completing on
 //     mbarriers; the consumers release a stage with one arrive a warp;
@@ -50,19 +55,20 @@
 //     window row (w_support <= 2) issues no product;
 //   - grid: the consumers build u_all hi/lo for their rows in registers,
 //     in wgmma's A-fragment layout, and issue wgmma m64n128k16 (A from
-//     registers, B = vband MN-major from the stage); each run's sums stay
-//     in registers and are flushed once a run with float4 atomics into
+//     registers, B = vband MN-major from the stage); each part's sums stay
+//     in registers and are flushed once a part with float4 atomics into
 //     the zeroed stack (neighbouring octets' and slabs' windows overlap,
 //     so the flush stays a reduction, right for any block order);
-//   - degrid: a run's window (2 Sw x 16 rows x 128 lanes f32) is read once
-//     from the stack, split once into bf16 hi/lo and kept in shared memory
-//     in wgmma's K-major swizzled layout for the whole run; per stage each
-//     warpgroup issues wgmma m64n64k16 (A = window rows, B = vband_t
+//   - degrid: a part's window (2 Sw x 16 rows x 128 lanes f32) is read
+//     once from the stack, split once into bf16 hi/lo and kept in shared
+//     memory in wgmma's K-major swizzled layout for the whole part (each
+//     part writes only its own slots); per stage each warpgroup issues
+//     wgmma m64n64k16 (A = window rows, B = vband_t
 //     MN-major, 64 slots), and the tail weights the rows by ubase x wk_t,
 //     sums them by warp shuffles and one shared-memory pass across the
 //     warps, and writes each slot's re/im once (atomics only when lanes
 //     span several tiles).
-// Any block_v works: a stage past a run's end is masked (the grid zeroes
+// Any block_v works: a stage past a part's end is masked (the grid zeroes
 // those slots' u_all, the degrid writes none of them). The mbarrier, TMA,
 // wgmma and tensor-map wrappers are hopper.cuh's (shared with
 // bucket_dot.cu).
@@ -200,7 +206,7 @@ __device__ __forceinline__ void atomic_add4(float* p, float4 v) {
 #endif
 }
 
-// The run and lane tile of work unit u.
+// The run part and lane tile of work unit u.
 struct Unit {
   int first;     // first slot
   int end;       // one past its last slot
@@ -353,7 +359,7 @@ grid_runs_kernel(const __grid_constant__ Maps maps, const RunArgs a) {
     }
 
     if (!rows_on) continue;
-    // Flush the run: fragment i holds row gid (i % 4 < 2) or gid + 8, lanes
+    // Flush the part: fragment i holds row gid (i % 4 < 2) or gid + 8, lanes
     // 8 (i / 4) + 2 tig (+1). Neighbouring lanes trade halves so that each
     // holds four consecutive lanes of one row: one float4 atomic each.
     const int t = a.t_idx[w.block];
@@ -469,7 +475,7 @@ degrid_runs_kernel(const __grid_constant__ Maps maps, const RunArgs a) {
   uint32_t it = 0;
   for (int u = blockIdx.x; u < a.num_units; u += gridDim.x) {
     const Unit w = unit_of(a, u);
-    // The run's window, once: f32 from the stack, split into bf16 planes
+    // The part's window, once: f32 from the stack, split into bf16 planes
     // in the K-major 128-byte swizzled layout (two 64-lane atoms of 128
     // rows; 16-byte chunk k of row m stored at chunk k ^ (m % 8)). The
     // previous unit's products all completed (wgmma waits) before the

@@ -5,19 +5,23 @@ Counterpart of the main-path half of ska_sdp_func_tpu.kernels.packed_tap:
 - :func:`split_bf16` and :func:`build_bands` are torch ops (XLA glue in
   the JAX package);
 - :func:`run_table` cuts the plan blocks into runs of one window (torch
-  ops of fixed shape, no host sync): :func:`bucket_runs` gives K1/K2's
-  maximal runs, :func:`degrid_runs` the window kernels' parts of
-  :func:`unit_blocks` blocks (the window-gather degrid kernels K4, K11,
-  K13, K19 and the window-scatter grid kernels K3, K8, K12, K18, whose
-  shared-memory layout :func:`scatter_layout` mirrors);
+  ops of fixed shape, no host sync): :func:`bucket_runs` gives the
+  plan's maximal runs; :func:`band_runs` K1/K2's work units, the runs in
+  parts of :func:`band_part_blocks` blocks; :func:`degrid_runs` the
+  window kernels' parts of :func:`unit_blocks` blocks (the window-gather
+  degrid kernels K4, K11, K13, K19 and the window-scatter grid kernels
+  K3, K8, K12, K18, whose shared-memory layout :func:`scatter_layout`
+  mirrors). Parts listed longest first give each CTA of a kernel's
+  static stride the same number of blocks (:func:`stride_balance`), where
+  a maximal run of a dense uv core would leave one SM gridding it alone;
 - :func:`grid_packed_stack` replaces the Pallas kernel
   ``grid_packed_stack_pallas`` and :func:`degrid_stack` replaces
   ``degrid_stack_pallas``. On a CUDA tensor each launches its
   hand-written kernel (built by :mod:`._build`) or raises: "high" and
   "bf16" on the tensor cores (``csrc/packed_wgmma.cu``, one CTA an SM
-  walking the plan's bucket runs, :func:`bucket_runs`), "highest" on the
-  CUDA cores (``csrc/packed_tap.cu``). On a CPU tensor it runs its plain
-  PyTorch version (``*_reference``). Each counts its kernel launches in
+  walking the parts of :func:`band_runs`), "highest" on the CUDA cores
+  (``csrc/packed_tap.cu``). On a CPU tensor it runs its plain PyTorch
+  version (``*_reference``). Each counts its kernel launches in
   ``.launches``.
 
 Stream layout (see packed_tap.cu): the sorted stream of ``V`` slots is
@@ -34,6 +38,7 @@ tensor means "bf16" (fast), an f32 tensor means "highest".
 
 import contextlib
 
+import numpy as np
 import torch
 
 from ..utility.errors import (
@@ -45,6 +50,11 @@ from ..utility.errors import (
 
 WIN_ROWS = 16             # 8-aligned octet base + support (<= 8)
 _TILE = 128               # the CUDA kernels' lane tile
+# The fewest slots of a K1/K2 run part: enough ring stages (64 slots each)
+# to hide a part's fixed costs, K1's flush of its 64 KB window and K2's
+# load and split of it. On an H100, parts of 1024 slots ran K1/K2 7-23 %
+# faster than parts of 512 or 2048 on a plan of 2283 blocks of 512.
+BAND_PART_SLOTS = 1024
 _MODES = {"highest": 0, "high": 1, "bf16": 2}
 
 
@@ -130,25 +140,65 @@ def bucket_runs(t_idx: torch.Tensor, k_idx: torch.Tensor,
     (t, k0, g), longest first (ties in block order). Every block lies in
     exactly one run. :func:`run_table` cut to its R runs (one host
     sync)."""
-    table = run_table((t_idx, k_idx, g_idx))
+    return live_runs(run_table((t_idx, k_idx, g_idx)))
+
+
+def live_runs(table: torch.Tensor) -> torch.Tensor:
+    """The rows of count > 0 of a :func:`run_table` (one host sync)."""
     return table[:int((table[:, 1] > 0).sum())].contiguous()
+
+
+def sm_count(device) -> int:
+    """The SMs of ``device``'s card, 132 (an H100's) off the card."""
+    dev = torch.device(device)
+    return (torch.cuda.get_device_properties(dev).multi_processor_count
+            if dev.type == "cuda" else 132)
 
 
 def unit_blocks(num_blocks: int, device) -> int:
     """Blocks of a run part for the window-gather degrid kernels (K4, K11,
-    K13, K19): about 16 parts for each of the card's SMs (132 on an H100
-    when ``device`` is not a CUDA device), so that the grid's static
-    stride over the longest-first table balances."""
-    dev = torch.device(device)
-    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
-           if dev.type == "cuda" else 132)
-    return max(1, -(-num_blocks // (16 * sms)))
+    K13, K19): about 16 parts for each of the card's SMs
+    (:func:`sm_count`), so that the grid's static stride over the
+    longest-first table balances."""
+    return max(1, -(-num_blocks // (16 * sm_count(device))))
 
 
 def degrid_runs(keys) -> torch.Tensor:
     """The run table of the window-gather degrid kernels: :func:`run_table`
     of ``keys`` in parts of :func:`unit_blocks` (no host sync)."""
     return run_table(keys, unit_blocks(keys[0].shape[0], keys[0].device))
+
+
+def band_part_blocks(num_blocks: int, block_v: int, device) -> int:
+    """Blocks of a K1/K2 run part: :func:`unit_blocks`, but at least
+    :data:`BAND_PART_SLOTS` slots."""
+    return max(unit_blocks(num_blocks, device),
+               -(-BAND_PART_SLOTS // block_v))
+
+
+def band_runs(t_idx: torch.Tensor, k_idx: torch.Tensor,
+              g_idx: torch.Tensor, block_v: int) -> torch.Tensor:
+    """K1/K2's run table: :func:`run_table` of the blocks' buckets in
+    parts of :func:`band_part_blocks` (no host sync; rows (0, 0) follow
+    the parts, :func:`live_runs` drops them)."""
+    return run_table((t_idx, k_idx, g_idx), band_part_blocks(
+        t_idx.shape[0], block_v, t_idx.device))
+
+
+def stride_balance(counts, lanes: int, sms: int) -> float:
+    """The heaviest CTA's blocks over the mean when K1/K2 walk a run table
+    of these rows' block counts (host, rows of count > 0) over ``lanes``
+    lanes: ``min(units, sms)`` CTAs take the units (row ``u // tiles``,
+    128-lane tile ``u % tiles``) with a stride of the grid."""
+    counts = np.asarray(counts, np.int64)
+    tiles = -(-lanes // _TILE)
+    units = counts.shape[0] * tiles
+    if units == 0 or counts.sum() == 0:
+        return 1.0
+    ctas = min(units, sms)
+    u = np.arange(units)
+    load = np.bincount(u % ctas, weights=counts[u // tiles], minlength=ctas)
+    return float(load.max() / load.mean())
 
 
 def _checked(runs, device):
@@ -158,10 +208,11 @@ def _checked(runs, device):
     return runs
 
 
-def _runs_for(runs, t_idx, k_idx, g_idx):
-    """The caller's run table (checked), or one built from the blocks."""
+def _runs_for(runs, t_idx, k_idx, g_idx, block_v):
+    """The caller's run table (checked), or the blocks' :func:`band_runs`
+    (one host sync)."""
     if runs is None:
-        return bucket_runs(t_idx, k_idx, g_idx)
+        return live_runs(band_runs(t_idx, k_idx, g_idx, block_v))
     return _checked(runs, t_idx.device)
 
 
@@ -379,9 +430,10 @@ def grid_packed_stack(t_idx, k_idx, g_idx, ubase, vband, scales,
     [V, lanes] f32 / bf16 or a bf16 (hi, lo) pair. Returns the zero-based
     stack f32 ``[num_tasks, 2, num_layers * (lanes + 8), lanes]``
     (rows ``[lanes, lanes + 8)`` of each layer hold the last octet's
-    overhang and are cropped by the driver). ``runs``: the blocks'
-    :func:`bucket_runs`, built here when not given (the tensor-core
-    modes on the card use it; any block order is right).
+    overhang and are cropped by the driver). ``runs``: the kernel's work
+    units, rows (first block, block count) inside one bucket that hold
+    every block once; the blocks' :func:`band_runs` when not given (the
+    tensor-core modes on the card use it; any block order is right).
     """
     wk_t, vre, vim = scales
     mode = _mode(vband)
@@ -411,7 +463,7 @@ def grid_packed_stack(t_idx, k_idx, g_idx, ubase, vband, scales,
                 vre.data_ptr(), vim.data_ptr(), total, block_v, w_support,
                 lanes, num_layers, out.data_ptr(), stream)
         else:
-            runs = _runs_for(runs, t_idx, k_idx, g_idx)
+            runs = _runs_for(runs, t_idx, k_idx, g_idx, block_v)
             ubase, wk_t, vre, vim = (_aligned(x) for x in (ubase, wk_t, vre,
                                                            vim))
             parts = [_aligned(x) for x in parts]
@@ -497,7 +549,7 @@ def degrid_stack(stack, t_idx, k_idx, g_idx, ubase, vband_t, wk_t,
                 wk_t.data_ptr(), total, block_v, w_support, lanes,
                 num_layers, out.data_ptr(), stream)
         else:
-            runs = _runs_for(runs, t_idx, k_idx, g_idx)
+            runs = _runs_for(runs, t_idx, k_idx, g_idx, block_v)
             # Lane tiles past the first add into the result.
             out = (torch.zeros if lanes > _TILE else torch.empty)(
                 (2, total), dtype=torch.float32, device=dev)

@@ -53,12 +53,15 @@ from ..grid_data.wtower import _tap_coeffs_cached
 from ..kernels import fused_tap
 from ..kernels.packed_tap import (
     WIN_ROWS,
-    bucket_runs,
+    band_part_blocks,
+    band_runs,
     build_bands,
     degrid_runs,
     degrid_stack,
     grid_packed_stack,
+    sm_count,
     split_bf16,
+    stride_balance,
 )
 from ..utility.errors import SdpInvalidArgumentError, SdpRuntimeError
 from ..utility.profiling import annotate, annotated
@@ -674,7 +677,9 @@ class PackedGridder(_TowerImaging):
         visit, and the engine's slot streams and run table (``pa``,
         ``pb``, ``ubase``, ``vband``, ``vband_t``, ``uk_t``, ``vk_t``,
         ``wk_t``, ``runs``, ``uv_coeffs``, ``w_coeffs``; None where the
-        engine has none)."""
+        engine has none); the band engine's ``runs_cut`` (bucket runs its
+        table cut into parts) and ``unit_balance`` (the heaviest CTA's
+        blocks over the mean under K1/K2's stride), None in the others."""
         pplan = self.pplan
         plan = pplan.wplan
         arrays = pplan.arrays
@@ -704,11 +709,11 @@ class PackedGridder(_TowerImaging):
         w_c = _tap_coeffs_cached(plan.w_support, plan.w_oversampling)
         s.pa = s.pb = s.ubase = s.vband = s.vband_t = None
         s.uk_t = s.vk_t = s.wk_t = s.runs = None
+        s.runs_cut = s.unit_balance = None
         s.uv_coeffs = s.w_coeffs = None
         if self.engine != "bands":
             # The window kernels' work units (K3/K4, K12/K13), once per
-            # plan: the blocks' window runs in parts (the band engine's are
-            # K1/K2's maximal runs).
+            # plan: the blocks' window runs in parts.
             s.runs = degrid_runs((s.t_idx, s.k_idx, s.g_idx))
         if self.engine == "compact":
             # The word pa and the taps, evaluated once on the device.
@@ -763,8 +768,21 @@ class PackedGridder(_TowerImaging):
             vband_t = vband_t.to(torch.bfloat16)
         s.vband, s.vband_t = vband, vband_t
         s.wk_t = wk.T.contiguous()                          # [Sw, V]
-        # K1/K2's work units: the plan's bucket runs, once per plan.
-        s.runs = bucket_runs(s.t_idx, s.k_idx, s.g_idx)
+        # K1/K2's work units, once per plan: the bucket runs in parts, and
+        # how far the cut engaged, from the host copy the count of rows
+        # needs.
+        pplan = self.pplan
+        table = band_runs(s.t_idx, s.k_idx, s.g_idx, pplan.block_v)
+        counts = table[:, 1].cpu().numpy()
+        counts = counts[:np.count_nonzero(counts)]
+        s.runs = table[:counts.shape[0]].contiguous()
+        part = band_part_blocks(pplan.num_blocks, pplan.block_v, self.device)
+        bb = arrays["block_bucket"]
+        starts = np.flatnonzero(np.r_[True, bb[1:] != bb[:-1]])
+        lengths = np.diff(np.r_[starts, bb.shape[0]])
+        s.runs_cut = int(np.count_nonzero(lengths > part))
+        s.unit_balance = stride_balance(counts, plan.subgrid_size,
+                                        sm_count(self.device))
 
     # -- sorted-stream transforms ------------------------------------
 

@@ -9,11 +9,12 @@ is absent, with::
 Tolerances: the grid stack at 1e-5 of max|stack| (f32 atomics reorder
 the sums); degridded visibilities at 1e-5 of max|vis| (same products,
 other summation order). K1/K2 ("high" and "bf16" on the tensor cores
-over bucket runs, "highest" on the CUDA cores) also meet their plain
+over run tables, "highest" on the CUDA cores) also meet their plain
 versions at w_support 1-4, block_v 96-1024 (96 and 200: not a multiple
 of the 64-slot stage), lanes 128 and 256, with runs of one block, of
-8-12 blocks and with the blocks shuffled, the run
-table given and built by the wrapper, one launch a call. The same holds
+8-12 blocks, with the blocks shuffled and one bucket's run cut into
+parts that flush into one window, over the maximal runs, the band
+table's parts and the table the wrapper builds, one launch a call. The same holds
 for the w-towers tap kernels
 (``tower_tap``: grid_plane, degrid_plane, grid_all_layers,
 degrid_all_layers), the fused and compact kernels (``fused_tap``) and
@@ -205,15 +206,17 @@ def test_wrappers_reject_mixed_devices(setup):
 
 # (w_support, block_v, lanes, block order): runs of one block (each block's
 # bucket differs from its neighbours'), runs of 8-12 blocks, and such runs
-# with the blocks shuffled (any block order must grid right); block sizes
-# that are not a multiple of the kernels' 64-slot stage (a run's last
-# stage is masked).
+# with the blocks shuffled (any block order must grid right); one bucket,
+# a single run of 300 blocks that the band table cuts into parts flushing
+# into one window; block sizes that are not a multiple of the kernels'
+# 64-slot stage (a run's last stage is masked).
 BAND_GEOMS = [(1, 128, 128, "ones"), (2, 256, 256, "long"),
               (3, 512, 128, "long"), (4, 1024, 256, "ones"),
               (4, 128, 128, "shuffled"), (3, 256, 256, "shuffled"),
               (2, 512, 128, "ones"), (1, 1024, 256, "long"),
               (4, 512, 128, "long"), (4, 96, 128, "long"),
-              (3, 200, 256, "ones")]
+              (3, 200, 256, "ones"), (4, 1024, 128, "one_bucket"),
+              (2, 200, 256, "one_bucket")]
 
 
 def _band_operands(device, w_support, block_v, lanes, order, mode,
@@ -228,6 +231,8 @@ def _band_operands(device, w_support, block_v, lanes, order, mode,
             b = int(rng.integers(0, 50))
             if b != buckets[-1]:
                 buckets.append(b)
+    elif order == "one_bucket":
+        buckets = [int(rng.integers(0, 50))] * 300
     else:
         buckets = []
         while len(buckets) < 40:
@@ -268,20 +273,24 @@ def _band_operands(device, w_support, block_v, lanes, order, mode,
                          ids=["-".join(map(str, g)) for g in BAND_GEOMS])
 def test_band_kernels_over_runs_match_plain(device, geom, mode):
     """K1/K2 at w_support 1-4, block_v 96-1024, lanes 128 and 256, runs
-    of one and of 8-12 blocks and shuffled blocks, against their plain
-    versions at 1e-5 of max, one launch a call, with the run table given
-    and built by the wrapper."""
+    of one and of 8-12 blocks, shuffled blocks and one bucket, against
+    their plain versions at 1e-5 of max, one launch a call, over the
+    maximal runs, the band table's parts (given) and the table the
+    wrapper builds."""
     w_support, block_v, lanes, order = geom
     grid_args, degrid_args = _band_operands(device, w_support, block_v,
                                             lanes, order, mode)
     runs = tk.bucket_runs(*grid_args[:3])
+    parts = tk.live_runs(tk.band_runs(*grid_args[:3], block_v))
     if order == "long":
         assert int(runs[:, 1].min()) >= 8
     if order == "ones":
         assert int(runs[:, 1].max()) == 1
+    if order == "one_bucket":
+        assert runs.shape[0] == 1 and parts.shape[0] >= 10
     want_g = tk.grid_packed_stack_reference(*grid_args, block_v=block_v)
     want_d = tk.degrid_stack_reference(*degrid_args, block_v=block_v)
-    for given in (runs, None):
+    for given in (runs, parts, None):
         before = tk.launch_counts()
         got_g = tk.grid_packed_stack(*grid_args, block_v=block_v, runs=given)
         got_d = tk.degrid_stack(*degrid_args, block_v=block_v, runs=given)
